@@ -1,0 +1,67 @@
+"""Parameters from numpy: run weights made elsewhere in this package.
+
+`params_from_numpy` takes the atmosphere parameters of a hybrid as
+numpy arrays — per class a (reservoir, standardizer) pair whose fields
+are read by name, e.g. the JAX package's `hyb.params[0]` after
+`np.asarray` leaf by leaf — and makes the port's ClassPacks on a device.
+Nothing here imports the other package: the pairs are read duck-typed.
+
+Reservoir fields: cols, vals, win_vals, wout, mean, std, n_in, shifts,
+win_cols (None allowed).  Standardizer fields: comp_mean, comp_std,
+in_mean, in_std, out_mean, out_std.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from speedy_ml_tpu_torch.esn.domain import RegionLayout
+from speedy_ml_tpu_torch.esn.reservoir import BatchedReservoir, ESNHyper
+from speedy_ml_tpu_torch.esn.standardize import Standardizer
+from speedy_ml_tpu_torch.hybrid.model import ClassPack
+
+STD_FIELDS = ("comp_mean", "comp_std", "in_mean", "in_std", "out_mean",
+              "out_std")
+
+
+def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
+    """numpy (or array-like) -> tensor on `device`; a bfloat16 numpy array
+    (the ml_dtypes type) stays bfloat16, other floats become `dtype`."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return t.to(device)
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(atmo, layout: RegionLayout, hyper: ESNHyper, *,
+                      device, dtype=torch.float32) -> list[ClassPack]:
+    """ClassPacks for layout.classes (in order) from per-class numpy
+    (reservoir, standardizer) pairs.  Float arrays become `dtype` except a
+    bfloat16 Wout, which stays bfloat16; index arrays become int32."""
+    if len(atmo) != len(layout.classes):
+        raise ValueError(f"{len(atmo)} parameter pairs for "
+                         f"{len(layout.classes)} region classes")
+    device = torch.device(device)
+    f = lambda a: tensor_from_numpy(a, device, dtype)
+    idx = lambda a: None if a is None else \
+        tensor_from_numpy(np.asarray(a, dtype=np.int32), device)
+    packs = []
+    for cls, (res, std) in zip(layout.classes, atmo):
+        shifts = getattr(res, "shifts", None)
+        r = BatchedReservoir(
+            cols=idx(res.cols), vals=f(res.vals), win_vals=f(res.win_vals),
+            wout=f(res.wout), mean=f(res.mean), std=f(res.std),
+            n_in=int(res.n_in),
+            shifts=None if shifts is None else tuple(int(s) for s in shifts),
+            win_cols=idx(getattr(res, "win_cols", None)))
+        if r.vals.shape[1] != cls.count:
+            raise ValueError(f"class {cls.name}: {cls.count} regions, "
+                             f"parameters for {r.vals.shape[1]}")
+        s = Standardizer(**{k: f(getattr(std, k)) for k in STD_FIELDS})
+        packs.append(ClassPack(cls=cls, res=r, hyper=hyper, std=s))
+    return packs

@@ -1,0 +1,167 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every `csrc/*.cu` is compiled for Hopper (`sm_90a`) by its own nvcc
+process, all started together, then linked into one shared library with
+a plain C interface.  The build runs at the first launch of any kernel
+(or an explicit `build()`), under `kernels/_build/<hash of the sources
+and flags>/`, so an edited source rebuilds and an unchanged one is
+reused.  The directory is in .gitignore.
+
+Pointers and the stream cross into C as `ctypes.c_void_p`; every C entry
+point returns `cudaGetLastError()` after its launch and `check()` raises
+on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+LIB_NAME = "libspeedy_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_ll = ctypes.c_longlong
+_f = ctypes.c_float
+# argtypes of every C entry point (csrc/*.cu); restype is int for all
+SIGNATURES = {
+    "esn_step_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
+                        ctypes.POINTER(_i), _i, _i, _i, _i, _f, _f, _vp,
+                        _vp],
+    "readout_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp,
+                       _vp],
+    "window_gather_launch": [_i, ctypes.POINTER(_vp), _ll, _ll, _i,
+                             ctypes.POINTER(_vp), ctypes.POINTER(_vp),
+                             ctypes.POINTER(_vp), ctypes.POINTER(_vp),
+                             ctypes.POINTER(_ll), _vp],
+    "core_scatter_launch": [_i, _i, ctypes.POINTER(_vp), ctypes.POINTER(_ll),
+                            _vp, _ll, _ll, _ll, _ll, _ll, _vp, _vp],
+}
+
+_lib = None  # the loaded library, once per process
+
+
+def nvcc_path() -> str:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(var)
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/ into the shared library (if not built yet); return
+    its path.  verbose prints each kernel's ptxas report (registers,
+    shared memory, spills)."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, _, p in procs:
+            log, _ = p.communicate()
+            if verbose and log:
+                print(f"--- nvcc {src.name}\n{log}", flush=True)
+            if p.returncode != 0:
+                failed.append(f"{src.name} (exit {p.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp / LIB_NAME), *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        try:
+            os.replace(tmp, out_dir)
+        except OSError:
+            # another process finished the same build first
+            if not lib.exists():
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(code: int, name: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
+    """Validate a kernel operand: dtype, shape, contiguity, device."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")

@@ -1,0 +1,81 @@
+"""K2: the readout kernel (csrc/readout.cu) and its plain version.
+
+out = (Wout [local_model ; quad_expand(x)]) * out_std + out_mean per
+region; Wout (R, O, S + n) in float32 or bfloat16.  With bf16 Wout the
+augmented vector is rounded to bf16 before the product and the sum is
+f32, as the JAX readout does (aug.astype(bfloat16) with an f32
+accumulator).  out_mean/out_std None: the bare product.
+
+On a CPU tensor `readout` runs `readout_plain`; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from speedy_ml_tpu_torch.kernels import build as kb
+
+
+def quad_expand(x: torch.Tensor) -> torch.Tensor:
+    """Square every second node (Fortran rows 2:n:2 -> 0-based odd)."""
+    odd = (torch.arange(x.shape[-1], device=x.device) % 2) == 1
+    return torch.where(odd, x * x, x)
+
+
+def readout_plain(wout, x, local_model=None, out_mean=None, out_std=None
+                  ) -> torch.Tensor:
+    """The plain PyTorch version of the kernel."""
+    xt = quad_expand(x)
+    aug = xt if local_model is None else torch.cat([local_model, xt], dim=-1)
+    if wout.dtype == torch.bfloat16:
+        out = torch.einsum("roa,ra->ro", wout.float(),
+                           aug.to(torch.bfloat16).float())
+    else:
+        out = torch.einsum("roa,ra->ro", wout, aug)
+    if out_std is None:
+        return out
+    return out * out_std + out_mean
+
+
+def readout(wout, x, local_model=None, out_mean=None, out_std=None
+            ) -> torch.Tensor:
+    """Readout (R, O) of every region: wout (R, O, S + n), x (R, n),
+    local_model (R, S) or None (S = 0), out_mean/out_std (R, O) or None."""
+    if (out_mean is None) != (out_std is None):
+        raise ValueError("readout: pass both out_mean and out_std or neither")
+    if x.device.type == "cpu":
+        return readout_plain(wout, x, local_model, out_mean, out_std)
+    if x.device.type != "cuda":
+        raise ValueError(f"readout: no kernel for device {x.device}")
+    R, O, A = wout.shape
+    n = x.shape[1]
+    S = A - n
+    dev = x.device
+    f32 = torch.float32
+    if wout.dtype not in (torch.bfloat16, f32):
+        raise TypeError(f"readout: Wout dtype {wout.dtype}, kernel takes "
+                        "bfloat16 or float32")
+    kb.require(wout, "wout", wout.dtype, (R, O, A), dev)
+    kb.require(x, "x", f32, (R, n), dev)
+    if S < 0 or (S > 0) != (local_model is not None):
+        raise ValueError(f"readout: Wout width {A} does not fit x ({n}) and "
+                         f"local_model "
+                         f"({None if local_model is None else local_model.shape})")
+    if local_model is not None:
+        kb.require(local_model, "local_model", f32, (R, S), dev)
+    if out_mean is not None:
+        kb.require(out_mean, "out_mean", f32, (R, O), dev)
+        kb.require(out_std, "out_std", f32, (R, O), dev)
+    out = torch.empty((R, O), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = kb.library().readout_launch(
+        kb.device_index(x), int(wout.dtype == torch.bfloat16),
+        wout.data_ptr(), x.data_ptr(), ptr(local_model), ptr(out_mean),
+        ptr(out_std), R, O, S, n, out.data_ptr(), kb.stream_of(x))
+    kb.check(code, "readout")
+    readout.launches += 1
+    return out
+
+
+readout.launches = 0

@@ -1,0 +1,188 @@
+"""Port parity of the ML-only hybrid cycle (the port's first slice).
+
+The JAX package builds an untrained ml_only hybrid at T10 (32x16 grid,
+128 regions, m=300); its parameters go through
+speedy_ml_tpu_torch.convert.params_from_numpy into the port, and both
+run three cycles from the same state and SST.  No GCM is needed for an
+ml_only hybrid: a namespace with geom/dtype/nsteps_day stands in on both
+sides.
+
+Tolerances are a fraction of each variable's signal, its largest
+departure from its mean (a variable: one level of one field, or one
+component of the feedback vector), so that the 250 K temperature offset and the
+~300 K SST do not widen them, plus two ulps of the value the model
+stores (the grid value a feedback entry came from): f64 1e-10; f32 with
+bf16 Wout 1e-4 (XLA's and PyTorch's f32 tanh differ in the last bits).
+The written .npz (float32 on disk) is held at rtol 1e-5.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speedy_ml_tpu.core.geometry import Geometry as JGeometry
+from speedy_ml_tpu.data.calendar import ModelDate as JModelDate
+from speedy_ml_tpu.hybrid.build import build_untrained_hybrid as jbuild
+from speedy_ml_tpu.hybrid.driver import run_prediction as jrun
+from speedy_ml_tpu_torch.convert import params_from_numpy
+from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.data.calendar import ModelDate
+from speedy_ml_tpu_torch.esn.domain import RegionLayout
+from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
+from speedy_ml_tpu_torch.esn.standardize import component_expansion
+from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+
+GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
+N_REGIONS, M = 128, 300
+
+
+def _sst(geom):
+    """synthetic_boundary_data's month-0 SST."""
+    lat = geom.lat_radians
+    ones = np.ones((geom.nlat, geom.nlon))
+    return np.maximum(273.0 + 27.0 * np.cos(lat)[:, None] ** 2 * ones
+                      + 2.0 * np.sin(lat)[:, None]
+                      * np.cos(2 * np.pi * 0.5 / 12) * ones, 271.4)
+
+
+def _pair(jdtype, tdtype, bf16):
+    jgcm = types.SimpleNamespace(geom=JGeometry(**GEOM), dtype=jdtype,
+                                 nsteps_day=36)
+    jhyb = jbuild(jgcm, n_regions=N_REGIONS, m=M, key=jax.random.PRNGKey(0),
+                  ml_only=True, radius_iters=30)
+    if bf16:
+        jhyb.cast_wout_bf16()
+    geom = Geometry(**GEOM)
+    layout = RegionLayout(geom, n_regions=N_REGIONS)
+    atmo = jax.tree_util.tree_map(np.asarray, jhyb.params[0])
+    packs = params_from_numpy(atmo, layout, ESNHyper(m=M), device="cpu",
+                              dtype=tdtype)
+    tgcm = types.SimpleNamespace(geom=geom, dtype=tdtype, nsteps_day=36)
+    thyb = HybridAtmosphere(tgcm, layout, packs, ml_only=True, device="cpu")
+    return jhyb, thyb
+
+
+@pytest.fixture(scope="module")
+def pair_f64():
+    return _pair(jnp.float64, torch.float64, bf16=False)
+
+
+def _close(got, ref, rtol, variable=0, stored=None):
+    """|got - ref| <= rtol * signal + 2 ulps of `stored` (default ref).
+
+    `variable` labels each element of ref with its variable (an int array
+    that broadcasts to ref; 0: one variable); the signal of a variable is
+    its largest |ref - mean|."""
+    ref = np.asarray(ref)
+    got = got.detach().numpy()
+    label = np.broadcast_to(variable, ref.shape)
+    signal = np.empty(ref.shape)
+    for v in np.unique(label):
+        sel = label == v
+        signal[sel] = np.abs(ref[sel] - ref[sel].mean()).max()
+    stored = ref if stored is None else stored
+    tol = rtol * signal + 2 * np.finfo(ref.dtype).eps * np.abs(stored)
+    err = np.abs(got - ref)
+    worst = np.unravel_index(np.argmax(err - tol), err.shape)
+    assert (err <= tol).all(), (
+        f"{int((err > tol).sum())} of {err.size} beyond tolerance; worst at "
+        f"{worst}: err {err[worst]:.3e}, tol {tol[worst]:.3e}")
+
+
+def _run_cycles(jhyb, thyb, jdtype, rtol, n=3):
+    sst = _sst(thyb.geom)
+    js = jhyb.init_state(jnp.asarray(sst, dtype=jdtype))
+    ts = thyb.init_state(sst)
+    date = ModelDate(1990, 1, 1)
+    comps = [component_expansion(*p.cls.input_shape, 4, thyb.nz, logp=True,
+                                 precip=True, sst=True, tisr=True)
+             for p in thyb.packs]
+    levels = np.arange(4 * thyb.nz).reshape(4, thyb.nz, 1, 1)
+    for _ in range(n):
+        js, jd = jhyb.cycle(js, jnp.asarray(date.month - 1),
+                            jnp.asarray(date.tmonth, dtype=jdtype),
+                            jnp.asarray(date.tyear, dtype=jdtype))
+        ts, td = thyb.cycle(ts, date.month - 1, date.tmonth, date.tyear)
+        for jc, tc, p, comp in zip(js.classes, ts.classes, thyb.packs,
+                                   comps):
+            _close(tc.x, jc.x, rtol)
+            grid = (np.asarray(jc.feedback) * p.std.in_std.numpy()
+                    + p.std.in_mean.numpy())
+            _close(tc.feedback, jc.feedback, rtol, comp, stored=grid)
+        _close(td["atmo"], jd["atmo"], rtol, levels)
+        for k in ("logp", "precip"):
+            _close(td[k], jd[k], rtol)
+        date = date.advance_hours(6)
+    assert ts.step == n and bool(ts.safe)
+    # the run is not trivial: the readout moved T away from its mean
+    assert float(td["atmo"][0].std()) > 1e-3
+
+
+def test_three_cycles_f64_match_jax(pair_f64):
+    jhyb, thyb = pair_f64
+    assert [p.cls.count for p in thyb.packs] == [16, 96, 16]
+    _run_cycles(jhyb, thyb, jnp.float64, rtol=1e-10)
+
+
+def test_three_cycles_f32_bf16_match_jax():
+    jhyb, thyb = _pair(jnp.float32, torch.float32, bf16=True)
+    assert all(p.res.wout.dtype == torch.bfloat16 for p in thyb.packs)
+    _run_cycles(jhyb, thyb, jnp.float32, rtol=1e-4)
+
+
+def test_cast_wout_bf16_equals_converted_bf16(pair_f64):
+    """The port's own cast rounds like JAX's astype(bfloat16)."""
+    jhyb, thyb = pair_f64
+    ref = [np.asarray(p.res.wout.astype(jnp.bfloat16).astype(jnp.float32))
+           for p in jhyb.packs]
+    port = HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=True,
+                            device="cpu").cast_wout_bf16()
+    for p, r in zip(port.packs, ref):
+        np.testing.assert_array_equal(p.res.wout.float().numpy(), r)
+
+
+def test_run_prediction_writes_same_npz(pair_f64, tmp_path):
+    jhyb, thyb = pair_f64
+    sst = _sst(thyb.geom)
+    jrun(jhyb, jhyb.init_state(jnp.asarray(sst)), JModelDate(1990, 1, 1), 3,
+         output_path=str(tmp_path / "jax" / "pred"))
+    final, dates = run_prediction(thyb, thyb.init_state(sst),
+                                  ModelDate(1990, 1, 1), 3,
+                                  output_path=str(tmp_path / "port" / "pred"))
+    assert len(dates) == 3 and final.step == 3
+    ref = np.load(tmp_path / "jax" / "pred.npz")
+    got = np.load(tmp_path / "port" / "pred.npz")
+    assert sorted(got.files) == sorted(ref.files) == ["atmo", "logp",
+                                                      "precip", "sst"]
+    for k in ref.files:
+        assert got[k].shape == ref[k].shape and got[k].dtype == ref[k].dtype
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref[k]).max())
+
+
+def test_unported_options_raise(pair_f64):
+    _, thyb = pair_f64
+    with pytest.raises(NotImplementedError, match="SPEEDY slice"):
+        HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=False,
+                         device="cpu")
+    for call in (lambda: thyb.set_tisr_table(None),
+                 lambda: thyb.set_sst_table(None),
+                 lambda: thyb.set_mesh(None)):
+        with pytest.raises(NotImplementedError):
+            call()
+    s = thyb.init_state(_sst(thyb.geom))
+    thyb.emit_components = True
+    try:
+        with pytest.raises(NotImplementedError):
+            thyb.cycle(s, 0, 0.5, 0.05)
+    finally:
+        thyb.emit_components = False
+    for kw in (dict(truth_provider=lambda i: {}), dict(time_mean_path="x"),
+               dict(cycles_per_dispatch=2)):
+        with pytest.raises(NotImplementedError):
+            run_prediction(thyb, s, ModelDate(1990, 1, 1), 1, **kw)

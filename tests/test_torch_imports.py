@@ -1,0 +1,117 @@
+"""Import hygiene and device policy of the PyTorch port.
+
+The port (speedy_ml_tpu_torch) and chip_smoke.py must not import JAX or
+the JAX package; its entry points run on CUDA unless the caller names
+the CPU, and raise instead of carrying on on the CPU.  Kernel wrappers
+run their plain version on a CPU tensor without counting a launch.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "speedy_ml_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import speedy_ml_tpu_torch as p
+names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "speedy_ml_tpu"
+             or m.startswith("speedy_ml_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 15
+    assert bad == "[]"
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_statement(path):
+    """Also the imports inside functions (chip_smoke imports lazily)."""
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "speedy_ml_tpu"), mod
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    from speedy_ml_tpu_torch import resolve_device
+    from speedy_ml_tpu_torch.esn.reservoir import ESNHyper, generate
+    from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
+    from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_untrained_hybrid(n_regions=1152, m=6000, ml_only=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_untrained_hybrid()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HybridAtmosphere(None, None, [], ml_only=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(0, 2, 48, ESNHyper(m=300), 0.5)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_run_plain_on_cpu_and_count_nothing():
+    from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.readout import readout
+    from speedy_ml_tpu_torch.kernels.window_gather import window_gather
+
+    wrappers = (esn_step, readout, window_gather, core_scatter)
+    before = [w.launches for w in wrappers]
+    g = torch.Generator().manual_seed(0)
+    vals = torch.rand((3, 2, 16), generator=g)
+    x = torch.rand((2, 16), generator=g)
+    y = esn_step(vals, x, torch.rand((2, 4), generator=g),
+                 torch.rand((2, 16), generator=g), shifts=(1, 5, 9))
+    readout(torch.rand((2, 3, 16), generator=g), y)
+    fields = (torch.rand((4, 1, 2, 2), generator=g),
+              *[torch.rand((2, 2), generator=g) for _ in range(4)])
+    idx = torch.arange(32, dtype=torch.int32).reshape(2, 16)
+    ones = torch.ones((2, 16))
+    window_gather(fields, [idx], [ones * 0], [ones])
+    core_scatter([torch.rand((2, 18), generator=g)],
+                 torch.arange(36, dtype=torch.int32), 4, 1, 2, 3)
+    assert [w.launches for w in wrappers] == before
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor on a device with no kernel raises (no silent plain path)."""
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.readout import readout
+
+    x = torch.empty((2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        esn_step(torch.empty((3, 2, 16), device="meta"), x, linear=True,
+                 shifts=(1, 2, 3))
+    with pytest.raises(ValueError, match="no kernel"):
+        readout(torch.empty((2, 3, 16), device="meta"), x)
