@@ -6,21 +6,31 @@
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from speedy_ml_tpu_torch/kernels/csrc
-     (nvcc for sm_90a, one process per source);
-  3. build the untrained ML-only hybrid at full width (T30L8, 1,152
-     regions, m=6000) on the card and cast its Wout to bf16;
-  4. hold every kernel (K1 ESN step, K2 readout, K3 window gather, K4 core
-     scatter) against its plain PyTorch version on the main path's inputs,
-     with its tolerance, and time kernel, plain version and (K2) the
-     torch.bmm yardstick: device time from torch.profiler, call time
-     (host gaps included) from CUDA events.  K2's product is checked bare
-     (no unstandardize), against a negative control: the product with
-     aug left unrounded must fail the same tolerance;
-  5. drive the main path, run_prediction, with every launch counter set to
-     0 before and read after; check the written fields (finite, T in
-     [150, 350] K) and time the cycle;
-  6. one cycle with the kernels against the same cycle through the plain
-     versions, from the same state.
+     (nvcc for sm_90a, one process per source, all started together);
+  3. build the untrained hybrids at full width (T30L8, 1,152 regions,
+     m=6000, bf16 Wout): the ML-only one, and the coupled one on a T30
+     GCM with the synthetic aquaplanet boundaries;
+  4. hold every kernel against its plain PyTorch version on the main
+     path's inputs (a coupled state two cycles in), with its tolerance,
+     and time kernel, plain version and (K2) the torch.bmm yardstick:
+     device time from torch.profiler, call time from CUDA events.
+     K1 ESN step, K2 readout (bare product, with a negative control that
+     must fail the tolerance), K3 window gather, K4 core scatter,
+     K5 sht_analysis, K6 sht_synthesis, K7 grid_dynamics,
+     K8 spectral_tail;
+  5. the SPEEDY window (stepone + 24 steps) on the card against the same
+     window in the port on the CPU in float32 (the plain versions);
+  6. the ML-only main path, run_prediction with the writer, every launch
+     counter set to 0 before and read after; fields finite, T in
+     [150, 350] K; one ML-only cycle with the kernels against the plain
+     versions;
+  7. the coupled main path, run_prediction: launches of K1-K8, cycle_ms
+     (median and range of 5 x 20 cycles), device busy, idle share,
+     launches per cycle, device ms per stage, the top device ops;
+     physical checks (safe, finite, T in [150, 350] K);
+  8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
+  9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
+     finite, and run_prediction stops by cycle 2.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the package beside this script.
@@ -29,6 +39,7 @@ without the package beside this script.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,10 +56,20 @@ PEAK_BF16_S = 989e12
 SEED = 0
 M = 6000
 N_REGIONS = 1152
-CYCLES = 16         # cycles of the main-path run (at least 8)
+CYCLES_ML = 8       # ML-only main-path cycles
+CYCLES = 8          # coupled main-path cycles (with the writer)
+N_TIMED = 20        # cycles per timed coupled run
 # K2 tolerance, a fraction of the bare product's scale: about 100 times
 # the f32 summation error, 20 below the unrounded-aug fault on the card
 K2_RTOL = 2e-5
+# K5/K6/K8: a fraction of each field's scale (f32 sums in another order);
+# K7: ulps of each output field's scale (the same rounded operations)
+SHT_RTOL = 1e-5
+K7_ULPS = 4
+TAIL_RTOL = 1e-5
+# the record_function ranges of the coupled cycle
+RANGES = ("predict_all", "assemble_global", "inject_to_speedy",
+          "speedy_window", "physics", "build_feedback", "build_local_model")
 
 
 def fail(msg: str):
@@ -80,16 +101,27 @@ def _self_device_us(evt) -> float:
     return float(t if t is not None else evt.self_cuda_time_total)
 
 
-def profile_device(torch, fn, reps: int):
+def profile_device(torch, fn, reps: int, ranges: bool = False):
     """torch.profiler (CUPTI) over reps calls of fn(): (device ms per call
-    summed over every kernel, copy and fill fn runs, key_averages)."""
+    summed over every kernel, copy and fill fn runs, key_averages of the
+    device events, the profile).  ranges=True also records the host side
+    (the record_function ranges of the cycle)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
+                                      else [])
+    with profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    avg = prof.key_averages()
-    return sum(_self_device_us(e) for e in avg) / 1e3 / reps, avg
+    # device work only: the GPU-side spans of the record_function ranges
+    # are not kernels
+    avg = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and e.key not in RANGES]
+    dev = sum(_self_device_us(e) for e in avg) / 1e3 / reps
+    return dev, avg, prof
 
 
 def measure(torch, fn, reps: int = 10, warmup: int = 2):
@@ -98,7 +130,7 @@ def measure(torch, fn, reps: int = 10, warmup: int = 2):
     included).  Fails where the profiler sees no device time: the event
     time of a small kernel is its Python wrapper's, not the kernel's."""
     call = time_ms(torch, fn, reps, warmup)
-    dev, _ = profile_device(torch, fn, reps)
+    dev, _, _ = profile_device(torch, fn, reps)
     if dev <= 0:
         fail("torch.profiler saw no device time")
     return dev, call
@@ -117,6 +149,34 @@ def sst_month0(geom):
     sst = (273.0 + 27.0 * np.cos(lat)[:, None] ** 2 * ones
            + 2.0 * np.sin(lat)[:, None] * np.cos(2 * np.pi * 0.5 / 12) * ones)
     return np.maximum(sst, 271.4)
+
+
+def per_field_err(torch, got, ref):
+    """(max |got - ref| / scale over the leading axis, worst abs error);
+    scale: each field's max |ref|."""
+    g = got.reshape(got.shape[0], -1)
+    r = ref.reshape(ref.shape[0], -1)
+    scale = r.abs().amax(dim=1).clamp(min=torch.finfo(torch.float32).tiny)
+    rel = ((g - r).abs().amax(dim=1) / scale).max()
+    return float(rel), float((g - r).abs().max())
+
+
+def grid_fields(torch, sht, spec, K):
+    """Grid T, u, v, q (K each) and logp of level 0 of a spectral state."""
+    ucosm, vcosm = sht.uvspec(spec.vor[0], spec.div[0])
+    out = sht.synthesis(torch.cat([spec.t[0], spec.tr[0, 0],
+                                   spec.ps[0][None], ucosm, vcosm]),
+                        2 * K + 1)
+    return dict(t=out[:K], q=out[K:2 * K], logp=out[2 * K][None],
+                u=out[2 * K + 1:3 * K + 1], v=out[3 * K + 1:])
+
+
+def signal_err(got, ref, magnitude: bool = False):
+    """|got - ref| over one variable's (all its levels) signal: its
+    largest departure from its mean, or with magnitude=True its largest
+    magnitude."""
+    sig = float((ref if magnitude else ref - ref.mean()).abs().max())
+    return float((got - ref).abs().max()) / max(sig, 1e-30)
 
 
 def main():
@@ -144,18 +204,34 @@ def main():
     if not (ROOT / "speedy_ml_tpu_torch" / "__init__.py").exists():
         fail(f"the speedy_ml_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, str(ROOT))
+    from speedy_ml_tpu_torch.core.geometry import Geometry
     from speedy_ml_tpu_torch.data.calendar import ModelDate
+    from speedy_ml_tpu_torch.dycore.state import SpectralState
+    from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator, GCMState
     from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
     from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
     from speedy_ml_tpu_torch.kernels import build as kb
     from speedy_ml_tpu_torch.kernels.core_scatter import (core_scatter,
                                                           core_scatter_plain)
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
+    from speedy_ml_tpu_torch.kernels.grid_dynamics import (
+        grid_dynamics, grid_dynamics_plain)
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
                                                      readout_plain)
+    from speedy_ml_tpu_torch.kernels.sht_analysis import (
+        sht_analysis, sht_analysis_plain)
+    from speedy_ml_tpu_torch.kernels.sht_synthesis import (
+        sht_synthesis, sht_synthesis_plain)
+    from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
     from speedy_ml_tpu_torch.kernels.window_gather import (
         window_gather, window_gather_plain)
+    from speedy_ml_tpu_torch.physics.boundaries import \
+        synthetic_boundary_data
+    from speedy_ml_tpu_torch.physics.driver import RadiationCarry
+    from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
+    t_start = time.perf_counter()
     # -- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = kb.build(verbose=args.ptxas)
@@ -163,30 +239,44 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{lib_path.relative_to(ROOT)}")
 
-    # -- 3. the full-width hybrid --------------------------------------
+    # -- 3. the full-width hybrids ---------------------------------------
     dev = torch.device("cuda")
+    f32 = torch.float32
+    g = Geometry()
     t0 = time.perf_counter()
-    hyb = build_untrained_hybrid(None, n_regions=N_REGIONS, m=M, seed=SEED,
-                                 ml_only=True, radius_iters=30, device=dev)
+    gcm = GCM(g, dtype=f32, bd=synthetic_boundary_data(g, dtype=f32,
+                                                       device=dev),
+              device=dev)
+    hyb = build_untrained_hybrid(gcm, n_regions=N_REGIONS, m=M, seed=SEED,
+                                 ml_only=False, radius_iters=30, device=dev)
     hyb.cast_wout_bf16()
+    hyb_ml = build_untrained_hybrid(None, n_regions=N_REGIONS, m=M,
+                                    seed=SEED, ml_only=True, radius_iters=30,
+                                    device=dev)
+    hyb_ml.cast_wout_bf16()
     torch.cuda.synchronize()
-    g = hyb.geom
     log(f"hybrid: T{g.trunc}L{g.nlev} {g.nlat}x{g.nlon}, {N_REGIONS} "
-        f"regions, m={M}, classes "
+        f"regions, m={M}, {hyb.gcm_steps} GCM steps per window; classes "
         + ", ".join(f"{p.cls.name}: R={p.cls.count} n={p.res.n} "
-                    f"I={p.res.n_in} J={p.res.vals.shape[0]} "
+                    f"I={p.res.n_in} S={p.res.n_speedy} "
                     f"wout={tuple(p.res.wout.shape)} {p.res.wout.dtype}"
                     for p in hyb.packs)
-        + f"; built in {time.perf_counter() - t0:.1f} s")
-    state0 = hyb.init_state(sst_month0(g))
-    # two cycles so that x and the feedback are the main path's, not zeros
-    tyear = ModelDate(1990, 1, 1).tyear
+        + f"; both built in {time.perf_counter() - t0:.1f} s")
+    sst0 = sst_month0(g)
+    state0 = hyb.init_state(sst0)
+    date0 = ModelDate(1990, 1, 1)
+    imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
+    # two cycles so that x, the feedback and the local model are the main
+    # path's, not zeros
     s = state0
     for _ in range(2):
-        s, _ = hyb.cycle(s, 0, 0.5, tyear)
+        s, _ = hyb.cycle(s, imon, fmon, tyear)
     torch.cuda.synchronize()
+    if not bool(s.safe):
+        fail("the coupled state tripped the gate within two cycles")
     packs = hyb.packs
     nz, nlat, nlon = hyb.nz, g.nlat, g.nlon
+    K = g.nlev
 
     # -- 4. kernels against their plain versions ------------------------
     results = {}
@@ -201,8 +291,8 @@ def main():
             f"bound_ms={bound[0]:.4f} ({bound[1]}, "
             f"{bound[0] / kernel[0]:.0%} of it)"
             + (f" library_ms={library[0]:.4f} (call {library[1]:.4f})"
-               if library is not None else "")
-            + ("" if ok else "  <-- FAIL"))
+               if library is not None else " library_ms=none")
+            + f" [{card}]" + ("" if ok else "  <-- FAIL"))
         results[name] = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             max_abs_err=err, ms=kernel[0], plain_ms=plain[0],
@@ -235,22 +325,25 @@ def main():
         measure(torch, lambda: [esn_step_plain(**a) for a in step_args]),
         bound_ms(nbytes, ops, PEAK_F32_S))
 
-    # K2: readout with bf16 Wout.  The product is compared bare: the
-    # 250 K out_mean of the epilogue would hide its error under its own
-    # ulp.  The negative control, the product with aug not rounded to
-    # bf16 (the rounding fault most likely in K2), must fail the
-    # tolerance.  The fused unstandardize (explicitly rounded multiply,
-    # then add) is checked apart, to one ulp.
+    # K2: readout with bf16 Wout and the local-model block (the coupled
+    # form).  The product is compared bare: the 250 K out_mean of the
+    # epilogue would hide its error under its own ulp.  The negative
+    # control, the product with aug not rounded to bf16 (the rounding
+    # fault most likely in K2), must fail the tolerance.  The fused
+    # unstandardize (explicitly rounded multiply, then add) is checked
+    # apart, to one ulp.
     xs = [esn_step(**a) for a in step_args]
-    ro_args = [dict(wout=p.res.wout, x=x, local_model=None,
+    ro_args = [dict(wout=p.res.wout, x=x, local_model=cs.local_model,
                     out_mean=p.std.out_mean, out_std=p.std.out_std)
-               for p, x in zip(packs, xs)]
+               for p, x, cs in zip(packs, xs, s.classes)]
     err = scale = err_ctl = err_epi = ulp_epi = 0.0
+    augs = []
     for a in ro_args:
-        k = readout(a["wout"], a["x"])
-        pl = readout_plain(a["wout"], a["x"])
-        ctl = torch.einsum("roa,ra->ro", a["wout"].float(),
-                           quad_expand(a["x"]))
+        bare = dict(wout=a["wout"], x=a["x"], local_model=a["local_model"])
+        k = readout(**bare)
+        pl = readout_plain(**bare)
+        aug = torch.cat([a["local_model"], quad_expand(a["x"])], dim=1)
+        ctl = torch.einsum("roa,ra->ro", a["wout"].float(), aug)
         err = max(err, float((k - pl).abs().max()))
         err_ctl = max(err_ctl, float((ctl - pl).abs().max()))
         scale = max(scale, float(pl.abs().max()))
@@ -258,6 +351,7 @@ def main():
         err_epi = max(err_epi, float((readout(**a) - ref).abs().max()))
         ulp_epi = max(ulp_epi, float(
             (torch.finfo(torch.float32).eps * ref.abs()).max()))
+        augs.append(aug.to(torch.bfloat16)[:, :, None].contiguous())
     log(f"K2 negative control (aug not rounded to bf16): max_abs_err="
         f"{err_ctl:.3e} against the tolerance {K2_RTOL * scale:.3e}; "
         f"unstandardize epilogue: {err_epi:.3e} (tolerance {ulp_epi:.3e})")
@@ -266,13 +360,12 @@ def main():
              "from the right one")
     if err_epi > ulp_epi:
         fail("K2's unstandardize epilogue disagrees")
-    augs = [quad_expand(a["x"]).to(torch.bfloat16)[:, :, None].contiguous()
-            for a in ro_args]
     nbytes = ops = 0
     for a in ro_args:
         R, O, A = a["wout"].shape
         nbytes += (a["wout"].numel() * a["wout"].element_size()
-                   + 4 * (a["x"].numel() + 3 * R * O))
+                   + 4 * (a["x"].numel() + a["local_model"].numel()
+                          + 3 * R * O))
         ops += 2 * R * O * A
     ok &= record(
         "K2_readout", "speedy_ml_tpu_torch/kernels/csrc/readout.cu",
@@ -283,6 +376,7 @@ def main():
         bound_ms(nbytes, ops, PEAK_BF16_S),
         library=measure(torch, lambda: [
             torch.bmm(a["wout"], x) for a, x in zip(ro_args, augs)]))
+    del augs
 
     # K4: core scatter + clamps, one launch
     outs = [readout(**a) for a in ro_args]
@@ -302,7 +396,8 @@ def main():
         bound_ms(4 * (2 * total + sum(o.numel() for o in outs)), 2 * total,
                  PEAK_F32_S))
 
-    # K3: window gather + standardize, one launch for all classes
+    # K3: window gather + standardize, one launch for all classes (the
+    # feedback; build_local_model's core-only form is checked below)
     atmo, logp, precip = kt
     tisr = hyb.tisr_field(tyear).contiguous()
     fields = (atmo, logp, precip, s.sst_grid, tisr)
@@ -322,12 +417,123 @@ def main():
         measure(torch, lambda: window_gather(*ga), reps=50),
         measure(torch, lambda: window_gather_plain(*ga), reps=50),
         bound_ms(4 * (4 * n_out + n_src), 2 * n_out, PEAK_F32_S))
+
+    # the SPEEDY window's inputs: the main path's injected state two
+    # cycles in, its surface and forcing, one stepone
+    sht, dyn = gcm.sht, gcm.dyn
+    spec0, safe0 = hyb.inject_to_speedy(atmo, logp)
+    sfc = init_surface_state(gcm.bd, imon, fmon, sst_hybrid=s.sst_grid,
+                             flags=gcm.cpl)
+    forcing = gcm.forcing_for(sfc, tyear)
+    gst = GCMState(spectral=spec0, sfc=sfc,
+                   radiation=RadiationCarry.zeros(K, nlat, nlon, f32, dev),
+                   fluxes=FluxAccumulator.zeros(nlat, nlon, f32, dev))
+    gst = gcm.stepone(gst, forcing)
+    st = gst.spectral
+    imp = dyn.imp_double
+    corr = (forcing.tcorh, forcing.qcorh)
+
+    # K6: the dynamics stack at level 1 (50 fields)
+    stk, ncos = dyn.dynamics_stack(st, 1)
+    sargs = (stk, sht.dft_inv, sht.cpol_even_g, sht.cpol_odd_g, sht.cpol_g,
+             sht.cosgr, ncos)
+    gk = sht_synthesis(*sargs)
+    gp = sht_synthesis_plain(stk, sht.dft_inv, sht.cpol_even_g,
+                             sht.cpol_odd_g, sht.cosgr, ncos)
+    rel, err = per_field_err(torch, gk, gp)
+    B, MN, G = stk.shape[0], g.mx * g.nx, nlat * nlon
+    iy = g.nlat_half
+    tab_bytes = 8 * g.mx * nlon + 4 * iy * MN + 4 * nlat
+    ok &= record(
+        "K6_sht_synthesis",
+        "speedy_ml_tpu_torch/kernels/csrc/sht_synthesis.cu",
+        "speedy_ml_tpu/core/spectral.py:294", rel, SHT_RTOL,
+        measure(torch, lambda: sht_synthesis(*sargs), reps=50),
+        measure(torch, lambda: sht_synthesis_plain(
+            stk, sht.dft_inv, sht.cpol_even_g, sht.cpol_odd_g, sht.cosgr,
+            ncos), reps=50),
+        bound_ms(B * (8 * MN + 4 * G) + tab_bytes,
+                 B * (4 * iy * MN + 4 * iy * g.mx + 4 * G * g.mx),
+                 PEAK_F32_S))
+    log(f"  (K6 max_abs_err is relative to each field's scale; absolute "
+        f"{err:.3e})")
+
+    # K7: the column dynamics with the physics tendencies of this state
+    ptend, _ = gcm._physics_fn(st, 0, dyn, sfc, forcing, gst.radiation,
+                               False)
+    tabs = dyn.column_tables(imp)
+    gk7 = grid_dynamics(gk, ptend, tabs, K, 1)
+    gp7 = grid_dynamics_plain(gk, ptend, tabs, K, 1)
+    d7 = (gk7 - gp7).abs().reshape(gk7.shape[0], -1).amax(dim=1)
+    s7 = gp7.abs().reshape(gp7.shape[0], -1).amax(dim=1)
+    ulps7 = float((d7 / (torch.finfo(f32).eps * s7.clamp(min=1e-30))).max())
+    n7 = gk7.shape[0]
+    ok &= record(
+        "K7_grid_dynamics",
+        "speedy_ml_tpu_torch/kernels/csrc/grid_dynamics.cu",
+        "speedy_ml_tpu/dycore/model.py:258", ulps7, K7_ULPS,
+        measure(torch, lambda: grid_dynamics(gk, ptend, tabs, K, 1),
+                reps=50),
+        measure(torch, lambda: grid_dynamics_plain(gk, ptend, tabs, K, 1),
+                reps=10),
+        bound_ms(4 * G * (B + 4 * K + n7) + 4 * (nlat + 5 * K),
+                 G * (73 * K + 4), PEAK_F32_S))
+    log("  (K7 max_abs_err is in ulps of each output field's scale)")
+
+    # K5: the forward transform of K7's stack (73 fields)
+    n0 = 1 + 3 * K
+    aargs = (gk7, sht.dft_fwd, sht.wt, sht.cpol_even_s, sht.cpol_odd_s,
+             sht.cpol_s, sht.cosgr, n0)
+    ak = sht_analysis(*aargs)
+    ap = sht_analysis_plain(gk7, sht.dft_fwd, sht.wt, sht.cpol_even_s,
+                            sht.cpol_odd_s, sht.cosgr, n0)
+    rel, err = per_field_err(torch, ak, ap)
+    B5 = gk7.shape[0]
+    ok &= record(
+        "K5_sht_analysis",
+        "speedy_ml_tpu_torch/kernels/csrc/sht_analysis.cu",
+        "speedy_ml_tpu/core/spectral.py:251", rel, SHT_RTOL,
+        measure(torch, lambda: sht_analysis(*aargs), reps=50),
+        measure(torch, lambda: sht_analysis_plain(
+            gk7, sht.dft_fwd, sht.wt, sht.cpol_even_s, sht.cpol_odd_s,
+            sht.cosgr, n0), reps=50),
+        bound_ms(B5 * (4 * G + 8 * MN) + tab_bytes,
+                 B5 * (4 * G * g.mx + 6 * iy * g.mx + 4 * iy * MN),
+                 PEAK_F32_S))
+    log(f"  (K5 max_abs_err is relative to each field's scale; absolute "
+        f"{err:.3e})")
+
+    # K8: the spectral tail of a filtered leapfrog step
+    targs = (dyn, ak, st, gcm.phis, corr, imp, 2, dyn.delt2, dyn.rob, 0,
+             True)
+    nk = spectral_tail(*targs)
+    npl = dyn.spectral_tail_plain(ak, st, gcm.phis, corr, imp, 2,
+                                  dyn.delt2, dyn.rob, 0, True)
+    rel8 = 0.0
+    for name in SpectralState.FIELDS:
+        a, b = getattr(nk, name), getattr(npl, name)
+        r, _ = per_field_err(torch, a.reshape(-1, MN), b.reshape(-1, MN))
+        rel8 = max(rel8, r)
+    st_bytes = sum(getattr(st, k).numel() * 8 for k in SpectralState.FIELDS)
+    ok &= record(
+        "K8_spectral_tail",
+        "speedy_ml_tpu_torch/kernels/csrc/spectral_tail.cu",
+        "speedy_ml_tpu/dycore/model.py:386", rel8, TAIL_RTOL,
+        measure(torch, lambda: spectral_tail(*targs), reps=50),
+        measure(torch, lambda: dyn.spectral_tail_plain(
+            ak, st, gcm.phis, corr, imp, 2, dyn.delt2, dyn.rob, 0, True),
+            reps=10),
+        bound_ms(ak.numel() * 8 + 2 * st_bytes + 3 * MN * 8
+                 + imp.blob.numel() * 4,
+                 MN * (12 * K * K + 100 * K + 20), PEAK_F32_S))
+    log("  (K8 max_abs_err is relative to each field level's scale)")
     if not ok:
         fail("a kernel disagrees with its plain version")
 
-    # the modes off the main path, on the interior class: K1 with shared
-    # and per-region cols tables and a win_cols map (imported weights),
-    # K2 with f32 Wout and with a local-model block (S > 0)
+    # the modes off the main path: K1 with shared and per-region cols
+    # tables and a win_cols map (imported weights); K2 with f32 Wout,
+    # with no local-model block (the ML-only form) and bf16; K3 in its
+    # core-only form (build_local_model)
     p, a = packs[1], step_args[1]
     R, n = a["x"].shape
     q = n // a["u"].shape[1]
@@ -343,15 +549,12 @@ def main():
         err = max(float((k - pl).abs().max()), float((k - ref).abs().max()))
         if err > 1e-5:
             fail(f"K1 mode {sorted(kw)} disagrees: {err:.3e}")
-    S = 40
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    lm = torch.randn((R, S), generator=gen, device=dev)
-    w_s = torch.cat([1e-3 * torch.randn((R, p.res.n_outputs, S),
-                                        generator=gen, device=dev)
-                     .to(torch.bfloat16), p.res.wout], dim=2)
-    x = ro_args[1]["x"]
+    S = p.res.n_speedy
+    x, lm = ro_args[1]["x"], ro_args[1]["local_model"]
+    w_ml = p.res.wout[:, :, S:].contiguous()
     worst = 0.0
-    for w, l in ((p.res.wout.float(), None), (w_s, lm), (w_s.float(), lm)):
+    for w, l in ((p.res.wout.float(), lm), (w_ml, None), (w_ml.float(),
+                                                          None)):
         k, pl = readout(w, x, l), readout_plain(w, x, l)
         err = float((k - pl).abs().max())
         sc = float(pl.abs().max())
@@ -359,116 +562,325 @@ def main():
         if err > K2_RTOL * sc:
             fail(f"K2 ({w.dtype}, S={0 if l is None else S}) disagrees: "
                  f"{err:.3e} > {K2_RTOL * sc:.3e}")
-    del w_s
-    log("K1 cols/win_cols modes and K2 f32 / local-model forms agree with "
-        f"their plain versions (K2 worst {worst:.3e} of its scale)")
+    del w_ml
+    fc = (atmo, logp)
+    lk = hyb.build_local_model(packs, *fc)
+    fl = (fc[0],) + (fc[1],) * 4
+    lp = window_gather_plain(
+        fl, hyb.local_index,
+        [pk.std.out_mean[:, :pk.res.n_speedy] for pk in packs],
+        [pk.std.out_std[:, :pk.res.n_speedy] for pk in packs])
+    err = max(float((k - pl).abs().max()) for k, pl in zip(lk, lp))
+    if err > 0:
+        fail(f"K3's core-only form disagrees: {err:.3e}")
+    log("K1 cols/win_cols modes, K2 f32 / ML-only forms and K3's "
+        f"core-only form agree with their plain versions (K2 worst "
+        f"{worst:.3e} of its scale, K3 exact)")
 
-    # -- 5. the main path: run_prediction ------------------------------
+    # -- 5. the SPEEDY window on the card against the plain port on the
+    #       CPU (float32), from the same injected state
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    gcm_c = GCM(g, dtype=f32, bd=gcm.bd.to(device=cpu), device=cpu)
+
+    def window(gm, spec, sst_grid):
+        dv = gm.device
+        sf = init_surface_state(gm.bd, imon, fmon, sst_hybrid=sst_grid,
+                                flags=gm.cpl)
+        fo = gm.forcing_for(sf, tyear)
+        gs = GCMState(spectral=spec, sfc=sf,
+                      radiation=RadiationCarry.zeros(K, nlat, nlon, f32, dv),
+                      fluxes=FluxAccumulator.zeros(nlat, nlon, f32, dv))
+        gs = gm.stepone(gs, fo)
+        one = grid_fields(torch, gm.sht, gs.spectral, K)
+        gs = gm.run_window(gs, fo, hyb.gcm_steps)
+        return one, grid_fields(torch, gm.sht, gs.spectral, K)
+
+    one_k, win_k = window(gcm, spec0, s.sst_grid)
+    one_p, win_p = window(gcm_c, spec0.map(lambda t: t.cpu()),
+                          s.sst_grid.cpu())
+    # after one step each variable is held to its magnitude: the
+    # untrained readout puts T at 250 K +- ~0.1 K, so T's signal is below
+    # a few f32 ulps of the field (the two sides sum in other orders)
+    e1 = {v: signal_err(one_k[v].cpu(), one_p[v], magnitude=True)
+          for v in one_k}
+    ew = {v: signal_err(win_k[v].cpu(), win_p[v]) for v in win_k}
+    fmt = lambda d: ", ".join(f"{v} {e:.3e}" for v, e in d.items())
+    log(f"SPEEDY window, kernels on the card vs the plain port on the CPU "
+        f"(f32): after stepone {fmt(e1)} of each variable's magnitude "
+        f"(tolerance 1e-5); after stepone + {hyb.gcm_steps} steps "
+        f"{fmt(ew)} of each variable's signal (tolerance 1e-3) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    e1, ew = max(e1.values()), max(ew.values())
+    if e1 > 1e-5 or ew > 1e-3:
+        fail("the card's SPEEDY window disagrees with the plain window")
+    del gcm_c
+
+    # -- 6. the ML-only main path (PR 1's phases, shortened) -------------
     kernels = {"K1_esn_step": esn_step, "K2_readout": readout,
                "K3_window_gather": window_gather,
-               "K4_core_scatter": core_scatter}
-    out_path = ROOT / "output" / "chip_smoke" / "prediction.npz"
-    out_path.unlink(missing_ok=True)
-    torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    final, dates = run_prediction(hyb, state0, ModelDate(1990, 1, 1),
-                                  CYCLES, output_path=str(out_path))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    log(f"main path: run_prediction {len(dates)} cycles in {wall:.3f} s "
-        f"({wall / len(dates) * 1e3:.3f} ms/cycle with the writer); "
-        f"launches {launches}")
-    if len(dates) != CYCLES:
-        fail(f"run_prediction stopped after {len(dates)} cycles")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{name} was not launched on the main path")
-        results[name]["launches"] = count
-    z = np.load(out_path)
-    shapes = {k: z[k].shape for k in z.files}
-    want = {"atmo": (CYCLES, 4, nz, nlat, nlon),
-            "logp": (CYCLES, nlat, nlon),
-            "precip": (CYCLES, nlat, nlon),
-            "sst": (CYCLES, nlat, nlon)}
-    if shapes != want:
-        fail(f"prediction stream shapes {shapes}, expected {want}")
-    for k in z.files:
-        if not np.isfinite(z[k]).all():
-            fail(f"prediction field {k} is not finite")
-    t_field = z["atmo"][:, 0]
-    if not (150.0 <= t_field.min() and t_field.max() <= 350.0):
-        fail(f"T outside [150, 350] K: {t_field.min()}..{t_field.max()}")
-    q = z["atmo"][:, 3]
-    if q.min() < 1e-6 * (1 - 1e-6):
-        fail(f"q below the 1e-6 clamp: {q.min()}")
-    log(f"fields: finite, T {t_field.min():.3f}..{t_field.max():.3f} K, "
-        f"q min {q.min():.3e}, precip max {z['precip'].max():.3e}")
+               "K4_core_scatter": core_scatter,
+               "K5_sht_analysis": sht_analysis,
+               "K6_sht_synthesis": sht_synthesis,
+               "K7_grid_dynamics": grid_dynamics,
+               "K8_spectral_tail": spectral_tail}
+    ml_kernels = list(kernels)[:4]
+    out_dir = ROOT / "output" / "chip_smoke"
 
-    # cycle time on the main path without the writer: run_prediction over
-    # 20 cycles, host clock to a synchronize, 5 repeats (the host is
-    # shared, so its clock spreads); device busy from one profiled run
-    st = final
-    n_t = 20
-    run = lambda: run_prediction(hyb, st, ModelDate(1990, 1, 1), n_t)
-    run()
+    def drive(h, st0, n, path, names):
+        """run_prediction with the counters of `names` set to 0 before
+        and read after; returns (final, dates, launches, wall s)."""
+        if path is not None:
+            path.unlink(missing_ok=True)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        fin, dts = run_prediction(h, st0, date0, n,
+                                  output_path=None if path is None
+                                  else str(path))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {nm: kernels[nm].launches for nm in names}
+        for nm, c in counts.items():
+            if c <= 0:
+                fail(f"{nm} was not launched on the main path")
+        return fin, dts, counts, wall
+
+    def check_stream(path, n):
+        z = np.load(path)
+        shapes = {k: z[k].shape for k in z.files}
+        want = {"atmo": (n, 4, nz, nlat, nlon), "logp": (n, nlat, nlon),
+                "precip": (n, nlat, nlon), "sst": (n, nlat, nlon)}
+        if shapes != want:
+            fail(f"prediction stream shapes {shapes}, expected {want}")
+        for k in z.files:
+            if not np.isfinite(z[k]).all():
+                fail(f"prediction field {k} is not finite")
+        t_field = z["atmo"][:, 0]
+        if not (150.0 <= t_field.min() and t_field.max() <= 350.0):
+            fail(f"T outside [150, 350] K: {t_field.min()}..{t_field.max()}")
+        qf = z["atmo"][:, 3]
+        if qf.min() < 1e-6 * (1 - 1e-6):
+            fail(f"q below the 1e-6 clamp: {qf.min()}")
+        return (f"finite, T {t_field.min():.3f}..{t_field.max():.3f} K, "
+                f"q min {qf.min():.3e}, precip max {z['precip'].max():.3e}")
+
+    ml_state0 = hyb_ml.init_state(sst0)
+    path = out_dir / "prediction_ml.npz"
+    fin_ml, dts, counts, wall = drive(hyb_ml, ml_state0, CYCLES_ML, path,
+                                      ml_kernels)
+    if len(dts) != CYCLES_ML:
+        fail(f"ML-only run_prediction stopped after {len(dts)} cycles")
+    log(f"ML-only main path: run_prediction {len(dts)} cycles in "
+        f"{wall:.3f} s with the writer; launches {counts}; "
+        + check_stream(path, CYCLES_ML))
     walls = []
+    run = lambda: run_prediction(hyb_ml, fin_ml, date0, N_TIMED)
+    run()
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) / n_t * 1e3)
+        walls.append((time.perf_counter() - t0) / N_TIMED * 1e3)
     walls.sort()
-    cycle_ms = walls[2]
-    busy_ms, avg = profile_device(torch, run, reps=1)
-    busy_ms /= n_t
-    log(f"cycle_ms: {cycle_ms:.4f} median (min {walls[0]:.4f}, max "
-        f"{walls[-1]:.4f}) over 5 runs of run_prediction x {n_t} cycles, "
-        f"no writer; device busy {busy_ms:.4f} ms/cycle, idle share "
-        f"{1 - busy_ms / cycle_ms:.0%} of the median; "
-        f"{6 * 3.6e6 / cycle_ms / 365:.0f} sim-years/day")
-    top = sorted(avg, key=_self_device_us, reverse=True)[:8]
-    for e in top:
-        log(f"  cycle kernel {e.key[:60]}: "
-            f"{_self_device_us(e) / n_t / 1e3:.4f} ms/cycle, "
-            f"{e.count / n_t:g} launches/cycle")
-
-    # -- 6. one cycle with the kernels vs the plain versions -----------
-    k_state, k_diag = hyb.cycle(st, 0, 0.5, tyear)
+    busy, _, _ = profile_device(torch, run, reps=1)
+    log(f"ML-only cycle_ms: {walls[2]:.4f} median (min {walls[0]:.4f}, "
+        f"max {walls[-1]:.4f}) over 5 x {N_TIMED} cycles; device busy "
+        f"{busy / N_TIMED:.4f} ms/cycle [{card}]")
+    # one ML-only cycle with the kernels vs the plain versions
+    mp = hyb_ml.packs
+    k_state, k_diag = hyb_ml.cycle(fin_ml, imon, fmon, tyear)
     p_x, p_out = [], []
-    for p, cs in zip(packs, st.classes):
-        x = esn_step_plain(p.res.vals, cs.x, cs.feedback, p.res.win_vals,
-                           shifts=p.res.shifts,
-                           cols=None if p.res.shifts is not None
-                           else p.res.cols,
-                           win_cols=p.res.win_cols, leakage=p.hyper.leakage)
-        p_out.append(readout_plain(p.res.wout, x, None, p.std.out_mean,
-                                   p.std.out_std))
-        p_x.append(x)
-    p_grid = core_scatter_plain(p_out, hyb.core_table, 4, nz, nlat, nlon)
+    for pk, cs in zip(mp, fin_ml.classes):
+        xx = esn_step_plain(pk.res.vals, cs.x, cs.feedback, pk.res.win_vals,
+                            shifts=pk.res.shifts,
+                            cols=None if pk.res.shifts is not None
+                            else pk.res.cols,
+                            win_cols=pk.res.win_cols,
+                            leakage=pk.hyper.leakage)
+        p_out.append(readout_plain(pk.res.wout, xx, None, pk.std.out_mean,
+                                   pk.std.out_std))
+        p_x.append(xx)
+    p_grid = core_scatter_plain(p_out, hyb_ml.core_table, 4, nz, nlat, nlon)
     p_fb = window_gather_plain(
-        (*p_grid, st.sst_grid, hyb.tisr_field(tyear).contiguous()),
-        hyb.feedback_index, [p.std.in_mean for p in packs],
-        [p.std.in_std for p in packs])
-    scale = max(float((o - p.std.out_mean).abs().max())
-                for o, p in zip(p_out, packs))
+        (*p_grid, fin_ml.sst_grid, hyb_ml.tisr_field(tyear).contiguous()),
+        hyb_ml.feedback_index, [pk.std.in_mean for pk in mp],
+        [pk.std.in_std for pk in mp])
+    scale = max(float((o - pk.std.out_mean).abs().max())
+                for o, pk in zip(p_out, mp))
     err_x = max(float((a.x - b).abs().max())
                 for a, b in zip(k_state.classes, p_x))
-    err_f = max(float((k_diag[n] - b).abs().max())
-                for n, b in zip(("atmo", "logp", "precip"), p_grid))
+    err_f = max(float((k_diag[nm] - b).abs().max())
+                for nm, b in zip(("atmo", "logp", "precip"), p_grid))
     err_fb = max(float((a.feedback - b).abs().max())
                  for a, b in zip(k_state.classes, p_fb))
-    log(f"cycle kernels vs plain: x {err_x:.3e} (tol 1e-5), fields "
+    log(f"ML-only cycle kernels vs plain: x {err_x:.3e} (tol 1e-5), fields "
         f"{err_f:.3e} and feedback {err_fb:.3e} (tol {1e-3 * scale:.3e}, "
         f"1e-3 of the readout scale {scale:.3e})")
     if err_x > 1e-5 or err_f > 1e-3 * scale or err_fb > 1e-3 * scale:
         fail("the kernel cycle disagrees with the plain cycle")
+    del hyb_ml, fin_ml, k_state, k_diag
 
-    order = ("K1_esn_step", "K2_readout", "K3_window_gather",
-             "K4_core_scatter")
+    # -- 7. the coupled main path ---------------------------------------
+    path = out_dir / "prediction.npz"
+    final, dts, counts, wall = drive(hyb, state0, CYCLES, path,
+                                     list(kernels))
+    if len(dts) != CYCLES:
+        fail(f"coupled run_prediction stopped after {len(dts)} cycles")
+    for nm, c in counts.items():
+        results[nm]["launches"] = c
+    log(f"coupled main path: run_prediction {len(dts)} cycles in "
+        f"{wall:.3f} s with the writer; launches {counts} "
+        f"(per cycle: " + ", ".join(f"{nm[:2]} {c / CYCLES:g}"
+                                     for nm, c in counts.items()) + "); "
+        + check_stream(path, CYCLES))
+
+    # device time and launches of each stage, profiled alone on the
+    # cycle's own inputs: the kernels launched through ctypes are not
+    # attributed to a host range in a trace.  This runs before the long
+    # profile below, after which a short session can miss launches.
+    pk = hyb.packs
+    new_x, outvecs = hyb.predict_all(pk, final)
+    a_, l_, p_ = hyb.assemble_global(pk, outvecs)
+    spec_, _ = hyb.inject_to_speedy(a_, l_)
+    fa_, fl_, _ = hyb.speedy_window(spec_, final.sst_grid, imon, fmon,
+                                    tyear)
+    stages = {
+        "predict_all": lambda: hyb.predict_all(pk, final),
+        "assemble_global": lambda: hyb.assemble_global(pk, outvecs),
+        "inject_to_speedy": lambda: hyb.inject_to_speedy(a_, l_),
+        "speedy_window": lambda: hyb.speedy_window(spec_, final.sst_grid,
+                                                   imon, fmon, tyear),
+        "build_feedback": lambda: hyb.build_feedback(
+            pk, a_, l_, p_, final.sst_grid, hyb.tisr_field(tyear)),
+        "build_local_model": lambda: hyb.build_local_model(pk, fa_, fl_)}
+    parts, window_kern = [], None
+    for nm, fn in stages.items():
+        fn()
+        reps = 2 if nm == "speedy_window" else 3
+        ms, kk, _ = profile_device(torch, fn, reps=reps)
+        n_launch = sum(e.count for e in kk) / reps
+        if n_launch == 0:
+            fail(f"the profile of {nm} saw no device work")
+        parts.append(f"{nm} {ms:.4f} ms ({n_launch:g} launches)")
+        if nm == "speedy_window":
+            window_kern = kk
+    log("  device time per cycle by stage, each profiled alone: "
+        + "; ".join(parts) + f" [{card}]")
+    knames = {"K5": "sht_analysis_kernel", "K6": "sht_synthesis_kernel",
+              "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel"}
+    kk = {k: [e for e in window_kern if v in e.key]
+          for k, v in knames.items()}
+    log("  inside speedy_window: " + "; ".join(
+        f"{k} {sum(_self_device_us(e) for e in v) / 2e3:.4f} ms "
+        f"({sum(e.count for e in v) / 2:g} launches)"
+        for k, v in kk.items()))
+    for k, v in kk.items():
+        if not v:
+            fail(f"{k} was not launched inside speedy_window")
+    # the column physics of one step, with and without the shortwave
+    # (a window runs 10 steps with it and 16 without)
+    sfc_ = init_surface_state(gcm.bd, imon, fmon,
+                              sst_hybrid=final.sst_grid, flags=gcm.cpl)
+    fo_ = gcm.forcing_for(sfc_, tyear)
+    grid_ = gcm.physics_grid(spec_, 0)
+    carry_ = RadiationCarry.zeros(K, nlat, nlon, f32, dev)
+    per = {}
+    for sw in (True, False):
+        fn = lambda: gcm.phys.compute(*grid_, bd=gcm.bd, sfc=sfc_,
+                                      forcing=fo_, carry=carry_, lradsw=sw)
+        fn()
+        ms, kk_, _ = profile_device(torch, fn, reps=3)
+        per[sw] = (ms, sum(e.count for e in kk_) / 3)
+    n_sw = 2 + len(range(0, hyb.gcm_steps, 3))
+    n_lw = 2 + hyb.gcm_steps - n_sw
+    log(f"  physics (PhysicsModel.compute, plain PyTorch): "
+        f"{per[True][0]:.4f} ms and {per[True][1]:g} launches per step "
+        f"with the shortwave, {per[False][0]:.4f} ms and "
+        f"{per[False][1]:g} without; per cycle ({n_sw} + {n_lw} steps) "
+        f"{n_sw * per[True][0] + n_lw * per[False][0]:.4f} ms and "
+        f"{n_sw * per[True][1] + n_lw * per[False][1]:g} launches "
+        f"[{card}]")
+
+    run = lambda: run_prediction(hyb, final, date0, N_TIMED)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end, dts = run()
+        torch.cuda.synchronize()
+        if len(dts) != N_TIMED:
+            fail(f"a timed run stopped after {len(dts)} cycles")
+        walls.append((time.perf_counter() - t0) / N_TIMED * 1e3)
+    walls.sort()
+    cycle_ms = walls[2]
+    n_prof = 5
+    busy, kern, _ = profile_device(
+        torch, lambda: run_prediction(hyb, final, date0, n_prof), reps=1)
+    busy /= n_prof
+    launches = sum(e.count for e in kern) / n_prof
+    log(f"coupled cycle_ms: {cycle_ms:.4f} median (min {walls[0]:.4f}, max "
+        f"{walls[-1]:.4f}) over 5 runs of run_prediction x {N_TIMED} "
+        f"cycles, no writer; device busy {busy:.4f} ms/cycle, idle share "
+        f"{1 - busy / cycle_ms:.1%} of the median; {launches:g} device "
+        f"launches per cycle; {6 * 3.6e6 / cycle_ms / 365:.1f} "
+        f"sim-years/day [{card}]")
+    for e in sorted(kern, key=_self_device_us, reverse=True)[:10]:
+        log(f"  top device op {e.key[:70]}: "
+            f"{_self_device_us(e) / n_prof / 1e3:.4f} ms/cycle, "
+            f"{e.count / n_prof:g} launches/cycle")
+
+    # physical checks after all those cycles
+    if not bool(end.safe):
+        fail("the gate tripped during the timed coupled runs")
+    _, d = hyb.cycle(end, imon, fmon, tyear)
+    for nm in ("atmo", "logp", "speedy_atmo", "speedy_logp"):
+        if not bool(torch.isfinite(d[nm]).all()):
+            fail(f"{nm} is not finite after the coupled runs")
+    tmin, tmax = float(d["speedy_atmo"][0].min()), \
+        float(d["speedy_atmo"][0].max())
+    if not (150.0 <= tmin and tmax <= 350.0):
+        fail(f"SPEEDY T outside [150, 350] K: {tmin}..{tmax}")
+    log(f"coupled state after {CYCLES + N_TIMED + 1} cycles: "
+        f"safe, finite, SPEEDY T {tmin:.3f}..{tmax:.3f} K")
+
+    # -- 8. one coupled cycle with host syncs forbidden -----------------
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_dbg, _ = hyb.cycle(end, imon, fmon, tyear)
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"the coupled cycle synchronizes with the host: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("sync debug: one coupled cycle ran under "
+        "torch.cuda.set_sync_debug_mode('error')")
+
+    # -- 9. the safety gate ---------------------------------------------
+    big = [pk._replace(res=dataclasses.replace(
+        pk.res, wout=(pk.res.wout.float() * 1e7).to(torch.bfloat16)))
+        for pk in packs]
+    hyb_bad = HybridAtmosphere(gcm, hyb.layout, big, ml_only=False,
+                               device=dev)
+    bs, bd = hyb_bad.cycle(final, imon, fmon, tyear)
+    if bool(bs.safe):
+        fail("Wout x 1e7 did not trip the gate")
+    for nm in ("speedy_atmo", "speedy_logp"):
+        if not bool(torch.isfinite(bd[nm]).all()):
+            fail(f"{nm} is not finite after the gate tripped")
+    _, dts = run_prediction(hyb_bad, final, date0, 5)
+    if len(dts) > 2:
+        fail(f"run_prediction ran {len(dts)} cycles past the gate")
+    log(f"gate: Wout x 1e7 trips it, SPEEDY's output stays finite, "
+        f"run_prediction stopped after {len(dts)} cycle(s)")
+    del hyb_bad, big
+
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+        f"card check [{card}]")
+    order = list(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}

@@ -1,4 +1,5 @@
-"""Parameters from numpy: run weights made elsewhere in this package.
+"""Parameters and states from numpy: run weights and states made
+elsewhere in the port.
 
 `params_from_numpy` takes the atmosphere parameters of a hybrid as
 numpy arrays — per class a (reservoir, standardizer) pair whose fields
@@ -9,6 +10,10 @@ Nothing here imports the other package: the pairs are read duck-typed.
 Reservoir fields: cols, vals, win_vals, wout, mean, std, n_in, shifts,
 win_cols (None allowed).  Standardizer fields: comp_mean, comp_std,
 in_mean, in_std, out_mean, out_std.
+
+`boundary_from_numpy`, `spectral_state_from_numpy` and
+`gcm_state_from_numpy` read boundary data, a two-level spectral state and
+a GCM state the same way, field by field.
 """
 
 from __future__ import annotations
@@ -65,3 +70,44 @@ def params_from_numpy(atmo, layout: RegionLayout, hyper: ESNHyper, *,
         s = Standardizer(**{k: f(getattr(std, k)) for k in STD_FIELDS})
         packs.append(ClassPack(cls=cls, res=r, hyper=hyper, std=s))
     return packs
+
+
+def boundary_from_numpy(bd, *, device, dtype=torch.float32):
+    """A BoundaryData from any object with the BoundaryData field names
+    (e.g. the JAX package's, leaf by leaf)."""
+    from speedy_ml_tpu_torch.physics.boundaries import (BoundaryData,
+                                                        fields_to_boundary)
+    return fields_to_boundary(
+        {k: np.asarray(getattr(bd, k)) for k in
+         BoundaryData.__dataclass_fields__}, torch.device(device), dtype)
+
+
+def spectral_state_from_numpy(spec, *, device, dtype=torch.float32):
+    """A SpectralState (both leapfrog levels, complex) from any object with
+    vor/div/t/ps/tr arrays; dtype is the real model dtype."""
+    from speedy_ml_tpu_torch.core.spectral import complex_dtype
+    from speedy_ml_tpu_torch.dycore.state import SpectralState
+    cd = complex_dtype(dtype)
+    return SpectralState(**{
+        k: torch.from_numpy(np.array(getattr(spec, k), dtype=np.complex128,
+                                     order="C")).to(device=device, dtype=cd)
+        for k in SpectralState.FIELDS})
+
+
+def gcm_state_from_numpy(gstate, *, device, dtype=torch.float32):
+    """A GCMState from any object with spectral/sfc/radiation/fluxes (read
+    field by field) and istep; the step counter becomes a host int."""
+    from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState
+    from speedy_ml_tpu_torch.physics.driver import RadiationCarry
+    from speedy_ml_tpu_torch.physics.land_sea import SurfaceState
+    dev = torch.device(device)
+    f = lambda cls, obj: cls(**{k: tensor_from_numpy(getattr(obj, k), dev,
+                                                      dtype)
+                                for k in cls.__dataclass_fields__})
+    return GCMState(
+        spectral=spectral_state_from_numpy(gstate.spectral, device=dev,
+                                           dtype=dtype),
+        sfc=f(SurfaceState, gstate.sfc),
+        radiation=f(RadiationCarry, gstate.radiation),
+        fluxes=f(FluxAccumulator, gstate.fluxes),
+        istep=int(np.asarray(gstate.istep)))

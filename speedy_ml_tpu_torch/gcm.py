@@ -1,0 +1,189 @@
+"""The atmospheric GCM: dynamics + physics + the surface state.
+
+Counterpart of the JAX package's gcm.py (the reference's at_gcm.f90 and
+dyn_stloop.f90): `GCM` holds the static tables on one device and exposes
+the step functions; one window is `nsteps` leapfrog steps (the hybrid's
+6-h window is 24 x 900 s).  The step counter is a host integer, so the
+shortwave cadence (every NSTRAD steps) is a Python branch and a window
+makes no host read.
+
+The daily day loop with the slab coupler (run_days) and SPPT come with
+later slices; constructing a GCM needs a BoundaryData (the reader of the
+reference's boundary files is not ported yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from speedy_ml_tpu_torch import resolve_device
+from speedy_ml_tpu_torch.core.constants import PhysicalConstants
+from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.dycore.model import DycoreModel, GridTendencies
+from speedy_ml_tpu_torch.dycore.state import SpectralState
+from speedy_ml_tpu_torch.physics.boundaries import (BC_FILES_SLICE,
+                                                    BoundaryData)
+from speedy_ml_tpu_torch.physics.driver import (OPTIONAL_SLICE,
+                                                DailyForcing, PhysicsModel,
+                                                RadiationCarry)
+from speedy_ml_tpu_torch.physics.land_sea import (SLAB_SLICE, CplFlags,
+                                                  SurfaceState,
+                                                  init_surface_state)
+
+NSTRAD = 3   # shortwave radiation period in steps (mod_tsteps.f90:65)
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxAccumulator:
+    """Daily-mean flux accumulation (ppo_dmflux.f90 essentials)."""
+    hflux_l: torch.Tensor
+    hflux_s: torch.Tensor
+    hflux_i: torch.Tensor
+    precip: torch.Tensor   # accumulated total precip [g/m^2 over the window]
+
+    @staticmethod
+    def zeros(nlat, nlon, dtype, device=None):
+        z = lambda: torch.zeros((nlat, nlon), dtype=dtype, device=device)
+        return FluxAccumulator(hflux_l=z(), hflux_s=z(), hflux_i=z(),
+                               precip=z())
+
+
+@dataclasses.dataclass(frozen=True)
+class GCMState:
+    """Everything a window advances.  istep is a host int."""
+    spectral: SpectralState
+    sfc: SurfaceState
+    radiation: RadiationCarry
+    fluxes: FluxAccumulator
+    istep: int = 0
+
+
+class GCM:
+    """SPEEDY on one device (default CUDA; raises without one)."""
+
+    def __init__(self, geom: Geometry = Geometry(),
+                 constants: PhysicalConstants = PhysicalConstants(),
+                 dtype=torch.float32, bc_path: Optional[str] = None,
+                 nsteps_day: int = 96, bd: Optional[BoundaryData] = None,
+                 sppt_on: bool = False, zonal: str = "dft",
+                 cgrate_on: bool = False,
+                 cpl_flags: Optional[CplFlags] = None, sstan_monthly=None,
+                 sstom12=None, *, device=None):
+        self.device = resolve_device(device)
+        if sppt_on:
+            raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
+        if bd is None:
+            raise NotImplementedError(
+                f"reading the boundary files (bc_path={bc_path!r}) comes "
+                f"with {BC_FILES_SLICE}; pass bd=synthetic_boundary_data"
+                "(geom, ...) or another BoundaryData")
+        if sstan_monthly is not None or sstom12 is not None:
+            raise NotImplementedError(f"SST anomalies come with {SLAB_SLICE}")
+        self.geom = geom
+        self.const = constants
+        self.dtype = dtype
+        self.dyn = DycoreModel(geom, constants, dtype=dtype,
+                               nsteps_day=nsteps_day, zonal=zonal,
+                               cgrate_on=cgrate_on, device=self.device)
+        self.sht = self.dyn.sht
+        self.phys = PhysicsModel(geom, constants, dtype=dtype,
+                                 device=self.device)
+        self.sppt = None
+        self.bd = bd.to(device=self.device, dtype=dtype)
+        self.cpl = cpl_flags if cpl_flags is not None else CplFlags()
+        self.nsteps_day = nsteps_day
+        # spectral orography (a static table)
+        self.phis = self.sht.trunct(self.sht.grid_to_spec(self.bd.orog))
+
+    def set_mesh(self, mesh, axis: str = "regions"):
+        raise NotImplementedError("the multi-GPU GCM comes with the "
+                                  "multi-GPU slice of the port (A16)")
+
+    def forcing_for(self, sfc: SurfaceState, tyear) -> DailyForcing:
+        """Date-dependent forcing (fordate)."""
+        return self.phys.daily_forcing(self.bd, sfc, tyear, self.sht)
+
+    def init_state(self, date, spectral: Optional[SpectralState] = None,
+                   sst_hybrid=None, sst_bias: float = 0.0
+                   ) -> tuple[GCMState, DailyForcing]:
+        """agcm_init: surface + radiation init for `date` (a ModelDate)."""
+        g = self.geom
+        sfc = init_surface_state(self.bd, date.month - 1, date.tmonth,
+                                 sst_hybrid, sst_bias, flags=self.cpl)
+        if spectral is None:
+            from speedy_ml_tpu_torch.dycore.init import rest_state
+            spectral = rest_state(self.dyn, self.bd.orog)[0]
+        state = GCMState(
+            spectral=spectral, sfc=sfc,
+            radiation=RadiationCarry.zeros(g.nlev, g.nlat, g.nlon,
+                                           self.dtype, self.device),
+            fluxes=FluxAccumulator.zeros(g.nlat, g.nlon, self.dtype,
+                                         self.device),
+            istep=0)
+        return state, self.forcing_for(sfc, date.tyear)
+
+    # ------------------------------------------------------------------
+
+    def physics_grid(self, state: SpectralState, j: int, dyn=None):
+        """Grid (ug, vg, tg, qg, phig, pslg) at level j for the physics:
+        one synthesis launch over [t, q, phi, ps | u cos, v cos]."""
+        sht = self.sht
+        K = self.geom.nlev
+        vor_s, div_s, t_s, ps_s, tr_s = state.at_level(j)
+        ucosm, vcosm = sht.uvspec(vor_s, div_s)
+        phi_s = (dyn or self.dyn).geopotential(t_s, self.phis)
+        stacked = torch.cat([t_s, tr_s[0], phi_s, ps_s[None], ucosm, vcosm],
+                            dim=0)
+        gall = sht.synthesis(stacked, 3 * K + 1)
+        return (gall[3 * K + 1:4 * K + 1], gall[4 * K + 1:5 * K + 1],
+                gall[0:K], gall[K:2 * K], gall[2 * K:3 * K], gall[3 * K])
+
+    def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
+                    sfc, forcing, carry, lradsw, sppt_pattern=None):
+        """Spectral state -> grid fields -> PhysicsModel.compute."""
+        grid = self.physics_grid(state, j, dyn)
+        with torch.profiler.record_function("physics"):
+            ut, vt, tt, qt, carry2, diag = self.phys.compute(
+                *grid, bd=self.bd, sfc=sfc, forcing=forcing, carry=carry,
+                lradsw=lradsw, sppt_pattern=sppt_pattern)
+        return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), (carry2, diag)
+
+    def leapfrog(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
+        """One filtered leapfrog step with physics (stloop body)."""
+        lradsw = gstate.istep % NSTRAD == 0   # mod(istep, 3) == 1, 1-based
+        spec, (carry, diag) = self.dyn.leapfrog_step(
+            gstate.spectral, self.phis, physics_fn=self._physics_fn,
+            physics_args=(gstate.sfc, forcing, gstate.radiation, lradsw),
+            corrections=(forcing.tcorh, forcing.qcorh))
+        rsteps = 1.0 / self.nsteps_day
+        fx = gstate.fluxes
+        fluxes = FluxAccumulator(
+            hflux_l=fx.hflux_l + diag.hflux_l * rsteps,
+            hflux_s=fx.hflux_s + diag.hflux_s * rsteps,
+            hflux_i=fx.hflux_i + diag.hflux_i * rsteps,
+            precip=fx.precip + (diag.precnv + diag.precls)
+            * self.dyn.delt2 / 2.0)
+        return GCMState(spectral=spec, sfc=gstate.sfc, radiation=carry,
+                        fluxes=fluxes, istep=gstate.istep + 1)
+
+    def stepone(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
+        """Cold-start double half-step with physics (ini_stepone.f90)."""
+        spec, (carry, _) = self.dyn.stepone(
+            gstate.spectral, self.phis, physics_fn=self._physics_fn,
+            physics_args=(gstate.sfc, forcing, gstate.radiation, True),
+            corrections=(forcing.tcorh, forcing.qcorh))
+        return dataclasses.replace(gstate, spectral=spec, radiation=carry)
+
+    def run_window(self, gstate: GCMState, forcing: DailyForcing,
+                   nsteps: int) -> GCMState:
+        """`nsteps` leapfrog steps (a 6-h window = 24 steps)."""
+        for _ in range(nsteps):
+            gstate = self.leapfrog(gstate, forcing)
+        return gstate
+
+    def run_days(self, gstate, date, ndays, stepone_first=False):
+        raise NotImplementedError(f"the day loop with the slab coupler "
+                                  f"comes with {SLAB_SLICE}")

@@ -18,8 +18,7 @@ from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
 from speedy_ml_tpu_torch.esn.standardize import (Standardizer,
                                                  component_expansion,
                                                  n_components)
-from speedy_ml_tpu_torch.hybrid.model import (SPEEDY_SLICE, ClassPack,
-                                              HybridAtmosphere)
+from speedy_ml_tpu_torch.hybrid.model import ClassPack, HybridAtmosphere
 
 NVAR = 4
 
@@ -92,12 +91,13 @@ def build_untrained_hybrid(gcm=None, n_regions: int = 1152, m: int = 6000,
     """An untrained hybrid on `device` (default CUDA; raises without one).
 
     gcm supplies geometry and dtype (gcm.geom, gcm.dtype); None means the
-    production T30L8 grid in float32.  Class i draws from
-    derive_seed(seed, i) (see untrained_pack)."""
+    production T30L8 grid in float32 (ml_only only: the coupled cycle
+    needs a GCM on `device`).  Class i draws from derive_seed(seed, i)
+    (see untrained_pack); a coupled readout has the local-model block
+    (S = O - xc*yc, the output minus its precip block)."""
     device = resolve_device(device)
-    if not ml_only:
-        raise NotImplementedError(
-            f"the coupled cycle (ml_only=False) comes with {SPEEDY_SLICE}")
+    if not ml_only and gcm is None:
+        raise ValueError("the coupled cycle (ml_only=False) needs a GCM")
     geom = gcm.geom if gcm is not None else Geometry()
     dtype = gcm.dtype if gcm is not None else torch.float32
     layout = RegionLayout(geom, n_regions=n_regions, overlap=1)

@@ -1,15 +1,21 @@
-"""The hybrid atmosphere: per-region ESNs on the global grid.
+"""The hybrid atmosphere: per-region ESNs coupled to the spectral GCM.
 
 Reference: the per-timestep cycle of parallelmain.f90:206-272 +
-mpires.f90 sendrecievegrid (218-780).  This slice runs the ML-only cycle
-(RunConfig.ml_only, the reference's predict_ml mode): every region's ESN
+mpires.f90 sendrecievegrid/run_model (218-780, 1516-1628) + the
+iogrid(30)/(31) bridge (ppo_iogrid.f90:497-601).  Every region's ESN
 steps and reads out (predict_all), the cores assemble into the global
 grid with the q/precip clamps (assemble_global), and the halo windows
 gather back out as the next step's standardized feedback
-(build_feedback).  Each of those is one hand-written kernel launch per
-class or per cycle (kernels/).  The SPEEDY half of the coupled cycle
-(inject_to_speedy, speedy_window, build_local_model, the safety gate)
-comes with the SPEEDY slice.
+(build_feedback): one hand-written kernel launch each per class or per
+cycle (kernels/).  The coupled cycle (ml_only=False) also injects the
+assembled grid into SPEEDY (inject_to_speedy: the grid->spectral->grid
+double transform and the safety gate), runs a 6-h SPEEDY window from a
+cold start (speedy_window) and packs the forecast into each region's
+local-model vector (build_local_model, K3 with a core-only table).
+
+The safety gate is a select, not a branch: the window always runs, and
+torch.where(ok, forecast, injected fields) keeps an unsafe state (and any
+NaN it makes) out of the next state.  The flag stays on the device.
 
 Layouts follow the JAX package: fields (V, K, lat, lon), class vectors
 (Rc, I) / (Rc, O), and the same packing order, so both compute the same
@@ -24,18 +30,20 @@ from typing import NamedTuple
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
+from speedy_ml_tpu_torch.dycore.state import SpectralState
 from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
+from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState
 from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
 from speedy_ml_tpu_torch.kernels.readout import readout
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 from speedy_ml_tpu_torch.physics.constants import SOLC
+from speedy_ml_tpu_torch.physics.driver import RadiationCarry
+from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 from speedy_ml_tpu_torch.physics.radiation import solar_flux_traced
 
-SPEEDY_SLICE = "the SPEEDY slice of the port (spectral transform, dycore, " \
-    "physics, gcm.py and the coupling steps)"
 OPTIONS_SLICE = "a later slice of the port (cycle options: slab ocean, " \
     "persistent surface, climatology tables, components, vertical " \
     "localization, sharding)"
@@ -55,7 +63,7 @@ class HybridState:
     sst_grid: torch.Tensor     # (lat, lon) current SST seen by the ESNs
     # SPEEDY safety gate.  The ML-only cycle runs no gate, so it stays a
     # host True and reading it costs no device sync; the coupled cycle
-    # will carry a 0-d bool tensor here
+    # carries a 0-d bool tensor on the device
     safe: bool | torch.Tensor
     step: int                  # cycle counter (host-side)
     ocean: tuple = ()          # slab-ocean states (later slice)
@@ -86,19 +94,20 @@ def _on(t: torch.Tensor, device: torch.device) -> bool:
 
 
 class HybridAtmosphere:
-    """Hybrid cycle driver (ML-only cycle in this slice)."""
+    """Hybrid cycle driver (atmosphere reservoirs, ML-only or coupled)."""
 
+    TIMESTEP_HOURS = 6
     NVAR = 4  # T, u, v, q
 
     def __init__(self, gcm, layout: RegionLayout, packs: list[ClassPack],
                  ml_only: bool = False, ocean_packs=None, base_sst=None,
                  sea_mask=None, *, device=None):
         """gcm may be None when ml_only: geometry then comes from
-        layout.geom and the dtype from the packs.  device: where the cycle
-        runs (default CUDA; raises without one); the packs must be there."""
-        if not ml_only:
-            raise NotImplementedError(
-                f"the coupled cycle (ml_only=False) comes with {SPEEDY_SLICE}")
+        layout.geom and the dtype from the packs; the coupled cycle needs
+        a GCM on the same device.  device: where the cycle runs (default
+        CUDA; raises without one); the packs must be there."""
+        if not ml_only and (gcm is None or not hasattr(gcm, "dyn")):
+            raise ValueError("the coupled cycle (ml_only=False) needs a GCM")
         if ocean_packs:
             raise NotImplementedError(
                 f"slab-ocean packs come with {OPTIONS_SLICE}")
@@ -106,6 +115,9 @@ class HybridAtmosphere:
             raise NotImplementedError(
                 f"the ML-ocean land fill comes with {OPTIONS_SLICE}")
         device = resolve_device(device)
+        if not ml_only and not _on(gcm.phis, device):
+            raise ValueError(f"the GCM lives on {gcm.device}, not on "
+                             f"{device}")
         for p in packs:
             if p.zspec is not None:
                 raise NotImplementedError(
@@ -125,6 +137,9 @@ class HybridAtmosphere:
         self.dtype = gcm.dtype if gcm is not None \
             else self.packs[0].res.vals.dtype
         self.nz = self.geom.nlev
+        # steps of the GCM inside one hybrid window
+        self.gcm_steps = (gcm.nsteps_day * self.TIMESTEP_HOURS // 24
+                          if gcm is not None else 0)
 
         # static index tables of the gather/scatter kernels, built once:
         # per pack its (Rc, I) pack_table, and the grid's core_source_table
@@ -133,6 +148,13 @@ class HybridAtmosphere:
             layout.pack_table(p.cls, self.NVAR, self.nz, logp=p.bottom,
                               precip=p.bottom, sst=p.bottom, tisr=True),
             device=self.device) for p in self.packs]
+        # the local-model gather: K3 with core-only tables of the speedy
+        # vector (atmo + logp: the output layout minus the precip block)
+        self.local_index = [torch.as_tensor(
+            layout.pack_table(p.cls, self.NVAR, self.nz, logp=True,
+                              precip=False, sst=False, tisr=False,
+                              core_only=True), device=self.device)
+            for p in self.packs]
         self.core_table = torch.as_tensor(
             layout.core_source_table([p.cls for p in self.packs], self.NVAR,
                                      self.nz), device=self.device)
@@ -162,9 +184,11 @@ class HybridAtmosphere:
                 x=torch.zeros((Rc, p.res.n), **kw),
                 feedback=torch.zeros((Rc, p.res.n_inputs), **kw),
                 local_model=torch.zeros((Rc, p.res.n_speedy), **kw)))
+        safe = True if self.ml_only else torch.ones(
+            (), dtype=torch.bool, device=self.device)
         return HybridState(classes=tuple(cls_states),
                            sst_grid=torch.as_tensor(sst_grid, **kw),
-                           safe=True, step=0)
+                           safe=safe, step=0)
 
     # ------------------------------------------------------------------
     # pieces of the cycle
@@ -230,6 +254,86 @@ class HybridAtmosphere:
                              [p.std.in_mean for p in packs],
                              [p.std.in_std for p in packs])
 
+    def inject_to_speedy(self, atmo, logp):
+        """Grid -> spectral with truncation, and back (iogrid 30).
+
+        One analysis launch for [T, q, logp | u, v] (u, v times 1/cos for
+        vdspec) and one synthesis launch for the fields the safety check
+        reads.  Returns (SpectralState, safe), safe a 0-d bool tensor:
+        the physical-range gate on the post-transform fields
+        (ppo_iogrid.f90:563-577)."""
+        sht = self.gcm.sht
+        K = self.nz
+        tg, ug, vg = atmo[0], atmo[1], atmo[2]
+        qg = torch.clamp(atmo[3], min=0.0)
+        spec = sht.analysis(torch.cat([tg, qg, logp[None], ug, vg]),
+                            2 * K + 1)
+        vor, div = sht.vds(spec[2 * K + 1:3 * K + 1], spec[3 * K + 1:])
+        vor, div = sht.trunct(vor), sht.trunct(div)
+        t_s, q_s = sht.trunct(spec[:K]), sht.trunct(spec[K:2 * K])
+        ps_s = sht.trunct(spec[2 * K])
+
+        # the double transform: back to grid for the safety check (and the
+        # smoothing the trained weights expect)
+        ucosm, vcosm = sht.uvspec(vor, div)
+        back = sht.synthesis(torch.cat([t_s, q_s, ucosm, vcosm]), 2 * K)
+        t2, q2 = back[:K], back[K:2 * K]
+        u2, v2 = back[2 * K:3 * K], back[3 * K:]
+        safe = ((u2.amin() >= -150.0) & (u2.amax() <= 150.0)
+                & (v2.amin() >= -120.0) & (v2.amax() <= 120.0)
+                & (t2.amin() >= 160.0) & (t2.amax() <= 330.0)
+                & (q2.amin() >= -6.0) & (q2.amax() <= 30.0))
+        two = lambda a: torch.stack([a, a])
+        state = SpectralState(vor=two(vor), div=two(div), t=two(t_s),
+                              ps=two(ps_s), tr=two(q_s[None]))
+        return state, safe
+
+    def speedy_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
+                      tyear, sfc_carry=None):
+        """SPEEDY for one 6-h window from a cold start (run_model,
+        mpires.f90:1516-1628): surfaces from climatology + the hybrid SST,
+        stepone, gcm_steps leapfrog steps from istep 0 (so the shortwave
+        cadence inside a window is static), then the fields at leapfrog
+        level 0 (iogrid 31).  Returns (atmo (4, K, lat, lon), logp,
+        window FluxAccumulator)."""
+        if sfc_carry is not None:
+            raise NotImplementedError(
+                f"persist_surface comes with {OPTIONS_SLICE}")
+        gcm = self.gcm
+        g = gcm.geom
+        K = g.nlev
+        sfc = init_surface_state(gcm.bd, imon, fmon, sst_hybrid=sst_hybrid,
+                                 flags=gcm.cpl)
+        gstate = GCMState(
+            spectral=spec, sfc=sfc,
+            radiation=RadiationCarry.zeros(K, g.nlat, g.nlon, gcm.dtype,
+                                           self.device),
+            fluxes=FluxAccumulator.zeros(g.nlat, g.nlon, gcm.dtype,
+                                         self.device),
+            istep=0)
+        forcing = gcm.forcing_for(sfc, tyear)
+        gstate = gcm.stepone(gstate, forcing)
+        gstate = gcm.run_window(gstate, forcing, self.gcm_steps)
+
+        sht = gcm.sht
+        sp = gstate.spectral
+        ucosm, vcosm = sht.uvspec(sp.vor[0], sp.div[0])
+        out = sht.synthesis(torch.cat([sp.t[0], sp.tr[0, 0], sp.ps[0][None],
+                                       ucosm, vcosm]), 2 * K + 1)
+        t, q, logp = out[:K], out[K:2 * K], out[2 * K]
+        u, v = out[2 * K + 1:3 * K + 1], out[3 * K + 1:]
+        return torch.stack([t, u, v, q]), logp, gstate.fluxes
+
+    def build_local_model(self, packs, fc_atmo, fc_logp):
+        """Per-class standardized SPEEDY forecast vectors (core atmo +
+        logp): one K3 launch for all classes with the core-only tables."""
+        fields = (fc_atmo.contiguous(),) + (fc_logp.contiguous(),) * 4
+        S = [p.res.n_speedy for p in packs]
+        return window_gather(
+            fields, self.local_index,
+            [p.std.out_mean[:, :s].contiguous() for p, s in zip(packs, S)],
+            [p.std.out_std[:, :s].contiguous() for p, s in zip(packs, S)])
+
     def tisr_field(self, tyear, hour_of_year=None, table=None,
                    hours_per_entry: int = 1):
         """TISR input field for the current date: the analytic Hartmann
@@ -257,26 +361,51 @@ class HybridAtmosphere:
 
     def cycle_with_params(self, params, hstate: HybridState, imon, fmon,
                           tyear, hour_of_year=None, sst_bias=0.0) -> tuple:
-        """One 6-h hybrid step with explicit parameters (the ml_only
-        branches of the JAX _cycle_jit, hybrid/model.py:579-749).
-        Returns (new_state, diagnostics dict)."""
+        """One 6-h hybrid step with explicit parameters (the JAX
+        _cycle_jit, hybrid/model.py:579-749, without the options of later
+        slices).  imon (0-based month) and fmon are host numbers; tyear a
+        float.  Returns (new_state, diagnostics dict)."""
         self._check_options()
+        rf = torch.profiler.record_function
         packs = self._with_params(params)
-        new_x, outvecs = self.predict_all(packs, hstate)
-        atmo, logp, precip = self.assemble_global(packs, outvecs)
-        tisr = self.tisr_field(tyear, hour_of_year)
-        feedbacks = self.build_feedback(packs, atmo, logp, precip,
-                                        hstate.sst_grid, tisr)
-        locals_ = [cs.local_model for cs in hstate.classes]
+        with rf("predict_all"):
+            new_x, outvecs = self.predict_all(packs, hstate)
+        with rf("assemble_global"):
+            atmo, logp, precip = self.assemble_global(packs, outvecs)
+        safe = hstate.safe
+        fc_atmo = fc_logp = None
+        if not self.ml_only:
+            with rf("inject_to_speedy"):
+                spec, safe = self.inject_to_speedy(atmo, logp)
+            # the gate (ppo_iogrid.f90:563-577, mpires.f90:721) as a
+            # select: the window runs whatever the flag, and an unsafe
+            # state's forecast is replaced by the injected fields, so no
+            # NaN reaches the next state.  The driver stops on the flag.
+            ok = hstate.safe & safe
+            with rf("speedy_window"):
+                w_atmo, w_logp, _ = self.speedy_window(
+                    spec, hstate.sst_grid, imon, fmon, tyear)
+            fc_atmo = torch.where(ok, w_atmo, atmo)
+            fc_logp = torch.where(ok, w_logp, logp)
+            safe = ok
+        with rf("build_feedback"):
+            tisr = self.tisr_field(tyear, hour_of_year)
+            feedbacks = self.build_feedback(packs, atmo, logp, precip,
+                                            hstate.sst_grid, tisr)
+        if self.ml_only:
+            locals_ = [cs.local_model for cs in hstate.classes]
+        else:
+            with rf("build_local_model"):
+                locals_ = self.build_local_model(packs, fc_atmo, fc_logp)
         classes = tuple(
             ClassState(x=x, feedback=fb, local_model=lm)
             for x, fb, lm in zip(new_x, feedbacks, locals_))
         new_state = HybridState(classes=classes, sst_grid=hstate.sst_grid,
-                                safe=hstate.safe, step=hstate.step + 1,
+                                safe=safe, step=hstate.step + 1,
                                 ocean=hstate.ocean, sfc=hstate.sfc,
                                 fluxes=hstate.fluxes)
         diag = dict(atmo=atmo, logp=logp, precip=precip,
-                    speedy_atmo=None, speedy_logp=None)
+                    speedy_atmo=fc_atmo, speedy_logp=fc_logp)
         return new_state, diag
 
     def cycle(self, hstate: HybridState, imon, fmon, tyear,

@@ -47,6 +47,15 @@ SIGNATURES = {
                              ctypes.POINTER(_ll), _vp],
     "core_scatter_launch": [_i, _i, ctypes.POINTER(_vp), ctypes.POINTER(_ll),
                             _vp, _ll, _ll, _ll, _ll, _ll, _vp, _vp],
+    "sht_analysis_launch": [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                            _i, _vp, _vp],
+    "sht_synthesis_launch": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                             _vp, _vp],
+    "grid_dynamics_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _f, _f,
+                             _i, _i, _vp, _vp],
+    "spectral_tail_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
+                             _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
+                             _f, _f, _vp, _vp, _vp, _vp, _vp, _vp],
 }
 
 _lib = None  # the loaded library, once per process

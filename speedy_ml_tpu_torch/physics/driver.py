@@ -1,0 +1,259 @@
+"""Physics driver: the parametrization suite for one time step.
+
+Counterpart of the JAX package's physics/driver.py (the reference's
+phy_phypar.f90).  It takes the grid fields at the physics time level, the
+coupled-surface state, the daily forcing and the radiation carry
+(shortwave runs every nstrad steps; its results persist in the carry),
+and returns grid tendencies, the new carry and the flux diagnostics.
+
+This module is plain PyTorch on the device (hot spot B2 of ROADMAP
+queue B; its kernel is a later slice).  The shortwave cadence is a
+Python branch on a host bool; data-dependent level indices (itop,
+icltop) are torch.gather calls and comparisons, never host reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from speedy_ml_tpu_torch.core.constants import GAMMA_LAPSE, REFRH1
+from speedy_ml_tpu_torch.physics import constants as pc
+from speedy_ml_tpu_torch.physics import radiation as rad
+from speedy_ml_tpu_torch.physics.boundaries import BoundaryData
+from speedy_ml_tpu_torch.physics.condensation import lscond
+from speedy_ml_tpu_torch.physics.convection import convmf
+from speedy_ml_tpu_torch.physics.humidity import qsat_from_t
+from speedy_ml_tpu_torch.physics.land_sea import SurfaceState
+from speedy_ml_tpu_torch.physics.surface import suflux
+from speedy_ml_tpu_torch.physics.vdiff import vdifsc
+
+OPTIONAL_SLICE = "the optional-physics slice of the port (A15)"
+
+
+@dataclasses.dataclass(frozen=True)
+class RadiationCarry:
+    """State persisting between shortwave radiation steps."""
+    tau2: torch.Tensor      # (K, 4, lat, lon) LW transmissivities
+    stratc: torch.Tensor    # (2, lat, lon)
+    tt_rsw: torch.Tensor    # (K, lat, lon) SW heating (tendency units)
+    ssrd: torch.Tensor      # (lat, lon) surface downward SW
+    ssr: torch.Tensor       # net surface SW
+    tsr: torch.Tensor       # net TOA SW
+    randfv: torch.Tensor    # (2, lat, K) RDF vertical modulation
+
+    @staticmethod
+    def zeros(K, nlat, nlon, dtype, device=None):
+        z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+        return RadiationCarry(tau2=z(K, 4, nlat, nlon),
+                              stratc=z(2, nlat, nlon),
+                              tt_rsw=z(K, nlat, nlon), ssrd=z(nlat, nlon),
+                              ssr=z(nlat, nlon), tsr=z(nlat, nlon),
+                              randfv=z(2, nlat, K))
+
+
+@dataclasses.dataclass(frozen=True)
+class DailyForcing:
+    """Daily radiative/surface forcing (fordate, ini_fordate.f90)."""
+    fsol: torch.Tensor
+    ozupp: torch.Tensor
+    ozone: torch.Tensor
+    zenit: torch.Tensor
+    stratz: torch.Tensor
+    alb_l: torch.Tensor
+    alb_s: torch.Tensor
+    albsfc: torch.Tensor
+    snowc: torch.Tensor
+    tcorh: torch.Tensor     # spectral T diffusion correction
+    qcorh: torch.Tensor     # spectral q diffusion correction
+
+
+class FluxDiag(NamedTuple):
+    """Per-step fluxes for the coupler and the hybrid output."""
+    precnv: torch.Tensor
+    precls: torch.Tensor
+    hflux_l: torch.Tensor
+    hflux_s: torch.Tensor
+    hflux_i: torch.Tensor
+    olr: torch.Tensor
+    ts: torch.Tensor
+
+
+class PhysicsModel:
+    """Static tables on one device + the phypar step function."""
+
+    def __init__(self, geom, constants, dtype=torch.float32, randfh=None,
+                 *, device="cpu"):
+        if randfh is not None:
+            raise NotImplementedError(
+                f"random diabatic forcing (RDF) comes with {OPTIONAL_SLICE}")
+        self.geom = geom
+        self.const = constants
+        self.dtype = dtype
+        self.device = torch.device(device)
+        hsg = np.asarray(geom.half_sigma, dtype=np.float64)
+        sig = 0.5 * (hsg[1:] + hsg[:-1])
+        dsig = hsg[1:] - hsg[:-1]
+        sigl = np.log(sig)
+        # half-level interpolation weights (inphys, ini_inphys.f90:39-45)
+        wvi1 = np.zeros(geom.nlev)
+        wvi2 = np.zeros(geom.nlev)
+        for k in range(geom.nlev - 1):
+            wvi1[k] = 1.0 / (sigl[k + 1] - sigl[k])
+            wvi2[k] = (np.log(hsg[k + 1]) - sigl[k]) * wvi1[k]
+        wvi2[geom.nlev - 1] = (np.log(0.99) - sigl[geom.nlev - 1]) \
+            * wvi1[geom.nlev - 2]
+        np_dt = np.float64 if dtype == torch.float64 else np.float32
+        t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
+                                      device=self.device).to(dtype)
+        self.sig, self.sigh, self.dsig = sig, hsg, dsig
+        self.wvi2 = np.asarray(wvi2, dtype=np_dt)
+        self.wvi2_t = t(self.wvi2)
+        self.wvi2_bot = float(wvi2[geom.nlev - 1])
+        self.sigl_bot = float(sigl[geom.nlev - 1])
+        grdsig = np.asarray(constants.grav / (dsig * constants.p0),
+                            dtype=np_dt)
+        self.grdsig = t(grdsig)
+        self.grdscp = t(np.asarray(grdsig / constants.cp, dtype=np_dt))
+        self.sig_t = t(sig)
+        self.slat_t, self.clat_t = t(geom.sin_lat), t(geom.cos_lat)
+        self.fband = rad.build_fband()
+
+    # ------------------------------------------------------------------
+
+    def daily_forcing(self, bd: BoundaryData, sfc: SurfaceState, tyear,
+                      sht) -> DailyForcing:
+        """fordate(1): solar forcing, surface albedo, diffusion
+        corrections.  tyear: a float or a 0-d tensor on the device (a
+        float becomes a device fill, so no copy from the host)."""
+        c = self.const
+        if not torch.is_tensor(tyear):
+            tyear = torch.full((), float(tyear), dtype=self.dtype,
+                               device=self.device)
+        sol = rad.sol_oz_traced(tyear, self.slat_t, self.clat_t,
+                                self.geom.nlon)
+        snowc = torch.clamp(sfc.snowd_am / pc.SD2SC, max=1.0)
+        alb_l = bd.alb0 + snowc * (pc.ALBSN - bd.alb0)
+        alb_s = pc.ALBSEA + sfc.sice_am * (pc.ALBICE - pc.ALBSEA)
+        albsfc = alb_s + bd.fmask_l * (alb_l - alb_s)
+
+        # T/q correction terms for the horizontal diffusion
+        # (ini_fordate.f90:72-113); one analysis launch for both
+        gamlat = GAMMA_LAPSE / (1000.0 * c.grav)
+        corh = gamlat * bd.phis0
+        pexp = 1.0 / (c.rgas / c.akap * 0.0 + 287.0 * gamlat)
+        tsfc = bd.fmask_l * sfc.stl_am + bd.fmask_s * sfc.sst_am
+        tref_s = tsfc + corh
+        psfc = (tsfc / tref_s) ** pexp
+        qref = qsat_from_t(tref_s, torch.ones_like(tref_s))
+        qsfc = qsat_from_t(tsfc, psfc)
+        spec = sht.analysis(torch.stack([corh, REFRH1 * (qref - qsfc)]))
+        return DailyForcing(fsol=sol.fsol, ozupp=sol.ozupp, ozone=sol.ozone,
+                            zenit=sol.zenit, stratz=sol.stratz, alb_l=alb_l,
+                            alb_s=alb_s, albsfc=albsfc, snowc=snowc,
+                            tcorh=spec[0], qcorh=spec[1])
+
+    # ------------------------------------------------------------------
+
+    def compute(self, ug, vg, tg, qg, phig, pslg, *, bd: BoundaryData,
+                sfc: SurfaceState, forcing: DailyForcing,
+                carry: RadiationCarry, lradsw: bool, sppt_pattern=None):
+        """Physics tendencies from grid fields at the physics time level.
+
+        Inputs (K, lat, lon) except pslg (lat, lon); lradsw a host bool
+        (shortwave every nstrad steps).  Returns (utend, vtend, ttend,
+        qtend, carry', FluxDiag)."""
+        if sppt_pattern is not None:
+            raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
+        c = self.const
+        K = self.geom.nlev
+        sig, dsig, sigh = self.sig, self.dsig, self.sigh
+        grdsig = self.grdsig[:, None, None]
+        grdscp = self.grdscp[:, None, None]
+
+        psg = torch.exp(pslg)
+        rps = 1.0 / psg
+        qg = torch.clamp(qg, min=0.0)
+        se = c.cp * tg + phig
+        qsat = qsat_from_t(tg, self.sig_t[:, None, None] * psg[None])
+        rh = qg / qsat
+
+        # --- precipitation
+        itop, cbmf, precnv, dfse, dfqa = convmf(
+            psg, se, qg, qsat, sig=sig, dsig=dsig, wvi2=self.wvi2_t,
+            p0=c.p0, grav=c.grav, alhc=c.alhc)
+        tt_cnv = dfse * rps[None] * grdscp
+        qt_cnv = dfqa * rps[None] * grdsig
+        icnv = (K - 1) - itop
+        itop, precls, tt_lsc, qt_lsc = lscond(
+            psg, qg, qsat, itop, sig=sig, dsig=dsig, p0=c.p0, grav=c.grav,
+            cp=c.cp, alhc=c.alhc)
+        ttend = tt_cnv + tt_lsc
+        qtend = qt_cnv + qt_lsc
+
+        # --- shortwave radiation (every nstrad steps)
+        if lradsw:
+            sol = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
+                                   ozone=forcing.ozone, zenit=forcing.zenit,
+                                   stratz=forcing.stratz)
+            gse = (se[K - 2] - se[K - 1]) / (phig[K - 2] - phig[K - 1])
+            icltop, cloudc, clstr, qcloud = rad.cloud(
+                qg, rh, precnv, precls, itop, gse, bd.fmask_l)
+            ssrd, ssr, tsr, dfabs_sw, tau2, stratc = rad.radsw(
+                psg, qg, icltop, cloudc, clstr, qcloud, sol, forcing.albsfc,
+                sig=sig, dsig=dsig)
+            carry = RadiationCarry(tau2=tau2, stratc=stratc,
+                                   tt_rsw=dfabs_sw * rps[None] * grdscp,
+                                   ssrd=ssrd, ssr=ssr, tsr=tsr,
+                                   randfv=carry.randfv)
+
+        # --- longwave down
+        slrd, dfabs_lw, flux_bands, st4a = rad.radlw_down(
+            tg, carry.tau2, self.fband, wvi2=self.wvi2, dsig=dsig, sbc=c.sbc)
+
+        # --- surface fluxes
+        fx = suflux(psg, ug, vg, tg, qg, rh, phig, phi0=bd.phis0,
+                    fmask=bd.fmask_l, tland=sfc.stl_am, tsea=sfc.sst_am,
+                    swav=sfc.soilw_am, ssrd=carry.ssrd, slrd=slrd,
+                    forog=bd.forog, alb_l=forcing.alb_l,
+                    alb_s=forcing.alb_s, snowc=forcing.snowc,
+                    clat_row=self.clat_t, sigl_bot=self.sigl_bot,
+                    wvi2_bot=self.wvi2_bot, rd=287.0, cp=c.cp, alhc=c.alhc,
+                    sbc=c.sbc)
+
+        # --- longwave up
+        slr, olr, dfabs_lw = rad.radlw_up(
+            tg, fx.tsfc, slrd, fx.slru[2], dfabs_lw, flux_bands, st4a,
+            carry.tau2, carry.stratc, self.fband, dsig=dsig, sbc=c.sbc)
+        tt_rlw = dfabs_lw * rps[None] * grdscp
+        ttend = ttend + carry.tt_rsw + tt_rlw
+
+        # --- PBL / vertical diffusion, with the surface fluxes on the
+        #     lowest level
+        ut_pbl, vt_pbl, tt_pbl, qt_pbl = vdifsc(
+            ug, vg, se, rh, qg, qsat, phig, icnv, sig=sig, sigh=sigh,
+            dsig=dsig, cp=c.cp, alhc=c.alhc)
+        bot = K - 1
+        gs, gc = self.grdsig[bot], self.grdscp[bot]
+        add_bot = lambda a, f: torch.cat([a[:bot], (a[bot] + f)[None]])
+        ut_pbl = add_bot(ut_pbl, fx.ustr[2] * rps * gs)
+        vt_pbl = add_bot(vt_pbl, fx.vstr[2] * rps * gs)
+        tt_pbl = add_bot(tt_pbl, fx.shf[2] * rps * gc)
+        qt_pbl = add_bot(qt_pbl, fx.evap[2] * rps * gs)
+        ttend = ttend + tt_pbl
+        qtend = qtend + qt_pbl
+
+        # --- fluxes for the coupler (difice as in ppo_dmflux.f90:114-118)
+        esbc = pc.EMISFC * c.sbc
+        difice = ((pc.ALBSEA - pc.ALBICE) * carry.ssrd
+                  + esbc * (pc.SSTFR ** 4 - sfc.tice_am ** 4)
+                  + fx.shf[1] + fx.evap[1] * c.alhc)
+        diag = FluxDiag(precnv=precnv, precls=precls, hflux_l=fx.hfluxn[0],
+                        hflux_s=fx.hfluxn[1],
+                        hflux_i=fx.hfluxn[1] + difice * (1.0 - sfc.sice_am),
+                        olr=olr, ts=fx.tsfc)
+        return ut_pbl, vt_pbl, ttend, qtend, carry, diag
+

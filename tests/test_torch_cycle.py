@@ -1,11 +1,14 @@
-"""Port parity of the ML-only hybrid cycle (the port's first slice).
+"""Port parity of the hybrid cycle: ML-only and coupled.
 
-The JAX package builds an untrained ml_only hybrid at T10 (32x16 grid,
-128 regions, m=300); its parameters go through
+The JAX package builds an untrained hybrid at T10 (32x16 grid, 128
+regions, m=300); its parameters go through
 speedy_ml_tpu_torch.convert.params_from_numpy into the port, and both
-run three cycles from the same state and SST.  No GCM is needed for an
-ml_only hybrid: a namespace with geom/dtype/nsteps_day stands in on both
-sides.
+run cycles from the same state and SST.  No GCM is needed for an ml_only
+hybrid: a namespace with geom/dtype/nsteps_day stands in on both sides.
+The coupled cycle (ml_only=False) runs the port's GCM on the JAX
+package's synthetic boundaries (converted), with 2 GCM steps per window
+(nsteps_day=8), in float64: everything it returns is held at rtol 1e-9
+of each variable's signal.
 
 Tolerances are a fraction of each variable's signal, its largest
 departure from its mean (a variable: one level of one field, or one
@@ -16,6 +19,7 @@ bf16 Wout 1e-4 (XLA's and PyTorch's f32 tanh differ in the last bits).
 The written .npz (float32 on disk) is held at rtol 1e-5.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -25,15 +29,21 @@ import pytest
 import torch
 
 from speedy_ml_tpu.core.geometry import Geometry as JGeometry
+from speedy_ml_tpu.core.spectral import SpectralTransform as JST
 from speedy_ml_tpu.data.calendar import ModelDate as JModelDate
 from speedy_ml_tpu.hybrid.build import build_untrained_hybrid as jbuild
+from speedy_ml_tpu.gcm import GCM as JGCM
 from speedy_ml_tpu.hybrid.driver import run_prediction as jrun
-from speedy_ml_tpu_torch.convert import params_from_numpy
+from speedy_ml_tpu.physics.boundaries import \
+    synthetic_boundary_data as jsynthetic
+from speedy_ml_tpu_torch.convert import boundary_from_numpy, params_from_numpy
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.data.calendar import ModelDate
 from speedy_ml_tpu_torch.esn.domain import RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.esn.standardize import component_expansion
+from speedy_ml_tpu_torch.gcm import GCM
+from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
 from speedy_ml_tpu_torch.hybrid.driver import run_prediction
 from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
 
@@ -165,24 +175,132 @@ def test_run_prediction_writes_same_npz(pair_f64, tmp_path):
                                    atol=1e-5 * np.abs(ref[k]).max())
 
 
-def test_unported_options_raise(pair_f64):
+@pytest.fixture(scope="module")
+def coupled_pair():
+    jg = JGeometry(**GEOM)
+    jgcm = JGCM(jg, dtype=jnp.float64, nsteps_day=8,
+                bd=jsynthetic(jg, JST(jg, dtype=jnp.float64)))
+    jhyb = jbuild(jgcm, n_regions=N_REGIONS, m=M, key=jax.random.PRNGKey(0),
+                  ml_only=False, radius_iters=30)
+    geom = Geometry(**GEOM)
+    tgcm = GCM(geom, dtype=torch.float64, nsteps_day=8,
+               bd=boundary_from_numpy(jgcm.bd, device="cpu",
+                                      dtype=torch.float64), device="cpu")
+    layout = RegionLayout(geom, n_regions=N_REGIONS)
+    atmo = jax.tree_util.tree_map(np.asarray, jhyb.params[0])
+    packs = params_from_numpy(atmo, layout, ESNHyper(m=M), device="cpu",
+                              dtype=torch.float64)
+    thyb = HybridAtmosphere(tgcm, layout, packs, ml_only=False, device="cpu")
+    return jhyb, thyb
+
+
+def test_two_coupled_cycles_f64_match_jax(coupled_pair):
+    jhyb, thyb = coupled_pair
+    assert jhyb.gcm_steps == thyb.gcm_steps == 2
+    assert all(p.res.n_speedy > 0 for p in thyb.packs)
+    sst = _sst(thyb.geom)
+    js = jhyb.init_state(jnp.asarray(sst))
+    ts = thyb.init_state(sst)
+    assert ts.safe.dtype == torch.bool and ts.safe.ndim == 0
+    date = ModelDate(1990, 1, 1)
+    levels = np.arange(4 * thyb.nz).reshape(4, thyb.nz, 1, 1)
+    variables = np.arange(4).reshape(4, 1, 1, 1)
+    rtol = 1e-9
+    for _ in range(2):
+        js, jd = jhyb.cycle(js, jnp.asarray(date.month - 1),
+                            jnp.asarray(date.tmonth),
+                            jnp.asarray(date.tyear))
+        ts, td = thyb.cycle(ts, date.month - 1, date.tmonth, date.tyear)
+        for jc, tc in zip(js.classes, ts.classes):
+            _close(tc.x, jc.x, rtol)
+            _close(tc.feedback, jc.feedback, rtol)
+            _close(tc.local_model, jc.local_model, rtol)
+        _close(td["atmo"], jd["atmo"], rtol, levels)
+        # SPEEDY's humidity is rounding noise on its top levels: its
+        # signal is taken over the whole variable
+        _close(td["speedy_atmo"], jd["speedy_atmo"], rtol, variables)
+        for k in ("logp", "precip", "speedy_logp"):
+            _close(td[k], jd[k], rtol)
+        date = date.advance_hours(6)
+    assert bool(ts.safe) and bool(js.safe)
+    # the window moved the forecast away from the injected state
+    assert float((td["speedy_atmo"] - td["atmo"]).abs().max()) > 1e-3
+
+
+def test_safety_gate_holds_speedy_and_stops_driver(coupled_pair):
+    """An unphysical assembled state sets safe=False, keeps SPEEDY's
+    output finite (the injected grids stand in) and stops run_prediction
+    by cycle 2 (ppo_iogrid.f90:563-577, parallelmain.f90:268-270)."""
+    _, thyb = coupled_pair
+    packs = [p._replace(res=dataclasses.replace(p.res, wout=p.res.wout * 1e7))
+             for p in thyb.packs]
+    hyb = HybridAtmosphere(thyb.gcm, thyb.layout, packs, ml_only=False,
+                           device="cpu")
+    hstate = hyb.init_state(_sst(hyb.geom))
+    hstate = dataclasses.replace(hstate, classes=tuple(
+        dataclasses.replace(cs, feedback=torch.ones_like(cs.feedback))
+        for cs in hstate.classes))
+    hstate2, diag = hyb.cycle(hstate, 0, 0.5, 0.05)
+    assert not bool(hstate2.safe), "gate should trip on unphysical state"
+    assert bool(torch.isfinite(diag["speedy_atmo"]).all())
+    assert torch.equal(diag["speedy_atmo"], diag["atmo"])
+    assert bool(torch.isfinite(hstate2.sst_grid).all())
+    _, dates = run_prediction(hyb, hstate, ModelDate(1990, 1, 1), 8)
+    assert len(dates) <= 2, f"driver ran {len(dates)} cycles past the gate"
+
+
+def test_untrained_coupled_build_matches_the_layout(coupled_pair):
+    _, thyb = coupled_pair
+    hyb = build_untrained_hybrid(thyb.gcm, n_regions=N_REGIONS, m=M,
+                                 radius_iters=5, device="cpu")
+    assert not hyb.ml_only and hyb.gcm_steps == 2
+    for p, q in zip(hyb.packs, thyb.packs):
+        xc, yc = p.cls.core_shape
+        assert p.res.n_speedy == p.res.n_outputs - xc * yc
+        assert p.res.wout.shape == q.res.wout.shape
+    with pytest.raises(ValueError, match="needs a GCM"):
+        build_untrained_hybrid(None, n_regions=N_REGIONS, m=M,
+                               ml_only=False, device="cpu")
+
+
+def test_unported_options_raise(pair_f64, coupled_pair):
+    """The options of later slices raise; ml_only=False now runs."""
     _, thyb = pair_f64
-    with pytest.raises(NotImplementedError, match="SPEEDY slice"):
+    _, chyb = coupled_pair
+    with pytest.raises(ValueError, match="needs a GCM"):
         HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=False,
                          device="cpu")
-    for call in (lambda: thyb.set_tisr_table(None),
-                 lambda: thyb.set_sst_table(None),
-                 lambda: thyb.set_mesh(None)):
-        with pytest.raises(NotImplementedError):
-            call()
-    s = thyb.init_state(_sst(thyb.geom))
-    thyb.emit_components = True
-    try:
-        with pytest.raises(NotImplementedError):
-            thyb.cycle(s, 0, 0.5, 0.05)
-    finally:
-        thyb.emit_components = False
-    for kw in (dict(truth_provider=lambda i: {}), dict(time_mean_path="x"),
-               dict(cycles_per_dispatch=2)):
-        with pytest.raises(NotImplementedError):
-            run_prediction(thyb, s, ModelDate(1990, 1, 1), 1, **kw)
+    with pytest.raises(NotImplementedError, match="slab-ocean"):
+        HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=True,
+                         ocean_packs=[object()], device="cpu")
+    for h in (thyb, chyb):
+        for call in (lambda: h.set_tisr_table(None),
+                     lambda: h.set_sst_table(None),
+                     lambda: h.set_mesh(None)):
+            with pytest.raises(NotImplementedError):
+                call()
+        s = h.init_state(_sst(h.geom))
+        for flag in ("emit_components", "persist_surface"):
+            setattr(h, flag, True)
+            try:
+                with pytest.raises(NotImplementedError):
+                    h.cycle(s, 0, 0.5, 0.05)
+            finally:
+                setattr(h, flag, False)
+        for kw in (dict(truth_provider=lambda i: {}),
+                   dict(time_mean_path="x"), dict(cycles_per_dispatch=2)):
+            with pytest.raises(NotImplementedError):
+                run_prediction(h, s, ModelDate(1990, 1, 1), 1, **kw)
+    with pytest.raises(NotImplementedError, match="persist_surface"):
+        chyb.speedy_window(None, None, 0, 0.5, 0.05, sfc_carry=object())
+    g, bd = chyb.gcm.geom, chyb.gcm.bd
+    for kw, match in ((dict(), "boundary files"),
+                      (dict(bd=bd, sppt_on=True), "SPPT"),
+                      (dict(bd=bd, cgrate_on=True), "cgrate"),
+                      (dict(bd=bd, sstan_monthly=np.zeros(1)), "anomal")):
+        with pytest.raises(NotImplementedError, match=match):
+            GCM(g, dtype=torch.float64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="RDF"):
+        type(chyb.gcm.phys)(g, chyb.gcm.const, randfh=np.zeros(1))
+    with pytest.raises(NotImplementedError):
+        chyb.gcm.sht.set_mesh(None)

@@ -1,0 +1,107 @@
+"""Port parity of the GCM (gcm.py): init_state, stepone and leapfrog steps
+with physics, at T10 in float64 on the CPU.
+
+The JAX package's GCM (its default zonal="dft") and the port's take the
+same synthetic boundary data (aquaplanet and uniform land); the port's
+steps run the plain versions of K5-K8 and the plain physics.  The state
+after init_state + stepone + 4 leapfrog steps (across the shortwave
+cadence: steps 0 and 3 run the shortwave) is held at 1e-9 of each field
+level's signal, floored at 1e-3 of the whole array's magnitude (the
+humidity of the top levels is rounding noise).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speedy_ml_tpu.core.geometry import Geometry as JGeometry
+from speedy_ml_tpu.core.spectral import SpectralTransform as JST
+from speedy_ml_tpu.data.calendar import ModelDate as JModelDate
+from speedy_ml_tpu.gcm import GCM as JGCM
+from speedy_ml_tpu.physics.boundaries import \
+    synthetic_boundary_data as jsynthetic
+from speedy_ml_tpu_torch.convert import (boundary_from_numpy,
+                                         gcm_state_from_numpy)
+from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.data.calendar import ModelDate
+from speedy_ml_tpu_torch.gcm import GCM
+from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
+
+GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
+RTOL = 1e-9
+FIELDS = ("vor", "div", "t", "ps", "tr")
+
+
+def _close(got, ref, rtol=RTOL):
+    ref = np.asarray(ref)
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    assert got.shape == ref.shape
+    r = ref.reshape(-1, *ref.shape[-2:]) if ref.ndim > 2 else ref[None]
+    g = got.reshape(r.shape)
+    floor = 1e-3 * np.abs(r).max()
+    for a, b in zip(g, r):
+        scale = max(np.abs(b - b.mean()).max(), floor, 1e-300)
+        assert np.abs(a - b).max() <= rtol * scale, (
+            f"err {np.abs(a - b).max():.3e}, scale {scale:.3e}")
+
+
+def _close_gcm_state(got, ref):
+    for k in FIELDS:
+        _close(getattr(got.spectral, k), getattr(ref.spectral, k))
+    for k in ("hflux_l", "hflux_s", "hflux_i", "precip"):
+        _close(getattr(got.fluxes, k), getattr(ref.fluxes, k))
+    for k in ("tau2", "stratc", "tt_rsw", "ssrd", "ssr", "tsr"):
+        _close(getattr(got.radiation, k), getattr(ref.radiation, k))
+    assert got.istep == int(ref.istep)
+
+
+@pytest.fixture(scope="module", params=["aquaplanet", "land"])
+def pair(request):
+    land = request.param == "land"
+    jg = JGeometry(**GEOM)
+    jbd = jsynthetic(jg, JST(jg, dtype=jnp.float64), land=land)
+    jgcm = JGCM(jg, dtype=jnp.float64, nsteps_day=36, bd=jbd)
+    g = Geometry(**GEOM)
+    tgcm = GCM(g, dtype=torch.float64, nsteps_day=36,
+               bd=synthetic_boundary_data(g, land=land, dtype=torch.float64),
+               device="cpu")
+    return jgcm, tgcm
+
+
+def test_init_stepone_and_leapfrog_match(pair):
+    jgcm, tgcm = pair
+    js, jf = jgcm.init_state(JModelDate(1990, 7, 1))
+    ts, tf = tgcm.init_state(ModelDate(1990, 7, 1))
+    _close_gcm_state(ts, js)
+    for k in tf.__dataclass_fields__:
+        _close(getattr(tf, k), getattr(jf, k))
+    js, ts = jgcm.stepone(js, jf), tgcm.stepone(ts, tf)
+    _close_gcm_state(ts, js)
+    js, ts = jgcm.run_window(js, jf, 4), tgcm.run_window(ts, tf, 4)
+    assert ts.istep == 4
+    _close_gcm_state(ts, js)
+    # a converted JAX state continues like the port's own
+    conv = gcm_state_from_numpy(js, device="cpu", dtype=torch.float64)
+    a, b = tgcm.leapfrog(conv, tf), tgcm.leapfrog(ts, tf)
+    _close_gcm_state(a, b)
+
+
+def test_boundary_conversion_and_unported_options(pair):
+    jgcm, tgcm = pair
+    bd = boundary_from_numpy(jgcm.bd, device="cpu", dtype=torch.float64)
+    for k in bd.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(bd, k).numpy(),
+                                      getattr(tgcm.bd, k).numpy(), k)
+    _close(tgcm.phis, jgcm.phis, 1e-12)
+    g = tgcm.geom
+    with pytest.raises(NotImplementedError, match="boundary files"):
+        GCM(g, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="SPPT"):
+        GCM(g, bd=tgcm.bd, sppt_on=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="cgrate"):
+        GCM(g, bd=tgcm.bd, cgrate_on=True, device="cpu")
+    for call in (lambda: tgcm.run_days(None, None, 1),
+                 lambda: tgcm.set_mesh(None)):
+        with pytest.raises(NotImplementedError):
+            call()

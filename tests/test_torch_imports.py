@@ -64,15 +64,34 @@ def _no_cuda(monkeypatch):
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from speedy_ml_tpu_torch import resolve_device
+    from speedy_ml_tpu_torch.core.geometry import Geometry
+    from speedy_ml_tpu_torch.core.spectral import SpectralTransform
+    from speedy_ml_tpu_torch.dycore.model import DycoreModel
     from speedy_ml_tpu_torch.esn.reservoir import ESNHyper, generate
+    from speedy_ml_tpu_torch.gcm import GCM
     from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
     from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+    from speedy_ml_tpu_torch.physics.boundaries import \
+        synthetic_boundary_data
 
+    g = Geometry(trunc=10, nlon=32, nlat=16, nlev=8)
+    bd = synthetic_boundary_data(g)
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_untrained_hybrid(n_regions=1152, m=6000, ml_only=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_untrained_hybrid()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_untrained_hybrid(object(), ml_only=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpectralTransform(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DycoreModel(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GCM(g, bd=bd)
+    # asked for, the CPU works
+    gcm = GCM(g, bd=bd, device="cpu")
+    assert gcm.phis.device.type == "cpu" and gcm.sht.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HybridAtmosphere(None, None, [], ml_only=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -81,12 +100,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 
 def test_wrappers_run_plain_on_cpu_and_count_nothing():
+    from speedy_ml_tpu_torch.core.geometry import Geometry
+    from speedy_ml_tpu_torch.dycore.init import rest_state
+    from speedy_ml_tpu_torch.dycore.model import DycoreModel
     from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
     from speedy_ml_tpu_torch.kernels.readout import readout
+    from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
+    from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
+    from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
     from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 
-    wrappers = (esn_step, readout, window_gather, core_scatter)
+    wrappers = (esn_step, readout, window_gather, core_scatter, sht_analysis,
+                sht_synthesis, grid_dynamics, spectral_tail)
     before = [w.launches for w in wrappers]
     g = torch.Generator().manual_seed(0)
     vals = torch.rand((3, 2, 16), generator=g)
@@ -101,17 +128,36 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     window_gather(fields, [idx], [ones * 0], [ones])
     core_scatter([torch.rand((2, 18), generator=g)],
                  torch.arange(36, dtype=torch.int32), 4, 1, 2, 3)
+    # K5-K8: one dry step of a T10 dycore runs all four plain versions
+    dyn = DycoreModel(Geometry(trunc=10, nlon=32, nlat=16, nlev=8),
+                      dtype=torch.float64, device="cpu")
+    state, phis = rest_state(dyn)
+    new, _ = dyn.leapfrog_step(state, phis)
+    assert torch.isfinite(new.t).all()
     assert [w.launches for w in wrappers] == before
 
 
 def test_wrappers_refuse_other_devices():
     """A tensor on a device with no kernel raises (no silent plain path)."""
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
     from speedy_ml_tpu_torch.kernels.readout import readout
+    from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
+    from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
+    from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
 
-    x = torch.empty((2, 16), device="meta")
+    meta = lambda *s: torch.empty(s, device="meta")
+    x = meta(2, 16)
     with pytest.raises(ValueError, match="no kernel"):
-        esn_step(torch.empty((3, 2, 16), device="meta"), x, linear=True,
-                 shifts=(1, 2, 3))
+        esn_step(meta(3, 2, 16), x, linear=True, shifts=(1, 2, 3))
     with pytest.raises(ValueError, match="no kernel"):
-        readout(torch.empty((2, 3, 16), device="meta"), x)
+        readout(meta(2, 3, 16), x)
+    with pytest.raises(ValueError, match="no kernel"):
+        sht_analysis(meta(2, 16, 32), *(None,) * 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        sht_synthesis(meta(2, 11, 12), *(None,) * 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        grid_dynamics(meta(50, 16, 32), None, None, 8, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        spectral_tail(None, meta(73, 11, 12), *(None,) * 4, 2, 1.0, 0.0, 0,
+                      True)
