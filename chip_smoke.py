@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (speedy_ml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--ptxas]
+    python3 chip_smoke.py [--ptxas] [--kernels]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -17,16 +17,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      K1 ESN step, K2 readout (bare product, with a negative control that
      must fail the tolerance), K3 window gather, K4 core scatter,
      K5 sht_analysis, K6 sht_synthesis, K7 grid_dynamics,
-     K8 spectral_tail;
+     K8 spectral_tail, K9 column_moist, K10a radlw_down, K10b radlw_up
+     (the column physics: in float64 against the plain float64 version,
+     then in float32 with the columns whose integer outputs differ
+     counted); --kernels stops here;
   5. the SPEEDY window (stepone + 24 steps) on the card against the same
      window in the port on the CPU in float32 (the plain versions);
   6. the ML-only main path, run_prediction with the writer, every launch
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K8, cycle_ms
+  7. the coupled main path, run_prediction: launches of K1-K10, cycle_ms
      (median and range of 5 x 20 cycles), device busy, idle share,
-     launches per cycle, device ms per stage, the top device ops;
+     launches per cycle, device ms per stage and per physics scheme, the
+     top device ops;
      physical checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
@@ -67,6 +71,15 @@ K2_RTOL = 2e-5
 SHT_RTOL = 1e-5
 K7_ULPS = 4
 TAIL_RTOL = 1e-5
+# K9/K10, float32: a fraction of each output's scale over the columns
+# whose integer outputs (itop, icnv) agree, and the share of columns in
+# which they may differ (a near-tie decision falling the other way);
+# float64: the same operations in the same order, integers equal.  On an
+# H100 K9 and K10b came out bit-identical and K10a at 2.6e-7 (its x**4 is
+# two squarings, torch.pow's is powf), so the float32 bound is 2e-6
+COLUMN_RTOL = 2e-6
+COLUMN_FLIPS = 0.005
+COLUMN_RTOL_F64 = 1e-11
 # the record_function ranges of the coupled cycle
 RANGES = ("predict_all", "assemble_global", "inject_to_speedy",
           "speedy_window", "physics", "build_feedback", "build_local_model")
@@ -161,6 +174,32 @@ def per_field_err(torch, got, ref):
     return float(rel), float((g - r).abs().max())
 
 
+def column_errors(got: dict, ref: dict, int_names=()):
+    """Compare the named outputs of a column kernel (name -> tensor whose
+    last two axes are (lat, lon)).  Returns (flipped, rel, worst):
+    flipped, the number of columns in which an integer output differs (a
+    near-tie decision that fell the other way changes the whole column);
+    rel, over the other columns, the largest |got - ref| of a float
+    output as a fraction of that output's scale (its max |ref|); worst,
+    that output's name."""
+    first = next(iter(ref.values()))
+    agree = first.new_ones(first.shape[-2:], dtype=bool)
+    for nm in int_names:
+        agree &= got[nm] == ref[nm]
+    rel, worst = 0.0, ""
+    for nm, r in ref.items():
+        if nm in int_names:
+            continue
+        scale = float(r.abs().max())
+        if scale == 0.0:
+            scale = 1.0
+        diff = (got[nm] - r).abs().masked_fill(~agree, 0.0)
+        err = float(diff.max()) / scale
+        if not err <= rel:       # also true for NaN
+            rel, worst = err, nm
+    return int((~agree).sum()), rel, worst
+
+
 def grid_fields(torch, sht, spec, K):
     """Grid T, u, v, q (K each) and logp of level 0 of a spectral state."""
     ucosm, vcosm = sht.uvspec(spec.vor[0], spec.div[0])
@@ -183,6 +222,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's ptxas report for every kernel")
+    ap.add_argument("--kernels", action="store_true",
+                    help="stop after the kernel checks (phase 4); prints "
+                         "no result line")
     args = ap.parse_args()
 
     import numpy as np
@@ -212,6 +254,9 @@ def main():
     from speedy_ml_tpu_torch.hybrid.driver import run_prediction
     from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
     from speedy_ml_tpu_torch.kernels import build as kb
+    from speedy_ml_tpu_torch.kernels import column_longwave as clw
+    from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
+                                                          column_moist_plain)
     from speedy_ml_tpu_torch.kernels.core_scatter import (core_scatter,
                                                           core_scatter_plain)
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
@@ -228,7 +273,9 @@ def main():
         window_gather, window_gather_plain)
     from speedy_ml_tpu_torch.physics.boundaries import \
         synthetic_boundary_data
-    from speedy_ml_tpu_torch.physics.driver import RadiationCarry
+    from speedy_ml_tpu_torch.physics import radiation as rad
+    from speedy_ml_tpu_torch.physics.driver import (PhysicsModel,
+                                                    RadiationCarry)
     from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
     t_start = time.perf_counter()
@@ -527,6 +574,78 @@ def main():
                  + imp.blob.numel() * 4,
                  MN * (12 * K * K + 100 * K + 20), PEAK_F32_S))
     log("  (K8 max_abs_err is relative to each field level's scale)")
+
+    # K9, K10a, K10b: the column physics on the main path's own inputs,
+    # the physics grid of this state and the radiation carry that stepone
+    # left (a shortwave step, so tau2 and stratc are real), float32; and
+    # on the same inputs upcast, against a float64 PhysicsModel's tables
+    phys = gcm.phys
+    phys64 = PhysicsModel(g, gcm.const, dtype=torch.float64, device=dev)
+    ug4, vg4, tg4, qg4, phig4, pslg4 = gcm.physics_grid(st, 0)
+    carry4 = gst.radiation
+    if float(carry4.tau2.min()) <= 0 or float(carry4.tau2.max()) > 1:
+        fail("the radiation carry after stepone holds no transmissivities")
+    up64 = lambda a: tuple(map(up64, a)) if isinstance(a, tuple) \
+        else a.double()
+
+    def column_check(name, src, replaces, kernel, plain, args, tabs, tabs64,
+                     to_dict, ints, planes, ops):
+        """Both comparisons of one column kernel, then record()."""
+        a64 = [up64(a) for a in args]
+        fl, rel, worst = column_errors(to_dict(kernel(*a64, tabs64)),
+                                       to_dict(plain(*a64, tabs64)), ints)
+        log(f"{name} float64 on the card: {fl} columns of {G} with other "
+            f"integer outputs, worst output {worst or 'none'} "
+            f"{rel:.3e} of its scale (tolerance {COLUMN_RTOL_F64:.0e}, "
+            f"integers equal)")
+        if fl or not rel <= COLUMN_RTOL_F64:
+            fail(f"{name}<double> disagrees with the plain float64 version")
+        fl, rel, worst = column_errors(to_dict(kernel(*args, tabs)),
+                                       to_dict(plain(*args, tabs)), ints)
+        log(f"{name} float32: {fl} columns of {G} with other integer "
+            f"outputs (at most {COLUMN_FLIPS:.1%}), worst output "
+            f"{worst or 'none'} over the others")
+        if fl > COLUMN_FLIPS * G:
+            fail(f"{name}: {fl} columns flipped")
+        return record(name, src, replaces, rel, COLUMN_RTOL,
+                      measure(torch, lambda: kernel(*args, tabs), reps=50),
+                      measure(torch, lambda: plain(*args, tabs), reps=10),
+                      bound_ms(4 * G * planes, G * ops, PEAK_F32_S))
+
+    csrc = "speedy_ml_tpu_torch/kernels/csrc/"
+    # planes: 4-byte (lat, lon) planes read + written (int64 counts two);
+    # ops: a rough count per column, far below the bytes' time either way
+    ok &= column_check(
+        "K9_column_moist", csrc + "column_moist.cu",
+        "speedy_ml_tpu/physics/driver.py:192", column_moist,
+        column_moist_plain, (tg4, qg4, phig4, pslg4), phys.moist_tabs,
+        phys64.moist_tabs, lambda m: m._asdict(), ("itop", "icnv"),
+        (3 * K + 1) + (6 * K + 5) + 4, 60 * K + 100)
+    down_plain = lambda ta, tau2, t: rad.radlw_down(
+        ta, tau2, t.fband, wvi2=t.wvi2, dsig=t.dsig, sbc=t.sbc)
+    up_plain = lambda *a: rad.radlw_up(*a[:-1], a[-1].fband, dsig=a[-1].dsig,
+                                       sbc=a[-1].sbc)
+    down_dict = lambda o: dict(slrd=o[0], dfabs=o[1], flux_bands=o[2],
+                               st4a_mean=o[3][0], st4a_grad=o[3][1])
+    ok &= column_check(
+        "K10a_radlw_down", csrc + "column_longwave.cu",
+        "speedy_ml_tpu/physics/radiation.py:318", clw.radlw_down, down_plain,
+        (tg4, carry4.tau2), phys.lw_tabs, phys64.lw_tabs, down_dict, (),
+        5 * K + (3 * K + 5), 60 * K)
+    m4 = column_moist(tg4, qg4, phig4, pslg4, phys.moist_tabs)
+    dn4 = clw.radlw_down(tg4, carry4.tau2, phys.lw_tabs)
+    fx4 = phys.surface_fluxes(m4, ug4, vg4, tg4, phig4, gcm.bd, sfc, forcing,
+                              carry4, dn4[0])
+    ok &= column_check(
+        "K10b_radlw_up", csrc + "column_longwave.cu",
+        "speedy_ml_tpu/physics/radiation.py:381", clw.radlw_up, up_plain,
+        (tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2], dn4[3],
+         carry4.tau2, carry4.stratc), phys.lw_tabs, phys64.lw_tabs,
+        lambda o: dict(slr=o[0], olr=o[1], dfabs=o[2]), (),
+        (8 * K + 9) + (K + 2), 60 * K)
+    log("  (K9/K10 max_abs_err is relative to each output's scale, over "
+        "the columns whose integer outputs agree)")
+    del phys64, m4, dn4, fx4
     if not ok:
         fail("a kernel disagrees with its plain version")
 
@@ -576,6 +695,11 @@ def main():
     log("K1 cols/win_cols modes, K2 f32 / ML-only forms and K3's "
         f"core-only form agree with their plain versions (K2 worst "
         f"{worst:.3e} of its scale, K3 exact)")
+    if args.kernels:
+        log(f"chip_smoke --kernels: the kernel checks passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
 
     # -- 5. the SPEEDY window on the card against the plain port on the
     #       CPU (float32), from the same injected state
@@ -623,7 +747,10 @@ def main():
                "K5_sht_analysis": sht_analysis,
                "K6_sht_synthesis": sht_synthesis,
                "K7_grid_dynamics": grid_dynamics,
-               "K8_spectral_tail": spectral_tail}
+               "K8_spectral_tail": spectral_tail,
+               "K9_column_moist": column_moist,
+               "K10a_radlw_down": clw.radlw_down,
+               "K10b_radlw_up": clw.radlw_up}
     ml_kernels = list(kernels)[:4]
     out_dir = ROOT / "output" / "chip_smoke"
 
@@ -733,7 +860,7 @@ def main():
         results[nm]["launches"] = c
     log(f"coupled main path: run_prediction {len(dts)} cycles in "
         f"{wall:.3f} s with the writer; launches {counts} "
-        f"(per cycle: " + ", ".join(f"{nm[:2]} {c / CYCLES:g}"
+        f"(per cycle: " + ", ".join(f"{nm.split('_')[0]} {c / CYCLES:g}"
                                      for nm, c in counts.items()) + "); "
         + check_stream(path, CYCLES))
 
@@ -770,7 +897,9 @@ def main():
     log("  device time per cycle by stage, each profiled alone: "
         + "; ".join(parts) + f" [{card}]")
     knames = {"K5": "sht_analysis_kernel", "K6": "sht_synthesis_kernel",
-              "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel"}
+              "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel",
+              "K9": "column_moist_kernel", "K10a": "radlw_down_kernel",
+              "K10b": "radlw_up_kernel"}
     kk = {k: [e for e in window_kern if v in e.key]
           for k, v in knames.items()}
     log("  inside speedy_window: " + "; ".join(
@@ -781,28 +910,69 @@ def main():
         if not v:
             fail(f"{k} was not launched inside speedy_window")
     # the column physics of one step, with and without the shortwave
-    # (a window runs 10 steps with it and 16 without)
+    # (a window runs 10 steps with it and 16 without), on the carry of a
+    # shortwave step (tau2 and stratc real)
     sfc_ = init_surface_state(gcm.bd, imon, fmon,
                               sst_hybrid=final.sst_grid, flags=gcm.cpl)
     fo_ = gcm.forcing_for(sfc_, tyear)
     grid_ = gcm.physics_grid(spec_, 0)
-    carry_ = RadiationCarry.zeros(K, nlat, nlon, f32, dev)
+    phys = gcm.phys
+    step = lambda sw, carry: phys.compute(*grid_, bd=gcm.bd, sfc=sfc_,
+                                          forcing=fo_, carry=carry,
+                                          lradsw=sw)
+    carry_ = step(True, RadiationCarry.zeros(K, nlat, nlon, f32, dev))[4]
     per = {}
     for sw in (True, False):
-        fn = lambda: gcm.phys.compute(*grid_, bd=gcm.bd, sfc=sfc_,
-                                      forcing=fo_, carry=carry_, lradsw=sw)
+        fn = lambda: step(sw, carry_)
         fn()
         ms, kk_, _ = profile_device(torch, fn, reps=3)
         per[sw] = (ms, sum(e.count for e in kk_) / 3)
     n_sw = 2 + len(range(0, hyb.gcm_steps, 3))
     n_lw = 2 + hyb.gcm_steps - n_sw
-    log(f"  physics (PhysicsModel.compute, plain PyTorch): "
+    log(f"  physics (PhysicsModel.compute: K9 and K10 kernels, the other "
+        f"schemes plain PyTorch): "
         f"{per[True][0]:.4f} ms and {per[True][1]:g} launches per step "
         f"with the shortwave, {per[False][0]:.4f} ms and "
         f"{per[False][1]:g} without; per cycle ({n_sw} + {n_lw} steps) "
         f"{n_sw * per[True][0] + n_lw * per[False][0]:.4f} ms and "
         f"{n_sw * per[True][1] + n_lw * per[False][1]:g} launches "
         f"[{card}]")
+    # each scheme of the step alone, in the step's order: the kernels
+    # beside what is still plain PyTorch (ROADMAP B2c-B2e)
+    ug_, vg_, tg_, qg_, phig_, pslg_ = grid_
+    m_ = column_moist(tg_, qg_, phig_, pslg_, phys.moist_tabs)
+    dn_ = clw.radlw_down(tg_, carry_.tau2, phys.lw_tabs)
+    fx_ = phys.surface_fluxes(m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_,
+                              carry_, dn_[0])
+    up_ = clw.radlw_up(tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2],
+                       dn_[3], carry_.tau2, carry_.stratc, phys.lw_tabs)
+    pbl_ = phys.vertical_diffusion(m_, ug_, vg_, phig_)
+    schemes = {
+        "K9 column_moist": lambda: column_moist(tg_, qg_, phig_, pslg_,
+                                                phys.moist_tabs),
+        "cloud + radsw (B2e, plain, every 3rd step)": lambda: phys.shortwave(
+            m_, phig_, gcm.bd, fo_, carry_),
+        "K10a radlw_down": lambda: clw.radlw_down(tg_, carry_.tau2,
+                                                  phys.lw_tabs),
+        "suflux (B2c, plain)": lambda: phys.surface_fluxes(
+            m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_, carry_, dn_[0]),
+        "K10b radlw_up": lambda: clw.radlw_up(
+            tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2], dn_[3],
+            carry_.tau2, carry_.stratc, phys.lw_tabs),
+        "vdifsc (B2d, plain)": lambda: phys.vertical_diffusion(
+            m_, ug_, vg_, phig_),
+        "final sums (B2d, plain)": lambda: phys.tendency_sums(
+            m_, carry_, sfc_, fx_, up_[2], up_[1], pbl_)}
+    # 20 calls each: a profile can miss its first launch or two, which
+    # is all of a kernel's in a short one
+    parts = []
+    for nm, fn in schemes.items():
+        fn()
+        ms, kk_, _ = profile_device(torch, fn, reps=20)
+        parts.append(f"{nm} {ms:.4f} ms "
+                     f"({sum(e.count for e in kk_) / 20:g} launches)")
+    log("  physics by scheme, each profiled alone, per call: "
+        + "; ".join(parts) + f" [{card}]")
 
     run = lambda: run_prediction(hyb, final, date0, N_TIMED)
     walls = []

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every `csrc/*.cu` is compiled for Hopper (`sm_90a`) by its own nvcc
-process, all started together, then linked into one shared library with
-a plain C interface.  The build runs at the first launch of any kernel
+process, all started together, with NVCC_FLAGS and that source's
+SOURCE_FLAGS, then linked into one shared library with a plain C
+interface.  The build runs at the first launch of any kernel
 (or an explicit `build()`), under `kernels/_build/<hash of the sources
 and flags>/`, so an edited source rebuilds and an unchanged one is
 reused.  The directory is in .gitignore.
@@ -29,6 +30,11 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libspeedy_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of single sources, after NVCC_FLAGS.  The column physics rounds
+# every operation apart (no FMA contraction): its convection decides by
+# comparing sums, as the plain version does.
+SOURCE_FLAGS = {"column_moist.cu": ["-fmad=false"],
+                "column_longwave.cu": ["-fmad=false"]}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -56,6 +62,11 @@ SIGNATURES = {
     "spectral_tail_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
                              _f, _f, _vp, _vp, _vp, _vp, _vp, _vp],
+    "column_moist_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp,
+                            _vp, _vp],
+    "radlw_down_launch": [_i, _i, _i, _vp, _vp, _vp, _i, _vp, _vp],
+    "radlw_up_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                        _vp, _vp, _vp, _i, _vp, _vp],
 }
 
 _lib = None  # the loaded library, once per process
@@ -81,6 +92,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -102,7 +114,8 @@ def build(verbose: bool = False) -> Path:
         procs = []
         for src in _sources():
             obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, []), "-c",
+                   str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

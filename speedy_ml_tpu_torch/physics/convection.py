@@ -13,6 +13,23 @@ import torch
 
 from speedy_ml_tpu_torch.physics import constants as pc
 
+RDPS = 2.0 / (1.0 - pc.PSMIN)
+
+
+def entrainment_profile(sig) -> list[float]:
+    """The entrainment profile, normalized to ENTMAX (phy_convmf.f90:80-88):
+    K Python floats, zero at the top and the bottom level."""
+    nl1 = len(sig) - 1
+    entr = [max(0.0, float(s) - 0.5) ** 2 for s in sig]
+    entr[0] = entr[nl1] = 0.0
+    norm = sum(entr[1:nl1])
+    return [e * (pc.ENTMAX / norm) for e in entr]
+
+
+def cloud_base_flux(dsig, p0, grav) -> float:
+    """fm0, the cloud-base mass flux per unit humidity excess."""
+    return p0 * float(dsig[len(dsig) - 1]) / (grav * pc.TRCNV * 3600.0)
+
 
 def convmf(psa, se, qa, qsat, *, sig, dsig, wvi2, p0, grav, alhc):
     """Convective fluxes of dry static energy and moisture.
@@ -23,16 +40,12 @@ def convmf(psa, se, qa, qsat, *, sig, dsig, wvi2, p0, grav, alhc):
     K = se.shape[0]
     nl1 = K - 1
     fqmax = 5.0
-    fm0 = p0 * float(dsig[nl1]) / (grav * pc.TRCNV * 3600.0)
-    rdps = 2.0 / (1.0 - pc.PSMIN)
+    fm0 = cloud_base_flux(dsig, p0, grav)
+    rdps = RDPS
     zero = torch.zeros_like(psa)
 
     mss = se + alhc * qsat
-    # entrainment profile, normalized to ENTMAX (phy_convmf.f90:80-88)
-    entr = [max(0.0, float(s) - 0.5) ** 2 for s in sig]
-    entr[0] = entr[nl1] = 0.0
-    norm = sum(entr[1:nl1])
-    entr = [e * (pc.ENTMAX / norm) for e in entr]
+    entr = entrainment_profile(sig)
 
     # ---- 1. trigger conditions (phy_convmf.f90:93-140)
     mse0 = se[nl1] + alhc * qa[nl1]

@@ -6,10 +6,16 @@ coupled-surface state, the daily forcing and the radiation carry
 (shortwave runs every nstrad steps; its results persist in the carry),
 and returns grid tendencies, the new carry and the flux diagnostics.
 
-This module is plain PyTorch on the device (hot spot B2 of ROADMAP
-queue B; its kernel is a later slice).  The shortwave cadence is a
-Python branch on a host bool; data-dependent level indices (itop,
-icltop) are torch.gather calls and comparisons, never host reads.
+The step is mixed (hot spot B2 of ROADMAP queue B).  The moist group
+(humidity, convection, large-scale condensation) is one call of
+kernels.column_moist and the longwave pair two calls of
+kernels.column_longwave: on a CUDA tensor each launches its hand-written
+kernel (K9, K10), on a CPU tensor its plain version.  The clouds and the
+shortwave, the surface fluxes, the vertical diffusion and the final sums
+are plain PyTorch on the device; their kernels are still to write.  The
+shortwave cadence is a Python branch on a host bool; data-dependent
+level indices (itop, icltop) are torch.gather calls and comparisons
+(selects in the kernels), never host reads.
 """
 
 from __future__ import annotations
@@ -21,11 +27,12 @@ import numpy as np
 import torch
 
 from speedy_ml_tpu_torch.core.constants import GAMMA_LAPSE, REFRH1
+from speedy_ml_tpu_torch.kernels import column_longwave
+from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
+                                                      moist_tables)
 from speedy_ml_tpu_torch.physics import constants as pc
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.boundaries import BoundaryData
-from speedy_ml_tpu_torch.physics.condensation import lscond
-from speedy_ml_tpu_torch.physics.convection import convmf
 from speedy_ml_tpu_torch.physics.humidity import qsat_from_t
 from speedy_ml_tpu_torch.physics.land_sea import SurfaceState
 from speedy_ml_tpu_torch.physics.surface import suflux
@@ -121,6 +128,11 @@ class PhysicsModel:
         self.sig_t = t(sig)
         self.slat_t, self.clat_t = t(geom.sin_lat), t(geom.cos_lat)
         self.fband = rad.build_fband()
+        # the tables of the column kernels and their plain versions
+        self.moist_tabs = moist_tables(sig, dsig, self.sig_t, self.wvi2_t,
+                                       self.grdsig, self.grdscp, constants)
+        self.lw_tabs = column_longwave.longwave_tables(
+            self.wvi2, dsig, constants.sbc, self.fband, dtype, self.device)
 
     # ------------------------------------------------------------------
 
@@ -165,78 +177,79 @@ class PhysicsModel:
 
         Inputs (K, lat, lon) except pslg (lat, lon); lradsw a host bool
         (shortwave every nstrad steps).  Returns (utend, vtend, ttend,
-        qtend, carry', FluxDiag)."""
+        qtend, carry', FluxDiag).  The step is the stage methods below in
+        this order; each can be called (and timed) alone."""
         if sppt_pattern is not None:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
-        c = self.const
-        K = self.geom.nlev
-        sig, dsig, sigh = self.sig, self.dsig, self.sigh
-        grdsig = self.grdsig[:, None, None]
-        grdscp = self.grdscp[:, None, None]
-
-        psg = torch.exp(pslg)
-        rps = 1.0 / psg
-        qg = torch.clamp(qg, min=0.0)
-        se = c.cp * tg + phig
-        qsat = qsat_from_t(tg, self.sig_t[:, None, None] * psg[None])
-        rh = qg / qsat
-
-        # --- precipitation
-        itop, cbmf, precnv, dfse, dfqa = convmf(
-            psg, se, qg, qsat, sig=sig, dsig=dsig, wvi2=self.wvi2_t,
-            p0=c.p0, grav=c.grav, alhc=c.alhc)
-        tt_cnv = dfse * rps[None] * grdscp
-        qt_cnv = dfqa * rps[None] * grdsig
-        icnv = (K - 1) - itop
-        itop, precls, tt_lsc, qt_lsc = lscond(
-            psg, qg, qsat, itop, sig=sig, dsig=dsig, p0=c.p0, grav=c.grav,
-            cp=c.cp, alhc=c.alhc)
-        ttend = tt_cnv + tt_lsc
-        qtend = qt_cnv + qt_lsc
-
+        # --- humidity, convection, large-scale condensation (K9)
+        m = column_moist(tg, qg, phig, pslg, self.moist_tabs)
         # --- shortwave radiation (every nstrad steps)
         if lradsw:
-            sol = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
-                                   ozone=forcing.ozone, zenit=forcing.zenit,
-                                   stratz=forcing.stratz)
-            gse = (se[K - 2] - se[K - 1]) / (phig[K - 2] - phig[K - 1])
-            icltop, cloudc, clstr, qcloud = rad.cloud(
-                qg, rh, precnv, precls, itop, gse, bd.fmask_l)
-            ssrd, ssr, tsr, dfabs_sw, tau2, stratc = rad.radsw(
-                psg, qg, icltop, cloudc, clstr, qcloud, sol, forcing.albsfc,
-                sig=sig, dsig=dsig)
-            carry = RadiationCarry(tau2=tau2, stratc=stratc,
-                                   tt_rsw=dfabs_sw * rps[None] * grdscp,
-                                   ssrd=ssrd, ssr=ssr, tsr=tsr,
-                                   randfv=carry.randfv)
-
-        # --- longwave down
-        slrd, dfabs_lw, flux_bands, st4a = rad.radlw_down(
-            tg, carry.tau2, self.fband, wvi2=self.wvi2, dsig=dsig, sbc=c.sbc)
-
+            carry = self.shortwave(m, phig, bd, forcing, carry)
+        # --- longwave down (K10)
+        slrd, dfabs_lw, flux_bands, st4a = column_longwave.radlw_down(
+            tg, carry.tau2, self.lw_tabs)
         # --- surface fluxes
-        fx = suflux(psg, ug, vg, tg, qg, rh, phig, phi0=bd.phis0,
-                    fmask=bd.fmask_l, tland=sfc.stl_am, tsea=sfc.sst_am,
-                    swav=sfc.soilw_am, ssrd=carry.ssrd, slrd=slrd,
-                    forog=bd.forog, alb_l=forcing.alb_l,
-                    alb_s=forcing.alb_s, snowc=forcing.snowc,
-                    clat_row=self.clat_t, sigl_bot=self.sigl_bot,
-                    wvi2_bot=self.wvi2_bot, rd=287.0, cp=c.cp, alhc=c.alhc,
-                    sbc=c.sbc)
-
-        # --- longwave up
-        slr, olr, dfabs_lw = rad.radlw_up(
+        fx = self.surface_fluxes(m, ug, vg, tg, phig, bd, sfc, forcing,
+                                 carry, slrd)
+        # --- longwave up (K10)
+        slr, olr, dfabs_lw = column_longwave.radlw_up(
             tg, fx.tsfc, slrd, fx.slru[2], dfabs_lw, flux_bands, st4a,
-            carry.tau2, carry.stratc, self.fband, dsig=dsig, sbc=c.sbc)
-        tt_rlw = dfabs_lw * rps[None] * grdscp
-        ttend = ttend + carry.tt_rsw + tt_rlw
+            carry.tau2, carry.stratc, self.lw_tabs)
+        # --- PBL / vertical diffusion
+        pbl = self.vertical_diffusion(m, ug, vg, phig)
+        # --- the sums, and the fluxes for the coupler
+        ut, vt, ttend, qtend, diag = self.tendency_sums(
+            m, carry, sfc, fx, dfabs_lw, olr, pbl)
+        return ut, vt, ttend, qtend, carry, diag
 
-        # --- PBL / vertical diffusion, with the surface fluxes on the
-        #     lowest level
-        ut_pbl, vt_pbl, tt_pbl, qt_pbl = vdifsc(
-            ug, vg, se, rh, qg, qsat, phig, icnv, sig=sig, sigh=sigh,
-            dsig=dsig, cp=c.cp, alhc=c.alhc)
-        bot = K - 1
+    def shortwave(self, m, phig, bd, forcing, carry) -> RadiationCarry:
+        """Clouds and the shortwave step: the new radiation carry."""
+        K = self.geom.nlev
+        sol = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
+                               ozone=forcing.ozone, zenit=forcing.zenit,
+                               stratz=forcing.stratz)
+        gse = (m.se[K - 2] - m.se[K - 1]) / (phig[K - 2] - phig[K - 1])
+        icltop, cloudc, clstr, qcloud = rad.cloud(
+            m.qg, m.rh, m.precnv, m.precls, m.itop, gse, bd.fmask_l)
+        ssrd, ssr, tsr, dfabs_sw, tau2, stratc = rad.radsw(
+            m.psg, m.qg, icltop, cloudc, clstr, qcloud, sol, forcing.albsfc,
+            sig=self.sig, dsig=self.dsig)
+        grdscp = self.grdscp[:, None, None]
+        return RadiationCarry(tau2=tau2, stratc=stratc,
+                              tt_rsw=dfabs_sw * m.rps[None] * grdscp,
+                              ssrd=ssrd, ssr=ssr, tsr=tsr,
+                              randfv=carry.randfv)
+
+    def surface_fluxes(self, m, ug, vg, tg, phig, bd, sfc, forcing, carry,
+                       slrd):
+        c = self.const
+        return suflux(m.psg, ug, vg, tg, m.qg, m.rh, phig, phi0=bd.phis0,
+                      fmask=bd.fmask_l, tland=sfc.stl_am, tsea=sfc.sst_am,
+                      swav=sfc.soilw_am, ssrd=carry.ssrd, slrd=slrd,
+                      forog=bd.forog, alb_l=forcing.alb_l,
+                      alb_s=forcing.alb_s, snowc=forcing.snowc,
+                      clat_row=self.clat_t, sigl_bot=self.sigl_bot,
+                      wvi2_bot=self.wvi2_bot, rd=287.0, cp=c.cp,
+                      alhc=c.alhc, sbc=c.sbc)
+
+    def vertical_diffusion(self, m, ug, vg, phig):
+        c = self.const
+        return vdifsc(ug, vg, m.se, m.rh, m.qg, m.qsat, phig, m.icnv,
+                      sig=self.sig, sigh=self.sigh, dsig=self.dsig, cp=c.cp,
+                      alhc=c.alhc)
+
+    def tendency_sums(self, m, carry, sfc, fx, dfabs_lw, olr, pbl):
+        """The radiative heating and the diffusion tendencies (with the
+        surface fluxes on the lowest level) summed onto the moist ones,
+        and the fluxes for the coupler.  Returns (utend, vtend, ttend,
+        qtend, FluxDiag)."""
+        c = self.const
+        rps = m.rps
+        tt_rlw = dfabs_lw * rps[None] * self.grdscp[:, None, None]
+        ttend = m.ttend + carry.tt_rsw + tt_rlw
+        ut_pbl, vt_pbl, tt_pbl, qt_pbl = pbl
+        bot = self.geom.nlev - 1
         gs, gc = self.grdsig[bot], self.grdscp[bot]
         add_bot = lambda a, f: torch.cat([a[:bot], (a[bot] + f)[None]])
         ut_pbl = add_bot(ut_pbl, fx.ustr[2] * rps * gs)
@@ -244,16 +257,15 @@ class PhysicsModel:
         tt_pbl = add_bot(tt_pbl, fx.shf[2] * rps * gc)
         qt_pbl = add_bot(qt_pbl, fx.evap[2] * rps * gs)
         ttend = ttend + tt_pbl
-        qtend = qtend + qt_pbl
+        qtend = m.qtend + qt_pbl
 
-        # --- fluxes for the coupler (difice as in ppo_dmflux.f90:114-118)
+        # difice as in ppo_dmflux.f90:114-118
         esbc = pc.EMISFC * c.sbc
         difice = ((pc.ALBSEA - pc.ALBICE) * carry.ssrd
                   + esbc * (pc.SSTFR ** 4 - sfc.tice_am ** 4)
                   + fx.shf[1] + fx.evap[1] * c.alhc)
-        diag = FluxDiag(precnv=precnv, precls=precls, hflux_l=fx.hfluxn[0],
-                        hflux_s=fx.hfluxn[1],
+        diag = FluxDiag(precnv=m.precnv, precls=m.precls,
+                        hflux_l=fx.hfluxn[0], hflux_s=fx.hfluxn[1],
                         hflux_i=fx.hfluxn[1] + difice * (1.0 - sfc.sice_am),
                         olr=olr, ts=fx.tsfc)
-        return ut_pbl, vt_pbl, ttend, qtend, carry, diag
-
+        return ut_pbl, vt_pbl, ttend, qtend, diag

@@ -1,0 +1,484 @@
+"""Port parity of the column kernels K9 (kernels/column_moist.py) and K10
+(kernels/column_longwave.py).
+
+The same plausible random columns (the generator of
+tests/test_torch_physics.py at 16 x 32 columns, made from a seed with
+numpy) go through
+  (a) the JAX package's prologue + qsat_from_t + convmf + lscond
+      (speedy_ml_tpu/physics/driver.py:192-216) and `column_moist` on CPU
+      tensors (its plain version), float64, 1e-12 of each output's scale,
+      itop and icnv equal;
+  (b) the JAX package's radlw_down / radlw_up on a tau2 from its radsw
+      and the `column_longwave` wrappers, float64, 1e-12;
+  (c) the column bodies of the CUDA kernels themselves, compiled for the
+      host with g++ from kernels/csrc/column_host.cpp (the very headers
+      the kernels include), against the plain versions: float64 at 1e-12
+      with the integers equal; float32 under the rule of chip_smoke.py
+      (chip_smoke.column_errors: columns whose itop/icnv differ at most
+      0.5 %, the others within 1e-5 of each output's scale).
+The wrappers' operand checks and the table buffers are tested too.  The
+launch code itself runs only on a card (chip_smoke.py).
+"""
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speedy_ml_tpu.core.constants import PhysicalConstants as JConst
+from speedy_ml_tpu.core.geometry import Geometry as JGeometry
+from speedy_ml_tpu.physics import radiation as jrad
+from speedy_ml_tpu.physics.condensation import lscond as jlscond
+from speedy_ml_tpu.physics.convection import convmf as jconvmf
+from speedy_ml_tpu.physics.driver import PhysicsModel as JPhysics
+from speedy_ml_tpu.physics.humidity import qsat_from_t as jqsat
+from speedy_ml_tpu_torch.core.constants import PhysicalConstants
+from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.kernels import column_longwave as clw
+from speedy_ml_tpu_torch.kernels import column_moist as cm
+from speedy_ml_tpu_torch.physics import constants as pc
+from speedy_ml_tpu_torch.physics.driver import PhysicsModel
+
+REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"
+sys.path.insert(0, str(REPO))
+from chip_smoke import column_errors  # noqa: E402  (the card check's rule)
+
+NLAT, NLON = 16, 32
+NGP = NLAT * NLON
+GEOM = dict(trunc=10, nlon=NLON, nlat=NLAT)
+# float32, of each output's scale over the columns that agree: the host
+# libm's expf is not the vectorized exp of PyTorch's CPU kernels (measured
+# here: 1.2e-6 on ttend); on a card both sides call the same expf and
+# chip_smoke.py holds the kernels tighter
+F32_RTOL = 1e-5
+MAX_FLIPPED = 0.005      # share of columns whose itop/icnv may differ
+INTS = ("itop", "icnv")
+
+
+# ------------------------------------------------------------------ inputs
+
+def make_columns(seed, K=8):
+    """Physically plausible random columns as (K, NLAT, NLON) grids: a
+    stable-ish T profile, q in (-0.02, 1.2) * qsat (the clamp at 0 has
+    work to do), psa around 1 with some columns below PSMIN."""
+    rng = np.random.default_rng(seed)
+    hsg = np.asarray(JGeometry(nlev=K, **GEOM).half_sigma, dtype=np.float64)
+    sig = 0.5 * (hsg[1:] + hsg[:-1])
+    psa = rng.uniform(0.72, 1.05, NGP)
+    tsfc = rng.uniform(255.0, 310.0, NGP)
+    ta = np.stack([tsfc - 62.0 * (1.0 - sig[k]) + rng.normal(0, 4.0, NGP)
+                   for k in range(K)])
+    ta = np.clip(ta, 180.0, 320.0)
+    qsat = np.stack([np.asarray(jqsat(jnp.asarray(ta[k]),
+                                      sig[k] * jnp.asarray(psa)))
+                     for k in range(K)])
+    rh = rng.uniform(-0.02, 1.2, (K, NGP))
+    rh[-2:] = rng.uniform(0.55, 1.1, (2, NGP))   # moist PBL
+    phi = np.zeros((K, NGP))
+    phi[K - 1] = 287.0 * ta[K - 1] * (1.0 - sig[K - 1])
+    for k in range(K - 2, -1, -1):
+        phi[k] = phi[k + 1] + 287.0 * 0.5 * (ta[k] + ta[k + 1]) \
+            * np.log(sig[k + 1] / sig[k])
+    grid = lambda a: np.ascontiguousarray(a.reshape(-1, NLAT, NLON))
+    return dict(tg=grid(ta), qg=grid(rh * qsat), phig=grid(phi),
+                pslg=np.log(psa).reshape(NLAT, NLON))
+
+
+def _t(a, dtype=torch.float64):
+    return torch.as_tensor(np.array(a, dtype=np.float64)).to(dtype)
+
+
+def _close(got, ref, rtol=1e-12):
+    ref = np.asarray(ref)
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    scale = max(np.abs(ref).max(), 1e-300)
+    err = np.abs(got - ref).max()
+    assert err <= rtol * scale, f"err {err:.3e}, scale {scale:.3e}"
+
+
+def phys_for(dtype, K=8):
+    return PhysicsModel(Geometry(nlev=K, **GEOM), PhysicalConstants(),
+                        dtype=dtype)
+
+
+def moist_inputs(seed, dtype=torch.float64, K=8):
+    c = make_columns(seed, K)
+    return [_t(c[k], dtype) for k in ("tg", "qg", "phig", "pslg")]
+
+
+def jax_moist(jphys, tg, qg, phig, pslg):
+    """PhysicsModel.compute of the JAX package, lines 192-214."""
+    c = jphys.const
+    K = tg.shape[0]
+    sig, dsig = jphys.sig, jphys.dsig
+    psg = jnp.exp(pslg)
+    rps = 1.0 / psg
+    qg = jnp.maximum(qg, 0.0)
+    se = c.cp * tg + phig
+    qsat = jqsat(tg, sig[:, None, None] * psg[None])
+    rh = qg / qsat
+    itop, cbmf, precnv, dfse, dfqa = jconvmf(
+        psg, se, qg, qsat, sig=sig, dsig=dsig, wvi2=jnp.asarray(jphys.wvi2),
+        p0=c.p0, grav=c.grav, alhc=c.alhc)
+    tt_cnv = dfse * rps[None] * jphys.grdscp[:, None, None]
+    qt_cnv = dfqa * rps[None] * jphys.grdsig[:, None, None]
+    icnv = (K - 1) - itop
+    itop, precls, tt_lsc, qt_lsc = jlscond(
+        psg, qg, qsat, itop, sig=sig, dsig=dsig, p0=c.p0, grav=c.grav,
+        cp=c.cp, alhc=c.alhc)
+    return dict(psg=psg, rps=rps, qg=qg, se=se, qsat=qsat, rh=rh, itop=itop,
+                icnv=icnv, cbmf=cbmf, precnv=precnv, precls=precls,
+                ttend=tt_cnv + tt_lsc, qtend=qt_cnv + qt_lsc)
+
+
+def longwave_inputs(seed, dtype=torch.float64):
+    """(ta, tau2, stratc, ts, slru_sfc) with tau2 and stratc from the JAX
+    package's cloud + radsw on the same columns."""
+    c = make_columns(seed)
+    rng = np.random.default_rng(seed + 100)
+    jphys = JPhysics(JGeometry(**GEOM), JConst(), dtype=jnp.float64)
+    m = jax_moist(jphys, *(jnp.asarray(c[k])
+                           for k in ("tg", "qg", "phig", "pslg")))
+    plane = lambda lo, hi: rng.uniform(lo, hi, (NLAT, NLON))
+    jc = jrad.cloud(m["qg"], m["rh"], m["precnv"], m["precls"], m["itop"],
+                    jnp.asarray(plane(0.0, 0.6)),
+                    jnp.asarray(plane(0.0, 1.0)))
+    sol = jrad.SolarForcing(*(jnp.asarray(plane(lo, hi)) for lo, hi in (
+        (0.0, 420.0), (0.0, 15.0), (0.0, 15.0), (1.0, 4.0), (0.0, 10.0))))
+    jsw = jrad.radsw(m["psg"], m["qg"], *jc, sol,
+                     jnp.asarray(plane(0.05, 0.6)), sig=jphys.sig,
+                     dsig=jphys.dsig)
+    ts = plane(230.0, 310.0)
+    # some temperatures on a half: the band table rounds half to even
+    ta = c["tg"].copy()
+    ta[:, 0] = np.floor(ta[:, 0]) + 0.5
+    ts[0] = np.floor(ts[0]) + 0.5
+    slru = 0.98 * 5.67e-8 * ts ** 4
+    return [_t(a, dtype) for a in (ta, jsw[4], jsw[5], ts, slru)]
+
+
+def down_dict(out):
+    slrd, dfabs, flux, (mean, grad) = out
+    return dict(slrd=slrd, dfabs=dfabs, flux_bands=flux, st4a_mean=mean,
+                st4a_grad=grad)
+
+
+def up_dict(out):
+    return dict(zip(("slr", "olr", "dfabs"), out))
+
+
+# ------------------------------------------- (a), (b): against the JAX code
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_column_moist_matches_jax(seed):
+    tphys = phys_for(torch.float64)
+    jphys = JPhysics(JGeometry(**GEOM), JConst(), dtype=jnp.float64)
+    args = moist_inputs(seed)
+    before = cm.column_moist.launches
+    got = cm.column_moist(*args, tphys.moist_tabs)
+    assert cm.column_moist.launches == before   # the CPU route counts nothing
+    ref = jax_moist(jphys, *(jnp.asarray(a.numpy()) for a in args))
+    K = args[0].shape[0]
+    assert (np.asarray(ref["icnv"]) >= 0).any(), "no column convects"
+    assert (np.asarray(ref["icnv"]) < 0).any(), "every column convects"
+    assert (np.asarray(ref["precls"]) > 0).any(), "no column condenses"
+    assert (np.asarray(ref["itop"]) < K - 1 - np.asarray(ref["icnv"])).any(), \
+        "lscond lowers no column's itop"
+    assert float(args[1].min()) < 0 and float(got.qg.min()) == 0
+    for name in INTS:
+        assert getattr(got, name).dtype == torch.int64
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(ref[name]))
+    for name in got._fields:
+        if name not in INTS:
+            _close(getattr(got, name), ref[name])
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+def test_column_longwave_matches_jax(seed):
+    tphys = phys_for(torch.float64)
+    ta, tau2, stratc, ts, slru = longwave_inputs(seed)
+    jphys = JPhysics(JGeometry(**GEOM), JConst(), dtype=jnp.float64)
+    j = lambda a: jnp.asarray(a.numpy())
+    before = (clw.radlw_down.launches, clw.radlw_up.launches)
+    td = clw.radlw_down(ta, tau2, tphys.lw_tabs)
+    jd = jrad.radlw_down(j(ta), j(tau2), jphys.fband, wvi2=jphys.wvi2,
+                         dsig=jphys.dsig, sbc=jphys.const.sbc)
+    for got, ref in zip(td[:3], jd[:3]):
+        _close(got, ref)
+    for got, ref in zip(td[3], jd[3]):
+        _close(got, ref)
+    tu = clw.radlw_up(ta, ts, td[0], slru, td[1], td[2], td[3], tau2, stratc,
+                      tphys.lw_tabs)
+    ju = jrad.radlw_up(j(ta), j(ts), jd[0], j(slru), jd[1], jd[2], jd[3],
+                       j(tau2), j(stratc), jphys.fband, dsig=jphys.dsig,
+                       sbc=jphys.const.sbc)
+    for got, ref in zip(tu, ju):
+        _close(got, ref)
+    assert (clw.radlw_down.launches, clw.radlw_up.launches) == before
+    assert float(tu[1].min()) > 50.0, "olr is not a flux"
+
+
+# -------------------------- (c): the kernels' column bodies, built for the host
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """csrc/column_host.cpp built with g++ and loaded with ctypes."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the column bodies for the host")
+    so = tmp_path_factory.mktemp("column_host") / "libcolumn_host.so"
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    str(CSRC / "column_host.cpp"), "-o", str(so)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for name, n_ptr_in in (("column_moist_host", 5), ("radlw_down_host", 3),
+                           ("radlw_up_host", 11)):
+        fn = getattr(lib, name)
+        n_out = 2 if name == "column_moist_host" else 1
+        fn.argtypes = [i, i] + [vp] * n_ptr_in + [i] + [vp] * n_out
+        fn.restype = i
+    return lib
+
+
+def _ptrs(*tensors):
+    for t in tensors:
+        assert t.is_contiguous() and t.device.type == "cpu"
+    return [t.data_ptr() for t in tensors]
+
+
+def host_moist(lib, tg, qg, phig, pslg, tabs):
+    K, nlat, nlon = tg.shape
+    out = torch.full((cm.N_LEVEL_FIELDS * K + cm.N_PLANES, nlat, nlon),
+                     float("nan"), dtype=tg.dtype)
+    out_i = torch.full((2, nlat, nlon), -99, dtype=torch.int64)
+    rc = lib.column_moist_host(
+        K, int(tg.dtype == torch.float64),
+        *_ptrs(tg, qg, phig, pslg, tabs.blob), nlat * nlon,
+        *_ptrs(out, out_i))
+    assert rc == 0
+    return cm.unpack(out, out_i, K)
+
+
+def host_down(lib, ta, tau2, tabs):
+    K, nlat, nlon = ta.shape
+    out = torch.full((3 * K + 5, nlat, nlon), float("nan"), dtype=ta.dtype)
+    rc = lib.radlw_down_host(K, int(ta.dtype == torch.float64),
+                             *_ptrs(ta, tau2, tabs.blob), nlat * nlon,
+                             *_ptrs(out))
+    assert rc == 0
+    return clw.unpack_down(out, K)
+
+
+def host_up(lib, ta, ts, slrd, slru, dfabs, flux, st4a, tau2, stratc, tabs):
+    K, nlat, nlon = ta.shape
+    out = torch.full((K + 2, nlat, nlon), float("nan"), dtype=ta.dtype)
+    rc = lib.radlw_up_host(
+        K, int(ta.dtype == torch.float64),
+        *_ptrs(ta, ts, slrd, slru, dfabs, flux, st4a[0], st4a[1], tau2,
+               stratc, tabs.blob), nlat * nlon, *_ptrs(out))
+    assert rc == 0
+    return out[0], out[1], out[2:]
+
+
+def _hold(got: dict, ref: dict, dtype, ints=()):
+    """float64: 1e-12 and the integers equal; float32: chip_smoke's rule."""
+    flipped, rel, worst = column_errors(got, ref, ints)
+    if dtype == torch.float64:
+        assert flipped == 0
+        assert rel <= 1e-12, (worst, rel)
+    else:
+        assert flipped <= MAX_FLIPPED * NGP, flipped
+        assert rel <= F32_RTOL, (worst, rel)
+    for nm, r in ref.items():
+        assert torch.isfinite(got[nm].to(torch.float64)).all(), nm
+        assert got[nm].dtype == r.dtype and got[nm].shape == r.shape, nm
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("seed", [21, 22])
+def test_host_column_moist_matches_plain(host_lib, seed, dtype):
+    tabs = phys_for(dtype).moist_tabs
+    args = moist_inputs(seed, dtype)
+    ref = cm.column_moist_plain(*args, tabs)
+    got = host_moist(host_lib, *args, tabs)
+    assert (ref.icnv >= 0).any() and (ref.precls > 0).any()
+    _hold(got._asdict(), ref._asdict(), dtype, INTS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("seed", [23, 24])
+def test_host_column_longwave_matches_plain(host_lib, seed, dtype):
+    tabs = phys_for(dtype).lw_tabs
+    ta, tau2, stratc, ts, slru = longwave_inputs(seed, dtype)
+    ref_d = clw.radlw_down(ta, tau2, tabs)
+    _hold(down_dict(host_down(host_lib, ta, tau2, tabs)), down_dict(ref_d),
+          dtype)
+    # the upward pass on the plain version's downward results, both sides
+    up_args = (ta, ts, ref_d[0], slru, ref_d[1], ref_d[2], ref_d[3], tau2,
+               stratc, tabs)
+    _hold(up_dict(host_up(host_lib, *up_args)),
+          up_dict(clw.radlw_up(*up_args)), dtype)
+
+
+@pytest.mark.parametrize("K", [5, 7])
+def test_host_columns_at_other_level_counts(host_lib, K):
+    """The bodies are templates on K; 5 and 7 levels are compiled too."""
+    phys = phys_for(torch.float64, K)
+    args = moist_inputs(31, K=K)
+    _hold(host_moist(host_lib, *args, phys.moist_tabs)._asdict(),
+          cm.column_moist_plain(*args, phys.moist_tabs)._asdict(),
+          torch.float64, INTS)
+    rng = np.random.default_rng(K)
+    ta = args[0]
+    tau2 = _t(rng.uniform(0.05, 1.0, (K, 4, NLAT, NLON)))
+    stratc = _t(rng.uniform(0.0, 2.0, (2, NLAT, NLON)))
+    ts = _t(rng.uniform(230.0, 310.0, (NLAT, NLON)))
+    slru = 0.98 * 5.67e-8 * ts ** 4
+    ref_d = clw.radlw_down(ta, tau2, phys.lw_tabs)
+    _hold(down_dict(host_down(host_lib, ta, tau2, phys.lw_tabs)),
+          down_dict(ref_d), torch.float64)
+    up_args = (ta, ts, ref_d[0], slru, ref_d[1], ref_d[2], ref_d[3], tau2,
+               stratc, phys.lw_tabs)
+    _hold(up_dict(host_up(host_lib, *up_args)),
+          up_dict(clw.radlw_up(*up_args)), torch.float64)
+    assert host_lib.column_moist_host(6, 1, *([None] * 5), 1, None, None) == 1
+
+
+# ------------------------------------------------ (d): the operand checks
+
+def _moist_call(**bad):
+    tabs = phys_for(torch.float64).moist_tabs
+    a = dict(zip(("tg", "qg", "phig", "pslg"), moist_inputs(41)), tabs=tabs)
+    a.update(bad)
+    return cm.column_moist(a["tg"], a["qg"], a["phig"], a["pslg"], a["tabs"])
+
+
+def test_column_moist_refuses_bad_operands():
+    tg, qg, phig, pslg = moist_inputs(41)
+    tabs = phys_for(torch.float64).moist_tabs
+    with pytest.raises(TypeError, match="dtype"):
+        _moist_call(tg=tg.to(torch.float16))
+    with pytest.raises(TypeError, match="qg: dtype"):
+        _moist_call(qg=qg.float())
+    with pytest.raises(TypeError, match="tabs.blob: dtype"):
+        _moist_call(tabs=phys_for(torch.float32).moist_tabs)
+    with pytest.raises(ValueError, match="phig: shape"):
+        _moist_call(phig=phig[:-1].contiguous())
+    with pytest.raises(ValueError, match="pslg: shape"):
+        _moist_call(pslg=pslg[None])
+    with pytest.raises(ValueError, match="tg"):
+        _moist_call(tg=tg[0])
+    with pytest.raises(ValueError, match="qg: must be contiguous"):
+        _moist_call(qg=qg.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(TypeError, match="expected a tensor"):
+        _moist_call(pslg=pslg.numpy())
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cm.column_moist(meta(tg), meta(qg), meta(phig), meta(pslg),
+                        tabs._replace(blob=meta(tabs.blob)))
+    with pytest.raises(ValueError, match="phig: on cpu"):
+        cm.column_moist(meta(tg), meta(qg), phig, meta(pslg), tabs)
+
+
+def test_column_longwave_refuses_bad_operands():
+    tabs = phys_for(torch.float64).lw_tabs
+    ta, tau2, stratc, ts, slru = longwave_inputs(42)
+    slrd, dfabs, flux, st4a = clw.radlw_down(ta, tau2, tabs)
+    with pytest.raises(TypeError, match="ta: dtype"):
+        clw.radlw_down(ta.to(torch.bfloat16), tau2, tabs)
+    with pytest.raises(TypeError, match="tau2: dtype"):
+        clw.radlw_down(ta, tau2.float(), tabs)
+    with pytest.raises(ValueError, match="tau2: shape"):
+        clw.radlw_down(ta, tau2[:, :3].contiguous(), tabs)
+    with pytest.raises(ValueError, match="tau2: must be contiguous"):
+        clw.radlw_down(ta, tau2.transpose(0, 1).contiguous().transpose(0, 1),
+                       tabs)
+    with pytest.raises(ValueError, match="tabs.blob: shape"):
+        clw.radlw_down(ta, tau2, tabs._replace(blob=tabs.blob[:-1]))
+    up = lambda **kw: clw.radlw_up(**{**dict(
+        ta=ta, ts=ts, slrd=slrd, slru_sfc=slru, dfabs=dfabs,
+        flux_bands=flux, st4a=st4a, tau2=tau2, stratc=stratc, tabs=tabs),
+        **kw})
+    with pytest.raises(TypeError, match="ts: dtype"):
+        up(ts=ts.float())
+    with pytest.raises(ValueError, match="flux_bands: shape"):
+        up(flux_bands=flux[:2])
+    with pytest.raises(ValueError, match="stratc: shape"):
+        up(stratc=stratc[0])
+    with pytest.raises(ValueError, match=r"st4a\[1\]: must be contiguous"):
+        up(st4a=(st4a[0], st4a[1].transpose(1, 2).contiguous()
+                 .transpose(1, 2)))
+    meta = lambda t: t.to("meta")
+    mtabs = tabs._replace(blob=meta(tabs.blob))
+    with pytest.raises(ValueError, match="radlw_down: no kernel for device"):
+        clw.radlw_down(meta(ta), meta(tau2), mtabs)
+    with pytest.raises(ValueError, match="radlw_up: no kernel for device"):
+        clw.radlw_up(meta(ta), meta(ts), meta(slrd), meta(slru), meta(dfabs),
+                     meta(flux), tuple(map(meta, st4a)), meta(tau2),
+                     meta(stratc), mtabs)
+
+
+# ----------------------------------------------------- (e): the table blobs
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_table_blobs_hold_the_plain_versions_tables(dtype):
+    """Each blob entry is the Python float (or the model's table value)
+    the plain version multiplies with, cast to the model's dtype.  The
+    expected values repeat the formulas of the JAX package's convmf
+    (convection.py:36-44) and lscond (condensation.py:26-38)."""
+    K = 8
+    phys = phys_for(dtype)
+    c = phys.const
+    sig, dsig = phys.sig, phys.dsig
+    cast = lambda x: torch.tensor([float(v) for v in x],
+                                  dtype=torch.float64).to(dtype)
+    entr = [max(0.0, float(s) - 0.5) ** 2 for s in sig]
+    entr[0] = entr[K - 1] = 0.0
+    norm = sum(entr[1:K - 1])
+    entr = [e * (pc.ENTMAX / norm) for e in entr]
+    rtlsc = 1.0 / (pc.TRLSC * 3600.0)
+    rhref, dqmax = [0.0], [0.0]
+    for k in range(1, K):
+        sig2 = float(sig[k]) ** 2
+        r = pc.RHLSC + pc.DRHLSC * (sig2 - 1.0)
+        rhref.append(max(r, pc.RHBLSC) if k == K - 1 else r)
+        dqmax.append(10.0 * sig2 * rtlsc)
+    scalars = [c.cp, c.alhc,
+               c.p0 * float(dsig[K - 1]) / (c.grav * pc.TRCNV * 3600.0),
+               2.0 / (1.0 - pc.PSMIN), pc.PSMIN, pc.RHBL, pc.RHIL, pc.SMF,
+               rtlsc, c.alhc / c.cp, c.p0 / c.grav]
+    want = torch.cat([phys.sig_t, phys.wvi2_t, cast(entr), phys.grdsig,
+                      phys.grdscp, cast(rhref), cast(dqmax), cast(dsig),
+                      cast(scalars)])
+    blob = phys.moist_tabs.blob
+    assert blob.dtype == dtype and blob.is_contiguous()
+    assert blob.shape == (cm.N_TABLES * K + cm.N_SCALARS,)
+    assert torch.equal(blob, want)
+    # the tables the JAX package multiplies with are the same numbers
+    jphys = JPhysics(JGeometry(**GEOM), JConst(),
+                     dtype=jnp.float64 if dtype == torch.float64
+                     else jnp.float32)
+    np.testing.assert_array_equal(phys.grdsig.numpy(), jphys.grdsig)
+    np.testing.assert_array_equal(phys.grdscp.numpy(), jphys.grdscp)
+    np.testing.assert_array_equal(phys.wvi2_t.numpy(), jphys.wvi2)
+
+    want_lw = cast([float(v) for v in phys.wvi2] + [float(v) for v in dsig]
+                   + [c.sbc, 1.0 - pc.EPSLW, pc.EMISFC, 1.0 - pc.EMISFC,
+                      pc.EPSLW, pc.EPSLW * pc.EMISFC])
+    blob = phys.lw_tabs.blob
+    assert blob.dtype == dtype and blob.is_contiguous()
+    assert blob.shape == (clw.N_TABLES * K + clw.N_SCALARS,)
+    assert torch.equal(blob, want_lw)
