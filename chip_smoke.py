@@ -17,20 +17,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      K1 ESN step, K2 readout (bare product, with a negative control that
      must fail the tolerance), K3 window gather, K4 core scatter,
      K5 sht_analysis, K6 sht_synthesis, K7 grid_dynamics,
-     K8 spectral_tail, K9 column_moist, K10a radlw_down, K10b radlw_up
-     (the column physics: in float64 against the plain float64 version,
-     then in float32 with the columns whose integer outputs differ
-     counted); --kernels stops here;
+     K8 spectral_tail, K9 column_moist, K10a radlw_down, K10b radlw_up,
+     K11 surface_fluxes, K12 column_pbl, K13 column_shortwave (the column
+     physics: in float64 against the plain float64 version, then in
+     float32 with the columns whose integer outputs differ counted);
+     --kernels stops here;
   5. the SPEEDY window (stepone + 24 steps) on the card against the same
      window in the port on the CPU in float32 (the plain versions);
   6. the ML-only main path, run_prediction with the writer, every launch
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K10, cycle_ms
+  7. the coupled main path, run_prediction: launches of K1-K13, cycle_ms
      (median and range of 5 x 20 cycles), device busy, idle share,
-     launches per cycle, device ms per stage and per physics scheme, the
-     top device ops;
+     launches per cycle, device ms per stage and per physics kernel, the
+     top device ops; a profiled physics step (with and without the
+     shortwave) must show no device op but the kernels K9-K13;
      physical checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
@@ -71,12 +73,13 @@ K2_RTOL = 2e-5
 SHT_RTOL = 1e-5
 K7_ULPS = 4
 TAIL_RTOL = 1e-5
-# K9/K10, float32: a fraction of each output's scale over the columns
+# K9-K13, float32: a fraction of each output's scale over the columns
 # whose integer outputs (itop, icnv) agree, and the share of columns in
 # which they may differ (a near-tie decision falling the other way);
 # float64: the same operations in the same order, integers equal.  On an
-# H100 K9 and K10b came out bit-identical and K10a at 2.6e-7 (its x**4 is
-# two squarings, torch.pow's is powf), so the float32 bound is 2e-6
+# H100 all of them came out bit-identical to the plain float32 versions;
+# K10a, while its x**4 was two squarings (torch.pow's is powf), at
+# 2.6e-7, which the float32 bound of 2e-6 still allows for
 COLUMN_RTOL = 2e-6
 COLUMN_FLIPS = 0.005
 COLUMN_RTOL_F64 = 1e-11
@@ -255,8 +258,13 @@ def main():
     from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
     from speedy_ml_tpu_torch.kernels import build as kb
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
+    from speedy_ml_tpu_torch.kernels import surface_fluxes as sfk
     from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
                                                           column_moist_plain)
+    from speedy_ml_tpu_torch.kernels.column_pbl import (column_pbl,
+                                                        column_pbl_plain)
+    from speedy_ml_tpu_torch.kernels.column_shortwave import (
+        column_shortwave, column_shortwave_plain)
     from speedy_ml_tpu_torch.kernels.core_scatter import (core_scatter,
                                                           core_scatter_plain)
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
@@ -575,18 +583,24 @@ def main():
                  MN * (12 * K * K + 100 * K + 20), PEAK_F32_S))
     log("  (K8 max_abs_err is relative to each field level's scale)")
 
-    # K9, K10a, K10b: the column physics on the main path's own inputs,
-    # the physics grid of this state and the radiation carry that stepone
-    # left (a shortwave step, so tau2 and stratc are real), float32; and
-    # on the same inputs upcast, against a float64 PhysicsModel's tables
+    # K9-K13: the column physics on the main path's own inputs, the
+    # physics grid of this state and the radiation carry that stepone left
+    # (a shortwave step, so tau2 and stratc are real), float32; and on the
+    # same inputs upcast, against a float64 PhysicsModel's tables
     phys = gcm.phys
     phys64 = PhysicsModel(g, gcm.const, dtype=torch.float64, device=dev)
     ug4, vg4, tg4, qg4, phig4, pslg4 = gcm.physics_grid(st, 0)
     carry4 = gst.radiation
     if float(carry4.tau2.min()) <= 0 or float(carry4.tau2.max()) > 1:
         fail("the radiation carry after stepone holds no transmissivities")
-    up64 = lambda a: tuple(map(up64, a)) if isinstance(a, tuple) \
-        else a.double()
+
+    def up64(a):
+        """a (tensors, tuples, NamedTuples) with its float tensors in
+        float64."""
+        if isinstance(a, tuple):
+            items = tuple(map(up64, a))
+            return type(a)(*items) if hasattr(a, "_fields") else items
+        return a.double() if a.is_floating_point() else a
 
     def column_check(name, src, replaces, kernel, plain, args, tabs, tabs64,
                      to_dict, ints, planes, ops):
@@ -634,8 +648,38 @@ def main():
         5 * K + (3 * K + 5), 60 * K)
     m4 = column_moist(tg4, qg4, phig4, pslg4, phys.moist_tabs)
     dn4 = clw.radlw_down(tg4, carry4.tau2, phys.lw_tabs)
-    fx4 = phys.surface_fluxes(m4, ug4, vg4, tg4, phig4, gcm.bd, sfc, forcing,
-                              carry4, dn4[0])
+    bd = gcm.bd
+    # K11 takes keywords; the checks pass its operands in INPUTS order
+    sfc_kw = ("phi0", "fmask", "tland", "tsea", "swav", "ssrd", "slrd",
+              "forog", "alb_l", "alb_s", "snowc", "clat")
+    k11 = lambda *a: sfk.surface_fluxes(*a[:6], **dict(zip(sfc_kw, a[6:-1])),
+                                        tabs=a[-1])
+    p11 = lambda *a: sfk.surface_fluxes_plain(
+        *a[:6], **dict(zip(sfc_kw, a[6:-1])), tabs=a[-1])
+    sfc_args = (m4.psg, ug4, vg4, tg4, m4.qg, phig4, bd.phis0, bd.fmask_l,
+                sfc.stl_am, sfc.sst_am, sfc.soilw_am, carry4.ssrd, dn4[0],
+                bd.forog, forcing.alb_l, forcing.alb_s, forcing.snowc,
+                phys.clat_t)
+
+    def fx_dict(fx):
+        """SurfaceFluxes as name -> plane, its (land, sea, blend) tuples
+        spread out (ustr0, ustr1, ustr2, ...)."""
+        out = {}
+        for nm, v in fx._asdict().items():
+            if isinstance(v, tuple):
+                out.update({f"{nm}{i}": x for i, x in enumerate(v)})
+            else:
+                out[nm] = v
+        return out
+
+    ok &= column_check(
+        "K11_surface_fluxes", csrc + "column_surface.cu",
+        "speedy_ml_tpu/physics/surface.py:40", k11, p11, sfc_args,
+        phys.sfc_tabs, phys64.sfc_tabs, fx_dict, (),
+        (18 + nlat / G) + 23, 150)
+    fx4 = sfk.surface_fluxes(*sfc_args[:6],
+                             **dict(zip(sfc_kw, sfc_args[6:])),
+                             tabs=phys.sfc_tabs)
     ok &= column_check(
         "K10b_radlw_up", csrc + "column_longwave.cu",
         "speedy_ml_tpu/physics/radiation.py:381", clw.radlw_up, up_plain,
@@ -643,9 +687,30 @@ def main():
          carry4.tau2, carry4.stratc), phys.lw_tabs, phys64.lw_tabs,
         lambda o: dict(slr=o[0], olr=o[1], dfabs=o[2]), (),
         (8 * K + 9) + (K + 2), 60 * K)
-    log("  (K9/K10 max_abs_err is relative to each output's scale, over "
+    up4 = clw.radlw_up(tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2],
+                       dn4[3], carry4.tau2, carry4.stratc, phys.lw_tabs)
+    pbl_names = ("utend", "vtend", "ttend", "qtend", "hflux_i")
+    ok &= column_check(
+        "K12_column_pbl", csrc + "column_pbl.cu",
+        "speedy_ml_tpu/physics/vdiff.py:16", column_pbl, column_pbl_plain,
+        (m4, phig4, fx4, carry4.tt_rsw, carry4.ssrd, up4[2], sfc.tice_am,
+         sfc.sice_am), phys.pbl_tabs, phys64.pbl_tabs,
+        lambda o: dict(zip(pbl_names, o)), (),
+        (9 * K + 2 + 11) + (4 * K + 1), K * K + 40 * K)
+    sol4 = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
+                            ozone=forcing.ozone, zenit=forcing.zenit,
+                            stratz=forcing.stratz)
+    sw_names = ("tau2", "stratc", "tt_rsw", "ssrd", "ssr", "tsr")
+    ok &= column_check(
+        "K13_column_shortwave", csrc + "column_shortwave.cu",
+        "speedy_ml_tpu/physics/radiation.py:165", column_shortwave,
+        column_shortwave_plain,
+        (m4, phig4, bd.fmask_l, sol4, forcing.albsfc), phys.sw_tabs,
+        phys64.sw_tabs, lambda o: dict(zip(sw_names, o)), (),
+        (2 * K + 4 + 11 + 2) + (5 * K + 5), 100 * K + 45 * 20)
+    log("  (K9-K13 max_abs_err is relative to each output's scale, over "
         "the columns whose integer outputs agree)")
-    del phys64, m4, dn4, fx4
+    del phys64, m4, dn4, fx4, up4
     if not ok:
         fail("a kernel disagrees with its plain version")
 
@@ -750,7 +815,10 @@ def main():
                "K8_spectral_tail": spectral_tail,
                "K9_column_moist": column_moist,
                "K10a_radlw_down": clw.radlw_down,
-               "K10b_radlw_up": clw.radlw_up}
+               "K10b_radlw_up": clw.radlw_up,
+               "K11_surface_fluxes": sfk.surface_fluxes,
+               "K12_column_pbl": column_pbl,
+               "K13_column_shortwave": column_shortwave}
     ml_kernels = list(kernels)[:4]
     out_dir = ROOT / "output" / "chip_smoke"
 
@@ -899,7 +967,8 @@ def main():
     knames = {"K5": "sht_analysis_kernel", "K6": "sht_synthesis_kernel",
               "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel",
               "K9": "column_moist_kernel", "K10a": "radlw_down_kernel",
-              "K10b": "radlw_up_kernel"}
+              "K10b": "radlw_up_kernel", "K11": "surface_fluxes_kernel",
+              "K12": "column_pbl_kernel", "K13": "column_shortwave_kernel"}
     kk = {k: [e for e in window_kern if v in e.key]
           for k, v in knames.items()}
     log("  inside speedy_window: " + "; ".join(
@@ -921,24 +990,37 @@ def main():
                                           forcing=fo_, carry=carry,
                                           lradsw=sw)
     carry_ = step(True, RadiationCarry.zeros(K, nlat, nlon, f32, dev))[4]
+    phys_kernels = [knames[k] for k in ("K9", "K10a", "K10b", "K11", "K12",
+                                        "K13")]
     per = {}
     for sw in (True, False):
         fn = lambda: step(sw, carry_)
         fn()
-        ms, kk_, _ = profile_device(torch, fn, reps=3)
-        per[sw] = (ms, sum(e.count for e in kk_) / 3)
+        ms, kk_, _ = profile_device(torch, fn, reps=20)
+        per[sw] = (ms, sum(e.count for e in kk_) / 20)
+        # nothing plain is left on the card: every device op of the step
+        # is one of the column kernels, and each of them ran
+        other = sorted({e.key[:80] for e in kk_
+                        if not any(n in e.key for n in phys_kernels)})
+        if other:
+            fail(f"a physics step (shortwave {sw}) ran device ops other "
+                 f"than K9-K13: {other}")
+        want = phys_kernels if sw else phys_kernels[:-1]
+        seen = [n for n in want if any(n in e.key for e in kk_)]
+        if seen != want:
+            fail(f"a physics step (shortwave {sw}) did not launch "
+                 f"{sorted(set(want) - set(seen))}")
     n_sw = 2 + len(range(0, hyb.gcm_steps, 3))
     n_lw = 2 + hyb.gcm_steps - n_sw
-    log(f"  physics (PhysicsModel.compute: K9 and K10 kernels, the other "
-        f"schemes plain PyTorch): "
+    log(f"  physics (PhysicsModel.compute, the kernels K9-K13 and no other "
+        f"device op): "
         f"{per[True][0]:.4f} ms and {per[True][1]:g} launches per step "
         f"with the shortwave, {per[False][0]:.4f} ms and "
         f"{per[False][1]:g} without; per cycle ({n_sw} + {n_lw} steps) "
         f"{n_sw * per[True][0] + n_lw * per[False][0]:.4f} ms and "
         f"{n_sw * per[True][1] + n_lw * per[False][1]:g} launches "
         f"[{card}]")
-    # each scheme of the step alone, in the step's order: the kernels
-    # beside what is still plain PyTorch (ROADMAP B2c-B2e)
+    # each kernel of the step alone, in the step's order
     ug_, vg_, tg_, qg_, phig_, pslg_ = grid_
     m_ = column_moist(tg_, qg_, phig_, pslg_, phys.moist_tabs)
     dn_ = clw.radlw_down(tg_, carry_.tau2, phys.lw_tabs)
@@ -946,23 +1028,20 @@ def main():
                               carry_, dn_[0])
     up_ = clw.radlw_up(tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2],
                        dn_[3], carry_.tau2, carry_.stratc, phys.lw_tabs)
-    pbl_ = phys.vertical_diffusion(m_, ug_, vg_, phig_)
     schemes = {
         "K9 column_moist": lambda: column_moist(tg_, qg_, phig_, pslg_,
                                                 phys.moist_tabs),
-        "cloud + radsw (B2e, plain, every 3rd step)": lambda: phys.shortwave(
+        "K13 column_shortwave (every 3rd step)": lambda: phys.shortwave(
             m_, phig_, gcm.bd, fo_, carry_),
         "K10a radlw_down": lambda: clw.radlw_down(tg_, carry_.tau2,
                                                   phys.lw_tabs),
-        "suflux (B2c, plain)": lambda: phys.surface_fluxes(
+        "K11 surface_fluxes": lambda: phys.surface_fluxes(
             m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_, carry_, dn_[0]),
         "K10b radlw_up": lambda: clw.radlw_up(
             tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2], dn_[3],
             carry_.tau2, carry_.stratc, phys.lw_tabs),
-        "vdifsc (B2d, plain)": lambda: phys.vertical_diffusion(
-            m_, ug_, vg_, phig_),
-        "final sums (B2d, plain)": lambda: phys.tendency_sums(
-            m_, carry_, sfc_, fx_, up_[2], up_[1], pbl_)}
+        "K12 column_pbl": lambda: phys.tendency_sums(
+            m_, phig_, carry_, sfc_, fx_, up_[2], up_[1])}
     # 20 calls each: a profile can miss its first launch or two, which
     # is all of a kernel's in a short one
     parts = []
@@ -971,7 +1050,7 @@ def main():
         ms, kk_, _ = profile_device(torch, fn, reps=20)
         parts.append(f"{nm} {ms:.4f} ms "
                      f"({sum(e.count for e in kk_) / 20:g} launches)")
-    log("  physics by scheme, each profiled alone, per call: "
+    log("  physics by kernel, each profiled alone, per call: "
         + "; ".join(parts) + f" [{card}]")
 
     run = lambda: run_prediction(hyb, final, date0, N_TIMED)

@@ -33,8 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # flags of single sources, after NVCC_FLAGS.  The column physics rounds
 # every operation apart (no FMA contraction): its convection decides by
 # comparing sums, as the plain version does.
-SOURCE_FLAGS = {"column_moist.cu": ["-fmad=false"],
-                "column_longwave.cu": ["-fmad=false"]}
+SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
+    "column_moist.cu", "column_longwave.cu", "column_surface.cu",
+    "column_pbl.cu", "column_shortwave.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -67,6 +68,12 @@ SIGNATURES = {
     "radlw_down_launch": [_i, _i, _i, _vp, _vp, _vp, _i, _vp, _vp],
     "radlw_up_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                         _vp, _vp, _vp, _i, _vp, _vp],
+    "surface_fluxes_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
+                              _i, _vp, _vp],
+    "column_pbl_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i, _vp,
+                          _vp],
+    "column_shortwave_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
+                                _vp, _vp],
 }
 
 _lib = None  # the loaded library, once per process
@@ -187,3 +194,31 @@ def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
         raise ValueError(f"{name}: must be contiguous")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """The tensors' data pointers as a C array of void* (the operand
+    list of K11-K13)."""
+    ptrs = [t.data_ptr() for t in tensors]
+    return (_vp * len(ptrs))(*ptrs)
+
+
+def level_dims(t, name: str) -> tuple[int, int, int]:
+    """(K, nlat, nlon) of a column kernel's leading level field, which
+    sets the dtype (float32 or float64) of its other operands."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 3:
+        raise ValueError(f"{name}: expected a (K, lat, lon) tensor")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 "
+                        "or float64")
+    return tuple(t.shape)
+
+
+def column_route(name: str, device: torch.device, K: int, levels) -> str:
+    """Where a column-physics call goes: "cpu" (the plain version) or
+    "cuda" (the kernel, compiled for K in `levels`); raises otherwise."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+    if device.type == "cuda" and K not in levels:
+        raise ValueError(f"{name}: the kernel takes K in {levels}, not K={K}")
+    return device.type

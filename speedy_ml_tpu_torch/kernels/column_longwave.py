@@ -64,16 +64,6 @@ def longwave_tables(wvi2, dsig, sbc, fband, dtype, device) -> LongwaveTables:
                           blob=blob)
 
 
-def _dims(ta):
-    """(K, nlat, nlon) of the level field ta, float32 or float64."""
-    if not isinstance(ta, torch.Tensor) or ta.dim() != 3:
-        raise ValueError("ta: expected a (K, lat, lon) tensor")
-    if ta.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ta: dtype {ta.dtype}, the kernel takes float32 "
-                        "or float64")
-    return tuple(ta.shape)
-
-
 def _route(name: str, ta: torch.Tensor, operands, tabs: LongwaveTables):
     """Validate the operands of either route ((name, tensor, shape) each:
     ta's dtype, contiguous, on ta's device) and say where the call goes:
@@ -83,19 +73,13 @@ def _route(name: str, ta: torch.Tensor, operands, tabs: LongwaveTables):
         kb.require(t, nm, ta.dtype, shape, ta.device)
     kb.require(tabs.blob, "tabs.blob", ta.dtype,
                (N_TABLES * K + N_SCALARS,), ta.device)
-    kind = ta.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {ta.device}")
-    if kind == "cuda" and K not in KERNEL_LEVELS:
-        raise ValueError(f"{name}: the kernel takes K in {KERNEL_LEVELS}, "
-                         f"not K={K}")
-    return kind
+    return kb.column_route(name, ta.device, K, KERNEL_LEVELS)
 
 
 def radlw_down(ta, tau2, tabs: LongwaveTables):
     """Downward longwave.  ta (K, lat, lon), tau2 (K, 4, lat, lon).
     Returns (slrd, dfabs, flux_bands, (st4a_mean, st4a_grad))."""
-    K, nlat, nlon = _dims(ta)
+    K, nlat, nlon = kb.level_dims(ta, "ta")
     kind = _route("radlw_down", ta, (
         ("ta", ta, (K, nlat, nlon)), ("tau2", tau2, (K, 4, nlat, nlon))),
         tabs)
@@ -125,7 +109,7 @@ def radlw_up(ta, ts, slrd, slru_sfc, dfabs, flux_bands, st4a, tau2, stratc,
     """Upward longwave from radlw_down's results, the surface temperature
     ts and emission slru_sfc, and stratc (2, lat, lon).  Returns
     (slr, olr, dfabs)."""
-    K, nlat, nlon = _dims(ta)
+    K, nlat, nlon = kb.level_dims(ta, "ta")
     plane, lev = (nlat, nlon), (K, nlat, nlon)
     st4a_mean, st4a_grad = st4a
     kind = _route("radlw_up", ta, (

@@ -130,12 +130,7 @@ def _check(tg, qg, phig, pslg, tabs: MoistTables):
     """Validate the operands of either route: one floating dtype (the
     blob's), (K, lat, lon) level fields, contiguous, on one device.
     Returns (K, nlat, nlon)."""
-    if not isinstance(tg, torch.Tensor) or tg.dim() != 3:
-        raise ValueError("tg: expected a (K, lat, lon) tensor")
-    if tg.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"tg: dtype {tg.dtype}, the kernel takes float32 "
-                        "or float64")
-    K, nlat, nlon = tg.shape
+    K, nlat, nlon = kb.level_dims(tg, "tg")
     dt, dev = tg.dtype, tg.device
     kb.require(tg, "tg", dt, (K, nlat, nlon), dev)
     kb.require(qg, "qg", dt, (K, nlat, nlon), dev)
@@ -148,14 +143,9 @@ def _check(tg, qg, phig, pslg, tabs: MoistTables):
 def column_moist(tg, qg, phig, pslg, tabs: MoistTables) -> MoistColumns:
     """The moist column physics of one step (see the module docstring)."""
     K, nlat, nlon = _check(tg, qg, phig, pslg, tabs)
-    if tg.device.type == "cpu":
-        return column_moist_plain(tg, qg, phig, pslg, tabs)
-    if tg.device.type != "cuda":
-        raise ValueError(f"column_moist: no kernel for device {tg.device}")
-    if K not in KERNEL_LEVELS:
-        raise ValueError(f"column_moist: the kernel takes K in "
-                         f"{KERNEL_LEVELS}, not K={K}")
     dev = tg.device
+    if kb.column_route("column_moist", dev, K, KERNEL_LEVELS) == "cpu":
+        return column_moist_plain(tg, qg, phig, pslg, tabs)
     out = torch.empty((N_LEVEL_FIELDS * K + N_PLANES, nlat, nlon),
                       dtype=tg.dtype, device=dev)
     out_i = torch.empty((2, nlat, nlon), dtype=torch.int64, device=dev)

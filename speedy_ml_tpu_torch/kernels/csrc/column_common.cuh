@@ -1,7 +1,9 @@
 // Shared by the column-physics bodies (column_moist.cuh,
-// column_longwave.cuh): they compile as CUDA device code and, with a
-// host C++ compiler, as plain functions.  Only exp and rint leave the
-// four basic operations; both have a float and a double form.
+// column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
+// column_shortwave.cuh): they compile as CUDA device code and, with a
+// host C++ compiler, as plain functions.  Only exp, sqrt, pow and rint
+// leave the four basic operations; each has a float and a double form,
+// the function PyTorch's own kernel calls for the same operation.
 #pragma once
 
 #include <math.h>
@@ -15,6 +17,12 @@
 
 COL_HD float col_exp(float x) { return expf(x); }
 COL_HD double col_exp(double x) { return exp(x); }
+COL_HD float col_sqrt(float x) { return sqrtf(x); }
+COL_HD double col_sqrt(double x) { return sqrt(x); }
+// torch.pow(x, e) for a scalar e other than 2 and 3, which PyTorch
+// computes as the products x*x and x*x*x: powf / pow
+COL_HD float col_pow(float x, float e) { return powf(x, e); }
+COL_HD double col_pow(double x, double e) { return pow(x, e); }
 // round half to even, as torch.round does
 COL_HD float col_rint(float x) { return rintf(x); }
 COL_HD double col_rint(double x) { return rint(x); }

@@ -1,6 +1,7 @@
 // Host build of the column-physics bodies (column_moist.cuh,
-// column_longwave.cuh): the same per-column code the CUDA kernels K9 and
-// K10 run, looped over the columns on the CPU.  It is not part of the
+// column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
+// column_shortwave.cuh): the same per-column code the CUDA kernels K9-K13
+// run, looped over the columns on the CPU.  It is not part of the
 // kernel library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC column_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions, so that a logic error
@@ -10,6 +11,9 @@
 
 #include "column_longwave.cuh"
 #include "column_moist.cuh"
+#include "column_pbl.cuh"
+#include "column_shortwave.cuh"
+#include "column_surface.cuh"
 
 #define HOST_DISPATCH(CALL)                   \
   switch (K) {                                \
@@ -74,6 +78,55 @@ extern "C" int radlw_up_host(int K, int is_double, const void* ta,
                          (const T*)flux_bands, (const T*)st4a_mean,        \
                          (const T*)st4a_grad, (const T*)tau2,              \
                          (const T*)stratc, (const T*)blob, (T*)out);       \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+// K11-K13 take their operands as an array of n_in pointers, in the order
+// of the kernels' In structs; a wrong count returns 1 too.
+extern "C" int surface_fluxes_host(int K, int is_double,
+                                   const void* const* in, int n_in,
+                                   const void* blob, int G, int nlon,
+                                   void* out) {
+  if (n_in != SURFACE_N_IN || nlon <= 0 || G % nlon != 0) return 1;
+#define CALL(T, KK)                                                     \
+  {                                                                     \
+    const SurfaceIn<T> args = surface_in<T>(in);                        \
+    for (int c = 0; c < G; ++c)                                         \
+      surface_fluxes_at<T, KK>(c, G, nlon, args, (const T*)blob,        \
+                               (T*)out);                                \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+extern "C" int column_pbl_host(int K, int is_double, const void* const* in,
+                               int n_in, const void* blob, int G,
+                               void* out) {
+  if (n_in != PBL_N_IN) return 1;
+#define CALL(T, KK)                                                        \
+  {                                                                        \
+    const PblIn<T> args = pbl_in<T>(in);                                   \
+    for (int c = 0; c < G; ++c)                                            \
+      column_pbl_at<T, KK>(c, G, args, (const T*)blob, (T*)out);           \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+extern "C" int column_shortwave_host(int K, int is_double,
+                                     const void* const* in, int n_in,
+                                     const void* blob, int G, void* out) {
+  if (n_in != SHORTWAVE_N_IN) return 1;
+#define CALL(T, KK)                                                        \
+  {                                                                        \
+    const ShortwaveIn<T> args = shortwave_in<T>(in);                       \
+    for (int c = 0; c < G; ++c)                                            \
+      column_shortwave_at<T, KK>(c, G, args, (const T*)blob, (T*)out);     \
   }
   HOST_DISPATCH(CALL)
 #undef CALL

@@ -58,10 +58,9 @@ COL_HD void radlw_down_body(const LongwaveTab<T, K>& tb, const T (&ta)[K],
     thalf[k] = ta[k] + tb.wvi2[k] * (ta[k + 1] - ta[k]);
   const T t_strat1 = T(0.75) * ta[0] + T(0.25) * thalf[0];
   const T t_strat2 = T(0.50) * ta[1] + T(0.25) * (thalf[0] + thalf[1]);
-  // x ** 4 as (x x)(x x)
-  const T s1 = t_strat1 * t_strat1, s2 = t_strat2 * t_strat2;
-  mean[0] = tb.sbc * (s1 * s1);
-  mean[1] = tb.sbc * (s2 * s2);
+  // x ** 4 as torch.pow evaluates it (powf / pow)
+  mean[0] = tb.sbc * col_pow(t_strat1, T(4));
+  mean[1] = tb.sbc * col_pow(t_strat2, T(4));
   grad[0] = grad[1] = zero;
   // the temperature gradient across each layer, into grad for now
 #pragma unroll

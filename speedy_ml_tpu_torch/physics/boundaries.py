@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.physics.surface import sflset
 
 THRSH = 0.1   # land/sea fraction threshold
@@ -92,6 +93,9 @@ def save_npz(bd: BoundaryData, path: str):
         for k in bd.__dataclass_fields__})
 
 
-def load_npz(path: str, dtype=torch.float32, device="cpu") -> BoundaryData:
+def load_npz(path: str, dtype=torch.float32, device=None) -> BoundaryData:
+    """BoundaryData from save_npz's file, on `device` (default CUDA; raises
+    without one unless device="cpu")."""
+    device = resolve_device(device)
     z = np.load(path)
     return fields_to_boundary({k: z[k] for k in z.files}, device, dtype)

@@ -6,16 +6,16 @@ coupled-surface state, the daily forcing and the radiation carry
 (shortwave runs every nstrad steps; its results persist in the carry),
 and returns grid tendencies, the new carry and the flux diagnostics.
 
-The step is mixed (hot spot B2 of ROADMAP queue B).  The moist group
-(humidity, convection, large-scale condensation) is one call of
-kernels.column_moist and the longwave pair two calls of
-kernels.column_longwave: on a CUDA tensor each launches its hand-written
-kernel (K9, K10), on a CPU tensor its plain version.  The clouds and the
-shortwave, the surface fluxes, the vertical diffusion and the final sums
-are plain PyTorch on the device; their kernels are still to write.  The
-shortwave cadence is a Python branch on a host bool; data-dependent
-level indices (itop, icltop) are torch.gather calls and comparisons
-(selects in the kernels), never host reads.
+The step is five or six kernel launches (hot spot B2 of ROADMAP queue
+B), each through its wrapper in kernels/: K9 column_moist (humidity,
+convection, large-scale condensation), K13 column_shortwave (clouds and
+the shortwave, on the shortwave steps only), K10a radlw_down, K11
+surface_fluxes, K10b radlw_up and K12 column_pbl (the vertical diffusion
+and the sums).  On a CUDA tensor each launches its hand-written kernel
+and nothing else runs on the card; on a CPU tensor each runs its plain
+version.  The shortwave cadence is a Python branch on a host bool;
+data-dependent level indices (itop, icltop) stay on the device, never
+read by the host.
 """
 
 from __future__ import annotations
@@ -26,17 +26,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.core.constants import GAMMA_LAPSE, REFRH1
 from speedy_ml_tpu_torch.kernels import column_longwave
 from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
                                                       moist_tables)
+from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl, pbl_tables
+from speedy_ml_tpu_torch.kernels.column_shortwave import (column_shortwave,
+                                                          shortwave_tables)
+from speedy_ml_tpu_torch.kernels.surface_fluxes import (surface_fluxes,
+                                                        surface_tables)
 from speedy_ml_tpu_torch.physics import constants as pc
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.boundaries import BoundaryData
 from speedy_ml_tpu_torch.physics.humidity import qsat_from_t
 from speedy_ml_tpu_torch.physics.land_sea import SurfaceState
-from speedy_ml_tpu_torch.physics.surface import suflux
-from speedy_ml_tpu_torch.physics.vdiff import vdifsc
 
 OPTIONAL_SLICE = "the optional-physics slice of the port (A15)"
 
@@ -90,17 +94,18 @@ class FluxDiag(NamedTuple):
 
 
 class PhysicsModel:
-    """Static tables on one device + the phypar step function."""
+    """Static tables on one device (default CUDA; raises without one
+    unless device="cpu") + the phypar step function."""
 
     def __init__(self, geom, constants, dtype=torch.float32, randfh=None,
-                 *, device="cpu"):
+                 *, device=None):
         if randfh is not None:
             raise NotImplementedError(
                 f"random diabatic forcing (RDF) comes with {OPTIONAL_SLICE}")
+        self.device = resolve_device(device)
         self.geom = geom
         self.const = constants
         self.dtype = dtype
-        self.device = torch.device(device)
         hsg = np.asarray(geom.half_sigma, dtype=np.float64)
         sig = 0.5 * (hsg[1:] + hsg[:-1])
         dsig = hsg[1:] - hsg[:-1]
@@ -133,6 +138,11 @@ class PhysicsModel:
                                        self.grdsig, self.grdscp, constants)
         self.lw_tabs = column_longwave.longwave_tables(
             self.wvi2, dsig, constants.sbc, self.fband, dtype, self.device)
+        self.sfc_tabs = surface_tables(self.sigl_bot, self.wvi2_bot,
+                                       constants, dtype, self.device)
+        self.pbl_tabs = pbl_tables(sig, hsg, dsig, self.grdsig, self.grdscp,
+                                   constants)
+        self.sw_tabs = shortwave_tables(sig, dsig, self.grdscp)
 
     # ------------------------------------------------------------------
 
@@ -140,13 +150,15 @@ class PhysicsModel:
                       sht) -> DailyForcing:
         """fordate(1): solar forcing, surface albedo, diffusion
         corrections.  tyear: a float or a 0-d tensor on the device (a
-        float becomes a device fill, so no copy from the host)."""
+        float becomes a device fill, so no copy from the host).  The
+        zonal solar fields are stored as contiguous (lat, lon) planes, as
+        the shortwave kernel reads them."""
         c = self.const
         if not torch.is_tensor(tyear):
             tyear = torch.full((), float(tyear), dtype=self.dtype,
                                device=self.device)
-        sol = rad.sol_oz_traced(tyear, self.slat_t, self.clat_t,
-                                self.geom.nlon)
+        sol = rad.SolarForcing(*torch.stack(rad.sol_oz_traced(
+            tyear, self.slat_t, self.clat_t, self.geom.nlon)))
         snowc = torch.clamp(sfc.snowd_am / pc.SD2SC, max=1.0)
         alb_l = bd.alb0 + snowc * (pc.ALBSN - bd.alb0)
         alb_s = pc.ALBSEA + sfc.sice_am * (pc.ALBICE - pc.ALBSEA)
@@ -177,95 +189,62 @@ class PhysicsModel:
 
         Inputs (K, lat, lon) except pslg (lat, lon); lradsw a host bool
         (shortwave every nstrad steps).  Returns (utend, vtend, ttend,
-        qtend, carry', FluxDiag).  The step is the stage methods below in
-        this order; each can be called (and timed) alone."""
+        qtend, carry', FluxDiag).  The step is the kernels K9, K13 (with
+        the shortwave), K10a, K11, K10b and K12 in this order; the stage
+        methods below can be called (and timed) alone."""
         if sppt_pattern is not None:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
         # --- humidity, convection, large-scale condensation (K9)
         m = column_moist(tg, qg, phig, pslg, self.moist_tabs)
-        # --- shortwave radiation (every nstrad steps)
+        # --- clouds and shortwave radiation, every nstrad steps (K13)
         if lradsw:
             carry = self.shortwave(m, phig, bd, forcing, carry)
-        # --- longwave down (K10)
+        # --- longwave down (K10a)
         slrd, dfabs_lw, flux_bands, st4a = column_longwave.radlw_down(
             tg, carry.tau2, self.lw_tabs)
-        # --- surface fluxes
+        # --- surface fluxes (K11)
         fx = self.surface_fluxes(m, ug, vg, tg, phig, bd, sfc, forcing,
                                  carry, slrd)
-        # --- longwave up (K10)
+        # --- longwave up (K10b)
         slr, olr, dfabs_lw = column_longwave.radlw_up(
             tg, fx.tsfc, slrd, fx.slru[2], dfabs_lw, flux_bands, st4a,
             carry.tau2, carry.stratc, self.lw_tabs)
-        # --- PBL / vertical diffusion
-        pbl = self.vertical_diffusion(m, ug, vg, phig)
-        # --- the sums, and the fluxes for the coupler
+        # --- vertical diffusion, the sums and the fluxes for the coupler
+        # (K12)
         ut, vt, ttend, qtend, diag = self.tendency_sums(
-            m, carry, sfc, fx, dfabs_lw, olr, pbl)
+            m, phig, carry, sfc, fx, dfabs_lw, olr)
         return ut, vt, ttend, qtend, carry, diag
 
     def shortwave(self, m, phig, bd, forcing, carry) -> RadiationCarry:
-        """Clouds and the shortwave step: the new radiation carry."""
-        K = self.geom.nlev
+        """Clouds and the shortwave step (K13): the new radiation carry."""
         sol = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
                                ozone=forcing.ozone, zenit=forcing.zenit,
                                stratz=forcing.stratz)
-        gse = (m.se[K - 2] - m.se[K - 1]) / (phig[K - 2] - phig[K - 1])
-        icltop, cloudc, clstr, qcloud = rad.cloud(
-            m.qg, m.rh, m.precnv, m.precls, m.itop, gse, bd.fmask_l)
-        ssrd, ssr, tsr, dfabs_sw, tau2, stratc = rad.radsw(
-            m.psg, m.qg, icltop, cloudc, clstr, qcloud, sol, forcing.albsfc,
-            sig=self.sig, dsig=self.dsig)
-        grdscp = self.grdscp[:, None, None]
-        return RadiationCarry(tau2=tau2, stratc=stratc,
-                              tt_rsw=dfabs_sw * m.rps[None] * grdscp,
+        tau2, stratc, tt_rsw, ssrd, ssr, tsr = column_shortwave(
+            m, phig, bd.fmask_l, sol, forcing.albsfc, self.sw_tabs)
+        return RadiationCarry(tau2=tau2, stratc=stratc, tt_rsw=tt_rsw,
                               ssrd=ssrd, ssr=ssr, tsr=tsr,
                               randfv=carry.randfv)
 
     def surface_fluxes(self, m, ug, vg, tg, phig, bd, sfc, forcing, carry,
                        slrd):
-        c = self.const
-        return suflux(m.psg, ug, vg, tg, m.qg, m.rh, phig, phi0=bd.phis0,
-                      fmask=bd.fmask_l, tland=sfc.stl_am, tsea=sfc.sst_am,
-                      swav=sfc.soilw_am, ssrd=carry.ssrd, slrd=slrd,
-                      forog=bd.forog, alb_l=forcing.alb_l,
-                      alb_s=forcing.alb_s, snowc=forcing.snowc,
-                      clat_row=self.clat_t, sigl_bot=self.sigl_bot,
-                      wvi2_bot=self.wvi2_bot, rd=287.0, cp=c.cp,
-                      alhc=c.alhc, sbc=c.sbc)
+        """The surface fluxes (K11): a SurfaceFluxes."""
+        return surface_fluxes(
+            m.psg, ug, vg, tg, m.qg, phig, phi0=bd.phis0, fmask=bd.fmask_l,
+            tland=sfc.stl_am, tsea=sfc.sst_am, swav=sfc.soilw_am,
+            ssrd=carry.ssrd, slrd=slrd, forog=bd.forog, alb_l=forcing.alb_l,
+            alb_s=forcing.alb_s, snowc=forcing.snowc, clat=self.clat_t,
+            tabs=self.sfc_tabs)
 
-    def vertical_diffusion(self, m, ug, vg, phig):
-        c = self.const
-        return vdifsc(ug, vg, m.se, m.rh, m.qg, m.qsat, phig, m.icnv,
-                      sig=self.sig, sigh=self.sigh, dsig=self.dsig, cp=c.cp,
-                      alhc=c.alhc)
-
-    def tendency_sums(self, m, carry, sfc, fx, dfabs_lw, olr, pbl):
-        """The radiative heating and the diffusion tendencies (with the
-        surface fluxes on the lowest level) summed onto the moist ones,
-        and the fluxes for the coupler.  Returns (utend, vtend, ttend,
-        qtend, FluxDiag)."""
-        c = self.const
-        rps = m.rps
-        tt_rlw = dfabs_lw * rps[None] * self.grdscp[:, None, None]
-        ttend = m.ttend + carry.tt_rsw + tt_rlw
-        ut_pbl, vt_pbl, tt_pbl, qt_pbl = pbl
-        bot = self.geom.nlev - 1
-        gs, gc = self.grdsig[bot], self.grdscp[bot]
-        add_bot = lambda a, f: torch.cat([a[:bot], (a[bot] + f)[None]])
-        ut_pbl = add_bot(ut_pbl, fx.ustr[2] * rps * gs)
-        vt_pbl = add_bot(vt_pbl, fx.vstr[2] * rps * gs)
-        tt_pbl = add_bot(tt_pbl, fx.shf[2] * rps * gc)
-        qt_pbl = add_bot(qt_pbl, fx.evap[2] * rps * gs)
-        ttend = ttend + tt_pbl
-        qtend = m.qtend + qt_pbl
-
-        # difice as in ppo_dmflux.f90:114-118
-        esbc = pc.EMISFC * c.sbc
-        difice = ((pc.ALBSEA - pc.ALBICE) * carry.ssrd
-                  + esbc * (pc.SSTFR ** 4 - sfc.tice_am ** 4)
-                  + fx.shf[1] + fx.evap[1] * c.alhc)
+    def tendency_sums(self, m, phig, carry, sfc, fx, dfabs_lw, olr):
+        """The vertical diffusion and the sums (K12): the radiative
+        heating and the diffusion tendencies (with the surface fluxes on
+        the lowest level) summed onto the moist ones, and the fluxes for
+        the coupler.  Returns (utend, vtend, ttend, qtend, FluxDiag)."""
+        ut, vt, ttend, qtend, hflux_i = column_pbl(
+            m, phig, fx, carry.tt_rsw, carry.ssrd, dfabs_lw, sfc.tice_am,
+            sfc.sice_am, self.pbl_tabs)
         diag = FluxDiag(precnv=m.precnv, precls=m.precls,
                         hflux_l=fx.hfluxn[0], hflux_s=fx.hfluxn[1],
-                        hflux_i=fx.hfluxn[1] + difice * (1.0 - sfc.sice_am),
-                        olr=olr, ts=fx.tsfc)
-        return ut_pbl, vt_pbl, ttend, qtend, diag
+                        hflux_i=hflux_i, olr=olr, ts=fx.tsfc)
+        return ut, vt, ttend, qtend, diag

@@ -106,7 +106,7 @@ def _close(got, ref, rtol=1e-12):
 
 def phys_for(dtype, K=8):
     return PhysicsModel(Geometry(nlev=K, **GEOM), PhysicalConstants(),
-                        dtype=dtype)
+                        dtype=dtype, device="cpu")
 
 
 def moist_inputs(seed, dtype=torch.float64, K=8):

@@ -62,7 +62,7 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     from speedy_ml_tpu_torch import resolve_device
     from speedy_ml_tpu_torch.core.geometry import Geometry
     from speedy_ml_tpu_torch.core.spectral import SpectralTransform
@@ -71,12 +71,23 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from speedy_ml_tpu_torch.gcm import GCM
     from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
     from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
-    from speedy_ml_tpu_torch.physics.boundaries import \
-        synthetic_boundary_data
+    from speedy_ml_tpu_torch.core.constants import PhysicalConstants
+    from speedy_ml_tpu_torch.physics.boundaries import (load_npz, save_npz,
+                                                        synthetic_boundary_data)
+    from speedy_ml_tpu_torch.physics.driver import PhysicsModel
 
     g = Geometry(trunc=10, nlon=32, nlat=16, nlev=8)
     bd = synthetic_boundary_data(g)
+    npz = tmp_path / "bd.npz"
+    save_npz(bd, str(npz))
     _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PhysicsModel(g, PhysicalConstants())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_npz(str(npz))
+    assert PhysicsModel(g, PhysicalConstants(), device="cpu") \
+        .sig_t.device.type == "cpu"
+    assert load_npz(str(npz), device="cpu").orog.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_untrained_hybrid(n_regions=1152, m=6000, ml_only=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):

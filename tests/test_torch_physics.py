@@ -303,7 +303,8 @@ def setup(request):
     g = Geometry(**GEOM)
     sht = SpectralTransform(g, dtype=torch.float64, device="cpu")
     bd = boundary_from_numpy(jbd, device="cpu", dtype=torch.float64)
-    phys = PhysicsModel(g, PhysicalConstants(), dtype=torch.float64)
+    phys = PhysicsModel(g, PhysicalConstants(), dtype=torch.float64,
+                        device="cpu")
     return land, jsht, jbd, jphys, sht, bd, phys
 
 
@@ -314,7 +315,8 @@ def test_boundaries_match(setup, tmp_path):
         np.testing.assert_array_equal(getattr(own, k).numpy(),
                                       np.asarray(getattr(jbd, k)), k)
     save_npz(own, str(tmp_path / "bd.npz"))
-    back = load_npz(str(tmp_path / "bd.npz"), dtype=torch.float64)
+    back = load_npz(str(tmp_path / "bd.npz"), dtype=torch.float64,
+                    device="cpu")
     for k in bd.__dataclass_fields__:
         assert torch.equal(getattr(back, k), getattr(own, k))
 
@@ -379,7 +381,7 @@ def test_unported_physics_options_raise():
     g = Geometry(**GEOM)
     with pytest.raises(NotImplementedError, match="RDF"):
         PhysicsModel(g, PhysicalConstants(), randfh=np.zeros((2, 16, 32)))
-    phys = PhysicsModel(g, PhysicalConstants())
+    phys = PhysicsModel(g, PhysicalConstants(), device="cpu")
     with pytest.raises(NotImplementedError, match="SPPT"):
         phys.compute(*(None,) * 6, bd=None, sfc=None, forcing=None,
                      carry=None, lradsw=True, sppt_pattern=1.0)
