@@ -36,7 +36,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      physical checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
-     finite, and run_prediction stops by cycle 2.
+     finite, and run_prediction stops by cycle 2;
+ 10. training at full width: K14 gram_update against its plain version
+     (float32 and float64) and the torch.baddbmm yardstick at three
+     shapes; a nature run of the T30 GCM (104 samples at 6 h from
+     1990-01-01, no spin-up) and the imperfect model's 6-h forecasts;
+     train_hybrid_production on all 1,152 regions (m=6000, noise 0.2,
+     40 discarded samples, 64 pairs, time chunks of 16, region chunks of
+     96, the solve in float64) with K14 and K1 launched; finite Wout, the
+     solve's residual <= 1e-8 for 8 regions of each class, stage times,
+     FLOP/s and peak memory; then the trained weights (bf16) through 12
+     coupled cycles of run_prediction, the fields finite.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the package beside this script.
@@ -83,6 +93,17 @@ TAIL_RTOL = 1e-5
 COLUMN_RTOL = 2e-6
 COLUMN_FLIPS = 0.005
 COLUMN_RTOL_F64 = 1e-11
+# phase 10 (training): the nature run, the trainer's settings (main.train's
+# for a 6-h series: 240 h discarded, 20 batches of at least 16 samples)
+N_NATURE = 104
+N_DISCARD = 40
+TIME_CHUNK = 16
+REGION_CHUNK = 96   # (96, 5892, 5892) f32 Gram: 13.3 GB
+TRAIN_SEED = 33
+CYCLES_TRAINED = 12
+K14_RTOL = 1e-5     # f32: sums of 16 or 1,896 products in another order
+K14_RTOL_F64 = 1e-12
+RESIDUAL_MAX = 1e-8
 # the record_function ranges of the coupled cycle
 RANGES = ("predict_all", "assemble_global", "inject_to_speedy",
           "speedy_window", "physics", "build_feedback", "build_local_model")
@@ -219,6 +240,261 @@ def signal_err(got, ref, magnitude: bool = False):
     magnitude."""
     sig = float((ref if magnitude else ref - ref.mean()).abs().max())
     return float((got - ref).abs().max()) / max(sig, 1e-30)
+
+
+def max_abs(torch, t) -> float:
+    """max |t| over a (R, ...) tensor, one region at a time (no full-size
+    temporary)."""
+    return max(float(t[r].abs().max()) for r in range(t.shape[0]))
+
+
+def max_abs_diff(torch, a, b) -> float:
+    return max(float((a[r] - b[r]).abs().max()) for r in range(a.shape[0]))
+
+
+def k14_case(torch, label, C, R, n, S, O, card, gen):
+    """K14 against its plain version on random operands of one shape, in
+    float64 on 8 of the regions and in float32, then timed in float32:
+    kernel, plain version, torch.baddbmm on the materialized aug.
+    Returns (the float32 relative error, ((device_ms, call_ms) of kernel,
+    plain version and baddbmm, the bound))."""
+    from speedy_ml_tpu_torch.kernels.gram_update import (augment,
+                                                         gram_update,
+                                                         gram_update_plain)
+    dev = torch.device("cuda")
+    A = S + n
+
+    def operands(R_, dtype):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                         dtype=dtype)
+        return (torch.tanh(rnd(C, R_, n)), rnd(C, R_, S), rnd(C, R_, O),
+                rnd(R_, A, A), rnd(R_, O, A))
+
+    def compare(ops, rtol, tag):
+        states, model, target, ss0, st0 = ops
+        ss_k, st_k = ss0.clone(), st0.clone()
+        st_start = st0.clone()
+        gram_update(ss_k, st_k, states, model, target)
+        gram_update_plain(ss0, st0, states, model, target)
+        torch.cuda.synchronize()
+        if not max_abs_diff(torch, st_k, st_start) > 0:
+            fail(f"K14 ({label}, {tag}) left st as it was")
+        err = max(max_abs_diff(torch, ss_k, ss0) / max_abs(torch, ss0),
+                  max_abs_diff(torch, st_k, st0) / max_abs(torch, st0))
+        log(f"K14 {label} {tag}: C={C} R={ss0.shape[0]} A={A} O={O}, "
+            f"error {err:.3e} of max|ss|, max|st| (tolerance {rtol:.0e})")
+        if not err <= rtol:
+            fail(f"K14 ({label}, {tag}) disagrees with its plain version")
+        return err, (ss_k, st_k)
+
+    err64, _ = compare(operands(min(R, 8), torch.float64), K14_RTOL_F64,
+                       "float64")
+    ops = operands(R, torch.float32)
+    err, (ss_k, st_k) = compare(ops, K14_RTOL, "float32")
+    states, model, target, ss_p, st_p = ops
+    k = measure(torch, lambda: gram_update(ss_k, st_k, states, model,
+                                           target), reps=5, warmup=1)
+    p = measure(torch, lambda: gram_update_plain(ss_p, st_p, states, model,
+                                                 target), reps=3, warmup=1)
+    aug = augment(states, model).transpose(0, 1).contiguous()   # (R, C, A)
+    tgt = target.transpose(0, 1).contiguous()
+    augt, tgtt = aug.transpose(1, 2), tgt.transpose(1, 2)
+    lib = measure(torch, lambda: (ss_p.baddbmm_(augt, aug),
+                                  st_p.baddbmm_(tgtt, aug)), reps=5,
+                  warmup=1)
+    nbytes = 4 * (2 * R * A * (A + O) + C * R * (n + S + O))
+    bound = bound_ms(nbytes, 2.0 * C * R * A * (A + O), PEAK_F32_S)
+    log(f"K14 {label}: kernel {k[0]:.4f} ms, plain {p[0]:.4f} ms, "
+        f"torch.baddbmm {lib[0]:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]}), {bound[0] / k[0]:.0%} of the bound [{card}]")
+    return err, (k, p, lib, bound)
+
+
+def phase_training(torch, gcm, layout, date0, card, record):
+    """Phase 10: K14's checks, the nature run and the forecasts,
+    train_hybrid_production at full width, its checks and the trained
+    weights in the coupled cycle.  Returns the launches of K14 in the
+    training run."""
+
+    from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
+    from speedy_ml_tpu_torch.esn.train import NormalEq, solve_wout
+    from speedy_ml_tpu_torch.hybrid.build import derive_seed
+    from speedy_ml_tpu_torch.hybrid.chunked import (ArraySource,
+                                                    class_trainer,
+                                                    train_hybrid_production)
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.training import (generate_nature_run,
+                                                     make_imperfect_forecasts)
+    from speedy_ml_tpu_torch.kernels import column_longwave as clw
+    from speedy_ml_tpu_torch.kernels import surface_fluxes as sfk
+    from speedy_ml_tpu_torch.kernels.column_moist import column_moist
+    from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl
+    from speedy_ml_tpu_torch.kernels.column_shortwave import column_shortwave
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.gram_update import gram_update
+    from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
+    from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
+    from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
+    from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    hyper = ESNHyper()
+    nz = gcm.geom.nlev
+    shapes = {}
+    for cls in layout.classes:
+        xi, yi = cls.input_shape
+        xc, yc = cls.core_shape
+        I = (4 * nz + 4) * xi * yi
+        n = hyper.nodes(I)
+        O = (4 * nz + 2) * xc * yc
+        shapes[cls.name] = (cls.count, n, O - xc * yc, O)
+    interior = max(shapes.values())          # the 1,056-region class
+    polar = min(shapes.values())
+
+    # -- 10a. K14 against its plain version at three shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    _, n_i, S, O = interior
+    err, main = k14_case(torch, "interior chunk", TIME_CHUNK, REGION_CHUNK,
+                         n_i, S, O, card, gen)
+    _, n_p, _, _ = polar
+    err_p, _ = k14_case(torch, "polar chunk", TIME_CHUNK, polar[0], n_p, S,
+                        O, card, gen)
+    err_c, _ = k14_case(torch, "compute-bound chunk", 1896, 8, n_i, S, O,
+                        card, gen)
+    torch.cuda.empty_cache()
+    k, p, lib, bound = main
+    record("K14_gram_update",
+           "speedy_ml_tpu_torch/kernels/csrc/gram_update.cu",
+           "speedy_ml_tpu/esn/train.py:96", max(err, err_p, err_c),
+           K14_RTOL, k, p, bound, library=lib)
+    log("  (K14 max_abs_err is relative to max|ss| and max|st|, the worst "
+        "of the three shapes in float32; its times are the interior "
+        "chunk's)")
+
+    # -- 10b. the nature run and the imperfect model's forecasts
+    counted = {"K1": esn_step, "K14": gram_update, "K5": sht_analysis,
+               "K6": sht_synthesis, "K7": grid_dynamics, "K8": spectral_tail,
+               "K9": column_moist, "K10a": clw.radlw_down,
+               "K10b": clw.radlw_up, "K11": sfk.surface_fluxes,
+               "K12": column_pbl, "K13": column_shortwave}
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    stage = {}
+    t0 = time.perf_counter()
+    truth, _, dates = generate_nature_run(gcm, date0, N_NATURE,
+                                          spinup_days=0)
+    torch.cuda.synchronize()
+    stage["nature run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = make_imperfect_forecasts(gcm, truth, dates)
+    torch.cuda.synchronize()
+    stage["forecasts"] = time.perf_counter() - t0
+    for nm, d in (("truth", truth), ("forecast", model)):
+        for key, v in d.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"the nature run's {nm} {key} is not finite")
+    t_field = truth["atmo"][:, 0]
+    log(f"nature run: {N_NATURE} samples at 6 h from {date0.year}-"
+        f"{date0.month:02d}-{date0.day:02d} (no spin-up), T "
+        f"{float(t_field.min()):.2f}..{float(t_field.max()):.2f} K, "
+        f"precip max {float(truth['precip'].max()):.3e}; forecasts of "
+        f"the imperfect model {tuple(model['atmo'].shape)}")
+
+    # -- 10c. train_hybrid_production at full width
+    src = ArraySource(truth, model)
+    timings = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hyb_t = train_hybrid_production(
+        gcm, layout, src, hyper, TRAIN_SEED, hybrid=True, stride=1,
+        time_chunk=TIME_CHUNK, n_discard=N_DISCARD,
+        region_chunk=REGION_CHUNK, solve_dtype=torch.float64,
+        timings=timings, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {nm: fn.launches for nm, fn in counted.items()}
+    for nm, c in counts.items():
+        if c <= 0:
+            fail(f"{nm} was not launched in the training phase")
+    stage.update(timings)
+    pairs = N_NATURE - N_DISCARD
+    log(f"training: train_hybrid_production, {layout.n_regions} regions in "
+        f"{len(layout.classes)} classes, m={hyper.m}, noise "
+        f"{hyper.noise_mag}, {N_DISCARD} discarded + {pairs} pairs, time "
+        f"chunks of {TIME_CHUNK}, region chunks of {REGION_CHUNK}, solve "
+        f"in float64: {wall:.1f} s; peak memory allocated {peak:.2f} GiB; "
+        f"launches in the phase {counts}")
+
+    # -- 10d. checks
+    for pk in hyb_t.packs:
+        if not bool(torch.isfinite(pk.res.wout).all()):
+            fail(f"class {pk.cls.name}: Wout is not finite")
+    gram_flops = solve_flops = 0.0
+    for pk in hyb_t.packs:
+        R, O_, A = pk.res.wout.shape
+        gram_flops += 2.0 * pairs * R * A * (A + O_)
+        solve_flops += R * (2.0 / 3.0 * A ** 3 + 2.0 * A * A * O_)
+    worst_res = worst_w = 0.0
+    for i, (cls, pk) in enumerate(zip(layout.classes, hyb_t.packs)):
+        tr = class_trainer(layout, cls, src, hyper, derive_seed(TRAIN_SEED, i),
+                           nz, time_chunk=TIME_CHUNK, n_discard=N_DISCARD,
+                           std=pk.std, device=dev)
+        if not torch.equal(tr.res.vals, pk.res.vals):
+            fail(f"class {cls.name}: the reservoir drawn again differs")
+        eq = tr.normal_equations(0, 8)
+        eq64 = NormalEq(eq.ss.double(), eq.st.double())
+        w64 = solve_wout(eq64, hyper, tr.S)
+        ridge = torch.full((eq.ss.shape[1],), hyper.beta_res ** 2,
+                           dtype=torch.float64, device=dev)
+        ridge[:tr.S] = hyper.beta_model ** 2
+        lhs = torch.linalg.matmul(eq64.ss, w64.transpose(1, 2)) \
+            + ridge[None, :, None] * w64.transpose(1, 2)
+        rhs = eq64.st.transpose(1, 2)
+        rel = (torch.linalg.matrix_norm(lhs - rhs)
+               / torch.linalg.matrix_norm(rhs))
+        worst_res = max(worst_res, float(rel.max()))
+        w_run = pk.res.wout[:8].double()
+        worst_w = max(worst_w, float((w64.float().double() - w_run).abs()
+                                     .max() / w_run.abs().max()))
+        del eq, eq64, w64, lhs
+    log(f"training checks: Wout finite in every class; solve residual "
+        f"|(ss + ridge) Wout^T - st^T| / |st^T| <= {worst_res:.3e} over 8 "
+        f"regions of each class (tolerance {RESIDUAL_MAX:.0e}, float64); "
+        f"those regions' Wout from the retained chunk vs the run's: "
+        f"{worst_w:.3e} of its scale")
+    if not worst_res <= RESIDUAL_MAX:
+        fail("the ridge solve's residual is too large")
+    log("training stages (wall s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stage.items())
+        + f"; Gram {gram_flops / 1e12:.2f} TFLOP at "
+        f"{gram_flops / timings['accumulate'] / 1e12:.2f} TFLOP/s over the "
+        f"accumulate stage, solve {solve_flops / 1e12:.2f} TFLOP at "
+        f"{solve_flops / timings['solve'] / 1e12:.2f} TFLOP/s [{card}]")
+
+    # -- 10e. the trained weights in the coupled cycle
+    hyb_t.cast_wout_bf16()
+    st = hyb_t.init_state(truth["sst"][-1])
+    date = dates[-1].advance_hours(6)
+    trip = None
+    for i in range(CYCLES_TRAINED):
+        st, _ = run_prediction(hyb_t, st, date, 1, stop_if_unsafe=False)
+        date = date.advance_hours(6)
+        if trip is None and not bool(st.safe):
+            trip = i
+        for cs in st.classes:
+            for nm in ("x", "feedback", "local_model"):
+                if not bool(torch.isfinite(getattr(cs, nm)).all()):
+                    fail(f"the trained hybrid's {nm} is not finite after "
+                         f"cycle {i}")
+    log(f"trained weights (bf16 Wout): {CYCLES_TRAINED} coupled cycles of "
+        f"run_prediction, state finite; the gate "
+        + ("did not trip" if trip is None else f"tripped at cycle {trip}")
+        + f"; phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return counts["K14"]
 
 
 def main():
@@ -1127,9 +1403,13 @@ def main():
         f"run_prediction stopped after {len(dts)} cycle(s)")
     del hyb_bad, big
 
+    # -- 10. training at full width --------------------------------------
+    results["K14_gram_update"]["launches"] = phase_training(
+        torch, gcm, hyb.layout, date0, card, record)
+
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")
-    order = list(kernels)
+    order = list(kernels) + ["K14_gram_update"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}

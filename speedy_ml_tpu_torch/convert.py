@@ -43,6 +43,24 @@ def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
+def reservoir_from_numpy(res, *, device, dtype=torch.float32
+                         ) -> BatchedReservoir:
+    """A BatchedReservoir from the reservoir fields of `res` (read by
+    name, see the module docstring): floats become `dtype` except a
+    bfloat16 Wout, index arrays become int32."""
+    device = torch.device(device)
+    f = lambda a: tensor_from_numpy(a, device, dtype)
+    idx = lambda a: None if a is None else \
+        tensor_from_numpy(np.asarray(a, dtype=np.int32), device)
+    shifts = getattr(res, "shifts", None)
+    return BatchedReservoir(
+        cols=idx(res.cols), vals=f(res.vals), win_vals=f(res.win_vals),
+        wout=f(res.wout), mean=f(res.mean), std=f(res.std),
+        n_in=int(res.n_in),
+        shifts=None if shifts is None else tuple(int(s) for s in shifts),
+        win_cols=idx(getattr(res, "win_cols", None)))
+
+
 def params_from_numpy(atmo, layout: RegionLayout, hyper: ESNHyper, *,
                       device, dtype=torch.float32) -> list[ClassPack]:
     """ClassPacks for layout.classes (in order) from per-class numpy
@@ -53,17 +71,9 @@ def params_from_numpy(atmo, layout: RegionLayout, hyper: ESNHyper, *,
                          f"{len(layout.classes)} region classes")
     device = torch.device(device)
     f = lambda a: tensor_from_numpy(a, device, dtype)
-    idx = lambda a: None if a is None else \
-        tensor_from_numpy(np.asarray(a, dtype=np.int32), device)
     packs = []
     for cls, (res, std) in zip(layout.classes, atmo):
-        shifts = getattr(res, "shifts", None)
-        r = BatchedReservoir(
-            cols=idx(res.cols), vals=f(res.vals), win_vals=f(res.win_vals),
-            wout=f(res.wout), mean=f(res.mean), std=f(res.std),
-            n_in=int(res.n_in),
-            shifts=None if shifts is None else tuple(int(s) for s in shifts),
-            win_cols=idx(getattr(res, "win_cols", None)))
+        r = reservoir_from_numpy(res, device=device, dtype=dtype)
         if r.vals.shape[1] != cls.count:
             raise ValueError(f"class {cls.name}: {cls.count} regions, "
                              f"parameters for {r.vals.shape[1]}")

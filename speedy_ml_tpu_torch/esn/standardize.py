@@ -87,3 +87,83 @@ def core_component_map(nx: int, ny: int, nvar: int, nz_in: int,
     out = np.where(comp < a_small, v * nz_in + z + z_off,
                    comp - a_small + nvar * nz_in)
     return out.astype(np.int32)
+
+
+def median_over_regions(std_c: torch.Tensor) -> torch.Tensor:
+    """Median over the leading (region) axis; for an even count the mean
+    of the two middle values, as jnp.median (torch.median would return
+    the lower one)."""
+    s, _ = torch.sort(std_c, dim=0)
+    R = s.shape[0]
+    if R % 2:
+        return s[R // 2]
+    return 0.5 * (s[R // 2 - 1] + s[R // 2])
+
+
+def floor_component_std(std_c: torch.Tensor, nvar: int, nz: int,
+                        frac: float = 0.01) -> torch.Tensor:
+    """Per-variable relative floor on component stds (R, C).
+
+    Near-constant components (stratospheric humidity in a nature run,
+    desert precipitation, polar-night TISR) get tiny stds; standardized
+    model errors there reach z ~ 1e3-1e5 and the prediction cycle's
+    local-model feedback amplifies them into a runaway.  Each atmo
+    component's std is floored at `frac` of its VARIABLE's largest
+    median-over-regions level std; 2-D fields floor against their own
+    median over regions."""
+    med = median_over_regions(std_c)                      # (C,)
+    floors = [(frac * med[v * nz:(v + 1) * nz].max()).expand(nz)
+              for v in range(nvar)]
+    floors.append(frac * med[nvar * nz:])
+    return torch.maximum(std_c, torch.cat(floors)[None, :])
+
+
+def stats_to_standardizer(s1: torch.Tensor, s2: torch.Tensor, count,
+                          comp_map_in: np.ndarray, comp_map_out: np.ndarray,
+                          nvar_nz=None, std_floor: float = 0.01
+                          ) -> Standardizer:
+    """Standardizer from per-component sums s1 = sum(x), s2 = sum(x^2)
+    (R, C) over `count` (C,) elements each.  Constant components get a
+    unit std (they standardize to ~0, not through a ~0 std); nvar_nz =
+    (nvar, nz) applies floor_component_std."""
+    mean_c = s1 / count
+    var_c = s2 / count - mean_c ** 2
+    std_c = torch.where(var_c < 1e-12, torch.ones_like(var_c),
+                        torch.sqrt(torch.clamp(var_c, min=0.0)))
+    if nvar_nz is not None and std_floor:
+        std_c = floor_component_std(std_c, *nvar_nz, frac=std_floor)
+    cm = torch.as_tensor(comp_map_in, dtype=torch.long, device=s1.device)
+    cmo = torch.as_tensor(comp_map_out, dtype=torch.long, device=s1.device)
+    return Standardizer(comp_mean=mean_c, comp_std=std_c,
+                        in_mean=mean_c[:, cm], in_std=std_c[:, cm],
+                        out_mean=mean_c[:, cmo], out_std=std_c[:, cmo])
+
+
+def component_sums(series: torch.Tensor, comp_map: np.ndarray, n_comp: int):
+    """(s1, s2) (R, C): sums of x and x^2 of a packed series (T, R, I)
+    over all elements sharing a component, and the element count (C,)."""
+    T = series.shape[0]
+    onehot = torch.zeros((len(comp_map), n_comp), dtype=series.dtype,
+                         device=series.device)
+    onehot[torch.arange(len(comp_map), device=series.device),
+           torch.as_tensor(comp_map, dtype=torch.long,
+                           device=series.device)] = 1.0
+    s1 = torch.einsum("tri,ic->rc", series, onehot)
+    s2 = torch.einsum("tri,ic->rc", series * series, onehot)
+    return s1, s2, onehot.sum(dim=0) * T
+
+
+def compute_standardizer(series: torch.Tensor, comp_map_in: np.ndarray,
+                         comp_map_out: np.ndarray, n_comp: int,
+                         nvar_nz=None, std_floor: float = 0.01
+                         ) -> Standardizer:
+    """Fit per-component mean/std from a packed input series (T, R, I).
+
+    The statistics pool all elements sharing a component (all gridpoints
+    of one variable/level in the region, over time), as the reference's
+    standardize_data overloads do.  nvar_nz, when given as (nvar, nz),
+    applies the per-variable relative std floor (floor_component_std)."""
+    s1, s2, count = component_sums(series, comp_map_in, n_comp)
+    return stats_to_standardizer(s1, s2, torch.clamp(count, min=1.0),
+                                 comp_map_in, comp_map_out, nvar_nz,
+                                 std_floor)

@@ -1,0 +1,408 @@
+"""Production-scale reservoir training: region-chunked, time-streamed.
+
+The reference trains 1,152 regions over ~26 years of hourly data
+(mod_reservoir.f90:1559-1699 batched normal equations; the strided
+sub-series loop at mod_reservoir.f90:287-299 splits the hourly series
+into `timestep` interleaves and SUMS their normal equations).  At that
+scale neither the packed input series (T, R, I) ~ 100 GB nor the Gram
+matrices (R, S+n, S+n) ~ 161 GB fit on one card, so, as in the JAX
+package's hybrid/chunked.py, the problem is tiled two ways:
+
+- **region chunks**: the normal equations and the ridge solve run over
+  `region_chunk` regions at a time (one (Rch, A, A) Gram on the card,
+  updated in place by K14);
+- **time chunks**: a `SeriesSource` yields global grids for requested
+  sample indices; each chunk is packed, standardized and noised on the
+  card for the current region chunk only, and the reservoir state x is
+  all that carries from one chunk to the next.
+
+`stride` > 1 splits the samples into interleaved sub-series (sub-series
+s takes samples s, s+stride, ...); each restarts the reservoir transient
+and all accumulate into the SAME normal equations.
+
+Chunking is exact: noise is drawn per (sub-series, sample) for the whole
+class and sliced to the region chunk (hybrid.training.class_noise).
+
+The JAX package's TPU workarounds have no counterpart here: the CPU
+staging device (packing runs on the card), the one-hot spmv matrices,
+and the host readback that kept one chunk in flight.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from speedy_ml_tpu_torch import resolve_device
+from speedy_ml_tpu_torch.esn.domain import RegionLayout, build_layout
+from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
+                                               generate, radius_by_lat)
+from speedy_ml_tpu_torch.esn.standardize import (Standardizer,
+                                                 component_expansion,
+                                                 component_sums,
+                                                 n_components,
+                                                 stats_to_standardizer)
+from speedy_ml_tpu_torch.esn.train import (NormalEq, accumulate_chunk,
+                                           advance, apply_noise_keys,
+                                           solve_wout, zero_equations)
+from speedy_ml_tpu_torch.hybrid.build import derive_seed
+from speedy_ml_tpu_torch.hybrid.model import ClassPack, HybridAtmosphere
+from speedy_ml_tpu_torch.hybrid.training import (NVAR, as_tensors,
+                                                 class_noise,
+                                                 precip_noise_info)
+from speedy_ml_tpu_torch.physics.land_sea import SLAB_SLICE
+
+ERA_SLICE = "the ERA5 slice of the port (A13: once data files are in the " \
+    "repository)"
+CKPT_SLICE = "the checkpoint slice of the port (A9)"
+
+
+class ArraySource:
+    """In-memory SeriesSource over the hybrid.training truth/model dicts.
+
+    Protocol (any object with these members works):
+      n_samples: int
+      truth_at(idx) -> dict of tensors indexed at sample indices
+                       (atmo (B,4,K,lat,lon), logp/precip/sst/tisr (B,lat,lon))
+      model_at(idx) -> dict(atmo, logp) or None
+    Tensors stay where they are (the nature run's live on the card);
+    numpy arrays are taken too."""
+
+    def __init__(self, truth: dict, model: Optional[dict] = None):
+        self.truth = truth
+        self.model = model
+
+    @property
+    def n_samples(self) -> int:
+        return self.truth["atmo"].shape[0]
+
+    @staticmethod
+    def _take(d: dict, idx: np.ndarray) -> dict:
+        out = {}
+        for k, v in d.items():
+            if torch.is_tensor(v):
+                out[k] = v[torch.as_tensor(idx, device=v.device)]
+            else:
+                out[k] = torch.from_numpy(np.asarray(v)[idx])
+        return out
+
+    def truth_at(self, idx: np.ndarray) -> dict:
+        return self._take(self.truth, idx)
+
+    def model_at(self, idx: np.ndarray) -> Optional[dict]:
+        return None if self.model is None else self._take(self.model, idx)
+
+
+class ERASource:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"ERASource comes with {ERA_SLICE}")
+
+
+# ----------------------------------------------------------------------
+# gather-based packing
+# ----------------------------------------------------------------------
+
+def gather_pack_inputs(chunk_truth: dict, iy, ix, precip_eps: float,
+                       dtype) -> torch.Tensor:
+    """Pack input vectors (C, R, I) for regions given window index
+    tables iy (R, yi) / ix (R, xi), in the reference packing order
+    (atmo z,y,x,v-flattened; then logp/precip/sst/tisr)."""
+    ap = RegionLayout.gather_patches(chunk_truth["atmo"], iy, ix)
+    # (R, C, V, K, yi, xi) -> (C, R, K, yi, xi, V) -> flatten
+    ap = ap.permute(1, 0, 3, 4, 5, 2)
+    C, R = ap.shape[0], ap.shape[1]
+    parts = [ap.reshape(C, R, -1)]
+    for name in ("logp", "precip", "sst", "tisr"):
+        f = chunk_truth[name]
+        if name == "precip":
+            f = torch.log(1.0 + torch.clamp(f, min=0.0) / precip_eps)
+        p = RegionLayout.gather_patches(f, iy, ix)      # (R, C, yi, xi)
+        parts.append(torch.movedim(p, 0, 1).reshape(C, R, -1))
+    return torch.cat(parts, dim=2).to(dtype)
+
+
+def gather_pack_model(chunk_model: dict, iy, ix, dtype) -> torch.Tensor:
+    """Pack the model's core vectors (C, R, S): atmo + logp of the core
+    windows iy (R, yc) / ix (R, xc)."""
+    ap = RegionLayout.gather_patches(chunk_model["atmo"], iy, ix)
+    ap = ap.permute(1, 0, 3, 4, 5, 2)
+    C, R = ap.shape[0], ap.shape[1]
+    lp = RegionLayout.gather_patches(chunk_model["logp"], iy, ix)
+    return torch.cat([ap.reshape(C, R, -1),
+                      torch.movedim(lp, 0, 1).reshape(C, R, -1)],
+                     dim=2).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# streaming standardizer
+# ----------------------------------------------------------------------
+
+def streaming_standardizer(layout: RegionLayout, cls, source, nz: int, *,
+                           time_chunk: int = 512, precip_eps: float = 0.001,
+                           dtype=torch.float32, std_floor: float = 0.01,
+                           device=None) -> Standardizer:
+    """Per-component mean/std over the full series without materializing
+    it (the streaming twin of esn.standardize.compute_standardizer), on
+    `device` (default CUDA; raises without one)."""
+    device = resolve_device(device)
+    xi, yi = cls.input_shape
+    xc, yc = cls.core_shape
+    comp_in = component_expansion(xi, yi, NVAR, nz, logp=True, precip=True,
+                                  sst=True, tisr=True)
+    comp_out = component_expansion(xc, yc, NVAR, nz, logp=True, precip=True,
+                                   sst=False, tisr=False)
+    nc = n_components(NVAR, nz, logp=True, precip=True, sst=True, tisr=True)
+    s1 = s2 = cnt = 0.0
+    T = source.n_samples
+    for t0 in range(0, T, time_chunk):
+        chunk = as_tensors(source.truth_at(np.arange(t0, min(t0 + time_chunk,
+                                                           T))), device)
+        series = gather_pack_inputs(chunk, cls.iy_in, cls.ix_in, precip_eps,
+                                    dtype)
+        a1, a2, c = component_sums(series, comp_in, nc)
+        s1, s2, cnt = s1 + a1, s2 + a2, cnt + c
+    return stats_to_standardizer(s1, s2, torch.clamp(cnt, min=1.0), comp_in,
+                                 comp_out, (NVAR, nz), std_floor)
+
+
+# ----------------------------------------------------------------------
+# chunked accumulation
+# ----------------------------------------------------------------------
+
+def _timed(timings: Optional[dict], key: str, device, fn):
+    """fn(), its wall seconds added to timings[key] (the device
+    synchronized on both sides) when timings is a dict."""
+    if timings is None:
+        return fn()
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+    return out
+
+
+@dataclasses.dataclass
+class ClassTrainer:
+    """One class's production training, piece by piece: the reservoir,
+    the standardizer and the settings that every region chunk shares.
+    normal_equations(r0, r1) accumulates the equations of regions
+    [r0, r1); pack(wout) makes the trained ClassPack."""
+    layout: RegionLayout
+    cls: object
+    source: object
+    hyper: ESNHyper
+    seed: int
+    nz: int
+    res: BatchedReservoir       # wout (Rc, O, 0): not trained yet
+    std: Standardizer
+    S: int                      # model block (0 without it)
+    O: int
+    time_chunk: int
+    stride: int
+    n_discard: int
+    n_pairs: Optional[int]
+    precip_eps: float
+    dtype: torch.dtype
+    device: torch.device
+
+    def _region_res(self, r0: int, r1: int) -> BatchedReservoir:
+        r = self.res
+        return dataclasses.replace(
+            r, vals=r.vals[:, r0:r1].contiguous(),
+            win_vals=r.win_vals[r0:r1].contiguous(),
+            cols=r.cols if r.cols.dim() == 2 else r.cols[r0:r1].contiguous(),
+            wout=r.wout[r0:r1], mean=r.mean[r0:r1], std=r.std[r0:r1])
+
+    def _prep(self, idx, c0: int, r0: int, r1: int, noise, precip_info):
+        """Standardized inputs z (with noise), clean targets and the
+        standardized model block of sub-series positions c0.. (sample
+        indices idx) for regions [r0, r1)."""
+        cls, std = self.cls, self.std
+        chunk = as_tensors(self.source.truth_at(idx), self.device)
+        series = gather_pack_inputs(chunk, cls.iy_in[r0:r1], cls.ix_in[r0:r1],
+                                    self.precip_eps, self.dtype)
+        C, Rch = series.shape[0], series.shape[1]
+        z = (series - std.in_mean[r0:r1]) / std.in_std[r0:r1]
+        target = self.layout.input_to_target(
+            cls, z.reshape(C * Rch, -1), NVAR, self.nz, self.nz, 0,
+            logp=True, precip=True, sst=True, tisr=True).reshape(C, Rch, -1)
+        if noise is not None:
+            g = torch.stack([noise(c0 + c) for c in range(C)])
+            z = apply_noise_keys(g, z, self.hyper.noise_mag,
+                                 precip_slice=precip_info["slice"],
+                                 precip_mean=precip_info["mean"],
+                                 precip_std=precip_info["std"],
+                                 precip_eps=precip_info["eps"])
+        if self.S == 0:
+            return z, target, None
+        model = self.source.model_at(idx)
+        if model is None:
+            raise ValueError("hybrid training needs the source's model "
+                             "forecasts (model_at returned None)")
+        S = self.S
+        mser = gather_pack_model(as_tensors(model, self.device),
+                                 cls.iy_core[r0:r1], cls.ix_core[r0:r1],
+                                 self.dtype)
+        zm = ((mser - std.out_mean[None, r0:r1, :S])
+              / std.out_std[None, r0:r1, :S])
+        return z, target, zm
+
+    def normal_equations(self, r0: int, r1: int) -> NormalEq:
+        """The summed normal equations of regions [r0, r1) over every
+        sub-series: each discards n_discard samples from a zero state,
+        then pairs its states with targets, time_chunk samples per K14
+        launch."""
+        res = self._region_res(r0, r1)
+        hyper, n_discard = self.hyper, self.n_discard
+        Rc, I = self.res.win_vals.shape[0], self.res.n_in
+        eq = zero_equations(r1 - r0, self.S + res.n, self.O, self.dtype,
+                            self.device)
+        noisy = hyper.noise_mag > 0
+        precip_info = None if not noisy else precip_noise_info(
+            self.std, build_layout(*self.cls.input_shape, NVAR, self.nz,
+                                   logp=True, precip=True, sst=True,
+                                   tisr=True),
+            self.nz, self.precip_eps, rows=slice(r0, r1))
+        T = self.source.n_samples
+        for s in range(self.stride):
+            sub_idx = np.arange(s, T, self.stride)
+            pairs = len(sub_idx) - n_discard
+            if self.n_pairs is not None:
+                pairs = min(self.n_pairs, pairs)
+            noise = None if not noisy else class_noise(
+                self.seed, s, (Rc, I), self.dtype, self.device,
+                rows=slice(r0, r1))
+            x = torch.zeros((r1 - r0, res.n), dtype=self.dtype,
+                            device=self.device)
+            end = n_discard + pairs
+            for c0 in range(0, end, self.time_chunk):
+                c1 = min(c0 + self.time_chunk, end)
+                z, target, zm = self._prep(sub_idx[c0:c1], c0, r0, r1, noise,
+                                           precip_info)
+                # the chunk that straddles n_discard advances its first d
+                # samples and pairs the rest
+                d = min(max(n_discard - c0, 0), c1 - c0)
+                if d:
+                    x = advance(res, hyper, x, z[:d])
+                if d < c1 - c0:
+                    x = accumulate_chunk(res, hyper, x, eq, z[d:], target[d:],
+                                         None if zm is None else zm[d:])
+        return eq
+
+    def pack(self, wout: torch.Tensor) -> ClassPack:
+        return ClassPack(cls=self.cls,
+                         res=dataclasses.replace(self.res, wout=wout),
+                         hyper=self.hyper, std=self.std)
+
+
+def hyper_inputs(layout: RegionLayout, cls, nz: int) -> int:
+    """Input vector length for a class (atmo + logp/precip/sst/tisr)."""
+    xi, yi = cls.input_shape
+    return build_layout(xi, yi, NVAR, nz, logp=True, precip=True,
+                        sst=True, tisr=True).total
+
+
+def class_trainer(layout: RegionLayout, cls, source, hyper: ESNHyper,
+                  seed: int, nz: int, *, time_chunk: int = 128,
+                  stride: int = 1, n_discard: int = 10,
+                  n_pairs: Optional[int] = None, precip_eps: float = 0.001,
+                  dtype=torch.float32, topology: str = "shift",
+                  std: Optional[Standardizer] = None, hybrid: bool = True,
+                  timings: Optional[dict] = None,
+                  device=None) -> ClassTrainer:
+    """The ClassTrainer of one class: the streaming standardizer (unless
+    `std` is given) and the reservoirs, drawn from `seed`."""
+    device = resolve_device(device)
+    if std is None:
+        std = _timed(timings, "standardizer", device,
+                     lambda: streaming_standardizer(
+                         layout, cls, source, nz,
+                         time_chunk=max(time_chunk, 128),
+                         precip_eps=precip_eps, dtype=dtype, device=device))
+    Rc = cls.count
+    radius = radius_by_lat(layout.lat_start[cls.region_ids],
+                           layout.lat_end[cls.region_ids])
+    I = hyper_inputs(layout, cls, nz)
+    cols, vals, win, shifts = _timed(
+        timings, "generate", device,
+        lambda: generate(seed, Rc, I, hyper, radius, dtype=dtype,
+                         topology=topology, device=device))
+    xc, yc = cls.core_shape
+    O = NVAR * nz * xc * yc + 2 * xc * yc        # atmo + logp + precip
+    res = BatchedReservoir(cols=cols, vals=vals, win_vals=win, n_in=I,
+                           wout=torch.zeros((Rc, O, 0), dtype=dtype,
+                                            device=device),
+                           mean=std.in_mean, std=std.in_std, shifts=shifts)
+    return ClassTrainer(
+        layout=layout, cls=cls, source=source, hyper=hyper, seed=seed, nz=nz,
+        res=res, std=std, S=(O - xc * yc) if hybrid else 0, O=O,
+        time_chunk=time_chunk, stride=stride, n_discard=n_discard,
+        n_pairs=n_pairs, precip_eps=precip_eps, dtype=dtype, device=device)
+
+
+def train_class_production(layout: RegionLayout, cls, source, hyper: ESNHyper,
+                           seed: int, nz: int, *, region_chunk: int = 32,
+                           solve_dtype=None, timings: Optional[dict] = None,
+                           device=None, **kw) -> ClassPack:
+    """Region-chunked + time-streamed train_class (production scale).
+
+    source: SeriesSource of T samples; with `stride` > 1 the samples are
+    split into `stride` interleaved sub-series, each restarting the
+    reservoir transient, all summing into one NormalEq.  n_pairs: per
+    sub-series cap on (state, target) pairs (tests use it to match the
+    in-memory trainer's complete batches); default all.  Further keywords
+    (time_chunk, stride, n_discard, n_pairs, precip_eps, dtype, topology,
+    std, hybrid) go to class_trainer.  timings: a dict that collects wall
+    seconds per stage (standardizer, generate, accumulate, solve), the
+    device synchronized around each."""
+    device = resolve_device(device)
+    tr = class_trainer(layout, cls, source, hyper, seed, nz, timings=timings,
+                       device=device, **kw)
+    parts = []
+    for r0 in range(0, cls.count, region_chunk):
+        r1 = min(r0 + region_chunk, cls.count)
+        eq = _timed(timings, "accumulate", device,
+                    lambda: tr.normal_equations(r0, r1))
+        parts.append(_timed(timings, "solve", device,
+                            lambda: solve_wout(eq, hyper, tr.S, solve_dtype)))
+        del eq
+    return tr.pack(torch.cat(parts))
+
+
+def ocean_series_production(*args, **kwargs):
+    raise NotImplementedError(f"the slab-ocean series comes with "
+                              f"{SLAB_SLICE}")
+
+
+def train_hybrid_production(gcm, layout: RegionLayout, source,
+                            hyper: ESNHyper, seed: int, *,
+                            ocean: bool = False, hybrid: bool = True,
+                            hybrid_ocean: bool = False,
+                            atmo_ckpt: str | None = None, device=None,
+                            **kw) -> HybridAtmosphere:
+    """Train every region class at production scale and assemble the
+    hybrid atmosphere on `device` (default CUDA; raises without one).
+    Class i draws from derive_seed(seed, i); keywords go to
+    train_class_production (dtype defaults to the GCM's, the dtype the
+    cycle runs in).  The slab ocean (ocean, hybrid_ocean) comes with A10
+    and a checkpoint (atmo_ckpt) with A9: they raise rather than half
+    work."""
+    if ocean or hybrid_ocean:
+        raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
+    if atmo_ckpt is not None:
+        raise NotImplementedError(f"atmo_ckpt comes with {CKPT_SLICE}")
+    device = resolve_device(device)
+    kw.setdefault("dtype", gcm.dtype)
+    packs = [train_class_production(layout, cls, source, hyper,
+                                    derive_seed(seed, i), gcm.geom.nlev,
+                                    hybrid=hybrid, device=device, **kw)
+             for i, cls in enumerate(layout.classes)]
+    return HybridAtmosphere(gcm, layout, packs, ml_only=not hybrid,
+                            device=device)

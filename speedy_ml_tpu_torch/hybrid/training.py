@@ -1,0 +1,308 @@
+"""Hybrid training: from gridded truth + imperfect-model series to
+trained per-region reservoirs (the in-memory trainer), and the
+self-contained training data (a nature run of the GCM plus 6-h forecasts
+of the imperfect model).
+
+Reference flow: train_reservoir/get_training_data (mod_reservoir.f90:
+212-601), as the JAX package's hybrid/training.py ports it.  Data are
+dicts of tensors (numpy arrays are taken too):
+
+  truth: atmo   (T, 4, K, lat, lon)   T,u,v,q truth every `timestep` h
+         logp, precip (physical, log-transformed here), sst, tisr
+                (T, lat, lon)
+  model: atmo/logp — the imperfect model's forecast VALID at sample t
+         (launched from t-1), like the reference's restart_6hour files.
+
+Noise: sample t of sub-series s draws one (Rc, I) standard-normal block
+for the whole class from a torch.Generator on the device seeded from
+(class seed, 99, s, t) (class_noise); the production trainer slices it
+to its region chunk, so the draws do not depend on the chunking.  Targets
+stay clean.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from speedy_ml_tpu_torch import resolve_device
+from speedy_ml_tpu_torch.esn.domain import RegionLayout, build_layout
+from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
+                                               generate, radius_by_lat)
+from speedy_ml_tpu_torch.esn.standardize import (Standardizer,
+                                                 component_expansion,
+                                                 compute_standardizer,
+                                                 core_component_map,
+                                                 n_components)
+from speedy_ml_tpu_torch.esn.train import (find_closest_divisor, solve_wout,
+                                           train_subseries)
+from speedy_ml_tpu_torch.hybrid.build import derive_seed
+from speedy_ml_tpu_torch.hybrid.model import ClassPack, HybridAtmosphere
+from speedy_ml_tpu_torch.physics.constants import SOLC
+from speedy_ml_tpu_torch.physics.land_sea import SLAB_SLICE
+from speedy_ml_tpu_torch.physics.radiation import solar_flux_traced
+
+NVAR = 4
+VERT_SLICE = "the cycle-options slice of the port (A10: vertical " \
+    "localization, zspec packs)"
+
+
+def class_noise(seed: int, s: int, shape: tuple, dtype, device,
+                rows: slice = slice(None)):
+    """noise(t): the standard-normal block `shape` (Rc, I) of sample t of
+    sub-series s, drawn for the whole class from a device generator
+    seeded from (seed, 99, s, t), then cut to `rows`."""
+    def draw(t: int) -> torch.Tensor:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(derive_seed(seed, 99, s, t))
+        return torch.randn(shape, generator=gen, dtype=dtype,
+                           device=device)[rows]
+    return draw
+
+
+def precip_noise_info(std: Standardizer, lay_in, nz: int, precip_eps: float,
+                      rows: slice = slice(None)) -> Optional[dict]:
+    """The precip block's slice and component scalars for apply_noise, or
+    None when the input vector has no precip block."""
+    if lay_in.precip is None:
+        return None
+    pm = NVAR * nz + 1          # component index of precip
+    return dict(slice=lay_in.precip, mean=std.comp_mean[rows, pm:pm + 1],
+                std=std.comp_std[rows, pm:pm + 1], eps=precip_eps)
+
+
+def as_tensors(d: dict, device=None, dtype=None) -> dict:
+    """A dict of arrays as tensors (numpy arrays copied), optionally moved."""
+    return {k: torch.as_tensor(v).to(device=device, dtype=dtype)
+            for k, v in d.items()}
+
+
+def _no_zspec(zspec):
+    if zspec is not None:
+        raise NotImplementedError(f"vertical groups come with {VERT_SLICE}")
+
+
+def log_precip_transform(precip: torch.Tensor, eps: float = 0.001
+                         ) -> torch.Tensor:
+    """log(1 + P/eps) (get_training_data, mod_reservoir.f90:363-494)."""
+    return torch.log(1.0 + torch.clamp(precip, min=0.0) / eps)
+
+
+def pack_class_series(layout: RegionLayout, cls, truth: dict,
+                      precip_eps: float = 0.001, zspec=None) -> torch.Tensor:
+    """Packed input series (T, Rc, I) for one region class (the full
+    column; vertical groups come with A10)."""
+    _no_zspec(zspec)
+    truth = as_tensors(truth)
+    return torch.stack([layout.pack_vector(
+        cls, truth["atmo"][t], logp=truth["logp"][t],
+        precip=log_precip_transform(truth["precip"][t], precip_eps),
+        sst=truth["sst"][t], tisr=truth["tisr"][t])
+        for t in range(truth["atmo"].shape[0])])
+
+
+def pack_class_model_series(layout: RegionLayout, cls, model: dict,
+                            zspec=None) -> torch.Tensor:
+    """Packed imperfect-model core series (T, Rc, S): atmo + logp."""
+    _no_zspec(zspec)
+    model = as_tensors(model)
+    return torch.stack([layout.pack_vector(
+        cls, model["atmo"][t], logp=model["logp"][t], core_only=True)
+        for t in range(model["atmo"].shape[0])])
+
+
+def class_blocks(zspec=None) -> dict:
+    """Which 2-D blocks a vertical group carries (input side)."""
+    bottom = zspec is None or zspec.bottom
+    return dict(logp=bottom, precip=bottom, sst=bottom, tisr=True)
+
+
+def class_standardizer(layout: RegionLayout, cls, series: torch.Tensor,
+                       nz: int, zspec=None) -> Standardizer:
+    _no_zspec(zspec)
+    xi, yi = cls.input_shape
+    xc, yc = cls.core_shape
+    b = class_blocks()
+    comp_in = component_expansion(xi, yi, NVAR, nz, **b)
+    comp_out = core_component_map(xc, yc, NVAR, nz, nz, 0, logp=True,
+                                  precip=True)
+    return compute_standardizer(series, comp_in, comp_out,
+                                n_components(NVAR, nz, **b),
+                                nvar_nz=(NVAR, nz))
+
+
+def train_class(layout: RegionLayout, cls, truth: dict, model: Optional[dict],
+                hyper: ESNHyper, seed: int, nz: int, *,
+                n_discard: int = 10, n_batches: int = 20,
+                precip_eps: float = 0.001, dtype=torch.float32,
+                topology: str = "shift", zspec=None,
+                device=None) -> ClassPack:
+    """Train all reservoirs of one class in memory (train_reservoir
+    equivalent) on `device` (default CUDA; raises without one)."""
+    _no_zspec(zspec)
+    device = resolve_device(device)
+    series = pack_class_series(layout, cls, as_tensors(truth, device),
+                               precip_eps).to(dtype)
+    T, Rc, I = series.shape
+    std = class_standardizer(layout, cls, series, nz)
+    z_in = std.standardize_input(series)
+    target = layout.input_to_target(
+        cls, z_in.reshape(T * Rc, I), NVAR, nz, nz, 0,
+        **class_blocks()).reshape(T, Rc, -1)
+    z_model = None
+    if model is not None:
+        mser = pack_class_model_series(layout, cls,
+                                       as_tensors(model, device)).to(dtype)
+        S = mser.shape[2]
+        z_model = (mser - std.out_mean[None, :, :S]) / std.out_std[None, :, :S]
+
+    radius = radius_by_lat(layout.lat_start[cls.region_ids],
+                           layout.lat_end[cls.region_ids])
+    cols, vals, win, shifts = generate(seed, Rc, I, hyper, radius,
+                                       dtype=dtype, topology=topology,
+                                       device=device)
+    n = vals.shape[2]
+    S = 0 if z_model is None else z_model.shape[2]
+    res = BatchedReservoir(cols=cols, vals=vals, win_vals=win, n_in=I,
+                           wout=torch.zeros((Rc, target.shape[2], S + n),
+                                            dtype=dtype, device=device),
+                           mean=std.in_mean, std=std.in_std, shifts=shifts)
+    L = T - n_discard
+    batch_size = find_closest_divisor(max(1, L // n_batches), L)
+    noise = (class_noise(seed, 0, (Rc, I), dtype, device)
+             if hyper.noise_mag > 0 else None)
+    lay_in = build_layout(*cls.input_shape, NVAR, nz, **class_blocks())
+    eq, _ = train_subseries(res, hyper, z_in, target, z_model, n_discard,
+                            batch_size, noise=noise,
+                            precip_info=precip_noise_info(std, lay_in, nz,
+                                                          precip_eps))
+    res = dataclasses.replace(res, wout=solve_wout(eq, hyper, n_speedy=S))
+    return ClassPack(cls=cls, res=res, hyper=hyper, std=std)
+
+
+def fit_ocean_class(*args, **kwargs):
+    raise NotImplementedError(f"the slab-ocean trainer comes with "
+                              f"{SLAB_SLICE}")
+
+
+def train_ocean_class(*args, **kwargs):
+    raise NotImplementedError(f"the slab-ocean trainer comes with "
+                              f"{SLAB_SLICE}")
+
+
+def train_hybrid(gcm, layout: RegionLayout, truth: dict,
+                 model: Optional[dict], hyper: ESNHyper, seed: int,
+                 ocean: bool = False, hybrid_ocean: bool = False,
+                 num_vert_levels: int = 1, device=None,
+                 **kw) -> HybridAtmosphere:
+    """Train every region class in memory and assemble the hybrid
+    atmosphere; class i draws from derive_seed(seed, 16 i).  The slab
+    ocean and vertical groups come with A10."""
+    if num_vert_levels > 1:
+        raise NotImplementedError(f"num_vert_levels > 1 comes with "
+                                  f"{VERT_SLICE}")
+    if ocean or hybrid_ocean:
+        raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
+    device = resolve_device(device)
+    packs = [train_class(layout, cls, truth, model, hyper,
+                         derive_seed(seed, i * 16), gcm.geom.nlev,
+                         device=device, **kw)
+             for i, cls in enumerate(layout.classes)]
+    return HybridAtmosphere(gcm, layout, packs, ml_only=model is None,
+                            device=device)
+
+
+# ----------------------------------------------------------------------
+# self-contained data generation ("nature run" mode)
+# ----------------------------------------------------------------------
+
+def generate_nature_run(gcm, date0, n_samples: int, timestep_hours: int = 6,
+                        spinup_days: int = 5):
+    """Run the GCM as truth, saving grids every `timestep_hours`, on the
+    GCM's device.
+
+    Returns (truth dict of tensors (see the module docstring), the GCM
+    state after each day of windows, the sample dates).  The spin-up runs
+    GCM.run_days, whose daily slab coupler comes with A10: spinup_days
+    must be 0 for now."""
+    if spinup_days:
+        raise NotImplementedError(f"spinup_days > 0 runs GCM.run_days, "
+                                  f"which comes with {SLAB_SLICE}")
+    state, _ = gcm.init_state(date0)
+    date = date0
+    state = gcm.stepone(state, gcm.forcing_for(state.sfc, date.tyear))
+    steps = gcm.nsteps_day * timestep_hours // 24
+    windows_per_day = 24 // timestep_hours
+    sht = gcm.sht
+
+    def extract(s, pre_precip):
+        sp = s.spectral
+        u, v = sht.uv_grid(sp.vor[0], sp.div[0])
+        atmo = torch.stack([sht.spec_to_grid(sp.t[0]), u, v,
+                            sht.spec_to_grid(sp.tr[0, 0])])
+        precip = (s.fluxes.precip - pre_precip) / (timestep_hours * 3600.0)
+        return dict(atmo=atmo, logp=sht.spec_to_grid(sp.ps[0]),
+                    precip=precip, sst=s.sfc.sst_am)
+
+    samples, snaps, dates = [], [], []
+    while len(samples) < n_samples:
+        # one forcing per day (the reference's daily fordate); the whole
+        # day runs, as in the JAX package, so the snapshots agree
+        forcing = gcm.forcing_for(state.sfc, date.tyear)
+        take = min(windows_per_day, n_samples - len(samples))
+        for w in range(windows_per_day):
+            pre = state.fluxes.precip
+            state = gcm.run_window(state, forcing, steps)
+            if w < take:
+                samples.append(extract(state, pre))
+                dates.append(date.advance_hours(w * timestep_hours))
+        snaps.append(state)
+        date = date.advance_hours(take * timestep_hours)
+    truth = {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
+    truth["tisr"] = torch.stack([_tisr(gcm, d.tyear) for d in dates])
+    return truth, snaps, dates
+
+
+def _tisr(gcm, tyear) -> torch.Tensor:
+    """Daily-mean TISR (lat, lon): the Hartmann insolation in float64 on
+    the host, rounded to float32 as the JAX package stores it, on the
+    GCM's device in its dtype."""
+    g = gcm.geom
+    f64 = torch.float64
+    row = solar_flux_traced(float(tyear), 4.0 * SOLC,
+                            torch.as_tensor(g.sin_lat, dtype=f64),
+                            torch.as_tensor(g.cos_lat, dtype=f64))
+    row = row.to(torch.float32).to(device=gcm.device, dtype=gcm.dtype)
+    return row[:, None].expand(g.nlat, g.nlon).contiguous()
+
+
+def make_imperfect_forecasts(hyb_gcm, truth: dict, dates,
+                             timestep_hours: int = 6) -> dict:
+    """6-h forecasts of the (imperfect) GCM launched from each truth state.
+
+    Mirrors the reference's SPEEDY restart_6hour training inputs
+    (read_model_states, speedy_res_interface.f90:634-720): forecast i is
+    valid at sample i, launched from truth sample i-1 through the cycle's
+    own inject_to_speedy and speedy_window.  The first entry repeats truth
+    (never used as a target pair).  One window at a time; each window's
+    month index, month fraction and year fraction are host numbers that
+    become device fills, as in the cycle."""
+    hyb = HybridAtmosphere.__new__(HybridAtmosphere)
+    hyb.gcm = hyb_gcm
+    hyb.device = hyb_gcm.device
+    hyb.nz = hyb_gcm.geom.nlev
+    hyb.gcm_steps = hyb_gcm.nsteps_day * timestep_hours // 24
+    truth = as_tensors({k: truth[k] for k in ("atmo", "logp", "sst")},
+                     hyb_gcm.device, hyb_gcm.dtype)
+    fc_atmo, fc_logp = [truth["atmo"][0]], [truth["logp"][0]]
+    for i in range(1, truth["atmo"].shape[0]):
+        d = dates[i - 1]
+        spec, _ = hyb.inject_to_speedy(truth["atmo"][i - 1],
+                                       truth["logp"][i - 1])
+        fa, fl, _ = hyb.speedy_window(spec, truth["sst"][i - 1],
+                                      d.month - 1, d.tmonth, d.tyear)
+        fc_atmo.append(fa)
+        fc_logp.append(fl)
+    return dict(atmo=torch.stack(fc_atmo), logp=torch.stack(fc_logp))

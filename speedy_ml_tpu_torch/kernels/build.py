@@ -74,6 +74,8 @@ SIGNATURES = {
                           _vp],
     "column_shortwave_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
                                 _vp, _vp],
+    "gram_update_launch": [_i, _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp,
+                           _vp, _vp],
 }
 
 _lib = None  # the loaded library, once per process

@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,6 +39,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 15
     assert bad == "[]"
+
+
+TRAINING_MODULES = ("esn/train.py", "hybrid/training.py",
+                    "hybrid/chunked.py", "kernels/gram_update.py")
+
+
+def test_training_modules_are_checked():
+    """The trainer's modules are among those both checks read."""
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(TRAINING_MODULES) <= files
+    code = _IMPORT_ALL.replace("print(len(names), bad)",
+                               "print(sorted(names))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for m in TRAINING_MODULES:
+        name = "speedy_ml_tpu_torch." + m[:-3].replace("/", ".")
+        assert repr(name) in out.stdout, name
 
 
 def _imported_modules(path: Path):
@@ -107,6 +126,22 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
         HybridAtmosphere(None, None, [], ml_only=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(0, 2, 48, ESNHyper(m=300), 0.5)
+    from speedy_ml_tpu_torch.esn.domain import RegionLayout
+    from speedy_ml_tpu_torch.hybrid.chunked import (ArraySource,
+                                                    streaming_standardizer,
+                                                    train_hybrid_production)
+    from speedy_ml_tpu_torch.hybrid.training import train_class, train_hybrid
+    layout = RegionLayout(g, n_regions=128)
+    src = ArraySource({"atmo": np.zeros((2, 4, 8, 16, 32))})
+    for call in (
+            lambda: train_hybrid_production(gcm, layout, src, ESNHyper(), 0),
+            lambda: train_hybrid(gcm, layout, {}, None, ESNHyper(), 0),
+            lambda: train_class(layout, layout.classes[0], {}, None,
+                                ESNHyper(), 0, 8),
+            lambda: streaming_standardizer(layout, layout.classes[0], src,
+                                           8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -116,6 +151,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     from speedy_ml_tpu_torch.dycore.model import DycoreModel
     from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.gram_update import gram_update
     from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
     from speedy_ml_tpu_torch.kernels.readout import readout
     from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
@@ -124,7 +160,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 
     wrappers = (esn_step, readout, window_gather, core_scatter, sht_analysis,
-                sht_synthesis, grid_dynamics, spectral_tail)
+                sht_synthesis, grid_dynamics, spectral_tail, gram_update)
     before = [w.launches for w in wrappers]
     g = torch.Generator().manual_seed(0)
     vals = torch.rand((3, 2, 16), generator=g)
@@ -139,6 +175,10 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     window_gather(fields, [idx], [ones * 0], [ones])
     core_scatter([torch.rand((2, 18), generator=g)],
                  torch.arange(36, dtype=torch.int32), 4, 1, 2, 3)
+    gram_update(torch.zeros((2, 19, 19)), torch.zeros((2, 3, 19)),
+                torch.rand((4, 2, 16), generator=g),
+                torch.rand((4, 2, 3), generator=g),
+                torch.rand((4, 2, 3), generator=g))
     # K5-K8: one dry step of a T10 dycore runs all four plain versions
     dyn = DycoreModel(Geometry(trunc=10, nlon=32, nlat=16, nlev=8),
                       dtype=torch.float64, device="cpu")
@@ -151,6 +191,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
 def test_wrappers_refuse_other_devices():
     """A tensor on a device with no kernel raises (no silent plain path)."""
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.gram_update import gram_update
     from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
     from speedy_ml_tpu_torch.kernels.readout import readout
     from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
@@ -158,6 +199,9 @@ def test_wrappers_refuse_other_devices():
     from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
 
     meta = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        gram_update(meta(2, 19, 19), meta(2, 3, 19), meta(4, 2, 16), None,
+                    meta(4, 2, 3))
     x = meta(2, 16)
     with pytest.raises(ValueError, match="no kernel"):
         esn_step(meta(3, 2, 16), x, linear=True, shifts=(1, 2, 3))
