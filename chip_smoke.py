@@ -104,6 +104,10 @@ CYCLES_TRAINED = 12
 K14_RTOL = 1e-5     # f32: sums of 16 or 1,896 products in another order
 K14_RTOL_F64 = 1e-12
 RESIDUAL_MAX = 1e-8
+# torch.profiler sessions: idle time at either end of the profiled work,
+# and how often a session that saw no device event is run again
+PROFILE_PAD_S = 0.02
+PROFILE_TRIES = 3
 # the record_function ranges of the coupled cycle
 RANGES = ("predict_all", "assemble_global", "inject_to_speedy",
           "speedy_window", "physics", "build_feedback", "build_local_model")
@@ -142,21 +146,37 @@ def profile_device(torch, fn, reps: int, ranges: bool = False):
     """torch.profiler (CUPTI) over reps calls of fn(): (device ms per call
     summed over every kernel, copy and fill fn runs, key_averages of the
     device events, the profile).  ranges=True also records the host side
-    (the record_function ranges of the cycle)."""
+    (the record_function ranges of the cycle).
+
+    A session whose device work is short (a few launches, well under a
+    millisecond) can come back with no device event at all: the device's
+    timestamps are mapped onto the host's clock, and events that land just
+    outside the session's window are dropped.  So the work sits between
+    PROFILE_PAD_S of idle time at either end, and a session that saw no
+    device event is profiled again, up to PROFILE_TRIES times; a fn that
+    launches nothing still comes back empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
                                       else [])
-    with profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-    # device work only: the GPU-side spans of the record_function ranges
-    # are not kernels
-    avg = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)
-           and e.key not in RANGES]
+        with profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        # device work only: the GPU-side spans of the record_function
+        # ranges are not kernels
+        avg = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in RANGES]
+        if avg:
+            break
+        log(f"  the profiler saw no device event in session {attempt} of "
+            f"{PROFILE_TRIES}")
     dev = sum(_self_device_us(e) for e in avg) / 1e3 / reps
     return dev, avg, prof
 
