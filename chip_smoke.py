@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (speedy_ml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--ptxas] [--kernels]
+    python3 chip_smoke.py [--ptxas] [--kernels] [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -15,15 +15,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      and time kernel, plain version and (K2) the torch.bmm yardstick:
      device time from torch.profiler, call time from CUDA events.
      K1 ESN step, K2 readout (bare product, with a negative control that
-     must fail the tolerance), K3 window gather, K4 core scatter,
+     must fail the tolerance; the vector path required and logged for
+     every class, each class timed beside torch.bmm, the ML-only form
+     checked and timed), K3 window gather, K4 core scatter,
      K5 sht_analysis, K6 sht_synthesis, K7 grid_dynamics,
      K8 spectral_tail, K9 column_moist, K10a radlw_down, K10b radlw_up,
      K11 surface_fluxes, K12 column_pbl, K13 column_shortwave (the column
      physics: in float64 against the plain float64 version, then in
      float32 with the columns whose integer outputs differ counted);
      --kernels stops here;
-  5. the SPEEDY window (stepone + 24 steps) on the card against the same
-     window in the port on the CPU in float32 (the plain versions);
+  5. the SPEEDY window on the card against the port on the CPU in float32
+     (the plain versions): stepone from the same state, then each of the
+     24 steps from the card's state before it, the columns whose physics
+     decision fell the other way counted and capped (window_steps);
   6. the ML-only main path, run_prediction with the writer, every launch
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
@@ -38,16 +42,21 @@ Phases, each fatal on failure (exit code 1, no result line):
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
      finite, and run_prediction stops by cycle 2;
  10. training at full width: K14 gram_update against its plain version
-     (float32 and float64) and the torch.baddbmm yardstick at three
-     shapes; a nature run of the T30 GCM (104 samples at 6 h from
-     1990-01-01, no spin-up) and the imperfect model's 6-h forecasts;
+     (float32 and float64), the torch.baddbmm yardstick and an update of
+     a symmetric ss that must stay exactly symmetric, at four shapes
+     (the run's chunk, a polar chunk, the trainer's default chunk, a
+     compute-bound chunk), both tile lists in float64; a nature run of
+     the T30 GCM (104 samples at 6 h from 1990-01-01, no spin-up) and
+     the imperfect model's 6-h forecasts;
      train_hybrid_production on all 1,152 regions (m=6000, noise 0.2,
      40 discarded samples, 64 pairs, time chunks of 16, region chunks of
      96, the solve in float64) with K14 and K1 launched; finite Wout, the
      solve's residual <= 1e-8 for 8 regions of each class, stage times,
      FLOP/s and peak memory; then the trained weights (bf16) through 12
      coupled cycles of run_prediction, the fields finite.
-The second-to-last line is the kernels JSON, the last line
+--k14-lists stops after phase 3 and times K14's two tile lists at several
+chunk lengths (k14_lists).  The second-to-last line is the kernels JSON,
+the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the package beside this script.
 """
@@ -56,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -93,6 +103,15 @@ TAIL_RTOL = 1e-5
 COLUMN_RTOL = 2e-6
 COLUMN_FLIPS = 0.005
 COLUMN_RTOL_F64 = 1e-11
+# phase 5, each window step from the card's state against the plain step
+# (float32): a fraction of each variable's signal (the worst step on an
+# H100: t 5.4e-5, the other variables below 7e-7), and the fraction of a
+# tendency field's scale above which a column's physics counts as a
+# decision that fell the other way (at most COLUMN_FLIPS of the columns
+# in a step; on the H100 one column in one step, the largest difference
+# in the others 3.5e-4)
+WINDOW_STEP_RTOL = 1e-4
+WINDOW_FLIP_RTOL = 1e-3
 # phase 10 (training): the nature run, the trainer's settings (main.train's
 # for a 6-h series: 240 h discarded, 20 batches of at least 16 samples)
 N_NATURE = 104
@@ -103,6 +122,8 @@ TRAIN_SEED = 33
 CYCLES_TRAINED = 12
 K14_RTOL = 1e-5     # f32: sums of 16 or 1,896 products in another order
 K14_RTOL_F64 = 1e-12
+# chip_smoke --k14-lists: the chunk lengths at which both tile lists are timed
+K14_LIST_CS = (16, 32, 48, 64, 96, 128)
 RESIDUAL_MAX = 1e-8
 # torch.profiler sessions: idle time at either end of the profiled work,
 # and how often a session that saw no device event is run again
@@ -254,6 +275,81 @@ def grid_fields(torch, sht, spec, K):
                 u=out[2 * K + 1:3 * K + 1], v=out[3 * K + 1:])
 
 
+def to_device(torch, obj, dev):
+    """A copy of a state (tensors, dataclasses and named tuples of them)
+    on `dev`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(torch, getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[to_device(torch, v, dev) for v in obj])
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(torch, v, dev) for v in obj)
+    return obj
+
+
+def window_errs(torch, gcm, gcm_c, gk, gp, magnitude=False):
+    """signal_err of each grid variable of state gk (on gcm's device)
+    against gp (gcm_c's, the CPU)."""
+    K = gcm.geom.nlev
+    a = grid_fields(torch, gcm.sht, gk.spectral, K)
+    b = grid_fields(torch, gcm_c.sht, gp.spectral, K)
+    return {v: signal_err(a[v].cpu(), b[v], magnitude) for v in a}
+
+
+def window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p, nsteps):
+    """nsteps leapfrog steps of gcm from gk, each held to gcm_c's step (on
+    the CPU) from the same state.  The two sides' physics see grids that
+    differ in the last bits (their transforms sum in other orders), so a
+    near-tie decision (convection on or off, a cloud top) can fall the
+    other way in a column, as phase 4 allows for K9-K13: a column whose
+    physics tendencies (u, v, t, q at any level) differ by more than
+    WINDOW_FLIP_RTOL of the field's largest tendency counts as such a
+    flip, and gcm_c's step takes gcm's tendencies there.  Returns (gcm's
+    state after the steps, the worst step's window_errs, the flipped
+    columns of each step, the largest relative tendency difference in the
+    other columns)."""
+    seen, flips, near = [], [], 0.0
+
+    def physics(gm, patch):
+        def fn(*a, **kw):
+            tend, aux = type(gm)._physics_fn(gm, *a, **kw)
+            return patch(tend), aux
+        return fn
+
+    def adopt(tend):   # the plain side's tendencies, the card's where flipped
+        nonlocal near
+        ref = [t.cpu() for t in seen[-1]]
+        nlat, nlon = ref[0].shape[-2:]
+        d = torch.stack([((c - k).abs() / k.abs().max().clamp(min=1e-30))
+                         .reshape(-1, nlat, nlon).amax(0)
+                         for c, k in zip(tend, ref)]).amax(0)
+        flip = d > WINDOW_FLIP_RTOL
+        flips.append(int(flip.sum()))
+        near = max(near, float(torch.where(flip, 0.0, d).max()))
+        return type(tend)(*[torch.where(flip, k, c)
+                            for c, k in zip(tend, ref)])
+
+    es = None
+    for _ in range(nsteps):
+        seen.clear()
+        gcm._physics_fn = physics(gcm, lambda t: seen.append(t) or t)
+        gcm_c._physics_fn = physics(gcm_c, adopt)
+        try:
+            nk = gcm.leapfrog(gk, fo_k)
+            nc = gcm_c.leapfrog(to_device(torch, gk, torch.device("cpu")),
+                                fo_p)
+        finally:
+            del gcm._physics_fn, gcm_c._physics_fn
+        step = window_errs(torch, gcm, gcm_c, nk, nc)
+        es = step if es is None else {v: max(es[v], step[v]) for v in es}
+        gk = nk
+    return gk, es, flips, near
+
+
 def signal_err(got, ref, magnitude: bool = False):
     """|got - ref| over one variable's (all its levels) signal: its
     largest departure from its mean, or with magnitude=True its largest
@@ -272,29 +368,46 @@ def max_abs_diff(torch, a, b) -> float:
     return max(float((a[r] - b[r]).abs().max()) for r in range(a.shape[0]))
 
 
+def k14_operands(torch, C, R, n, S, O, dtype, gen):
+    """Random (states, model, target, ss, st) of one chunk on the card."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda",
+                                     dtype=dtype)
+    A = S + n
+    return (torch.tanh(rnd(C, R, n)), rnd(C, R, S), rnd(C, R, O),
+            rnd(R, A, A), rnd(R, O, A))
+
+
+def k14_bound(C, R, n, S, O):
+    """K14's bound for the symmetric work, 2*C*R*(A(A+1)/2 + O*A) FLOPs,
+    and for the full matrix, 2*C*R*A*(A+O): each (ms, what binds)."""
+    A = S + n
+    nbytes = 4 * (2 * R * A * (A + O) + C * R * (n + S + O))
+    return (bound_ms(nbytes, 2.0 * C * R * (A * (A + 1) / 2 + O * A),
+                     PEAK_F32_S),
+            bound_ms(nbytes, 2.0 * C * R * A * (A + O), PEAK_F32_S))
+
+
 def k14_case(torch, label, C, R, n, S, O, card, gen):
     """K14 against its plain version on random operands of one shape, in
-    float64 on 8 of the regions and in float32, then timed in float32:
-    kernel, plain version, torch.baddbmm on the materialized aug.
-    Returns (the float32 relative error, ((device_ms, call_ms) of kernel,
-    plain version and baddbmm, the bound))."""
-    from speedy_ml_tpu_torch.kernels.gram_update import (augment,
+    float64 on 8 of the regions (both tile lists, full and symmetric) and
+    in float32, then timed in float32: kernel, plain version,
+    torch.baddbmm on the materialized aug; in both types an update of a
+    symmetric ss must leave it exactly symmetric.  Returns (the float32
+    relative error, ((device_ms, call_ms) of kernel, plain version and
+    baddbmm, the bound)); the bound is that of the symmetric work, and
+    the full-matrix one is logged beside it."""
+    from speedy_ml_tpu_torch.kernels.gram_update import (SYM_MIN_C, _update,
+                                                         augment,
                                                          gram_update,
                                                          gram_update_plain)
-    dev = torch.device("cuda")
     A = S + n
+    own = "symmetric" if C >= SYM_MIN_C else "full"
 
-    def operands(R_, dtype):
-        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
-                                         dtype=dtype)
-        return (torch.tanh(rnd(C, R_, n)), rnd(C, R_, S), rnd(C, R_, O),
-                rnd(R_, A, A), rnd(R_, O, A))
-
-    def compare(ops, rtol, tag):
+    def compare(ops, rtol, tag, update):
         states, model, target, ss0, st0 = ops
         ss_k, st_k = ss0.clone(), st0.clone()
         st_start = st0.clone()
-        gram_update(ss_k, st_k, states, model, target)
+        update(ss_k, st_k, states, model, target)
         gram_update_plain(ss0, st0, states, model, target)
         torch.cuda.synchronize()
         if not max_abs_diff(torch, st_k, st_start) > 0:
@@ -307,10 +420,26 @@ def k14_case(torch, label, C, R, n, S, O, card, gen):
             fail(f"K14 ({label}, {tag}) disagrees with its plain version")
         return err, (ss_k, st_k)
 
-    err64, _ = compare(operands(min(R, 8), torch.float64), K14_RTOL_F64,
-                       "float64")
-    ops = operands(R, torch.float32)
-    err, (ss_k, st_k) = compare(ops, K14_RTOL, "float32")
+    def stays_symmetric(ss, st, states, model, target, tag, update):
+        for r in range(ss.shape[0]):
+            ss[r] += ss[r].T.clone()
+        update(ss, st, states, model, target)
+        torch.cuda.synchronize()
+        if not all(torch.equal(ss[r], ss[r].T) for r in range(ss.shape[0])):
+            fail(f"K14 ({label}, {tag}) left a symmetric ss unsymmetric")
+
+    for sym in (False, True):   # both tile lists in float64
+        name = "symmetric" if sym else "full"
+        update = lambda *a, sym=sym: _update(*a, sym=sym)
+        ops64 = k14_operands(torch, C, min(R, 8), n, S, O, torch.float64,
+                             gen)
+        _, (ss64, st64) = compare(ops64, K14_RTOL_F64,
+                                  f"float64, {name} tile list", update)
+        stays_symmetric(ss64, st64, *ops64[:3], f"float64, {name} list",
+                        update)
+        del ops64, ss64, st64
+    ops = k14_operands(torch, C, R, n, S, O, torch.float32, gen)
+    err, (ss_k, st_k) = compare(ops, K14_RTOL, "float32", gram_update)
     states, model, target, ss_p, st_p = ops
     k = measure(torch, lambda: gram_update(ss_k, st_k, states, model,
                                            target), reps=5, warmup=1)
@@ -322,12 +451,59 @@ def k14_case(torch, label, C, R, n, S, O, card, gen):
     lib = measure(torch, lambda: (ss_p.baddbmm_(augt, aug),
                                   st_p.baddbmm_(tgtt, aug)), reps=5,
                   warmup=1)
-    nbytes = 4 * (2 * R * A * (A + O) + C * R * (n + S + O))
-    bound = bound_ms(nbytes, 2.0 * C * R * A * (A + O), PEAK_F32_S)
-    log(f"K14 {label}: kernel {k[0]:.4f} ms, plain {p[0]:.4f} ms, "
-        f"torch.baddbmm {lib[0]:.4f} ms, bound {bound[0]:.4f} ms "
-        f"({bound[1]}), {bound[0] / k[0]:.0%} of the bound [{card}]")
+    del aug, tgt, augt, tgtt, ss_p, st_p, ops
+    stays_symmetric(ss_k, st_k, states, model, target, "float32",
+                    gram_update)
+    bound, full = k14_bound(C, R, n, S, O)
+    log(f"K14 {label}: kernel {k[0]:.4f} ms ({own} tile list), plain "
+        f"{p[0]:.4f} ms, torch.baddbmm {lib[0]:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / k[0]:.0%} of it; full "
+        f"matrix {full[0]:.4f} ms, {full[1]}); ss stays symmetric [{card}]")
+    if k[0] > lib[0]:
+        log(f"  K14 {label} is slower than torch.baddbmm")
     return err, (k, p, lib, bound)
+
+
+def k14_lists(torch, n, S, O, card):
+    """chip_smoke --k14-lists: K14's two tile lists timed (float32) at
+    chunks of K14_LIST_CS samples of the trainer's default region chunk,
+    the numbers that set gram_update.SYM_MIN_C; then, at the interior
+    chunk of phase 10, the panel kernel and the tile kernel apart, and an
+    in-place add over ss and st (the card's rate for reading and writing
+    those bytes back, with no products)."""
+    from speedy_ml_tpu_torch.hybrid.chunked import train_class_production
+    from speedy_ml_tpu_torch.kernels.gram_update import SYM_MIN_C, _update
+    R = inspect.signature(train_class_production) \
+        .parameters["region_chunk"].default
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for C in K14_LIST_CS:
+        states, model, target, ss, st = k14_operands(torch, C, R, n, S, O,
+                                                     torch.float32, gen)
+        t = {sym: measure(torch, lambda sym=sym: _update(
+            ss, st, states, model, target, sym=sym), reps=5, warmup=1)[0]
+             for sym in (False, True)}
+        bound, _ = k14_bound(C, R, n, S, O)
+        log(f"K14 C={C} R={R}: full tile list {t[False]:.4f} ms, symmetric "
+            f"{t[True]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"gram_update takes the "
+            f"{'symmetric' if C >= SYM_MIN_C else 'full'} list [{card}]")
+        del states, model, target, ss, st
+        torch.cuda.empty_cache()
+    C, R = TIME_CHUNK, REGION_CHUNK
+    states, model, target, ss, st = k14_operands(torch, C, R, n, S, O,
+                                                 torch.float32, gen)
+    call = lambda: _update(ss, st, states, model, target,
+                           sym=C >= SYM_MIN_C)
+    call()
+    _, avg, _ = profile_device(torch, call, 5)
+    split = ", ".join(f"{e.key[:40]} {_self_device_us(e) / 5e3:.4f} ms"
+                      for e in avg)
+    rmw = measure(torch, lambda: (ss.add_(1.0), st.add_(1.0)), reps=5,
+                  warmup=1)
+    bound, _ = k14_bound(C, R, n, S, O)
+    log(f"K14 C={C} R={R}: {split}; ss.add_ + st.add_ (the same bytes "
+        f"read and written, no products) {rmw[0]:.4f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
 
 
 def phase_training(torch, gcm, layout, date0, card, record):
@@ -341,6 +517,7 @@ def phase_training(torch, gcm, layout, date0, card, record):
     from speedy_ml_tpu_torch.hybrid.build import derive_seed
     from speedy_ml_tpu_torch.hybrid.chunked import (ArraySource,
                                                     class_trainer,
+                                                    train_class_production,
                                                     train_hybrid_production)
     from speedy_ml_tpu_torch.hybrid.driver import run_prediction
     from speedy_ml_tpu_torch.hybrid.training import (generate_nature_run,
@@ -372,7 +549,7 @@ def phase_training(torch, gcm, layout, date0, card, record):
     interior = max(shapes.values())          # the 1,056-region class
     polar = min(shapes.values())
 
-    # -- 10a. K14 against its plain version at three shapes
+    # -- 10a. K14 against its plain version at four shapes
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     _, n_i, S, O = interior
     err, main = k14_case(torch, "interior chunk", TIME_CHUNK, REGION_CHUNK,
@@ -380,17 +557,27 @@ def phase_training(torch, gcm, layout, date0, card, record):
     _, n_p, _, _ = polar
     err_p, _ = k14_case(torch, "polar chunk", TIME_CHUNK, polar[0], n_p, S,
                         O, card, gen)
+    torch.cuda.empty_cache()
+    # the trainer's own chunks (class_trainer's time_chunk and
+    # train_class_production's region_chunk defaults)
+    c_def = inspect.signature(class_trainer).parameters["time_chunk"].default
+    r_def = inspect.signature(train_class_production) \
+        .parameters["region_chunk"].default
+    err_d, _ = k14_case(torch, "trainer-default chunk", c_def, r_def, n_i, S,
+                        O, card, gen)
+    torch.cuda.empty_cache()
     err_c, _ = k14_case(torch, "compute-bound chunk", 1896, 8, n_i, S, O,
                         card, gen)
     torch.cuda.empty_cache()
     k, p, lib, bound = main
     record("K14_gram_update",
            "speedy_ml_tpu_torch/kernels/csrc/gram_update.cu",
-           "speedy_ml_tpu/esn/train.py:96", max(err, err_p, err_c),
+           "speedy_ml_tpu/esn/train.py:96", max(err, err_p, err_d, err_c),
            K14_RTOL, k, p, bound, library=lib)
     log("  (K14 max_abs_err is relative to max|ss| and max|st|, the worst "
-        "of the three shapes in float32; its times are the interior "
-        "chunk's)")
+        "of the four shapes in float32; its times are the interior "
+        "chunk's, both of its launches, the panel and the tiles, of each "
+        "call, and so are its launches)")
 
     # -- 10b. the nature run and the imperfect model's forecasts
     counted = {"K1": esn_step, "K14": gram_update, "K5": sht_analysis,
@@ -524,6 +711,10 @@ def main():
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel checks (phase 4); prints "
                          "no result line")
+    ap.add_argument("--k14-lists", action="store_true",
+                    help="time K14's two tile lists at several chunk "
+                         "lengths and its two launches apart, then stop; "
+                         "prints no result line")
     args = ap.parse_args()
 
     import numpy as np
@@ -568,6 +759,8 @@ def main():
         grid_dynamics, grid_dynamics_plain)
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
                                                      readout_plain)
+    from speedy_ml_tpu_torch.kernels.readout import \
+        vector_path as readout_vector_path
     from speedy_ml_tpu_torch.kernels.sht_analysis import (
         sht_analysis, sht_analysis_plain)
     from speedy_ml_tpu_torch.kernels.sht_synthesis import (
@@ -613,6 +806,11 @@ def main():
                     f"wout={tuple(p.res.wout.shape)} {p.res.wout.dtype}"
                     for p in hyb.packs)
         + f"; both built in {time.perf_counter() - t0:.1f} s")
+    if args.k14_lists:
+        big = max(hyb.packs, key=lambda p: p.cls.count)   # the interior class
+        k14_lists(torch, big.res.n, big.res.n_speedy, big.res.wout.shape[1],
+                  card)
+        return
     sst0 = sst_month0(g)
     state0 = hyb.init_state(sst0)
     date0 = ModelDate(1990, 1, 1)
@@ -689,7 +887,13 @@ def main():
                for p, x, cs in zip(packs, xs, s.classes)]
     err = scale = err_ctl = err_epi = ulp_epi = 0.0
     augs = []
-    for a in ro_args:
+    for p, a in zip(packs, ro_args):
+        R, O, A = a["wout"].shape
+        path = "vector" if readout_vector_path(a["wout"]) else "scalar"
+        log(f"K2 class {p.cls.name}: Wout {(R, O, A)} {a['wout'].dtype}, "
+            f"A mod 8 = {A % 8}: {path} path")
+        if path != "vector":
+            fail(f"K2 takes the scalar path for class {p.cls.name}")
         bare = dict(wout=a["wout"], x=a["x"], local_model=a["local_model"])
         k = readout(**bare)
         pl = readout_plain(**bare)
@@ -727,7 +931,33 @@ def main():
         bound_ms(nbytes, ops, PEAK_BF16_S),
         library=measure(torch, lambda: [
             torch.bmm(a["wout"], x) for a, x in zip(ro_args, augs)]))
+    # each class alone beside torch.bmm
+    for p, a, u in zip(packs, ro_args, augs):
+        kc = measure(torch, lambda: readout(**a))
+        lc = measure(torch, lambda: torch.bmm(a["wout"], u))
+        R, O, A = a["wout"].shape
+        bc = bound_ms(a["wout"].numel() * 2 + 4 * (R * A + 3 * R * O),
+                      2 * R * O * A, PEAK_BF16_S)
+        log(f"K2 class {p.cls.name}: kernel {kc[0]:.4f} ms, torch.bmm "
+            f"{lc[0]:.4f} ms, bound {bc[0]:.4f} ms ({bc[0] / kc[0]:.0%} "
+            f"of it) [{card}]")
     del augs
+    # the ML-only form (S = 0): the ML-only hybrid's Wout on the same x
+    ml_args = [dict(wout=pk.res.wout, x=x, out_mean=pk.std.out_mean,
+                    out_std=pk.std.out_std)
+               for pk, x in zip(hyb_ml.packs, xs)]
+    worst = 0.0
+    for pk, a in zip(hyb_ml.packs, ml_args):
+        k, pl = readout(a["wout"], a["x"]), readout_plain(a["wout"], a["x"])
+        e, sc = float((k - pl).abs().max()), float(pl.abs().max())
+        worst = max(worst, e / sc)
+        if e > K2_RTOL * sc or not readout_vector_path(a["wout"]):
+            fail(f"K2 ML-only ({pk.cls.name}) disagrees or left the vector "
+                 f"path: {e:.3e} > {K2_RTOL * sc:.3e}")
+    kml = measure(torch, lambda: [readout(**a) for a in ml_args])
+    log(f"K2 ML-only (S=0): {worst:.3e} of its scale, vector path for every "
+        f"class, {kml[0]:.4f} ms [{card}]")
+    del ml_args
 
     # K4: core scatter + clamps, one launch
     outs = [readout(**a) for a in ro_args]
@@ -1063,12 +1293,18 @@ def main():
         return
 
     # -- 5. the SPEEDY window on the card against the plain port on the
-    #       CPU (float32), from the same injected state
+    #       CPU (float32): stepone from the same injected state, then each
+    #       of the window's steps from the card's state before it, held to
+    #       the plain step from the same state (window_steps: near-tie
+    #       physics decisions counted and capped, the rest held tightly).
+    #       The two sides' free windows after 24 steps are logged beside:
+    #       one decision that fell the other way grows over the remaining
+    #       leapfrog steps, whatever the kernels do.
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
     gcm_c = GCM(g, dtype=f32, bd=gcm.bd.to(device=cpu), device=cpu)
 
-    def window(gm, spec, sst_grid):
+    def start(gm, spec, sst_grid):
         dv = gm.device
         sf = init_surface_state(gm.bd, imon, fmon, sst_hybrid=sst_grid,
                                 flags=gm.cpl)
@@ -1076,28 +1312,32 @@ def main():
         gs = GCMState(spectral=spec, sfc=sf,
                       radiation=RadiationCarry.zeros(K, nlat, nlon, f32, dv),
                       fluxes=FluxAccumulator.zeros(nlat, nlon, f32, dv))
-        gs = gm.stepone(gs, fo)
-        one = grid_fields(torch, gm.sht, gs.spectral, K)
-        gs = gm.run_window(gs, fo, hyb.gcm_steps)
-        return one, grid_fields(torch, gm.sht, gs.spectral, K)
+        return gm.stepone(gs, fo), fo
 
-    one_k, win_k = window(gcm, spec0, s.sst_grid)
-    one_p, win_p = window(gcm_c, spec0.map(lambda t: t.cpu()),
-                          s.sst_grid.cpu())
-    # after one step each variable is held to its magnitude: the
-    # untrained readout puts T at 250 K +- ~0.1 K, so T's signal is below
-    # a few f32 ulps of the field (the two sides sum in other orders)
-    e1 = {v: signal_err(one_k[v].cpu(), one_p[v], magnitude=True)
-          for v in one_k}
-    ew = {v: signal_err(win_k[v].cpu(), win_p[v]) for v in win_k}
+    gk, fo_k = start(gcm, spec0, s.sst_grid)
+    gp, fo_p = start(gcm_c, spec0.map(lambda t: t.cpu()), s.sst_grid.cpu())
+    # after stepone each variable is held to its magnitude: the untrained
+    # readout puts T at 250 K +- ~0.1 K, so T's signal is below a few f32
+    # ulps of the field (the two sides sum in other orders)
+    e1 = window_errs(torch, gcm, gcm_c, gk, gp, magnitude=True)
+    gk, es, flips, near = window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p,
+                                       hyb.gcm_steps)
+    gp = gcm_c.run_window(gp, fo_p, hyb.gcm_steps)
+    ew = window_errs(torch, gcm, gcm_c, gk, gp)
     fmt = lambda d: ", ".join(f"{v} {e:.3e}" for v, e in d.items())
+    G = nlat * nlon
     log(f"SPEEDY window, kernels on the card vs the plain port on the CPU "
         f"(f32): after stepone {fmt(e1)} of each variable's magnitude "
-        f"(tolerance 1e-5); after stepone + {hyb.gcm_steps} steps "
-        f"{fmt(ew)} of each variable's signal (tolerance 1e-3) "
-        f"[{time.perf_counter() - t0:.1f} s]")
-    e1, ew = max(e1.values()), max(ew.values())
-    if e1 > 1e-5 or ew > 1e-3:
+        f"(tolerance 1e-5); worst of the {hyb.gcm_steps} steps, each from "
+        f"the card's state, {fmt(es)} of each variable's signal "
+        f"(tolerance {WINDOW_STEP_RTOL:.0e}); columns whose physics "
+        f"tendencies differ by more than {WINDOW_FLIP_RTOL:.0e} of a "
+        f"field's scale, per step: {flips} of {G} (at most "
+        f"{COLUMN_FLIPS:.1%}), the largest difference in the others "
+        f"{near:.3e}; the two free windows after {hyb.gcm_steps} steps "
+        f"{fmt(ew)} (not held) [{time.perf_counter() - t0:.1f} s]")
+    if (max(e1.values()) > 1e-5 or max(es.values()) > WINDOW_STEP_RTOL
+            or max(flips) > COLUMN_FLIPS * G):
         fail("the card's SPEEDY window disagrees with the plain window")
     del gcm_c
 

@@ -41,7 +41,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
-# argtypes of every C entry point (csrc/*.cu); restype is int for all
+# argtypes of every C entry point (csrc/*.cu)
 SIGNATURES = {
     "esn_step_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                         ctypes.POINTER(_i), _i, _i, _i, _i, _f, _f, _vp,
@@ -75,8 +75,11 @@ SIGNATURES = {
     "column_shortwave_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
                                 _vp, _vp],
     "gram_update_launch": [_i, _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp,
-                           _vp, _vp],
+                           _vp, _vp, _i, _vp],
+    "gram_panel_size": [_i, _i, _i, _i, _i, _i, _i],
 }
+# restype of the entry points that return something else than an int
+RESTYPES = {"gram_panel_size": _ll}
 
 _lib = None  # the loaded library, once per process
 
@@ -163,7 +166,7 @@ def library() -> ctypes.CDLL:
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

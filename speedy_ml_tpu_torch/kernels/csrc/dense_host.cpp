@@ -1,0 +1,155 @@
+// Host build of K2's and K14's arithmetic (readout.cuh, gram_update.cuh):
+// the code the CUDA kernels run, with the warp and the thread blocks
+// written out as loops on the CPU.  It is not part of the kernel library;
+// the CPU tests compile it with a host C++ compiler
+//   g++ -O2 -ffp-contract=off -shared -fPIC dense_host.cpp -o lib.so
+// and hold it against the plain PyTorch versions, so that an error in the
+// row split of K2 or in the panel and the tile lists of K14 shows without
+// a card.
+
+#include <math.h>
+
+#include "gram_update.cuh"
+#include "readout.cuh"
+
+// ----------------------------------------------------------------- K2
+
+template <int ES, bool VEC>
+static void readout_rows(const unsigned char* wout, const float* aug, int r,
+                         int O, int A, const float* out_mean,
+                         const float* out_std, float* out) {
+  for (int o = 0; o < O; ++o) {
+    const long long k = (long long)r * O + o;
+    const unsigned char* row = wout + (size_t)k * A * ES;
+    float v[RO_LANES], w[RO_LANES];
+    for (int l = 0; l < RO_LANES; ++l)
+      v[l] = ro_lane_dot<ES, VEC>(row, aug, A, l);
+    for (int off = RO_LANES / 2; off > 0; off >>= 1) {  // __shfl_xor_sync
+      for (int l = 0; l < RO_LANES; ++l) w[l] = v[l] + v[l ^ off];
+      for (int l = 0; l < RO_LANES; ++l) v[l] = w[l];
+    }
+    out[k] = out_std ? ro_unstd(v[0], out_std[k], out_mean[k]) : v[0];
+  }
+}
+
+template <int ES>
+static int readout_es(const void* wout, const float* x, const float* lm,
+                      const float* out_mean, const float* out_std, int R,
+                      int O, int S, int n, float* out) {
+  const int A = S + n;
+  const bool vec = ro_vector_ok(wout, A, ES);
+  // aug as the kernel keeps it in shared memory: 16-byte aligned
+  float* buf = new float[A + 4];
+  float* aug = (float*)(((uintptr_t)buf + 15) & ~(uintptr_t)15);
+  for (int r = 0; r < R; ++r) {
+    for (int a = 0; a < A; ++a) {
+      const float v = ro_aug(x, lm, r, a, S, n);
+      aug[a] = ES == 2 ? ro_round_bf16(v) : v;
+    }
+    if (vec)
+      readout_rows<ES, true>((const unsigned char*)wout, aug, r, O, A,
+                             out_mean, out_std, out);
+    else
+      readout_rows<ES, false>((const unsigned char*)wout, aug, r, O, A,
+                              out_mean, out_std, out);
+  }
+  delete[] buf;
+  return vec ? 1 : 0;
+}
+
+// readout_launch's arguments less the device, the tile and the stream;
+// returns 1 where the vector path was taken, 0 for the scalar one
+extern "C" int readout_host(int wout_bf16, const void* wout, const void* x,
+                            const void* lm, const void* out_mean,
+                            const void* out_std, int R, int O, int S, int n,
+                            void* out) {
+  return wout_bf16
+             ? readout_es<2>(wout, (const float*)x, (const float*)lm,
+                             (const float*)out_mean, (const float*)out_std,
+                             R, O, S, n, (float*)out)
+             : readout_es<4>(wout, (const float*)x, (const float*)lm,
+                             (const float*)out_mean, (const float*)out_std,
+                             R, O, S, n, (float*)out);
+}
+
+// ---------------------------------------------------------------- K14
+
+static float host_fma(float a, float b, float c) { return fmaf(a, b, c); }
+static double host_fma(double a, double b, double c) { return fma(a, b, c); }
+
+// The panel, then every tile of every region as the kernel's blocks
+// compute it from the panel: each output summed in sample order with FMA
+// from 0, then added to its old value once, directly and (mirrored
+// tiles) into the transpose.
+template <typename T>
+static void gram_tiles(int tile, int sym, const T* states, const T* model,
+                       const T* target, int C, int R, int n, int S, int O,
+                       T* ss, T* st) {
+  const int A = S + n;
+  const int Ap = gu_panel_aug(A, tile), W = gu_panel_width(A, O, tile);
+  T* P = new T[(size_t)R * C * W];
+  for (int r = 0; r < R; ++r)
+    for (int c = 0; c < C; ++c)
+      for (int w = 0; w < W; ++w)
+        P[((size_t)r * C + c) * W + w] =
+            gu_panel(states, model, target, R, n, S, O, Ap, r, c, w);
+  for (int r = 0; r < R; ++r)
+    for (int t = 0; t < gu_tiles(A, O, tile, sym != 0); ++t) {
+      const GuTile g = gu_decode(t, A, tile, sym != 0);
+      T* dst = g.kind == GU_SS ? ss : st;
+      const T* left = P + (size_t)r * C * W + gu_left_col(g, Ap, tile);
+      const T* right = P + (size_t)r * C * W + gu_right_col(g, tile);
+      const int rows = gu_rows(g, A, O, tile), cols = gu_cols(g, A, tile);
+      for (int ii = 0; ii < rows; ++ii)
+        for (int jj = 0; jj < cols; ++jj) {
+          T acc = T(0);
+          for (int c = 0; c < C; ++c)
+            acc = host_fma(left[(size_t)c * W + ii], right[(size_t)c * W + jj],
+                           acc);
+          T* d = dst + gu_direct(g, r, ii, jj, A, O, tile);
+          *d = *d + acc;
+          if (g.mirror) {
+            T* e = ss + gu_mirror(g, r, ii, jj, A, tile);
+            *e = *e + acc;
+          }
+        }
+    }
+  delete[] P;
+}
+
+// gram_update_launch's arguments less the device, the panel and the
+// stream, with the tile size (the kernel's: 128 for the float32
+// symmetric list, else 64) and the list (sym 1: the upper triangle,
+// mirrored; 0: full)
+extern "C" int gram_update_host(int is_double, int tile, int sym,
+                                const void* states, const void* model,
+                                const void* target, int C, int R, int n,
+                                int S, int O, void* ss, void* st) {
+  if (is_double)
+    gram_tiles<double>(tile, sym, (const double*)states,
+                       (const double*)model, (const double*)target, C, R, n,
+                       S, O, (double*)ss, (double*)st);
+  else
+    gram_tiles<float>(tile, sym, (const float*)states, (const float*)model,
+                      (const float*)target, C, R, n, S, O, (float*)ss,
+                      (float*)st);
+  return 0;
+}
+
+// How often the tile list writes each output of one region: cnt_ss
+// (A, A) and cnt_st (O, A), zeroed by the caller
+extern "C" int gram_coverage_host(int A, int O, int tile, int sym,
+                                  unsigned char* cnt_ss,
+                                  unsigned char* cnt_st) {
+  for (int t = 0; t < gu_tiles(A, O, tile, sym != 0); ++t) {
+    const GuTile g = gu_decode(t, A, tile, sym != 0);
+    unsigned char* dst = g.kind == GU_SS ? cnt_ss : cnt_st;
+    const int rows = gu_rows(g, A, O, tile), cols = gu_cols(g, A, tile);
+    for (int ii = 0; ii < rows; ++ii)
+      for (int jj = 0; jj < cols; ++jj) {
+        ++dst[gu_direct(g, 0, ii, jj, A, O, tile)];
+        if (g.mirror) ++cnt_ss[gu_mirror(g, 0, ii, jj, A, tile)];
+      }
+  }
+  return 0;
+}

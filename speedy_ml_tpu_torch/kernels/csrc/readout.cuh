@@ -1,0 +1,207 @@
+// K2's arithmetic, shared by the CUDA kernel (readout.cu) and its host
+// build (dense_host.cpp, which the CPU tests compile with g++ and hold
+// against the plain PyTorch version): the augmented vector, its rounding
+// to bfloat16, one lane's share of a Wout row's dot product and the
+// unstandardize epilogue.  Wout elements are read as raw bits (bfloat16:
+// the upper half of a float), so the same code runs on both sides.
+//
+// A row is split over RO_LANES lanes.  On the vector path a row that
+// starts 8 bytes past a 16-byte boundary (every second row when A is 4
+// mod 8 in bf16) first takes a head of 4 elements, one per lane; the body
+// is 16-byte words, word c on lane c % RO_LANES, RO_UNROLL of them loaded
+// before their products; the last A - head mod 8 elements are the tail,
+// one per lane.  Each lane sums its elements in that order with fmaf; the
+// lanes' sums are then added by the xor butterfly of offsets 16, 8, 4, 2,
+// 1 (shuffles on the card; dense_host.cpp repeats them).
+
+#pragma once
+
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+#include <string.h>
+
+#ifdef __CUDACC__
+#define RO_HD __host__ __device__ __forceinline__
+#else
+#define RO_HD inline
+#endif
+
+#define RO_LANES 32   // lanes that share one Wout row (a warp)
+#define RO_UNROLL 4   // 16-byte words a lane loads before their products
+
+RO_HD float ro_from_bits(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+#endif
+}
+
+RO_HD uint32_t ro_to_bits(float f) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(f);
+#else
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+#endif
+}
+
+// v rounded to bfloat16 (to nearest, ties to even) and widened back: the
+// rounding of torch's .to(torch.bfloat16)
+RO_HD float ro_round_bf16(float v) {
+  uint32_t u = ro_to_bits(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return v;  // NaN stays NaN
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return ro_from_bits(u & 0xffff0000u);
+}
+
+// aug[a] of region r before any rounding: [local_model (S) ; x with the
+// odd nodes squared (n)]
+RO_HD float ro_aug(const float* x, const float* lm, long long r, int a, int S,
+                   int n) {
+  if (a < S) return lm[r * S + a];
+  const int i = a - S;
+  const float xi = x[r * n + i];
+  return (i & 1) ? xi * xi : xi;
+}
+
+// Elements before the first 16-byte boundary of a row of ES-byte elements
+RO_HD int ro_head(const unsigned char* row, int es) {
+  return (int)((16u - (unsigned)((uintptr_t)row & 15u)) & 15u) / es;
+}
+
+// True where every row of Wout (R, O, A) can take the vector path: each
+// row starts on a 16-byte boundary or 4 elements before one, so that the
+// body's words and aug's float4 pairs line up.  (readout.py's
+// vector_path is the same rule.)
+RO_HD bool ro_vector_ok(const void* wout, int A, int es) {
+  return A % 4 == 0 && (uintptr_t)wout % (uintptr_t)(4 * es) == 0;
+}
+
+struct RoWord {
+  uint32_t w[4];
+};
+
+RO_HD RoWord ro_load16(const unsigned char* p) {
+  RoWord v;
+#ifdef __CUDA_ARCH__
+  // evict-first: Wout is read once per cycle and must not evict the state
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  v.w[0] = q.x;
+  v.w[1] = q.y;
+  v.w[2] = q.z;
+  v.w[3] = q.w;
+#else
+  memcpy(v.w, p, 16);
+#endif
+  return v;
+}
+
+template <int ES>
+struct RoElem;
+
+// bfloat16 Wout: 8 elements to a word, element 2k in the low half of w[k]
+template <>
+struct RoElem<2> {
+  static RO_HD float at(const unsigned char* row, int a) {
+    uint16_t h;
+#ifdef __CUDA_ARCH__
+    h = reinterpret_cast<const uint16_t*>(row)[a];
+#else
+    memcpy(&h, row + 2 * (size_t)a, 2);
+#endif
+    return ro_from_bits((uint32_t)h << 16);
+  }
+  // acc + the word's 8 products with aug[0..7] (16-byte aligned)
+  static RO_HD float dot(const RoWord& v, const float* aug, float acc) {
+#ifdef __CUDA_ARCH__
+    const float4 p = reinterpret_cast<const float4*>(aug)[0];
+    const float4 q = reinterpret_cast<const float4*>(aug)[1];
+    const float a[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+#else
+    const float* a = aug;
+#endif
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc = fmaf(ro_from_bits(v.w[k] << 16), a[2 * k], acc);
+      acc = fmaf(ro_from_bits(v.w[k] & 0xffff0000u), a[2 * k + 1], acc);
+    }
+    return acc;
+  }
+};
+
+// float32 Wout: 4 elements to a word
+template <>
+struct RoElem<4> {
+  static RO_HD float at(const unsigned char* row, int a) {
+    float f;
+#ifdef __CUDA_ARCH__
+    f = reinterpret_cast<const float*>(row)[a];
+#else
+    memcpy(&f, row + 4 * (size_t)a, 4);
+#endif
+    return f;
+  }
+  static RO_HD float dot(const RoWord& v, const float* aug, float acc) {
+#ifdef __CUDA_ARCH__
+    const float4 p = reinterpret_cast<const float4*>(aug)[0];
+    const float a[4] = {p.x, p.y, p.z, p.w};
+#else
+    const float* a = aug;
+#endif
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc = fmaf(ro_from_bits(v.w[k]), a[k], acc);
+    return acc;
+  }
+};
+
+// Lane `lane`'s share of sum_a row[a] * aug[a] for a row of A ES-byte
+// elements; aug is 16-byte aligned.  VEC: head, 16-byte body, tail (the
+// row must pass ro_vector_ok); else element a on lane a % RO_LANES.
+template <int ES, bool VEC>
+RO_HD float ro_lane_dot(const unsigned char* row, const float* aug, int A,
+                        int lane) {
+  float acc = 0.f;
+  if (!VEC) {
+    for (int a = lane; a < A; a += RO_LANES)
+      acc = fmaf(RoElem<ES>::at(row, a), aug[a], acc);
+    return acc;
+  }
+  constexpr int N = 16 / ES;  // elements to a word
+  const int head = ro_head(row, ES) < A ? ro_head(row, ES) : A;
+  const int nw = (A - head) / N;  // words of the body
+  const int t0 = head + nw * N;   // first element of the tail
+  if (lane < head) acc = fmaf(RoElem<ES>::at(row, lane), aug[lane], acc);
+  const unsigned char* body = row + (size_t)head * ES;
+  const float* ab = aug + head;
+  int c = lane;
+  for (; c + (RO_UNROLL - 1) * RO_LANES < nw; c += RO_UNROLL * RO_LANES) {
+    RoWord v[RO_UNROLL];
+#pragma unroll
+    for (int u = 0; u < RO_UNROLL; ++u)
+      v[u] = ro_load16(body + (size_t)(c + u * RO_LANES) * 16);
+#pragma unroll
+    for (int u = 0; u < RO_UNROLL; ++u)
+      acc = RoElem<ES>::dot(v[u], ab + (size_t)(c + u * RO_LANES) * N, acc);
+  }
+  for (; c < nw; c += RO_LANES)
+    acc = RoElem<ES>::dot(ro_load16(body + (size_t)c * 16), ab + (size_t)c * N,
+                          acc);
+  if (lane < A - t0)
+    acc = fmaf(RoElem<ES>::at(row, t0 + lane), aug[t0 + lane], acc);
+  return acc;
+}
+
+// out = acc * std + mean, each operation rounded on its own
+RO_HD float ro_unstd(float acc, float std, float mean) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(__fmul_rn(acc, std), mean);
+#else
+  const float p = acc * std;  // built with -ffp-contract=off
+  return p + mean;
+#endif
+}

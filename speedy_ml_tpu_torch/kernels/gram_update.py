@@ -8,7 +8,10 @@ quad_expand(states_c)]: states (C, R, n), model (C, R, S) or None
 kernel takes float32 or float64 (all operands alike).
 
 On a CPU tensor `gram_update` runs `gram_update_plain`; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernels or raises: a first one writes the operands of
+the chunk, aug and target, into a zero-padded panel (scratch allocated
+here), the second adds the tiles' products into ss and st.  Both tile
+lists give the same bits, and a symmetric ss stays exactly symmetric.
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ import torch
 
 from speedy_ml_tpu_torch.kernels import build as kb
 from speedy_ml_tpu_torch.kernels.readout import quad_expand
+
+# chunks of at least this many samples take the symmetric tile list (ss's
+# upper triangle, mirrored: half the FLOPs); shorter ones, bound by the
+# bytes of ss, the full list.  `chip_smoke.py --k14-lists` on an H100 80GB
+# HBM3 at 700 W (32 regions, A = 5,892): full 4.02 ms against symmetric
+# 4.64 at C = 48, full 5.04 against 4.67 at C = 64
+SYM_MIN_C = 64
 
 
 def augment(states: torch.Tensor, model: torch.Tensor | None = None
@@ -37,6 +47,13 @@ def gram_update_plain(ss, st, states, model, target):
 def gram_update(ss, st, states, model, target):
     """Add one time chunk's normal equations to (ss, st) in place;
     returns (ss, st)."""
+    return _update(ss, st, states, model, target,
+                   sym=states.shape[0] >= SYM_MIN_C)
+
+
+def _update(ss, st, states, model, target, sym: bool):
+    """gram_update with the tile list given: sym, ss's upper triangle
+    mirrored; else all of ss's tiles."""
     if states.device.type == "cpu":
         return gram_update_plain(ss, st, states, model, target)
     if states.device.type != "cuda":
@@ -59,12 +76,19 @@ def gram_update(ss, st, states, model, target):
     kb.require(target, "target", dt, (C, R, O), dev)
     kb.require(ss, "ss", dt, (R, A, A), dev)
     kb.require(st, "st", dt, (R, O, A), dev)
-    code = kb.library().gram_update_launch(
-        kb.device_index(states), int(dt == torch.float64), states.data_ptr(),
+    lib = kb.library()
+    is_double = int(dt == torch.float64)
+    # the operands of every tile, zero-padded to whole tiles
+    panel = torch.empty(lib.gram_panel_size(is_double, int(sym), C, R, n, S,
+                                            O),
+                        dtype=dt, device=dev)
+    code = lib.gram_update_launch(
+        kb.device_index(states), is_double, states.data_ptr(),
         None if model is None else model.data_ptr(), target.data_ptr(),
-        C, R, n, S, O, ss.data_ptr(), st.data_ptr(), kb.stream_of(states))
+        C, R, n, S, O, ss.data_ptr(), st.data_ptr(), panel.data_ptr(),
+        int(sym), kb.stream_of(states))
     kb.check(code, "gram_update")
-    gram_update.launches += 1
+    gram_update.launches += 2   # the panel kernel and the tile kernel
     return ss, st
 
 

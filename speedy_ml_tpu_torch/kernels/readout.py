@@ -7,7 +7,8 @@ f32, as the JAX readout does (aug.astype(bfloat16) with an f32
 accumulator).  out_mean/out_std None: the bare product.
 
 On a CPU tensor `readout` runs `readout_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises.  The kernel streams Wout with 16-byte loads
+where `vector_path(wout)` holds, else element by element.
 """
 
 from __future__ import annotations
@@ -21,6 +22,15 @@ def quad_expand(x: torch.Tensor) -> torch.Tensor:
     """Square every second node (Fortran rows 2:n:2 -> 0-based odd)."""
     odd = (torch.arange(x.shape[-1], device=x.device) % 2) == 1
     return torch.where(odd, x * x, x)
+
+
+def vector_path(wout: torch.Tensor) -> bool:
+    """Whether the kernel reads Wout (R, O, A) with 16-byte loads: A a
+    multiple of 4 and Wout aligned to 4 elements (every row then starts
+    on a 16-byte boundary or 8 bytes past one, in bf16).  The rule of
+    ro_vector_ok in csrc/readout.cuh."""
+    return (wout.shape[-1] % 4 == 0
+            and wout.data_ptr() % (4 * wout.element_size()) == 0)
 
 
 def readout_plain(wout, x, local_model=None, out_mean=None, out_std=None
@@ -72,7 +82,8 @@ def readout(wout, x, local_model=None, out_mean=None, out_std=None
     code = kb.library().readout_launch(
         kb.device_index(x), int(wout.dtype == torch.bfloat16),
         wout.data_ptr(), x.data_ptr(), ptr(local_model), ptr(out_mean),
-        ptr(out_std), R, O, S, n, out.data_ptr(), kb.stream_of(x))
+        ptr(out_std), R, O, S, n, out.data_ptr(),
+        kb.stream_of(x))
     kb.check(code, "readout")
     readout.launches += 1
     return out
