@@ -18,7 +18,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      must fail the tolerance; the vector path required and logged for
      every class, each class timed beside torch.bmm, the ML-only form
      checked and timed), K3 window gather, K4 core scatter,
-     K5 sht_analysis, K6 sht_synthesis, K7 grid_dynamics,
+     K5 sht_analysis, K6 sht_synthesis (each also at every stack size
+     and 1/cos split of the coupled cycle: K6 50, 41, 32, 33 fields, K5
+     73, 33, 2, checked and timed as the median of SHT_SESSIONS
+     sessions), K7 grid_dynamics,
      K8 spectral_tail, K9 column_moist, K10a radlw_down, K10b radlw_up,
      K11 surface_fluxes, K12 column_pbl, K13 column_shortwave (the column
      physics: in float64 against the plain float64 version, then in
@@ -32,10 +35,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K13, cycle_ms
-     (median and range of 5 x 20 cycles), device busy, idle share,
-     launches per cycle, device ms per stage and per physics kernel, the
-     top device ops; a profiled physics step (with and without the
+  7. the coupled main path, run_prediction: launches of K1-K13 (K6 and
+     K5 at most 54 and 28 a cycle), cycle_ms (median and range of 5 x 20
+     cycles), device busy, idle share, launches per cycle, device ms per
+     stage, per kernel inside the window (K5-K13) and per physics kernel,
+     the top device ops; a profiled physics step (with and without the
      shortwave) must show no device op but the kernels K9-K13;
      physical checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
@@ -67,6 +71,7 @@ import argparse
 import dataclasses
 import inspect
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -93,6 +98,11 @@ K2_RTOL = 2e-5
 SHT_RTOL = 1e-5
 K7_ULPS = 4
 TAIL_RTOL = 1e-5
+# K5/K6: measure() sessions per shape (the median is kept: us kernels
+# spread between sessions), and the most launches per coupled cycle (the
+# counts of the first designs: one launch per call)
+SHT_SESSIONS = 5
+SHT_LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28}
 # K9-K13, float32: a fraction of each output's scale over the columns
 # whose integer outputs (itop, icnv) agree, and the share of columns in
 # which they may differ (a near-tie decision falling the other way);
@@ -212,6 +222,14 @@ def measure(torch, fn, reps: int = 10, warmup: int = 2):
     if dev <= 0:
         fail("torch.profiler saw no device time")
     return dev, call
+
+
+def measure_median(torch, fn, sessions: int = SHT_SESSIONS, reps: int = 50):
+    """measure() in `sessions` sessions: the medians of (device_ms,
+    call_ms), and the device ms of every session."""
+    runs = [measure(torch, fn, reps=reps) for _ in range(sessions)]
+    return ((statistics.median(r[0] for r in runs),
+             statistics.median(r[1] for r in runs)), [r[0] for r in runs])
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -1025,17 +1043,18 @@ def main():
     B, MN, G = stk.shape[0], g.mx * g.nx, nlat * nlon
     iy = g.nlat_half
     tab_bytes = 8 * g.mx * nlon + 4 * iy * MN + 4 * nlat
+    k6_bound = lambda B: bound_ms(
+        B * (8 * MN + 4 * G) + tab_bytes,
+        B * (4 * iy * MN + 4 * iy * g.mx + 4 * G * g.mx), PEAK_F32_S)
     ok &= record(
         "K6_sht_synthesis",
         "speedy_ml_tpu_torch/kernels/csrc/sht_synthesis.cu",
         "speedy_ml_tpu/core/spectral.py:294", rel, SHT_RTOL,
-        measure(torch, lambda: sht_synthesis(*sargs), reps=50),
+        measure_median(torch, lambda: sht_synthesis(*sargs))[0],
         measure(torch, lambda: sht_synthesis_plain(
             stk, sht.dft_inv, sht.cpol_even_g, sht.cpol_odd_g, sht.cosgr,
             ncos), reps=50),
-        bound_ms(B * (8 * MN + 4 * G) + tab_bytes,
-                 B * (4 * iy * MN + 4 * iy * g.mx + 4 * G * g.mx),
-                 PEAK_F32_S))
+        k6_bound(B))
     log(f"  (K6 max_abs_err is relative to each field's scale; absolute "
         f"{err:.3e})")
 
@@ -1070,19 +1089,64 @@ def main():
                             sht.cpol_odd_s, sht.cosgr, n0)
     rel, err = per_field_err(torch, ak, ap)
     B5 = gk7.shape[0]
+    k5_bound = lambda B: bound_ms(
+        B * (4 * G + 8 * MN) + tab_bytes,
+        B * (4 * G * g.mx + 6 * iy * g.mx + 4 * iy * MN), PEAK_F32_S)
     ok &= record(
         "K5_sht_analysis",
         "speedy_ml_tpu_torch/kernels/csrc/sht_analysis.cu",
         "speedy_ml_tpu/core/spectral.py:251", rel, SHT_RTOL,
-        measure(torch, lambda: sht_analysis(*aargs), reps=50),
+        measure_median(torch, lambda: sht_analysis(*aargs))[0],
         measure(torch, lambda: sht_analysis_plain(
             gk7, sht.dft_fwd, sht.wt, sht.cpol_even_s, sht.cpol_odd_s,
             sht.cosgr, n0), reps=50),
-        bound_ms(B5 * (4 * G + 8 * MN) + tab_bytes,
-                 B5 * (4 * G * g.mx + 6 * iy * g.mx + 4 * iy * MN),
-                 PEAK_F32_S))
+        k5_bound(B5))
     log(f"  (K5 max_abs_err is relative to each field's scale; absolute "
         f"{err:.3e})")
+
+    # K6 and K5 at every stack size and 1/cos split of the coupled cycle
+    # (the leading fields of the stacks above), each checked against its
+    # plain version and timed as the median of SHT_SESSIONS sessions
+    syn_shapes = (("dycore step", stk.shape[0], ncos),
+                  ("physics_grid", 5 * K + 1, 3 * K + 1),
+                  ("injection", 4 * K, 2 * K),
+                  ("window output", 4 * K + 1, 2 * K + 1))
+    ana_shapes = (("analysis_stack", B5, n0), ("injection", 4 * K + 1,
+                                               2 * K + 1),
+                  ("forcing", 2, None))
+    for kind, shapes in (("K6", syn_shapes), ("K5", ana_shapes)):
+        for site, Bs, split in shapes:
+            if kind == "K6":
+                sp = stk[:Bs]
+                fn = lambda: sht_synthesis(sp, sht.dft_inv, sht.cpol_even_g,
+                                           sht.cpol_odd_g, sht.cpol_g,
+                                           sht.cosgr, split)
+                pfn = lambda: sht_synthesis_plain(
+                    sp, sht.dft_inv, sht.cpol_even_g, sht.cpol_odd_g,
+                    sht.cosgr, split)
+                bnd = k6_bound(Bs)
+            else:
+                gr = gk7[:Bs]
+                pre = None if split is None else sht.cosgr
+                fn = lambda: sht_analysis(gr, sht.dft_fwd, sht.wt,
+                                          sht.cpol_even_s, sht.cpol_odd_s,
+                                          sht.cpol_s, pre, split)
+                pfn = lambda: sht_analysis_plain(
+                    gr, sht.dft_fwd, sht.wt, sht.cpol_even_s,
+                    sht.cpol_odd_s, pre, split)
+                bnd = k5_bound(Bs)
+            rel_s, _ = per_field_err(torch, fn(), pfn())
+            (dev_ms, call_ms), runs = measure_median(torch, fn)
+            plain_s = measure(torch, pfn, reps=20)
+            log(f"{kind} at B={Bs} ({site}, scaled from "
+                f"{'none' if split is None else split}): max_abs_err="
+                f"{rel_s:.3e} (tolerance {SHT_RTOL:.0e}) kernel_ms="
+                f"{dev_ms:.4f} median of {len(runs)} sessions ("
+                + ", ".join(f"{r:.4f}" for r in runs)
+                + f"; call {call_ms:.4f}) plain_ms={plain_s[0]:.4f} "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]}) [{card}]"
+                + ("" if rel_s <= SHT_RTOL else "  <-- FAIL"))
+            ok &= rel_s <= SHT_RTOL
 
     # K8: the spectral tail of a filtered leapfrog step
     targs = (dyn, ak, st, gcm.phis, corr, imp, 2, dyn.delt2, dyn.rob, 0,
@@ -1467,6 +1531,10 @@ def main():
         f"(per cycle: " + ", ".join(f"{nm.split('_')[0]} {c / CYCLES:g}"
                                      for nm, c in counts.items()) + "); "
         + check_stream(path, CYCLES))
+    for nm, most in SHT_LAUNCHES_PER_CYCLE.items():
+        if counts[nm] > most * CYCLES:
+            fail(f"{nm}: {counts[nm] / CYCLES:g} launches per coupled cycle, "
+                 f"more than {most}")
 
     # device time and launches of each stage, profiled alone on the
     # cycle's own inputs: the kernels launched through ctypes are not

@@ -14,78 +14,41 @@
 // Bound on an H100 SXM: neither.  At T30 a call moves 18 KB per field
 // in and 8 KB out and does ~0.6 MFLOP per field: a 73-field call is
 // ~2 MB (0.6 us at 3.35 TB/s) and ~45 MFLOP (0.7 us at 67 TFLOP/s f32).
-// The kernel is latency-sized.  Design: one block per (group of MG
-// wavenumbers, field), 256 threads.  The block stages its field in
-// shared memory (rows padded by one word against bank conflicts); one
-// thread per (latitude, m) pair runs the DFT of that row for that m
-// (neighbouring threads take neighbouring m: the dft_fwd reads coalesce
-// and the row reads broadcast); then one thread per (m, n) runs the fold
-// and the Legendre sum.  All sums are f32 in index order; no TF32 path
-// exists.
+// The kernel is latency-sized: its bound is less than a launch takes.
+// Design (sht.cuh holds the arithmetic, the layout and the tile choice):
+// one block per (field, group of mg wavenumbers), mg the fewest (even, 4
+// to 8) that keep the grid within one block per SM.  The block stages its
+// field (rows padded to an odd number of 16-byte words), its columns of
+// dft_fwd and pre by cp.async, then the Legendre rows of its wavenumbers
+// as a second group that lands while the DFT phase runs.  The DFT phase
+// gives each thread one latitude pair at two wavenumbers: per 4
+// longitudes one 16-byte load of each row and four of dft_fwd feed 32
+// products, the 1/cos scaling applied to the row values as they are
+// loaded, and the hemispheric fold with the Gaussian weight done in
+// registers.  Then each thread runs the Legendre sums of 4 consecutive n
+// of one m.  One launch per call; every output's sum in the first
+// design's order (bit-identical to it).
 
 #include "common.cuh"
+#include "sht.cuh"
 
-#define SHT_MG 8          // wavenumbers per block
-#define SHT_THREADS 256
-
-__global__ void __launch_bounds__(SHT_THREADS)
-sht_analysis_kernel(const float* __restrict__ grid,
-                    const float2* __restrict__ dft_fwd,
-                    const float* __restrict__ wt,
-                    const float* __restrict__ cpol_s,
-                    const float* __restrict__ pre, int n0, int nlat,
-                    int nlon, int mx, int nx, float2* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int m0 = blockIdx.x * SHT_MG;
-  const int nm = min(SHT_MG, mx - m0);
-  const int b = blockIdx.y;
-  const int stride = nlon + 1;
-  float* f = smem;                                       // nlat * stride
-  float2* fm = reinterpret_cast<float2*>(smem + ((nlat * stride + 1) & ~1));
-  const float* src = grid + (size_t)b * nlat * nlon;
-  const bool scale = pre != nullptr && b >= n0;
-  for (int i = threadIdx.x; i < nlat * nlon; i += blockDim.x) {
-    const int j = i / nlon;
-    float v = src[i];
-    if (scale) v = __fmul_rn(v, pre[j]);
-    f[j * stride + (i - j * nlon)] = v;
-  }
+__global__ void __launch_bounds__(SHT_MAX_THREADS)
+sht_analysis_kernel(ShtAnaArgs a, int mg) {
+  extern __shared__ __align__(16) unsigned char sht_smem[];
+  const ShtAnaSmem s = sht_ana_carve(sht_smem, mg, a.nlat, a.nlon, a.nx);
+  const ShtAnaBlock b = sht_ana_block(a, mg, blockIdx.x);
+  const int t = threadIdx.x, T = blockDim.x;
+  const ShtAsyncCopy cp;
+  sht_ana_stage_grid(cp, a, s, b, mg, t, T);
+  sht_async_commit();
+  sht_ana_stage_legendre(cp, a, s, b, mg, t, T);
+  sht_async_commit();
+  sht_async_wait<1>();
   __syncthreads();
-  // fm[mm * nlat + j]: the zonal coefficient m0 + mm of latitude j
-  for (int p = threadIdx.x; p < nlat * nm; p += blockDim.x) {
-    const int j = p / nm;
-    const int mm = p - j * nm;
-    const float* row = f + j * stride;
-    const float2* w = dft_fwd + m0 + mm;
-    float re = 0.f, im = 0.f;
-    for (int i = 0; i < nlon; ++i) {
-      const float2 c = w[(size_t)i * mx];
-      re = fmaf(row[i], c.x, re);
-      im = fmaf(row[i], c.y, im);
-    }
-    fm[mm * nlat + j] = make_float2(re, im);
-  }
+  sht_ana_dft(a, s, b, mg, t, T);
+  sht_async_wait<0>();
   __syncthreads();
-  const int iy = nlat / 2;
-  for (int p = threadIdx.x; p < nm * nx; p += blockDim.x) {
-    const int mm = p / nx;
-    const int n = p - mm * nx;
-    const int m = m0 + mm;
-    const bool even = (n & 1) == 0;
-    const float2* g = fm + mm * nlat;
-    float re = 0.f, im = 0.f;
-    for (int j = 0; j < iy; ++j) {
-      const float2 s = g[j];
-      const float2 nn = g[nlat - 1 - j];
-      const float w = wt[j];
-      const float ar = (even ? nn.x + s.x : nn.x - s.x) * w;
-      const float ai = (even ? nn.y + s.y : nn.y - s.y) * w;
-      const float c = cpol_s[((size_t)j * mx + m) * nx + n];
-      re = fmaf(c, ar, re);
-      im = fmaf(c, ai, im);
-    }
-    out[((size_t)b * mx + m) * nx + n] = make_float2(re, im);
-  }
+  sht_ana_legendre(a, s, b, mg, t, T, nullptr);
 }
 
 // grid (B, nlat, nlon) f32, dft_fwd (nlon, mx) complex64, wt (nlat/2,),
@@ -95,23 +58,29 @@ SPEEDY_API int sht_analysis_launch(int device, const void* grid,
                                    const void* cpol_s, const void* pre,
                                    int n0, int B, int nlat, int nlon, int mx,
                                    int nx, void* out, void* stream) {
+  static int smem_set[64];
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || nlat <= 0 || (nlat & 1) || nlon <= 0 || mx <= 0 || nx <= 0)
+  if (B <= 0 || nlat <= 0 || (nlat & 1) || nlon <= 0 || mx <= 0 || nx <= 0 ||
+      nlon % 4 || nx % 4 || !sht_aligned(grid, 16) ||
+      !sht_aligned(dft_fwd, 8) || !sht_aligned(cpol_s, 16) ||
+      !sht_aligned(out, 16))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(((nlat * (nlon + 1) + 1) & ~1) +
-                               2 * SHT_MG * nlat) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(sht_analysis_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid_dim((unsigned)((mx + SHT_MG - 1) / SHT_MG), (unsigned)B);
-  sht_analysis_kernel<<<grid_dim, SHT_THREADS, smem,
-                        (cudaStream_t)stream>>>(
-      (const float*)grid, (const float2*)dft_fwd, (const float*)wt,
-      (const float*)cpol_s, (const float*)pre, n0, nlat, nlon, mx, nx,
-      (float2*)out);
+  int sms;
+  size_t smem_max;
+  err = sht_device_limits(device, &sms, &smem_max);
+  if (err != cudaSuccess) return (int)err;
+  const ShtAnaTile tl = sht_ana_choose(B, nlat, mx, nx, sms);
+  const size_t smem = sht_ana_smem_bytes(tl.mg, nlat, nlon, nx);
+  if (smem > smem_max) return (int)cudaErrorInvalidValue;
+  err = sht_smem_limit((const void*)sht_analysis_kernel, device, smem,
+                       smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const ShtAnaArgs a = {(const float*)grid, (const sht_c*)dft_fwd,
+                        (const float*)wt, (const float*)cpol_s,
+                        (const float*)pre, n0, B, nlat, nlon, mx, nx,
+                        (sht_c*)out};
+  sht_analysis_kernel<<<tl.blocks, tl.threads, smem, (cudaStream_t)stream>>>(
+      a, tl.mg);
   return (int)cudaGetLastError();
 }

@@ -13,63 +13,40 @@
 //
 // Bound on an H100 SXM: neither.  At T30 a call reads 8 KB and writes
 // 18 KB per field (~1.3 MB for 50 fields, 0.4 us at 3.35 TB/s) and does
-// ~0.6 MFLOP per field (0.45 us at 67 TFLOP/s f32 for 50 fields).
-// Design: one block per (latitude pair, field), B*nlat/2 blocks; the
-// block stages its field's (mx, nx) coefficients in shared memory, one
-// thread per m forms the even/odd Legendre sums, then one thread per
-// longitude forms the two real rows.  f32 sums in index order.
+// ~0.6 MFLOP per field (0.45 us at 67 TFLOP/s f32 for 50 fields), less
+// than a launch takes.  What limits it is the latency of staging each
+// block's operands from L2 and of its dependent sums.
+// Design (sht.cuh holds the arithmetic, the layout and the tile choice):
+// one block per (2 fields, lp latitude pairs), lp the fewest that keep
+// the grid within one block per SM (5 pairs, 125 blocks at 50 fields).
+// The block stages its fields' coefficients and its pairs' Legendre rows
+// by 16-byte cp.async, then dft_inv as a second group that lands while
+// the Legendre phase runs (one thread per (field, pair, m), 4 values of n
+// per shared-memory load); the DFT phase gives each thread the south and
+// north rows of one (field, pair) at two longitudes, so one 16-byte load
+// of dft_inv serves 8 products.  One launch per call; every output's sum
+// in the first design's order (bit-identical to it).
 
 #include "common.cuh"
+#include "sht.cuh"
 
-__global__ void sht_synthesis_kernel(const float2* __restrict__ spec,
-                                     const float2* __restrict__ dft_inv,
-                                     const float* __restrict__ cpol_g,
-                                     const float* __restrict__ cosgr,
-                                     int ncos, int nlat, int nlon, int mx,
-                                     int nx, float* __restrict__ out) {
-  extern __shared__ float2 sm2[];
-  const int j = blockIdx.x;     // southern row j, northern row nlat-1-j
-  const int b = blockIdx.y;
-  float2* v = sm2;              // mx * nx
-  float2* fs = sm2 + mx * nx;   // mx
-  float2* fn = fs + mx;         // mx
-  const float2* src = spec + (size_t)b * mx * nx;
-  for (int i = threadIdx.x; i < mx * nx; i += blockDim.x) v[i] = src[i];
+__global__ void __launch_bounds__(SHT_MAX_THREADS)
+sht_synthesis_kernel(ShtSynArgs a, int ft, int lp) {
+  extern __shared__ __align__(16) unsigned char sht_smem[];
+  const ShtSynSmem s = sht_syn_carve(sht_smem, ft, lp, a.mx, a.nx, a.nlon);
+  const ShtSynBlock b = sht_syn_block(a, ft, lp, blockIdx.x);
+  const int t = threadIdx.x, T = blockDim.x;
+  const ShtAsyncCopy cp;
+  sht_syn_stage_coef(cp, a, s, b, t, T);
+  sht_async_commit();
+  sht_syn_stage_dft(cp, a, s, t, T);
+  sht_async_commit();
+  sht_async_wait<1>();
   __syncthreads();
-  for (int m = threadIdx.x; m < mx; m += blockDim.x) {
-    const float* c = cpol_g + ((size_t)j * mx + m) * nx;
-    const float2* vm = v + m * nx;
-    float er = 0.f, ei = 0.f, orr = 0.f, oi = 0.f;
-    for (int n = 0; n < nx; n += 2) {
-      er = fmaf(c[n], vm[n].x, er);
-      ei = fmaf(c[n], vm[n].y, ei);
-      if (n + 1 < nx) {
-        orr = fmaf(c[n + 1], vm[n + 1].x, orr);
-        oi = fmaf(c[n + 1], vm[n + 1].y, oi);
-      }
-    }
-    fs[m] = make_float2(er - orr, ei - oi);
-    fn[m] = make_float2(er + orr, ei + oi);
-  }
+  sht_syn_legendre(a, s, b, ft, lp, t, T);
+  sht_async_wait<0>();
   __syncthreads();
-  const int jn = nlat - 1 - j;
-  const bool scale = b >= ncos;
-  for (int x = threadIdx.x; x < nlon; x += blockDim.x) {
-    float gs = 0.f, gn = 0.f;
-    for (int m = 0; m < mx; ++m) {
-      const float2 w = dft_inv[m * nlon + x];
-      gs = fmaf(fs[m].x, w.x, gs);
-      gs = fmaf(-fs[m].y, w.y, gs);
-      gn = fmaf(fn[m].x, w.x, gn);
-      gn = fmaf(-fn[m].y, w.y, gn);
-    }
-    if (scale) {
-      gs = __fmul_rn(gs, cosgr[j]);
-      gn = __fmul_rn(gn, cosgr[jn]);
-    }
-    out[((size_t)b * nlat + j) * nlon + x] = gs;
-    out[((size_t)b * nlat + jn) * nlon + x] = gn;
-  }
+  sht_syn_dft(a, s, b, ft, lp, t, T, nullptr);
 }
 
 // spec (B, mx, nx) complex64, dft_inv (mx, nlon) complex64, cpol_g
@@ -79,20 +56,28 @@ SPEEDY_API int sht_synthesis_launch(int device, const void* spec,
                                     const void* cosgr, int ncos, int B,
                                     int nlat, int nlon, int mx, int nx,
                                     void* out, void* stream) {
+  static int smem_set[64];
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || nlat <= 0 || (nlat & 1) || nlon <= 0 || mx <= 0 || nx <= 0)
+  if (B <= 0 || nlat <= 0 || (nlat & 1) || nlon <= 0 || mx <= 0 || nx <= 0 ||
+      nlon % 4 || nx % 4 || !sht_aligned(spec, 16) ||
+      !sht_aligned(dft_inv, 16) || !sht_aligned(cpol_g, 16) ||
+      !sht_aligned(out, 8))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(mx * nx + 2 * mx) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(sht_synthesis_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid_dim((unsigned)(nlat / 2), (unsigned)B);
-  sht_synthesis_kernel<<<grid_dim, 128, smem, (cudaStream_t)stream>>>(
-      (const float2*)spec, (const float2*)dft_inv, (const float*)cpol_g,
-      (const float*)cosgr, ncos, nlat, nlon, mx, nx, (float*)out);
+  int sms;
+  size_t smem_max;
+  err = sht_device_limits(device, &sms, &smem_max);
+  if (err != cudaSuccess) return (int)err;
+  const ShtSynTile tl = sht_syn_choose(B, nlat, nlon, mx, nx, sms, smem_max);
+  const size_t smem = sht_syn_smem_bytes(tl.ft, tl.lp, mx, nx, nlon);
+  if (smem > smem_max) return (int)cudaErrorInvalidValue;
+  err = sht_smem_limit((const void*)sht_synthesis_kernel, device, smem,
+                       smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const ShtSynArgs a = {(const sht_c*)spec, (const sht_c*)dft_inv,
+                        (const float*)cpol_g, (const float*)cosgr,
+                        ncos, B, nlat, nlon, mx, nx, (float*)out};
+  sht_synthesis_kernel<<<tl.blocks, tl.threads, smem, (cudaStream_t)stream>>>(
+      a, tl.ft, tl.lp);
   return (int)cudaGetLastError();
 }
