@@ -22,10 +22,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      and 1/cos split of the coupled cycle: K6 50, 41, 32, 33 fields, K5
      73, 33, 2, checked and timed as the median of SHT_SESSIONS
      sessions), K7 grid_dynamics,
-     K8 spectral_tail, K9 column_moist, K10a radlw_down, K10b radlw_up,
-     K11 surface_fluxes, K12 column_pbl, K13 column_shortwave (the column
-     physics: in float64 against the plain float64 version, then in
-     float32 with the columns whose integer outputs differ counted);
+     K8 spectral_tail (the filtered leapfrog step, and stepone's two
+     steps, j1 = 1 with imp_half and imp_full; timed as the median of
+     SHT_SESSIONS sessions), K9 column_moist, K10a radlw_down, K10b
+     radlw_up, K11 surface_fluxes, K12 column_pbl, K13 column_shortwave
+     (the column physics: in float64 against the plain float64 version,
+     then in float32 with the columns whose integer outputs differ
+     counted; K9 must be bit-identical in both, no column flipped, and
+     is timed as the median of SHT_SESSIONS sessions);
      --kernels stops here;
   5. the SPEEDY window on the card against the port on the CPU in float32
      (the plain versions): stepone from the same state, then each of the
@@ -35,12 +39,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K13 (K6 and
-     K5 at most 54 and 28 a cycle), cycle_ms (median and range of 5 x 20
-     cycles), device busy, idle share, launches per cycle, device ms per
-     stage, per kernel inside the window (K5-K13) and per physics kernel,
-     the top device ops; a profiled physics step (with and without the
-     shortwave) must show no device op but the kernels K9-K13;
+  7. the coupled main path, run_prediction: launches of K1-K13 (K6, K5,
+     K8 and K9 at most LAUNCHES_PER_CYCLE a cycle), cycle_ms (median and
+     range of 5 x 20 cycles), device busy, idle share, launches per
+     cycle, device ms per stage, per kernel inside the window (K5-K13)
+     and per physics kernel, the top device ops; a profiled physics
+     step (with and without the shortwave) must show no device op but
+     the kernels K9-K13;
      physical checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
@@ -59,8 +64,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      FLOP/s and peak memory; then the trained weights (bf16) through 12
      coupled cycles of run_prediction, the fields finite.
 --k14-lists stops after phase 3 and times K14's two tile lists at several
-chunk lengths (k14_lists).  The second-to-last line is the kernels JSON,
-the last line
+chunk lengths (k14_lists).  The second-to-last line is the kernels
+JSON, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device or
 without the package beside this script.
 """
@@ -98,11 +103,12 @@ K2_RTOL = 2e-5
 SHT_RTOL = 1e-5
 K7_ULPS = 4
 TAIL_RTOL = 1e-5
-# K5/K6: measure() sessions per shape (the median is kept: us kernels
-# spread between sessions), and the most launches per coupled cycle (the
-# counts of the first designs: one launch per call)
+# K5/K6/K8/K9: measure() sessions per shape (the median is kept: us
+# kernels spread between sessions), and the most launches per coupled
+# cycle (the counts of the first designs: one launch per call)
 SHT_SESSIONS = 5
-SHT_LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28}
+LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
+                      "K8_spectral_tail": 26, "K9_column_moist": 26}
 # K9-K13, float32: a fraction of each output's scale over the columns
 # whose integer outputs (itop, icnv) agree, and the share of columns in
 # which they may differ (a near-tie decision falling the other way);
@@ -1148,23 +1154,36 @@ def main():
                 + ("" if rel_s <= SHT_RTOL else "  <-- FAIL"))
             ok &= rel_s <= SHT_RTOL
 
-    # K8: the spectral tail of a filtered leapfrog step
+    # K8: the spectral tail of a filtered leapfrog step (recorded) and of
+    # stepone's two steps (j1 = 1, no filter), each against the plain
+    # version on the same inputs
+    def tail_err(imp_, j1, dt_, eps):
+        a = (ak, st, gcm.phis, corr, imp_, j1, dt_, eps, 0, True)
+        nk, npl = spectral_tail(dyn, *a), dyn.spectral_tail_plain(*a)
+        return max(per_field_err(torch, getattr(nk, f).reshape(-1, MN),
+                                 getattr(npl, f).reshape(-1, MN))[0]
+                   for f in SpectralState.FIELDS)
+
+    for label, imp_, dt_ in (("stepone 1 (imp_half)", dyn.imp_half,
+                              0.5 * dyn.delt),
+                             ("stepone 2 (imp_full)", dyn.imp_full,
+                              dyn.delt)):
+        e = tail_err(imp_, 1, dt_, 0.0)
+        log(f"K8 at {label}, j1=1: max_abs_err={e:.3e} (tolerance "
+            f"{TAIL_RTOL:.0e})" + ("" if e <= TAIL_RTOL else "  <-- FAIL"))
+        ok &= e <= TAIL_RTOL
     targs = (dyn, ak, st, gcm.phis, corr, imp, 2, dyn.delt2, dyn.rob, 0,
              True)
-    nk = spectral_tail(*targs)
-    npl = dyn.spectral_tail_plain(ak, st, gcm.phis, corr, imp, 2,
-                                  dyn.delt2, dyn.rob, 0, True)
-    rel8 = 0.0
-    for name in SpectralState.FIELDS:
-        a, b = getattr(nk, name), getattr(npl, name)
-        r, _ = per_field_err(torch, a.reshape(-1, MN), b.reshape(-1, MN))
-        rel8 = max(rel8, r)
     st_bytes = sum(getattr(st, k).numel() * 8 for k in SpectralState.FIELDS)
+    (k8_ms, k8_call), k8_runs = measure_median(
+        torch, lambda: spectral_tail(*targs))
+    log("K8 sessions (device ms): "
+        + ", ".join(f"{r:.4f}" for r in k8_runs))
     ok &= record(
         "K8_spectral_tail",
         "speedy_ml_tpu_torch/kernels/csrc/spectral_tail.cu",
-        "speedy_ml_tpu/dycore/model.py:386", rel8, TAIL_RTOL,
-        measure(torch, lambda: spectral_tail(*targs), reps=50),
+        "speedy_ml_tpu/dycore/model.py:386",
+        tail_err(imp, 2, dyn.delt2, dyn.rob), TAIL_RTOL, (k8_ms, k8_call),
         measure(torch, lambda: dyn.spectral_tail_plain(
             ak, st, gcm.phis, corr, imp, 2, dyn.delt2, dyn.rob, 0, True),
             reps=10),
@@ -1193,26 +1212,37 @@ def main():
         return a.double() if a.is_floating_point() else a
 
     def column_check(name, src, replaces, kernel, plain, args, tabs, tabs64,
-                     to_dict, ints, planes, ops):
-        """Both comparisons of one column kernel, then record()."""
+                     to_dict, ints, planes, ops, exact=False):
+        """Both comparisons of one column kernel, then record().  exact:
+        no difference and no flipped column allowed, in float64 and
+        float32, and the kernel timed as the median of SHT_SESSIONS
+        sessions."""
+        tol64 = 0.0 if exact else COLUMN_RTOL_F64
+        most = 0 if exact else COLUMN_FLIPS * G
         a64 = [up64(a) for a in args]
         fl, rel, worst = column_errors(to_dict(kernel(*a64, tabs64)),
                                        to_dict(plain(*a64, tabs64)), ints)
         log(f"{name} float64 on the card: {fl} columns of {G} with other "
             f"integer outputs, worst output {worst or 'none'} "
-            f"{rel:.3e} of its scale (tolerance {COLUMN_RTOL_F64:.0e}, "
+            f"{rel:.3e} of its scale (tolerance {tol64:.0e}, "
             f"integers equal)")
-        if fl or not rel <= COLUMN_RTOL_F64:
+        if fl or not rel <= tol64:
             fail(f"{name}<double> disagrees with the plain float64 version")
         fl, rel, worst = column_errors(to_dict(kernel(*args, tabs)),
                                        to_dict(plain(*args, tabs)), ints)
         log(f"{name} float32: {fl} columns of {G} with other integer "
-            f"outputs (at most {COLUMN_FLIPS:.1%}), worst output "
+            f"outputs (at most {most:g}), worst output "
             f"{worst or 'none'} over the others")
-        if fl > COLUMN_FLIPS * G:
+        if fl > most:
             fail(f"{name}: {fl} columns flipped")
-        return record(name, src, replaces, rel, COLUMN_RTOL,
-                      measure(torch, lambda: kernel(*args, tabs), reps=50),
+        if exact:
+            kern, runs = measure_median(torch, lambda: kernel(*args, tabs))
+            log(f"{name} sessions (device ms): "
+                + ", ".join(f"{r:.4f}" for r in runs))
+        else:
+            kern = measure(torch, lambda: kernel(*args, tabs), reps=50)
+        return record(name, src, replaces, rel,
+                      0.0 if exact else COLUMN_RTOL, kern,
                       measure(torch, lambda: plain(*args, tabs), reps=10),
                       bound_ms(4 * G * planes, G * ops, PEAK_F32_S))
 
@@ -1224,7 +1254,7 @@ def main():
         "speedy_ml_tpu/physics/driver.py:192", column_moist,
         column_moist_plain, (tg4, qg4, phig4, pslg4), phys.moist_tabs,
         phys64.moist_tabs, lambda m: m._asdict(), ("itop", "icnv"),
-        (3 * K + 1) + (6 * K + 5) + 4, 60 * K + 100)
+        (3 * K + 1) + (6 * K + 5) + 4, 60 * K + 100, exact=True)
     down_plain = lambda ta, tau2, t: rad.radlw_down(
         ta, tau2, t.fband, wvi2=t.wvi2, dsig=t.dsig, sbc=t.sbc)
     up_plain = lambda *a: rad.radlw_up(*a[:-1], a[-1].fband, dsig=a[-1].dsig,
@@ -1531,7 +1561,7 @@ def main():
         f"(per cycle: " + ", ".join(f"{nm.split('_')[0]} {c / CYCLES:g}"
                                      for nm, c in counts.items()) + "); "
         + check_stream(path, CYCLES))
-    for nm, most in SHT_LAUNCHES_PER_CYCLE.items():
+    for nm, most in LAUNCHES_PER_CYCLE.items():
         if counts[nm] > most * CYCLES:
             fail(f"{nm}: {counts[nm] / CYCLES:g} launches per coupled cycle, "
                  f"more than {most}")

@@ -54,6 +54,7 @@ class ImplicitCoeffs(NamedTuple):
     xc: torch.Tensor       # (K, K) (already scaled by xi)
     xd: torch.Tensor       # (K, K)
     xj_g: torch.Tensor     # (M, N, K, K) per-(m, n) inverse; zero for l=0
+    xj: torch.Tensor       # (lmax, K, K) the inverse of l = 1..lmax
     dhsx: torch.Tensor     # (K,) xi*dhs
     elz: torch.Tensor      # (M, N) l(l+1)*xi/a^2
     dmp1: torch.Tensor     # (M, N) 1/(1+dmp*dt)
@@ -217,6 +218,7 @@ class DycoreModel:
         imp = ImplicitCoeffs(
             tref=f(tref), tref1=f(c.rgas * tref), tref2=f(c.akap * tref),
             tref3=f(fsgr * tref), xc=f(xc * xi), xd=f(xd), xj_g=f(xj_g),
+            xj=f(xj),
             dhsx=f(xi * dhs), elz=f(elz), dmp1=f(dmp1), dmp1d=f(dmp1d),
             dmp1s=f(dmp1s))
         col = ColumnTables(coriol=self.coriol, dhs=self.dhs,

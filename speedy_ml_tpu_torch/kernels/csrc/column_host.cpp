@@ -1,13 +1,18 @@
 // Host build of the column-physics bodies (column_moist.cuh,
 // column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
 // column_shortwave.cuh): the same per-column code the CUDA kernels K9-K13
-// run, looped over the columns on the CPU.  It is not part of the
+// run, looped over the columns on the CPU, and K9's block with its
+// threads written out as loops.  It is not part of the
 // kernel library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC column_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions, so that a logic error
 // in a column body shows without a card.  The entry points take the
 // arguments of the CUDA launchers less the device and the stream, and
 // return 0, or 1 for a K that is not compiled.
+
+#include <string.h>
+
+#include <memory>
 
 #include "column_longwave.cuh"
 #include "column_moist.cuh"
@@ -43,6 +48,41 @@ extern "C" int column_moist_host(int K, int is_double, const void* tg,
       column_moist_at<T, KK>(c, G, (const T*)tg, (const T*)qg,             \
                              (const T*)phig, (const T*)pslg,               \
                              (const T*)blob, (T*)out_f, (long long*)out_i); \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+// K9's block (the moist_block_* phases) with its threads written out as
+// loops and its shared memory as an array whose every byte starts as
+// 0xff (NaN), so that a phase reading what no earlier phase wrote shows;
+// C = 32 columns a block, as the kernel's.
+extern "C" int column_moist_block_host(int K, int is_double, const void* tg,
+                                       const void* qg, const void* phig,
+                                       const void* pslg, const void* blob,
+                                       int G, void* out_f, void* out_i) {
+  constexpr int C = 32;
+#define CALL(T, KK)                                                         \
+  {                                                                         \
+    const MoistTab<T, KK> tb((const T*)blob);                               \
+    const MoistIO<T> io = {(const T*)tg, (const T*)qg, (const T*)phig,      \
+                           (const T*)pslg, G, (T*)out_f,                    \
+                           (long long*)out_i};                              \
+    std::unique_ptr<MoistShared<T, KK, C>> sh(new MoistShared<T, KK, C>);   \
+    for (int b = 0; b * C < G; ++b) {                                       \
+      memset(sh.get(), 0xff, sizeof *sh);                                   \
+      for (int k = 0; k < KK; ++k)                                          \
+        for (int x = 0; x < C; ++x)                                         \
+          moist_block_levels(tb, io, *sh, b * C + x, x, k);                 \
+      for (int x = 0; x < C; ++x)                                           \
+        moist_block_convmf(tb, io, *sh, b * C + x, x);                      \
+      for (int k = 0; k < KK; ++k)                                          \
+        for (int x = 0; x < C; ++x)                                         \
+          moist_block_lscond(tb, io, *sh, b * C + x, x, k);                 \
+      for (int x = 0; x < C; ++x)                                           \
+        moist_block_close(tb, io, *sh, b * C + x, x);                       \
+    }                                                                       \
   }
   HOST_DISPATCH(CALL)
 #undef CALL

@@ -1,5 +1,6 @@
 // K9: humidity, convection and large-scale condensation of one physics
-// step, one thread per grid column (the body: column_moist.cuh).
+// step; a block of kMoistCols neighbouring columns x K warps, warp k on
+// level k (the arithmetic and the block's phases: column_moist.cuh).
 //
 // Replaces (JAX package) speedy_ml_tpu/physics/driver.py:192-216 with
 // physics/humidity.py:12 qsat_from_t, physics/convection.py:19 convmf
@@ -11,38 +12,51 @@
 // Bound on an H100 SXM: memory, and latency-sized.  At T30L8 a call
 // reads 25 and writes 53 + 4 planes of 4,608 columns (~1.5 MB, 0.45 us
 // at 3.35 TB/s) for some 0.5 MFLOP: one launch's latency is several
-// times that.  Design: 4,608 threads in blocks of 32, so that the
-// columns spread over all 132 SMs; each thread reads its column
-// (coalesced across neighbouring columns), keeps the K levels in
-// registers and writes its outputs once.  This source is compiled with
-// -fmad=false: every operation is rounded apart, in the plain version's
-// order, so that the convection's decisions fall as they do there.
+// times that.  Design: 144 blocks of 32 columns x 8 levels.  The work of
+// a level (the loads, expf and the divisions of qsat, lscond, the
+// stores) runs on its own warp, coalesced across the 32 columns; only
+// convmf's climb up the column runs on one warp, from shared memory.
+// This source is compiled with -fmad=false: every operation is rounded
+// apart, in the plain version's order, so that the convection's
+// decisions fall as they do there.
 
 #include "column_moist.cuh"
 #include "common.cuh"
 
+// columns a block (one warp wide)
+constexpr int kMoistCols = 32;
+
 template <typename T, int K>
-__global__ void column_moist_kernel(const T* __restrict__ tg,
-                                    const T* __restrict__ qg,
-                                    const T* __restrict__ phig,
-                                    const T* __restrict__ pslg,
-                                    const T* __restrict__ blob, int G,
-                                    T* __restrict__ out_f,
-                                    long long* __restrict__ out_i) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= G) return;
-  column_moist_at<T, K>(c, G, tg, qg, phig, pslg, blob, out_f, out_i);
+__global__ void __launch_bounds__(kMoistCols * 8)
+    column_moist_kernel(const MoistIO<T> io, const T* __restrict__ blob) {
+  __shared__ MoistShared<T, K, kMoistCols> sh;
+  const MoistTab<T, K> tb(blob);
+  const int x = threadIdx.x, k = threadIdx.y;
+  const int c = blockIdx.x * kMoistCols + x;
+  moist_block_levels(tb, io, sh, c, x, k);
+  __syncthreads();
+  if (k == 0) moist_block_convmf(tb, io, sh, c, x);
+  __syncthreads();
+  moist_block_lscond(tb, io, sh, c, x, k);
+  __syncthreads();
+  if (k == 0) moist_block_close(tb, io, sh, c, x);
 }
 
 template <typename T, int K>
 static void launch(const void* tg, const void* qg, const void* phig,
                    const void* pslg, const void* blob, int G, void* out_f,
                    void* out_i, cudaStream_t s) {
-  const int block = 32;
-  const unsigned grid = (unsigned)((G + block - 1) / block);
-  column_moist_kernel<T, K><<<grid, block, 0, s>>>(
-      (const T*)tg, (const T*)qg, (const T*)phig, (const T*)pslg,
-      (const T*)blob, G, (T*)out_f, (long long*)out_i);
+  MoistIO<T> io;
+  io.tg = (const T*)tg;
+  io.qg = (const T*)qg;
+  io.phig = (const T*)phig;
+  io.pslg = (const T*)pslg;
+  io.G = G;
+  io.out_f = (T*)out_f;
+  io.out_i = (long long*)out_i;
+  const unsigned grid = (unsigned)((G + kMoistCols - 1) / kMoistCols);
+  column_moist_kernel<T, K><<<grid, dim3(kMoistCols, K), 0, s>>>(
+      io, (const T*)blob);
 }
 
 // K levels (5, 7 or 8); is_double selects the element type of every

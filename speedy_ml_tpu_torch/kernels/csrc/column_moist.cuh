@@ -1,6 +1,6 @@
-// K9 column body: humidity, convection and large-scale condensation of
-// one grid column, for float and double, as CUDA device code and as
-// plain C++ (the host build of the CPU tests compiles this very file).
+// K9: humidity, convection and large-scale condensation of grid columns,
+// for float and double, as CUDA device code and as plain C++ (the host
+// build of the CPU tests compiles this very file).
 //
 // Replaces (JAX package) the prologue of PhysicsModel.compute
 // (speedy_ml_tpu/physics/driver.py:192-216) with qsat_from_t
@@ -11,10 +11,15 @@
 // without FMA contraction): convmf decides by comparing sums, and a
 // one-ulp difference would flip a near-tie column.
 //
-// Levels live in registers: K is a template parameter and every level
-// loop is unrolled.  A register array is never indexed by a level that
-// depends on the data: the lookups at the convective top are selects
-// inside an unrolled loop.
+// The arithmetic is four pieces: the prologue of one level (moist_level),
+// convmf up the column (moist_convmf, the only serial part), lscond of one
+// level (moist_lscond_level) and the column's close (moist_close: itop
+// and the precls sum).  Two callers use them: column_moist_at, one
+// column in a row (the first design, kept for the host build), and the
+// moist_block_* phases of the kernel's block, C columns x K warps, warp k
+// on level k, the pieces handing on through shared memory.  Both give
+// the same bits.  Levels in registers are indexed only by unrolled
+// loops: the lookups at the convective top are selects.
 #pragma once
 
 #include "column_common.cuh"
@@ -46,31 +51,34 @@ COL_HD T qsat_from_t(T ta, T p) {
   return T(622.0) * es / (p - T(0.378) * es);
 }
 
-// One column.  q comes in raw and leaves clamped at 0.  Out: psg, rps,
-// se, qsat, rh; itop (after lscond), icnv = K-1 - convmf's itop; cbmf,
-// precnv, precls; ttend = tt_cnv + tt_lsc, qtend = qt_cnv + qt_lsc.
+// ---- the pieces, in the order of the plain version.  The per-column
+// loop (column_moist_body) and K9's block (the moist_block_* phases)
+// both call these, so they run the same operations.
+
+// Level k of the prologue (driver.py): q clamped at 0, the dry static
+// energy, the saturation humidity, the relative humidity, and the
+// saturation moist static energy convmf compares.
 template <typename T, int K>
-COL_HD void column_moist_body(const MoistTab<T, K>& tb, const T (&tg)[K],
-                              T (&q)[K], const T (&phi)[K], T psl, T& psg,
-                              T& rps, T (&se)[K], T (&qsat)[K], T (&rh)[K],
-                              int& itop_out, int& icnv, T& cbmf, T& precnv,
-                              T& precls, T (&ttend)[K], T (&qtend)[K]) {
+COL_HD void moist_level(const MoistTab<T, K>& tb, int k, T tg, T q_raw,
+                        T phi, T psg, T& q, T& se, T& qsat, T& rh, T& mss) {
+  q = col_max(q_raw, T(0));
+  se = tb.cp * tg + phi;
+  qsat = qsat_from_t(tg, tb.sig[k] * psg);
+  rh = q / qsat;
+  mss = se + tb.alhc * qsat;
+}
+
+// convmf: the trigger, the cloud base, the entrainment up the column and
+// the top layer, level after level.  Out: itop (K where no convection
+// runs), cbmf, precnv, and the flux divergences dfse, dfqa.
+template <typename T, int K>
+COL_HD void moist_convmf(const MoistTab<T, K>& tb, T psg, const T (&se)[K],
+                         const T (&q)[K], const T (&qsat)[K],
+                         const T (&mss)[K], int& itop_out, T& cbmf,
+                         T& precnv, T (&dfse)[K], T (&dfqa)[K]) {
   constexpr int nl1 = K - 1;
   const T zero = T(0);
   const T alhc = tb.alhc;
-
-  // ---- prologue (driver.py)
-  psg = col_exp(psl);
-  rps = T(1) / psg;
-  T mss[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    q[k] = col_max(q[k], zero);
-    se[k] = tb.cp * tg[k] + phi[k];
-    qsat[k] = qsat_from_t(tg[k], tb.sig[k] * psg);
-    rh[k] = q[k] / qsat[k];
-    mss[k] = se[k] + alhc * qsat[k];
-  }
 
   // ---- convmf 1: trigger conditions
   const T mse0 = se[nl1] + alhc * q[nl1];
@@ -111,7 +119,6 @@ COL_HD void column_moist_body(const MoistTab<T, K>& tb, const T (&tg)[K],
   cbmf = fmass;
   T fus = fmass * se[nl1], fuq = fmass * qmax;
   T fds = fmass * sb, fdq = fmass * qb;
-  T dfse[K], dfqa[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) dfse[k] = dfqa[k] = zero;
   dfse[nl1] = fds - fus;
@@ -169,32 +176,78 @@ COL_HD void column_moist_body(const MoistTab<T, K>& tb, const T (&tg)[K],
       dfqa[k] = top_qa;
     }
   }
-  icnv = (K - 1) - itop;
+  itop_out = itop;
+}
 
-  // ---- lscond, and the sums of physics/driver.py
-  const T psa2 = psg * psg;
-  int itop_new = itop;
-  T dqlsc[K];
-  dqlsc[0] = zero;
-  ttend[0] = dfse[0] * rps * tb.grdscp[0] + zero;
-  qtend[0] = dfqa[0] * rps * tb.grdsig[0] + zero;
-#pragma unroll
-  for (int k = 1; k < K; ++k) {
-    const T dqa = tb.rhref[k] * qsat[k] - q[k];
-    const bool cond = dqa < zero;
-    dqlsc[k] = cond ? dqa * tb.rtlsc : zero;
-    const T dtlsc =
-        cond ? tb.tfact * col_min(-dqa * tb.rtlsc, tb.dqmax[k] * psa2) : zero;
-    if (cond && k < itop_new) itop_new = k;
-    ttend[k] = dfse[k] * rps * tb.grdscp[k] + dtlsc;
-    qtend[k] = dfqa[k] * rps * tb.grdsig[k] + dqlsc[k];
+// Level k of lscond and the sums of physics/driver.py: cond, whether the
+// level condenses; dqlsc; ttend = tt_cnv + tt_lsc, qtend = qt_cnv + qt_lsc.
+template <typename T, int K>
+COL_HD void moist_lscond_level(const MoistTab<T, K>& tb, int k, T psg, T rps,
+                               T q, T qsat, T dfse, T dfqa, bool& cond,
+                               T& dqlsc, T& ttend, T& qtend) {
+  const T zero = T(0);
+  if (k == 0) {
+    cond = false;
+    dqlsc = zero;
+    ttend = dfse * rps * tb.grdscp[0] + zero;
+    qtend = dfqa * rps * tb.grdsig[0] + zero;
+    return;
   }
-  itop_out = itop_new;
-  // the column sum over levels 1..K-1, in level order
+  const T psa2 = psg * psg;
+  const T dqa = tb.rhref[k] * qsat - q;
+  cond = dqa < zero;
+  dqlsc = cond ? dqa * tb.rtlsc : zero;
+  const T dtlsc =
+      cond ? tb.tfact * col_min(-dqa * tb.rtlsc, tb.dqmax[k] * psa2) : zero;
+  ttend = dfse * rps * tb.grdscp[k] + dtlsc;
+  qtend = dfqa * rps * tb.grdsig[k] + dqlsc;
+}
+
+// The column's close of lscond: itop lowered to the highest condensing
+// level below it, and precls, the column sum over levels 1..K-1 in level
+// order.
+template <typename T, int K>
+COL_HD void moist_close(const MoistTab<T, K>& tb, T psg, int itop,
+                        const bool (&cond)[K], const T (&dqlsc)[K],
+                        int& itop_out, T& precls) {
+  int it = itop;
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (cond[k] && k < it) it = k;
+  itop_out = it;
   T col = tb.dsig[1] * dqlsc[1];
 #pragma unroll
   for (int k = 2; k < K; ++k) col = col + tb.dsig[k] * dqlsc[k];
   precls = -tb.prg * col * psg;
+}
+
+// One column, the pieces in a row.  q comes in raw and leaves clamped at
+// 0.  Out: psg, rps, se, qsat, rh; itop (after lscond), icnv = K-1 -
+// convmf's itop; cbmf, precnv, precls; ttend, qtend.
+template <typename T, int K>
+COL_HD void column_moist_body(const MoistTab<T, K>& tb, const T (&tg)[K],
+                              T (&q)[K], const T (&phi)[K], T psl, T& psg,
+                              T& rps, T (&se)[K], T (&qsat)[K], T (&rh)[K],
+                              int& itop_out, int& icnv, T& cbmf, T& precnv,
+                              T& precls, T (&ttend)[K], T (&qtend)[K]) {
+  psg = col_exp(psl);
+  rps = T(1) / psg;
+  T mss[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    moist_level(tb, k, tg[k], q[k], phi[k], psg, q[k], se[k], qsat[k], rh[k],
+                mss[k]);
+  int itop;
+  T dfse[K], dfqa[K];
+  moist_convmf(tb, psg, se, q, qsat, mss, itop, cbmf, precnv, dfse, dfqa);
+  icnv = (K - 1) - itop;
+  bool cond[K];
+  T dqlsc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    moist_lscond_level(tb, k, psg, rps, q[k], qsat[k], dfse[k], dfqa[k],
+                       cond[k], dqlsc[k], ttend[k], qtend[k]);
+  moist_close(tb, psg, itop, cond, dqlsc, itop_out, precls);
 }
 
 // Column c of G: load, body, store.  Fields are (levels, G) with the
@@ -234,4 +287,126 @@ COL_HD void column_moist_at(int c, int G, const T* tg, const T* qg,
   planes[(size_t)4 * G + c] = precls;
   out_i[c] = itop;
   out_i[(size_t)G + c] = icnv;
+}
+
+// ---- K9's block: C neighbouring columns, one warp (threadIdx.y) per
+// level.  What one phase hands to the next lies in MoistShared; each
+// moist_block_* function is what thread (x, k) of the block does between
+// two barriers (x: the column in the block, c: the column in the grid).
+
+template <typename T, int K, int C>
+struct MoistShared {
+  T se[K][C], q[K][C], qsat[K][C], mss[K][C];  // levels -> convmf, lscond
+  T dfse[K][C], dfqa[K][C];                     // convmf -> lscond
+  T dqlsc[K][C];                                // lscond -> close
+  unsigned char cond[K][C];
+  int itop[C];                                  // convmf -> close
+  T cbmf[C], precnv[C];
+};
+
+// The kernel's operands (column_moist_at's, as a struct).
+template <typename T>
+struct MoistIO {
+  const T *tg, *qg, *phig, *pslg;
+  int G;
+  T* out_f;
+  long long* out_i;
+};
+
+// Phase 1, every warp: level k of the prologue; q, se, qsat, rh stored.
+// Every phase computes psg (and rps) from pslg itself: the same
+// operations give the same bits, and handing them on through shared
+// memory ran ~0.1 us slower on an H100.
+template <typename T, int K, int C>
+COL_HD void moist_block_levels(const MoistTab<T, K>& tb, const MoistIO<T>& io,
+                               MoistShared<T, K, C>& sh, int c, int x,
+                               int k) {
+  if (c >= io.G) return;
+  const size_t G = io.G, i = (size_t)k * G + c;
+  const T psg = col_exp(io.pslg[c]);
+  T q, se, qsat, rh, mss;
+  moist_level(tb, k, io.tg[i], io.qg[i], io.phig[i], psg, q, se, qsat, rh,
+              mss);
+  io.out_f[(size_t)(0 * K) * G + i] = q;
+  io.out_f[(size_t)(1 * K) * G + i] = se;
+  io.out_f[(size_t)(2 * K) * G + i] = qsat;
+  io.out_f[(size_t)(3 * K) * G + i] = rh;
+  sh.se[k][x] = se;
+  sh.q[k][x] = q;
+  sh.qsat[k][x] = qsat;
+  sh.mss[k][x] = mss;
+}
+
+// Phase 2, one warp: convmf of column x.
+template <typename T, int K, int C>
+COL_HD void moist_block_convmf(const MoistTab<T, K>& tb, const MoistIO<T>& io,
+                               MoistShared<T, K, C>& sh, int c, int x) {
+  if (c >= io.G) return;
+  const T psg = col_exp(io.pslg[c]);
+  T se[K], q[K], qsat[K], mss[K], dfse[K], dfqa[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    se[k] = sh.se[k][x];
+    q[k] = sh.q[k][x];
+    qsat[k] = sh.qsat[k][x];
+    mss[k] = sh.mss[k][x];
+  }
+  int itop;
+  T cbmf, precnv;
+  moist_convmf(tb, psg, se, q, qsat, mss, itop, cbmf, precnv, dfse, dfqa);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    sh.dfse[k][x] = dfse[k];
+    sh.dfqa[k][x] = dfqa[k];
+  }
+  sh.itop[x] = itop;
+  sh.cbmf[x] = cbmf;
+  sh.precnv[x] = precnv;
+}
+
+// Phase 3, every warp: lscond of level k; ttend, qtend stored.
+template <typename T, int K, int C>
+COL_HD void moist_block_lscond(const MoistTab<T, K>& tb, const MoistIO<T>& io,
+                               MoistShared<T, K, C>& sh, int c, int x,
+                               int k) {
+  if (c >= io.G) return;
+  const size_t G = io.G, i = (size_t)k * G + c;
+  const T psg = col_exp(io.pslg[c]);
+  const T rps = T(1) / psg;
+  bool cond;
+  T dqlsc, ttend, qtend;
+  moist_lscond_level(tb, k, psg, rps, sh.q[k][x], sh.qsat[k][x],
+                     sh.dfse[k][x], sh.dfqa[k][x], cond, dqlsc, ttend, qtend);
+  io.out_f[(size_t)(4 * K) * G + i] = ttend;
+  io.out_f[(size_t)(5 * K) * G + i] = qtend;
+  sh.cond[k][x] = cond;
+  sh.dqlsc[k][x] = dqlsc;
+}
+
+// Phase 4, one warp: the close of column x; the planes and the integers
+// stored.
+template <typename T, int K, int C>
+COL_HD void moist_block_close(const MoistTab<T, K>& tb, const MoistIO<T>& io,
+                              MoistShared<T, K, C>& sh, int c, int x) {
+  if (c >= io.G) return;
+  const size_t G = io.G;
+  const T psg = col_exp(io.pslg[c]);
+  bool cond[K];
+  T dqlsc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    cond[k] = sh.cond[k][x] != 0;
+    dqlsc[k] = sh.dqlsc[k][x];
+  }
+  int itop;
+  T precls;
+  moist_close(tb, psg, sh.itop[x], cond, dqlsc, itop, precls);
+  T* planes = io.out_f + (size_t)(6 * K) * G;
+  planes[0 * G + c] = psg;
+  planes[1 * G + c] = T(1) / psg;
+  planes[2 * G + c] = sh.cbmf[x];
+  planes[3 * G + c] = sh.precnv[x];
+  planes[4 * G + c] = precls;
+  io.out_i[c] = itop;
+  io.out_i[G + c] = (K - 1) - sh.itop[x];
 }

@@ -8,11 +8,11 @@ the orographic corrections (tcorh, qcorh) or None, and one set of
 semi-implicit coefficients.  Per spectral coefficient (m, n), in the
 order of the JAX package's DycoreModel.step (dycore/model.py:505-562):
 vds and the lap/advection sums; sptend with the geopotential;
-implicit_correction (the 8x8 xd, xc and per-(m, n) xj mixes); the
-horizontal diffusion with the orographic corrections; the drag on m = 0
-of level 0; the extra del^2 of level 0; trunct; the leapfrog and the
-Robert-Asselin-Williams filter.  Output: the new state (vor, div, t, ps,
-tr), both levels.
+implicit_correction (the 8x8 xd, xc and xj mixes, xj by total
+wavenumber l = m + n); the horizontal diffusion with the orographic
+corrections; the drag on m = 0 of level 0; the extra del^2 of level 0;
+trunct; the leapfrog and the Robert-Asselin-Williams filter.  Output:
+the new state (vor, div, t, ps, tr), both levels.
 
 On a CPU tensor `spectral_tail` runs the plain version
 (DycoreModel.spectral_tail_plain, built from the dycore's methods); on a
@@ -26,19 +26,33 @@ import torch
 from speedy_ml_tpu_torch.kernels import build as kb
 
 KERNEL_LEVELS = (5, 7, 8)   # K values compiled in csrc/spectral_tail.cu
+XJ_ROW = 8                  # elements a row of the per-l xj table
 
 
-def tail_blob(dyn, imp) -> torch.Tensor:
-    """The float32 table buffer of the kernel, in the order the kernel
-    reads it (csrc/spectral_tail.cu, struct TailTables)."""
+def blob_size(K: int, mx: int, nx: int) -> int:
+    """Elements of tail_blob (csrc/spectral_tail.cuh tail_blob_size)."""
+    head = 12 * K + 2 * K * K + mx + nx + 11 * mx * nx
+    return -(-head // 4) * 4 + (mx + nx - 2) * K * XJ_ROW
+
+
+def tail_blob(dyn, imp, dtype=torch.float32) -> torch.Tensor:
+    """The table buffer of the kernel in `dtype`, in the order the kernel
+    reads it (csrc/spectral_tail.cuh, TailTab): the (K,) and (K, K)
+    tables; gradx, zrow; the (mx, nx) tables; zeros up to a multiple of 4
+    elements; the inverse per total wavenumber, imp.xj, each row padded
+    with zeros to XJ_ROW elements."""
     sht = dyn.sht
-    parts = [sht.vddym, sht.vddyp, sht.gradx, sht.zrow_mask, sht.el2,
-             sht.trfilt, dyn.dmp, dyn.dmpd, dyn.dmps, dyn.dhs, dyn.dhsr,
-             dyn.xgeop1, dyn.xgeop2, dyn.geop_corf, dyn.tcorv, dyn.qcorv,
-             imp.tref, imp.tref1, imp.tref2, imp.tref3, imp.dhsx, imp.xc,
-             imp.xd, imp.elz, imp.dmp1, imp.dmp1d, imp.dmp1s, imp.xj_g]
-    return torch.cat([p.reshape(-1).to(torch.float32) for p in parts]) \
-        .contiguous()
+    parts = [dyn.dhs, dyn.dhsr, dyn.xgeop1, dyn.xgeop2, dyn.geop_corf,
+             dyn.tcorv, dyn.qcorv, imp.tref, imp.tref1, imp.tref2, imp.tref3,
+             imp.dhsx, imp.xc, imp.xd, sht.gradx, sht.zrow_mask, sht.vddym,
+             sht.vddyp, sht.el2, sht.trfilt, dyn.dmp, dyn.dmpd, dyn.dmps,
+             imp.elz, imp.dmp1, imp.dmp1d, imp.dmp1s]
+    head = torch.cat([p.reshape(-1).to(dtype) for p in parts])
+    lmax, K, _ = imp.xj.shape
+    xj = head.new_zeros((lmax, K, XJ_ROW))
+    xj[..., :K] = imp.xj
+    return torch.cat([head, head.new_zeros(-head.numel() % 4),
+                      xj.reshape(-1)]).contiguous()
 
 
 def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
@@ -61,6 +75,10 @@ def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
                          "table blob (a float32 DycoreModel)")
     dev = A.device
     c64 = torch.complex64
+    kb.require(imp.blob, "imp.blob", torch.float32, (blob_size(K, mx, nx),),
+               dev)
+    if imp.blob.data_ptr() % 16:
+        raise ValueError("spectral_tail: imp.blob must be 16-byte aligned")
     kb.require(A, "A", c64, (1 + 3 * (2 + R) * K, mx, nx), dev)
     for name, shape in (("vor", (2, K, mx, nx)), ("div", (2, K, mx, nx)),
                         ("t", (2, K, mx, nx)), ("ps", (2, mx, nx)),

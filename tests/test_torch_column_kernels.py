@@ -15,7 +15,9 @@ numpy) go through
       the kernels include), against the plain versions: float64 at 1e-12
       with the integers equal; float32 under the rule of chip_smoke.py
       (chip_smoke.column_errors: columns whose itop/icnv differ at most
-      0.5 %, the others within 1e-5 of each output's scale).
+      0.5 %, the others within 1e-5 of each output's scale); and K9's
+      block, its threads written out as loops, against the per-column
+      body bit for bit.
 The wrappers' operand checks and the table buffers are tested too.  The
 launch code itself runs only on a card (chip_smoke.py).
 """
@@ -241,10 +243,11 @@ def host_lib(tmp_path_factory):
                    check=True, capture_output=True, text=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr_in in (("column_moist_host", 5), ("radlw_down_host", 3),
-                           ("radlw_up_host", 11)):
+    for name, n_ptr_in in (("column_moist_host", 5),
+                           ("column_moist_block_host", 5),
+                           ("radlw_down_host", 3), ("radlw_up_host", 11)):
         fn = getattr(lib, name)
-        n_out = 2 if name == "column_moist_host" else 1
+        n_out = 2 if name.startswith("column_moist") else 1
         fn.argtypes = [i, i] + [vp] * n_ptr_in + [i] + [vp] * n_out
         fn.restype = i
     return lib
@@ -256,12 +259,15 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def host_moist(lib, tg, qg, phig, pslg, tabs):
+def host_moist(lib, tg, qg, phig, pslg, tabs, block=False):
+    """K9 built for the host: the first design's per-column loop, or
+    (block) the kernel's block of 32 columns x K warps."""
     K, nlat, nlon = tg.shape
     out = torch.full((cm.N_LEVEL_FIELDS * K + cm.N_PLANES, nlat, nlon),
                      float("nan"), dtype=tg.dtype)
     out_i = torch.full((2, nlat, nlon), -99, dtype=torch.int64)
-    rc = lib.column_moist_host(
+    entry = lib.column_moist_block_host if block else lib.column_moist_host
+    rc = entry(
         K, int(tg.dtype == torch.float64),
         *_ptrs(tg, qg, phig, pslg, tabs.blob), nlat * nlon,
         *_ptrs(out, out_i))
@@ -314,6 +320,32 @@ def test_host_column_moist_matches_plain(host_lib, seed, dtype):
     got = host_moist(host_lib, *args, tabs)
     assert (ref.icnv >= 0).any() and (ref.precls > 0).any()
     _hold(got._asdict(), ref._asdict(), dtype, INTS)
+
+
+@pytest.mark.parametrize("ncols", [NGP, NGP - 12], ids=["grid", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("K", [5, 7, 8])
+def test_host_moist_block_matches_column_body(host_lib, K, dtype, ncols):
+    """K9's block (32 columns x K warps: the prologue and lscond a level
+    to a warp, convmf and the column's close on one warp, handed on
+    through shared memory that starts as NaN) gives the first design's
+    per-column body bit for bit, the integers too; on the whole grid and
+    on NGP - 12 columns, whose last block is ragged."""
+    tabs = phys_for(dtype, K).moist_tabs
+    tg, qg, phig, pslg = moist_inputs(50 + K, dtype, K=K)
+    cols = lambda a: a.reshape(-1, NGP)[:, :ncols].reshape(-1, 1, ncols) \
+        .contiguous()
+    args = [cols(a) for a in (tg, qg, phig)] + [cols(pslg)[0]]
+    ref = host_moist(host_lib, *args, tabs)
+    got = host_moist(host_lib, *args, tabs, block=True)
+    # convmf's trigger looks at levels K-4 down to 2: none at K = 5
+    assert (ref.icnv >= 0).any() == (K > 5) and (ref.precls > 0).any()
+    for name in ref._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        assert not a.to(torch.float64).isnan().any(), name
+        assert (a != -99).all(), name
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
