@@ -21,15 +21,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      K5 sht_analysis, K6 sht_synthesis (each also at every stack size
      and 1/cos split of the coupled cycle: K6 50, 41, 32, 33 fields, K5
      73, 33, 2, checked and timed as the median of SHT_SESSIONS
-     sessions), K7 grid_dynamics,
+     sessions), K7 grid_dynamics (within K7_ULPS, timed as the median
+     of SHT_SESSIONS sessions),
      K8 spectral_tail (the filtered leapfrog step, and stepone's two
      steps, j1 = 1 with imp_half and imp_full; timed as the median of
      SHT_SESSIONS sessions), K9 column_moist, K10a radlw_down, K10b
      radlw_up, K11 surface_fluxes, K12 column_pbl, K13 column_shortwave
      (the column physics: in float64 against the plain float64 version,
      then in float32 with the columns whose integer outputs differ
-     counted; K9 must be bit-identical in both, no column flipped, and
-     is timed as the median of SHT_SESSIONS sessions);
+     counted; K9 and K12 must be bit-identical in both, no column
+     flipped, and are timed as the median of SHT_SESSIONS sessions);
      --kernels stops here;
   5. the SPEEDY window on the card against the port on the CPU in float32
      (the plain versions): stepone from the same state, then each of the
@@ -39,8 +40,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K13 (K6, K5,
-     K8 and K9 at most LAUNCHES_PER_CYCLE a cycle), cycle_ms (median and
+  7. the coupled main path, run_prediction: launches of K1-K13 (K5-K9
+     and K12 at most LAUNCHES_PER_CYCLE a cycle), cycle_ms (median and
      range of 5 x 20 cycles), device busy, idle share, launches per
      cycle, device ms per stage, per kernel inside the window (K5-K13)
      and per physics kernel, the top device ops; a profiled physics
@@ -103,12 +104,13 @@ K2_RTOL = 2e-5
 SHT_RTOL = 1e-5
 K7_ULPS = 4
 TAIL_RTOL = 1e-5
-# K5/K6/K8/K9: measure() sessions per shape (the median is kept: us
+# K5-K9, K12: measure() sessions per shape (the median is kept: us
 # kernels spread between sessions), and the most launches per coupled
 # cycle (the counts of the first designs: one launch per call)
 SHT_SESSIONS = 5
 LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
-                      "K8_spectral_tail": 26, "K9_column_moist": 26}
+                      "K7_grid_dynamics": 26, "K8_spectral_tail": 26,
+                      "K9_column_moist": 26, "K12_column_pbl": 26}
 # K9-K13, float32: a fraction of each output's scale over the columns
 # whose integer outputs (itop, icnv) agree, and the share of columns in
 # which they may differ (a near-tie decision falling the other way);
@@ -1074,12 +1076,13 @@ def main():
     s7 = gp7.abs().reshape(gp7.shape[0], -1).amax(dim=1)
     ulps7 = float((d7 / (torch.finfo(f32).eps * s7.clamp(min=1e-30))).max())
     n7 = gk7.shape[0]
+    k7, k7_runs = measure_median(
+        torch, lambda: grid_dynamics(gk, ptend, tabs, K, 1))
+    log("K7 sessions (device ms): " + ", ".join(f"{r:.4f}" for r in k7_runs))
     ok &= record(
         "K7_grid_dynamics",
         "speedy_ml_tpu_torch/kernels/csrc/grid_dynamics.cu",
-        "speedy_ml_tpu/dycore/model.py:258", ulps7, K7_ULPS,
-        measure(torch, lambda: grid_dynamics(gk, ptend, tabs, K, 1),
-                reps=50),
+        "speedy_ml_tpu/dycore/model.py:258", ulps7, K7_ULPS, k7,
         measure(torch, lambda: grid_dynamics_plain(gk, ptend, tabs, K, 1),
                 reps=10),
         bound_ms(4 * G * (B + 4 * K + n7) + 4 * (nlat + 5 * K),
@@ -1316,7 +1319,7 @@ def main():
         (m4, phig4, fx4, carry4.tt_rsw, carry4.ssrd, up4[2], sfc.tice_am,
          sfc.sice_am), phys.pbl_tabs, phys64.pbl_tabs,
         lambda o: dict(zip(pbl_names, o)), (),
-        (9 * K + 2 + 11) + (4 * K + 1), K * K + 40 * K)
+        (9 * K + 2 + 11) + (4 * K + 1), K * K + 40 * K, exact=True)
     sol4 = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
                             ozone=forcing.ozone, zenit=forcing.zenit,
                             stratz=forcing.stratz)

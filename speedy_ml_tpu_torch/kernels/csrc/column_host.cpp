@@ -1,8 +1,8 @@
 // Host build of the column-physics bodies (column_moist.cuh,
 // column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
 // column_shortwave.cuh): the same per-column code the CUDA kernels K9-K13
-// run, looped over the columns on the CPU, and K9's block with its
-// threads written out as loops.  It is not part of the
+// run, looped over the columns on the CPU, and K9's and K12's blocks with
+// their threads written out as loops.  It is not part of the
 // kernel library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC column_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions, so that a logic error
@@ -152,6 +152,38 @@ extern "C" int column_pbl_host(int K, int is_double, const void* const* in,
     const PblIn<T> args = pbl_in<T>(in);                                   \
     for (int c = 0; c < G; ++c)                                            \
       column_pbl_at<T, KK>(c, G, args, (const T*)blob, (T*)out);           \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+// K12's block (the pbl_block_* phases) with its threads written out as
+// loops and its shared memory starting as NaN, as K9's above.
+extern "C" int column_pbl_block_host(int K, int is_double,
+                                     const void* const* in, int n_in,
+                                     const void* blob, int G, void* out) {
+  if (n_in != PBL_N_IN) return 1;
+  constexpr int C = 32;
+#define CALL(T, KK)                                                         \
+  {                                                                         \
+    const PblIn<T> args = pbl_in<T>(in);                                    \
+    const PblTab<T, KK> tb((const T*)blob);                                 \
+    std::unique_ptr<PblShared<T, KK, C>> sh(new PblShared<T, KK, C>);       \
+    std::unique_ptr<PblReg<T>[]> r(new PblReg<T>[KK * C]);                  \
+    for (int b = 0; b * C < G; ++b) {                                       \
+      memset(sh.get(), 0xff, sizeof *sh);                                   \
+      for (int k = 0; k < KK; ++k)                                          \
+        for (int x = 0; x < C; ++x)                                         \
+          pbl_block_load(tb, args, G, (T*)out, *sh, r[k * C + x], b * C + x, \
+                         x, k);                                             \
+      for (int x = 0; x < C; ++x)                                           \
+        pbl_block_vdifsc(tb, G, *sh, r[x], b * C + x, x);                   \
+      for (int k = 0; k < KK; ++k)                                          \
+        for (int x = 0; x < C; ++x)                                         \
+          pbl_block_sums(tb, G, (T*)out, *sh, r[k * C + x], b * C + x, x,   \
+                         k);                                                \
+    }                                                                       \
   }
   HOST_DISPATCH(CALL)
 #undef CALL

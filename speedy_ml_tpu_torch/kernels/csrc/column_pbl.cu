@@ -1,5 +1,6 @@
-// K12: the vertical diffusion and the sums that close one physics step,
-// one thread per grid column (the body: column_pbl.cuh).
+// K12: the vertical diffusion and the sums that close one physics step; a
+// block of kPblCols neighbouring columns x K warps, warp k on level k
+// (the arithmetic and the block's phases: column_pbl.cuh).
 //
 // Replaces (JAX package) speedy_ml_tpu/physics/vdiff.py:16 vdifsc and the
 // sums of speedy_ml_tpu/physics/driver.py:258-275 and :298-307.  In: K9's
@@ -12,32 +13,43 @@
 // reads 85 planes (9 level fields, icnv as two, 11 planes) and writes 33
 // (4 level fields and one plane) of 4,608 columns (~2.2 MB in float32,
 // 0.65 us at 3.35 TB/s) for some 0.3 MFLOP: one launch's latency is
-// several times that.  Design:
-// 4,608 threads in blocks of 32, so that the columns spread over all 132
-// SMs; each thread keeps its column's levels in registers (the damping's
-// double loop is unrolled over them) and writes its outputs once, the
-// zeros of utend and vtend above the lowest level included.  This source
-// is compiled with -fmad=false: every operation is rounded apart, in the
-// plain version's order.
+// several times that.  Design: 144 blocks of 32 columns x 8 levels
+// (of 8, 16 and 32 columns a block, 32 ran fastest on an H100).
+// Warp k loads level k of the nine level fields (coalesced across the
+// 32 columns, all loads issued at once), the planes spread over warps 0,
+// 1 and K-1; warp 0 runs vdifsc up the column from shared memory; warp k
+// then forms and stores the sums of level k.  This source is compiled
+// with -fmad=false: every operation is rounded apart, in the plain
+// version's order.
 
 #include "column_pbl.cuh"
 #include "common.cuh"
 
+// columns a block (one warp wide)
+constexpr int kPblCols = 32;
+
 template <typename T, int K>
-__global__ void column_pbl_kernel(PblIn<T> in, const T* __restrict__ blob,
-                                  int G, T* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= G) return;
-  column_pbl_at<T, K>(c, G, in, blob, out);
+__global__ void __launch_bounds__(kPblCols * 8)
+    column_pbl_kernel(const PblIn<T> in, const T* __restrict__ blob, int G,
+                      T* __restrict__ out) {
+  __shared__ PblShared<T, K, kPblCols> sh;
+  const PblTab<T, K> tb(blob);
+  const int x = threadIdx.x, k = threadIdx.y;
+  const int c = blockIdx.x * kPblCols + x;
+  PblReg<T> r;
+  pbl_block_load(tb, in, G, out, sh, r, c, x, k);
+  __syncthreads();
+  if (k == 0) pbl_block_vdifsc(tb, G, sh, r, c, x);
+  __syncthreads();
+  pbl_block_sums(tb, G, out, sh, r, c, x, k);
 }
 
 template <typename T, int K>
 static void launch(const void* const* in, const void* blob, int G, void* out,
                    cudaStream_t s) {
-  const int block = 32;
-  const unsigned grid = (unsigned)((G + block - 1) / block);
-  column_pbl_kernel<T, K><<<grid, block, 0, s>>>(pbl_in<T>(in),
-                                                 (const T*)blob, G, (T*)out);
+  const unsigned grid = (unsigned)((G + kPblCols - 1) / kPblCols);
+  column_pbl_kernel<T, K><<<grid, dim3(kPblCols, K), 0, s>>>(
+      pbl_in<T>(in), (const T*)blob, G, (T*)out);
 }
 
 // K levels (5, 7 or 8); is_double selects the element type of every float

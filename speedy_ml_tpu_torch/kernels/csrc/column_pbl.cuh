@@ -1,10 +1,10 @@
-// K12 column body: the vertical diffusion of one grid column (shallow
-// convection between the two lowest layers, moisture diffusion above the
-// PBL, damping of super-adiabatic lapse rates) and the sums that close
-// the physics step (radiative heating, the diffusion tendencies with the
-// surface fluxes on the lowest level, the sea-ice heat flux), for float
-// and double, as CUDA device code and as plain C++ (the host build of the
-// CPU tests compiles this very file).
+// K12: the vertical diffusion of grid columns (shallow convection between
+// the two lowest layers, moisture diffusion above the PBL, damping of
+// super-adiabatic lapse rates) and the sums that close the physics step
+// (radiative heating, the diffusion tendencies with the surface fluxes
+// on the lowest level, the sea-ice heat flux), for float and double, as
+// CUDA device code and as plain C++ (the host build of the CPU tests
+// compiles this very file).
 //
 // Replaces (JAX package) speedy_ml_tpu/physics/vdiff.py:16 vdifsc and the
 // sums of speedy_ml_tpu/physics/driver.py:258-275 and :298-307.  Every
@@ -13,6 +13,13 @@
 // level's accumulator receives its terms in the plain version's order:
 // the super-adiabatic damping of layer k adds to every level below k in
 // increasing k, as the double loop of vdifsc does.
+//
+// The arithmetic is three pieces: vdifsc of one column (vdifsc_body, the
+// serial part), the sums of one level (pbl_level) and the sea-ice flux
+// (pbl_ice_flux).  Two callers use them: column_pbl_at, one column in a
+// row (the first design, kept for the host build), and the pbl_block_*
+// phases of the kernel's block, C columns x K warps, warp k on level k,
+// the pieces handing on through shared memory.  Both give the same bits.
 #pragma once
 
 #include "column_common.cuh"
@@ -110,8 +117,61 @@ inline PblIn<T> pbl_in(const void* const* p) {
   return in;
 }
 
-// Column c of G: load, body, the sums, store.  out (4K + 1, G): utend,
-// vtend, ttend, qtend (K each), hflux_i.
+// ---- the pieces of the sums, in the order of the plain version.  The
+// per-column loop (column_pbl_at) and K12's block (the pbl_block_*
+// phases) both call these, so they run the same operations.
+
+// Level k of the sums of physics/driver.py, with the surface stresses and
+// fluxes on the lowest level: utend, vtend, ttend, qtend from vdifsc's tt
+// and qt, K9's ttend and qtend, the shortwave and longwave heating.
+template <typename T>
+struct PblLevel {
+  T ut, vt, tt, qt;
+};
+template <typename T, int K>
+COL_HD PblLevel<T> pbl_level(const PblTab<T, K>& tb, int k, T tt_pbl,
+                             T qt_pbl, T ttend, T qtend, T tt_rsw, T dfabs,
+                             T rps, T ustr, T vstr, T shf, T evap) {
+  constexpr int bot = K - 1;
+  const T zero = T(0);
+  T ut = zero, vt = zero;
+  if (k == bot) {
+    ut = ut + ustr * rps * tb.grdsig[bot];
+    vt = vt + vstr * rps * tb.grdsig[bot];
+    tt_pbl = tt_pbl + shf * rps * tb.grdscp[bot];
+    qt_pbl = qt_pbl + evap * rps * tb.grdsig[bot];
+  }
+  const T tt_rlw = dfabs * rps * tb.grdscp[k];
+  PblLevel<T> o;
+  o.ut = ut;
+  o.vt = vt;
+  o.tt = ttend + tt_rsw + tt_rlw + tt_pbl;
+  o.qt = qtend + qt_pbl;
+  return o;
+}
+
+// The sea-ice heat flux hflux_i; difice as in ppo_dmflux.f90:114-118.
+template <typename T, int K>
+COL_HD T pbl_ice_flux(const PblTab<T, K>& tb, T ssrd, T tice, T shf_s,
+                      T evap_s, T hflux_s, T sice) {
+  const T difice = tb.albdif * ssrd
+                   + tb.esbc * (tb.sstfr4 - col_pow(tice, T(4)))
+                   + shf_s + evap_s * tb.alhc;
+  return hflux_s + difice * (T(1) - sice);
+}
+
+template <typename T, int K>
+COL_HD void pbl_store(T* out, int G, int k, int c, const PblLevel<T>& o) {
+  const size_t i = (size_t)k * G + c;
+  out[i] = o.ut;
+  out[(size_t)K * G + i] = o.vt;
+  out[(size_t)(2 * K) * G + i] = o.tt;
+  out[(size_t)(3 * K) * G + i] = o.qt;
+}
+
+// Column c of G: load, body, the sums, store (the first design, one
+// column in a row).  out (4K + 1, G): utend, vtend, ttend, qtend (K
+// each), hflux_i.
 template <typename T, int K>
 COL_HD void column_pbl_at(int c, int G, PblIn<T> in, const T* blob,
                           T* out) {
@@ -127,37 +187,107 @@ COL_HD void column_pbl_at(int c, int G, PblIn<T> in, const T* blob,
     phi[k] = in.phig[i];
   }
   vdifsc_body<T, K>(tb, se, rh, qa, qsat, phi, in.icnv[c], tt, qt);
-
-  // the sums of physics/driver.py, with the surface fluxes on the lowest
-  // level
-  constexpr int bot = K - 1;
-  const T zero = T(0);
   const T rps = in.rps[c];
-  T* o_u = out;
-  T* o_v = out + (size_t)K * G;
-  T* o_t = out + (size_t)(2 * K) * G;
-  T* o_q = out + (size_t)(3 * K) * G;
+  const T ustr = in.ustr[c], vstr = in.vstr[c], shf = in.shf[c],
+          evap = in.evap[c];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const size_t i = (size_t)k * G + c;
-    T tt_pbl = tt[k], qt_pbl = qt[k], ut = zero, vt = zero;
-    if (k == bot) {
-      ut = ut + in.ustr[c] * rps * tb.grdsig[bot];
-      vt = vt + in.vstr[c] * rps * tb.grdsig[bot];
-      tt_pbl = tt_pbl + in.shf[c] * rps * tb.grdscp[bot];
-      qt_pbl = qt_pbl + in.evap[c] * rps * tb.grdsig[bot];
-    }
-    const T tt_rlw = in.dfabs[i] * rps * tb.grdscp[k];
-    o_u[i] = ut;
-    o_v[i] = vt;
-    o_t[i] = in.ttend[i] + in.tt_rsw[i] + tt_rlw + tt_pbl;
-    o_q[i] = in.qtend[i] + qt_pbl;
+    pbl_store<T, K>(out, G, k, c,
+                    pbl_level(tb, k, tt[k], qt[k], in.ttend[i], in.qtend[i],
+                              in.tt_rsw[i], in.dfabs[i], rps, ustr, vstr,
+                              shf, evap));
   }
-  // difice as in ppo_dmflux.f90:114-118
-  const T tice = in.tice[c];
-  const T difice = tb.albdif * in.ssrd[c]
-                   + tb.esbc * (tb.sstfr4 - col_pow(tice, T(4)))
-                   + in.shf_s[c] + in.evap_s[c] * tb.alhc;
   out[(size_t)(4 * K) * G + c] =
-      in.hflux_s[c] + difice * (T(1) - in.sice[c]);
+      pbl_ice_flux(tb, in.ssrd[c], in.tice[c], in.shf_s[c], in.evap_s[c],
+                   in.hflux_s[c], in.sice[c]);
+}
+
+// ---- K12's block: C neighbouring columns, one warp (threadIdx.y) per
+// level.  What one phase hands to the next lies in PblShared (the levels
+// vdifsc reads, its tendencies) or, for a warp's own level, in PblReg,
+// the thread's registers; each pbl_block_* function is what thread
+// (x, k) of the block does between two barriers (x: the column in the
+// block, c: the column in the grid).
+
+template <typename T, int K, int C>
+struct PblShared {
+  T se[K][C], rh[K][C], qa[K][C], qsat[K][C], phi[K][C];  // load -> vdifsc
+  T tt[K][C], qt[K][C];                                   // vdifsc -> sums
+};
+
+// What thread (x, k) keeps from the load to the sums: level k's other
+// operands and the planes its level needs (the surface terms on the
+// lowest level's warp, 0 elsewhere); icnv on warp 0, for vdifsc.
+template <typename T>
+struct PblReg {
+  T ttend, qtend, tt_rsw, dfabs, rps, ustr, vstr, shf, evap;
+  long long icnv;
+};
+
+// Phase 1, every warp: level k of vdifsc's five fields into shared
+// memory, of the other four into registers, with rps; warp 0 loads icnv,
+// the lowest level's warp the surface stresses and fluxes, and warp 1
+// the sea-ice planes, whose flux hflux_i it stores now.
+template <typename T, int K, int C>
+COL_HD void pbl_block_load(const PblTab<T, K>& tb, const PblIn<T>& in,
+                           int G, T* out, PblShared<T, K, C>& sh,
+                           PblReg<T>& r, int c, int x, int k) {
+  if (c >= G) return;
+  const size_t i = (size_t)k * G + c;
+  sh.se[k][x] = in.se[i];
+  sh.rh[k][x] = in.rh[i];
+  sh.qa[k][x] = in.qg[i];
+  sh.qsat[k][x] = in.qsat[i];
+  sh.phi[k][x] = in.phig[i];
+  r.ttend = in.ttend[i];
+  r.qtend = in.qtend[i];
+  r.tt_rsw = in.tt_rsw[i];
+  r.dfabs = in.dfabs[i];
+  r.rps = in.rps[c];
+  r.icnv = k == 0 ? in.icnv[c] : 0;
+  const bool bot = k == K - 1;
+  r.ustr = bot ? in.ustr[c] : T(0);
+  r.vstr = bot ? in.vstr[c] : T(0);
+  r.shf = bot ? in.shf[c] : T(0);
+  r.evap = bot ? in.evap[c] : T(0);
+  if (k == 1)
+    out[(size_t)(4 * K) * G + c] =
+        pbl_ice_flux(tb, in.ssrd[c], in.tice[c], in.shf_s[c], in.evap_s[c],
+                     in.hflux_s[c], in.sice[c]);
+}
+
+// Phase 2, one warp: vdifsc of column x.
+template <typename T, int K, int C>
+COL_HD void pbl_block_vdifsc(const PblTab<T, K>& tb, int G,
+                             PblShared<T, K, C>& sh, const PblReg<T>& r,
+                             int c, int x) {
+  if (c >= G) return;
+  T se[K], rh[K], qa[K], qsat[K], phi[K], tt[K], qt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    se[k] = sh.se[k][x];
+    rh[k] = sh.rh[k][x];
+    qa[k] = sh.qa[k][x];
+    qsat[k] = sh.qsat[k][x];
+    phi[k] = sh.phi[k][x];
+  }
+  vdifsc_body<T, K>(tb, se, rh, qa, qsat, phi, r.icnv, tt, qt);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    sh.tt[k][x] = tt[k];
+    sh.qt[k][x] = qt[k];
+  }
+}
+
+// Phase 3, every warp: the sums of level k, stored.
+template <typename T, int K, int C>
+COL_HD void pbl_block_sums(const PblTab<T, K>& tb, int G, T* out,
+                           const PblShared<T, K, C>& sh, const PblReg<T>& r,
+                           int c, int x, int k) {
+  if (c >= G) return;
+  pbl_store<T, K>(out, G, k, c,
+                  pbl_level(tb, k, sh.tt[k][x], sh.qt[k][x], r.ttend,
+                            r.qtend, r.tt_rsw, r.dfabs, r.rps, r.ustr,
+                            r.vstr, r.shf, r.evap));
 }

@@ -14,7 +14,9 @@ go through
       g++ from kernels/csrc/column_host.cpp, against the plain versions:
       float64 at 1e-12, float32 within 1e-5 of each output's scale (the
       rule of chip_smoke.column_errors); the buffers are unpacked by the
-      wrappers' own `unpack`;
+      wrappers' own `unpack`; and K12's block (32 columns x K levels, its
+      threads written out as loops) against its per-column body bit for
+      bit;
   (c) one whole physics step, with and without the shortwave, through
       PhysicsModel.compute with every kernel's CPU route replaced by its
       host-built body (K9-K13), against the JAX package's
@@ -57,8 +59,8 @@ from speedy_ml_tpu_torch.physics import constants as pc
 from speedy_ml_tpu_torch.physics import land_sea
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.driver import RadiationCarry
-from test_torch_column_kernels import (GEOM, NLAT, NLON, _close, _hold, _t,
-                                       host_down, host_lib, host_moist,
+from test_torch_column_kernels import (GEOM, NGP, NLAT, NLON, _close, _hold,
+                                       _t, host_down, host_lib, host_moist,
                                        host_up, make_columns, moist_inputs,
                                        phys_for)
 
@@ -273,8 +275,10 @@ def lib(host_lib):
     vp, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     host_lib.surface_fluxes_host.argtypes = [i, i, pp, i, vp, i, i, vp]
     host_lib.column_pbl_host.argtypes = [i, i, pp, i, vp, i, vp]
+    host_lib.column_pbl_block_host.argtypes = [i, i, pp, i, vp, i, vp]
     host_lib.column_shortwave_host.argtypes = [i, i, pp, i, vp, i, vp]
     for fn in (host_lib.surface_fluxes_host, host_lib.column_pbl_host,
+               host_lib.column_pbl_block_host,
                host_lib.column_shortwave_host):
         fn.restype = i
     return host_lib
@@ -340,6 +344,34 @@ def test_host_columns_b2_match_plain(lib, iptop, dtype):
     _check_three(lib, 61, dtype, iptop=iptop)
 
 
+@pytest.mark.parametrize("ncols", [NGP, NGP - 12], ids=["grid", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("K", [5, 7, 8])
+def test_host_pbl_block_matches_column_body(lib, K, dtype, ncols):
+    """K12's block (32 columns x K warps: the loads and the sums a level
+    to a warp, vdifsc on one warp, handed on through shared memory that
+    starts as NaN) gives the first design's per-column body bit for bit;
+    on the whole grid and on NGP - 12 columns, whose last block is
+    ragged."""
+    phys, m, tg, phig = moist(70 + K, dtype, K)
+    pa = pbl_args(70 + K, phys, m, tg, phig) + (phys.pbl_tabs,)
+    _, _, _, ins = cpbl.operands(*pa)
+    cols = [(a.reshape(K, -1) if a.dim() == 3 else a.reshape(1, -1))
+            [:, :ncols].contiguous() for a in ins]
+    blob = phys.pbl_tabs.blob.data_ptr()
+    outs = []
+    for entry in (lib.column_pbl_host, lib.column_pbl_block_host):
+        out = torch.full((4 * K + 1, ncols), float("nan"), dtype=dtype)
+        assert entry(K, int(dtype == torch.float64),
+                     kb.pointer_array(cols), len(cols), blob, ncols,
+                     out.data_ptr()) == 0
+        outs.append(out)
+    ref, got = outs
+    assert not got.isnan().any()
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
 @pytest.mark.parametrize("K", [5, 7])
 def test_host_columns_b2_at_other_level_counts(lib, K):
     """The bodies are templates on K; 5 and 7 levels are compiled too."""
@@ -348,6 +380,9 @@ def test_host_columns_b2_at_other_level_counts(lib, K):
     assert lib.column_pbl_host(6, 1, null, len(cpbl.INPUTS), None, 1,
                                None) == 1
     assert lib.column_pbl_host(8, 1, null, 3, None, 1, None) == 1
+    assert lib.column_pbl_block_host(6, 1, null, len(cpbl.INPUTS), None, 1,
+                                     None) == 1
+    assert lib.column_pbl_block_host(8, 1, null, 3, None, 1, None) == 1
 
 
 # ---------------------- (c): one whole step of host-built bodies against JAX
