@@ -18,11 +18,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      must fail the tolerance; the vector path required and logged for
      every class, each class timed beside torch.bmm, the ML-only form
      checked and timed), K3 window gather, K4 core scatter,
-     K5 sht_analysis, K6 sht_synthesis (each also at every stack size
-     and 1/cos split of the coupled cycle: K6 50, 41, 32, 33 fields, K5
-     73, 33, 2, checked and timed as the median of SHT_SESSIONS
-     sessions), K7 grid_dynamics (within K7_ULPS, timed as the median
-     of SHT_SESSIONS sessions),
+     K15 spectral_stack (both stacks at the leapfrog's (jd, jp) = (1, 0)
+     and stepone's (0, 0), bit-identical to the plain versions, a copy
+     with uvspec's n-shifts reversed must fail; timed as the median of
+     SHT_SESSIONS sessions), K5 sht_analysis, K6 sht_synthesis (each
+     also at every stack size and 1/cos split of the coupled cycle: K6
+     50, 41, 32, 33 fields, K5 73, 33, 2, checked and timed as the
+     median of SHT_SESSIONS sessions), K7 grid_dynamics (within K7_ULPS,
+     timed as the median of SHT_SESSIONS sessions),
      K8 spectral_tail (the filtered leapfrog step, and stepone's two
      steps, j1 = 1 with imp_half and imp_full; timed as the median of
      SHT_SESSIONS sessions), K9 column_moist, K10a radlw_down, K10b
@@ -30,8 +33,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      (the column physics: in float64 against the plain float64 version,
      then in float32 with the columns whose integer outputs differ
      counted; K9 and K12 must be bit-identical in both, no column
-     flipped, and are timed as the median of SHT_SESSIONS sessions);
-     --kernels stops here;
+     flipped, and are timed as the median of SHT_SESSIONS sessions),
+     K16 flux_accumulate (bit-identical, timed as the median of
+     SHT_SESSIONS sessions); --kernels stops here;
   5. the SPEEDY window on the card against the port on the CPU in float32
      (the plain versions): stepone from the same state, then each of the
      24 steps from the card's state before it, the columns whose physics
@@ -40,11 +44,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K13 (K5-K9
-     and K12 at most LAUNCHES_PER_CYCLE a cycle), cycle_ms (median and
-     range of 5 x 20 cycles), device busy, idle share, launches per
-     cycle, device ms per stage, per kernel inside the window (K5-K13)
-     and per physics kernel, the top device ops; a profiled physics
+  7. the coupled main path, run_prediction: launches of K1-K13, K15 and
+     K16 (K5-K9, K12, K15 and K16 at most LAUNCHES_PER_CYCLE a cycle),
+     cycle_ms (median and range of 5 x 20 cycles), device busy, idle
+     share, device launches per cycle (at most LAUNCHES_MAX in the
+     5-cycle profile), device ms per stage, the window's launches split
+     into kernel and plain launches, per kernel inside the window (K5-K13,
+     K15, K16) and per physics kernel, the top device ops; a profiled
+     physics
      step (with and without the shortwave) must show no device op but
      the kernels K9-K13;
      physical checks (safe, finite, T in [150, 350] K);
@@ -110,7 +117,12 @@ TAIL_RTOL = 1e-5
 SHT_SESSIONS = 5
 LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
                       "K7_grid_dynamics": 26, "K8_spectral_tail": 26,
-                      "K9_column_moist": 26, "K12_column_pbl": 26}
+                      "K9_column_moist": 26, "K12_column_pbl": 26,
+                      "K15_spectral_stack": 26, "K16_flux_accumulate": 24}
+# the most device launches (kernels, copies, fills) a coupled cycle may
+# take in the 5-cycle profile of phase 7: 3,311.6 before K15 and K16
+# took the spectral stacks and the flux sums of the window's steps
+LAUNCHES_MAX = 1300
 # K9-K13, float32: a fraction of each output's scale over the columns
 # whose integer outputs (itop, icnv) agree, and the share of columns in
 # which they may differ (a near-tie decision falling the other way);
@@ -557,7 +569,9 @@ def phase_training(torch, gcm, layout, date0, card, record):
     from speedy_ml_tpu_torch.kernels.gram_update import gram_update
     from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
     from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
+    from speedy_ml_tpu_torch.kernels.flux_accumulate import flux_accumulate
     from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
+    from speedy_ml_tpu_torch.kernels.spectral_stack import spectral_stack
     from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
 
     t_phase = time.perf_counter()
@@ -610,7 +624,8 @@ def phase_training(torch, gcm, layout, date0, card, record):
                "K6": sht_synthesis, "K7": grid_dynamics, "K8": spectral_tail,
                "K9": column_moist, "K10a": clw.radlw_down,
                "K10b": clw.radlw_up, "K11": sfk.surface_fluxes,
-               "K12": column_pbl, "K13": column_shortwave}
+               "K12": column_pbl, "K13": column_shortwave,
+               "K15": spectral_stack, "K16": flux_accumulate}
     torch.cuda.synchronize()
     for fn in counted.values():
         fn.launches = 0
@@ -763,6 +778,7 @@ def main():
         fail(f"the speedy_ml_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, str(ROOT))
     from speedy_ml_tpu_torch.core.geometry import Geometry
+    from speedy_ml_tpu_torch.core.spectral import shift_left, shift_right
     from speedy_ml_tpu_torch.data.calendar import ModelDate
     from speedy_ml_tpu_torch.dycore.state import SpectralState
     from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator, GCMState
@@ -781,6 +797,8 @@ def main():
     from speedy_ml_tpu_torch.kernels.core_scatter import (core_scatter,
                                                           core_scatter_plain)
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
+    from speedy_ml_tpu_torch.kernels.flux_accumulate import (
+        flux_accumulate, flux_accumulate_plain)
     from speedy_ml_tpu_torch.kernels.grid_dynamics import (
         grid_dynamics, grid_dynamics_plain)
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
@@ -791,6 +809,8 @@ def main():
         sht_analysis, sht_analysis_plain)
     from speedy_ml_tpu_torch.kernels.sht_synthesis import (
         sht_synthesis, sht_synthesis_plain)
+    from speedy_ml_tpu_torch.kernels.spectral_stack import (
+        dynamics_stack_plain, physics_stack_plain, spectral_stack)
     from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
     from speedy_ml_tpu_torch.kernels.window_gather import (
         window_gather, window_gather_plain)
@@ -1040,6 +1060,64 @@ def main():
     imp = dyn.imp_double
     corr = (forcing.tcorh, forcing.qcorh)
 
+    # K15: both spectral stacks of this state at the leapfrog's levels
+    # (jd, jp) = (1, 0) and at stepone's first step's (0, 0), each against
+    # its plain version: the same values, as every operation is rounded
+    # apart in the plain version's order.  Negative control: a copy of the
+    # dynamics stack whose u cos, v cos take uvspec's n-1 and n+1
+    # neighbours the other way round must fail
+    MN = g.mx * g.nx
+    flat = lambda a: a.reshape(-1, MN)
+    err15 = 0.0
+    for jd_, jp_ in ((1, 0), (0, 0)):
+        kd, kp = spectral_stack(dyn, st, gcm.phis, jd_, jp_)
+        pd = dynamics_stack_plain(dyn, st, jd_)
+        pp = physics_stack_plain(dyn, st, jp_, gcm.phis)
+        ed, ep = max_abs_diff(torch, kd, pd), max_abs_diff(torch, kp, pp)
+        log(f"K15 at (jd, jp) = ({jd_}, {jp_}): dynamics stack "
+            f"{tuple(kd.shape)} max_abs_err={ed:.3e} "
+            f"({per_field_err(torch, flat(kd), flat(pd))[0]:.3e} of a "
+            f"field's scale), physics stack {tuple(kp.shape)} "
+            f"max_abs_err={ep:.3e} "
+            f"({per_field_err(torch, flat(kp), flat(pp))[0]:.3e}) "
+            f"(tolerance 0)")
+        err15 = max(err15, ed, ep)
+    kd, _ = spectral_stack(dyn, st, gcm.phis, 1, None)
+    vor1, div1 = st.vor[1], st.div[1]
+    ctl = kd.clone()
+    ctl[4 * K:5 * K] = (sht.uvdym * shift_left(vor1)
+                        - sht.uvdyp * shift_right(vor1)
+                        + 1j * sht.uvdx * div1 * sht.zrow_mask)
+    ctl[5 * K:6 * K] = (-sht.uvdym * shift_left(div1)
+                        + sht.uvdyp * shift_right(div1)
+                        + 1j * sht.uvdx * vor1 * sht.zrow_mask)
+    rel_ctl, err_ctl = per_field_err(
+        torch, flat(ctl), flat(dynamics_stack_plain(dyn, st, 1)))
+    log(f"K15 negative control (uvspec's n-shifts reversed): "
+        f"max_abs_err={err_ctl:.3e} ({rel_ctl:.3e} of a field's scale) "
+        f"against the tolerance 0")
+    if not err_ctl > 0.0:
+        fail("K15's check does not tell reversed uvspec shifts from the "
+             "right ones")
+    (k15_ms, k15_call), k15_runs = measure_median(
+        torch, lambda: spectral_stack(dyn, st, gcm.phis, 1, 0))
+    log("K15 sessions (device ms): "
+        + ", ".join(f"{r:.4f}" for r in k15_runs))
+    # read: vor, div, t, q (K each) and ps at both levels, phis, the
+    # tables; written: both stacks
+    n_in15 = 2 * (4 * K + 1) + 1
+    n_out15 = (6 * K + 2) + (5 * K + 1)
+    ok &= record(
+        "K15_spectral_stack",
+        "speedy_ml_tpu_torch/kernels/csrc/spectral_stack.cu",
+        "speedy_ml_tpu/core/spectral.py:340", err15, 0.0,
+        (k15_ms, k15_call),
+        measure(torch, lambda: (dynamics_stack_plain(dyn, st, 1),
+                                physics_stack_plain(dyn, st, 0, gcm.phis)),
+                reps=10),
+        bound_ms(8 * MN * (n_in15 + n_out15) + 4 * dyn.stack_blob.numel(),
+                 MN * (48 * K + 4 * K * K + 8), PEAK_F32_S))
+
     # K6: the dynamics stack at level 1 (50 fields)
     stk, ncos = dyn.dynamics_stack(st, 1)
     sargs = (stk, sht.dft_inv, sht.cpol_even_g, sht.cpol_odd_g, sht.cpol_g,
@@ -1048,7 +1126,7 @@ def main():
     gp = sht_synthesis_plain(stk, sht.dft_inv, sht.cpol_even_g,
                              sht.cpol_odd_g, sht.cosgr, ncos)
     rel, err = per_field_err(torch, gk, gp)
-    B, MN, G = stk.shape[0], g.mx * g.nx, nlat * nlon
+    B, G = stk.shape[0], nlat * nlon
     iy = g.nlat_half
     tab_bytes = 8 * g.mx * nlon + 4 * iy * MN + 4 * nlat
     k6_bound = lambda B: bound_ms(
@@ -1067,8 +1145,8 @@ def main():
         f"{err:.3e})")
 
     # K7: the column dynamics with the physics tendencies of this state
-    ptend, _ = gcm._physics_fn(st, 0, dyn, sfc, forcing, gst.radiation,
-                               False)
+    ptend, (_, diag4) = gcm._physics_fn(st, 0, dyn, sfc, forcing,
+                                        gst.radiation, False)
     tabs = dyn.column_tables(imp)
     gk7 = grid_dynamics(gk, ptend, tabs, K, 1)
     gp7 = grid_dynamics_plain(gk, ptend, tabs, K, 1)
@@ -1333,6 +1411,26 @@ def main():
         (2 * K + 4 + 11 + 2) + (5 * K + 5), 100 * K + 45 * 20)
     log("  (K9-K13 max_abs_err is relative to each output's scale, over "
         "the columns whose integer outputs agree)")
+
+    # K16: the flux sums of a leapfrog step, on the diagnostics of this
+    # state's physics and an accumulator that already holds one step
+    rsteps, delt2 = 1.0 / gcm.nsteps_day, dyn.delt2
+    fx4 = flux_accumulate_plain(gst.fluxes, diag4, rsteps, delt2)
+    k16 = flux_accumulate(fx4, diag4, rsteps, delt2)
+    p16 = flux_accumulate_plain(fx4, diag4, rsteps, delt2)
+    err16 = max(max_abs_diff(torch, getattr(k16, f), getattr(p16, f))
+                for f in ("hflux_l", "hflux_s", "hflux_i", "precip"))
+    (k16_ms, k16_call), k16_runs = measure_median(
+        torch, lambda: flux_accumulate(fx4, diag4, rsteps, delt2))
+    log("K16 sessions (device ms): "
+        + ", ".join(f"{r:.4f}" for r in k16_runs))
+    ok &= record(
+        "K16_flux_accumulate",
+        "speedy_ml_tpu_torch/kernels/csrc/flux_accumulate.cu",
+        "speedy_ml_tpu/gcm.py:273", err16, 0.0, (k16_ms, k16_call),
+        measure(torch, lambda: flux_accumulate_plain(fx4, diag4, rsteps,
+                                                     delt2), reps=20),
+        bound_ms(4 * G * 13, 11 * G, PEAK_F32_S))
     del phys64, m4, dn4, fx4, up4
     if not ok:
         fail("a kernel disagrees with its plain version")
@@ -1451,7 +1549,9 @@ def main():
                "K10b_radlw_up": clw.radlw_up,
                "K11_surface_fluxes": sfk.surface_fluxes,
                "K12_column_pbl": column_pbl,
-               "K13_column_shortwave": column_shortwave}
+               "K13_column_shortwave": column_shortwave,
+               "K15_spectral_stack": spectral_stack,
+               "K16_flux_accumulate": flux_accumulate}
     ml_kernels = list(kernels)[:4]
     out_dir = ROOT / "output" / "chip_smoke"
 
@@ -1605,9 +1705,15 @@ def main():
               "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel",
               "K9": "column_moist_kernel", "K10a": "radlw_down_kernel",
               "K10b": "radlw_up_kernel", "K11": "surface_fluxes_kernel",
-              "K12": "column_pbl_kernel", "K13": "column_shortwave_kernel"}
+              "K12": "column_pbl_kernel", "K13": "column_shortwave_kernel",
+              "K15": "spectral_stack_kernel", "K16": "flux_accumulate_kernel"}
     kk = {k: [e for e in window_kern if v in e.key]
           for k, v in knames.items()}
+    n_win = sum(e.count for e in window_kern) / 2
+    n_win_k = sum(sum(e.count for e in v) for v in kk.values()) / 2
+    log(f"  speedy_window launches per cycle: {n_win:g}, of which "
+        f"{n_win_k:g} kernel launches (K5-K13, K15, K16) and "
+        f"{n_win - n_win_k:g} plain launches")
     log("  inside speedy_window: " + "; ".join(
         f"{k} {sum(_self_device_us(e) for e in v) / 2e3:.4f} ms "
         f"({sum(e.count for e in v) / 2:g} launches)"
@@ -1717,6 +1823,9 @@ def main():
         log(f"  top device op {e.key[:70]}: "
             f"{_self_device_us(e) / n_prof / 1e3:.4f} ms/cycle, "
             f"{e.count / n_prof:g} launches/cycle")
+    if launches > LAUNCHES_MAX:
+        fail(f"{launches:g} device launches per coupled cycle, more than "
+             f"{LAUNCHES_MAX}")
 
     # physical checks after all those cycles
     if not bool(end.safe):

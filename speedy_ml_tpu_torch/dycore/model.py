@@ -5,16 +5,19 @@ dyn_step.f90, dyn_grtend.f90, dyn_sptend.f90, dyn_implic.f90,
 dyn_geop.f90, ini_indyns.f90, ini_impint.f90).  Tables are built in numpy
 float64 and held as tensors of the model dtype on one device.
 
-One step (`step`) is five kernel launches around the physics:
-  K6 (spec_to_grid of the dynamics stack at level j2-1),
-  [physics at level 0, which runs its own K6],
+One step (`step`) is six kernel launches around the physics:
+  K15 spectral_stack (the dynamics stack at level j2-1 and, with physics,
+     the physics stack at level 0: uvspec, grad, geopotential),
+  K6 (spec_to_grid of the dynamics stack),
+  [physics at level 0, which runs its own K6 on the physics stack],
   K7 grid_dynamics (the column math of grid_tendencies, plus the physics
      tendencies, into the stack that feeds the forward transforms),
   K5 (grid_to_spec of that stack, u and v scaled by 1/cos),
   K8 spectral_tail (vds, sptend, the semi-implicit correction, the
      diffusion, the drag and the leapfrog with its filter).
 On CPU tensors the kernels run their plain versions, which are built
-from the methods below (grid_tendencies, to_spectral_tendencies, sptend,
+from SpectralTransform.uvspec and grad and the methods below
+(geopotential, grid_tendencies, to_spectral_tendencies, sptend,
 implicit_correction, ...), the counterparts of the JAX functions.
 """
 
@@ -37,6 +40,9 @@ from speedy_ml_tpu_torch.kernels.grid_dynamics import (ColumnTables,
                                                        column_tendencies,
                                                        grid_dynamics,
                                                        spectral_inputs)
+from speedy_ml_tpu_torch.kernels.spectral_stack import (dynamics_ncos,
+                                                        spectral_stack,
+                                                        stack_blob)
 from speedy_ml_tpu_torch.kernels.spectral_tail import (spectral_tail,
                                                        tail_blob)
 
@@ -72,8 +78,9 @@ class GridTendencies(NamedTuple):
     tr: torch.Tensor       # (R, K, lat, lon)
 
 
-# physics callback: (state, j_phys, model, *args) -> GridTendencies or
-# (GridTendencies, aux)
+# physics callback: (state, j_phys, model, *args, stack=) ->
+# GridTendencies or (GridTendencies, aux); stack is K15's physics stack of
+# level j_phys, made by the step's own launch
 PhysicsFn = Callable[..., GridTendencies]
 
 
@@ -129,6 +136,9 @@ class DycoreModel:
         self.xgeop1_np, self.xgeop2_np = xgeop1, xgeop2
         self.xgeop1, self.xgeop2, self.geop_corf = f(xgeop1), f(xgeop2), \
             f(corf)
+        # K15's tables (None for a float64 model: the kernel is float32)
+        self.stack_blob = stack_blob(self) \
+            if dtype == torch.float32 else None
 
         # horizontal diffusion damping (ini_indyns.f90:96-112); the f64
         # values feed build_implicit, as the JAX package's do in f64 runs
@@ -259,17 +269,10 @@ class DycoreModel:
 
     def dynamics_stack(self, state: SpectralState, j: int):
         """The spectral stack the grid tendencies need at level j:
-        [vor, div, t, tracers | ucos, vcos, dps/dx, dps/dy] and the index
-        from which 1/cos applies."""
-        g = self.geom
-        K, R = g.nlev, g.ntracers
-        vor_s, div_s, t_s, ps_s, tr_s = state.at_level(j)
-        ucosm, vcosm = self.sht.uvspec(vor_s, div_s)
-        pxs, pys = self.sht.grad(ps_s)
-        stacked = torch.cat([vor_s, div_s, t_s,
-                             tr_s.reshape(R * K, g.mx, g.nx),
-                             ucosm, vcosm, pxs[None], pys[None]], dim=0)
-        return stacked, (3 + R) * K
+        [vor, div, t, tracers | ucos, vcos, dps/dx, dps/dy] (K15 alone)
+        and the index from which 1/cos applies."""
+        stacked, _ = spectral_stack(self, state, None, j, None)
+        return stacked, dynamics_ncos(self.geom.nlev, self.geom.ntracers)
 
     def grid_tendencies(self, state: SpectralState, j2: int,
                         imp: ImplicitCoeffs):
@@ -431,11 +434,14 @@ class DycoreModel:
         (tcorh, qcorh).  Returns (new_state, aux); aux is None without
         physics."""
         g = self.geom
-        stacked, ncos = self.dynamics_stack(state, j2 - 1)
-        gall = self.sht.synthesis(stacked, ncos)                   # K6
+        stacked, pstack = spectral_stack(
+            self, state, phis, j2 - 1,
+            0 if physics_fn is not None else None)                 # K15
+        gall = self.sht.synthesis(stacked,
+                                  dynamics_ncos(g.nlev, g.ntracers))  # K6
         aux, ptend = None, None
         if physics_fn is not None:
-            out = physics_fn(state, 0, self, *physics_args)
+            out = physics_fn(state, 0, self, *physics_args, stack=pstack)
             if isinstance(out, tuple) and not isinstance(out,
                                                          GridTendencies):
                 ptend, aux = out

@@ -24,6 +24,9 @@ from speedy_ml_tpu_torch.core.constants import PhysicalConstants
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.dycore.model import DycoreModel, GridTendencies
 from speedy_ml_tpu_torch.dycore.state import SpectralState
+from speedy_ml_tpu_torch.kernels.flux_accumulate import flux_accumulate
+from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
+                                                        spectral_stack)
 from speedy_ml_tpu_torch.physics.boundaries import (BC_FILES_SLICE,
                                                     BoundaryData)
 from speedy_ml_tpu_torch.physics.driver import (OPTIONAL_SLICE,
@@ -69,9 +72,12 @@ class GCM:
                  dtype=torch.float32, bc_path: Optional[str] = None,
                  nsteps_day: int = 96, bd: Optional[BoundaryData] = None,
                  sppt_on: bool = False, zonal: str = "dft",
-                 cgrate_on: bool = False,
+                 scan_unroll: int = 1, cgrate_on: bool = False,
                  cpl_flags: Optional[CplFlags] = None, sstan_monthly=None,
-                 sstom12=None, *, device=None):
+                 sstan_year0: int = 1990, sstom12=None, *, device=None):
+        # scan_unroll: the JAX package's leapfrog steps unrolled per scan
+        # iteration, numerically identical; the port runs its steps one by
+        # one, so any value gives the same GCM
         self.device = resolve_device(device)
         if sppt_on:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
@@ -80,7 +86,8 @@ class GCM:
                 f"reading the boundary files (bc_path={bc_path!r}) comes "
                 f"with {BC_FILES_SLICE}; pass bd=synthetic_boundary_data"
                 "(geom, ...) or another BoundaryData")
-        if sstan_monthly is not None or sstom12 is not None:
+        if (sstan_monthly is not None or sstom12 is not None
+                or sstan_year0 != 1990):
             raise NotImplementedError(f"SST anomalies come with {SLAB_SLICE}")
         self.geom = geom
         self.const = constants
@@ -127,24 +134,25 @@ class GCM:
 
     # ------------------------------------------------------------------
 
-    def physics_grid(self, state: SpectralState, j: int, dyn=None):
+    def physics_grid(self, state: SpectralState, j: int, dyn=None,
+                     stack=None):
         """Grid (ug, vg, tg, qg, phig, pslg) at level j for the physics:
-        one synthesis launch over [t, q, phi, ps | u cos, v cos]."""
-        sht = self.sht
+        one synthesis launch over K15's physics stack [t, q, phi, ps |
+        u cos, v cos] (`stack`, when the step made it; else K15 alone)."""
         K = self.geom.nlev
-        vor_s, div_s, t_s, ps_s, tr_s = state.at_level(j)
-        ucosm, vcosm = sht.uvspec(vor_s, div_s)
-        phi_s = (dyn or self.dyn).geopotential(t_s, self.phis)
-        stacked = torch.cat([t_s, tr_s[0], phi_s, ps_s[None], ucosm, vcosm],
-                            dim=0)
-        gall = sht.synthesis(stacked, 3 * K + 1)
+        if stack is None:
+            stack = spectral_stack(dyn or self.dyn, state, self.phis, None,
+                                   j)[1]
+        gall = self.sht.synthesis(stack, physics_ncos(K))
         return (gall[3 * K + 1:4 * K + 1], gall[4 * K + 1:5 * K + 1],
                 gall[0:K], gall[K:2 * K], gall[2 * K:3 * K], gall[3 * K])
 
     def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
-                    sfc, forcing, carry, lradsw, sppt_pattern=None):
-        """Spectral state -> grid fields -> PhysicsModel.compute."""
-        grid = self.physics_grid(state, j, dyn)
+                    sfc, forcing, carry, lradsw, sppt_pattern=None,
+                    stack=None):
+        """Spectral state (or the step's physics stack) -> grid fields ->
+        PhysicsModel.compute."""
+        grid = self.physics_grid(state, j, dyn, stack)
         with torch.profiler.record_function("physics"):
             ut, vt, tt, qt, carry2, diag = self.phys.compute(
                 *grid, bd=self.bd, sfc=sfc, forcing=forcing, carry=carry,
@@ -152,20 +160,15 @@ class GCM:
         return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), (carry2, diag)
 
     def leapfrog(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
-        """One filtered leapfrog step with physics (stloop body)."""
+        """One filtered leapfrog step with physics (stloop body), then the
+        window's flux sums (K16)."""
         lradsw = gstate.istep % NSTRAD == 0   # mod(istep, 3) == 1, 1-based
         spec, (carry, diag) = self.dyn.leapfrog_step(
             gstate.spectral, self.phis, physics_fn=self._physics_fn,
             physics_args=(gstate.sfc, forcing, gstate.radiation, lradsw),
             corrections=(forcing.tcorh, forcing.qcorh))
-        rsteps = 1.0 / self.nsteps_day
-        fx = gstate.fluxes
-        fluxes = FluxAccumulator(
-            hflux_l=fx.hflux_l + diag.hflux_l * rsteps,
-            hflux_s=fx.hflux_s + diag.hflux_s * rsteps,
-            hflux_i=fx.hflux_i + diag.hflux_i * rsteps,
-            precip=fx.precip + (diag.precnv + diag.precls)
-            * self.dyn.delt2 / 2.0)
+        fluxes = flux_accumulate(gstate.fluxes, diag, 1.0 / self.nsteps_day,
+                                 self.dyn.delt2)
         return GCMState(spectral=spec, sfc=gstate.sfc, radiation=carry,
                         fluxes=fluxes, istep=gstate.istep + 1)
 

@@ -383,18 +383,22 @@ def ocean_series_production(*args, **kwargs):
 
 def train_hybrid_production(gcm, layout: RegionLayout, source,
                             hyper: ESNHyper, seed: int, *,
-                            ocean: bool = False, hybrid: bool = True,
-                            hybrid_ocean: bool = False,
-                            atmo_ckpt: str | None = None, device=None,
+                            ocean: bool = False, ocean_hyper=None,
+                            hybrid: bool = True, hybrid_ocean: bool = False,
+                            slab_stride: int = 28,
+                            atmo_ckpt: str | None = None,
+                            ocean_region_chunk: int = 32, device=None,
                             **kw) -> HybridAtmosphere:
     """Train every region class at production scale and assemble the
     hybrid atmosphere on `device` (default CUDA; raises without one).
     Class i draws from derive_seed(seed, i); keywords go to
     train_class_production (dtype defaults to the GCM's, the dtype the
-    cycle runs in).  The slab ocean (ocean, hybrid_ocean) comes with A10
-    and a checkpoint (atmo_ckpt) with A9: they raise rather than half
-    work."""
-    if ocean or hybrid_ocean:
+    cycle runs in).  The slab ocean (ocean, ocean_hyper, hybrid_ocean,
+    slab_stride, ocean_region_chunk) comes with A10 and a checkpoint
+    (atmo_ckpt) with A9: anything but their defaults raises rather than
+    half work."""
+    if (ocean or hybrid_ocean or ocean_hyper is not None
+            or slab_stride != 28 or ocean_region_chunk != 32):
         raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
     if atmo_ckpt is not None:
         raise NotImplementedError(f"atmo_ckpt comes with {CKPT_SLICE}")

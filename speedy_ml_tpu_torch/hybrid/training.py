@@ -194,16 +194,19 @@ def train_ocean_class(*args, **kwargs):
 
 def train_hybrid(gcm, layout: RegionLayout, truth: dict,
                  model: Optional[dict], hyper: ESNHyper, seed: int,
-                 ocean: bool = False, hybrid_ocean: bool = False,
-                 num_vert_levels: int = 1, device=None,
+                 ocean: bool = False, ocean_hyper=None,
+                 hybrid_ocean: bool = False, num_vert_levels: int = 1,
+                 vert_overlap: int = 0, device=None,
                  **kw) -> HybridAtmosphere:
     """Train every region class in memory and assemble the hybrid
     atmosphere; class i draws from derive_seed(seed, 16 i).  The slab
-    ocean and vertical groups come with A10."""
-    if num_vert_levels > 1:
-        raise NotImplementedError(f"num_vert_levels > 1 comes with "
-                                  f"{VERT_SLICE}")
-    if ocean or hybrid_ocean:
+    ocean (ocean, ocean_hyper, hybrid_ocean) and vertical groups
+    (num_vert_levels, vert_overlap) come with A10: anything but their
+    defaults raises."""
+    if num_vert_levels > 1 or vert_overlap != 0:
+        raise NotImplementedError(f"vertical groups (num_vert_levels > 1, "
+                                  f"vert_overlap) come with {VERT_SLICE}")
+    if ocean or hybrid_ocean or ocean_hyper is not None:
         raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
     device = resolve_device(device)
     packs = [train_class(layout, cls, truth, model, hyper,

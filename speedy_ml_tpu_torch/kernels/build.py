@@ -77,6 +77,11 @@ SIGNATURES = {
     "gram_update_launch": [_i, _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp,
                            _vp, _vp, _i, _vp],
     "gram_panel_size": [_i, _i, _i, _i, _i, _i, _i],
+    "spectral_stack_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _vp, _i, _i, _vp, _vp, _vp],
+    "flux_accumulate_launch": [_i, _ll, ctypes.POINTER(_vp),
+                               ctypes.POINTER(_vp), ctypes.POINTER(_vp), _f,
+                               _f, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

@@ -1,7 +1,9 @@
 // Shared by the column-physics bodies (column_moist.cuh,
 // column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
-// column_shortwave.cuh): they compile as CUDA device code and, with a
-// host C++ compiler, as plain functions.  Only exp, sqrt, pow and rint
+// column_shortwave.cuh) and the headers of K7, K15 and K16
+// (grid_dynamics.cuh, spectral_stack.cuh, flux_accumulate.cuh): they
+// compile as CUDA device code and, with a host C++ compiler, as plain
+// functions.  Only exp, sqrt, pow and rint
 // leave the four basic operations; each has a float and a double form,
 // the function PyTorch's own kernel calls for the same operation.
 #pragma once
@@ -26,6 +28,54 @@ COL_HD double col_pow(double x, double e) { return pow(x, e); }
 // round half to even, as torch.round does
 COL_HD float col_rint(float x) { return rintf(x); }
 COL_HD double col_rint(double x) { return rint(x); }
+
+// The four basic operations rounded apart: the _rn intrinsics on the
+// device, which are never contracted into an FMA whatever the source's
+// flags; plain operators on the host (built with -ffp-contract=off).
+// K7, K15 and K16 write every operation with them, in the order of their
+// plain versions.
+COL_HD float gd_add(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+COL_HD float gd_sub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+COL_HD float gd_mul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+COL_HD double gd_add(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+COL_HD double gd_sub(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+COL_HD double gd_mul(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
 
 template <typename T>
 COL_HD T col_max(T a, T b) {

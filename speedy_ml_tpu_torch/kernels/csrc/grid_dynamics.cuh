@@ -17,11 +17,11 @@
 //   [psfield = -umean px - vmean py; ke, ttend, qtend;
 //    utend, -u (T - tref), -u q; vtend, -v (T - tref), -v q].
 //
-// Every operation is rounded apart (gd_add, gd_sub, gd_mul: the _rn
-// intrinsics on the device, which are never contracted into an FMA; plain
-// operators on the host, compiled with -ffp-contract=off), in the order
-// of the plain version (kernels/grid_dynamics.py), so the two agree to a
-// few ulps.
+// Every operation is rounded apart (gd_add, gd_sub, gd_mul of
+// column_common.cuh: the _rn intrinsics on the device, which are never
+// contracted into an FMA; plain operators on the host, compiled with
+// -ffp-contract=off), in the order of the plain version
+// (kernels/grid_dynamics.py), so the two agree to a few ulps.
 //
 // The arithmetic is three pieces: the column sums (grid_sums, the only
 // serial part), the flux of one half level (grid_flux) and the outputs of
@@ -34,49 +34,6 @@
 #pragma once
 
 #include "column_common.cuh"
-
-COL_HD float gd_add(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fadd_rn(a, b);
-#else
-  return a + b;
-#endif
-}
-COL_HD float gd_sub(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fsub_rn(a, b);
-#else
-  return a - b;
-#endif
-}
-COL_HD float gd_mul(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fmul_rn(a, b);
-#else
-  return a * b;
-#endif
-}
-COL_HD double gd_add(double a, double b) {
-#ifdef __CUDA_ARCH__
-  return __dadd_rn(a, b);
-#else
-  return a + b;
-#endif
-}
-COL_HD double gd_sub(double a, double b) {
-#ifdef __CUDA_ARCH__
-  return __dsub_rn(a, b);
-#else
-  return a - b;
-#endif
-}
-COL_HD double gd_mul(double a, double b) {
-#ifdef __CUDA_ARCH__
-  return __dmul_rn(a, b);
-#else
-  return a * b;
-#endif
-}
 
 // The table blob (grid_dynamics.column_blob): coriol (nlat), then dhs,
 // dhsr, fsgr, tref, tref3 (K each); and the two constants.

@@ -1,0 +1,93 @@
+"""The port's entry points take every option the JAX package's take.
+
+For GCM, train_hybrid and train_hybrid_production, every parameter with
+a default in the JAX entry point (inspect.signature) is a parameter of the
+port's with the same default: the same value, or for the two frameworks'
+own types the counterpart (jnp.float32 -> torch.float32, the dataclasses
+Geometry and PhysicalConstants by their fields).  The options whose
+modules are not ported yet (the SST anomalies, the slab ocean, the
+vertical groups: A10) take their defaults and raise NotImplementedError
+naming A10 for any other value; scan_unroll, a JAX compile setting that
+changes no number, is taken and changes nothing.  The positional `key`
+of the trainers is a JAX PRNG key where the port takes an int seed.
+"""
+
+import dataclasses
+import inspect
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from speedy_ml_tpu.gcm import GCM as JGCM
+from speedy_ml_tpu.hybrid.chunked import \
+    train_hybrid_production as j_train_production
+from speedy_ml_tpu.hybrid.training import train_hybrid as j_train_hybrid
+from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
+from speedy_ml_tpu_torch.gcm import GCM
+from speedy_ml_tpu_torch.hybrid.chunked import train_hybrid_production
+from speedy_ml_tpu_torch.hybrid.training import train_hybrid
+from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
+
+PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
+         "train_hybrid": (j_train_hybrid, train_hybrid),
+         "train_hybrid_production": (j_train_production,
+                                     train_hybrid_production)}
+# each unported option with a value other than its default
+UNPORTED = {
+    "GCM": {"sstan_year0": 1991},
+    "train_hybrid": {"vert_overlap": 1, "ocean_hyper": object()},
+    "train_hybrid_production": {"ocean_hyper": object(), "slab_stride": 7,
+                                "ocean_region_chunk": 16}}
+GEOM = Geometry(trunc=10, nlon=32, nlat=16, nlev=8)
+
+
+def _same_default(j, t):
+    if j is jnp.float32:
+        return t is torch.float32
+    if dataclasses.is_dataclass(j):
+        return (type(j).__name__ == type(t).__name__
+                and dataclasses.asdict(j) == dataclasses.asdict(t))
+    return type(j) is type(t) and j == t
+
+
+@pytest.mark.parametrize("name", list(PAIRS))
+def test_every_jax_option_is_taken_with_its_default(name):
+    jfn, tfn = PAIRS[name]
+    jp = inspect.signature(jfn).parameters
+    tp = inspect.signature(tfn).parameters
+    for k, p in jp.items():
+        if p.default is inspect.Parameter.empty:
+            continue
+        assert k in tp, f"{name}: the port lacks {k}={p.default!r}"
+        assert _same_default(p.default, tp[k].default), (
+            f"{name}.{k}: JAX default {p.default!r}, port "
+            f"{tp[k].default!r}")
+
+
+def _call(name, **kw):
+    if name == "GCM":
+        return GCM(GEOM, dtype=torch.float64,
+                   bd=synthetic_boundary_data(GEOM, dtype=torch.float64),
+                   device="cpu", **kw)
+    # the trainers check their options before any work: no data is needed
+    if name == "train_hybrid":
+        return train_hybrid(None, None, None, None, ESNHyper(), 0,
+                            device="cpu", **kw)
+    return train_hybrid_production(None, None, None, ESNHyper(), 0,
+                                   device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name,option", [(n, o) for n, opts in
+                                         UNPORTED.items() for o in opts])
+def test_unported_option_raises_naming_a10(name, option):
+    with pytest.raises(NotImplementedError, match="A10"):
+        _call(name, **{option: UNPORTED[name][option]})
+
+
+def test_gcm_defaults_and_scan_unroll_build_the_same_gcm():
+    a = _call("GCM", sstan_year0=1990)
+    b = _call("GCM", scan_unroll=4)
+    assert torch.equal(a.phis, b.phis)
+    assert a.nsteps_day == b.nsteps_day == 96
