@@ -23,7 +23,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      with uvspec's n-shifts reversed must fail; timed as the median of
      SHT_SESSIONS sessions), K5 sht_analysis, K6 sht_synthesis (each
      also at every stack size and 1/cos split of the coupled cycle: K6
-     50, 41, 32, 33 fields, K5 73, 33, 2, checked and timed as the
+     50, 41, 32 fields, K5 73, 33, 2, checked and timed as the
      median of SHT_SESSIONS sessions), K7 grid_dynamics (within K7_ULPS,
      timed as the median of SHT_SESSIONS sessions),
      K8 spectral_tail (the filtered leapfrog step, and stepone's two
@@ -35,7 +35,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      counted; K9 and K12 must be bit-identical in both, no column
      flipped, and are timed as the median of SHT_SESSIONS sessions),
      K16 flux_accumulate (bit-identical, timed as the median of
-     SHT_SESSIONS sessions); --kernels stops here;
+     SHT_SESSIONS sessions), K17 surface_forcing (the window's entry on
+     this cycle's date and SST, and on a seeded mixed land mask with sea
+     ice, float32 and float64, within K17_ULPS of each plane's scale; the
+     surface alone and the forcing alone give the same planes), K17b
+     tisr_plane (likewise), K18 inject_spectral (float32 and float64,
+     bit-identical), K19 gate_check (float32 and float64, bit-identical
+     extrema; each bound tripped in turn and a NaN must read unsafe), K20
+     window_select (alone, with ok true and with prev false, float32 and
+     float64, bit-identical; K6's fields of the physics stack equal to
+     those of the former 33-field exit stack), each timed as the median of
+     SHT_SESSIONS sessions; --kernels stops here;
   5. the SPEEDY window on the card against the port on the CPU in float32
      (the plain versions): stepone from the same state, then each of the
      24 steps from the card's state before it, the columns whose physics
@@ -44,20 +54,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K13, K15 and
-     K16 (K5-K9, K12, K15 and K16 at most LAUNCHES_PER_CYCLE a cycle),
+  7. the coupled main path, run_prediction: launches of K1-K13 and
+     K15-K20 (K5-K9, K12, K15-K20 at most LAUNCHES_PER_CYCLE a cycle),
      cycle_ms (median and range of 5 x 20 cycles), device busy, idle
      share, device launches per cycle (at most LAUNCHES_MAX in the
-     5-cycle profile), device ms per stage, the window's launches split
-     into kernel and plain launches, per kernel inside the window (K5-K13,
-     K15, K16) and per physics kernel, the top device ops; a profiled
-     physics
-     step (with and without the shortwave) must show no device op but
-     the kernels K9-K13;
-     physical checks (safe, finite, T in [150, 350] K);
+     5-cycle profile) and how many of them plain, device ms per stage,
+     every plain launch of each stage listed (at most PLAIN_MAX a cycle
+     in all), the window's launches split into kernel and plain launches,
+     per kernel inside the window (K5-K13, K15-K17, K20) and per physics
+     kernel, the top device ops; a profiled physics step (with and
+     without the shortwave) must show no device op but the kernels
+     K9-K13; physical checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
-     finite, and run_prediction stops by cycle 2;
+     finite, and run_prediction stops by cycle 2; a NaN written into the
+     injected grid trips K19;
  10. training at full width: K14 gram_update against its plain version
      (float32 and float64), the torch.baddbmm yardstick and an update of
      a symmetric ss that must stay exactly symmetric, at four shapes
@@ -84,6 +95,7 @@ import argparse
 import dataclasses
 import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -118,11 +130,22 @@ SHT_SESSIONS = 5
 LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
                       "K7_grid_dynamics": 26, "K8_spectral_tail": 26,
                       "K9_column_moist": 26, "K12_column_pbl": 26,
-                      "K15_spectral_stack": 26, "K16_flux_accumulate": 24}
+                      "K15_spectral_stack": 27, "K16_flux_accumulate": 24,
+                      "K17_surface_forcing": 1, "K17b_tisr_plane": 1,
+                      "K18_inject_spectral": 1, "K19_gate_check": 1,
+                      "K20_window_select": 1}
 # the most device launches (kernels, copies, fills) a coupled cycle may
 # take in the 5-cycle profile of phase 7: 3,311.6 before K15 and K16
-# took the spectral stacks and the flux sums of the window's steps
-LAUNCHES_MAX = 1300
+# took the spectral stacks and the flux sums of the window's steps, 703.8
+# before K17-K20 took the window's entry and exit and the injection's glue
+LAUNCHES_MAX = 360
+# the most plain launches (PyTorch's own kernels, copies, fills) of a
+# coupled cycle in phase 7's per-stage profile
+PLAIN_MAX = 20
+# K17, K17b against their plain versions on the card: ulps of float32 at
+# each plane's scale (both sides call the same CUDA functions in the same
+# order: 0 expected)
+K17_ULPS = 4
 # K9-K13, float32: a fraction of each output's scale over the columns
 # whose integer outputs (itop, icnv) agree, and the share of columns in
 # which they may differ (a near-tie decision falling the other way);
@@ -255,6 +278,23 @@ def measure_median(torch, fn, sessions: int = SHT_SESSIONS, reps: int = 50):
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def port_kernel_names() -> set:
+    """The names of the port's kernels, the __global__ functions of
+    speedy_ml_tpu_torch/kernels/csrc/*.cu."""
+    pat = re.compile(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)")
+    csrc = ROOT / "speedy_ml_tpu_torch" / "kernels" / "csrc"
+    return {m.group(1) for src in csrc.glob("*.cu")
+            for m in pat.finditer(src.read_text())}
+
+
+def kernel_name(key: str) -> str:
+    """The function name of a profiler event's key ("void f<8>(...)" ->
+    "f"; "at::native::..." keeps its namespace; a copy's "Memcpy DtoH
+    (...)" -> "DtoH")."""
+    return key.split("(")[0].split("<")[0].split()[-1] if key.strip() \
+        else key
 
 
 def sst_month0(geom):
@@ -562,6 +602,7 @@ def phase_training(torch, gcm, layout, date0, card, record):
                                                      make_imperfect_forecasts)
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
     from speedy_ml_tpu_torch.kernels import surface_fluxes as sfk
+    from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
     from speedy_ml_tpu_torch.kernels.column_moist import column_moist
     from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl
     from speedy_ml_tpu_torch.kernels.column_shortwave import column_shortwave
@@ -778,7 +819,8 @@ def main():
         fail(f"the speedy_ml_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, str(ROOT))
     from speedy_ml_tpu_torch.core.geometry import Geometry
-    from speedy_ml_tpu_torch.core.spectral import shift_left, shift_right
+    from speedy_ml_tpu_torch.core.spectral import (SpectralTransform,
+                                                   shift_left, shift_right)
     from speedy_ml_tpu_torch.data.calendar import ModelDate
     from speedy_ml_tpu_torch.dycore.state import SpectralState
     from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator, GCMState
@@ -788,6 +830,7 @@ def main():
     from speedy_ml_tpu_torch.kernels import build as kb
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
     from speedy_ml_tpu_torch.kernels import surface_fluxes as sfk
+    from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
     from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
                                                           column_moist_plain)
     from speedy_ml_tpu_torch.kernels.column_pbl import (column_pbl,
@@ -799,8 +842,13 @@ def main():
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
     from speedy_ml_tpu_torch.kernels.flux_accumulate import (
         flux_accumulate, flux_accumulate_plain)
+    from speedy_ml_tpu_torch.kernels.gate_check import (GATE_BOUNDS,
+                                                        gate_check,
+                                                        gate_check_plain)
     from speedy_ml_tpu_torch.kernels.grid_dynamics import (
         grid_dynamics, grid_dynamics_plain)
+    from speedy_ml_tpu_torch.kernels.inject_spectral import (
+        inject_spectral, inject_spectral_plain)
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
                                                      readout_plain)
     from speedy_ml_tpu_torch.kernels.readout import \
@@ -814,12 +862,15 @@ def main():
     from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
     from speedy_ml_tpu_torch.kernels.window_gather import (
         window_gather, window_gather_plain)
+    from speedy_ml_tpu_torch.kernels.window_select import (
+        window_select, window_select_plain)
     from speedy_ml_tpu_torch.physics.boundaries import \
         synthetic_boundary_data
     from speedy_ml_tpu_torch.physics import radiation as rad
     from speedy_ml_tpu_torch.physics.driver import (PhysicsModel,
                                                     RadiationCarry)
-    from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
+    from speedy_ml_tpu_torch.physics.land_sea import (init_surface_state,
+                                                      surface_state)
 
     t_start = time.perf_counter()
     # -- 2. build ------------------------------------------------------
@@ -1045,9 +1096,218 @@ def main():
         measure(torch, lambda: window_gather_plain(*ga), reps=50),
         bound_ms(4 * (4 * n_out + n_src), 2 * n_out, PEAK_F32_S))
 
+    # K17 and K17b: the window's entry (surface and forcing of this
+    # cycle's date and SST, one launch) and the TISR plane, against their
+    # plain versions on the card, float32 and float64: the same
+    # operations and functions, so the same bits are expected; the
+    # tolerance is K17_ULPS ulps of each plane's scale
+    sht, dyn = gcm.sht, gcm.dyn
+    phys = gcm.phys
+    bd = gcm.bd
+    f64 = torch.float64
+    month = (imon, fmon)
+    G, MN = nlat * nlon, g.mx * g.nx
+
+    def k17_pair(bd_, sst_, day_):
+        """(kernel planes, plain planes): surface and forcing stacked."""
+        ks, kf = sfc_forcing.surface_forcing(bd_, month=month,
+                                             sst_hybrid=sst_, day=day_)
+        ps_ = sfc_forcing.surface_plain(bd_, *month, sst_hybrid=sst_)
+        pp = dict(zip(sfc_forcing.SURFACE, ps_))
+        pf = sfc_forcing.forcing_plain(bd_, pp["stl"], pp["snowd"],
+                                       pp["sst_am"], pp["sice"], day_, nlon)
+        return torch.cat([ks, kf]), torch.cat([ps_, pf])
+
+    def plane_ulps(got, ref):
+        """Per plane: |got - ref| max in ulps of float32 at the plane's
+        scale (its largest magnitude)."""
+        d = (got - ref).abs().reshape(got.shape[0], -1).amax(dim=1)
+        sc = ref.abs().reshape(ref.shape[0], -1).amax(dim=1)
+        return (d / (torch.finfo(f32).eps * torch.where(sc > 0, sc, 1.0))
+                ).tolist()
+
+    day32 = phys.day_args(tyear)
+    slat64 = torch.as_tensor(g.sin_lat, dtype=f64, device=dev)
+    clat64 = torch.as_tensor(g.cos_lat, dtype=f64, device=dev)
+    day64 = sfc_forcing.DayArgs(tyear, slat64, clat64, phys.gamlat,
+                                phys.pexp)
+    bd64 = bd.to(dtype=f64)
+    # beside the aquaplanet, a mixed land mask with sea ice, snow and
+    # orography (seeded), so that every branch of K17 runs on the card
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rnd = lambda lo, hi, *lead: lo + (hi - lo) * torch.rand(
+        lead + (nlat, nlon), generator=gen, device=dev)
+    fm = torch.where(rnd(0, 1) < 0.4, 0.0, rnd(0, 1))
+    bd_mix = dataclasses.replace(
+        bd, fmask_l=fm, fmask_s=1.0 - fm, phis0=2.0e4 * fm * rnd(0, 1),
+        alb0=rnd(0.1, 0.3), stl12=rnd(250, 310, 12),
+        snowd12=rnd(0, 100, 12), soilw12=rnd(0, 1, 12),
+        sst12=rnd(268, 305, 12),
+        sice12=torch.where(rnd(0, 1, 12) < 0.5, 0.0, rnd(0, 1, 12)))
+    sst_mix = bd_mix.sst12[imon] - rnd(-4, 12)
+    names17 = sfc_forcing.SURFACE + sfc_forcing.FORCING
+    err17, tol17 = 0.0, 0.0
+    for label, bd_, sst_, day_ in (("float32", bd, s.sst_grid, day32),
+                                   ("float64", bd64, s.sst_grid.double(),
+                                    day64),
+                                   ("float32, mixed land and sea ice",
+                                    bd_mix, sst_mix, day32),
+                                   ("float64, mixed land and sea ice",
+                                    bd_mix.to(dtype=f64), sst_mix.double(),
+                                    day64)):
+        kp, pp = k17_pair(bd_, sst_, day_)
+        ulps = plane_ulps(kp, pp)
+        bad = {nm: u for nm, u in zip(names17, ulps) if u > 0}
+        log(f"K17 {label}: {len(names17)} planes, max_abs_err="
+            f"{max_abs_diff(torch, kp, pp):.3e}; planes that differ, in "
+            f"ulps of float32 at their scale: {bad or 'none'} (tolerance "
+            f"{K17_ULPS} ulps)")
+        if max(ulps) > K17_ULPS:
+            fail(f"K17 ({label}) disagrees with its plain version")
+        if label == "float32":
+            err17 = max_abs_diff(torch, kp, pp)
+            tol17 = K17_ULPS * torch.finfo(f32).eps * float(pp.abs().max())
+    # the surface alone and the forcing of a given surface: the same planes
+    ks_, kf_ = sfc_forcing.surface_forcing(bd, month=month,
+                                           sst_hybrid=s.sst_grid, day=day32)
+    ks1, _ = sfc_forcing.surface_forcing(bd, month=month,
+                                         sst_hybrid=s.sst_grid)
+    _, kf1 = sfc_forcing.surface_forcing(
+        bd, sfc=surface_state(ks1, gcm.cpl.icsea), day=day32)
+    if not (torch.equal(ks1, ks_) and torch.equal(kf1, kf_)):
+        fail("K17's surface or forcing alone differs from the two together")
+    k17_call = lambda: sfc_forcing.surface_forcing(
+        bd, month=month, sst_hybrid=s.sst_grid, day=day32)
+    (k17_ms, k17_c), k17_runs = measure_median(torch, k17_call)
+    log("K17 sessions (device ms): " + ", ".join(f"{r:.4f}"
+                                                 for r in k17_runs))
+    # read: the months forin5 and forint use (5 + 2 + 2 + 5 + 2 planes),
+    # the hybrid SST, alb0, fmask_l, fmask_s, phis0, slat, clat; written:
+    # 8 + 11 planes.  Operations: ~250 a point with the solar rows
+    ok &= record(
+        "K17_surface_forcing",
+        "speedy_ml_tpu_torch/kernels/csrc/surface_forcing.cu",
+        "speedy_ml_tpu/physics/land_sea.py:191", err17, tol17,
+        (k17_ms, k17_c),
+        measure(torch, lambda: k17_pair(bd, s.sst_grid, day32)[1], reps=10),
+        bound_ms(4 * (G * (16 + 5 + 19) + 2 * nlat), 250 * G, PEAK_F32_S))
+    err17b = 0.0
+    for label, sl, cl in (("float32", hyb._slat, hyb._clat),
+                          ("float64", slat64, clat64)):
+        kt = sfc_forcing.tisr_plane(tyear, sl, cl, nlon)
+        pt = sfc_forcing.tisr_plain(tyear, sl, cl, nlon)
+        u = plane_ulps(kt[None], pt[None])[0]
+        log(f"K17b {label}: max_abs_err={max_abs_diff(torch, kt, pt):.3e}, "
+            f"{u:.3g} ulps of float32 at the plane's scale (tolerance "
+            f"{K17_ULPS})")
+        if u > K17_ULPS:
+            fail(f"K17b ({label}) disagrees with its plain version")
+        if label == "float32":
+            err17b = max_abs_diff(torch, kt, pt)
+            tol17b = K17_ULPS * torch.finfo(f32).eps * float(pt.abs().max())
+    (k17b_ms, k17b_c), k17b_runs = measure_median(
+        torch, lambda: sfc_forcing.tisr_plane(tyear, hyb._slat, hyb._clat,
+                                              nlon))
+    log("K17b sessions (device ms): " + ", ".join(f"{r:.4f}"
+                                                  for r in k17b_runs))
+    ok &= record(
+        "K17b_tisr_plane",
+        "speedy_ml_tpu_torch/kernels/csrc/surface_forcing.cu",
+        "speedy_ml_tpu/hybrid/model.py:525", err17b, tol17b,
+        (k17b_ms, k17b_c),
+        measure(torch, lambda: sfc_forcing.tisr_plain(
+            tyear, hyb._slat, hyb._clat, nlon), reps=20),
+        bound_ms(4 * (G + 2 * nlat), 60 * G, PEAK_F32_S))
+
+    # K18: the injection's spectral glue on this cycle's analysed grid,
+    # float32 and float64 (a float64 transform's tables), against the
+    # plain version: the same values (tolerance 0)
+    sht64 = SpectralTransform(g, dtype=f64, device=dev)
+    spec_in = sht.analysis(torch.cat([atmo[0], torch.clamp(atmo[3], min=0.0),
+                                      logp[None], atmo[1], atmo[2]]),
+                           2 * K + 1)
+    err18 = 0.0
+    for label, sh_, sp_ in (("float32", sht, spec_in),
+                            ("float64", sht64,
+                             spec_in.to(torch.complex128))):
+        ks18, kstk = inject_spectral(sh_, sp_, K)
+        ps18, pstk = inject_spectral_plain(sh_, sp_, K)
+        e = max([max_abs_diff(torch, getattr(ks18, f), getattr(ps18, f))
+                 for f in SpectralState.FIELDS]
+                + [max_abs_diff(torch, kstk, pstk)])
+        log(f"K18 {label}: state (2 levels) and stack {tuple(kstk.shape)} "
+            f"max_abs_err={e:.3e} (tolerance 0)")
+        if label == "float32":
+            err18 = e
+        elif e > 0.0:
+            fail("K18 (float64) disagrees with its plain version")
+    (k18_ms, k18_c), k18_runs = measure_median(
+        torch, lambda: inject_spectral(sht, spec_in, K))
+    log("K18 sessions (device ms): " + ", ".join(f"{r:.4f}"
+                                                 for r in k18_runs))
+    # read: K5's 4K + 1 fields and the tables; written: the state's
+    # 2 (4K + 1) fields and the stack's 4K
+    ok &= record(
+        "K18_inject_spectral",
+        "speedy_ml_tpu_torch/kernels/csrc/inject_spectral.cu",
+        "speedy_ml_tpu/hybrid/model.py:404", err18, 0.0, (k18_ms, k18_c),
+        measure(torch, lambda: inject_spectral_plain(sht, spec_in, K),
+                reps=10),
+        bound_ms(8 * MN * ((4 * K + 1) + 2 * (4 * K + 1) + 4 * K)
+                 + 4 * sht.inject_blob.numel(), MN * 40 * K, PEAK_F32_S))
+
+    # K19: the gate on this cycle's grid back from K6, float32 and
+    # float64: the flag and the eight extrema equal to the plain version's;
+    # then each bound tripped in turn by one value just beyond it, and a
+    # NaN: the kernel's flag must read unsafe
+    back = sht.synthesis(inject_spectral(sht, spec_in, K)[1], 2 * K)
+    err19 = 0.0
+    for label, b_ in (("float32", back), ("float64", back.double())):
+        ksafe, kext = gate_check(b_, K)
+        psafe, pext = gate_check_plain(b_, K)
+        e = max_abs_diff(torch, kext, pext)
+        log(f"K19 {label}: safe {bool(ksafe)} (plain {bool(psafe)}), "
+            f"extrema " + ", ".join(f"{float(x):.4g}" for x in kext)
+            + f", max_abs_err={e:.3e} (tolerance 0)")
+        if bool(ksafe) != bool(psafe) or not bool(ksafe):
+            fail(f"K19 ({label}): the main path's grid reads unsafe or "
+                 f"differs from the plain gate")
+        if label == "float32":
+            err19 = e
+        elif e > 0.0:
+            fail("K19 (float64) disagrees with its plain version")
+    var_field = {"u": 2 * K, "v": 3 * K, "t": 0, "q": K}
+    tripped = []
+    for (v, (lo, hi)) in zip("uvtq", GATE_BOUNDS):
+        for side, b0, away in (("min", lo, -float("inf")),
+                               ("max", hi, float("inf"))):
+            bb = back.clone()
+            bb[var_field[v] + 3, 10, 20] = torch.nextafter(
+                torch.tensor(b0, dtype=f32), torch.tensor(away, dtype=f32))
+            tripped.append((f"{v} {side}", bool(gate_check(bb, K)[0])))
+    bb = back.clone()
+    bb[var_field["q"] + 5, 7, 11] = float("nan")
+    nan_safe, nan_ext = gate_check(bb, K)
+    tripped.append(("NaN", bool(nan_safe)))
+    log("K19 with one value beyond a bound or a NaN, the flag: "
+        + ", ".join(f"{c} {f}" for c, f in tripped)
+        + f"; extrema with the NaN "
+        + ", ".join(f"{float(x):.4g}" for x in nan_ext))
+    if any(f for _, f in tripped):
+        fail("K19 reads safe with a value beyond a bound or a NaN")
+    (k19_ms, k19_c), k19_runs = measure_median(torch,
+                                               lambda: gate_check(back, K))
+    log("K19 sessions (device ms): " + ", ".join(f"{r:.4f}"
+                                                 for r in k19_runs))
+    ok &= record(
+        "K19_gate_check", "speedy_ml_tpu_torch/kernels/csrc/gate_check.cu",
+        "speedy_ml_tpu/hybrid/model.py:423", err19, 0.0, (k19_ms, k19_c),
+        measure(torch, lambda: gate_check_plain(back, K), reps=20),
+        bound_ms(4 * back.numel() + 4 * 8 + 1, 2 * back.numel(),
+                 PEAK_F32_S))
+
     # the SPEEDY window's inputs: the main path's injected state two
     # cycles in, its surface and forcing, one stepone
-    sht, dyn = gcm.sht, gcm.dyn
     spec0, safe0 = hyb.inject_to_speedy(atmo, logp)
     sfc = init_surface_state(gcm.bd, imon, fmon, sst_hybrid=s.sst_grid,
                              flags=gcm.cpl)
@@ -1195,9 +1455,9 @@ def main():
     # (the leading fields of the stacks above), each checked against its
     # plain version and timed as the median of SHT_SESSIONS sessions
     syn_shapes = (("dycore step", stk.shape[0], ncos),
-                  ("physics_grid", 5 * K + 1, 3 * K + 1),
-                  ("injection", 4 * K, 2 * K),
-                  ("window output", 4 * K + 1, 2 * K + 1))
+                  ("physics_grid and the window's exit", 5 * K + 1,
+                   3 * K + 1),
+                  ("injection", 4 * K, 2 * K))
     ana_shapes = (("analysis_stack", B5, n0), ("injection", 4 * K + 1,
                                                2 * K + 1),
                   ("forcing", 2, None))
@@ -1431,6 +1691,58 @@ def main():
         measure(torch, lambda: flux_accumulate_plain(fx4, diag4, rsteps,
                                                      delt2), reps=20),
         bound_ms(4 * G * 13, 11 * G, PEAK_F32_S))
+    # K20: the window's exit on the synthesis of this state's physics
+    # stack at level 0, alone and with the cycle's select (ok true; prev
+    # false), float32 and float64, against the plain version: the same
+    # values (tolerance 0).  Beside it, K6's fields of the 41-field
+    # physics stack against the window's former 33-field exit synthesis
+    # [t, q, ps | u cos, v cos]: K6 gives a field the same values whatever
+    # the stack's size
+    out20 = gcm.physics_synthesis(st, 0)
+    ucosm, vcosm = sht.uvspec(st.vor[0], st.div[0])
+    old = sht.synthesis(torch.cat([st.t[0], st.tr[0, 0], st.ps[0][None],
+                                   ucosm, vcosm]), 2 * K + 1)
+    e6 = max(max_abs_diff(torch, old[:2 * K], out20[:2 * K]),
+             max_abs_diff(torch, old[2 * K], out20[3 * K]),
+             max_abs_diff(torch, old[2 * K + 1:], out20[3 * K + 1:]))
+    log(f"K6 at 41 fields (the physics stack) against 33 (the former exit "
+        f"stack), the fields the exit reads: max_abs_err={e6:.3e}")
+    if e6 > 0.0:
+        fail("K6 gives a field other values in a stack of another size")
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    sel_ok = (yes, safe0, atmo, logp)
+    sel_no = (~yes, safe0, atmo, logp)
+    err20 = 0.0
+    for label, o_, sels in (
+            ("float32", out20, (None, sel_ok, sel_no)),
+            ("float64", out20.double(),
+             (None, (yes, safe0, atmo.double(), logp.double())))):
+        e20 = 0.0
+        for sel in sels:
+            ka, kl, kok = window_select(o_, K, sel)
+            pa, pl, pok = window_select_plain(o_, K, sel)
+            e = max(max_abs_diff(torch, ka, pa), max_abs_diff(torch, kl, pl))
+            if sel is not None and bool(kok) != bool(pok):
+                e = float("inf")
+            e20 = max(e20, e)
+        log(f"K20 {label}: alone and with the select (ok true, prev "
+            f"false), max_abs_err={e20:.3e} (tolerance 0)")
+        err20 = max(err20, e20)
+    if not bool(safe0):
+        fail("the main path's injected state reads unsafe")
+    (k20_ms, k20_c), k20_runs = measure_median(
+        torch, lambda: window_select(out20, K, sel_ok))
+    log("K20 sessions (device ms): " + ", ".join(f"{r:.4f}"
+                                                 for r in k20_runs))
+    # with ok true: the 4K + 1 fields read from out (not the injected ones)
+    # and written, and the two flags
+    ok &= record(
+        "K20_window_select",
+        "speedy_ml_tpu_torch/kernels/csrc/window_select.cu",
+        "speedy_ml_tpu/hybrid/model.py:466", err20, 0.0, (k20_ms, k20_c),
+        measure(torch, lambda: window_select_plain(out20, K, sel_ok),
+                reps=20),
+        bound_ms(4 * G * 2 * (4 * K + 1) + 3, 0, PEAK_F32_S))
     del phys64, m4, dn4, fx4, up4
     if not ok:
         fail("a kernel disagrees with its plain version")
@@ -1551,8 +1863,13 @@ def main():
                "K12_column_pbl": column_pbl,
                "K13_column_shortwave": column_shortwave,
                "K15_spectral_stack": spectral_stack,
-               "K16_flux_accumulate": flux_accumulate}
-    ml_kernels = list(kernels)[:4]
+               "K16_flux_accumulate": flux_accumulate,
+               "K17_surface_forcing": sfc_forcing.surface_forcing,
+               "K17b_tisr_plane": sfc_forcing.tisr_plane,
+               "K18_inject_spectral": inject_spectral,
+               "K19_gate_check": gate_check,
+               "K20_window_select": window_select}
+    ml_kernels = list(kernels)[:4] + ["K17b_tisr_plane"]
     out_dir = ROOT / "output" / "chip_smoke"
 
     def drive(h, st0, n, path, names):
@@ -1688,7 +2005,11 @@ def main():
         "build_feedback": lambda: hyb.build_feedback(
             pk, a_, l_, p_, final.sst_grid, hyb.tisr_field(tyear)),
         "build_local_model": lambda: hyb.build_local_model(pk, fa_, fl_)}
-    parts, window_kern = [], None
+    # every device op that is not one of the port's kernels is a plain
+    # launch (PyTorch's own kernels, copies, fills): listed by stage, and
+    # at most PLAIN_MAX a cycle
+    ours = port_kernel_names()
+    parts, plain_lines, n_plain_all, window_kern = [], [], 0.0, None
     for nm, fn in stages.items():
         fn()
         reps = 2 if nm == "speedy_window" else 3
@@ -1696,23 +2017,38 @@ def main():
         n_launch = sum(e.count for e in kk) / reps
         if n_launch == 0:
             fail(f"the profile of {nm} saw no device work")
-        parts.append(f"{nm} {ms:.4f} ms ({n_launch:g} launches)")
+        plain = [e for e in kk if kernel_name(e.key) not in ours]
+        n_plain = sum(e.count for e in plain) / reps
+        n_plain_all += n_plain
+        parts.append(f"{nm} {ms:.4f} ms ({n_launch:g} launches, "
+                     f"{n_plain:g} plain)")
+        plain_lines += [f"{nm}: {e.count / reps:g} x {e.key[:100]}"
+                        for e in sorted(plain, key=lambda e: -e.count)]
         if nm == "speedy_window":
             window_kern = kk
     log("  device time per cycle by stage, each profiled alone: "
         + "; ".join(parts) + f" [{card}]")
+    log(f"  plain launches per cycle, each stage profiled alone: "
+        f"{n_plain_all:g} (at most {PLAIN_MAX})")
+    for line in plain_lines:
+        log(f"    plain {line}")
+    if n_plain_all > PLAIN_MAX:
+        fail(f"{n_plain_all:g} plain launches a coupled cycle, more than "
+             f"{PLAIN_MAX}")
     knames = {"K5": "sht_analysis_kernel", "K6": "sht_synthesis_kernel",
               "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel",
               "K9": "column_moist_kernel", "K10a": "radlw_down_kernel",
               "K10b": "radlw_up_kernel", "K11": "surface_fluxes_kernel",
               "K12": "column_pbl_kernel", "K13": "column_shortwave_kernel",
-              "K15": "spectral_stack_kernel", "K16": "flux_accumulate_kernel"}
-    kk = {k: [e for e in window_kern if v in e.key]
+              "K15": "spectral_stack_kernel", "K16": "flux_accumulate_kernel",
+              "K17": "surface_forcing_kernel",
+              "K20": "window_select_kernel"}
+    kk = {k: [e for e in window_kern if kernel_name(e.key) == v]
           for k, v in knames.items()}
     n_win = sum(e.count for e in window_kern) / 2
     n_win_k = sum(sum(e.count for e in v) for v in kk.values()) / 2
     log(f"  speedy_window launches per cycle: {n_win:g}, of which "
-        f"{n_win_k:g} kernel launches (K5-K13, K15, K16) and "
+        f"{n_win_k:g} kernel launches (K5-K13, K15-K17, K20) and "
         f"{n_win - n_win_k:g} plain launches")
     log("  inside speedy_window: " + "; ".join(
         f"{k} {sum(_self_device_us(e) for e in v) / 2e3:.4f} ms "
@@ -1813,11 +2149,14 @@ def main():
         torch, lambda: run_prediction(hyb, final, date0, n_prof), reps=1)
     busy /= n_prof
     launches = sum(e.count for e in kern) / n_prof
+    plain_cycle = sum(e.count for e in kern
+                      if kernel_name(e.key) not in ours) / n_prof
     log(f"coupled cycle_ms: {cycle_ms:.4f} median (min {walls[0]:.4f}, max "
         f"{walls[-1]:.4f}) over 5 runs of run_prediction x {N_TIMED} "
         f"cycles, no writer; device busy {busy:.4f} ms/cycle, idle share "
         f"{1 - busy / cycle_ms:.1%} of the median; {launches:g} device "
-        f"launches per cycle; {6 * 3.6e6 / cycle_ms / 365:.1f} "
+        f"launches per cycle, {plain_cycle:g} of them plain; "
+        f"{6 * 3.6e6 / cycle_ms / 365:.1f} "
         f"sim-years/day [{card}]")
     for e in sorted(kern, key=_self_device_us, reverse=True)[:10]:
         log(f"  top device op {e.key[:70]}: "
@@ -1869,8 +2208,17 @@ def main():
     _, dts = run_prediction(hyb_bad, final, date0, 5)
     if len(dts) > 2:
         fail(f"run_prediction ran {len(dts)} cycles past the gate")
+    # a NaN written into the injected grid (one value of T) trips K19
+    a_nan = a_.clone()
+    a_nan[0, 3, 10, 20] = float("nan")
+    _, safe_nan = hyb.inject_to_speedy(a_nan, l_)
+    _, safe_ok = hyb.inject_to_speedy(a_, l_)
+    if bool(safe_nan) or not bool(safe_ok):
+        fail("a NaN in the injected grid did not trip K19's gate")
     log(f"gate: Wout x 1e7 trips it, SPEEDY's output stays finite, "
-        f"run_prediction stopped after {len(dts)} cycle(s)")
+        f"run_prediction stopped after {len(dts)} cycle(s); a NaN written "
+        f"into the injected grid trips K19 (the same grid without it "
+        f"passes)")
     del hyb_bad, big
 
     # -- 10. training at full width --------------------------------------

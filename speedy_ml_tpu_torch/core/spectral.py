@@ -26,6 +26,7 @@ import torch
 
 from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.kernels.inject_spectral import inject_blob
 from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
 from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
 
@@ -179,6 +180,8 @@ class SpectralTransform:
         self.dft_inv = c((np.exp(1j * ang) * cm[None, :]).T)      # (mx, nlon)
         # complex tables times a real operand: the i*gradx factor
         self.igradx = (1j * self.gradx.to(self.cdtype))[:, None]
+        # the tables of the injection's spectral glue (K18), built once
+        self.inject_blob = inject_blob(self)
 
     def set_mesh(self, mesh, axis: str = "regions"):
         raise NotImplementedError(f"m-sharding comes with {MESH_SLICE}")

@@ -27,14 +27,14 @@ from speedy_ml_tpu_torch.dycore.state import SpectralState
 from speedy_ml_tpu_torch.kernels.flux_accumulate import flux_accumulate
 from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
                                                         spectral_stack)
+from speedy_ml_tpu_torch.kernels.window_select import window_select
 from speedy_ml_tpu_torch.physics.boundaries import (BC_FILES_SLICE,
                                                     BoundaryData)
 from speedy_ml_tpu_torch.physics.driver import (OPTIONAL_SLICE,
                                                 DailyForcing, PhysicsModel,
-                                                RadiationCarry)
+                                                RadiationCarry, zero_views)
 from speedy_ml_tpu_torch.physics.land_sea import (SLAB_SLICE, CplFlags,
-                                                  SurfaceState,
-                                                  init_surface_state)
+                                                  SurfaceState)
 
 NSTRAD = 3   # shortwave radiation period in steps (mod_tsteps.f90:65)
 
@@ -49,9 +49,17 @@ class FluxAccumulator:
 
     @staticmethod
     def zeros(nlat, nlon, dtype, device=None):
-        z = lambda: torch.zeros((nlat, nlon), dtype=dtype, device=device)
-        return FluxAccumulator(hflux_l=z(), hflux_s=z(), hflux_i=z(),
-                               precip=z())
+        """Zero sums: views of one zeroed buffer (one fill on the card)."""
+        return FluxAccumulator(*zero_views([(nlat, nlon)] * 4, dtype,
+                                           device))
+
+
+def zero_carries(K, nlat, nlon, dtype, device=None):
+    """A window's zero RadiationCarry and FluxAccumulator, all eleven
+    fields views of one zeroed buffer: one fill on the card."""
+    shapes = RadiationCarry.shapes(K, nlat, nlon)
+    v = zero_views(shapes + [(nlat, nlon)] * 4, dtype, device)
+    return RadiationCarry(*v[:len(shapes)]), FluxAccumulator(*v[len(shapes):])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,42 +118,65 @@ class GCM:
                                   "multi-GPU slice of the port (A16)")
 
     def forcing_for(self, sfc: SurfaceState, tyear) -> DailyForcing:
-        """Date-dependent forcing (fordate)."""
+        """Date-dependent forcing (fordate) of the surface sfc."""
         return self.phys.daily_forcing(self.bd, sfc, tyear, self.sht)
+
+    def window_entry(self, imon, fmon, tyear, sst_hybrid=None,
+                     sst_bias: float = 0.0):
+        """(the climatological surface of (imon, fmon) with the hybrid SST,
+        its forcing at tyear): init_surface_state and forcing_for in one
+        K17 launch and the K5 analysis; imon, fmon and tyear host
+        numbers."""
+        return self.phys.surface_and_forcing(self.bd, imon, fmon, tyear,
+                                             self.sht, sst_hybrid, sst_bias,
+                                             self.cpl)
 
     def init_state(self, date, spectral: Optional[SpectralState] = None,
                    sst_hybrid=None, sst_bias: float = 0.0
                    ) -> tuple[GCMState, DailyForcing]:
         """agcm_init: surface + radiation init for `date` (a ModelDate)."""
         g = self.geom
-        sfc = init_surface_state(self.bd, date.month - 1, date.tmonth,
-                                 sst_hybrid, sst_bias, flags=self.cpl)
+        sfc, forcing = self.window_entry(date.month - 1, date.tmonth,
+                                         date.tyear, sst_hybrid, sst_bias)
         if spectral is None:
             from speedy_ml_tpu_torch.dycore.init import rest_state
             spectral = rest_state(self.dyn, self.bd.orog)[0]
-        state = GCMState(
-            spectral=spectral, sfc=sfc,
-            radiation=RadiationCarry.zeros(g.nlev, g.nlat, g.nlon,
-                                           self.dtype, self.device),
-            fluxes=FluxAccumulator.zeros(g.nlat, g.nlon, self.dtype,
-                                         self.device),
-            istep=0)
-        return state, self.forcing_for(sfc, date.tyear)
+        radiation, fluxes = zero_carries(g.nlev, g.nlat, g.nlon, self.dtype,
+                                         self.device)
+        state = GCMState(spectral=spectral, sfc=sfc, radiation=radiation,
+                         fluxes=fluxes, istep=0)
+        return state, forcing
 
     # ------------------------------------------------------------------
 
-    def physics_grid(self, state: SpectralState, j: int, dyn=None,
-                     stack=None):
-        """Grid (ug, vg, tg, qg, phig, pslg) at level j for the physics:
+    def physics_synthesis(self, state: SpectralState, j: int, dyn=None,
+                          stack=None):
+        """The grid [t, q, phi (K each), logp | u, v (K each)] at level j:
         one synthesis launch over K15's physics stack [t, q, phi, ps |
         u cos, v cos] (`stack`, when the step made it; else K15 alone)."""
         K = self.geom.nlev
         if stack is None:
             stack = spectral_stack(dyn or self.dyn, state, self.phis, None,
                                    j)[1]
-        gall = self.sht.synthesis(stack, physics_ncos(K))
+        return self.sht.synthesis(stack, physics_ncos(K))
+
+    def physics_grid(self, state: SpectralState, j: int, dyn=None,
+                     stack=None):
+        """Grid (ug, vg, tg, qg, phig, pslg) at level j for the physics
+        (physics_synthesis, sliced)."""
+        K = self.geom.nlev
+        gall = self.physics_synthesis(state, j, dyn, stack)
         return (gall[3 * K + 1:4 * K + 1], gall[4 * K + 1:5 * K + 1],
                 gall[0:K], gall[K:2 * K], gall[2 * K:3 * K], gall[3 * K])
+
+    def grid_state(self, state: SpectralState, select=None):
+        """The grid fields of leapfrog level 0 (iogrid 31): (atmo (4, K,
+        lat, lon) = [t, u, v, q], logp, ok): K15's physics stack, K6 and
+        K20.  select: None (ok is None) or (prev, safe, atmo_in, logp_in),
+        which keeps the given fields where prev & safe is false
+        (kernels/window_select.py)."""
+        return window_select(self.physics_synthesis(state, 0),
+                             self.geom.nlev, select)
 
     def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
                     sfc, forcing, carry, lradsw, sppt_pattern=None,

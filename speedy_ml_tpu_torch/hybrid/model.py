@@ -13,9 +13,13 @@ double transform and the safety gate), runs a 6-h SPEEDY window from a
 cold start (speedy_window) and packs the forecast into each region's
 local-model vector (build_local_model, K3 with a core-only table).
 
-The safety gate is a select, not a branch: the window always runs, and
-torch.where(ok, forecast, injected fields) keeps an unsafe state (and any
-NaN it makes) out of the next state.  The flag stays on the device.
+The window's entry and exit and the injection's glue are kernels too:
+K17 (the surface and forcing), K18 (the injection's spectral glue), K19
+(the gate), K20 (the exit, with the gate's select) and K17b (the TISR
+field).  The safety gate is a select, not a branch: the window always
+runs, and K20 keeps the injected fields where ok is false, so an unsafe
+state (and any NaN it makes) stays out of the next state.  The flag stays
+on the device.
 
 Layouts follow the JAX package: fields (V, K, lat, lon), class vectors
 (Rc, I) / (Rc, O), and the same packing order, so both compute the same
@@ -35,14 +39,13 @@ from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
-from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState
+from speedy_ml_tpu_torch.gcm import GCMState, zero_carries
 from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
+from speedy_ml_tpu_torch.kernels.gate_check import gate_check
+from speedy_ml_tpu_torch.kernels.inject_spectral import inject_spectral
 from speedy_ml_tpu_torch.kernels.readout import readout
+from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
-from speedy_ml_tpu_torch.physics.constants import SOLC
-from speedy_ml_tpu_torch.physics.driver import RadiationCarry
-from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
-from speedy_ml_tpu_torch.physics.radiation import solar_flux_traced
 
 OPTIONS_SLICE = "a later slice of the port (cycle options: slab ocean, " \
     "persistent surface, climatology tables, components, vertical " \
@@ -257,72 +260,52 @@ class HybridAtmosphere:
     def inject_to_speedy(self, atmo, logp):
         """Grid -> spectral with truncation, and back (iogrid 30).
 
-        One analysis launch for [T, q, logp | u, v] (u, v times 1/cos for
-        vdspec) and one synthesis launch for the fields the safety check
-        reads.  Returns (SpectralState, safe), safe a 0-d bool tensor:
-        the physical-range gate on the post-transform fields
-        (ppo_iogrid.f90:563-577)."""
+        One analysis launch (K5) for [T, q, logp | u, v] (u, v times 1/cos
+        for vdspec), K18 for vds, the truncations, uvspec and the state's
+        two levels, one synthesis launch (K6) for the fields the safety
+        check reads, and K19 for the gate.  Returns (SpectralState, safe),
+        safe a 0-d bool tensor: the physical-range gate on the
+        post-transform fields (ppo_iogrid.f90:563-577)."""
         sht = self.gcm.sht
         K = self.nz
-        tg, ug, vg = atmo[0], atmo[1], atmo[2]
         qg = torch.clamp(atmo[3], min=0.0)
-        spec = sht.analysis(torch.cat([tg, qg, logp[None], ug, vg]),
-                            2 * K + 1)
-        vor, div = sht.vds(spec[2 * K + 1:3 * K + 1], spec[3 * K + 1:])
-        vor, div = sht.trunct(vor), sht.trunct(div)
-        t_s, q_s = sht.trunct(spec[:K]), sht.trunct(spec[K:2 * K])
-        ps_s = sht.trunct(spec[2 * K])
-
+        spec = sht.analysis(torch.cat([atmo[0], qg, logp[None], atmo[1],
+                                       atmo[2]]), 2 * K + 1)
+        state, stack = inject_spectral(sht, spec, K)
         # the double transform: back to grid for the safety check (and the
         # smoothing the trained weights expect)
-        ucosm, vcosm = sht.uvspec(vor, div)
-        back = sht.synthesis(torch.cat([t_s, q_s, ucosm, vcosm]), 2 * K)
-        t2, q2 = back[:K], back[K:2 * K]
-        u2, v2 = back[2 * K:3 * K], back[3 * K:]
-        safe = ((u2.amin() >= -150.0) & (u2.amax() <= 150.0)
-                & (v2.amin() >= -120.0) & (v2.amax() <= 120.0)
-                & (t2.amin() >= 160.0) & (t2.amax() <= 330.0)
-                & (q2.amin() >= -6.0) & (q2.amax() <= 30.0))
-        two = lambda a: torch.stack([a, a])
-        state = SpectralState(vor=two(vor), div=two(div), t=two(t_s),
-                              ps=two(ps_s), tr=two(q_s[None]))
+        safe, _ = gate_check(sht.synthesis(stack, 2 * K), K)
         return state, safe
 
-    def speedy_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
-                      tyear, sfc_carry=None):
-        """SPEEDY for one 6-h window from a cold start (run_model,
-        mpires.f90:1516-1628): surfaces from climatology + the hybrid SST,
-        stepone, gcm_steps leapfrog steps from istep 0 (so the shortwave
-        cadence inside a window is static), then the fields at leapfrog
-        level 0 (iogrid 31).  Returns (atmo (4, K, lat, lon), logp,
-        window FluxAccumulator)."""
+    def _run_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
+                    tyear, sfc_carry=None) -> GCMState:
+        """The window from a cold start: the surface from climatology and
+        the hybrid SST and the forcing (K17 and K5), zero carries (one
+        fill), stepone, gcm_steps leapfrog steps from istep 0 (so the
+        shortwave cadence inside a window is static)."""
         if sfc_carry is not None:
             raise NotImplementedError(
                 f"persist_surface comes with {OPTIONS_SLICE}")
         gcm = self.gcm
         g = gcm.geom
-        K = g.nlev
-        sfc = init_surface_state(gcm.bd, imon, fmon, sst_hybrid=sst_hybrid,
-                                 flags=gcm.cpl)
-        gstate = GCMState(
-            spectral=spec, sfc=sfc,
-            radiation=RadiationCarry.zeros(K, g.nlat, g.nlon, gcm.dtype,
-                                           self.device),
-            fluxes=FluxAccumulator.zeros(g.nlat, g.nlon, gcm.dtype,
-                                         self.device),
-            istep=0)
-        forcing = gcm.forcing_for(sfc, tyear)
+        sfc, forcing = gcm.window_entry(imon, fmon, tyear, sst_hybrid)
+        radiation, fluxes = zero_carries(g.nlev, g.nlat, g.nlon, gcm.dtype,
+                                         self.device)
+        gstate = GCMState(spectral=spec, sfc=sfc, radiation=radiation,
+                          fluxes=fluxes, istep=0)
         gstate = gcm.stepone(gstate, forcing)
-        gstate = gcm.run_window(gstate, forcing, self.gcm_steps)
+        return gcm.run_window(gstate, forcing, self.gcm_steps)
 
-        sht = gcm.sht
-        sp = gstate.spectral
-        ucosm, vcosm = sht.uvspec(sp.vor[0], sp.div[0])
-        out = sht.synthesis(torch.cat([sp.t[0], sp.tr[0, 0], sp.ps[0][None],
-                                       ucosm, vcosm]), 2 * K + 1)
-        t, q, logp = out[:K], out[K:2 * K], out[2 * K]
-        u, v = out[2 * K + 1:3 * K + 1], out[3 * K + 1:]
-        return torch.stack([t, u, v, q]), logp, gstate.fluxes
+    def speedy_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
+                      tyear, sfc_carry=None):
+        """SPEEDY for one 6-h window from a cold start (run_model,
+        mpires.f90:1516-1628), then the fields at leapfrog level 0 (iogrid
+        31; GCM.grid_state).  Returns (atmo (4, K, lat, lon), logp,
+        window FluxAccumulator)."""
+        gstate = self._run_window(spec, sst_hybrid, imon, fmon, tyear,
+                                  sfc_carry)
+        atmo, logp, _ = self.gcm.grid_state(gstate.spectral)
+        return atmo, logp, gstate.fluxes
 
     def build_local_model(self, packs, fc_atmo, fc_logp):
         """Per-class standardized SPEEDY forecast vectors (core atmo +
@@ -336,18 +319,12 @@ class HybridAtmosphere:
 
     def tisr_field(self, tyear, hour_of_year=None, table=None,
                    hours_per_entry: int = 1):
-        """TISR input field for the current date: the analytic Hartmann
-        daily-mean insolation (the table branch comes with the cycle
-        options)."""
+        """TISR input field (lat, lon) for the current date: the analytic
+        Hartmann daily-mean insolation, one K17b launch (tyear a host
+        number; the table branch comes with the cycle options)."""
         if table is not None:
             raise NotImplementedError(f"TISR tables come with {OPTIONS_SLICE}")
-        g = self.geom
-        if not torch.is_tensor(tyear):
-            # a device fill, not a host->device copy: no sync per cycle
-            tyear = torch.full((), float(tyear), dtype=self.dtype,
-                               device=self.device)
-        row = solar_flux_traced(tyear, 4.0 * SOLC, self._slat, self._clat)
-        return row[:, None].expand(g.nlat, g.nlon)
+        return tisr_plane(tyear, self._slat, self._clat, self.geom.nlon)
 
     # ------------------------------------------------------------------
 
@@ -378,16 +355,17 @@ class HybridAtmosphere:
             with rf("inject_to_speedy"):
                 spec, safe = self.inject_to_speedy(atmo, logp)
             # the gate (ppo_iogrid.f90:563-577, mpires.f90:721) as a
-            # select: the window runs whatever the flag, and an unsafe
-            # state's forecast is replaced by the injected fields, so no
-            # NaN reaches the next state.  The driver stops on the flag.
-            ok = hstate.safe & safe
+            # select: the window runs whatever the flag, and where
+            # ok = prev & safe is false K20 keeps the injected fields in
+            # place of the forecast, so no NaN reaches the next state.
+            # The driver stops on the flag.
+            prev = hstate.safe if torch.is_tensor(hstate.safe) else \
+                torch.full((), bool(hstate.safe), device=self.device)
             with rf("speedy_window"):
-                w_atmo, w_logp, _ = self.speedy_window(
-                    spec, hstate.sst_grid, imon, fmon, tyear)
-            fc_atmo = torch.where(ok, w_atmo, atmo)
-            fc_logp = torch.where(ok, w_logp, logp)
-            safe = ok
+                gstate = self._run_window(spec, hstate.sst_grid, imon, fmon,
+                                          tyear)
+                fc_atmo, fc_logp, safe = self.gcm.grid_state(
+                    gstate.spectral, select=(prev, safe, atmo, logp))
         with rf("build_feedback"):
             tisr = self.tisr_field(tyear, hour_of_year)
             feedbacks = self.build_feedback(packs, atmo, logp, precip,

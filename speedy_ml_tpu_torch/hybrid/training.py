@@ -233,21 +233,17 @@ def generate_nature_run(gcm, date0, n_samples: int, timestep_hours: int = 6,
     if spinup_days:
         raise NotImplementedError(f"spinup_days > 0 runs GCM.run_days, "
                                   f"which comes with {SLAB_SLICE}")
-    state, _ = gcm.init_state(date0)
+    state, forcing = gcm.init_state(date0)
     date = date0
-    state = gcm.stepone(state, gcm.forcing_for(state.sfc, date.tyear))
+    state = gcm.stepone(state, forcing)
     steps = gcm.nsteps_day * timestep_hours // 24
     windows_per_day = 24 // timestep_hours
-    sht = gcm.sht
 
     def extract(s, pre_precip):
-        sp = s.spectral
-        u, v = sht.uv_grid(sp.vor[0], sp.div[0])
-        atmo = torch.stack([sht.spec_to_grid(sp.t[0]), u, v,
-                            sht.spec_to_grid(sp.tr[0, 0])])
+        # the window's exit: K15's physics stack, K6 and K20
+        atmo, logp, _ = gcm.grid_state(s.spectral)
         precip = (s.fluxes.precip - pre_precip) / (timestep_hours * 3600.0)
-        return dict(atmo=atmo, logp=sht.spec_to_grid(sp.ps[0]),
-                    precip=precip, sst=s.sfc.sst_am)
+        return dict(atmo=atmo, logp=logp, precip=precip, sst=s.sfc.sst_am)
 
     samples, snaps, dates = [], [], []
     while len(samples) < n_samples:

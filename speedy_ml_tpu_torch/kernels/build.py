@@ -32,15 +32,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags of single sources, after NVCC_FLAGS.  The column physics rounds
 # every operation apart (no FMA contraction): its convection decides by
-# comparing sums, as the plain version does.
+# comparing sums, as the plain version does; so does the window's entry
+# (K17), which reuses its humidity.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "column_moist.cu", "column_longwave.cu", "column_surface.cu",
-    "column_pbl.cu", "column_shortwave.cu")}
+    "column_pbl.cu", "column_shortwave.cu", "surface_forcing.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
+_dp = ctypes.POINTER(ctypes.c_double)
 # argtypes of every C entry point (csrc/*.cu)
 SIGNATURES = {
     "esn_step_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
@@ -82,6 +84,14 @@ SIGNATURES = {
     "flux_accumulate_launch": [_i, _ll, ctypes.POINTER(_vp),
                                ctypes.POINTER(_vp), ctypes.POINTER(_vp), _f,
                                _f, _vp],
+    "surface_forcing_launch": [_i, _i, _i, _i, ctypes.POINTER(_vp), _vp, _vp,
+                               _dp, ctypes.POINTER(_i), _vp],
+    "tisr_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _dp, _vp],
+    "inject_spectral_launch": [_i, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp,
+                               _vp, _vp, _vp, _vp],
+    "gate_check_launch": [_i, _i, _i, _ll, _vp, _dp, _vp, _vp, _vp],
+    "window_select_launch": [_i, _i, _i, _ll, _vp, _vp, _vp, _vp, _vp, _vp,
+                             _vp, _vp, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

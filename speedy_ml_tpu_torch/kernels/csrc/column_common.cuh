@@ -1,11 +1,13 @@
 // Shared by the column-physics bodies (column_moist.cuh,
 // column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
-// column_shortwave.cuh) and the headers of K7, K15 and K16
-// (grid_dynamics.cuh, spectral_stack.cuh, flux_accumulate.cuh): they
-// compile as CUDA device code and, with a host C++ compiler, as plain
-// functions.  Only exp, sqrt, pow and rint
-// leave the four basic operations; each has a float and a double form,
-// the function PyTorch's own kernel calls for the same operation.
+// column_shortwave.cuh) and the headers of K7, K15-K20
+// (grid_dynamics.cuh, spectral_stack.cuh, flux_accumulate.cuh,
+// surface_forcing.cuh, inject_spectral.cuh, gate_check.cuh,
+// window_select.cuh): they compile as CUDA device code and, with a host
+// C++ compiler, as plain functions.  Only exp, sqrt, pow, rint, cos, sin
+// and acos leave the four basic operations; each has a float and a
+// double form, the function PyTorch's own kernel calls for the same
+// operation.
 #pragma once
 
 #include <math.h>
@@ -28,6 +30,12 @@ COL_HD double col_pow(double x, double e) { return pow(x, e); }
 // round half to even, as torch.round does
 COL_HD float col_rint(float x) { return rintf(x); }
 COL_HD double col_rint(double x) { return rint(x); }
+COL_HD float col_cos(float x) { return cosf(x); }
+COL_HD double col_cos(double x) { return cos(x); }
+COL_HD float col_sin(float x) { return sinf(x); }
+COL_HD double col_sin(double x) { return sin(x); }
+COL_HD float col_acos(float x) { return acosf(x); }
+COL_HD double col_acos(double x) { return acos(x); }
 
 // The four basic operations rounded apart: the _rn intrinsics on the
 // device, which are never contracted into an FMA whatever the source's

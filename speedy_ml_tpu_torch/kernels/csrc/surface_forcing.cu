@@ -1,0 +1,126 @@
+// K17: the SPEEDY window's entry, the climatological surface and the
+// daily forcing's grid fields, one thread per grid point; K17b: the TISR
+// plane of the hybrid's feedback, one thread per grid point (the
+// arithmetic: surface_forcing.cuh, which says what is computed).
+//
+// Replaces (JAX package) speedy_ml_tpu/physics/land_sea.py:89-115,
+// 191-243 (forint, forin5, interp_climatology, init_surface_state), the
+// grid part of speedy_ml_tpu/physics/driver.py:132-175 daily_forcing,
+// physics/radiation.py:118-160 sol_oz_traced + solar_flux_traced and
+// hybrid/model.py:525-544 tisr_field.  In: five monthly tables (12 x 4,608
+// floats at T30) and up to nine (lat, lon) fields; out: 8 surface planes
+// and 11 forcing planes.
+//
+// Bound on an H100 SXM: memory, and latency-sized: at T30 ~0.44 MB read
+// and written, 0.13 us at 3.35 TB/s; ~300 FLOP a point (the solar rows'
+// sines and cosines are worked out again at every point of a row).
+// Design (a first one): blocks of 128 threads over the 4,608 points,
+// coalesced loads and stores, every operation rounded apart in the plain
+// version's order (compiled without FMA contraction, SOURCE_FLAGS in
+// kernels/build.py).
+
+#include "common.cuh"
+#include "surface_forcing.cuh"
+
+constexpr int kSfBlock = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kSfBlock)
+    surface_forcing_kernel(const SfIO<T> io) {
+  const long long i = (long long)blockIdx.x * kSfBlock + threadIdx.x;
+  if (i < io.G) surface_forcing_at(io, i);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSfBlock)
+    tisr_kernel(const SfScalars<T> s, const T* __restrict__ slat,
+                const T* __restrict__ clat, int nlon, long long G,
+                T* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kSfBlock + threadIdx.x;
+  if (i < G) tisr_at(s, slat, clat, nlon, out, i);
+}
+
+template <typename T>
+static SfScalars<T> scalars(const double* scal, const int* ix) {
+  SfScalars<T> s;
+  for (int k = 0; k < SC_COUNT; ++k) s.v[k] = (T)scal[k];
+  for (int k = 0; k < IX_COUNT; ++k) s.ix[k] = ix ? ix[k] : 0;
+  return s;
+}
+
+static unsigned blocks_for(long long G) {
+  return (unsigned)((G + kSfBlock - 1) / kSfBlock);
+}
+
+template <typename T>
+static void launch(int nlat, int nlon, const void* const* in, void* sfc,
+                   void* frc, const double* scal,
+                   const int* ix, cudaStream_t stream) {
+  SfIO<T> io;
+  const T* const* p = (const T* const*)in;
+  io.stl12 = p[0];
+  io.snowd12 = p[1];
+  io.soilw12 = p[2];
+  io.sst12 = p[3];
+  io.sice12 = p[4];
+  io.sst_hyb = p[5];
+  io.alb0 = p[6];
+  io.fmask_l = p[7];
+  io.fmask_s = p[8];
+  io.phis0 = p[9];
+  io.stl_am = p[10];
+  io.snowd_am = p[11];
+  io.sst_am = p[12];
+  io.sice_am = p[13];
+  io.slat = p[14];
+  io.clat = p[15];
+  io.sfc = (T*)sfc;
+  io.frc = (T*)frc;
+  io.G = (long long)nlat * nlon;
+  io.nlon = nlon;
+  io.s = scalars<T>(scal, ix);
+  surface_forcing_kernel<T><<<blocks_for(io.G), kSfBlock, 0, stream>>>(io);
+}
+
+// in: 16 pointers (surface_forcing.cuh SfIO order: stl12, snowd12,
+// soilw12, sst12, sice12, sst_hyb, alb0, fmask_l, fmask_s, phis0, stl_am,
+// snowd_am, sst_am, sice_am, slat, clat), the ones a call does not read
+// null; sfc (SF_PLANES, G) and frc (FC_PLANES, G), either null; scal:
+// SC_COUNT doubles, ix: IX_COUNT ints (kernels/surface_forcing.py).
+SPEEDY_API int surface_forcing_launch(int device, int is_double, int nlat,
+                                      int nlon, const void* const* in,
+                                      void* sfc, void* frc,
+                                      const double* scal, const int* ix,
+                                      void* stream) {
+  cudaError_t err = speedy_set_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nlat <= 0 || nlon <= 0 || (!sfc && !frc) || !scal || (sfc && !ix))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    launch<double>(nlat, nlon, in, sfc, frc, scal, ix, s);
+  else
+    launch<float>(nlat, nlon, in, sfc, frc, scal, ix, s);
+  return (int)cudaGetLastError();
+}
+
+// slat, clat (nlat); out (nlat, nlon); scal as above (SC_TYEAR,
+// SC_TWO_PI and SC_CSOLP are read).
+SPEEDY_API int tisr_launch(int device, int is_double, int nlat, int nlon,
+                           const void* slat, const void* clat, void* out,
+                           const double* scal, void* stream) {
+  cudaError_t err = speedy_set_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nlat <= 0 || nlon <= 0 || !scal) return (int)cudaErrorInvalidValue;
+  const long long G = (long long)nlat * nlon;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    tisr_kernel<double><<<blocks_for(G), kSfBlock, 0, s>>>(
+        scalars<double>(scal, nullptr), (const double*)slat,
+        (const double*)clat, nlon, G, (double*)out);
+  else
+    tisr_kernel<float><<<blocks_for(G), kSfBlock, 0, s>>>(
+        scalars<float>(scal, nullptr), (const float*)slat,
+        (const float*)clat, nlon, G, (float*)out);
+  return (int)cudaGetLastError();
+}

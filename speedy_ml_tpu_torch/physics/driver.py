@@ -21,13 +21,14 @@ read by the host.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
-from speedy_ml_tpu_torch.core.constants import GAMMA_LAPSE, REFRH1
+from speedy_ml_tpu_torch.core.constants import GAMMA_LAPSE
 from speedy_ml_tpu_torch.kernels import column_longwave
 from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
                                                       moist_tables)
@@ -36,13 +37,27 @@ from speedy_ml_tpu_torch.kernels.column_shortwave import (column_shortwave,
                                                           shortwave_tables)
 from speedy_ml_tpu_torch.kernels.surface_fluxes import (surface_fluxes,
                                                         surface_tables)
-from speedy_ml_tpu_torch.physics import constants as pc
+from speedy_ml_tpu_torch.kernels.surface_forcing import (FORCING, DayArgs,
+                                                         surface_forcing)
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.boundaries import BoundaryData
-from speedy_ml_tpu_torch.physics.humidity import qsat_from_t
-from speedy_ml_tpu_torch.physics.land_sea import SurfaceState
+from speedy_ml_tpu_torch.physics.land_sea import (CplFlags, SurfaceState,
+                                                  surface_state)
 
 OPTIONAL_SLICE = "the optional-physics slice of the port (A15)"
+VIEW_ALIGN = 64   # elements between the starts of zero_views' fields
+
+
+def zero_views(shapes, dtype, device=None) -> list:
+    """Zero tensors of the given shapes as views of one zeroed buffer: one
+    fill on the card, not one a field.  Each view starts at a multiple of
+    VIEW_ALIGN elements, aligned as an allocation of its own would be."""
+    sizes = [math.prod(s) for s in shapes]
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // VIEW_ALIGN) * VIEW_ALIGN)
+    buf = torch.zeros(starts[-1], dtype=dtype, device=device)
+    return [buf[o:o + n].view(s) for o, n, s in zip(starts, sizes, shapes)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +72,17 @@ class RadiationCarry:
     randfv: torch.Tensor    # (2, lat, K) RDF vertical modulation
 
     @staticmethod
+    def shapes(K, nlat, nlon) -> list:
+        """The fields' shapes, in the field order."""
+        G = (nlat, nlon)
+        return [(K, 4) + G, (2,) + G, (K,) + G, G, G, G, (2, nlat, K)]
+
+    @staticmethod
     def zeros(K, nlat, nlon, dtype, device=None):
-        z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
-        return RadiationCarry(tau2=z(K, 4, nlat, nlon),
-                              stratc=z(2, nlat, nlon),
-                              tt_rsw=z(K, nlat, nlon), ssrd=z(nlat, nlon),
-                              ssr=z(nlat, nlon), tsr=z(nlat, nlon),
-                              randfv=z(2, nlat, K))
+        """A zero carry: views of one zeroed buffer (one fill on the
+        card)."""
+        shapes = RadiationCarry.shapes(K, nlat, nlon)
+        return RadiationCarry(*zero_views(shapes, dtype, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +151,11 @@ class PhysicsModel:
         self.grdscp = t(np.asarray(grdsig / constants.cp, dtype=np_dt))
         self.sig_t = t(sig)
         self.slat_t, self.clat_t = t(geom.sin_lat), t(geom.cos_lat)
+        # the diffusion corrections' lapse-rate constants
+        # (ini_fordate.f90:72-113), Python numbers as the JAX package's
+        self.gamlat = GAMMA_LAPSE / (1000.0 * constants.grav)
+        self.pexp = 1.0 / (constants.rgas / constants.akap * 0.0
+                           + 287.0 * self.gamlat)
         self.fband = rad.build_fband()
         # the tables of the column kernels and their plain versions
         self.moist_tabs = moist_tables(sig, dsig, self.sig_t, self.wvi2_t,
@@ -146,39 +170,45 @@ class PhysicsModel:
 
     # ------------------------------------------------------------------
 
+    def day_args(self, tyear) -> DayArgs:
+        """What K17 needs for the forcing of day tyear (a host number; a
+        0-d tensor only on the CPU)."""
+        return DayArgs(tyear, self.slat_t, self.clat_t, self.gamlat,
+                       self.pexp)
+
     def daily_forcing(self, bd: BoundaryData, sfc: SurfaceState, tyear,
                       sht) -> DailyForcing:
         """fordate(1): solar forcing, surface albedo, diffusion
-        corrections.  tyear: a float or a 0-d tensor on the device (a
-        float becomes a device fill, so no copy from the host).  The
-        zonal solar fields are stored as contiguous (lat, lon) planes, as
-        the shortwave kernel reads them."""
-        c = self.const
-        if not torch.is_tensor(tyear):
-            tyear = torch.full((), float(tyear), dtype=self.dtype,
-                               device=self.device)
-        sol = rad.SolarForcing(*torch.stack(rad.sol_oz_traced(
-            tyear, self.slat_t, self.clat_t, self.geom.nlon)))
-        snowc = torch.clamp(sfc.snowd_am / pc.SD2SC, max=1.0)
-        alb_l = bd.alb0 + snowc * (pc.ALBSN - bd.alb0)
-        alb_s = pc.ALBSEA + sfc.sice_am * (pc.ALBICE - pc.ALBSEA)
-        albsfc = alb_s + bd.fmask_l * (alb_l - alb_s)
+        corrections, of the surface sfc: one K17 launch (the grid fields,
+        the zonal solar fields as contiguous (lat, lon) planes, as the
+        shortwave kernel reads them) and one K5 launch (tcorh and
+        qcorh)."""
+        _, frc = surface_forcing(bd, sfc=sfc, day=self.day_args(tyear))
+        return self.forcing_of(frc, sht)
 
-        # T/q correction terms for the horizontal diffusion
-        # (ini_fordate.f90:72-113); one analysis launch for both
-        gamlat = GAMMA_LAPSE / (1000.0 * c.grav)
-        corh = gamlat * bd.phis0
-        pexp = 1.0 / (c.rgas / c.akap * 0.0 + 287.0 * gamlat)
-        tsfc = bd.fmask_l * sfc.stl_am + bd.fmask_s * sfc.sst_am
-        tref_s = tsfc + corh
-        psfc = (tsfc / tref_s) ** pexp
-        qref = qsat_from_t(tref_s, torch.ones_like(tref_s))
-        qsfc = qsat_from_t(tsfc, psfc)
-        spec = sht.analysis(torch.stack([corh, REFRH1 * (qref - qsfc)]))
-        return DailyForcing(fsol=sol.fsol, ozupp=sol.ozupp, ozone=sol.ozone,
-                            zenit=sol.zenit, stratz=sol.stratz, alb_l=alb_l,
-                            alb_s=alb_s, albsfc=albsfc, snowc=snowc,
-                            tcorh=spec[0], qcorh=spec[1])
+    def surface_and_forcing(self, bd: BoundaryData, imon, fmon, tyear, sht,
+                            sst_hybrid=None, sst_bias: float = 0.0,
+                            flags: CplFlags = CplFlags()):
+        """(init_surface_state(bd, imon, fmon, sst_hybrid, sst_bias,
+        flags), daily_forcing of that surface at tyear) in one K17 launch
+        and the K5 analysis: the window's entry."""
+        planes, frc = surface_forcing(bd, month=(imon, fmon),
+                                      sst_hybrid=sst_hybrid,
+                                      sst_bias=sst_bias,
+                                      day=self.day_args(tyear))
+        return surface_state(planes, flags.icsea), self.forcing_of(frc, sht)
+
+    @staticmethod
+    def forcing_of(frc, sht) -> DailyForcing:
+        """The DailyForcing of K17's FORCING planes: the planes as they
+        are, tcorh and qcorh from one analysis of the first two."""
+        p = dict(zip(FORCING, frc))
+        spec = sht.analysis(frc[:2])
+        return DailyForcing(fsol=p["fsol"], ozupp=p["ozupp"],
+                            ozone=p["ozone"], zenit=p["zenit"],
+                            stratz=p["stratz"], alb_l=p["alb_l"],
+                            alb_s=p["alb_s"], albsfc=p["albsfc"],
+                            snowc=p["snowc"], tcorh=spec[0], qcorh=spec[1])
 
     # ------------------------------------------------------------------
 
