@@ -19,20 +19,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      every class, each class timed beside torch.bmm, the ML-only form
      checked and timed), K3 window gather, K4 core scatter,
      K15 spectral_stack (both stacks at the leapfrog's (jd, jp) = (1, 0)
-     and stepone's (0, 0), bit-identical to the plain versions, a copy
-     with uvspec's n-shifts reversed must fail; timed as the median of
-     SHT_SESSIONS sessions), K5 sht_analysis, K6 sht_synthesis (each
-     also at every stack size and 1/cos split of the coupled cycle: K6
-     50, 41, 32 fields, K5 73, 33, 2, checked and timed as the
-     median of SHT_SESSIONS sessions), K7 grid_dynamics (within K7_ULPS,
-     timed as the median of SHT_SESSIONS sessions),
+     and stepone's (0, 0), the dynamics stack alone (the dry core's) and
+     the physics stack alone (the window exit's), bit-identical to the
+     plain versions, a copy with uvspec's n-shifts reversed must fail;
+     timed as the median of SHT_SESSIONS sessions), K5 sht_analysis,
+     K6 sht_synthesis (each also at every stack size and 1/cos split of
+     the coupled cycle: K6 50, 41, 32 fields, K5 73, 33, 2, checked and
+     timed as the median of SHT_SESSIONS sessions), K7 grid_dynamics
+     (within K7_ULPS, timed as the median of SHT_SESSIONS sessions),
      K8 spectral_tail (the filtered leapfrog step, and stepone's two
      steps, j1 = 1 with imp_half and imp_full; timed as the median of
      SHT_SESSIONS sessions), K9 column_moist, K10a radlw_down, K10b
      radlw_up, K11 surface_fluxes, K12 column_pbl, K13 column_shortwave
      (the column physics: in float64 against the plain float64 version,
      then in float32 with the columns whose integer outputs differ
-     counted; K9 and K12 must be bit-identical in both, no column
+     counted; K9, K10b and K12 must be bit-identical in both, no column
      flipped, and are timed as the median of SHT_SESSIONS sessions),
      K16 flux_accumulate (bit-identical, timed as the median of
      SHT_SESSIONS sessions), K17 surface_forcing (the window's entry on
@@ -1320,28 +1321,32 @@ def main():
     imp = dyn.imp_double
     corr = (forcing.tcorh, forcing.qcorh)
 
-    # K15: both spectral stacks of this state at the leapfrog's levels
-    # (jd, jp) = (1, 0) and at stepone's first step's (0, 0), each against
-    # its plain version: the same values, as every operation is rounded
-    # apart in the plain version's order.  Negative control: a copy of the
-    # dynamics stack whose u cos, v cos take uvspec's n-1 and n+1
-    # neighbours the other way round must fail
+    # K15: the spectral stacks of this state at the leapfrog's levels
+    # (jd, jp) = (1, 0), at stepone's first step's (0, 0), the dynamics
+    # stack alone (the dry core's) and the physics stack alone (the
+    # window exit's), each against its plain version: the same values, as
+    # every operation is rounded apart in the plain version's order.
+    # Negative control: a copy of the dynamics stack whose u cos, v cos
+    # take uvspec's n-1 and n+1 neighbours the other way round must fail
     MN = g.mx * g.nx
     flat = lambda a: a.reshape(-1, MN)
     err15 = 0.0
-    for jd_, jp_ in ((1, 0), (0, 0)):
-        kd, kp = spectral_stack(dyn, st, gcm.phis, jd_, jp_)
-        pd = dynamics_stack_plain(dyn, st, jd_)
-        pp = physics_stack_plain(dyn, st, jp_, gcm.phis)
-        ed, ep = max_abs_diff(torch, kd, pd), max_abs_diff(torch, kp, pp)
-        log(f"K15 at (jd, jp) = ({jd_}, {jp_}): dynamics stack "
-            f"{tuple(kd.shape)} max_abs_err={ed:.3e} "
-            f"({per_field_err(torch, flat(kd), flat(pd))[0]:.3e} of a "
-            f"field's scale), physics stack {tuple(kp.shape)} "
-            f"max_abs_err={ep:.3e} "
-            f"({per_field_err(torch, flat(kp), flat(pp))[0]:.3e}) "
-            f"(tolerance 0)")
-        err15 = max(err15, ed, ep)
+    for jd_, jp_ in ((1, 0), (0, 0), (1, None), (None, 0)):
+        kst = spectral_stack(dyn, st, gcm.phis, jd_, jp_)
+        pst = (None if jd_ is None else dynamics_stack_plain(dyn, st, jd_),
+               None if jp_ is None else physics_stack_plain(dyn, st, jp_,
+                                                            gcm.phis))
+        parts = []
+        for nm, k_, p_ in zip(("dynamics", "physics"), kst, pst):
+            if p_ is None:
+                continue
+            e_ = max_abs_diff(torch, k_, p_)
+            rel_ = per_field_err(torch, flat(k_), flat(p_))[0]
+            parts.append(f"{nm} stack {tuple(k_.shape)} max_abs_err="
+                         f"{e_:.3e} ({rel_:.3e} of a field's scale)")
+            err15 = max(err15, e_)
+        log(f"K15 at (jd, jp) = ({jd_}, {jp_}): " + ", ".join(parts)
+            + " (tolerance 0)")
     kd, _ = spectral_stack(dyn, st, gcm.phis, 1, None)
     vor1, div1 = st.vor[1], st.div[1]
     ctl = kd.clone()
@@ -1641,15 +1646,15 @@ def main():
     fx4 = sfk.surface_fluxes(*sfc_args[:6],
                              **dict(zip(sfc_kw, sfc_args[6:])),
                              tabs=phys.sfc_tabs)
+    up_args = (tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2], dn4[3],
+               carry4.tau2, carry4.stratc)
     ok &= column_check(
         "K10b_radlw_up", csrc + "column_longwave.cu",
         "speedy_ml_tpu/physics/radiation.py:381", clw.radlw_up, up_plain,
-        (tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2], dn4[3],
-         carry4.tau2, carry4.stratc), phys.lw_tabs, phys64.lw_tabs,
+        up_args, phys.lw_tabs, phys64.lw_tabs,
         lambda o: dict(slr=o[0], olr=o[1], dfabs=o[2]), (),
-        (8 * K + 9) + (K + 2), 60 * K)
-    up4 = clw.radlw_up(tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2],
-                       dn4[3], carry4.tau2, carry4.stratc, phys.lw_tabs)
+        (8 * K + 9) + (K + 2), 60 * K, exact=True)
+    up4 = clw.radlw_up(*up_args, phys.lw_tabs)
     pbl_names = ("utend", "vtend", "ttend", "qtend", "hflux_i")
     ok &= column_check(
         "K12_column_pbl", csrc + "column_pbl.cu",

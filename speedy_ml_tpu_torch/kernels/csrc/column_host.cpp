@@ -1,8 +1,8 @@
 // Host build of the column-physics bodies (column_moist.cuh,
 // column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
 // column_shortwave.cuh): the same per-column code the CUDA kernels K9-K13
-// run, looped over the columns on the CPU, and K9's and K12's blocks with
-// their threads written out as loops.  It is not part of the
+// run, looped over the columns on the CPU, and K9's, K10b's and K12's
+// blocks with their threads written out as loops.  It is not part of the
 // kernel library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC column_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions, so that a logic error
@@ -118,6 +118,48 @@ extern "C" int radlw_up_host(int K, int is_double, const void* ta,
                          (const T*)flux_bands, (const T*)st4a_mean,        \
                          (const T*)st4a_grad, (const T*)tau2,              \
                          (const T*)stratc, (const T*)blob, (T*)out);       \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+// K10b's block (the lwup_block_* phases) with its threads written out as
+// loops and its shared memory starting as NaN, as K9's above; C = 32
+// columns a block, as the kernel's.
+extern "C" int radlw_up_block_host(int K, int is_double, const void* ta,
+                                   const void* ts, const void* slrd,
+                                   const void* slru_sfc, const void* dfabs,
+                                   const void* flux_bands,
+                                   const void* st4a_mean,
+                                   const void* st4a_grad, const void* tau2,
+                                   const void* stratc, const void* blob,
+                                   int G, void* out) {
+  constexpr int C = 32;
+#define CALL(T, KK)                                                         \
+  {                                                                         \
+    const LongwaveTab<T, KK> tb((const T*)blob);                            \
+    std::unique_ptr<LwUpShared<T, KK, C>> sh(new LwUpShared<T, KK, C>);     \
+    std::unique_ptr<LwUpReg<T>[]> r(new LwUpReg<T>[KK * C]);                \
+    for (int b = 0; b * C < G; ++b) {                                       \
+      memset(sh.get(), 0xff, sizeof *sh);                                   \
+      memset(r.get(), 0xff, sizeof(LwUpReg<T>) * KK * C);                   \
+      for (int k = 0; k < KK; ++k)                                          \
+        for (int x = 0; x < C; ++x)                                         \
+          lwup_block_load(tb, G, (const T*)ta, (const T*)ts,                \
+                          (const T*)slrd, (const T*)slru_sfc,               \
+                          (const T*)dfabs, (const T*)flux_bands,            \
+                          (const T*)st4a_mean, (const T*)st4a_grad,         \
+                          (const T*)tau2, (const T*)stratc, *sh,            \
+                          r[k * C + x], b * C + x, x, k);                   \
+      for (int jb = 0; jb < 4; ++jb)                                        \
+        for (int x = 0; x < C; ++x)                                         \
+          lwup_block_band(G, *sh, b * C + x, x, jb);                        \
+      for (int k = 0; k < KK; ++k)                                          \
+        for (int x = 0; x < C; ++x)                                         \
+          lwup_block_sums(tb, G, (T*)out, *sh, r[k * C + x], b * C + x, x,  \
+                          k);                                               \
+    }                                                                       \
   }
   HOST_DISPATCH(CALL)
 #undef CALL

@@ -12,9 +12,11 @@
 // once: each band's flux recursion and each level's absorbed-flux sum
 // see the same operations in the same order either way.
 //
-// tau2 is read from memory inside the loops (32 values a column, each
-// used once a pass); the Planck terms and the absorbed flux stay in
-// registers.
+// The upward pass is the lwup_block_* phases of K10b's block, C columns
+// x K warps handing on through shared memory; radlw_up_at runs them for
+// one column (the host build's loop).  In radlw_down_at tau2 is read
+// from memory inside the loops (32 values a column, each used once a
+// pass); the Planck terms and the absorbed flux stay in registers.
 #pragma once
 
 #include "column_common.cuh"
@@ -110,46 +112,6 @@ COL_HD void radlw_down_body(const LongwaveTab<T, K>& tb, const T (&ta)[K],
   slrd = slrd + corlw;
 }
 
-// Upward pass of one column.  dfabs and flux come in from the downward
-// pass (flux as flux_bands) and leave updated.  Out: slr, olr.
-template <typename T, int K>
-COL_HD void radlw_up_body(const LongwaveTab<T, K>& tb, const T (&ta)[K],
-                          T ts, T slrd, T slru_sfc, T (&dfabs)[K],
-                          T (&flux)[4], const T (&mean)[K],
-                          const T (&grad)[K], const T* tau2, size_t G,
-                          T stratc0, T stratc1, T& slr, T& olr) {
-  slr = slru_sfc - slrd;
-  T f[4];
-  fband4(ts, tb.eps1, f);
-#pragma unroll
-  for (int jb = 0; jb < 4; ++jb)
-    flux[jb] = f[jb] * slru_sfc + tb.refsfc * flux[jb];
-  dfabs[K - 1] = dfabs[K - 1] + tb.epslw * slru_sfc;
-#pragma unroll
-  for (int k = K - 1; k >= 0; --k) {
-    fband4(ta[k], tb.eps1, f);
-#pragma unroll
-    for (int jb = 0; jb < 4; ++jb) {
-      // level 0 takes part in bands 0 and 1 only
-      if (k == 0 && jb >= 2) continue;
-      const T tau = tau2[(size_t)(k * 4 + jb) * G];
-      const T emis = T(1) - tau;
-      const T brad = f[jb] * (mean[k] - emis * grad[k]);
-      dfabs[k] = dfabs[k] + flux[jb];
-      flux[jb] = tau * flux[jb] + emis * brad;
-      dfabs[k] = dfabs[k] - flux[jb];
-    }
-  }
-  // stratospheric corrections
-  const T corlw1 = tb.dsig[0] * stratc1 * mean[0] + stratc0;
-  const T corlw2 = tb.dsig[1] * stratc1 * mean[1];
-  dfabs[0] = dfabs[0] - corlw1;
-  dfabs[1] = dfabs[1] - corlw2;
-  olr = corlw1 + corlw2;
-#pragma unroll
-  for (int jb = 0; jb < 4; ++jb) olr = olr + flux[jb];
-}
-
 // Column c of G, downward: load, body, store.  ta (K, G), tau2
 // (K, 4, G).  out: slrd (G), dfabs (K, G), flux (4, G), st4a_mean
 // (K, G), st4a_grad (K, G).
@@ -177,31 +139,155 @@ COL_HD void radlw_down_at(int c, int G, const T* ta, const T* tau2,
   for (int jb = 0; jb < 4; ++jb) o_flux[(size_t)jb * G + c] = flux[jb];
 }
 
-// Column c of G, upward.  ts, slrd, slru_sfc (G); dfabs, st4a_mean,
-// st4a_grad (K, G); flux_bands (4, G); tau2 (K, 4, G); stratc (2, G).
-// out: slr (G), olr (G), dfabs (K, G).
+// ---- K10b's block: C neighbouring columns, one warp (threadIdx.y) per
+// level k.  Each lwup_block_* function is what thread (x, k) of the block
+// does between two barriers (x: the column in the block, c: the column in
+// the grid); the four band recursions are independent, so band jb runs
+// on warp jb (K >= 4), and each level's absorbed flux takes its bands'
+// terms in the plain version's order: + the flux entering, - the flux
+// leaving, band 0 first.
+
+template <typename T, int K, int C>
+struct LwUpShared {
+  static_assert(K >= 4, "the four band recursions need four warps");
+  T f[K][4][C];              // the band fractions at ta[k]
+  T tau[K][4][C];            // tau2
+  T mean[K][C], grad[K][C];  // st4a_mean, st4a_grad
+  T fin[K][4][C];            // band jb's flux entering level k from below
+  T fout[K][4][C];           // and leaving it upward
+  T flux[4][C];              // the band fluxes at the surface, then the top
+};
+
+// What thread (x, k) keeps in registers from the load to the sums: its
+// level's absorbed flux and Planck term; the surface and stratospheric
+// planes on the warps that use them (0 elsewhere).
+template <typename T>
+struct LwUpReg {
+  T dfabs, mean, slru, slrd, stratc0, stratc1;
+};
+
+// Phase 1, every warp: level k of tau2 (four bands), st4a_mean and
+// st4a_grad into shared memory with the band fractions at ta[k]; dfabs
+// into registers.  Warp 0 also loads the surface planes and forms the
+// band fluxes leaving the surface (fband4(ts) slru_sfc + refsfc
+// flux_bands); warp 1 loads stratc[1] and the lowest level's warp
+// slru_sfc, for the sums.
+template <typename T, int K, int C>
+COL_HD void lwup_block_load(const LongwaveTab<T, K>& tb, int G, const T* ta,
+                            const T* ts, const T* slrd, const T* slru_sfc,
+                            const T* dfabs, const T* flux_bands,
+                            const T* st4a_mean, const T* st4a_grad,
+                            const T* tau2, const T* stratc,
+                            LwUpShared<T, K, C>& sh, LwUpReg<T>& r, int c,
+                            int x, int k) {
+  if (c >= G) return;
+  const size_t i = (size_t)k * G + c;
+  const T t = ta[i];
+  T tau[4];
+#pragma unroll
+  for (int jb = 0; jb < 4; ++jb) tau[jb] = tau2[(size_t)(k * 4 + jb) * G + c];
+  r.dfabs = dfabs[i];
+  r.mean = st4a_mean[i];
+  const T grad = st4a_grad[i];
+  r.slru = r.slrd = r.stratc0 = r.stratc1 = T(0);
+  T fb[4], s0 = T(0);
+  if (k == 0) {
+    s0 = ts[c];
+    r.slru = slru_sfc[c];
+    r.slrd = slrd[c];
+    r.stratc0 = stratc[c];
+#pragma unroll
+    for (int jb = 0; jb < 4; ++jb) fb[jb] = flux_bands[(size_t)jb * G + c];
+  }
+  if (k <= 1) r.stratc1 = stratc[(size_t)G + c];
+  if (k == K - 1) r.slru = slru_sfc[c];
+  T f[4];
+  fband4(t, tb.eps1, f);
+#pragma unroll
+  for (int jb = 0; jb < 4; ++jb) {
+    sh.f[k][jb][x] = f[jb];
+    sh.tau[k][jb][x] = tau[jb];
+  }
+  sh.mean[k][x] = r.mean;
+  sh.grad[k][x] = grad;
+  if (k == 0) {
+    fband4(s0, tb.eps1, f);
+#pragma unroll
+    for (int jb = 0; jb < 4; ++jb)
+      sh.flux[jb][x] = f[jb] * r.slru + tb.refsfc * fb[jb];
+  }
+}
+
+// Phase 2, warps 0-3: the recursion of band jb up column x (level 0 takes
+// part in bands 0 and 1 only).
+template <typename T, int K, int C>
+COL_HD void lwup_block_band(int G, LwUpShared<T, K, C>& sh, int c, int x,
+                            int jb) {
+  if (c >= G) return;
+  T flux = sh.flux[jb][x];
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k) {
+    if (k == 0 && jb >= 2) break;
+    const T tau = sh.tau[k][jb][x];
+    const T emis = T(1) - tau;
+    const T brad = sh.f[k][jb][x] * (sh.mean[k][x] - emis * sh.grad[k][x]);
+    sh.fin[k][jb][x] = flux;
+    flux = tau * flux + emis * brad;
+    sh.fout[k][jb][x] = flux;
+  }
+  sh.flux[jb][x] = flux;
+}
+
+// Phase 3, every warp: dfabs of level k, with the stratospheric
+// corrections on levels 0 and 1, stored; warp 0 also forms slr and olr.
+// out: slr (G), olr (G), dfabs (K, G), as radlw_up_at's.
+template <typename T, int K, int C>
+COL_HD void lwup_block_sums(const LongwaveTab<T, K>& tb, int G, T* out,
+                            const LwUpShared<T, K, C>& sh,
+                            const LwUpReg<T>& r, int c, int x, int k) {
+  if (c >= G) return;
+  T d = r.dfabs;
+  if (k == K - 1) d = d + tb.epslw * r.slru;
+  const int nb = k == 0 ? 2 : 4;
+#pragma unroll
+  for (int jb = 0; jb < 4; ++jb) {
+    if (jb >= nb) break;
+    d = d + sh.fin[k][jb][x];
+    d = d - sh.fout[k][jb][x];
+  }
+  if (k <= 1) {
+    const T corlw2 = tb.dsig[1] * r.stratc1 * sh.mean[1][x];
+    if (k == 0) {
+      const T corlw1 = tb.dsig[0] * r.stratc1 * r.mean + r.stratc0;
+      d = d - corlw1;
+      T olr = corlw1 + corlw2;
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb) olr = olr + sh.flux[jb][x];
+      out[c] = r.slru - r.slrd;
+      out[(size_t)G + c] = olr;
+    } else {
+      d = d - corlw2;
+    }
+  }
+  out[(size_t)(2 + k) * G + c] = d;
+}
+
+// Column c of G, upward: K10b's phases for one column (C = 1), its
+// threads run one after another.  ts, slrd, slru_sfc (G); dfabs,
+// st4a_mean, st4a_grad (K, G); flux_bands (4, G); tau2 (K, 4, G); stratc
+// (2, G).  out: slr (G), olr (G), dfabs (K, G).
 template <typename T, int K>
 COL_HD void radlw_up_at(int c, int G, const T* ta, const T* ts,
-                        const T* slrd, const T* slru_sfc, const T* dfabs_in,
+                        const T* slrd, const T* slru_sfc, const T* dfabs,
                         const T* flux_bands, const T* st4a_mean,
                         const T* st4a_grad, const T* tau2, const T* stratc,
                         const T* blob, T* out) {
   const LongwaveTab<T, K> tb(blob);
-  T t[K], dfabs[K], flux[4], mean[K], grad[K], slr, olr;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    t[k] = ta[(size_t)k * G + c];
-    dfabs[k] = dfabs_in[(size_t)k * G + c];
-    mean[k] = st4a_mean[(size_t)k * G + c];
-    grad[k] = st4a_grad[(size_t)k * G + c];
-  }
-#pragma unroll
-  for (int jb = 0; jb < 4; ++jb) flux[jb] = flux_bands[(size_t)jb * G + c];
-  radlw_up_body<T, K>(tb, t, ts[c], slrd[c], slru_sfc[c], dfabs, flux, mean,
-                      grad, tau2 + c, (size_t)G, stratc[c],
-                      stratc[(size_t)G + c], slr, olr);
-  out[c] = slr;
-  out[(size_t)G + c] = olr;
-#pragma unroll
-  for (int k = 0; k < K; ++k) out[(size_t)(2 + k) * G + c] = dfabs[k];
+  LwUpShared<T, K, 1> sh;
+  LwUpReg<T> r[K];
+  for (int k = 0; k < K; ++k)
+    lwup_block_load(tb, G, ta, ts, slrd, slru_sfc, dfabs, flux_bands,
+                    st4a_mean, st4a_grad, tau2, stratc, sh, r[k], c, 0, k);
+  for (int jb = 0; jb < 4; ++jb) lwup_block_band(G, sh, c, 0, jb);
+  for (int k = 0; k < K; ++k) lwup_block_sums(tb, G, out, sh, r[k], c, 0, k);
 }

@@ -1,7 +1,7 @@
 // K15: the spectral stacks that feed K6 (the dynamics stack of a step and
-// the physics stack), one launch a step; a block per zonal wavenumber m,
-// thread (n, k) on coefficient n of level k (the arithmetic and the
-// block's phases: spectral_stack.cuh, which says what is computed).
+// the physics stack), one launch a step; a warp per row (m, level k), lane
+// n on coefficient n (the arithmetic and the lanes' phases:
+// spectral_stack.cuh, which says what is computed).
 //
 // Replaces (JAX package) speedy_ml_tpu/core/spectral.py:340-364 uvspec
 // and grad, speedy_ml_tpu/dycore/model.py:233 geopotential and the
@@ -10,28 +10,52 @@
 // levels each at T30L8), phis.  Out: 50 + 41 fields of (31, 32) complex.
 //
 // Bound on an H100 SXM: memory, and latency-sized: ~0.53 MB read and
-// ~0.72 MB written, 0.37 us at 3.35 TB/s, for ~0.1 MFLOP.  Design (a
-// first one): 31 blocks of 32 x 8 threads; the threads of level k load
-// level k of the row m (coalesced along n), store the copied fields at
-// once and keep vor, div and t in shared memory, so that the n +- 1
-// shifts of uvspec and the bottom-up sum of phi read shared memory; after
-// one barrier each thread forms its outputs.  Every operation is rounded
-// apart (no FMA contraction), in the plain version's order, so the kernel
-// gives the plain version's values.
+// ~0.72 MB written, 0.37 us at 3.35 TB/s, for ~0.1 MFLOP.  Design: 248
+// warps at T30L8 (31 rows m x 8 levels), kStackWarps to a block, with no
+// shared memory and no barrier (of 1, 2, 4 and 8 warps a block, 2 and 4
+// ran fastest inside the window on an H100, within 1% of each other; a
+// block per m sharing the t values through shared memory behind one
+// barrier ran slower: PERF.md).  Each lane
+// issues every load it needs before its first operation (the state, the
+// tables at (m, n), phis and the t values of the levels below it that
+// its phi sum reads, re-read from L2 by each level's warp), so their
+// latencies overlap; the n +- 1 neighbours of uvspec and grad come
+// through __shfl_up_sync and __shfl_down_sync.  Every operation is
+// rounded apart (no FMA contraction), in the plain version's order, so
+// the kernel gives the plain version's values.
 
 #include "common.cuh"
 #include "spectral_stack.cuh"
 
+// warps a block
+constexpr int kStackWarps = 4;
+
 template <int K>
-__global__ void __launch_bounds__(STACK_MAX_N * 8)
+__global__ void __launch_bounds__(32 * kStackWarps)
     spectral_stack_kernel(const StackIO<float> io,
                           const float* __restrict__ blob) {
-  __shared__ StackShared<float, K> sh;
+  const int w = blockIdx.x * kStackWarps + threadIdx.y;
+  const int m = w / K, k = w - m * K, n = threadIdx.x;
+  // a warp leaves whole; the exchanges name all of its lanes
+  if (m >= io.mx) return;
   const StackTab<float, K> tb(blob, io.mx, io.nx);
-  const int n = threadIdx.x, k = threadIdx.y, m = blockIdx.x;
-  stack_block_load(io, sh, m, n, k);
-  __syncthreads();
-  stack_block_out(tb, io, sh, m, n, k);
+  StackLane<float, K> L;
+  stack_lane_load(L, io, tb, m, n, k);
+  StackNb<float> nb;
+  auto xch = [&](stack_c<float> StackLane<float, K>::*f, int d) {
+    const stack_c<float> v = L.*f;
+    stack_c<float> r;
+    if (d < 0) {
+      r.x = __shfl_up_sync(0xffffffffu, v.x, 1);
+      r.y = __shfl_up_sync(0xffffffffu, v.y, 1);
+    } else {
+      r.x = __shfl_down_sync(0xffffffffu, v.x, 1);
+      r.y = __shfl_down_sync(0xffffffffu, v.y, 1);
+    }
+    return r;
+  };
+  stack_exchange(L, io, xch, nb);
+  stack_lane_out(L, nb, io);
 }
 
 // K levels (5, 7 or 8), one tracer, nx <= STACK_MAX_N.  vor, div, t (2, K,
@@ -66,15 +90,18 @@ SPEEDY_API int spectral_stack_launch(int device, int K, int mx, int nx,
   io.nx = nx;
   cudaStream_t s = (cudaStream_t)stream;
   const float* b = (const float*)blob;
+  const dim3 block(32, kStackWarps);
+  const unsigned grid =
+      (unsigned)((mx * K + kStackWarps - 1) / kStackWarps);
   switch (K) {
     case 5:
-      spectral_stack_kernel<5><<<mx, dim3(nx, 5), 0, s>>>(io, b);
+      spectral_stack_kernel<5><<<grid, block, 0, s>>>(io, b);
       break;
     case 7:
-      spectral_stack_kernel<7><<<mx, dim3(nx, 7), 0, s>>>(io, b);
+      spectral_stack_kernel<7><<<grid, block, 0, s>>>(io, b);
       break;
     case 8:
-      spectral_stack_kernel<8><<<mx, dim3(nx, 8), 0, s>>>(io, b);
+      spectral_stack_kernel<8><<<grid, block, 0, s>>>(io, b);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -31,13 +31,19 @@
 // so a float scalar such as xgeop1[k] multiplies as the float32 value the
 // plain version's complex64 product sees.
 //
-// The block: one zonal wavenumber m, thread (n, k) on coefficient n of
-// level k.  stack_block_load: each thread loads level k of its
-// coefficient, writes the stacks' copied fields, and puts vor, div (both
-// levels) and t (level jp) and, on level 0, ps in shared memory;
-// stack_block_out: each thread forms level k's u cos and v cos from its
-// n +- 1 neighbours, phi of level k from the levels below it, and on
-// level 0 the gradient of ps.
+// The lanes: a warp per row (m, level k), lane n on coefficient n (nx <=
+// 32; the lanes from nx on load and store nothing).  A lane runs
+// three phases:
+//   stack_lane_load  every read of the lane, before any operation: level
+//                    k of the state at the stacks' levels, ps on level 0,
+//                    its table entries, phis and the t values of the
+//                    levels its phi sum reads;
+//   stack_exchange   the n-1 and n+1 neighbours of vor and div (and, on
+//                    level 0, of ps), one value a call of `xch` (the
+//                    kernel: __shfl_up_sync / __shfl_down_sync; the host
+//                    build: a copy from the neighbouring lane);
+//   stack_lane_out   the copied fields, uvspec, grad on level 0 and phi
+//                    bottom up with the m = 0 correction, stored.
 #pragma once
 
 #include "column_common.cuh"
@@ -107,14 +113,6 @@ struct StackIO {
   int jd, jp, mx, nx;
 };
 
-template <typename T, int K>
-struct StackShared {
-  stack_c<T> vor_d[K][STACK_MAX_N], div_d[K][STACK_MAX_N];   // level jd
-  stack_c<T> vor_p[K][STACK_MAX_N], div_p[K][STACK_MAX_N];   // level jp
-  stack_c<T> t_p[K][STACK_MAX_N];
-  stack_c<T> ps_d[STACK_MAX_N];
-};
-
 // ---- the pieces, in the order of the plain version
 
 // uvspec at one coefficient: vr, vc, vl are vor at n-1, n, n+1 (zero
@@ -132,20 +130,6 @@ COL_HD void stack_uv(T uvdx, T uvdym, T uvdyp, T zrow, stack_c<T> vr,
   v = sc_add(sc_add(sc_rmul(-uvdym, dr), sc_rmul(uvdyp, dl)), zp);
 }
 
-// phi of level k from t of levels k .. K-1 (t[l][n]): the bottom-up sum
-// phis + x1[K-1] t[K-1], then for l = K-2 down to k
-// (phi + x2[l+1] t[l+1]) + x1[l] t[l].
-template <typename T, int K>
-COL_HD stack_c<T> stack_phi(const StackTab<T, K>& tb, stack_c<T> phis,
-                            const stack_c<T> (&t)[K][STACK_MAX_N], int n,
-                            int k) {
-  stack_c<T> phi = sc_add(phis, sc_rmul(tb.x1[K - 1], t[K - 1][n]));
-  for (int l = K - 2; l >= k; --l)
-    phi = sc_add(sc_add(phi, sc_rmul(tb.x2[l + 1], t[l + 1][n])),
-                 sc_rmul(tb.x1[l], t[l][n]));
-  return phi;
-}
-
 // The lapse-rate correction of level k (m = 0, 0 < k < K-1):
 // phi + corf[k] (t[k+1] - t[k-1]).
 template <typename T>
@@ -161,73 +145,169 @@ COL_HD stack_c<T> stack_at(const stack_c<T>* row, int i, int nx) {
   return (i >= 0 && i < nx) ? row[i] : sc_mk(T(0), T(0));
 }
 
-// ---- the block's phases, thread (n, k) of block m
+// ---- the lanes: lane n of the warp on row (m, k)
 
+// What a lane reads, all in stack_lane_load.  The state: vor, div, t, tr
+// at level jd (vd, dd, td, qd) and vor, div, tr at level jp (vp, dp, qp);
+// ps at both levels on level 0; tp[l], t at level jp of level l, for the
+// levels l >= k the phi sum reads and, on m = 0, l = k - 1 too.  The
+// tables at (m, n) and the (K,) geopotential tables.  A field the lane's
+// stacks do not read is left unset, and so is every field of a lane from
+// nx on: the exchange hands a value on only from a lane inside the row.
 template <typename T, int K>
-COL_HD void stack_block_load(const StackIO<T>& io, StackShared<T, K>& sh,
-                             int m, int n, int k) {
-  const size_t MN = (size_t)io.mx * io.nx;
-  const size_t c = (size_t)m * io.nx + n;
-  if (io.dyn) {
-    const size_t lv = ((size_t)io.jd * K + k) * MN + c;
-    const stack_c<T> vor = io.vor[lv], div = io.div[lv];
-    sh.vor_d[k][n] = vor;
-    sh.div_d[k][n] = div;
-    io.dyn[(size_t)k * MN + c] = vor;
-    io.dyn[(size_t)(K + k) * MN + c] = div;
-    io.dyn[(size_t)(2 * K + k) * MN + c] = io.t[lv];
-    io.dyn[(size_t)(3 * K + k) * MN + c] = io.tr[lv];
-    if (k == 0) sh.ps_d[n] = io.ps[(size_t)io.jd * MN + c];
-  }
-  if (io.phy) {
-    const size_t lv = ((size_t)io.jp * K + k) * MN + c;
-    const stack_c<T> t = io.t[lv];
-    sh.vor_p[k][n] = io.vor[lv];
-    sh.div_p[k][n] = io.div[lv];
-    sh.t_p[k][n] = t;
-    io.phy[(size_t)k * MN + c] = t;
-    io.phy[(size_t)(K + k) * MN + c] = io.tr[lv];
-    if (k == 0)
-      io.phy[(size_t)3 * K * MN + c] = io.ps[(size_t)io.jp * MN + c];
-  }
+struct StackLane {
+  int m, n, k;
+  bool live;  // n < nx: the lane stores
+  stack_c<T> vd, dd, td, qd, psd;
+  stack_c<T> vp, dp, qp, psp, phis, tp[K];
+  T uvdx, uvdym, uvdyp, zrow, gradx, gradym, gradyp, corf;
+  T x1[K], x2[K];
+};
+
+// The neighbours a lane receives: [0] lane n-1's value, [1] lane n+1's,
+// zero beyond the row's ends.
+template <typename T>
+struct StackNb {
+  stack_c<T> vd[2], dd[2], psd[2], vp[2], dp[2];
+};
+
+// a[k] for a k known only at run time, without indexing the array by it
+// (which would leave it in local memory on the card)
+template <typename T, int K>
+COL_HD stack_c<T> stack_pick(const stack_c<T> (&a)[K], int k) {
+  stack_c<T> r = a[0];
+#pragma unroll
+  for (int l = 1; l < K; ++l)
+    if (l == k) r = a[l];
+  return r;
 }
 
 template <typename T, int K>
-COL_HD void stack_block_out(const StackTab<T, K>& tb, const StackIO<T>& io,
-                            const StackShared<T, K>& sh, int m, int n,
-                            int k) {
-  const int nx = io.nx;
-  const size_t MN = (size_t)io.mx * nx;
-  const size_t c = (size_t)m * nx + n;
-  const T uvdx = tb.uvdx[c], uvdym = tb.uvdym[c], uvdyp = tb.uvdyp[c];
-  const T zrow = tb.zrow[n];
-  stack_c<T> u, v;
+COL_HD void stack_lane_load(StackLane<T, K>& L, const StackIO<T>& io,
+                            const StackTab<T, K>& tb, int m, int n, int k) {
+  const size_t MN = (size_t)io.mx * io.nx;
+  const size_t c = (size_t)m * io.nx + n;
+  L.m = m;
+  L.n = n;
+  L.k = k;
+  L.live = n < io.nx;
+  if (!L.live) return;
+  L.uvdx = tb.uvdx[c];
+  L.uvdym = tb.uvdym[c];
+  L.uvdyp = tb.uvdyp[c];
+  L.zrow = tb.zrow[n];
   if (io.dyn) {
-    stack_uv(uvdx, uvdym, uvdyp, zrow, stack_at(sh.vor_d[k], n - 1, nx),
-             sh.vor_d[k][n], stack_at(sh.vor_d[k], n + 1, nx),
-             stack_at(sh.div_d[k], n - 1, nx), sh.div_d[k][n],
-             stack_at(sh.div_d[k], n + 1, nx), u, v);
-    io.dyn[(size_t)(4 * K + k) * MN + c] = u;
-    io.dyn[(size_t)(5 * K + k) * MN + c] = v;
+    const size_t lv = ((size_t)io.jd * K + k) * MN + c;
+    L.vd = io.vor[lv];
+    L.dd = io.div[lv];
+    L.td = io.t[lv];
+    L.qd = io.tr[lv];
     if (k == 0) {
-      // grad: (i gradx) ps; -gradym ps[n-1] + gradyp ps[n+1]
-      io.dyn[(size_t)6 * K * MN + c] = sc_imul(tb.gradx[m], sh.ps_d[n]);
-      io.dyn[(size_t)(6 * K + 1) * MN + c] =
-          sc_add(sc_rmul(-tb.gradym[c], stack_at(sh.ps_d, n - 1, nx)),
-                 sc_rmul(tb.gradyp[c], stack_at(sh.ps_d, n + 1, nx)));
+      L.psd = io.ps[(size_t)io.jd * MN + c];
+      L.gradx = tb.gradx[m];
+      L.gradym = tb.gradym[c];
+      L.gradyp = tb.gradyp[c];
     }
   }
   if (io.phy) {
-    stack_uv(uvdx, uvdym, uvdyp, zrow, stack_at(sh.vor_p[k], n - 1, nx),
-             sh.vor_p[k][n], stack_at(sh.vor_p[k], n + 1, nx),
-             stack_at(sh.div_p[k], n - 1, nx), sh.div_p[k][n],
-             stack_at(sh.div_p[k], n + 1, nx), u, v);
-    io.phy[(size_t)(3 * K + 1 + k) * MN + c] = u;
-    io.phy[(size_t)(4 * K + 1 + k) * MN + c] = v;
-    stack_c<T> phi = stack_phi(tb, io.phis[c], sh.t_p, n, k);
-    if (m == 0 && k > 0 && k < K - 1)
-      phi = stack_phi_corr(tb.corf[k], phi, sh.t_p[k + 1][n],
-                           sh.t_p[k - 1][n]);
-    io.phy[(size_t)(2 * K + k) * MN + c] = phi;
+    const size_t j0 = (size_t)io.jp * K * MN + c;
+    L.vp = io.vor[j0 + (size_t)k * MN];
+    L.dp = io.div[j0 + (size_t)k * MN];
+    L.qp = io.tr[j0 + (size_t)k * MN];
+    if (k == 0) L.psp = io.ps[(size_t)io.jp * MN + c];
+    L.phis = io.phis[c];
+    const int lo = (m == 0 && k > 0) ? k - 1 : k;
+#pragma unroll
+    for (int l = 0; l < K; ++l)
+      if (l >= lo) {
+        L.tp[l] = io.t[j0 + (size_t)l * MN];
+        L.x1[l] = tb.x1[l];
+        L.x2[l] = tb.x2[l];
+      }
+    L.corf = tb.corf[k];
+  }
+}
+
+// xch(f, d): lane n + d's value of the field L.*f (d = -1 or +1), called
+// by every lane of the warp together.  (On the card xch is a device
+// lambda: the pragma keeps nvcc from warning of its host instantiation,
+// which is never made.)
+#if defined(__CUDACC__) && !defined(__clang__)
+#pragma nv_exec_check_disable
+#endif
+template <typename T, int K, typename X>
+COL_HD void stack_exchange(const StackLane<T, K>& L, const StackIO<T>& io,
+                           X xch, StackNb<T>& nb) {
+  typedef StackLane<T, K> Ln;
+  const stack_c<T> z = sc_mk(T(0), T(0));
+  const bool lo = L.n > 0, hi = L.n + 1 < io.nx;
+  auto pair = [&](stack_c<T> Ln::*f, stack_c<T>(&d)[2]) {
+    const stack_c<T> a = xch(f, -1), b = xch(f, 1);
+    d[0] = lo ? a : z;
+    d[1] = hi ? b : z;
+  };
+  if (io.dyn) {
+    pair(&Ln::vd, nb.vd);
+    pair(&Ln::dd, nb.dd);
+    if (L.k == 0) pair(&Ln::psd, nb.psd);
+  }
+  if (io.phy) {
+    pair(&Ln::vp, nb.vp);
+    pair(&Ln::dp, nb.dp);
+  }
+}
+
+// phi of the lane's level before the m = 0 correction: phis + x1[K-1]
+// t[K-1], then for l = K-2 down to k (phi + x2[l+1] t[l+1]) + x1[l] t[l].
+template <typename T, int K>
+COL_HD stack_c<T> stack_lane_phi(const StackLane<T, K>& L) {
+  stack_c<T> phi = sc_add(L.phis, sc_rmul(L.x1[K - 1], L.tp[K - 1]));
+#pragma unroll
+  for (int l = K - 2; l >= 0; --l)
+    if (l >= L.k)
+      phi = sc_add(sc_add(phi, sc_rmul(L.x2[l + 1], L.tp[l + 1])),
+                   sc_rmul(L.x1[l], L.tp[l]));
+  return phi;
+}
+
+template <typename T, int K>
+COL_HD void stack_lane_out(const StackLane<T, K>& L, const StackNb<T>& nb,
+                           const StackIO<T>& io) {
+  if (!L.live) return;
+  const int k = L.k;
+  const size_t MN = (size_t)io.mx * io.nx;
+  const size_t c = (size_t)L.m * io.nx + L.n;
+  stack_c<T> u, v;
+  if (io.dyn) {
+    stack_c<T>* o = io.dyn + c;
+    o[(size_t)k * MN] = L.vd;
+    o[(size_t)(K + k) * MN] = L.dd;
+    o[(size_t)(2 * K + k) * MN] = L.td;
+    o[(size_t)(3 * K + k) * MN] = L.qd;
+    stack_uv(L.uvdx, L.uvdym, L.uvdyp, L.zrow, nb.vd[0], L.vd, nb.vd[1],
+             nb.dd[0], L.dd, nb.dd[1], u, v);
+    o[(size_t)(4 * K + k) * MN] = u;
+    o[(size_t)(5 * K + k) * MN] = v;
+    if (k == 0) {
+      // grad: (i gradx) ps; -gradym ps[n-1] + gradyp ps[n+1]
+      o[(size_t)6 * K * MN] = sc_imul(L.gradx, L.psd);
+      o[(size_t)(6 * K + 1) * MN] = sc_add(sc_rmul(-L.gradym, nb.psd[0]),
+                                           sc_rmul(L.gradyp, nb.psd[1]));
+    }
+  }
+  if (io.phy) {
+    stack_c<T>* o = io.phy + c;
+    o[(size_t)k * MN] = stack_pick(L.tp, k);
+    o[(size_t)(K + k) * MN] = L.qp;
+    if (k == 0) o[(size_t)3 * K * MN] = L.psp;
+    stack_uv(L.uvdx, L.uvdym, L.uvdyp, L.zrow, nb.vp[0], L.vp, nb.vp[1],
+             nb.dp[0], L.dp, nb.dp[1], u, v);
+    o[(size_t)(3 * K + 1 + k) * MN] = u;
+    o[(size_t)(4 * K + 1 + k) * MN] = v;
+    stack_c<T> phi = stack_lane_phi(L);
+    if (L.m == 0 && k > 0 && k < K - 1)
+      phi = stack_phi_corr(L.corf, phi, stack_pick(L.tp, k + 1),
+                           stack_pick(L.tp, k - 1));
+    o[(size_t)(2 * K + k) * MN] = phi;
   }
 }

@@ -1,9 +1,9 @@
 // Host build of K15's and K16's arithmetic (spectral_stack.cuh,
-// flux_accumulate.cuh): K15's blocks with their threads written out as
-// loops in phase order and their shared memory starting as NaN, so that a
-// phase reading what the load phase did not write shows; K16's loop over
-// the grid points.  It is not part of the kernel library; the CPU tests
-// compile it with a host C++ compiler
+// flux_accumulate.cuh): K15's warps with their lanes written out as loops
+// in phase order, the exchange of neighbours as copies and each lane's
+// registers starting as NaN, so that a phase reading what the load phase
+// did not set shows; K16's loop over the grid points.  It is not part of
+// the kernel library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC stack_host.cpp -o lib.so
 // and hold both against the plain PyTorch versions bit for bit.  The
 // entry points take the launch's arguments less the device and the
@@ -13,53 +13,50 @@
 #include <string.h>
 
 #include <memory>
+#include <utility>
 
 #include "flux_accumulate.cuh"
 #include "spectral_stack.cuh"
 
 namespace {
 
-// One thread's outputs with a fault planted (a negative control the tests
-// must see): 1, uvspec's n-1 and n+1 neighbours swapped; 2, the m = 0
-// lapse-rate correction of phi left out.
+// The lanes of every warp written out as loops, phase by phase, the
+// exchange as a copy from the neighbouring lane, with a fault planted or
+// none (0): 1, uvspec's n-1 and n+1 neighbours swapped; 2, the m = 0
+// lapse-rate correction of phi left out (negative controls the tests must
+// see).  A lane's struct starts as NaN bytes, so a phase reading what the
+// load did not set shows.
 template <typename T, int K>
-void out_fault(const StackTab<T, K>& tb, const StackIO<T>& io,
-               const StackShared<T, K>& sh, int m, int n, int k, int fault) {
-  stack_block_out(tb, io, sh, m, n, k);
-  const int nx = io.nx;
-  const size_t MN = (size_t)io.mx * nx, c = (size_t)m * nx + n;
-  if (fault == 1) {
-    auto swapped = [&](const stack_c<T>(&vr)[K][STACK_MAX_N],
-                       const stack_c<T>(&dv)[K][STACK_MAX_N], stack_c<T>* u,
-                       stack_c<T>* v) {
-      stack_uv(tb.uvdx[c], tb.uvdym[c], tb.uvdyp[c], tb.zrow[n],
-               stack_at(vr[k], n + 1, nx), vr[k][n],
-               stack_at(vr[k], n - 1, nx), stack_at(dv[k], n + 1, nx),
-               dv[k][n], stack_at(dv[k], n - 1, nx), *u, *v);
-    };
-    if (io.dyn)
-      swapped(sh.vor_d, sh.div_d, &io.dyn[(size_t)(4 * K + k) * MN + c],
-              &io.dyn[(size_t)(5 * K + k) * MN + c]);
-    if (io.phy)
-      swapped(sh.vor_p, sh.div_p, &io.phy[(size_t)(3 * K + 1 + k) * MN + c],
-              &io.phy[(size_t)(4 * K + 1 + k) * MN + c]);
-  } else if (fault == 2 && io.phy) {
-    io.phy[(size_t)(2 * K + k) * MN + c] =
-        stack_phi(tb, io.phis[c], sh.t_p, n, k);
-  }
-}
-
-template <typename T, int K>
-void blocks(const StackIO<T>& io, const T* blob, int fault) {
+void lanes(const StackIO<T>& io, const T* blob, int fault) {
+  typedef StackLane<T, K> Ln;
   const StackTab<T, K> tb(blob, io.mx, io.nx);
-  std::unique_ptr<StackShared<T, K>> sh(new StackShared<T, K>);
-  for (int m = 0; m < io.mx; ++m) {
-    memset(sh.get(), 0xff, sizeof *sh);
-    for (int k = 0; k < K; ++k)
-      for (int n = 0; n < io.nx; ++n) stack_block_load(io, *sh, m, n, k);
-    for (int k = 0; k < K; ++k)
-      for (int n = 0; n < io.nx; ++n) out_fault(tb, io, *sh, m, n, k, fault);
-  }
+  std::unique_ptr<Ln[]> L(new Ln[STACK_MAX_N]);
+  std::unique_ptr<StackNb<T>[]> nb(new StackNb<T>[STACK_MAX_N]);
+  for (int m = 0; m < io.mx; ++m)
+    for (int k = 0; k < K; ++k) {
+      memset(L.get(), 0xff, sizeof(Ln) * STACK_MAX_N);
+      memset(nb.get(), 0xff, sizeof(StackNb<T>) * STACK_MAX_N);
+      for (int n = 0; n < STACK_MAX_N; ++n)
+        stack_lane_load(L[n], io, tb, m, n, k);
+      for (int n = 0; n < STACK_MAX_N; ++n) {
+        // a shuffle outside the warp returns the lane's own value
+        auto xch = [&](stack_c<T> Ln::*f, int d) {
+          const int j = n + d;
+          return (j >= 0 && j < STACK_MAX_N) ? L[j].*f : L[n].*f;
+        };
+        stack_exchange(L[n], io, xch, nb[n]);
+        if (fault == 1) {
+          StackNb<T>& b = nb[n];
+          for (stack_c<T>* d : {b.vd, b.dd, b.vp, b.dp}) std::swap(d[0], d[1]);
+        }
+      }
+      for (int n = 0; n < STACK_MAX_N; ++n) {
+        stack_lane_out(L[n], nb[n], io);
+        if (fault == 2 && io.phy && L[n].live)
+          io.phy[(size_t)(2 * K + k) * io.mx * io.nx + (size_t)m * io.nx +
+                 n] = stack_lane_phi(L[n]);
+      }
+    }
 }
 
 template <typename T>
@@ -98,8 +95,8 @@ void fluxes(long long G, const void* const* acc, const void* const* diag,
 
 }  // namespace
 
-// K15's blocks, with a fault planted in the output phase or none (0).
-extern "C" int stack_block_host(int K, int is_double, int mx, int nx,
+// K15's warps, with a fault planted or none (0).
+extern "C" int stack_lanes_host(int K, int is_double, int mx, int nx,
                                 const void* vor, const void* div,
                                 const void* tem, const void* ps,
                                 const void* tr, const void* phis,
@@ -107,7 +104,7 @@ extern "C" int stack_block_host(int K, int is_double, int mx, int nx,
                                 void* phy, int fault) {
   if (nx > STACK_MAX_N) return 1;
 #define CALL(T, KK)                                                         \
-  blocks<T, KK>(stack_io<T>(mx, nx, vor, div, tem, ps, tr, phis, jd, jp,    \
+  lanes<T, KK>(stack_io<T>(mx, nx, vor, div, tem, ps, tr, phis, jd, jp,    \
                             dyn, phy),                                      \
                 (const T*)blob, fault);
   switch (K) {

@@ -17,7 +17,9 @@ numpy) go through
       (chip_smoke.column_errors: columns whose itop/icnv differ at most
       0.5 %, the others within 1e-5 of each output's scale); and K9's
       block, its threads written out as loops, against the per-column
-      body bit for bit.
+      body bit for bit, and K10b's block against its phases run a column
+      at a time (K = 5, 7, 8, both dtypes, 1 to 100 columns, an
+      aquaplanet and a mixed land mask).
 The wrappers' operand checks and the table buffers are tested too.  The
 launch code itself runs only on a card (chip_smoke.py).
 """
@@ -245,7 +247,8 @@ def host_lib(tmp_path_factory):
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr_in in (("column_moist_host", 5),
                            ("column_moist_block_host", 5),
-                           ("radlw_down_host", 3), ("radlw_up_host", 11)):
+                           ("radlw_down_host", 3), ("radlw_up_host", 11),
+                           ("radlw_up_block_host", 11)):
         fn = getattr(lib, name)
         n_out = 2 if name.startswith("column_moist") else 1
         fn.argtypes = [i, i] + [vp] * n_ptr_in + [i] + [vp] * n_out
@@ -294,6 +297,76 @@ def host_up(lib, ta, ts, slrd, slru, dfabs, flux, st4a, tau2, stratc, tabs):
                stratc, tabs.blob), nlat * nlon, *_ptrs(out))
     assert rc == 0
     return out[0], out[1], out[2:]
+
+
+def host_up_block(lib, ta, ts, slrd, slru, dfabs, flux, st4a, tau2, stratc,
+                  tabs):
+    """K10b's block (32 columns x K warps) built for the host: (slr, olr,
+    dfabs) as host_up's."""
+    K, nlat, nlon = ta.shape
+    out = torch.full((K + 2, nlat, nlon), float("nan"), dtype=ta.dtype)
+    rc = lib.radlw_up_block_host(
+        K, int(ta.dtype == torch.float64),
+        *_ptrs(ta, ts, slrd, slru, dfabs, flux, st4a[0], st4a[1], tau2,
+               stratc, tabs.blob), nlat * nlon, *_ptrs(out))
+    assert rc == 0
+    return out[0], out[1], out[2:]
+
+
+def up_block_case(seed, K, ncols, surface, dtype):
+    """radlw_up's operands on one row of `ncols` columns: a lapse-rate
+    profile with noise (some temperatures on a half, where the band table
+    rounds half to even), tau2 in (0.05, 1), stratc in (0, 2), and the
+    surface of an aquaplanet (SST in 271-303 K) or of a seeded mixed land
+    mask (land in 230-320 K beside the same sea); slrd, dfabs, flux_bands
+    and st4a from the plain downward pass."""
+    rng = np.random.default_rng(seed)
+    sig = np.linspace(0.5 / K, 1 - 0.5 / K, K)
+    sst = rng.uniform(271.0, 303.0, ncols)
+    if surface == "aquaplanet":
+        ts = sst
+    else:
+        land = rng.random(ncols) < 0.4
+        ts = np.where(land, rng.uniform(230.0, 320.0, ncols), sst)
+    ts[::3] = np.floor(ts[::3]) + 0.5
+    ta = np.stack([ts - 62.0 * (1.0 - sig[k]) + rng.normal(0, 4.0, ncols)
+                   for k in range(K)])
+    ta[:, 1::4] = np.floor(ta[:, 1::4]) + 0.5
+    row = lambda a: _t(a, dtype).reshape(*a.shape[:-1], 1, ncols) \
+        .contiguous()
+    ta_, ts_ = row(ta), row(ts)
+    tau2 = row(rng.uniform(0.05, 1.0, (K, 4, ncols)))
+    stratc = row(rng.uniform(0.0, 2.0, (2, ncols)))
+    slru = row(0.98 * 5.67e-8 * ts ** 4)
+    tabs = phys_for(dtype, K).lw_tabs
+    slrd, dfabs, flux, st4a = clw.radlw_down(ta_, tau2, tabs)
+    st4a = tuple(a.contiguous() for a in st4a)
+    return (ta_, ts_, slrd.contiguous(), slru, dfabs.contiguous(),
+            flux.contiguous(), st4a, tau2, stratc, tabs)
+
+
+@pytest.mark.parametrize("surface", ["aquaplanet", "mixed_land"])
+@pytest.mark.parametrize("ncols", [1, 31, 33, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("K", [5, 7, 8])
+def test_host_longwave_up_block_matches_column_body(host_lib, K, dtype,
+                                                    ncols, surface):
+    """K10b's block (32 columns x K warps: the loads and the sums a level
+    to a warp, the four band recursions a band to a warp, handed on
+    through shared memory that starts as NaN) gives its phases run for
+    one column at a time (radlw_up_at, C = 1) bit for bit, and the plain
+    version's values; 1, 31, 33 and 100 columns leave the last block
+    partly empty."""
+    args = up_block_case(900 + 10 * K + ncols, K, ncols, surface, dtype)
+    ref = host_up(host_lib, *args)
+    got = host_up_block(host_lib, *args)
+    for name, a, b in zip(("slr", "olr", "dfabs"), got, ref):
+        assert not a.isnan().any(), name
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    # and the plain version's values (float64 to 1e-12; float32 by
+    # chip_smoke's rule: the host's libm is not PyTorch's)
+    _hold(up_dict(got), up_dict(clw.radlw_up(*args)), dtype)
 
 
 def _hold(got: dict, ref: dict, dtype, ints=()):

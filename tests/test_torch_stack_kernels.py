@@ -3,19 +3,20 @@
 
 kernels/csrc/stack_host.cpp compiles the headers the CUDA kernels include
 (spectral_stack.cuh, flux_accumulate.cuh) for the host with g++
--ffp-contract=off: K15's blocks (one zonal wavenumber m, thread (n, k) on
-coefficient n of level k) with their threads written out as loops in
-phase order and their shared memory starting as NaN, and K16's loop over
-the grid points.  On spectral states made from a seed with numpy (red
-noise in the total wavenumber, real at m = 0, the two leapfrog levels
-different, every coefficient of the (mx, nx) arrays set):
+-ffp-contract=off: K15's warps (one per row (m, level k), lane n on
+coefficient n) with their lanes written out as loops in phase order, the
+exchange of the n +- 1 neighbours as copies and each lane's registers
+starting as NaN, and K16's loop over the grid points.  On spectral
+states made from a seed with numpy (red noise in the total wavenumber,
+real at m = 0, the two leapfrog levels different, every coefficient of
+the (mx, nx) arrays set):
   - at K = 5, 7 and 8, T10 and T30, (jd, jp) = (1, 0) and (0, 0), the
-    blocks write both stacks equal to the plain versions bit for bit, in
+    lanes write both stacks equal to the plain versions bit for bit, in
     float32 and float64; each stack alone likewise, the other untouched;
   - K16's body equals flux_accumulate_plain bit for bit in both dtypes;
-  - in float64 the blocks agree with the JAX package's uvspec, grad,
+  - in float64 the lanes agree with the JAX package's uvspec, grad,
     geopotential and the two stacks it builds (1e-12 of each field's
-    scale);
+    scale), at K = 5, 7 and 8, both pairs of levels and each stack alone;
   - uvspec's n-1 and n+1 neighbours swapped, and the m = 0 geopotential
     correction left out, both fail the comparison (negative controls);
   - a dycore step makes one K15 call at (j2-1, 0) (the dry core at
@@ -72,9 +73,9 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     ptrs = ctypes.POINTER(vp)
-    lib.stack_block_host.argtypes = [i] * 4 + [vp] * 7 + [i, i, vp, vp, i]
+    lib.stack_lanes_host.argtypes = [i] * 4 + [vp] * 7 + [i, i, vp, vp, i]
     lib.flux_host.argtypes = [i, ctypes.c_longlong, ptrs, ptrs, ptrs, d, d]
-    lib.stack_block_host.restype = lib.flux_host.restype = i
+    lib.stack_lanes_host.restype = lib.flux_host.restype = i
     return lib
 
 
@@ -114,7 +115,7 @@ def _ptr(t):
 
 
 def run_host(lib, dyn, state, phis, jd, jp, fault=0):
-    """K15's blocks built for the host: (dynamics stack or None, physics
+    """K15's warps built for the host: (dynamics stack or None, physics
     stack or None); every output starts as NaN."""
     g = dyn.geom
     K, mx, nx = g.nlev, g.mx, g.nx
@@ -128,7 +129,7 @@ def run_host(lib, dyn, state, phis, jd, jp, fault=0):
                                             dtype=cd)
     op = None if jp is None else torch.full((5 * K + 1, mx, nx), nan,
                                             dtype=cd)
-    rc = lib.stack_block_host(
+    rc = lib.stack_lanes_host(
         K, int(real == torch.float64), mx, nx,
         *(_ptr(getattr(state, k)) for k in ("vor", "div", "t", "ps", "tr")),
         _ptr(phis), _ptr(blob), jd or 0, jp or 0, _ptr(od), _ptr(op), fault)
@@ -173,39 +174,58 @@ def test_one_stack_alone(lib, which, dtype):
             assert torch.equal(g_, r_)
 
 
-@pytest.mark.parametrize("geom", ["T10", "T30"])
-def test_blocks_match_jax(lib, geom):
-    """The float64 blocks against the JAX package's operators and the
+def hold_against_jax(lib, geom, K, jd, jp, seed):
+    """The float64 lanes against the JAX package's operators and the
     stacks it builds from them (grid_tendencies' order for the dynamics,
-    the port's order [t, q, phi, ps | u, v] for the physics)."""
-    K = 8
+    the port's order [t, q, phi, ps | u, v] for the physics), at levels
+    jd and jp (None: that stack left out), on red_state(seed)."""
     dyn = dycore(geom, K, torch.float64)
-    jd = JDycore(JGeometry(nlev=K, **GEOMS[geom]), dtype=jnp.float64,
-                 zonal="dft")
-    state, phis = red_state(11, dyn.geom, torch.float64)
-    got_d, got_p = run_host(lib, dyn, state, phis, 1, 0)
+    jdy = JDycore(JGeometry(nlev=K, **GEOMS[geom]), dtype=jnp.float64,
+                  zonal="dft")
+    state, phis = red_state(seed, dyn.geom, torch.float64)
+    got_d, got_p = run_host(lib, dyn, state, phis, jd, jp)
+    assert (got_d is None) == (jd is None) and (got_p is None) == (jp is None)
     js = {k: jnp.asarray(getattr(state, k).numpy())
           for k in SpectralState.FIELDS}
-    jsht = jd.sht
+    jsht = jdy.sht
     mx, nx = dyn.geom.mx, dyn.geom.nx
-    u1, v1 = jsht.uvspec(js["vor"][1], js["div"][1])
-    px, py = jsht.grad(js["ps"][1])
-    u0, v0 = jsht.uvspec(js["vor"][0], js["div"][0])
-    phi = jd.geopotential(js["t"][0], jnp.asarray(phis.numpy()))
-    ref_d = jnp.concatenate([js["vor"][1], js["div"][1], js["t"][1],
-                             js["tr"][1].reshape(K, mx, nx), u1, v1,
-                             px[None], py[None]])
-    ref_p = jnp.concatenate([js["t"][0], js["tr"][0, 0], phi,
-                             js["ps"][0][None], u0, v0])
-    pieces = {"uvspec u": (got_d[4 * K:5 * K], u1),
-              "uvspec v": (got_d[5 * K:6 * K], v1),
-              "grad": (got_d[6 * K:], jnp.stack([px, py])),
-              "geopotential": (got_p[2 * K:3 * K], phi),
-              "dynamics stack": (got_d, ref_d),
-              "physics stack": (got_p, ref_p)}
+    pieces = {}
+    if jd is not None:
+        u1, v1 = jsht.uvspec(js["vor"][jd], js["div"][jd])
+        px, py = jsht.grad(js["ps"][jd])
+        ref_d = jnp.concatenate([js["vor"][jd], js["div"][jd], js["t"][jd],
+                                 js["tr"][jd].reshape(K, mx, nx), u1, v1,
+                                 px[None], py[None]])
+        pieces.update({"uvspec u": (got_d[4 * K:5 * K], u1),
+                       "uvspec v": (got_d[5 * K:6 * K], v1),
+                       "grad": (got_d[6 * K:], jnp.stack([px, py])),
+                       "dynamics stack": (got_d, ref_d)})
+    if jp is not None:
+        u0, v0 = jsht.uvspec(js["vor"][jp], js["div"][jp])
+        phi = jdy.geopotential(js["t"][jp], jnp.asarray(phis.numpy()))
+        ref_p = jnp.concatenate([js["t"][jp], js["tr"][jp, 0], phi,
+                                 js["ps"][jp][None], u0, v0])
+        pieces.update({"geopotential": (got_p[2 * K:3 * K], phi),
+                       "physics stack": (got_p, ref_p)})
     for name, (got, ref) in pieces.items():
         err = field_err(got, torch.as_tensor(np.array(ref)))
         assert err <= RTOL_F64, (name, err)
+
+
+@pytest.mark.parametrize("geom", ["T10", "T30"])
+def test_blocks_match_jax(lib, geom):
+    hold_against_jax(lib, geom, 8, 1, 0, 11)
+
+
+@pytest.mark.parametrize("jd,jp", LEVELS + [(1, None), (None, 0)],
+                         ids=["jd1_jp0", "jd0_jp0", "dynamics", "physics"])
+@pytest.mark.parametrize("K", [5, 7, 8])
+def test_lanes_match_jax_at_each_level_count(lib, K, jd, jp):
+    """The lanes at every K the kernel is compiled for, at the levels of a
+    leapfrog step, of stepone's first step, and each stack alone (the dry
+    core's, the window exit's), against the JAX package at T10 (nx = 12:
+    lanes 12-31 of each warp masked)."""
+    hold_against_jax(lib, "T10", K, jd, jp, 11 + K)
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
