@@ -29,12 +29,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      (within K7_ULPS, timed as the median of SHT_SESSIONS sessions),
      K8 spectral_tail (the filtered leapfrog step, and stepone's two
      steps, j1 = 1 with imp_half and imp_full; timed as the median of
-     SHT_SESSIONS sessions), K9 column_moist, K10a radlw_down, K10b
-     radlw_up, K11 surface_fluxes, K12 column_pbl, K13 column_shortwave
-     (the column physics: in float64 against the plain float64 version,
-     then in float32 with the columns whose integer outputs differ
-     counted; K9, K10b and K12 must be bit-identical in both, no column
-     flipped, and are timed as the median of SHT_SESSIONS sessions),
+     SHT_SESSIONS sessions), K9 column_moist, K10a_down_surface (the
+     downward longwave and the surface fluxes in one launch, against
+     radlw_down followed by suflux), K10b radlw_up, K12 column_pbl, K13
+     column_shortwave (the column physics: in float64 against the plain
+     float64 version, then in float32 with the columns whose integer
+     outputs differ counted; K9, K10a_down_surface, K10b and K12 must be
+     bit-identical in both, no column flipped, and are timed as the
+     median of SHT_SESSIONS sessions),
      K16 flux_accumulate (bit-identical, timed as the median of
      SHT_SESSIONS sessions), K17 surface_forcing (the window's entry on
      this cycle's date and SST, and on a seeded mixed land mask with sea
@@ -55,17 +57,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      counter set to 0 before and read after; fields finite, T in
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
-  7. the coupled main path, run_prediction: launches of K1-K13 and
-     K15-K20 (K5-K9, K12, K15-K20 at most LAUNCHES_PER_CYCLE a cycle),
+  7. the coupled main path, run_prediction: launches of every kernel
+     (K5-K9, K10a_down_surface, K12, K15-K20 at most LAUNCHES_PER_CYCLE
+     a cycle),
      cycle_ms (median and range of 5 x 20 cycles), device busy, idle
      share, device launches per cycle (at most LAUNCHES_MAX in the
      5-cycle profile) and how many of them plain, device ms per stage,
      every plain launch of each stage listed (at most PLAIN_MAX a cycle
      in all), the window's launches split into kernel and plain launches,
-     per kernel inside the window (K5-K13, K15-K17, K20) and per physics
-     kernel, the top device ops; a profiled physics step (with and
-     without the shortwave) must show no device op but the kernels
-     K9-K13; physical checks (safe, finite, T in [150, 350] K);
+     per kernel inside the window (K5-K10b, K12, K13, K15-K17, K20) and
+     per physics kernel, the top device ops; a profiled physics step
+     (with and without the shortwave) must show no device op but the
+     kernels K9, K10a_down_surface, K10b, K12 and K13; physical checks
+     (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
      finite, and run_prediction stops by cycle 2; a NaN written into the
@@ -130,7 +134,8 @@ TAIL_RTOL = 1e-5
 SHT_SESSIONS = 5
 LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
                       "K7_grid_dynamics": 26, "K8_spectral_tail": 26,
-                      "K9_column_moist": 26, "K12_column_pbl": 26,
+                      "K9_column_moist": 26, "K10a_down_surface": 26,
+                      "K12_column_pbl": 26,
                       "K15_spectral_stack": 27, "K16_flux_accumulate": 24,
                       "K17_surface_forcing": 1, "K17b_tisr_plane": 1,
                       "K18_inject_spectral": 1, "K19_gate_check": 1,
@@ -138,8 +143,10 @@ LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
 # the most device launches (kernels, copies, fills) a coupled cycle may
 # take in the 5-cycle profile of phase 7: 3,311.6 before K15 and K16
 # took the spectral stacks and the flux sums of the window's steps, 703.8
-# before K17-K20 took the window's entry and exit and the injection's glue
-LAUNCHES_MAX = 360
+# before K17-K20 took the window's entry and exit and the injection's
+# glue, 348.8 before K10a_down_surface took the downward longwave and the
+# surface fluxes of a physics step in one launch (26 fewer a cycle)
+LAUNCHES_MAX = 335
 # the most plain launches (PyTorch's own kernels, copies, fills) of a
 # coupled cycle in phase 7's per-stage profile
 PLAIN_MAX = 20
@@ -147,13 +154,14 @@ PLAIN_MAX = 20
 # each plane's scale (both sides call the same CUDA functions in the same
 # order: 0 expected)
 K17_ULPS = 4
-# K9-K13, float32: a fraction of each output's scale over the columns
-# whose integer outputs (itop, icnv) agree, and the share of columns in
-# which they may differ (a near-tie decision falling the other way);
-# float64: the same operations in the same order, integers equal.  On an
-# H100 all of them came out bit-identical to the plain float32 versions;
-# K10a, while its x**4 was two squarings (torch.pow's is powf), at
-# 2.6e-7, which the float32 bound of 2e-6 still allows for
+# the column kernels (K9, K10a_down_surface, K10b, K12, K13), float32:
+# a fraction of each output's scale over the columns whose integer
+# outputs (itop, icnv) agree, and the share of columns in which they may
+# differ (a near-tie decision falling the other way); float64: the same
+# operations in the same order, integers equal.  On an H100 all of them
+# came out bit-identical to the plain float32 versions; the first
+# downward longwave kernel, while its x**4 was two squarings (torch.pow's
+# is powf), at 2.6e-7, which the float32 bound of 2e-6 still allows for
 COLUMN_RTOL = 2e-6
 COLUMN_FLIPS = 0.005
 COLUMN_RTOL_F64 = 1e-11
@@ -384,10 +392,10 @@ def window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p, nsteps):
     the CPU) from the same state.  The two sides' physics see grids that
     differ in the last bits (their transforms sum in other orders), so a
     near-tie decision (convection on or off, a cloud top) can fall the
-    other way in a column, as phase 4 allows for K9-K13: a column whose
-    physics tendencies (u, v, t, q at any level) differ by more than
-    WINDOW_FLIP_RTOL of the field's largest tendency counts as such a
-    flip, and gcm_c's step takes gcm's tendencies there.  Returns (gcm's
+    other way in a column, as phase 4 allows for the column kernels: a
+    column whose physics tendencies (u, v, t, q at any level) differ by
+    more than WINDOW_FLIP_RTOL of the field's largest tendency counts as
+    such a flip, and gcm_c's step takes gcm's tendencies there.  Returns (gcm's
     state after the steps, the worst step's window_errs, the flipped
     columns of each step, the largest relative tendency difference in the
     other columns)."""
@@ -602,7 +610,6 @@ def phase_training(torch, gcm, layout, date0, card, record):
     from speedy_ml_tpu_torch.hybrid.training import (generate_nature_run,
                                                      make_imperfect_forecasts)
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
-    from speedy_ml_tpu_torch.kernels import surface_fluxes as sfk
     from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
     from speedy_ml_tpu_torch.kernels.column_moist import column_moist
     from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl
@@ -664,9 +671,9 @@ def phase_training(torch, gcm, layout, date0, card, record):
     # -- 10b. the nature run and the imperfect model's forecasts
     counted = {"K1": esn_step, "K14": gram_update, "K5": sht_analysis,
                "K6": sht_synthesis, "K7": grid_dynamics, "K8": spectral_tail,
-               "K9": column_moist, "K10a": clw.radlw_down,
-               "K10b": clw.radlw_up, "K11": sfk.surface_fluxes,
-               "K12": column_pbl, "K13": column_shortwave,
+               "K9": column_moist, "K10a": clw.down_surface,
+               "K10b": clw.radlw_up, "K12": column_pbl,
+               "K13": column_shortwave,
                "K15": spectral_stack, "K16": flux_accumulate}
     torch.cuda.synchronize()
     for fn in counted.values():
@@ -830,7 +837,6 @@ def main():
     from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
     from speedy_ml_tpu_torch.kernels import build as kb
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
-    from speedy_ml_tpu_torch.kernels import surface_fluxes as sfk
     from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
     from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
                                                           column_moist_plain)
@@ -1538,10 +1544,11 @@ def main():
                  MN * (12 * K * K + 100 * K + 20), PEAK_F32_S))
     log("  (K8 max_abs_err is relative to each field level's scale)")
 
-    # K9-K13: the column physics on the main path's own inputs, the
-    # physics grid of this state and the radiation carry that stepone left
-    # (a shortwave step, so tau2 and stratc are real), float32; and on the
-    # same inputs upcast, against a float64 PhysicsModel's tables
+    # K9, K10a_down_surface, K10b, K12, K13: the column physics on the
+    # main path's own inputs, the physics grid of this state and the
+    # radiation carry that stepone left (a shortwave step, so tau2 and
+    # stratc are real), float32; and on the same inputs upcast, against a
+    # float64 PhysicsModel's tables
     phys = gcm.phys
     phys64 = PhysicsModel(g, gcm.const, dtype=torch.float64, device=dev)
     ug4, vg4, tg4, qg4, phig4, pslg4 = gcm.physics_grid(st, 0)
@@ -1601,31 +1608,10 @@ def main():
         column_moist_plain, (tg4, qg4, phig4, pslg4), phys.moist_tabs,
         phys64.moist_tabs, lambda m: m._asdict(), ("itop", "icnv"),
         (3 * K + 1) + (6 * K + 5) + 4, 60 * K + 100, exact=True)
-    down_plain = lambda ta, tau2, t: rad.radlw_down(
-        ta, tau2, t.fband, wvi2=t.wvi2, dsig=t.dsig, sbc=t.sbc)
     up_plain = lambda *a: rad.radlw_up(*a[:-1], a[-1].fband, dsig=a[-1].dsig,
                                        sbc=a[-1].sbc)
-    down_dict = lambda o: dict(slrd=o[0], dfabs=o[1], flux_bands=o[2],
-                               st4a_mean=o[3][0], st4a_grad=o[3][1])
-    ok &= column_check(
-        "K10a_radlw_down", csrc + "column_longwave.cu",
-        "speedy_ml_tpu/physics/radiation.py:318", clw.radlw_down, down_plain,
-        (tg4, carry4.tau2), phys.lw_tabs, phys64.lw_tabs, down_dict, (),
-        5 * K + (3 * K + 5), 60 * K)
     m4 = column_moist(tg4, qg4, phig4, pslg4, phys.moist_tabs)
-    dn4 = clw.radlw_down(tg4, carry4.tau2, phys.lw_tabs)
     bd = gcm.bd
-    # K11 takes keywords; the checks pass its operands in INPUTS order
-    sfc_kw = ("phi0", "fmask", "tland", "tsea", "swav", "ssrd", "slrd",
-              "forog", "alb_l", "alb_s", "snowc", "clat")
-    k11 = lambda *a: sfk.surface_fluxes(*a[:6], **dict(zip(sfc_kw, a[6:-1])),
-                                        tabs=a[-1])
-    p11 = lambda *a: sfk.surface_fluxes_plain(
-        *a[:6], **dict(zip(sfc_kw, a[6:-1])), tabs=a[-1])
-    sfc_args = (m4.psg, ug4, vg4, tg4, m4.qg, phig4, bd.phis0, bd.fmask_l,
-                sfc.stl_am, sfc.sst_am, sfc.soilw_am, carry4.ssrd, dn4[0],
-                bd.forog, forcing.alb_l, forcing.alb_s, forcing.snowc,
-                phys.clat_t)
 
     def fx_dict(fx):
         """SurfaceFluxes as name -> plane, its (land, sea, blend) tuples
@@ -1638,14 +1624,31 @@ def main():
                 out[nm] = v
         return out
 
+    def ds_dict(o):
+        """down_surface's ((slrd, dfabs, flux_bands, st4a),
+        SurfaceFluxes) as name -> tensor."""
+        (slrd, dfabs, flux, (mean, grad)), fx = o
+        return dict(slrd=slrd, dfabs=dfabs, flux_bands=flux, st4a_mean=mean,
+                    st4a_grad=grad, **fx_dict(fx))
+
+    # K10a_down_surface takes keywords and two tables; the checks pass its
+    # operands in INPUTS order and the tables as a pair
+    ds = lambda fn: lambda *a: fn(**dict(zip(clw.INPUTS, a[:-1])),
+                                  lw_tabs=a[-1][0], sfc_tabs=a[-1][1])
+    ds_args = (tg4, carry4.tau2, m4.psg, ug4, vg4, m4.qg, phig4, bd.phis0,
+               bd.fmask_l, sfc.stl_am, sfc.sst_am, sfc.soilw_am,
+               carry4.ssrd, bd.forog, forcing.alb_l, forcing.alb_s,
+               forcing.snowc, phys.clat_t)
+    # planes read: ta, tau2 (level 0 in bands 0 and 1 only), psg, the
+    # lowest level of ua, va, qa, phi, ten surface planes, the clat row
     ok &= column_check(
-        "K11_surface_fluxes", csrc + "column_surface.cu",
-        "speedy_ml_tpu/physics/surface.py:40", k11, p11, sfc_args,
-        phys.sfc_tabs, phys64.sfc_tabs, fx_dict, (),
-        (18 + nlat / G) + 23, 150)
-    fx4 = sfk.surface_fluxes(*sfc_args[:6],
-                             **dict(zip(sfc_kw, sfc_args[6:])),
-                             tabs=phys.sfc_tabs)
+        "K10a_down_surface", csrc + "column_longwave.cu",
+        "speedy_ml_tpu/physics/radiation.py:318, "
+        "speedy_ml_tpu/physics/surface.py:40", ds(clw.down_surface),
+        ds(clw.down_surface_plain), ds_args, (phys.lw_tabs, phys.sfc_tabs),
+        (phys64.lw_tabs, phys64.sfc_tabs), ds_dict, (),
+        (5 * K + 13 + nlat / G) + (3 * K + 28), 60 * K + 150, exact=True)
+    dn4, fx4 = ds(clw.down_surface)(*ds_args, (phys.lw_tabs, phys.sfc_tabs))
     up_args = (tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2], dn4[3],
                carry4.tau2, carry4.stratc)
     ok &= column_check(
@@ -1674,8 +1677,9 @@ def main():
         (m4, phig4, bd.fmask_l, sol4, forcing.albsfc), phys.sw_tabs,
         phys64.sw_tabs, lambda o: dict(zip(sw_names, o)), (),
         (2 * K + 4 + 11 + 2) + (5 * K + 5), 100 * K + 45 * 20)
-    log("  (K9-K13 max_abs_err is relative to each output's scale, over "
-        "the columns whose integer outputs agree)")
+    log("  (K9, K10a_down_surface, K10b, K12, K13 max_abs_err is relative "
+        "to each output's scale, over the columns whose integer outputs "
+        "agree)")
 
     # K16: the flux sums of a leapfrog step, on the diagnostics of this
     # state's physics and an accumulator that already holds one step
@@ -1862,9 +1866,8 @@ def main():
                "K7_grid_dynamics": grid_dynamics,
                "K8_spectral_tail": spectral_tail,
                "K9_column_moist": column_moist,
-               "K10a_radlw_down": clw.radlw_down,
+               "K10a_down_surface": clw.down_surface,
                "K10b_radlw_up": clw.radlw_up,
-               "K11_surface_fluxes": sfk.surface_fluxes,
                "K12_column_pbl": column_pbl,
                "K13_column_shortwave": column_shortwave,
                "K15_spectral_stack": spectral_stack,
@@ -2042,8 +2045,8 @@ def main():
              f"{PLAIN_MAX}")
     knames = {"K5": "sht_analysis_kernel", "K6": "sht_synthesis_kernel",
               "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel",
-              "K9": "column_moist_kernel", "K10a": "radlw_down_kernel",
-              "K10b": "radlw_up_kernel", "K11": "surface_fluxes_kernel",
+              "K9": "column_moist_kernel", "K10a": "down_surface_kernel",
+              "K10b": "radlw_up_kernel",
               "K12": "column_pbl_kernel", "K13": "column_shortwave_kernel",
               "K15": "spectral_stack_kernel", "K16": "flux_accumulate_kernel",
               "K17": "surface_forcing_kernel",
@@ -2053,7 +2056,8 @@ def main():
     n_win = sum(e.count for e in window_kern) / 2
     n_win_k = sum(sum(e.count for e in v) for v in kk.values()) / 2
     log(f"  speedy_window launches per cycle: {n_win:g}, of which "
-        f"{n_win_k:g} kernel launches (K5-K13, K15-K17, K20) and "
+        f"{n_win_k:g} kernel launches (K5-K10b, K12, K13, K15-K17, K20) "
+        f"and "
         f"{n_win - n_win_k:g} plain launches")
     log("  inside speedy_window: " + "; ".join(
         f"{k} {sum(_self_device_us(e) for e in v) / 2e3:.4f} ms "
@@ -2074,8 +2078,7 @@ def main():
                                           forcing=fo_, carry=carry,
                                           lradsw=sw)
     carry_ = step(True, RadiationCarry.zeros(K, nlat, nlon, f32, dev))[4]
-    phys_kernels = [knames[k] for k in ("K9", "K10a", "K10b", "K11", "K12",
-                                        "K13")]
+    phys_kernels = [knames[k] for k in ("K9", "K10a", "K10b", "K12", "K13")]
     per = {}
     for sw in (True, False):
         fn = lambda: step(sw, carry_)
@@ -2088,7 +2091,7 @@ def main():
                         if not any(n in e.key for n in phys_kernels)})
         if other:
             fail(f"a physics step (shortwave {sw}) ran device ops other "
-                 f"than K9-K13: {other}")
+                 f"than K9, K10a_down_surface, K10b, K12, K13: {other}")
         want = phys_kernels if sw else phys_kernels[:-1]
         seen = [n for n in want if any(n in e.key for e in kk_)]
         if seen != want:
@@ -2096,8 +2099,8 @@ def main():
                  f"{sorted(set(want) - set(seen))}")
     n_sw = 2 + len(range(0, hyb.gcm_steps, 3))
     n_lw = 2 + hyb.gcm_steps - n_sw
-    log(f"  physics (PhysicsModel.compute, the kernels K9-K13 and no other "
-        f"device op): "
+    log(f"  physics (PhysicsModel.compute, the kernels K9, "
+        f"K10a_down_surface, K10b, K12, K13 and no other device op): "
         f"{per[True][0]:.4f} ms and {per[True][1]:g} launches per step "
         f"with the shortwave, {per[False][0]:.4f} ms and "
         f"{per[False][1]:g} without; per cycle ({n_sw} + {n_lw} steps) "
@@ -2107,9 +2110,8 @@ def main():
     # each kernel of the step alone, in the step's order
     ug_, vg_, tg_, qg_, phig_, pslg_ = grid_
     m_ = column_moist(tg_, qg_, phig_, pslg_, phys.moist_tabs)
-    dn_ = clw.radlw_down(tg_, carry_.tau2, phys.lw_tabs)
-    fx_ = phys.surface_fluxes(m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_,
-                              carry_, dn_[0])
+    dn_, fx_ = phys.down_surface(m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_,
+                                 fo_, carry_)
     up_ = clw.radlw_up(tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2],
                        dn_[3], carry_.tau2, carry_.stratc, phys.lw_tabs)
     schemes = {
@@ -2117,10 +2119,8 @@ def main():
                                                 phys.moist_tabs),
         "K13 column_shortwave (every 3rd step)": lambda: phys.shortwave(
             m_, phig_, gcm.bd, fo_, carry_),
-        "K10a radlw_down": lambda: clw.radlw_down(tg_, carry_.tau2,
-                                                  phys.lw_tabs),
-        "K11 surface_fluxes": lambda: phys.surface_fluxes(
-            m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_, carry_, dn_[0]),
+        "K10a_down_surface": lambda: phys.down_surface(
+            m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_, carry_),
         "K10b radlw_up": lambda: clw.radlw_up(
             tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2], dn_[3],
             carry_.tau2, carry_.stratc, phys.lw_tabs),

@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # comparing sums, as the plain version does; so does the window's entry
 # (K17), which reuses its humidity.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
-    "column_moist.cu", "column_longwave.cu", "column_surface.cu",
-    "column_pbl.cu", "column_shortwave.cu", "surface_forcing.cu")}
+    "column_moist.cu", "column_longwave.cu", "column_pbl.cu",
+    "column_shortwave.cu", "surface_forcing.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -67,11 +67,10 @@ SIGNATURES = {
                              _f, _f, _vp, _vp, _vp, _vp, _vp, _vp],
     "column_moist_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp,
                             _vp, _vp],
-    "radlw_down_launch": [_i, _i, _i, _vp, _vp, _vp, _i, _vp, _vp],
+    "down_surface_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _vp,
+                            _i, _i, _vp, _vp],
     "radlw_up_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                         _vp, _vp, _vp, _i, _vp, _vp],
-    "surface_fluxes_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
-                              _i, _vp, _vp],
     "column_pbl_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i, _vp,
                           _vp],
     "column_shortwave_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
@@ -218,7 +217,7 @@ def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
 
 def pointer_array(tensors) -> ctypes.Array:
     """The tensors' data pointers as a C array of void* (the operand
-    list of K11-K13)."""
+    list of K10a_down_surface, K12 and K13)."""
     ptrs = [t.data_ptr() for t in tensors]
     return (_vp * len(ptrs))(*ptrs)
 

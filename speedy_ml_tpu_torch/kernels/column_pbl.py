@@ -7,9 +7,9 @@ super-adiabatic lapse rates) followed by the sums of
 physics/driver.py:258-275 and :298-307: the radiative heating and the
 diffusion tendencies (with the surface stresses and fluxes on the lowest
 level) summed onto the moist ones, and the sea-ice heat flux.  In: K9's
-MoistColumns, phig, K11's SurfaceFluxes, the carry's tt_rsw and ssrd,
-K10b's dfabs and the surface state's tice and sice.  Out: (utend, vtend,
-ttend, qtend, hflux_i).
+MoistColumns, phig, K10a_down_surface's SurfaceFluxes, the carry's tt_rsw
+and ssrd, K10b's dfabs and the surface state's tice and sice.  Out:
+(utend, vtend, ttend, qtend, hflux_i).
 
 The vertical tables and the constants reach the kernel as one small
 buffer in the model's dtype (PblTables.blob), built once from the very

@@ -1,8 +1,9 @@
 // Host build of the column-physics bodies (column_moist.cuh,
 // column_longwave.cuh, column_surface.cuh, column_pbl.cuh,
-// column_shortwave.cuh): the same per-column code the CUDA kernels K9-K13
-// run, looped over the columns on the CPU, and K9's, K10b's and K12's
-// blocks with their threads written out as loops.  It is not part of the
+// column_shortwave.cuh): the same per-column code the CUDA kernels K9,
+// K10a_down_surface, K10b, K12 and K13 run, looped over the columns on
+// the CPU, and K9's, K10a_down_surface's, K10b's and K12's blocks with
+// their threads written out as loops.  It is not part of the
 // kernel library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC column_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions, so that a logic error
@@ -89,14 +90,59 @@ extern "C" int column_moist_block_host(int K, int is_double, const void* tg,
   return 0;
 }
 
-extern "C" int radlw_down_host(int K, int is_double, const void* ta,
-                               const void* tau2, const void* blob, int G,
-                               void* out) {
-#define CALL(T, KK)                                                     \
-  {                                                                     \
-    for (int c = 0; c < G; ++c)                                         \
-      radlw_down_at<T, KK>(c, G, (const T*)ta, (const T*)tau2,          \
-                           (const T*)blob, (T*)out);                    \
+// K10a_down_surface, K12 and K13 take their operands as an array of n_in
+// pointers, in the order of the kernels' In structs; a wrong count
+// returns 1 too.  down_surface_host runs the block's phases for one
+// column at a time (down_surface_at, C = 1).
+extern "C" int down_surface_host(int K, int is_double, const void* const* in,
+                                 int n_in, const void* lw_blob,
+                                 const void* sfc_blob, int G, int nlon,
+                                 void* out) {
+  if (n_in != DOWN_SURFACE_N_IN || nlon <= 0 || G % nlon != 0) return 1;
+#define CALL(T, KK)                                                      \
+  {                                                                      \
+    const DownSurfaceIn<T> args = down_surface_in<T>(in);                \
+    for (int c = 0; c < G; ++c)                                          \
+      down_surface_at<T, KK>(c, G, nlon, args, (const T*)lw_blob,        \
+                             (const T*)sfc_blob, (T*)out);               \
+  }
+  HOST_DISPATCH(CALL)
+#undef CALL
+  return 0;
+}
+
+// K10a_down_surface's block (the dnsfc_block_* phases) with its threads
+// written out as loops and its shared memory and the surface warp's
+// registers starting as NaN, as K9's above; C = 32 columns a block, as
+// the kernel's, K level warps and the surface warp.
+extern "C" int down_surface_block_host(int K, int is_double,
+                                       const void* const* in, int n_in,
+                                       const void* lw_blob,
+                                       const void* sfc_blob, int G, int nlon,
+                                       void* out) {
+  if (n_in != DOWN_SURFACE_N_IN || nlon <= 0 || G % nlon != 0) return 1;
+  constexpr int C = 32;
+#define CALL(T, KK)                                                         \
+  {                                                                         \
+    const DownSurfaceIn<T> args = down_surface_in<T>(in);                   \
+    const LongwaveTab<T, KK> tb((const T*)lw_blob);                         \
+    const SurfaceTab<T> ts((const T*)sfc_blob);                             \
+    std::unique_ptr<LwDownShared<T, KK, C>> sh(new LwDownShared<T, KK, C>); \
+    std::unique_ptr<SfcReg<T>[]> r(new SfcReg<T>[C]);                       \
+    for (int b = 0; b * C < G; ++b) {                                       \
+      memset(sh.get(), 0xff, sizeof *sh);                                   \
+      memset(r.get(), 0xff, sizeof(SfcReg<T>) * C);                         \
+      for (int k = 0; k <= KK; ++k)                                         \
+        for (int x = 0; x < C; ++x)                                         \
+          dnsfc_block_load(tb, ts, G, nlon, args, (T*)out, *sh, r[x],       \
+                           b * C + x, x, k);                                \
+      for (int jb = 0; jb < 4; ++jb)                                        \
+        for (int x = 0; x < C; ++x)                                         \
+          dnsfc_block_band(G, (T*)out, *sh, b * C + x, x, jb);              \
+      for (int k = 0; k <= KK; ++k)                                         \
+        for (int x = 0; x < C; ++x)                                         \
+          dnsfc_block_sums(tb, ts, G, (T*)out, *sh, r[x], b * C + x, x, k); \
+    }                                                                       \
   }
   HOST_DISPATCH(CALL)
 #undef CALL
@@ -160,25 +206,6 @@ extern "C" int radlw_up_block_host(int K, int is_double, const void* ta,
           lwup_block_sums(tb, G, (T*)out, *sh, r[k * C + x], b * C + x, x,  \
                           k);                                               \
     }                                                                       \
-  }
-  HOST_DISPATCH(CALL)
-#undef CALL
-  return 0;
-}
-
-// K11-K13 take their operands as an array of n_in pointers, in the order
-// of the kernels' In structs; a wrong count returns 1 too.
-extern "C" int surface_fluxes_host(int K, int is_double,
-                                   const void* const* in, int n_in,
-                                   const void* blob, int G, int nlon,
-                                   void* out) {
-  if (n_in != SURFACE_N_IN || nlon <= 0 || G % nlon != 0) return 1;
-#define CALL(T, KK)                                                     \
-  {                                                                     \
-    const SurfaceIn<T> args = surface_in<T>(in);                        \
-    for (int c = 0; c < G; ++c)                                         \
-      surface_fluxes_at<T, KK>(c, G, nlon, args, (const T*)blob,        \
-                               (T*)out);                                \
   }
   HOST_DISPATCH(CALL)
 #undef CALL

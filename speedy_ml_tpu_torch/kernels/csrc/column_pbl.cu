@@ -5,9 +5,9 @@
 // Replaces (JAX package) speedy_ml_tpu/physics/vdiff.py:16 vdifsc and the
 // sums of speedy_ml_tpu/physics/driver.py:258-275 and :298-307.  In: K9's
 // se, rh, q, qsat, ttend, qtend, icnv, rps; phig; the carry's tt_rsw and
-// ssrd; K10b's dfabs; K11's stresses, heat and moisture fluxes; the
-// sea-ice temperature and fraction.  Out: utend, vtend, ttend, qtend
-// (K, lat, lon each) and hflux_i (lat, lon) in one buffer.
+// ssrd; K10b's dfabs; K10a_down_surface's stresses, heat and moisture
+// fluxes; the sea-ice temperature and fraction.  Out: utend, vtend,
+// ttend, qtend (K, lat, lon each) and hflux_i (lat, lon) in one buffer.
 //
 // Bound on an H100 SXM: memory, and latency-sized.  At T30L8 a call
 // reads 85 planes (9 level fields, icnv as two, 11 planes) and writes 33

@@ -6,16 +6,17 @@ coupled-surface state, the daily forcing and the radiation carry
 (shortwave runs every nstrad steps; its results persist in the carry),
 and returns grid tendencies, the new carry and the flux diagnostics.
 
-The step is five or six kernel launches (hot spot B2 of ROADMAP queue
+The step is four or five kernel launches (hot spot B2 of ROADMAP queue
 B), each through its wrapper in kernels/: K9 column_moist (humidity,
 convection, large-scale condensation), K13 column_shortwave (clouds and
-the shortwave, on the shortwave steps only), K10a radlw_down, K11
-surface_fluxes, K10b radlw_up and K12 column_pbl (the vertical diffusion
-and the sums).  On a CUDA tensor each launches its hand-written kernel
-and nothing else runs on the card; on a CPU tensor each runs its plain
-version.  The shortwave cadence is a Python branch on a host bool;
-data-dependent level indices (itop, icltop) stay on the device, never
-read by the host.
+the shortwave, on the shortwave steps only), K10a_down_surface
+down_surface (the downward longwave and the surface fluxes), K10b
+radlw_up and K12 column_pbl (the vertical diffusion and the sums).  On a
+CUDA tensor each launches its hand-written kernel and nothing else runs
+on the card; on a CPU tensor each runs its plain version.  The
+shortwave cadence is a Python branch on a host bool; data-dependent
+level indices (itop, icltop) stay on the device, never read by the
+host.
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
 from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl, pbl_tables
 from speedy_ml_tpu_torch.kernels.column_shortwave import (column_shortwave,
                                                           shortwave_tables)
-from speedy_ml_tpu_torch.kernels.surface_fluxes import (surface_fluxes,
-                                                        surface_tables)
+from speedy_ml_tpu_torch.kernels.surface_fluxes import surface_tables
 from speedy_ml_tpu_torch.kernels.surface_forcing import (FORCING, DayArgs,
                                                          surface_forcing)
 from speedy_ml_tpu_torch.physics import radiation as rad
@@ -220,8 +220,8 @@ class PhysicsModel:
         Inputs (K, lat, lon) except pslg (lat, lon); lradsw a host bool
         (shortwave every nstrad steps).  Returns (utend, vtend, ttend,
         qtend, carry', FluxDiag).  The step is the kernels K9, K13 (with
-        the shortwave), K10a, K11, K10b and K12 in this order; the stage
-        methods below can be called (and timed) alone."""
+        the shortwave), K10a_down_surface, K10b and K12 in this order; the
+        stage methods below can be called (and timed) alone."""
         if sppt_pattern is not None:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
         # --- humidity, convection, large-scale condensation (K9)
@@ -229,12 +229,9 @@ class PhysicsModel:
         # --- clouds and shortwave radiation, every nstrad steps (K13)
         if lradsw:
             carry = self.shortwave(m, phig, bd, forcing, carry)
-        # --- longwave down (K10a)
-        slrd, dfabs_lw, flux_bands, st4a = column_longwave.radlw_down(
-            tg, carry.tau2, self.lw_tabs)
-        # --- surface fluxes (K11)
-        fx = self.surface_fluxes(m, ug, vg, tg, phig, bd, sfc, forcing,
-                                 carry, slrd)
+        # --- longwave down and the surface fluxes (K10a_down_surface)
+        (slrd, dfabs_lw, flux_bands, st4a), fx = self.down_surface(
+            m, ug, vg, tg, phig, bd, sfc, forcing, carry)
         # --- longwave up (K10b)
         slr, olr, dfabs_lw = column_longwave.radlw_up(
             tg, fx.tsfc, slrd, fx.slru[2], dfabs_lw, flux_bands, st4a,
@@ -256,15 +253,16 @@ class PhysicsModel:
                               ssrd=ssrd, ssr=ssr, tsr=tsr,
                               randfv=carry.randfv)
 
-    def surface_fluxes(self, m, ug, vg, tg, phig, bd, sfc, forcing, carry,
-                       slrd):
-        """The surface fluxes (K11): a SurfaceFluxes."""
-        return surface_fluxes(
-            m.psg, ug, vg, tg, m.qg, phig, phi0=bd.phis0, fmask=bd.fmask_l,
-            tland=sfc.stl_am, tsea=sfc.sst_am, swav=sfc.soilw_am,
-            ssrd=carry.ssrd, slrd=slrd, forog=bd.forog, alb_l=forcing.alb_l,
-            alb_s=forcing.alb_s, snowc=forcing.snowc, clat=self.clat_t,
-            tabs=self.sfc_tabs)
+    def down_surface(self, m, ug, vg, tg, phig, bd, sfc, forcing, carry):
+        """The downward longwave and the surface fluxes
+        (K10a_down_surface): ((slrd, dfabs, flux_bands, st4a),
+        SurfaceFluxes)."""
+        return column_longwave.down_surface(
+            tg, carry.tau2, m.psg, ug, vg, m.qg, phig, phi0=bd.phis0,
+            fmask=bd.fmask_l, tland=sfc.stl_am, tsea=sfc.sst_am,
+            swav=sfc.soilw_am, ssrd=carry.ssrd, forog=bd.forog,
+            alb_l=forcing.alb_l, alb_s=forcing.alb_s, snowc=forcing.snowc,
+            clat=self.clat_t, lw_tabs=self.lw_tabs, sfc_tabs=self.sfc_tabs)
 
     def tendency_sums(self, m, phig, carry, sfc, fx, dfabs_lw, olr):
         """The vertical diffusion and the sums (K12): the radiative

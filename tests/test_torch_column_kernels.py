@@ -1,5 +1,6 @@
 """Port parity of the column kernels K9 (kernels/column_moist.py) and K10
-(kernels/column_longwave.py).
+(kernels/column_longwave.py: K10a_down_surface, the downward longwave
+with the surface fluxes, and K10b, the upward longwave).
 
 The same plausible random columns (the generator of
 tests/test_torch_physics.py at 16 x 32 columns, made from a seed with
@@ -8,8 +9,9 @@ numpy) go through
       (speedy_ml_tpu/physics/driver.py:192-216) and `column_moist` on CPU
       tensors (its plain version), float64, 1e-12 of each output's scale,
       itop and icnv equal;
-  (b) the JAX package's radlw_down / radlw_up on a tau2 from its radsw
-      and the `column_longwave` wrappers, float64, 1e-12;
+  (b) the JAX package's radlw_down, then suflux on its slrd, and
+      radlw_up, on a tau2 from its radsw, and the `column_longwave`
+      wrappers (down_surface, radlw_up), float64, 1e-12;
   (c) the column bodies of the CUDA kernels themselves, compiled for the
       host with g++ from kernels/csrc/column_host.cpp (the very headers
       the kernels include), against the plain versions: float64 at 1e-12
@@ -17,9 +19,9 @@ numpy) go through
       (chip_smoke.column_errors: columns whose itop/icnv differ at most
       0.5 %, the others within 1e-5 of each output's scale); and K9's
       block, its threads written out as loops, against the per-column
-      body bit for bit, and K10b's block against its phases run a column
-      at a time (K = 5, 7, 8, both dtypes, 1 to 100 columns, an
-      aquaplanet and a mixed land mask).
+      body bit for bit, and K10a_down_surface's and K10b's blocks against
+      their phases run a column at a time (K = 5, 7, 8, both dtypes, 1 to
+      100 columns, an aquaplanet and a mixed land mask).
 The wrappers' operand checks and the table buffers are tested too.  The
 launch code itself runs only on a card (chip_smoke.py).
 """
@@ -42,11 +44,15 @@ from speedy_ml_tpu.physics.condensation import lscond as jlscond
 from speedy_ml_tpu.physics.convection import convmf as jconvmf
 from speedy_ml_tpu.physics.driver import PhysicsModel as JPhysics
 from speedy_ml_tpu.physics.humidity import qsat_from_t as jqsat
+from speedy_ml_tpu.physics.surface import suflux as jsuflux
 from speedy_ml_tpu_torch.core.constants import PhysicalConstants
 from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.kernels import build as kb
 from speedy_ml_tpu_torch.kernels import column_longwave as clw
 from speedy_ml_tpu_torch.kernels import column_moist as cm
+from speedy_ml_tpu_torch.kernels import surface_fluxes as sf
 from speedy_ml_tpu_torch.physics import constants as pc
+from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.driver import PhysicsModel
 
 REPO = Path(__file__).resolve().parents[1]
@@ -169,10 +175,67 @@ def longwave_inputs(seed, dtype=torch.float64):
     return [_t(a, dtype) for a in (ta, jsw[4], jsw[5], ts, slru)]
 
 
+def _plane(rng, lo, hi):
+    return rng.uniform(lo, hi, (NLAT, NLON))
+
+
+def surface_kwargs(seed, psg, qa, tg, phig, mask, dtype=torch.float64):
+    """suflux's operands around the columns (psg, qa from K9): winds, a
+    land fraction ("sea", "land" or "mixed"), surface state and forcing
+    planes, a random slrd; a quarter of the columns has dry soil
+    (evaporation 0 over land)."""
+    rng = np.random.default_rng(seed)
+    K = tg.shape[0]
+    fmask = dict(sea=np.zeros, land=np.ones)[mask]((NLAT, NLON)) \
+        if mask != "mixed" else _plane(rng, 0.0, 1.0)
+    swav = _plane(rng, 0.0, 1.0)
+    swav[rng.uniform(size=swav.shape) < 0.25] = 0.0
+    planes = dict(phi0=_plane(rng, 0.0, 3.0e4), fmask=fmask,
+                  tland=_plane(rng, 250.0, 315.0),
+                  tsea=_plane(rng, 271.0, 304.0), swav=swav,
+                  ssrd=_plane(rng, 0.0, 400.0), slrd=_plane(rng, 100.0, 450.0),
+                  forog=_plane(rng, 1.0, 1.5), alb_l=_plane(rng, 0.05, 0.7),
+                  alb_s=_plane(rng, 0.06, 0.5), snowc=_plane(rng, 0.0, 1.0))
+    kw = {k: _t(v, dtype) for k, v in planes.items()}
+    kw["clat"] = _t(np.cos(np.linspace(-1.3, 1.3, NLAT)), dtype)
+    wind = lambda: _t(rng.uniform(-30.0, 30.0, (K, NLAT, NLON)), dtype)
+    return dict(psg=psg, ua=wind(), va=wind(), ta=tg, qa=qa, phi=phig,
+                **kw)
+
+
+def down_surface_args(kw, tau2):
+    """down_surface's operands: suflux's (surface_kwargs) but slrd, which
+    the kernel forms itself, and tau2."""
+    return dict({k: v for k, v in kw.items() if k != "slrd"}, tau2=tau2)
+
+
+def down_plain(ta, tau2, tabs):
+    """The plain downward pass (physics/radiation.py radlw_down)."""
+    return rad.radlw_down(ta, tau2, tabs.fband, wvi2=tabs.wvi2,
+                          dsig=tabs.dsig, sbc=tabs.sbc)
+
+
 def down_dict(out):
     slrd, dfabs, flux, (mean, grad) = out
     return dict(slrd=slrd, dfabs=dfabs, flux_bands=flux, st4a_mean=mean,
                 st4a_grad=grad)
+
+
+def sfc_dict(fx):
+    """SurfaceFluxes as name -> plane, its (land, sea, blend) tuples
+    spread out (ustr0, ustr1, ustr2, ...)."""
+    out = {}
+    for name, v in fx._asdict().items():
+        if isinstance(v, tuple):
+            out.update({f"{name}{i}": x for i, x in enumerate(v)})
+        else:
+            out[name] = v
+    return out
+
+
+def ds_dict(out):
+    """down_surface's ((slrd, ...), SurfaceFluxes) as one dict."""
+    return {**down_dict(out[0]), **sfc_dict(out[1])}
 
 
 def up_dict(out):
@@ -206,20 +269,41 @@ def test_column_moist_matches_jax(seed):
             _close(getattr(got, name), ref[name])
 
 
+def jax_down_surface(jphys, kw, tau2):
+    """The JAX package's radlw_down, then suflux on its slrd."""
+    j = lambda a: jnp.asarray(a.numpy())
+    c = jphys.const
+    jd = jrad.radlw_down(j(kw["ta"]), j(tau2), jphys.fband, wvi2=jphys.wvi2,
+                         dsig=jphys.dsig, sbc=c.sbc)
+    planes = {k: j(kw[k]) for k in clw.SURFACE_PLANES}
+    jfx = jsuflux(j(kw["psg"]), j(kw["ua"]), j(kw["va"]), j(kw["ta"]),
+                  j(kw["qa"]), None, j(kw["phi"]), slrd=jd[0], **planes,
+                  clat_row=j(kw["clat"]), sigl_bot=jphys.sigl_bot,
+                  wvi2_bot=jphys.wvi2_bot, rd=287.0, cp=c.cp, alhc=c.alhc,
+                  sbc=c.sbc)
+    return jd, jfx
+
+
 @pytest.mark.parametrize("seed", [13, 14])
 def test_column_longwave_matches_jax(seed):
     tphys = phys_for(torch.float64)
     ta, tau2, stratc, ts, slru = longwave_inputs(seed)
+    c = make_columns(seed)
+    kw = surface_kwargs(seed, _t(np.exp(c["pslg"])),
+                        _t(np.maximum(c["qg"], 0.0)), ta, _t(c["phig"]),
+                        "mixed")
     jphys = JPhysics(JGeometry(**GEOM), JConst(), dtype=jnp.float64)
     j = lambda a: jnp.asarray(a.numpy())
-    before = (clw.radlw_down.launches, clw.radlw_up.launches)
-    td = clw.radlw_down(ta, tau2, tphys.lw_tabs)
-    jd = jrad.radlw_down(j(ta), j(tau2), jphys.fband, wvi2=jphys.wvi2,
-                         dsig=jphys.dsig, sbc=jphys.const.sbc)
+    before = (clw.down_surface.launches, clw.radlw_up.launches)
+    td, tfx = clw.down_surface(**down_surface_args(kw, tau2),
+                               lw_tabs=tphys.lw_tabs, sfc_tabs=tphys.sfc_tabs)
+    jd, jfx = jax_down_surface(jphys, kw, tau2)
     for got, ref in zip(td[:3], jd[:3]):
         _close(got, ref)
     for got, ref in zip(td[3], jd[3]):
         _close(got, ref)
+    for nm, ref in sfc_dict(jfx).items():
+        _close(sfc_dict(tfx)[nm], ref)
     tu = clw.radlw_up(ta, ts, td[0], slru, td[1], td[2], td[3], tau2, stratc,
                       tphys.lw_tabs)
     ju = jrad.radlw_up(j(ta), j(ts), jd[0], j(slru), jd[1], jd[2], jd[3],
@@ -227,7 +311,7 @@ def test_column_longwave_matches_jax(seed):
                        sbc=jphys.const.sbc)
     for got, ref in zip(tu, ju):
         _close(got, ref)
-    assert (clw.radlw_down.launches, clw.radlw_up.launches) == before
+    assert (clw.down_surface.launches, clw.radlw_up.launches) == before
     assert float(tu[1].min()) > 50.0, "olr is not a flux"
 
 
@@ -247,11 +331,15 @@ def host_lib(tmp_path_factory):
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr_in in (("column_moist_host", 5),
                            ("column_moist_block_host", 5),
-                           ("radlw_down_host", 3), ("radlw_up_host", 11),
+                           ("radlw_up_host", 11),
                            ("radlw_up_block_host", 11)):
         fn = getattr(lib, name)
         n_out = 2 if name.startswith("column_moist") else 1
         fn.argtypes = [i, i] + [vp] * n_ptr_in + [i] + [vp] * n_out
+        fn.restype = i
+    for name in ("down_surface_host", "down_surface_block_host"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, i, ctypes.POINTER(vp), i, vp, vp, i, i, vp]
         fn.restype = i
     return lib
 
@@ -278,14 +366,31 @@ def host_moist(lib, tg, qg, phig, pslg, tabs, block=False):
     return cm.unpack(out, out_i, K)
 
 
-def host_down(lib, ta, tau2, tabs):
+def host_down_surface_buffer(lib, *, lw_tabs, sfc_tabs, block=False,
+                             **named):
+    """K10a_down_surface built for the host: its phases run a column at a
+    time (down_surface_at, C = 1), or (block) the kernel's block of 32
+    columns x K warps.  named: down_surface's operands.  Returns the
+    output buffer (3K + 28, lat, lon)."""
+    ta = named["ta"]
     K, nlat, nlon = ta.shape
-    out = torch.full((3 * K + 5, nlat, nlon), float("nan"), dtype=ta.dtype)
-    rc = lib.radlw_down_host(K, int(ta.dtype == torch.float64),
-                             *_ptrs(ta, tau2, tabs.blob), nlat * nlon,
-                             *_ptrs(out))
+    ins = [named[nm] for nm in clw.INPUTS]
+    _ptrs(*ins)
+    out = torch.full((3 * K + 5 + sf.N_PLANES, nlat, nlon), float("nan"),
+                     dtype=ta.dtype)
+    entry = lib.down_surface_block_host if block else lib.down_surface_host
+    rc = entry(K, int(ta.dtype == torch.float64), kb.pointer_array(ins),
+               len(ins), lw_tabs.blob.data_ptr(), sfc_tabs.blob.data_ptr(),
+               nlat * nlon, nlon, out.data_ptr())
     assert rc == 0
-    return clw.unpack_down(out, K)
+    return out
+
+
+def host_down_surface(lib, **kw):
+    """host_down_surface_buffer as down_surface's ((slrd, ...),
+    SurfaceFluxes)."""
+    return clw.unpack_down_surface(host_down_surface_buffer(lib, **kw),
+                                   kw["ta"].shape[0])
 
 
 def host_up(lib, ta, ts, slrd, slru, dfabs, flux, st4a, tau2, stratc, tabs):
@@ -339,10 +444,88 @@ def up_block_case(seed, K, ncols, surface, dtype):
     stratc = row(rng.uniform(0.0, 2.0, (2, ncols)))
     slru = row(0.98 * 5.67e-8 * ts ** 4)
     tabs = phys_for(dtype, K).lw_tabs
-    slrd, dfabs, flux, st4a = clw.radlw_down(ta_, tau2, tabs)
+    slrd, dfabs, flux, st4a = down_plain(ta_, tau2, tabs)
     st4a = tuple(a.contiguous() for a in st4a)
     return (ta_, ts_, slrd.contiguous(), slru, dfabs.contiguous(),
             flux.contiguous(), st4a, tau2, stratc, tabs)
+
+
+ROWS = {1: 1, 31: 1, 33: 3, 100: 4}   # a case's columns in latitude rows
+
+
+def down_surface_case(seed, K, ncols, surface, dtype):
+    """down_surface's operands on `ncols` columns in ROWS[ncols] latitude
+    rows: up_block_case's lapse-rate profile over the blended surface
+    temperature (some temperatures on a half), tau2 in (0.05, 1), winds,
+    humidity and the hydrostatic geopotential, and the surface of an
+    aquaplanet (fmask 0, SST in 271-303 K) or of a seeded mixed land mask
+    (40 % of the columns land, their land fraction in (0.3, 1), land in
+    230-320 K, orography); a quarter of the columns with dry soil.
+    Returns (operands, LongwaveTables, SurfaceTables)."""
+    rng = np.random.default_rng(seed)
+    nlat = ROWS[ncols]
+    sig = np.linspace(0.5 / K, 1 - 0.5 / K, K)
+    sst = rng.uniform(271.0, 303.0, ncols)
+    if surface == "aquaplanet":
+        fmask, tland = np.zeros(ncols), sst.copy()
+    else:
+        land = rng.random(ncols) < 0.4
+        fmask = np.where(land, rng.uniform(0.3, 1.0, ncols), 0.0)
+        tland = rng.uniform(230.0, 320.0, ncols)
+    tsfc = sst + fmask * (tland - sst)
+    ta = np.stack([tsfc - 62.0 * (1.0 - sig[k]) + rng.normal(0, 4.0, ncols)
+                   for k in range(K)])
+    ta[:, 1::4] = np.floor(ta[:, 1::4]) + 0.5
+    phi = np.zeros((K, ncols))
+    phi[K - 1] = 287.0 * ta[K - 1] * (1.0 - sig[K - 1])
+    for k in range(K - 2, -1, -1):
+        phi[k] = phi[k + 1] + 287.0 * 0.5 * (ta[k] + ta[k + 1]) \
+            * np.log(sig[k + 1] / sig[k])
+    swav = rng.uniform(0.0, 1.0, ncols)
+    swav[rng.random(ncols) < 0.25] = 0.0
+    u = lambda lo, hi, *lead: rng.uniform(lo, hi, lead + (ncols,))
+    arrays = dict(
+        ta=ta, tau2=u(0.05, 1.0, K, 4), psg=u(0.72, 1.05),
+        ua=u(-30.0, 30.0, K), va=u(-30.0, 30.0, K),
+        qa=u(0.0, 18.0, K) * sig[:, None] ** 3, phi=phi,
+        phi0=u(0.0, 3.0e4) * fmask, fmask=fmask, tland=tland, tsea=sst,
+        swav=swav, ssrd=u(0.0, 400.0), forog=u(1.0, 1.5),
+        alb_l=u(0.05, 0.7), alb_s=u(0.06, 0.5), snowc=u(0.0, 1.0))
+    named = {k: _t(a, dtype).reshape(*a.shape[:-1], nlat, ncols // nlat)
+             .contiguous() for k, a in arrays.items()}
+    named["clat"] = _t(np.cos(np.linspace(-1.3, 1.3, nlat)), dtype)
+    phys = phys_for(dtype, K)
+    return named, phys.lw_tabs, phys.sfc_tabs
+
+
+@pytest.mark.parametrize("surface", ["aquaplanet", "mixed_land"])
+@pytest.mark.parametrize("ncols", [1, 31, 33, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("K", [5, 7, 8])
+def test_host_down_surface_block_matches_column_body(host_lib, K, dtype,
+                                                     ncols, surface):
+    """K10a_down_surface's block (32 columns x K level warps and a
+    surface warp: the Planck and band terms a level to a warp, the four
+    band recursions a band to a warp, the sums a level to a warp; the
+    surface fluxes up to slrd on the surface warp beside all of that,
+    slrd and the rest after the last barrier; handed on through shared
+    memory and surface registers that start as NaN) gives its phases run
+    for one column at a time (down_surface_at, C = 1) bit for bit, every
+    plane of its buffer, and the plain version's values; 1, 31, 33 and
+    100 columns in 1, 1, 3 and 4 latitude rows leave the last block
+    partly empty and read clat by row."""
+    named, lw, sfc = down_surface_case(700 + 10 * K + ncols, K, ncols,
+                                       surface, dtype)
+    tabs = dict(lw_tabs=lw, sfc_tabs=sfc)
+    ref = host_down_surface_buffer(host_lib, **named, **tabs)
+    got = host_down_surface_buffer(host_lib, **named, **tabs, block=True)
+    assert not got.isnan().any()
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    # and the plain version's values (float64 to 1e-12; float32 by
+    # chip_smoke's rule: the host's libm is not PyTorch's)
+    _hold(ds_dict(clw.unpack_down_surface(got, K)),
+          ds_dict(clw.down_surface_plain(**named, **tabs)), dtype)
 
 
 @pytest.mark.parametrize("surface", ["aquaplanet", "mixed_land"])
@@ -421,15 +604,54 @@ def test_host_moist_block_matches_column_body(host_lib, K, dtype, ncols):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
 
 
+def grid_down_surface_args(seed, dtype, mask, ta=None, tau2=None, K=8):
+    """down_surface's operands on the random columns of make_columns(seed)
+    (K9's clamp of q, psg from pslg) with surface_kwargs' planes and
+    tables in `dtype`; ta and tau2 default to the columns' and a seeded
+    uniform (0.05, 1)."""
+    c = make_columns(seed, K)
+    phys = phys_for(dtype, K)
+    if ta is None:
+        ta = _t(c["tg"], dtype)
+    if tau2 is None:
+        rng = np.random.default_rng(seed + 200)
+        tau2 = _t(rng.uniform(0.05, 1.0, (K, 4, NLAT, NLON)), dtype)
+    kw = surface_kwargs(seed, _t(np.exp(c["pslg"]), dtype),
+                        _t(np.maximum(c["qg"], 0.0), dtype), ta,
+                        _t(c["phig"], dtype), mask, dtype)
+    return dict(down_surface_args(kw, tau2), lw_tabs=phys.lw_tabs,
+                sfc_tabs=phys.sfc_tabs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mask", ["sea", "land", "mixed"])
+def test_host_down_surface_matches_plain(host_lib, mask, dtype):
+    """K10a_down_surface's phases run a column at a time
+    (down_surface_at, C = 1) against its plain version (radlw_down, then
+    suflux on its slrd) on the 16 x 32 random columns: float64 to 1e-12,
+    float32 by chip_smoke's rule; both stability branches and, over land,
+    evaporation 0 and > 0 are taken."""
+    args = grid_down_surface_args(25, dtype, mask)
+    ref = clw.down_surface_plain(**args)
+    K = args["ta"].shape[0]
+    unstable = args["ta"][K - 1] > args["ta"][K - 2]
+    assert unstable.any() and not unstable.all()
+    if mask != "sea":
+        assert (ref[1].evap[0] == 0).any() and (ref[1].evap[0] > 0).any()
+    _hold(ds_dict(host_down_surface(host_lib, **args)), ds_dict(ref), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("seed", [23, 24])
 def test_host_column_longwave_matches_plain(host_lib, seed, dtype):
     tabs = phys_for(dtype).lw_tabs
     ta, tau2, stratc, ts, slru = longwave_inputs(seed, dtype)
-    ref_d = clw.radlw_down(ta, tau2, tabs)
-    _hold(down_dict(host_down(host_lib, ta, tau2, tabs)), down_dict(ref_d),
-          dtype)
+    args = grid_down_surface_args(seed, dtype, "mixed", ta, tau2)
+    ref_d, ref_fx = clw.down_surface_plain(**args)
+    _hold(ds_dict(host_down_surface(host_lib, **args)),
+          ds_dict((ref_d, ref_fx)), dtype)
     # the upward pass on the plain version's downward results, both sides
     up_args = (ta, ts, ref_d[0], slru, ref_d[1], ref_d[2], ref_d[3], tau2,
                stratc, tabs)
@@ -451,14 +673,21 @@ def test_host_columns_at_other_level_counts(host_lib, K):
     stratc = _t(rng.uniform(0.0, 2.0, (2, NLAT, NLON)))
     ts = _t(rng.uniform(230.0, 310.0, (NLAT, NLON)))
     slru = 0.98 * 5.67e-8 * ts ** 4
-    ref_d = clw.radlw_down(ta, tau2, phys.lw_tabs)
-    _hold(down_dict(host_down(host_lib, ta, tau2, phys.lw_tabs)),
-          down_dict(ref_d), torch.float64)
+    ds_args = grid_down_surface_args(31, torch.float64, "mixed", ta, tau2, K)
+    ref_d, ref_fx = clw.down_surface_plain(**ds_args)
+    _hold(ds_dict(host_down_surface(host_lib, **ds_args)),
+          ds_dict((ref_d, ref_fx)), torch.float64)
     up_args = (ta, ts, ref_d[0], slru, ref_d[1], ref_d[2], ref_d[3], tau2,
                stratc, phys.lw_tabs)
     _hold(up_dict(host_up(host_lib, *up_args)),
           up_dict(clw.radlw_up(*up_args)), torch.float64)
     assert host_lib.column_moist_host(6, 1, *([None] * 5), 1, None, None) == 1
+    null = ctypes.POINTER(ctypes.c_void_p)()
+    for entry in (host_lib.down_surface_host,
+                  host_lib.down_surface_block_host):
+        assert entry(6, 1, null, len(clw.INPUTS), None, None, 1, 1,
+                     None) == 1
+        assert entry(8, 1, null, 3, None, None, 1, 1, None) == 1
 
 
 # ------------------------------------------------ (d): the operand checks
@@ -500,18 +729,19 @@ def test_column_moist_refuses_bad_operands():
 def test_column_longwave_refuses_bad_operands():
     tabs = phys_for(torch.float64).lw_tabs
     ta, tau2, stratc, ts, slru = longwave_inputs(42)
-    slrd, dfabs, flux, st4a = clw.radlw_down(ta, tau2, tabs)
+    args = grid_down_surface_args(42, torch.float64, "mixed", ta, tau2)
+    down = lambda **bad: clw.down_surface(**{**args, **bad})
+    (slrd, dfabs, flux, st4a), _ = down()
     with pytest.raises(TypeError, match="ta: dtype"):
-        clw.radlw_down(ta.to(torch.bfloat16), tau2, tabs)
+        down(ta=ta.to(torch.bfloat16))
     with pytest.raises(TypeError, match="tau2: dtype"):
-        clw.radlw_down(ta, tau2.float(), tabs)
+        down(tau2=tau2.float())
     with pytest.raises(ValueError, match="tau2: shape"):
-        clw.radlw_down(ta, tau2[:, :3].contiguous(), tabs)
+        down(tau2=tau2[:, :3].contiguous())
     with pytest.raises(ValueError, match="tau2: must be contiguous"):
-        clw.radlw_down(ta, tau2.transpose(0, 1).contiguous().transpose(0, 1),
-                       tabs)
-    with pytest.raises(ValueError, match="tabs.blob: shape"):
-        clw.radlw_down(ta, tau2, tabs._replace(blob=tabs.blob[:-1]))
+        down(tau2=tau2.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="lw_tabs.blob: shape"):
+        down(lw_tabs=tabs._replace(blob=tabs.blob[:-1]))
     up = lambda **kw: clw.radlw_up(**{**dict(
         ta=ta, ts=ts, slrd=slrd, slru_sfc=slru, dfabs=dfabs,
         flux_bands=flux, st4a=st4a, tau2=tau2, stratc=stratc, tabs=tabs),
@@ -527,8 +757,10 @@ def test_column_longwave_refuses_bad_operands():
                  .transpose(1, 2)))
     meta = lambda t: t.to("meta")
     mtabs = tabs._replace(blob=meta(tabs.blob))
-    with pytest.raises(ValueError, match="radlw_down: no kernel for device"):
-        clw.radlw_down(meta(ta), meta(tau2), mtabs)
+    with pytest.raises(ValueError, match="down_surface: no kernel for device"):
+        down(**{k: meta(v) for k, v in args.items() if torch.is_tensor(v)},
+             lw_tabs=mtabs, sfc_tabs=args["sfc_tabs"]._replace(
+                 blob=meta(args["sfc_tabs"].blob)))
     with pytest.raises(ValueError, match="radlw_up: no kernel for device"):
         clw.radlw_up(meta(ta), meta(ts), meta(slrd), meta(slru), meta(dfabs),
                      meta(flux), tuple(map(meta, st4a)), meta(tau2),

@@ -1,10 +1,12 @@
-"""Port parity of the column kernels K11 (kernels/surface_fluxes.py), K12
-(kernels/column_pbl.py) and K13 (kernels/column_shortwave.py).
+"""Port parity of the column kernels K10a_down_surface's surface fluxes
+(kernels/column_longwave.py down_surface, with kernels/surface_fluxes.py),
+K12 (kernels/column_pbl.py) and K13 (kernels/column_shortwave.py).
 
 The plausible random columns of tests/test_torch_column_kernels.py (16 x
 32 columns, made from a seed with numpy) and K9's plain outputs on them
 go through
-  (a) the JAX package's suflux, vdifsc + the sums of PhysicsModel.compute
+  (a) the JAX package's radlw_down followed by suflux, vdifsc + the sums
+      of PhysicsModel.compute
       (speedy_ml_tpu/physics/driver.py:258-275, 298-307) and cloud +
       radsw (do_sw, driver.py:221-238), and the port's wrappers on CPU
       tensors (their plain versions), float64, 1e-12 of each output's
@@ -19,7 +21,8 @@ go through
       bit;
   (c) one whole physics step, with and without the shortwave, through
       PhysicsModel.compute with every kernel's CPU route replaced by its
-      host-built body (K9-K13), against the JAX package's
+      host-built body (K9, K10a_down_surface, K10b, K12, K13), against the
+      JAX package's
       PhysicsModel.compute, float64, 1e-10: the wiring between kernels;
   (d) the wrappers' operand checks and their table blobs.
 The launch code itself runs only on a card (chip_smoke.py).
@@ -45,12 +48,12 @@ from speedy_ml_tpu.physics.driver import RadiationCarry as JCarry
 from speedy_ml_tpu.physics.land_sea import \
     init_surface_state as jinit_sfc
 from speedy_ml_tpu.physics.surface import sflset as jsflset
-from speedy_ml_tpu.physics.surface import suflux as jsuflux
 from speedy_ml_tpu.physics.vdiff import vdifsc as jvdifsc
 from speedy_ml_tpu_torch.convert import boundary_from_numpy
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.core.spectral import SpectralTransform
 from speedy_ml_tpu_torch.kernels import build as kb
+from speedy_ml_tpu_torch.kernels import column_longwave as clw
 from speedy_ml_tpu_torch.kernels import column_moist as cm
 from speedy_ml_tpu_torch.kernels import column_pbl as cpbl
 from speedy_ml_tpu_torch.kernels import column_shortwave as csw
@@ -60,19 +63,17 @@ from speedy_ml_tpu_torch.physics import land_sea
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.driver import RadiationCarry
 from test_torch_column_kernels import (GEOM, NGP, NLAT, NLON, _close, _hold,
-                                       _t, host_down, host_lib, host_moist,
-                                       host_up, make_columns, moist_inputs,
-                                       phys_for)
+                                       _plane, _t, down_surface_args, ds_dict,
+                                       host_down_surface, host_lib,
+                                       host_moist, host_up, jax_down_surface,
+                                       make_columns, moist_inputs, phys_for,
+                                       sfc_dict, surface_kwargs)
 
 KX = 8
 SOLAR = ((0.0, 420.0), (0.0, 15.0), (0.0, 15.0), (1.0, 4.0), (0.0, 10.0))
 
 
 # ------------------------------------------------------------------ inputs
-
-def _plane(rng, lo, hi):
-    return rng.uniform(lo, hi, (NLAT, NLON))
-
 
 def moist(seed, dtype=torch.float64, K=KX):
     """K9's plain outputs on the random columns, and the grid fields."""
@@ -82,37 +83,15 @@ def moist(seed, dtype=torch.float64, K=KX):
                                        phys.moist_tabs), tg, phig
 
 
-def surface_kwargs(seed, m, tg, phig, mask, dtype=torch.float64):
-    """suflux's operands around K9's outputs: winds, a land fraction
-    ("sea", "land" or "mixed"), surface state and forcing planes; a
-    quarter of the columns has dry soil (evaporation 0 over land)."""
-    rng = np.random.default_rng(seed)
-    K = tg.shape[0]
-    fmask = dict(sea=np.zeros, land=np.ones)[mask]((NLAT, NLON)) \
-        if mask != "mixed" else _plane(rng, 0.0, 1.0)
-    swav = _plane(rng, 0.0, 1.0)
-    swav[rng.uniform(size=swav.shape) < 0.25] = 0.0
-    planes = dict(phi0=_plane(rng, 0.0, 3.0e4), fmask=fmask,
-                  tland=_plane(rng, 250.0, 315.0),
-                  tsea=_plane(rng, 271.0, 304.0), swav=swav,
-                  ssrd=_plane(rng, 0.0, 400.0), slrd=_plane(rng, 100.0, 450.0),
-                  forog=_plane(rng, 1.0, 1.5), alb_l=_plane(rng, 0.05, 0.7),
-                  alb_s=_plane(rng, 0.06, 0.5), snowc=_plane(rng, 0.0, 1.0))
-    kw = {k: _t(v, dtype) for k, v in planes.items()}
-    kw["clat"] = _t(np.cos(np.linspace(-1.3, 1.3, NLAT)), dtype)
-    wind = lambda: _t(rng.uniform(-30.0, 30.0, (K, NLAT, NLON)), dtype)
-    return dict(psg=m.psg, ua=wind(), va=wind(), ta=tg, qa=m.qg, phi=phig,
-                **kw)
-
-
 def pbl_args(seed, phys, m, tg, phig):
     """column_pbl's operands: K9's outputs, K11's fluxes on them, a
     radiation carry's tt_rsw/ssrd, a longwave dfabs, sea ice."""
     rng = np.random.default_rng(seed + 50)
     dt = m.se.dtype
     K = tg.shape[0]
-    fx = sf.surface_fluxes(**surface_kwargs(seed, m, tg, phig, "mixed", dt),
-                           tabs=phys.sfc_tabs)
+    fx = sf.surface_fluxes_plain(
+        **surface_kwargs(seed, m.psg, m.qg, tg, phig, "mixed", dt),
+        tabs=phys.sfc_tabs)
     lev = lambda lo, hi: _t(rng.uniform(lo, hi, (K, NLAT, NLON)), dt)
     return (m, phig, fx, lev(-2e-4, 2e-4), _t(_plane(rng, 0.0, 400.0), dt),
             lev(-60.0, 60.0), _t(_plane(rng, 250.0, 272.0), dt),
@@ -140,16 +119,6 @@ def shortwave_args(seed, phys, m, phig, iptop="data"):
 
 def _j(a):
     return jnp.asarray(a.numpy())
-
-
-def sfc_dict(fx):
-    out = {}
-    for name, v in fx._asdict().items():
-        if isinstance(v, tuple):
-            out.update({f"{name}{i}": x for i, x in enumerate(v)})
-        else:
-            out[name] = v
-    return out
 
 
 PBL_OUT = ("utend", "vtend", "ttend", "qtend", "hflux_i")
@@ -204,19 +173,19 @@ def _jphys(K=KX):
 
 @pytest.mark.parametrize("mask", ["sea", "land", "mixed"])
 def test_surface_fluxes_matches_jax(mask):
+    """down_surface's surface fluxes (and its downward longwave, whose
+    slrd they take) against the JAX package's radlw_down followed by
+    suflux."""
     phys, m, tg, phig = moist(51)
-    kw = surface_kwargs(51, m, tg, phig, mask)
-    before = sf.surface_fluxes.launches
-    got = sf.surface_fluxes(**kw, tabs=phys.sfc_tabs)
-    assert sf.surface_fluxes.launches == before   # the CPU route counts 0
-    jp = _jphys()
-    c = jp.const
-    ref = jsuflux(_j(kw["psg"]), _j(kw["ua"]), _j(kw["va"]), _j(tg),
-                  _j(kw["qa"]), _j(m.rh), _j(phig),
-                  **{k: _j(kw[k]) for k in sf.PLANE_INPUTS},
-                  clat_row=_j(kw["clat"]), sigl_bot=jp.sigl_bot,
-                  wvi2_bot=jp.wvi2_bot, rd=287.0, cp=c.cp, alhc=c.alhc,
-                  sbc=c.sbc)
+    kw = surface_kwargs(51, m.psg, m.qg, tg, phig, mask)
+    tau2 = _t(np.random.default_rng(151).uniform(0.05, 1.0,
+                                                 (KX, 4, NLAT, NLON)))
+    before = clw.down_surface.launches
+    down, got = clw.down_surface(**down_surface_args(kw, tau2),
+                                 lw_tabs=phys.lw_tabs,
+                                 sfc_tabs=phys.sfc_tabs)
+    assert clw.down_surface.launches == before   # the CPU route counts 0
+    jdown, ref = jax_down_surface(_jphys(), kw, tau2)
     K = tg.shape[0]
     unstable = tg[K - 1] > tg[K - 2]
     assert unstable.any() and not unstable.all()
@@ -224,6 +193,7 @@ def test_surface_fluxes_matches_jax(mask):
         assert (got.evap[0] == 0).any() and (got.evap[0] > 0).any()
     for nm, r in sfc_dict(ref).items():
         _close(sfc_dict(got)[nm], r)
+    _close(down[0], jdown[0])
 
 
 @pytest.mark.parametrize("seed", [52, 53])
@@ -273,12 +243,10 @@ def test_column_shortwave_matches_jax(iptop):
 def lib(host_lib):
     """The host build with the argument types of the K11-K13 entries."""
     vp, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
-    host_lib.surface_fluxes_host.argtypes = [i, i, pp, i, vp, i, i, vp]
     host_lib.column_pbl_host.argtypes = [i, i, pp, i, vp, i, vp]
     host_lib.column_pbl_block_host.argtypes = [i, i, pp, i, vp, i, vp]
     host_lib.column_shortwave_host.argtypes = [i, i, pp, i, vp, i, vp]
-    for fn in (host_lib.surface_fluxes_host, host_lib.column_pbl_host,
-               host_lib.column_pbl_block_host,
+    for fn in (host_lib.column_pbl_host, host_lib.column_pbl_block_host,
                host_lib.column_shortwave_host):
         fn.restype = i
     return host_lib
@@ -287,17 +255,6 @@ def lib(host_lib):
 def _out(rows, like):
     return torch.full((rows,) + tuple(like.shape[-2:]), float("nan"),
                       dtype=like.dtype)
-
-
-def host_surface(lib, psg, ua, va, ta, qa, phi, *, tabs, **planes):
-    K, nlat, nlon, ins = sf.operands(psg, ua, va, ta, qa, phi, tabs=tabs,
-                                     **planes)
-    out = _out(sf.N_PLANES, ta)
-    rc = lib.surface_fluxes_host(
-        K, int(ta.dtype == torch.float64), kb.pointer_array(ins), len(ins),
-        tabs.blob.data_ptr(), nlat * nlon, nlon, out.data_ptr())
-    assert rc == 0
-    return sf.unpack(out)
 
 
 def host_pbl(lib, *args):
@@ -326,9 +283,13 @@ def host_shortwave(lib, *args):
 
 def _check_three(lib, seed, dtype, K=KX, iptop="data"):
     phys, m, tg, phig = moist(seed, dtype, K)
-    kw = surface_kwargs(seed, m, tg, phig, "mixed", dtype)
-    _hold(sfc_dict(host_surface(lib, **kw, tabs=phys.sfc_tabs)),
-          sfc_dict(sf.surface_fluxes_plain(**kw, tabs=phys.sfc_tabs)), dtype)
+    kw = surface_kwargs(seed, m.psg, m.qg, tg, phig, "mixed", dtype)
+    tau2 = _t(np.random.default_rng(seed + 90).uniform(
+        0.05, 1.0, (K, 4, NLAT, NLON)), dtype)
+    ds = dict(down_surface_args(kw, tau2), lw_tabs=phys.lw_tabs,
+              sfc_tabs=phys.sfc_tabs)
+    _hold(ds_dict(host_down_surface(lib, **ds)),
+          ds_dict(clw.down_surface_plain(**ds)), dtype)
     pa = pbl_args(seed, phys, m, tg, phig) + (phys.pbl_tabs,)
     _hold(dict(zip(PBL_OUT, host_pbl(lib, *pa))),
           dict(zip(PBL_OUT, cpbl.column_pbl_plain(*pa))), dtype)
@@ -432,7 +393,8 @@ def step_setup():
 def test_host_built_step_matches_jax_compute(lib, step_setup, lradsw,
                                              monkeypatch):
     jbd, jphys, jsfc, jf, bd, phys, tsfc, tf = step_setup
-    calls = dict.fromkeys(("K9", "K10a", "K10b", "K11", "K12", "K13"), 0)
+    calls = dict.fromkeys(("K9", "K10a_down_surface", "K10b", "K12",
+                           "K13"), 0)
 
     def counted(name, fn):
         def run(*a, **kw):
@@ -444,12 +406,10 @@ def test_host_built_step_matches_jax_compute(lib, step_setup, lradsw,
     monkeypatch.setattr(cm, "column_moist_plain", counted(
         "K9", lambda tg, qg, phig, pslg, tabs: host_moist(
             lib, tg, qg, phig, pslg, tabs)))
-    monkeypatch.setattr(rad, "radlw_down", counted(
-        "K10a", lambda ta, tau2, fband, **kw: host_down(lib, ta, tau2, lw)))
+    monkeypatch.setattr(clw, "down_surface_plain", counted(
+        "K10a_down_surface", lambda **kw: host_down_surface(lib, **kw)))
     monkeypatch.setattr(rad, "radlw_up", counted(
         "K10b", lambda *a, **kw: host_up(lib, *a[:-1], lw)))
-    monkeypatch.setattr(sf, "surface_fluxes_plain", counted(
-        "K11", lambda *a, **kw: host_surface(lib, *a, **kw)))
     monkeypatch.setattr(cpbl, "column_pbl_plain", counted(
         "K12", lambda *a: host_pbl(lib, *a)))
     monkeypatch.setattr(csw, "column_shortwave_plain", counted(
@@ -471,7 +431,7 @@ def test_host_built_step_matches_jax_compute(lib, step_setup, lradsw,
                          forcing=jf, carry=jcarry, lradsw=jnp.asarray(lradsw))
     tout = phys.compute(*map(_t, args), bd=bd, sfc=tsfc, forcing=tf,
                         carry=tcarry, lradsw=lradsw)
-    assert calls == dict(K9=1, K10a=1, K10b=1, K11=1, K12=1,
+    assert calls == dict(K9=1, K10a_down_surface=1, K10b=1, K12=1,
                          K13=int(lradsw))
     for got, ref in zip(tout[:4], jout[:4]):
         _close(got, ref, 1e-10)
@@ -486,9 +446,13 @@ def test_host_built_step_matches_jax_compute(lib, step_setup, lradsw,
 
 def test_wrappers_b2_refuse_bad_operands():
     phys, m, tg, phig = moist(81)
-    kw = surface_kwargs(81, m, tg, phig, "mixed")
-    call = lambda **bad: sf.surface_fluxes(**{**kw, **bad},
-                                           tabs=phys.sfc_tabs)
+    tau2 = _t(np.random.default_rng(181).uniform(0.05, 1.0,
+                                                 (KX, 4, NLAT, NLON)))
+    kw = dict(down_surface_args(
+        surface_kwargs(81, m.psg, m.qg, tg, phig, "mixed"), tau2),
+        lw_tabs=phys.lw_tabs)
+    call = lambda **bad: clw.down_surface(**{**kw, **bad},
+                                          sfc_tabs=phys.sfc_tabs)
     with pytest.raises(TypeError, match="ta: dtype"):
         call(ta=tg.to(torch.float16))
     with pytest.raises(TypeError, match="tsea: dtype"):
@@ -499,14 +463,17 @@ def test_wrappers_b2_refuse_bad_operands():
         call(ua=kw["ua"][0])
     with pytest.raises(ValueError, match="ssrd: must be contiguous"):
         call(ssrd=kw["ssrd"].t().contiguous().t())
-    with pytest.raises(ValueError, match="tabs.blob: shape"):
-        sf.surface_fluxes(**kw, tabs=phys.sfc_tabs._replace(
+    with pytest.raises(ValueError, match="sfc_tabs.blob: shape"):
+        clw.down_surface(**kw, sfc_tabs=phys.sfc_tabs._replace(
             blob=phys.sfc_tabs.blob[:-1]))
     meta = lambda t: t.to("meta")
-    with pytest.raises(ValueError, match="surface_fluxes: no kernel"):
-        sf.surface_fluxes(**{k: meta(v) for k, v in kw.items()},
-                          tabs=phys.sfc_tabs._replace(
-                              blob=meta(phys.sfc_tabs.blob)))
+    with pytest.raises(ValueError, match="down_surface: no kernel"):
+        clw.down_surface(**{k: meta(v) for k, v in kw.items()
+                            if torch.is_tensor(v)},
+                         lw_tabs=phys.lw_tabs._replace(
+                             blob=meta(phys.lw_tabs.blob)),
+                         sfc_tabs=phys.sfc_tabs._replace(
+                             blob=meta(phys.sfc_tabs.blob)))
 
     pa = pbl_args(81, phys, m, tg, phig)
     with pytest.raises(TypeError, match="icnv: dtype"):
