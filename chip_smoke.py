@@ -29,16 +29,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      (within K7_ULPS, timed as the median of SHT_SESSIONS sessions),
      K8 spectral_tail (the filtered leapfrog step, and stepone's two
      steps, j1 = 1 with imp_half and imp_full; timed as the median of
-     SHT_SESSIONS sessions), K9 column_moist, K10a_down_surface (the
-     downward longwave and the surface fluxes in one launch, against
-     radlw_down followed by suflux), K10b radlw_up, K12 column_pbl, K13
-     column_shortwave (the column physics: in float64 against the plain
-     float64 version, then in float32 with the columns whose integer
-     outputs differ counted; K9, K10a_down_surface, K10b and K12 must be
-     bit-identical in both, no column flipped, and are timed as the
-     median of SHT_SESSIONS sessions),
-     K16 flux_accumulate (bit-identical, timed as the median of
-     SHT_SESSIONS sessions), K17 surface_forcing (the window's entry on
+     SHT_SESSIONS sessions), K9 column_moist, K9_moist_shortwave (K9
+     and the clouds and shortwave in one launch, against
+     column_moist_plain followed by column_shortwave_plain),
+     K10a_down_surface (the downward longwave and the surface fluxes in
+     one launch, against radlw_down followed by suflux), K10b radlw_up,
+     K12 column_pbl, K12_pbl_flux (K12 and the window's flux sums in one
+     launch, against column_pbl_plain followed by flux_accumulate_plain)
+     (the column physics: in float64 against the plain float64 version,
+     then in float32 with the columns whose integer outputs differ
+     counted; each must be bit-identical in both, no column flipped,
+     and is timed as the median of SHT_SESSIONS sessions), K17 surface_forcing (the
+     window's entry on
      this cycle's date and SST, and on a seeded mixed land mask with sea
      ice, float32 and float64, within K17_ULPS of each plane's scale; the
      surface alone and the forcing alone give the same planes), K17b
@@ -58,18 +60,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      [150, 350] K; one ML-only cycle with the kernels against the plain
      versions;
   7. the coupled main path, run_prediction: launches of every kernel
-     (K5-K9, K10a_down_surface, K12, K15-K20 at most LAUNCHES_PER_CYCLE
-     a cycle),
+     (K5-K9, K9_moist_shortwave, K10a_down_surface, K12, K12_pbl_flux,
+     K15, K17-K20 at most LAUNCHES_PER_CYCLE a cycle),
      cycle_ms (median and range of 5 x 20 cycles), device busy, idle
      share, device launches per cycle (at most LAUNCHES_MAX in the
      5-cycle profile) and how many of them plain, device ms per stage,
      every plain launch of each stage listed (at most PLAIN_MAX a cycle
      in all), the window's launches split into kernel and plain launches,
-     per kernel inside the window (K5-K10b, K12, K13, K15-K17, K20) and
-     per physics kernel, the top device ops; a profiled physics step
-     (with and without the shortwave) must show no device op but the
-     kernels K9, K10a_down_surface, K10b, K12 and K13; physical checks
-     (safe, finite, T in [150, 350] K);
+     per kernel inside the window (K5-K10b, K12, K15, K17, K20 and the
+     fused K9_moist_shortwave and K12_pbl_flux) and per physics kernel,
+     the top device ops; a profiled physics step (with and without the
+     shortwave, with and without the flux sums) must be four kernel
+     launches and no other device op (K9 or K9_moist_shortwave,
+     K10a_down_surface, K10b, K12 or K12_pbl_flux), and a profiled
+     leapfrog step ten kernel launches and no other device op; physical
+     checks (safe, finite, T in [150, 350] K);
   8. one coupled cycle under torch.cuda.set_sync_debug_mode("error");
   9. the safety gate: Wout x 1e7 trips it, SPEEDY's output stays
      finite, and run_prediction stops by cycle 2; a NaN written into the
@@ -134,9 +139,10 @@ TAIL_RTOL = 1e-5
 SHT_SESSIONS = 5
 LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
                       "K7_grid_dynamics": 26, "K8_spectral_tail": 26,
-                      "K9_column_moist": 26, "K10a_down_surface": 26,
-                      "K12_column_pbl": 26,
-                      "K15_spectral_stack": 27, "K16_flux_accumulate": 24,
+                      "K9_column_moist": 16, "K9_moist_shortwave": 10,
+                      "K10a_down_surface": 26,
+                      "K12_column_pbl": 2, "K12_pbl_flux": 24,
+                      "K15_spectral_stack": 27,
                       "K17_surface_forcing": 1, "K17b_tisr_plane": 1,
                       "K18_inject_spectral": 1, "K19_gate_check": 1,
                       "K20_window_select": 1}
@@ -145,8 +151,10 @@ LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
 # took the spectral stacks and the flux sums of the window's steps, 703.8
 # before K17-K20 took the window's entry and exit and the injection's
 # glue, 348.8 before K10a_down_surface took the downward longwave and the
-# surface fluxes of a physics step in one launch (26 fewer a cycle)
-LAUNCHES_MAX = 335
+# surface fluxes of a physics step in one launch (26 fewer a cycle),
+# 322.8 before K9_moist_shortwave and K12_pbl_flux took the shortwave and
+# the window's flux sums into the physics step's launches (34 fewer)
+LAUNCHES_MAX = 300
 # the most plain launches (PyTorch's own kernels, copies, fills) of a
 # coupled cycle in phase 7's per-stage profile
 PLAIN_MAX = 20
@@ -154,17 +162,12 @@ PLAIN_MAX = 20
 # each plane's scale (both sides call the same CUDA functions in the same
 # order: 0 expected)
 K17_ULPS = 4
-# the column kernels (K9, K10a_down_surface, K10b, K12, K13), float32:
-# a fraction of each output's scale over the columns whose integer
-# outputs (itop, icnv) agree, and the share of columns in which they may
-# differ (a near-tie decision falling the other way); float64: the same
-# operations in the same order, integers equal.  On an H100 all of them
-# came out bit-identical to the plain float32 versions; the first
-# downward longwave kernel, while its x**4 was two squarings (torch.pow's
-# is powf), at 2.6e-7, which the float32 bound of 2e-6 still allows for
-COLUMN_RTOL = 2e-6
+# the column kernels (K9, K9_moist_shortwave, K10a_down_surface, K10b,
+# K12, K12_pbl_flux) are held bit-identical to their plain versions in
+# float32 and float64 (on an H100 each did so from its first call);
+# phase 5: the share of a window step's columns whose physics may take a
+# near-tie decision the other way
 COLUMN_FLIPS = 0.005
-COLUMN_RTOL_F64 = 1e-11
 # phase 5, each window step from the card's state against the plain step
 # (float32): a fraction of each variable's signal (the worst step on an
 # H100: t 5.4e-5, the other variables below 7e-7), and the fraction of a
@@ -611,14 +614,13 @@ def phase_training(torch, gcm, layout, date0, card, record):
                                                      make_imperfect_forecasts)
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
     from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
-    from speedy_ml_tpu_torch.kernels.column_moist import column_moist
-    from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl
-    from speedy_ml_tpu_torch.kernels.column_shortwave import column_shortwave
+    from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
+                                                          moist_shortwave)
+    from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl, pbl_flux
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step
     from speedy_ml_tpu_torch.kernels.gram_update import gram_update
     from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
     from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
-    from speedy_ml_tpu_torch.kernels.flux_accumulate import flux_accumulate
     from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
     from speedy_ml_tpu_torch.kernels.spectral_stack import spectral_stack
     from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
@@ -671,10 +673,10 @@ def phase_training(torch, gcm, layout, date0, card, record):
     # -- 10b. the nature run and the imperfect model's forecasts
     counted = {"K1": esn_step, "K14": gram_update, "K5": sht_analysis,
                "K6": sht_synthesis, "K7": grid_dynamics, "K8": spectral_tail,
-               "K9": column_moist, "K10a": clw.down_surface,
-               "K10b": clw.radlw_up, "K12": column_pbl,
-               "K13": column_shortwave,
-               "K15": spectral_stack, "K16": flux_accumulate}
+               "K9": column_moist, "K9_moist_shortwave": moist_shortwave,
+               "K10a": clw.down_surface, "K10b": clw.radlw_up,
+               "K12": column_pbl, "K12_pbl_flux": pbl_flux,
+               "K15": spectral_stack}
     torch.cuda.synchronize()
     for fn in counted.values():
         fn.launches = 0
@@ -838,17 +840,20 @@ def main():
     from speedy_ml_tpu_torch.kernels import build as kb
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
     from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
-    from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
-                                                          column_moist_plain)
+    from speedy_ml_tpu_torch.kernels.column_moist import (
+        column_moist, column_moist_plain, moist_shortwave,
+        moist_shortwave_plain)
     from speedy_ml_tpu_torch.kernels.column_pbl import (column_pbl,
-                                                        column_pbl_plain)
-    from speedy_ml_tpu_torch.kernels.column_shortwave import (
-        column_shortwave, column_shortwave_plain)
+                                                        column_pbl_plain,
+                                                        pbl_flux,
+                                                        pbl_flux_plain)
+    from speedy_ml_tpu_torch.kernels.column_shortwave import \
+        ShortwaveForcing
     from speedy_ml_tpu_torch.kernels.core_scatter import (core_scatter,
                                                           core_scatter_plain)
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
-    from speedy_ml_tpu_torch.kernels.flux_accumulate import (
-        flux_accumulate, flux_accumulate_plain)
+    from speedy_ml_tpu_torch.kernels.flux_accumulate import \
+        flux_accumulate_plain
     from speedy_ml_tpu_torch.kernels.gate_check import (GATE_BOUNDS,
                                                         gate_check,
                                                         gate_check_plain)
@@ -1416,8 +1421,8 @@ def main():
         f"{err:.3e})")
 
     # K7: the column dynamics with the physics tendencies of this state
-    ptend, (_, diag4) = gcm._physics_fn(st, 0, dyn, sfc, forcing,
-                                        gst.radiation, False)
+    ptend, (_, diag4, _) = gcm._physics_fn(st, 0, dyn, sfc, forcing,
+                                           gst.radiation, False)
     tabs = dyn.column_tables(imp)
     gk7 = grid_dynamics(gk, ptend, tabs, K, 1)
     gp7 = grid_dynamics_plain(gk, ptend, tabs, K, 1)
@@ -1544,7 +1549,8 @@ def main():
                  MN * (12 * K * K + 100 * K + 20), PEAK_F32_S))
     log("  (K8 max_abs_err is relative to each field level's scale)")
 
-    # K9, K10a_down_surface, K10b, K12, K13: the column physics on the
+    # K9, K9_moist_shortwave, K10a_down_surface, K10b, K12, K12_pbl_flux:
+    # the column physics on the
     # main path's own inputs, the physics grid of this state and the
     # radiation carry that stepone left (a shortwave step, so tau2 and
     # stratc are real), float32; and on the same inputs upcast, against a
@@ -1565,37 +1571,28 @@ def main():
         return a.double() if a.is_floating_point() else a
 
     def column_check(name, src, replaces, kernel, plain, args, tabs, tabs64,
-                     to_dict, ints, planes, ops, exact=False):
-        """Both comparisons of one column kernel, then record().  exact:
-        no difference and no flipped column allowed, in float64 and
-        float32, and the kernel timed as the median of SHT_SESSIONS
-        sessions."""
-        tol64 = 0.0 if exact else COLUMN_RTOL_F64
-        most = 0 if exact else COLUMN_FLIPS * G
+                     to_dict, ints, planes, ops):
+        """Both comparisons of one column kernel, then record(): no
+        difference and no flipped column allowed, in float64 and float32.
+        The kernel is timed as the median of SHT_SESSIONS sessions."""
         a64 = [up64(a) for a in args]
-        fl, rel, worst = column_errors(to_dict(kernel(*a64, tabs64)),
-                                       to_dict(plain(*a64, tabs64)), ints)
-        log(f"{name} float64 on the card: {fl} columns of {G} with other "
-            f"integer outputs, worst output {worst or 'none'} "
-            f"{rel:.3e} of its scale (tolerance {tol64:.0e}, "
-            f"integers equal)")
-        if fl or not rel <= tol64:
-            fail(f"{name}<double> disagrees with the plain float64 version")
-        fl, rel, worst = column_errors(to_dict(kernel(*args, tabs)),
-                                       to_dict(plain(*args, tabs)), ints)
-        log(f"{name} float32: {fl} columns of {G} with other integer "
-            f"outputs (at most {most:g}), worst output "
-            f"{worst or 'none'} over the others")
-        if fl > most:
-            fail(f"{name}: {fl} columns flipped")
-        if exact:
-            kern, runs = measure_median(torch, lambda: kernel(*args, tabs))
-            log(f"{name} sessions (device ms): "
-                + ", ".join(f"{r:.4f}" for r in runs))
-        else:
-            kern = measure(torch, lambda: kernel(*args, tabs), reps=50)
-        return record(name, src, replaces, rel,
-                      0.0 if exact else COLUMN_RTOL, kern,
+        rel = {}
+        for label, a, tb in (("float64", a64, tabs64),
+                             ("float32", args, tabs)):
+            got, ref = to_dict(kernel(*a, tb)), to_dict(plain(*a, tb))
+            fl, rel[label], worst = column_errors(got, ref, ints)
+            log(f"{name} {label} on the card: {fl} columns of {G} with "
+                f"other integer outputs (at most 0), worst output "
+                f"{worst or 'none'} {rel[label]:.3e} of its scale")
+            if fl:
+                fail(f"{name} {label}: {fl} columns flipped")
+        if not rel["float64"] <= 0.0:
+            fail(f"{name}<double> disagrees with the plain float64 version "
+                 f"(tolerance 0)")
+        kern, runs = measure_median(torch, lambda: kernel(*args, tabs))
+        log(f"{name} sessions (device ms): "
+            + ", ".join(f"{r:.4f}" for r in runs))
+        return record(name, src, replaces, rel["float32"], 0.0, kern,
                       measure(torch, lambda: plain(*args, tabs), reps=10),
                       bound_ms(4 * G * planes, G * ops, PEAK_F32_S))
 
@@ -1607,11 +1604,33 @@ def main():
         "speedy_ml_tpu/physics/driver.py:192", column_moist,
         column_moist_plain, (tg4, qg4, phig4, pslg4), phys.moist_tabs,
         phys64.moist_tabs, lambda m: m._asdict(), ("itop", "icnv"),
-        (3 * K + 1) + (6 * K + 5) + 4, 60 * K + 100, exact=True)
-    up_plain = lambda *a: rad.radlw_up(*a[:-1], a[-1].fband, dsig=a[-1].dsig,
-                                       sbc=a[-1].sbc)
+        (3 * K + 1) + (6 * K + 5) + 4, 60 * K + 100)
     m4 = column_moist(tg4, qg4, phig4, pslg4, phys.moist_tabs)
     bd = gcm.bd
+    # K9_moist_shortwave takes the tables as a pair and the shortwave's
+    # planes loose (the checks upcast tensors and named tuples)
+    sw_names = ("tau2", "stratc", "tt_rsw", "ssrd", "ssr", "tsr")
+    msw = lambda fn: lambda tg, qg, phig, pslg, fmask, sol, albsfc, tb: fn(
+        tg, qg, phig, pslg, tb[0], ShortwaveForcing(fmask, sol, albsfc,
+                                                    tb[1]))
+    sol4 = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
+                            ozone=forcing.ozone, zenit=forcing.zenit,
+                            stratz=forcing.stratz)
+    # planes: K9's, then seven read (fmask, the five solar planes,
+    # albsfc) and 5K + 5 written (tau2, stratc, tt_rsw, ssrd, ssr, tsr);
+    # ops: K9's and the shortwave's 45 exponentials a column
+    ok &= column_check(
+        "K9_moist_shortwave", csrc + "column_moist.cu",
+        "speedy_ml_tpu/physics/driver.py:192, "
+        "speedy_ml_tpu/physics/radiation.py:165",
+        msw(moist_shortwave), msw(moist_shortwave_plain),
+        (tg4, qg4, phig4, pslg4, bd.fmask_l, sol4, forcing.albsfc),
+        (phys.moist_tabs, phys.sw_tabs), (phys64.moist_tabs, phys64.sw_tabs),
+        lambda o: {**o[0]._asdict(), **dict(zip(sw_names, o[1]))},
+        ("itop", "icnv"), (3 * K + 1) + (6 * K + 5) + 4 + 7 + (5 * K + 5),
+        60 * K + 100 + 100 * K + 45 * 20)
+    up_plain = lambda *a: rad.radlw_up(*a[:-1], a[-1].fband, dsig=a[-1].dsig,
+                                       sbc=a[-1].sbc)
 
     def fx_dict(fx):
         """SurfaceFluxes as name -> plane, its (land, sea, blend) tuples
@@ -1647,7 +1666,7 @@ def main():
         "speedy_ml_tpu/physics/surface.py:40", ds(clw.down_surface),
         ds(clw.down_surface_plain), ds_args, (phys.lw_tabs, phys.sfc_tabs),
         (phys64.lw_tabs, phys64.sfc_tabs), ds_dict, (),
-        (5 * K + 13 + nlat / G) + (3 * K + 28), 60 * K + 150, exact=True)
+        (5 * K + 13 + nlat / G) + (3 * K + 28), 60 * K + 150)
     dn4, fx4 = ds(clw.down_surface)(*ds_args, (phys.lw_tabs, phys.sfc_tabs))
     up_args = (tg4, fx4.tsfc, dn4[0], fx4.slru[2], dn4[1], dn4[2], dn4[3],
                carry4.tau2, carry4.stratc)
@@ -1656,50 +1675,39 @@ def main():
         "speedy_ml_tpu/physics/radiation.py:381", clw.radlw_up, up_plain,
         up_args, phys.lw_tabs, phys64.lw_tabs,
         lambda o: dict(slr=o[0], olr=o[1], dfabs=o[2]), (),
-        (8 * K + 9) + (K + 2), 60 * K, exact=True)
+        (8 * K + 9) + (K + 2), 60 * K)
     up4 = clw.radlw_up(*up_args, phys.lw_tabs)
     pbl_names = ("utend", "vtend", "ttend", "qtend", "hflux_i")
+    pbl_args = (m4, phig4, fx4, carry4.tt_rsw, carry4.ssrd, up4[2],
+                sfc.tice_am, sfc.sice_am)
     ok &= column_check(
         "K12_column_pbl", csrc + "column_pbl.cu",
         "speedy_ml_tpu/physics/vdiff.py:16", column_pbl, column_pbl_plain,
-        (m4, phig4, fx4, carry4.tt_rsw, carry4.ssrd, up4[2], sfc.tice_am,
-         sfc.sice_am), phys.pbl_tabs, phys64.pbl_tabs,
+        pbl_args, phys.pbl_tabs, phys64.pbl_tabs,
         lambda o: dict(zip(pbl_names, o)), (),
-        (9 * K + 2 + 11) + (4 * K + 1), K * K + 40 * K, exact=True)
-    sol4 = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
-                            ozone=forcing.ozone, zenit=forcing.zenit,
-                            stratz=forcing.stratz)
-    sw_names = ("tau2", "stratc", "tt_rsw", "ssrd", "ssr", "tsr")
-    ok &= column_check(
-        "K13_column_shortwave", csrc + "column_shortwave.cu",
-        "speedy_ml_tpu/physics/radiation.py:165", column_shortwave,
-        column_shortwave_plain,
-        (m4, phig4, bd.fmask_l, sol4, forcing.albsfc), phys.sw_tabs,
-        phys64.sw_tabs, lambda o: dict(zip(sw_names, o)), (),
-        (2 * K + 4 + 11 + 2) + (5 * K + 5), 100 * K + 45 * 20)
-    log("  (K9, K10a_down_surface, K10b, K12, K13 max_abs_err is relative "
-        "to each output's scale, over the columns whose integer outputs "
-        "agree)")
-
-    # K16: the flux sums of a leapfrog step, on the diagnostics of this
-    # state's physics and an accumulator that already holds one step
+        (9 * K + 2 + 11) + (4 * K + 1), K * K + 40 * K)
+    # K12_pbl_flux: the window's flux sums of a leapfrog step on this
+    # state's physics, from an accumulator that already holds one step;
+    # the checks pass the accumulator as a tuple and the tables last
     rsteps, delt2 = 1.0 / gcm.nsteps_day, dyn.delt2
-    fx4 = flux_accumulate_plain(gst.fluxes, diag4, rsteps, delt2)
-    k16 = flux_accumulate(fx4, diag4, rsteps, delt2)
-    p16 = flux_accumulate_plain(fx4, diag4, rsteps, delt2)
-    err16 = max(max_abs_diff(torch, getattr(k16, f), getattr(p16, f))
-                for f in ("hflux_l", "hflux_s", "hflux_i", "precip"))
-    (k16_ms, k16_call), k16_runs = measure_median(
-        torch, lambda: flux_accumulate(fx4, diag4, rsteps, delt2))
-    log("K16 sessions (device ms): "
-        + ", ".join(f"{r:.4f}" for r in k16_runs))
-    ok &= record(
-        "K16_flux_accumulate",
-        "speedy_ml_tpu_torch/kernels/csrc/flux_accumulate.cu",
-        "speedy_ml_tpu/gcm.py:273", err16, 0.0, (k16_ms, k16_call),
-        measure(torch, lambda: flux_accumulate_plain(fx4, diag4, rsteps,
-                                                     delt2), reps=20),
-        bound_ms(4 * G * 13, 11 * G, PEAK_F32_S))
+    flux_names = ("hflux_l", "hflux_s", "hflux_i", "precip")
+    sums = lambda f: tuple(getattr(f, nm) for nm in flux_names)
+    acc4 = sums(flux_accumulate_plain(gst.fluxes, diag4, rsteps, delt2))
+    pf = lambda fn: lambda *a: (lambda o: o[:5] + sums(o[5]))(
+        fn(*a[:8], a[9], FluxAccumulator(*a[8]), rsteps, delt2))
+    # planes: K12's, then seven read (the four sums, hflux_l, precnv,
+    # precls) and the four sums written; ops: K12's and 11 a column
+    ok &= column_check(
+        "K12_pbl_flux", csrc + "column_pbl.cu",
+        "speedy_ml_tpu/physics/vdiff.py:16, speedy_ml_tpu/gcm.py:273",
+        pf(pbl_flux), pf(pbl_flux_plain), pbl_args + (acc4,), phys.pbl_tabs,
+        phys64.pbl_tabs,
+        lambda o: dict(zip(pbl_names + tuple(f"acc_{n}" for n in flux_names),
+                           o)), (),
+        (9 * K + 2 + 11) + (4 * K + 1) + 7 + 4, K * K + 40 * K + 11)
+    log("  (K9, K9_moist_shortwave, K10a_down_surface, K10b, K12, "
+        "K12_pbl_flux max_abs_err is relative to each output's scale, over "
+        "the columns whose integer outputs agree)")
     # K20: the window's exit on the synthesis of this state's physics
     # stack at level 0, alone and with the cycle's select (ok true; prev
     # false), float32 and float64, against the plain version: the same
@@ -1866,12 +1874,12 @@ def main():
                "K7_grid_dynamics": grid_dynamics,
                "K8_spectral_tail": spectral_tail,
                "K9_column_moist": column_moist,
+               "K9_moist_shortwave": moist_shortwave,
                "K10a_down_surface": clw.down_surface,
                "K10b_radlw_up": clw.radlw_up,
                "K12_column_pbl": column_pbl,
-               "K13_column_shortwave": column_shortwave,
+               "K12_pbl_flux": pbl_flux,
                "K15_spectral_stack": spectral_stack,
-               "K16_flux_accumulate": flux_accumulate,
                "K17_surface_forcing": sfc_forcing.surface_forcing,
                "K17b_tisr_plane": sfc_forcing.tisr_plane,
                "K18_inject_spectral": inject_spectral,
@@ -2045,10 +2053,11 @@ def main():
              f"{PLAIN_MAX}")
     knames = {"K5": "sht_analysis_kernel", "K6": "sht_synthesis_kernel",
               "K7": "grid_dynamics_kernel", "K8": "spectral_tail_kernel",
-              "K9": "column_moist_kernel", "K10a": "down_surface_kernel",
-              "K10b": "radlw_up_kernel",
-              "K12": "column_pbl_kernel", "K13": "column_shortwave_kernel",
-              "K15": "spectral_stack_kernel", "K16": "flux_accumulate_kernel",
+              "K9": "column_moist_kernel",
+              "K9_moist_shortwave": "moist_shortwave_kernel",
+              "K10a": "down_surface_kernel", "K10b": "radlw_up_kernel",
+              "K12": "column_pbl_kernel", "K12_pbl_flux": "pbl_flux_kernel",
+              "K15": "spectral_stack_kernel",
               "K17": "surface_forcing_kernel",
               "K20": "window_select_kernel"}
     kk = {k: [e for e in window_kern if kernel_name(e.key) == v]
@@ -2056,8 +2065,8 @@ def main():
     n_win = sum(e.count for e in window_kern) / 2
     n_win_k = sum(sum(e.count for e in v) for v in kk.values()) / 2
     log(f"  speedy_window launches per cycle: {n_win:g}, of which "
-        f"{n_win_k:g} kernel launches (K5-K10b, K12, K13, K15-K17, K20) "
-        f"and "
+        f"{n_win_k:g} kernel launches (K5-K10b, K12, K15, K17, K20, "
+        f"K9_moist_shortwave, K12_pbl_flux) and "
         f"{n_win - n_win_k:g} plain launches")
     log("  inside speedy_window: " + "; ".join(
         f"{k} {sum(_self_device_us(e) for e in v) / 2e3:.4f} ms "
@@ -2066,47 +2075,67 @@ def main():
     for k, v in kk.items():
         if not v:
             fail(f"{k} was not launched inside speedy_window")
-    # the column physics of one step, with and without the shortwave
-    # (a window runs 10 steps with it and 16 without), on the carry of a
-    # shortwave step (tau2 and stratc real)
+    # the column physics of one step, with and without the shortwave,
+    # with and without the window's flux sums (a window runs stepone's two
+    # steps with the shortwave and without the sums, then 24 leapfrog
+    # steps with the sums, 8 of them with the shortwave), on the carry of
+    # a shortwave step (tau2 and stratc real)
     sfc_ = init_surface_state(gcm.bd, imon, fmon,
                               sst_hybrid=final.sst_grid, flags=gcm.cpl)
     fo_ = gcm.forcing_for(sfc_, tyear)
     grid_ = gcm.physics_grid(spec_, 0)
     phys = gcm.phys
-    step = lambda sw, carry: phys.compute(*grid_, bd=gcm.bd, sfc=sfc_,
-                                          forcing=fo_, carry=carry,
-                                          lradsw=sw)
+    sums_ = (FluxAccumulator.zeros(nlat, nlon, f32, dev),
+             1.0 / gcm.nsteps_day, gcm.dyn.delt2)
+    step = lambda sw, carry, sums=None: phys.compute(
+        *grid_, bd=gcm.bd, sfc=sfc_, forcing=fo_, carry=carry, lradsw=sw,
+        sums=sums)
     carry_ = step(True, RadiationCarry.zeros(K, nlat, nlon, f32, dev))[4]
-    phys_kernels = [knames[k] for k in ("K9", "K10a", "K10b", "K12", "K13")]
     per = {}
     for sw in (True, False):
-        fn = lambda: step(sw, carry_)
+        for sm in (None, sums_):
+            fn = lambda: step(sw, carry_, sm)
+            fn()
+            ms, kk_, _ = profile_device(torch, fn, reps=20)
+            per[sw, sm is not None] = (ms, sum(e.count for e in kk_) / 20)
+            # nothing plain is left on the card: a step is four kernel
+            # launches, one of each of its four kernels, and no other op
+            want = [knames["K9_moist_shortwave" if sw else "K9"],
+                    knames["K10a"], knames["K10b"],
+                    knames["K12" if sm is None else "K12_pbl_flux"]]
+            got = {kernel_name(e.key): e.count for e in kk_}
+            if got != dict.fromkeys(want, 20):
+                fail(f"a physics step (shortwave {sw}, flux sums "
+                     f"{sm is not None}) ran {got} in 20 steps, not one "
+                     f"launch of each of {want} a step")
+    log(f"  physics (PhysicsModel.compute, four kernel launches and no "
+        f"other device op), per step: "
+        + "; ".join(f"{'with' if sw else 'without'} the shortwave, "
+                    f"{'with' if sm else 'without'} the flux sums "
+                    f"{per[sw, sm][0]:.4f} ms ({per[sw, sm][1]:g} launches)"
+                    for sw in (True, False) for sm in (False, True))
+        + f"; per cycle (2 stepone steps, 8 + 16 leapfrog steps) "
+        f"{2 * per[True, False][0] + 8 * per[True, True][0] + 16 * per[False, True][0]:.4f} ms "
+        f"and {2 * per[True, False][1] + 8 * per[True, True][1] + 16 * per[False, True][1]:g} "
+        f"launches [{card}]")
+    # a leapfrog step (K15, K6 twice, the physics, K7, K5, K8): ten kernel
+    # launches and no other op, the flux sums inside the physics' K12
+    gst_ = GCMState(spectral=spec_, sfc=sfc_, radiation=carry_,
+                    fluxes=sums_[0], istep=0)
+    for istep in (0, 1):
+        fn = lambda: gcm.leapfrog(dataclasses.replace(gst_, istep=istep),
+                                  fo_)
         fn()
-        ms, kk_, _ = profile_device(torch, fn, reps=20)
-        per[sw] = (ms, sum(e.count for e in kk_) / 20)
-        # nothing plain is left on the card: every device op of the step
-        # is one of the column kernels, and each of them ran
+        ms, kk_, _ = profile_device(torch, fn, reps=10)
+        n_step = sum(e.count for e in kk_) / 10
         other = sorted({e.key[:80] for e in kk_
-                        if not any(n in e.key for n in phys_kernels)})
-        if other:
-            fail(f"a physics step (shortwave {sw}) ran device ops other "
-                 f"than K9, K10a_down_surface, K10b, K12, K13: {other}")
-        want = phys_kernels if sw else phys_kernels[:-1]
-        seen = [n for n in want if any(n in e.key for e in kk_)]
-        if seen != want:
-            fail(f"a physics step (shortwave {sw}) did not launch "
-                 f"{sorted(set(want) - set(seen))}")
-    n_sw = 2 + len(range(0, hyb.gcm_steps, 3))
-    n_lw = 2 + hyb.gcm_steps - n_sw
-    log(f"  physics (PhysicsModel.compute, the kernels K9, "
-        f"K10a_down_surface, K10b, K12, K13 and no other device op): "
-        f"{per[True][0]:.4f} ms and {per[True][1]:g} launches per step "
-        f"with the shortwave, {per[False][0]:.4f} ms and "
-        f"{per[False][1]:g} without; per cycle ({n_sw} + {n_lw} steps) "
-        f"{n_sw * per[True][0] + n_lw * per[False][0]:.4f} ms and "
-        f"{n_sw * per[True][1] + n_lw * per[False][1]:g} launches "
-        f"[{card}]")
+                        if kernel_name(e.key) not in ours})
+        if other or n_step != 10:
+            fail(f"a leapfrog step (istep {istep}) ran {n_step:g} device "
+                 f"ops a step, other than the port's kernels: {other}")
+        log(f"  leapfrog step (istep {istep}, shortwave {istep == 0}): "
+            f"{ms:.4f} ms, {n_step:g} kernel launches and no other op "
+            f"[{card}]")
     # each kernel of the step alone, in the step's order
     ug_, vg_, tg_, qg_, phig_, pslg_ = grid_
     m_ = column_moist(tg_, qg_, phig_, pslg_, phys.moist_tabs)
@@ -2117,15 +2146,17 @@ def main():
     schemes = {
         "K9 column_moist": lambda: column_moist(tg_, qg_, phig_, pslg_,
                                                 phys.moist_tabs),
-        "K13 column_shortwave (every 3rd step)": lambda: phys.shortwave(
-            m_, phig_, gcm.bd, fo_, carry_),
+        "K9_moist_shortwave (every 3rd step)": lambda: phys.moist(
+            tg_, qg_, phig_, pslg_, gcm.bd, fo_, carry_, True),
         "K10a_down_surface": lambda: phys.down_surface(
             m_, ug_, vg_, tg_, phig_, gcm.bd, sfc_, fo_, carry_),
         "K10b radlw_up": lambda: clw.radlw_up(
             tg_, fx_.tsfc, dn_[0], fx_.slru[2], dn_[1], dn_[2], dn_[3],
             carry_.tau2, carry_.stratc, phys.lw_tabs),
-        "K12 column_pbl": lambda: phys.tendency_sums(
-            m_, phig_, carry_, sfc_, fx_, up_[2], up_[1])}
+        "K12 column_pbl (stepone)": lambda: phys.tendency_sums(
+            m_, phig_, carry_, sfc_, fx_, up_[2], up_[1]),
+        "K12_pbl_flux (leapfrog steps)": lambda: phys.tendency_sums(
+            m_, phig_, carry_, sfc_, fx_, up_[2], up_[1], sums_)}
     # 20 calls each: a profile can miss its first launch or two, which
     # is all of a kernel's in a short one
     parts = []

@@ -24,7 +24,6 @@ from speedy_ml_tpu_torch.core.constants import PhysicalConstants
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.dycore.model import DycoreModel, GridTendencies
 from speedy_ml_tpu_torch.dycore.state import SpectralState
-from speedy_ml_tpu_torch.kernels.flux_accumulate import flux_accumulate
 from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
                                                         spectral_stack)
 from speedy_ml_tpu_torch.kernels.window_select import window_select
@@ -179,33 +178,35 @@ class GCM:
                              self.geom.nlev, select)
 
     def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
-                    sfc, forcing, carry, lradsw, sppt_pattern=None,
-                    stack=None):
+                    sfc, forcing, carry, lradsw, sums=None, stack=None):
         """Spectral state (or the step's physics stack) -> grid fields ->
-        PhysicsModel.compute."""
+        PhysicsModel.compute.  sums: None, or (fluxes, rsteps, delt2), the
+        window's flux sums, which the physics step then forms too (a
+        leapfrog step).  The aux is (carry', FluxDiag, the new
+        FluxAccumulator or, without sums, None)."""
         grid = self.physics_grid(state, j, dyn, stack)
         with torch.profiler.record_function("physics"):
-            ut, vt, tt, qt, carry2, diag = self.phys.compute(
+            ut, vt, tt, qt, *aux = self.phys.compute(
                 *grid, bd=self.bd, sfc=sfc, forcing=forcing, carry=carry,
-                lradsw=lradsw, sppt_pattern=sppt_pattern)
-        return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), (carry2, diag)
+                lradsw=lradsw, sums=sums)
+        return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), tuple(aux)
 
     def leapfrog(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
-        """One filtered leapfrog step with physics (stloop body), then the
-        window's flux sums (K16)."""
+        """One filtered leapfrog step with physics (stloop body); its
+        physics step also forms the window's flux sums (K12_pbl_flux)."""
         lradsw = gstate.istep % NSTRAD == 0   # mod(istep, 3) == 1, 1-based
-        spec, (carry, diag) = self.dyn.leapfrog_step(
+        sums = (gstate.fluxes, 1.0 / self.nsteps_day, self.dyn.delt2)
+        spec, (carry, _, fluxes) = self.dyn.leapfrog_step(
             gstate.spectral, self.phis, physics_fn=self._physics_fn,
-            physics_args=(gstate.sfc, forcing, gstate.radiation, lradsw),
+            physics_args=(gstate.sfc, forcing, gstate.radiation, lradsw,
+                          sums),
             corrections=(forcing.tcorh, forcing.qcorh))
-        fluxes = flux_accumulate(gstate.fluxes, diag, 1.0 / self.nsteps_day,
-                                 self.dyn.delt2)
         return GCMState(spectral=spec, sfc=gstate.sfc, radiation=carry,
                         fluxes=fluxes, istep=gstate.istep + 1)
 
     def stepone(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
         """Cold-start double half-step with physics (ini_stepone.f90)."""
-        spec, (carry, _) = self.dyn.stepone(
+        spec, (carry, _, _) = self.dyn.stepone(
             gstate.spectral, self.phis, physics_fn=self._physics_fn,
             physics_args=(gstate.sfc, forcing, gstate.radiation, True),
             corrections=(forcing.tcorh, forcing.qcorh))

@@ -36,12 +36,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (K17), which reuses its humidity.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "column_moist.cu", "column_longwave.cu", "column_pbl.cu",
-    "column_shortwave.cu", "surface_forcing.cu")}
+    "surface_forcing.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
+_d = ctypes.c_double
 _dp = ctypes.POINTER(ctypes.c_double)
 # argtypes of every C entry point (csrc/*.cu)
 SIGNATURES = {
@@ -66,23 +67,18 @@ SIGNATURES = {
                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
                              _f, _f, _vp, _vp, _vp, _vp, _vp, _vp],
     "column_moist_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp,
-                            _vp, _vp],
+                            _vp, _i, ctypes.POINTER(_vp), _i, _vp, _vp, _vp],
     "down_surface_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _vp,
                             _i, _i, _vp, _vp],
     "radlw_up_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                         _vp, _vp, _vp, _i, _vp, _vp],
-    "column_pbl_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i, _vp,
-                          _vp],
-    "column_shortwave_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
-                                _vp, _vp],
+    "column_pbl_launch": [_i, _i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _i,
+                          _vp, _d, _d, _vp],
     "gram_update_launch": [_i, _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp,
                            _vp, _vp, _i, _vp],
     "gram_panel_size": [_i, _i, _i, _i, _i, _i, _i],
     "spectral_stack_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                               _vp, _i, _i, _vp, _vp, _vp],
-    "flux_accumulate_launch": [_i, _ll, ctypes.POINTER(_vp),
-                               ctypes.POINTER(_vp), ctypes.POINTER(_vp), _f,
-                               _f, _vp],
     "surface_forcing_launch": [_i, _i, _i, _i, ctypes.POINTER(_vp), _vp, _vp,
                                _dp, ctypes.POINTER(_i), _vp],
     "tisr_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _dp, _vp],
@@ -217,7 +213,7 @@ def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
 
 def pointer_array(tensors) -> ctypes.Array:
     """The tensors' data pointers as a C array of void* (the operand
-    list of K10a_down_surface, K12 and K13)."""
+    lists of K10a_down_surface, K12 and K9_moist_shortwave)."""
     ptrs = [t.data_ptr() for t in tensors]
     return (_vp * len(ptrs))(*ptrs)
 

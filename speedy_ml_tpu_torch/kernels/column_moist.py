@@ -1,5 +1,6 @@
-"""K9: the moist column physics of one step (csrc/column_moist.cu) and
-its plain version.
+"""K9 and K9_moist_shortwave: the moist column physics of one step, with
+the clouds and the shortwave on a shortwave step (csrc/column_moist.cu),
+and their plain versions.
 
 Input: the grid fields tg, qg, phig (K, lat, lon) and pslg (lat, lon) at
 the physics time level.  Per grid column, in the order of the JAX
@@ -9,13 +10,21 @@ humidity and the relative humidity; the mass-flux convection (convmf);
 the large-scale condensation (lscond); and the two schemes' temperature
 and humidity tendencies summed.  Output: a MoistColumns.
 
-The vertical tables and the schemes' constants reach the kernel as one
-small buffer in the model's dtype (MoistTables.blob), built once from
-the very Python floats the plain schemes use.  The kernel is compiled
-for float32 (the main path) and float64.
+`column_moist` (K9) is that alone.  `moist_shortwave`
+(K9_moist_shortwave) goes on, in the same launch, with the do_sw branch
+of PhysicsModel.compute (driver.py:221-238) on K9's columns, given a
+ShortwaveForcing (kernels/column_shortwave.py): the clouds and the
+shortwave, whose (tau2, stratc, tt_rsw, ssrd, ssr, tsr) are the new
+radiation carry's fields.
 
-On a CPU tensor `column_moist` runs `column_moist_plain`; on a CUDA
-tensor it launches the kernel or raises.
+The vertical tables and the schemes' constants reach the kernel as small
+buffers in the model's dtype (MoistTables.blob, ShortwaveTables.blob),
+built once from the very Python floats the plain schemes use.  The
+kernels are compiled for float32 (the main path) and float64.
+
+On a CPU tensor each wrapper runs its plain version (`column_moist_plain`,
+then for moist_shortwave `column_shortwave_plain`); on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from speedy_ml_tpu_torch.kernels import build as kb
+from speedy_ml_tpu_torch.kernels import column_shortwave as csw
 from speedy_ml_tpu_torch.physics import constants as pc
 from speedy_ml_tpu_torch.physics.condensation import (RTLSC, lscond,
                                                       lscond_tables)
@@ -126,6 +136,15 @@ def column_moist_plain(tg, qg, phig, pslg, tabs: MoistTables) -> MoistColumns:
                         qtend=qt_cnv + qt_lsc)
 
 
+def moist_shortwave_plain(tg, qg, phig, pslg, tabs: MoistTables,
+                          sw: csw.ShortwaveForcing):
+    """The plain version of K9_moist_shortwave: column_moist_plain, then
+    column_shortwave_plain on its columns."""
+    m = column_moist_plain(tg, qg, phig, pslg, tabs)
+    return m, csw.column_shortwave_plain(m, phig, sw.fmask, sw.sol,
+                                         sw.albsfc, sw.tabs)
+
+
 def _check(tg, qg, phig, pslg, tabs: MoistTables):
     """Validate the operands of either route: one floating dtype (the
     blob's), (K, lat, lon) level fields, contiguous, on one device.
@@ -140,23 +159,55 @@ def _check(tg, qg, phig, pslg, tabs: MoistTables):
     return K, nlat, nlon
 
 
-def column_moist(tg, qg, phig, pslg, tabs: MoistTables) -> MoistColumns:
-    """The moist column physics of one step (see the module docstring)."""
-    K, nlat, nlon = _check(tg, qg, phig, pslg, tabs)
+def _launch(tg, qg, phig, pslg, tabs: MoistTables, sw_planes=None,
+            sw_tabs=None):
+    """One launch of K9 (sw_planes None) or K9_moist_shortwave on the
+    validated operands.  Returns (out, out_i, the shortwave's buffer or
+    None)."""
+    K, nlat, nlon = tg.shape
     dev = tg.device
-    if kb.column_route("column_moist", dev, K, KERNEL_LEVELS) == "cpu":
-        return column_moist_plain(tg, qg, phig, pslg, tabs)
     out = torch.empty((N_LEVEL_FIELDS * K + N_PLANES, nlat, nlon),
                       dtype=tg.dtype, device=dev)
     out_i = torch.empty((2, nlat, nlon), dtype=torch.int64, device=dev)
+    sw_out = None if sw_planes is None else torch.empty(
+        (5 * K + 5, nlat, nlon), dtype=tg.dtype, device=dev)
     code = kb.library().column_moist_launch(
         kb.device_index(tg), K, int(tg.dtype == torch.float64),
         tg.data_ptr(), qg.data_ptr(), phig.data_ptr(), pslg.data_ptr(),
         tabs.blob.data_ptr(), nlat * nlon, out.data_ptr(), out_i.data_ptr(),
-        kb.stream_of(tg))
-    kb.check(code, "column_moist")
+        int(sw_planes is not None),
+        None if sw_planes is None else kb.pointer_array(sw_planes),
+        0 if sw_planes is None else len(sw_planes),
+        None if sw_tabs is None else sw_tabs.blob.data_ptr(),
+        None if sw_out is None else sw_out.data_ptr(), kb.stream_of(tg))
+    kb.check(code, "column_moist" if sw_planes is None else "moist_shortwave")
+    return out, out_i, sw_out
+
+
+def column_moist(tg, qg, phig, pslg, tabs: MoistTables) -> MoistColumns:
+    """The moist column physics of one step, K9 (see the module
+    docstring)."""
+    K, nlat, nlon = _check(tg, qg, phig, pslg, tabs)
+    if kb.column_route("column_moist", tg.device, K, KERNEL_LEVELS) == "cpu":
+        return column_moist_plain(tg, qg, phig, pslg, tabs)
+    out, out_i, _ = _launch(tg, qg, phig, pslg, tabs)
     column_moist.launches += 1
     return unpack(out, out_i, K)
+
+
+def moist_shortwave(tg, qg, phig, pslg, tabs: MoistTables,
+                    sw: csw.ShortwaveForcing):
+    """The moist column physics and the clouds and shortwave of one step
+    in one launch, K9_moist_shortwave (see the module docstring).
+    Returns (MoistColumns, (tau2, stratc, tt_rsw, ssrd, ssr, tsr))."""
+    K, nlat, nlon = _check(tg, qg, phig, pslg, tabs)
+    planes = csw.forcing_planes(sw, K, nlat, nlon, tg.dtype, tg.device)
+    if kb.column_route("moist_shortwave", tg.device, K,
+                       KERNEL_LEVELS) == "cpu":
+        return moist_shortwave_plain(tg, qg, phig, pslg, tabs, sw)
+    out, out_i, sw_out = _launch(tg, qg, phig, pslg, tabs, planes, sw.tabs)
+    moist_shortwave.launches += 1
+    return unpack(out, out_i, K), csw.unpack(sw_out, K)
 
 
 def unpack(out, out_i, K: int) -> MoistColumns:
@@ -172,3 +223,4 @@ def unpack(out, out_i, K: int) -> MoistColumns:
 
 
 column_moist.launches = 0
+moist_shortwave.launches = 0

@@ -1,9 +1,10 @@
-"""K12: the vertical diffusion and the sums that close one physics step
-(csrc/column_pbl.cu), and its plain version.
+"""K12 and K12_pbl_flux: the vertical diffusion and the sums that close
+one physics step (csrc/column_pbl.cu), with the window's flux sums on a
+leapfrog step, and their plain versions.
 
-`column_pbl` is, per grid column, the JAX package's physics/vdiff.py:16
-vdifsc (shallow convection, moisture diffusion above the PBL, damping of
-super-adiabatic lapse rates) followed by the sums of
+`column_pbl` (K12) is, per grid column, the JAX package's
+physics/vdiff.py:16 vdifsc (shallow convection, moisture diffusion above
+the PBL, damping of super-adiabatic lapse rates) followed by the sums of
 physics/driver.py:258-275 and :298-307: the radiative heating and the
 diffusion tendencies (with the surface stresses and fluxes on the lowest
 level) summed onto the moist ones, and the sea-ice heat flux.  In: K9's
@@ -11,13 +12,22 @@ MoistColumns, phig, K10a_down_surface's SurfaceFluxes, the carry's tt_rsw
 and ssrd, K10b's dfabs and the surface state's tice and sice.  Out:
 (utend, vtend, ttend, qtend, hflux_i).
 
+`pbl_flux` (K12_pbl_flux) is the same and, in the same launch, the
+window's flux sums of a leapfrog step (the JAX package's gcm.py:273-280,
+kernels/flux_accumulate.py): the step's heat fluxes (hflux_l, hflux_s and
+the hflux_i it forms) times rsteps = 1/nsteps_day and its precipitation
+(K9's precnv + precls) times delt2/2 added to the FluxAccumulator given.
+Out: K12's five and the new accumulator (the one given is left as it
+is).
+
 The vertical tables and the constants reach the kernel as one small
 buffer in the model's dtype (PblTables.blob), built once from the very
-Python floats the plain version uses.  The kernel is compiled for float32
-(the main path) and float64.
+Python floats the plain version uses.  The kernels are compiled for
+float32 (the main path) and float64.
 
-On a CPU tensor `column_pbl` runs `column_pbl_plain`; on a CUDA tensor it
-launches the kernel or raises.
+On a CPU tensor each wrapper runs its plain version (`column_pbl_plain`,
+then for pbl_flux `flux_accumulate_plain`); on a CUDA tensor it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ import numpy as np
 import torch
 
 from speedy_ml_tpu_torch.kernels import build as kb
+from speedy_ml_tpu_torch.kernels.flux_accumulate import (FluxTerms,
+                                                         flux_accumulate_plain)
 from speedy_ml_tpu_torch.physics import constants as pc
 from speedy_ml_tpu_torch.physics.vdiff import vdifsc
 
@@ -40,6 +52,10 @@ LEVEL_INPUTS = ("se", "rh", "qg", "qsat", "phig", "ttend", "qtend",
 PLANE_INPUTS = ("rps", "ustr", "vstr", "shf_s", "shf", "evap_s", "evap",
                 "hflux_s", "ssrd", "tice", "sice")
 INPUTS = LEVEL_INPUTS + ("icnv",) + PLANE_INPUTS
+# K12_pbl_flux's operands after INPUTS, in the order of PblFlux: the four
+# running sums, the step's land heat flux and K9's precipitations
+FLUX_INPUTS = ("acc_hflux_l", "acc_hflux_s", "acc_hflux_i", "acc_precip",
+               "hflux_l", "precnv", "precls")
 
 
 class PblTables(NamedTuple):
@@ -125,6 +141,18 @@ def column_pbl_plain(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
     return ut, vt, ttend, qtend, fx.hfluxn[1] + difice * (1.0 - sice)
 
 
+def pbl_flux_plain(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
+                   tabs: PblTables, fluxes, rsteps: float, delt2: float):
+    """The plain version of K12_pbl_flux: column_pbl_plain, then
+    flux_accumulate_plain on the step's fluxes and K9's
+    precipitation."""
+    out = column_pbl_plain(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
+                           tabs)
+    terms = FluxTerms(hflux_l=fx.hfluxn[0], hflux_s=fx.hfluxn[1],
+                      hflux_i=out[4], precnv=m.precnv, precls=m.precls)
+    return out + (flux_accumulate_plain(fluxes, terms, rsteps, delt2),)
+
+
 def operands(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
              tabs: PblTables):
     """Validate the operands of either route: m.se's floating dtype
@@ -147,27 +175,65 @@ def operands(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
     return K, nlat, nlon, [named[nm] for nm in INPUTS]
 
 
+def flux_operands(m, fx, fluxes, shape, dtype, device):
+    """Validate pbl_flux's operands after K12's (FluxAccumulator fields
+    and planes of K12's dtype and (lat, lon) shape, contiguous, on its
+    device).  Returns them in the kernel's order."""
+    named = dict(acc_hflux_l=fluxes.hflux_l, acc_hflux_s=fluxes.hflux_s,
+                 acc_hflux_i=fluxes.hflux_i, acc_precip=fluxes.precip,
+                 hflux_l=fx.hfluxn[0], precnv=m.precnv, precls=m.precls)
+    for nm in FLUX_INPUTS:
+        kb.require(named[nm], nm, dtype, shape, device)
+    return [named[nm] for nm in FLUX_INPUTS]
+
+
+def _launch(ins, K, nlat, nlon, tabs, flux, rsteps=0.0, delt2=0.0):
+    """One launch of K12 (flux 0) or K12_pbl_flux (flux 1) on the validated
+    operands; returns its output buffer ((4K + 1 + 4 flux, lat, lon))."""
+    se = ins[0]
+    out = torch.empty((4 * K + 1 + 4 * flux, nlat, nlon), dtype=se.dtype,
+                      device=se.device)
+    code = kb.library().column_pbl_launch(
+        kb.device_index(se), K, int(se.dtype == torch.float64), flux,
+        kb.pointer_array(ins), len(ins), tabs.blob.data_ptr(), nlat * nlon,
+        out.data_ptr(), float(rsteps), float(delt2), kb.stream_of(se))
+    kb.check(code, "pbl_flux" if flux else "column_pbl")
+    return out
+
+
 def column_pbl(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
                tabs: PblTables):
-    """Vertical diffusion and the step's sums (see the module docstring).
-    Returns (utend, vtend, ttend, qtend, hflux_i)."""
+    """Vertical diffusion and the step's sums, K12 (see the module
+    docstring).  Returns (utend, vtend, ttend, qtend, hflux_i)."""
     args = (m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice, tabs)
     K, nlat, nlon, ins = operands(*args)
-    dev = m.se.device
-    if kb.column_route("column_pbl", dev, K, KERNEL_LEVELS) == "cpu":
+    if kb.column_route("column_pbl", m.se.device, K, KERNEL_LEVELS) == "cpu":
         return column_pbl_plain(*args)
-    out = torch.empty((4 * K + 1, nlat, nlon), dtype=m.se.dtype, device=dev)
-    code = kb.library().column_pbl_launch(
-        kb.device_index(m.se), K, int(m.se.dtype == torch.float64),
-        kb.pointer_array(ins), len(ins), tabs.blob.data_ptr(), nlat * nlon,
-        out.data_ptr(), kb.stream_of(m.se))
-    kb.check(code, "column_pbl")
+    out = _launch(ins, K, nlat, nlon, tabs, 0)
     column_pbl.launches += 1
     return unpack(out, K)
 
 
+def pbl_flux(m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice,
+             tabs: PblTables, fluxes, rsteps: float, delt2: float):
+    """K12 and the window's flux sums of a leapfrog step in one launch,
+    K12_pbl_flux (see the module docstring).  fluxes: the FluxAccumulator
+    of the steps before; rsteps = 1/nsteps_day, delt2 (Python numbers).
+    Returns (utend, vtend, ttend, qtend, hflux_i, the new accumulator)."""
+    args = (m, phig, fx, tt_rsw, ssrd, dfabs_lw, tice, sice, tabs)
+    K, nlat, nlon, ins = operands(*args)
+    se = m.se
+    ins += flux_operands(m, fx, fluxes, (nlat, nlon), se.dtype, se.device)
+    if kb.column_route("pbl_flux", se.device, K, KERNEL_LEVELS) == "cpu":
+        return pbl_flux_plain(*args, fluxes, rsteps, delt2)
+    out = _launch(ins, K, nlat, nlon, tabs, 1, rsteps, delt2)
+    pbl_flux.launches += 1
+    return unpack(out, K) + (type(fluxes)(*out[4 * K + 1:]),)
+
+
 def unpack(out, K: int):
-    """The kernel's output buffer ((4K + 1, lat, lon),
+    """The kernel's output buffer ((4K + 1, lat, lon), or K12_pbl_flux's
+    (4K + 5, lat, lon) whose last four planes are the new sums;
     csrc/column_pbl.cuh column_pbl_at) as views: (utend, vtend, ttend,
     qtend, hflux_i)."""
     return (out[:K], out[K:2 * K], out[2 * K:3 * K], out[3 * K:4 * K],
@@ -175,3 +241,4 @@ def unpack(out, K: int):
 
 
 column_pbl.launches = 0
+pbl_flux.launches = 0

@@ -1,22 +1,22 @@
-"""K13: the clouds and the shortwave step (csrc/column_shortwave.cu), and
-its plain version.
+"""K13's arithmetic: the clouds and the shortwave step, its tables and
+its plain version.  On the card it runs inside K9_moist_shortwave
+(kernels/column_moist.py `moist_shortwave`, csrc/column_shortwave.cuh),
+which forms K9's moist physics and, from them, the clouds and the
+shortwave of the same columns in one launch on the shortwave steps.
 
-`column_shortwave` is, per grid column, the do_sw branch of the JAX
+`column_shortwave_plain` is, per grid column, the do_sw branch of the JAX
 package's PhysicsModel.compute (physics/driver.py:221-238): the static
 stability gse of the lowest layer, physics/radiation.py:165 cloud (cover,
 top, stratiform cloud), :201 radsw (the two-band shortwave fluxes down
 and up, the longwave transmissivities tau2 and stratc) and the heating
-tt_rsw = dfabs * rps * grdscp.  In: K9's MoistColumns, phig, the land
-fraction, the daily SolarForcing and the surface albedo.  Out: (tau2,
-stratc, tt_rsw, ssrd, ssr, tsr), the fields of the radiation carry.
+tt_rsw = dfabs * rps * grdscp.  In: K9's MoistColumns, phig, and a
+ShortwaveForcing's land fraction, daily SolarForcing and surface albedo.
+Out: (tau2, stratc, tt_rsw, ssrd, ssr, tsr), the fields of the radiation
+carry.
 
 The vertical tables and the constants reach the kernel as one small
 buffer in the model's dtype (ShortwaveTables.blob), built once from the
-very Python floats the plain version uses.  The kernel is compiled for
-float32 (the main path) and float64.
-
-On a CPU tensor `column_shortwave` runs `column_shortwave_plain`; on a
-CUDA tensor it launches the kernel or raises.
+very Python floats the plain version uses.
 """
 
 from __future__ import annotations
@@ -30,14 +30,9 @@ from speedy_ml_tpu_torch.kernels import build as kb
 from speedy_ml_tpu_torch.physics import constants as pc
 from speedy_ml_tpu_torch.physics import radiation as rad
 
-KERNEL_LEVELS = (5, 7, 8)   # K values compiled in csrc/column_shortwave.cu
 N_TABLES, N_SCALARS = 3, 27  # the blob: (K,) tables, then scalars
-# the operands, in the order of ShortwaveIn (csrc/column_shortwave.cuh):
-# level fields, planes, itop (int64)
-LEVEL_INPUTS = ("qg", "rh", "se", "phig")
-PLANE_INPUTS = ("precnv", "precls", "psg", "rps", "fmask", "fsol", "ozupp",
-                "ozone", "zenit", "stratz", "albsfc")
-INPUTS = LEVEL_INPUTS + PLANE_INPUTS + ("itop",)
+# what K9_moist_shortwave reads beyond K9's operands, in the order of SwIO
+SW_PLANES = ("fmask", "fsol", "ozupp", "ozone", "zenit", "stratz", "albsfc")
 
 
 class ShortwaveTables(NamedTuple):
@@ -45,6 +40,16 @@ class ShortwaveTables(NamedTuple):
     dsig: np.ndarray
     grdscp: torch.Tensor    # (K,) in the model's dtype, on the device
     blob: torch.Tensor      # the kernel's tables, see shortwave_tables
+
+
+class ShortwaveForcing(NamedTuple):
+    """What the shortwave reads beyond K9's outputs and phig: the land
+    fraction, the daily solar fields, the surface albedo ((lat, lon)
+    each) and the tables."""
+    fmask: torch.Tensor
+    sol: rad.SolarForcing
+    albsfc: torch.Tensor
+    tabs: ShortwaveTables
 
 
 def blob_scalars(dsig) -> list[float]:
@@ -89,47 +94,22 @@ def column_shortwave_plain(m, phig, fmask, sol: rad.SolarForcing, albsfc,
     return tau2, stratc, tt_rsw, ssrd, ssr, tsr
 
 
-def operands(m, phig, fmask, sol: rad.SolarForcing, albsfc,
-             tabs: ShortwaveTables):
-    """Validate the operands of either route: m.se's floating dtype (itop
-    int64), contiguous, on m.se's device.  Returns (K, nlat, nlon, the
-    tensors in the kernel's order)."""
-    se = m.se
-    K, nlat, nlon = kb.level_dims(se, "m.se")
-    named = dict(qg=m.qg, rh=m.rh, se=se, phig=phig, precnv=m.precnv,
-                 precls=m.precls, psg=m.psg, rps=m.rps, fmask=fmask,
-                 albsfc=albsfc, itop=m.itop, **sol._asdict())
-    for nm in INPUTS:
-        lev = nm in LEVEL_INPUTS
-        kb.require(named[nm], nm, torch.int64 if nm == "itop" else se.dtype,
-                   (K, nlat, nlon) if lev else (nlat, nlon), se.device)
-    kb.require(tabs.blob, "tabs.blob", se.dtype,
-               (N_TABLES * K + N_SCALARS,), se.device)
-    return K, nlat, nlon, [named[nm] for nm in INPUTS]
-
-
-def column_shortwave(m, phig, fmask, sol: rad.SolarForcing, albsfc,
-                     tabs: ShortwaveTables):
-    """Clouds and the shortwave step (see the module docstring).  Returns
-    (tau2, stratc, tt_rsw, ssrd, ssr, tsr)."""
-    args = (m, phig, fmask, sol, albsfc, tabs)
-    K, nlat, nlon, ins = operands(*args)
-    dev = m.se.device
-    if kb.column_route("column_shortwave", dev, K, KERNEL_LEVELS) == "cpu":
-        return column_shortwave_plain(*args)
-    out = torch.empty((5 * K + 5, nlat, nlon), dtype=m.se.dtype, device=dev)
-    code = kb.library().column_shortwave_launch(
-        kb.device_index(m.se), K, int(m.se.dtype == torch.float64),
-        kb.pointer_array(ins), len(ins), tabs.blob.data_ptr(), nlat * nlon,
-        out.data_ptr(), kb.stream_of(m.se))
-    kb.check(code, "column_shortwave")
-    column_shortwave.launches += 1
-    return unpack(out, K)
+def forcing_planes(sw: ShortwaveForcing, K: int, nlat: int, nlon: int,
+                   dtype, device):
+    """Validate a ShortwaveForcing for K9_moist_shortwave: planes of the
+    (lat, lon) shape and the dtype of K9's operands, contiguous, on their
+    device, and its tables.  Returns the planes in SwIO's order."""
+    named = dict(fmask=sw.fmask, albsfc=sw.albsfc, **sw.sol._asdict())
+    for nm in SW_PLANES:
+        kb.require(named[nm], nm, dtype, (nlat, nlon), device)
+    kb.require(sw.tabs.blob, "sw.tabs.blob", dtype,
+               (N_TABLES * K + N_SCALARS,), device)
+    return [named[nm] for nm in SW_PLANES]
 
 
 def unpack(out, K: int):
-    """The kernel's output buffer ((5K + 5, lat, lon),
-    csrc/column_shortwave.cuh column_shortwave_at) as views: (tau2
+    """The shortwave's output buffer ((5K + 5, lat, lon),
+    csrc/column_shortwave.cuh sw_store_column) as views: (tau2
     (K, 4, lat, lon), stratc (2, lat, lon), tt_rsw (K, lat, lon), ssrd,
     ssr, tsr)."""
     nlat, nlon = out.shape[1:]
@@ -138,5 +118,3 @@ def unpack(out, K: int):
             out[o + 2:o + 2 + K], out[o + K + 2], out[o + K + 3],
             out[o + K + 4])
 
-
-column_shortwave.launches = 0

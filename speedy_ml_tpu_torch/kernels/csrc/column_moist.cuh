@@ -18,7 +18,8 @@
 // column in a row (the first design, kept for the host build), and the
 // moist_block_* phases of the kernel's block, C columns x K warps, warp k
 // on level k, the pieces handing on through shared memory.  Both give
-// the same bits.  Levels in registers are indexed only by unrolled
+// the same bits.  K9_moist_shortwave's block runs the same four phases,
+// then the shortwave's (column_shortwave.cuh).  Levels in registers are indexed only by unrolled
 // loops: the lookups at the convective top are selects.
 #pragma once
 
@@ -313,15 +314,15 @@ struct MoistIO {
   long long* out_i;
 };
 
-// Phase 1, every warp: level k of the prologue; q, se, qsat, rh stored.
-// Every phase computes psg (and rps) from pslg itself: the same
-// operations give the same bits, and handing them on through shared
-// memory ran ~0.1 us slower on an H100.
+// Phase 1, every warp: level k of the prologue; q, se, qsat, rh stored,
+// and rh returned (K9_moist_shortwave keeps it for its clouds).  Every
+// phase computes psg (and rps) from pslg itself: the same operations give
+// the same bits, and handing them on through shared memory ran ~0.1 us
+// slower on an H100.
 template <typename T, int K, int C>
-COL_HD void moist_block_levels(const MoistTab<T, K>& tb, const MoistIO<T>& io,
-                               MoistShared<T, K, C>& sh, int c, int x,
-                               int k) {
-  if (c >= io.G) return;
+COL_HD T moist_block_levels(const MoistTab<T, K>& tb, const MoistIO<T>& io,
+                            MoistShared<T, K, C>& sh, int c, int x, int k) {
+  if (c >= io.G) return T(0);
   const size_t G = io.G, i = (size_t)k * G + c;
   const T psg = col_exp(io.pslg[c]);
   T q, se, qsat, rh, mss;
@@ -335,6 +336,7 @@ COL_HD void moist_block_levels(const MoistTab<T, K>& tb, const MoistIO<T>& io,
   sh.q[k][x] = q;
   sh.qsat[k][x] = qsat;
   sh.mss[k][x] = mss;
+  return rh;
 }
 
 // Phase 2, one warp: convmf of column x.
@@ -384,10 +386,12 @@ COL_HD void moist_block_lscond(const MoistTab<T, K>& tb, const MoistIO<T>& io,
 }
 
 // Phase 4, one warp: the close of column x; the planes and the integers
-// stored.
+// stored, itop and precls also returned (K9_moist_shortwave's clouds
+// read them on the same warp).
 template <typename T, int K, int C>
 COL_HD void moist_block_close(const MoistTab<T, K>& tb, const MoistIO<T>& io,
-                              MoistShared<T, K, C>& sh, int c, int x) {
+                              MoistShared<T, K, C>& sh, int c, int x,
+                              int& itop_out, T& precls_out) {
   if (c >= io.G) return;
   const size_t G = io.G;
   const T psg = col_exp(io.pslg[c]);
@@ -409,4 +413,6 @@ COL_HD void moist_block_close(const MoistTab<T, K>& tb, const MoistIO<T>& io,
   planes[4 * G + c] = precls;
   io.out_i[c] = itop;
   io.out_i[G + c] = (K - 1) - sh.itop[x];
+  itop_out = itop;
+  precls_out = precls;
 }

@@ -20,9 +20,13 @@
 // row (the first design, kept for the host build), and the pbl_block_*
 // phases of the kernel's block, C columns x K warps, warp k on level k,
 // the pieces handing on through shared memory.  Both give the same bits.
+// K12_pbl_flux is the same block with the window's flux sums of a
+// leapfrog step (flux_accumulate.cuh) formed in its first phase, on the
+// warp that forms the sea-ice flux.
 #pragma once
 
 #include "column_common.cuh"
+#include "flux_accumulate.cuh"
 
 // The table blob (PblTables.blob in kernels/column_pbl.py), all of type
 // T: seven (K,) tables, then the scalars.  drh0 and fvdiq2 at level k
@@ -115,6 +119,30 @@ inline PblIn<T> pbl_in(const void* const* p) {
                      &in.ssrd,   &in.tice, &in.sice};
   for (int i = 0; i < 11; ++i) *g[i] = (const T*)p[10 + i];
   return in;
+}
+
+// K12_pbl_flux's operands beyond K12's, in the order of FLUX_INPUTS in
+// kernels/column_pbl.py: the window's four running sums (hflux_l,
+// hflux_s, hflux_i, precip), the step's land heat flux and its
+// convective and large-scale precipitation (G each); rsteps =
+// 1/nsteps_day and delt2.  The new sums are rows 4K+1..4K+4 of out.
+constexpr int PBL_FLUX_N_IN = 7;
+template <typename T>
+struct PblFlux {
+  const T *acc[4], *hflux_l, *precnv, *precls;
+  T rsteps, delt2;
+};
+template <typename T>
+inline PblFlux<T> pbl_flux(const void* const* p, double rsteps,
+                           double delt2) {
+  PblFlux<T> fl;
+  for (int f = 0; f < 4; ++f) fl.acc[f] = (const T*)p[f];
+  fl.hflux_l = (const T*)p[4];
+  fl.precnv = (const T*)p[5];
+  fl.precls = (const T*)p[6];
+  fl.rsteps = (T)rsteps;
+  fl.delt2 = (T)delt2;
+  return fl;
 }
 
 // ---- the pieces of the sums, in the order of the plain version.  The
@@ -228,12 +256,25 @@ struct PblReg {
 // Phase 1, every warp: level k of vdifsc's five fields into shared
 // memory, of the other four into registers, with rps; warp 0 loads icnv,
 // the lowest level's warp the surface stresses and fluxes, and warp 1
-// the sea-ice planes, whose flux hflux_i it stores now.
-template <typename T, int K, int C>
+// the sea-ice planes, whose flux hflux_i it stores now.  kFlux
+// (K12_pbl_flux): warp 1 also loads the four sums and the step's other
+// terms first, and stores the new sums beside hflux_i.
+template <bool kFlux, typename T, int K, int C>
 COL_HD void pbl_block_load(const PblTab<T, K>& tb, const PblIn<T>& in,
-                           int G, T* out, PblShared<T, K, C>& sh,
-                           PblReg<T>& r, int c, int x, int k) {
+                           const PblFlux<T>& fl, int G, T* out,
+                           PblShared<T, K, C>& sh, PblReg<T>& r, int c,
+                           int x, int k) {
   if (c >= G) return;
+  T acc[4], hflux_l, precnv, precls;
+  if constexpr (kFlux) {
+    if (k == 1) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[f] = fl.acc[f][c];
+      hflux_l = fl.hflux_l[c];
+      precnv = fl.precnv[c];
+      precls = fl.precls[c];
+    }
+  }
   const size_t i = (size_t)k * G + c;
   sh.se[k][x] = in.se[i];
   sh.rh[k][x] = in.rh[i];
@@ -251,10 +292,20 @@ COL_HD void pbl_block_load(const PblTab<T, K>& tb, const PblIn<T>& in,
   r.vstr = bot ? in.vstr[c] : T(0);
   r.shf = bot ? in.shf[c] : T(0);
   r.evap = bot ? in.evap[c] : T(0);
-  if (k == 1)
-    out[(size_t)(4 * K) * G + c] =
-        pbl_ice_flux(tb, in.ssrd[c], in.tice[c], in.shf_s[c], in.evap_s[c],
-                     in.hflux_s[c], in.sice[c]);
+  if (k == 1) {
+    const T hflux_s = in.hflux_s[c];
+    const T hflux_i = pbl_ice_flux(tb, in.ssrd[c], in.tice[c], in.shf_s[c],
+                                   in.evap_s[c], hflux_s, in.sice[c]);
+    out[(size_t)(4 * K) * G + c] = hflux_i;
+    if constexpr (kFlux) {
+      T* o = out + (size_t)(4 * K + 1) * G;
+      o[c] = flux_heat_sum(acc[0], hflux_l, fl.rsteps);
+      o[(size_t)G + c] = flux_heat_sum(acc[1], hflux_s, fl.rsteps);
+      o[(size_t)(2 * G) + c] = flux_heat_sum(acc[2], hflux_i, fl.rsteps);
+      o[(size_t)(3 * G) + c] = flux_precip_sum(acc[3], precnv, precls,
+                                               fl.delt2);
+    }
+  }
 }
 
 // Phase 2, one warp: vdifsc of column x.

@@ -6,17 +6,18 @@ coupled-surface state, the daily forcing and the radiation carry
 (shortwave runs every nstrad steps; its results persist in the carry),
 and returns grid tendencies, the new carry and the flux diagnostics.
 
-The step is four or five kernel launches (hot spot B2 of ROADMAP queue
-B), each through its wrapper in kernels/: K9 column_moist (humidity,
-convection, large-scale condensation), K13 column_shortwave (clouds and
-the shortwave, on the shortwave steps only), K10a_down_surface
-down_surface (the downward longwave and the surface fluxes), K10b
-radlw_up and K12 column_pbl (the vertical diffusion and the sums).  On a
-CUDA tensor each launches its hand-written kernel and nothing else runs
-on the card; on a CPU tensor each runs its plain version.  The
-shortwave cadence is a Python branch on a host bool; data-dependent
-level indices (itop, icltop) stay on the device, never read by the
-host.
+The step is four kernel launches (hot spot B2 of ROADMAP queue B), each
+through its wrapper in kernels/: K9 column_moist (humidity, convection,
+large-scale condensation), or on the shortwave steps K9_moist_shortwave
+moist_shortwave (the same and the clouds and the shortwave);
+K10a_down_surface down_surface (the downward longwave and the surface
+fluxes); K10b radlw_up; K12 column_pbl (the vertical diffusion and the
+sums), or on a leapfrog step K12_pbl_flux pbl_flux (the same and the
+window's flux sums).  On a CUDA tensor each launches its hand-written
+kernel and nothing else runs on the card; on a CPU tensor each runs its
+plain version.  The shortwave cadence is a Python branch on a host bool;
+data-dependent level indices (itop, icltop) stay on the device, never
+read by the host.
 """
 
 from __future__ import annotations
@@ -32,10 +33,12 @@ from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.core.constants import GAMMA_LAPSE
 from speedy_ml_tpu_torch.kernels import column_longwave
 from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
+                                                      moist_shortwave,
                                                       moist_tables)
-from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl, pbl_tables
-from speedy_ml_tpu_torch.kernels.column_shortwave import (column_shortwave,
-                                                          shortwave_tables)
+from speedy_ml_tpu_torch.kernels.column_pbl import (column_pbl, pbl_flux,
+                                                    pbl_tables)
+from speedy_ml_tpu_torch.kernels.column_shortwave import (
+    ShortwaveForcing, shortwave_tables)
 from speedy_ml_tpu_torch.kernels.surface_fluxes import surface_tables
 from speedy_ml_tpu_torch.kernels.surface_forcing import (FORCING, DayArgs,
                                                          surface_forcing)
@@ -214,21 +217,25 @@ class PhysicsModel:
 
     def compute(self, ug, vg, tg, qg, phig, pslg, *, bd: BoundaryData,
                 sfc: SurfaceState, forcing: DailyForcing,
-                carry: RadiationCarry, lradsw: bool, sppt_pattern=None):
+                carry: RadiationCarry, lradsw: bool, sppt_pattern=None,
+                sums=None):
         """Physics tendencies from grid fields at the physics time level.
 
         Inputs (K, lat, lon) except pslg (lat, lon); lradsw a host bool
-        (shortwave every nstrad steps).  Returns (utend, vtend, ttend,
-        qtend, carry', FluxDiag).  The step is the kernels K9, K13 (with
-        the shortwave), K10a_down_surface, K10b and K12 in this order; the
-        stage methods below can be called (and timed) alone."""
+        (shortwave every nstrad steps); sums None, or on a leapfrog step
+        (fluxes, rsteps, delt2): the window's FluxAccumulator and the
+        Python factors of its sums (GCM.leapfrog).  Returns (utend, vtend,
+        ttend, qtend, carry', FluxDiag, the new FluxAccumulator or, without
+        sums, None).  The step is the kernels K9 (or
+        K9_moist_shortwave with the shortwave), K10a_down_surface, K10b
+        and K12 (or K12_pbl_flux with the sums) in this order; the stage
+        methods below can be called (and timed) alone."""
         if sppt_pattern is not None:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
-        # --- humidity, convection, large-scale condensation (K9)
-        m = column_moist(tg, qg, phig, pslg, self.moist_tabs)
-        # --- clouds and shortwave radiation, every nstrad steps (K13)
-        if lradsw:
-            carry = self.shortwave(m, phig, bd, forcing, carry)
+        # --- humidity, convection, large-scale condensation, and every
+        # nstrad steps clouds and shortwave radiation (K9, or
+        # K9_moist_shortwave)
+        m, carry = self.moist(tg, qg, phig, pslg, bd, forcing, carry, lradsw)
         # --- longwave down and the surface fluxes (K10a_down_surface)
         (slrd, dfabs_lw, flux_bands, st4a), fx = self.down_surface(
             m, ug, vg, tg, phig, bd, sfc, forcing, carry)
@@ -236,22 +243,29 @@ class PhysicsModel:
         slr, olr, dfabs_lw = column_longwave.radlw_up(
             tg, fx.tsfc, slrd, fx.slru[2], dfabs_lw, flux_bands, st4a,
             carry.tau2, carry.stratc, self.lw_tabs)
-        # --- vertical diffusion, the sums and the fluxes for the coupler
-        # (K12)
-        ut, vt, ttend, qtend, diag = self.tendency_sums(
-            m, phig, carry, sfc, fx, dfabs_lw, olr)
-        return ut, vt, ttend, qtend, carry, diag
+        # --- vertical diffusion, the sums and the fluxes for the coupler,
+        # with the window's flux sums on a leapfrog step (K12, or
+        # K12_pbl_flux)
+        ut, vt, ttend, qtend, diag, fluxes = self.tendency_sums(
+            m, phig, carry, sfc, fx, dfabs_lw, olr, sums)
+        return ut, vt, ttend, qtend, carry, diag, fluxes
 
-    def shortwave(self, m, phig, bd, forcing, carry) -> RadiationCarry:
-        """Clouds and the shortwave step (K13): the new radiation carry."""
+    def moist(self, tg, qg, phig, pslg, bd, forcing, carry, lradsw):
+        """Humidity, convection and large-scale condensation (K9), and
+        with lradsw the clouds and the shortwave in the same launch
+        (K9_moist_shortwave): (MoistColumns, the radiation carry)."""
+        if not lradsw:
+            return column_moist(tg, qg, phig, pslg, self.moist_tabs), carry
         sol = rad.SolarForcing(fsol=forcing.fsol, ozupp=forcing.ozupp,
                                ozone=forcing.ozone, zenit=forcing.zenit,
                                stratz=forcing.stratz)
-        tau2, stratc, tt_rsw, ssrd, ssr, tsr = column_shortwave(
-            m, phig, bd.fmask_l, sol, forcing.albsfc, self.sw_tabs)
-        return RadiationCarry(tau2=tau2, stratc=stratc, tt_rsw=tt_rsw,
-                              ssrd=ssrd, ssr=ssr, tsr=tsr,
-                              randfv=carry.randfv)
+        m, (tau2, stratc, tt_rsw, ssrd, ssr, tsr) = moist_shortwave(
+            tg, qg, phig, pslg, self.moist_tabs,
+            ShortwaveForcing(fmask=bd.fmask_l, sol=sol,
+                             albsfc=forcing.albsfc, tabs=self.sw_tabs))
+        return m, RadiationCarry(tau2=tau2, stratc=stratc, tt_rsw=tt_rsw,
+                                 ssrd=ssrd, ssr=ssr, tsr=tsr,
+                                 randfv=carry.randfv)
 
     def down_surface(self, m, ug, vg, tg, phig, bd, sfc, forcing, carry):
         """The downward longwave and the surface fluxes
@@ -264,15 +278,22 @@ class PhysicsModel:
             alb_l=forcing.alb_l, alb_s=forcing.alb_s, snowc=forcing.snowc,
             clat=self.clat_t, lw_tabs=self.lw_tabs, sfc_tabs=self.sfc_tabs)
 
-    def tendency_sums(self, m, phig, carry, sfc, fx, dfabs_lw, olr):
+    def tendency_sums(self, m, phig, carry, sfc, fx, dfabs_lw, olr,
+                      sums=None):
         """The vertical diffusion and the sums (K12): the radiative
         heating and the diffusion tendencies (with the surface fluxes on
         the lowest level) summed onto the moist ones, and the fluxes for
-        the coupler.  Returns (utend, vtend, ttend, qtend, FluxDiag)."""
-        ut, vt, ttend, qtend, hflux_i = column_pbl(
-            m, phig, fx, carry.tt_rsw, carry.ssrd, dfabs_lw, sfc.tice_am,
-            sfc.sice_am, self.pbl_tabs)
+        the coupler.  Returns (utend, vtend, ttend, qtend, FluxDiag, the new
+        FluxAccumulator or None).  sums: None, or (fluxes, rsteps, delt2)
+        as in compute: the window's flux sums in the same launch
+        (K12_pbl_flux)."""
+        args = (m, phig, fx, carry.tt_rsw, carry.ssrd, dfabs_lw, sfc.tice_am,
+                sfc.sice_am, self.pbl_tabs)
+        if sums is None:
+            (ut, vt, ttend, qtend, hflux_i), fluxes = column_pbl(*args), None
+        else:
+            ut, vt, ttend, qtend, hflux_i, fluxes = pbl_flux(*args, *sums)
         diag = FluxDiag(precnv=m.precnv, precls=m.precls,
                         hflux_l=fx.hfluxn[0], hflux_s=fx.hfluxn[1],
                         hflux_i=hflux_i, olr=olr, ts=fx.tsfc)
-        return ut, vt, ttend, qtend, diag
+        return ut, vt, ttend, qtend, diag, fluxes

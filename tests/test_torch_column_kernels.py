@@ -330,12 +330,20 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr_in in (("column_moist_host", 5),
-                           ("column_moist_block_host", 5),
                            ("radlw_up_host", 11),
                            ("radlw_up_block_host", 11)):
         fn = getattr(lib, name)
         n_out = 2 if name.startswith("column_moist") else 1
         fn.argtypes = [i, i] + [vp] * n_ptr_in + [i] + [vp] * n_out
+        fn.restype = i
+    # K9's block (shortwave 0) and K9_moist_shortwave's (1), and K9 then
+    # K13 over every column: K9's operands, then the shortwave's planes,
+    # tables and output
+    sw = [ctypes.POINTER(vp), i, vp, vp]
+    lib.column_moist_block_host.argtypes = \
+        [i, i] + [vp] * 5 + [i, vp, vp, i] + sw
+    lib.moist_shortwave_host.argtypes = [i, i] + [vp] * 5 + [i, vp, vp] + sw
+    for fn in (lib.column_moist_block_host, lib.moist_shortwave_host):
         fn.restype = i
     for name in ("down_surface_host", "down_surface_block_host"):
         fn = getattr(lib, name)
@@ -357,11 +365,13 @@ def host_moist(lib, tg, qg, phig, pslg, tabs, block=False):
     out = torch.full((cm.N_LEVEL_FIELDS * K + cm.N_PLANES, nlat, nlon),
                      float("nan"), dtype=tg.dtype)
     out_i = torch.full((2, nlat, nlon), -99, dtype=torch.int64)
-    entry = lib.column_moist_block_host if block else lib.column_moist_host
-    rc = entry(
-        K, int(tg.dtype == torch.float64),
-        *_ptrs(tg, qg, phig, pslg, tabs.blob), nlat * nlon,
-        *_ptrs(out, out_i))
+    args = (K, int(tg.dtype == torch.float64),
+            *_ptrs(tg, qg, phig, pslg, tabs.blob), nlat * nlon,
+            *_ptrs(out, out_i))
+    if block:
+        rc = lib.column_moist_block_host(*args, 0, None, 0, None, None)
+    else:
+        rc = lib.column_moist_host(*args)
     assert rc == 0
     return cm.unpack(out, out_i, K)
 

@@ -1,19 +1,22 @@
-"""The arithmetic of K15 (kernels/spectral_stack.py) and K16
-(kernels/flux_accumulate.py) without a card, and their wiring.
+"""The arithmetic of K15 (kernels/spectral_stack.py) and of the window's
+flux sums (kernels/flux_accumulate.py, a phase of K12_pbl_flux) without a
+card, and their wiring.
 
 kernels/csrc/stack_host.cpp compiles the headers the CUDA kernels include
 (spectral_stack.cuh, flux_accumulate.cuh) for the host with g++
 -ffp-contract=off: K15's warps (one per row (m, level k), lane n on
 coefficient n) with their lanes written out as loops in phase order, the
 exchange of the n +- 1 neighbours as copies and each lane's registers
-starting as NaN, and K16's loop over the grid points.  On spectral
+starting as NaN, and the flux sums' loop over the grid points (K16's
+first design).  On spectral
 states made from a seed with numpy (red noise in the total wavenumber,
 real at m = 0, the two leapfrog levels different, every coefficient of
 the (mx, nx) arrays set):
   - at K = 5, 7 and 8, T10 and T30, (jd, jp) = (1, 0) and (0, 0), the
     lanes write both stacks equal to the plain versions bit for bit, in
     float32 and float64; each stack alone likewise, the other untouched;
-  - K16's body equals flux_accumulate_plain bit for bit in both dtypes;
+  - the flux sums' body equals flux_accumulate_plain bit for bit in both
+    dtypes;
   - in float64 the lanes agree with the JAX package's uvspec, grad,
     geopotential and the two stacks it builds (1e-12 of each field's
     scale), at K = 5, 7 and 8, both pairs of levels and each stack alone;
@@ -21,7 +24,8 @@ the (mx, nx) arrays set):
     correction left out, both fail the comparison (negative controls);
   - a dycore step makes one K15 call at (j2-1, 0) (the dry core at
     (j2-1, None)) and hands the physics stack to the physics, and a GCM
-    leapfrog step one K16 call.
+    leapfrog step's physics one K12_pbl_flux call (stepone's two physics
+    steps K12 without the sums).
 The launch code itself runs only on a card (chip_smoke.py).
 """
 
@@ -45,8 +49,9 @@ from speedy_ml_tpu_torch.dycore.model import DycoreModel
 from speedy_ml_tpu_torch.dycore.state import SpectralState
 from speedy_ml_tpu_torch import gcm as gcm_module
 from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator
-from speedy_ml_tpu_torch.kernels.flux_accumulate import (
-    flux_accumulate, flux_accumulate_plain)
+from speedy_ml_tpu_torch.kernels import column_pbl as cpbl
+from speedy_ml_tpu_torch.kernels.flux_accumulate import flux_accumulate_plain
+from speedy_ml_tpu_torch.physics import driver as phys_driver
 from speedy_ml_tpu_torch.kernels.spectral_stack import (spectral_stack,
                                                         stack_blob)
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
@@ -271,9 +276,9 @@ def test_flux_body_matches_plain(lib, geom, dtype):
                          arr(acc), arr(dg), arr(out), rsteps, delt2) == 0
     for o, nm in zip(out, ("hflux_l", "hflux_s", "hflux_i", "precip")):
         assert torch.equal(o, getattr(ref, nm)), nm
-    # on a CPU tensor the wrapper is the plain version
-    same = flux_accumulate(fx, diag, rsteps, delt2)
-    assert all(torch.equal(getattr(same, k), getattr(ref, k))
+    # the accumulator given is left as it is
+    again = flux_accumulate_plain(fx, diag, rsteps, delt2)
+    assert all(torch.equal(getattr(again, k), getattr(ref, k))
                for k in ("hflux_l", "hflux_s", "hflux_i", "precip"))
 
 
@@ -285,42 +290,54 @@ def test_wrappers_raise_off_cpu_and_cuda():
         spectral_stack(dyn, meta, phis.to("meta"), 1, 0)
     with pytest.raises(ValueError, match="at least one"):
         spectral_stack(dyn, state, phis, None, None)
-    fx, diag = flux_case(2, "T10", torch.float32)
-    to_meta = lambda o, cls: cls(**{k: v.to("meta")
-                                    for k, v in vars(o).items()})
     with pytest.raises(ValueError, match="no kernel"):
-        flux_accumulate(to_meta(fx, FluxAccumulator), to_meta(
-            diag, SimpleNamespace), 1.0 / 96, 1800.0)
+        spectral_stack(dyn, meta, phis.to("meta"), 1, None)
 
 
 def test_step_and_leapfrog_call_k15_and_k16(monkeypatch):
     """One K15 call a step at (j2-1, 0) with physics, its physics stack
     handed to the physics (which then makes no K15 call of its own); the
-    dry core's at (j2-1, None); one K16 call a leapfrog step."""
+    dry core's at (j2-1, None); a leapfrog step's physics makes one
+    K12_pbl_flux call, which forms the flux sums (K16's work, no launch
+    of its own), and stepone's two physics steps K12 without them; the
+    sums equal those of the plain steps."""
     g = Geometry(nlev=8, **GEOMS["T10"])
     gcm = GCM(g, dtype=torch.float64, nsteps_day=36,
               bd=synthetic_boundary_data(g, dtype=torch.float64),
               device="cpu")
-    calls, fluxes = [], []
+    calls, pbl = [], []
 
     def stack(dyn, state, phis, jd, jp):
         calls.append((jd, jp))
         return spectral_stack(dyn, state, phis, jd, jp)
 
-    def flux(*a):
-        fluxes.append(1)
-        return flux_accumulate(*a)
+    def counted(name, fn):
+        def run(*a):
+            pbl.append((name, a[9] if name == "K12_pbl_flux" else None))
+            return fn(*a)
+        return run
 
     monkeypatch.setattr(dycore_model, "spectral_stack", stack)
     monkeypatch.setattr(gcm_module, "spectral_stack", stack)
-    monkeypatch.setattr(gcm_module, "flux_accumulate", flux)
+    monkeypatch.setattr(phys_driver, "column_pbl",
+                        counted("K12", cpbl.column_pbl))
+    monkeypatch.setattr(phys_driver, "pbl_flux",
+                        counted("K12_pbl_flux", cpbl.pbl_flux))
     from speedy_ml_tpu_torch.data.calendar import ModelDate
     st, fo = gcm.init_state(ModelDate(1990, 7, 1))
     st = gcm.stepone(st, fo)
-    assert calls == [(0, 0), (1, 0)] and not fluxes
-    st = gcm.run_window(st, fo, 2)
-    assert calls[2:] == [(1, 0), (1, 0)] and len(fluxes) == 2
+    assert calls == [(0, 0), (1, 0)]
+    assert [nm for nm, _ in pbl] == ["K12", "K12"]
+    acc = [st.fluxes]
+    for _ in range(2):
+        st = gcm.leapfrog(st, fo)
+        acc.append(st.fluxes)
+    assert calls[2:] == [(1, 0), (1, 0)]
+    assert [nm for nm, _ in pbl[2:]] == ["K12_pbl_flux"] * 2
+    # each step's sums start from the accumulator the step before left
+    assert pbl[2][1] is acc[0] and pbl[3][1] is acc[1]
     assert np.isfinite(st.fluxes.precip.numpy()).all()
+    assert float(st.fluxes.precip.max()) > 0
     calls.clear()
     dyn = gcm.dyn
     dyn.leapfrog_step(st.spectral, gcm.phis)
