@@ -268,6 +268,24 @@ class RegionLayout:
             raise ValueError("core_source_table: offset exceeds int32")
         return table.astype(np.int32)
 
+    def core_output_index(self, classes, nvar: int, nz: int) -> list:
+        """The inverse of core_source_table, per class of `classes`: an
+        (Rc, O) int32 array, the element of the flat output [atmo (nvar,
+        nz, lat, lon), logp, precip] that output o of region r fills
+        (where the readout stores it, kernels/core_scatter.py).  The cores
+        must tile the grid exactly once."""
+        G = self.geom.nlat * self.geom.nlon
+        total = nvar * nz * G + 2 * G
+        idx = [self.pack_table(cls, nvar, nz, logp=True, precip=True,
+                               sst=False, tisr=False, core_only=True)
+               for cls in classes]
+        count = np.bincount(np.concatenate([i.ravel() for i in idx]),
+                            minlength=total)
+        if count.size != total or np.any(count != 1):
+            raise ValueError("core_output_index: the cores do not tile the "
+                             "grid exactly once")
+        return idx
+
     # ------------------------------------------------------------------
     # gathers and scatters (all batched over a class)
     # ------------------------------------------------------------------

@@ -180,13 +180,13 @@ class GCM:
     def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
                     sfc, forcing, carry, lradsw, sums=None, stack=None):
         """Spectral state (or the step's physics stack) -> grid fields ->
-        PhysicsModel.compute.  sums: None, or (fluxes, rsteps, delt2), the
-        window's flux sums, which the physics step then forms too (a
-        leapfrog step).  The aux is (carry', FluxDiag, the new
+        PhysicsModel.compute_with_sums.  sums: None, or (fluxes, rsteps,
+        delt2), the window's flux sums, which the physics step then forms
+        too (a leapfrog step).  The aux is (carry', FluxDiag, the new
         FluxAccumulator or, without sums, None)."""
         grid = self.physics_grid(state, j, dyn, stack)
         with torch.profiler.record_function("physics"):
-            ut, vt, tt, qt, *aux = self.phys.compute(
+            ut, vt, tt, qt, *aux = self.phys.compute_with_sums(
                 *grid, bd=self.bd, sfc=sfc, forcing=forcing, carry=carry,
                 lradsw=lradsw, sums=sums)
         return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), tuple(aux)

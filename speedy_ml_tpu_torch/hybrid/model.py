@@ -3,23 +3,25 @@
 Reference: the per-timestep cycle of parallelmain.f90:206-272 +
 mpires.f90 sendrecievegrid/run_model (218-780, 1516-1628) + the
 iogrid(30)/(31) bridge (ppo_iogrid.f90:497-601).  Every region's ESN
-steps and reads out (predict_all), the cores assemble into the global
-grid with the q/precip clamps (assemble_global), and the halo windows
-gather back out as the next step's standardized feedback
-(build_feedback): one hand-written kernel launch each per class or per
-cycle (kernels/).  The coupled cycle (ml_only=False) also injects the
-assembled grid into SPEEDY (inject_to_speedy: the grid->spectral->grid
-double transform and the safety gate), runs a 6-h SPEEDY window from a
-cold start (speedy_window) and packs the forecast into each region's
-local-model vector (build_local_model, K3 with a core-only table).
+steps and reads out (predict_all), the readout storing each core
+straight into the global grid with the q/precip clamps (assemble_global
+returns its views), and the halo windows gather back out as the next
+step's standardized feedback (build_feedback): one hand-written kernel
+launch each per class or per cycle (kernels/).  The coupled cycle
+(ml_only=False) also injects the assembled grid into SPEEDY
+(inject_to_speedy: the grid->spectral->grid double transform and the
+safety gate), runs a 6-h SPEEDY window from a cold start
+(speedy_window) and packs the forecast into each region's local-model
+vector (build_local_model, K3 with a core-only table).
 
 The window's entry and exit and the injection's glue are kernels too:
-K17 (the surface and forcing), K18 (the injection's spectral glue), K19
-(the gate), K20 (the exit, with the gate's select) and K17b (the TISR
-field).  The safety gate is a select, not a branch: the window always
-runs, and K20 keeps the injected fields where ok is false, so an unsafe
-state (and any NaN it makes) stays out of the next state.  The flag stays
-on the device.
+K17 (the surface and forcing, whose fsol plane is also the coupled
+cycle's TISR field), K18 (the injection's spectral glue), K19 (the gate),
+K20 (the exit, with the gate's select) and, on the ML-only cycle, K17b
+(the TISR field).  The safety gate is a select, not a branch: the window
+always runs, and K20 keeps the injected fields where ok is false, so an
+unsafe state (and any NaN it makes) stays out of the next state.  The
+flag stays on the device.
 
 Layouts follow the JAX package: fields (V, K, lat, lon), class vectors
 (Rc, I) / (Rc, O), and the same packing order, so both compute the same
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
@@ -40,7 +43,9 @@ from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
 from speedy_ml_tpu_torch.gcm import GCMState, zero_carries
-from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
+from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
+                                                      grid_blocks,
+                                                      split_grid)
 from speedy_ml_tpu_torch.kernels.gate_check import gate_check
 from speedy_ml_tpu_torch.kernels.inject_spectral import inject_spectral
 from speedy_ml_tpu_torch.kernels.readout import readout
@@ -145,7 +150,8 @@ class HybridAtmosphere:
                           if gcm is not None else 0)
 
         # static index tables of the gather/scatter kernels, built once:
-        # per pack its (Rc, I) pack_table, and the grid's core_source_table
+        # per pack its (Rc, I) pack_table and its (Rc, O) core output
+        # index (views of one device tensor)
         g = self.geom
         self.feedback_index = [torch.as_tensor(
             layout.pack_table(p.cls, self.NVAR, self.nz, logp=p.bottom,
@@ -158,9 +164,14 @@ class HybridAtmosphere:
                               precip=False, sst=False, tisr=False,
                               core_only=True), device=self.device)
             for p in self.packs]
-        self.core_table = torch.as_tensor(
-            layout.core_source_table([p.cls for p in self.packs], self.NVAR,
-                                     self.nz), device=self.device)
+        idx = layout.core_output_index([p.cls for p in self.packs],
+                                       self.NVAR, self.nz)
+        flat = torch.as_tensor(np.concatenate([i.ravel() for i in idx]),
+                               device=self.device)
+        self.core_index = [v.view(i.shape) for v, i in zip(
+            torch.split(flat, [i.size for i in idx]), idx)]
+        self.grid_size, self.q_block, self.p_block = grid_blocks(
+            self.NVAR, self.nz, g.nlat, g.nlon)
         self._slat = torch.as_tensor(g.sin_lat, dtype=self.dtype,
                                      device=self.device)
         self._clat = torch.as_tensor(g.cos_lat, dtype=self.dtype,
@@ -224,28 +235,31 @@ class HybridAtmosphere:
 
     def predict_all(self, packs, hstate: HybridState):
         """ESN step + readout for every region (predict/predict_ml,
-        mod_reservoir.f90:1416-1533).  Returns (new xs, physical outvecs):
-        the readout kernel applies unstandardize_output."""
+        mod_reservoir.f90:1416-1533): the readout applies
+        unstandardize_output and stores each region's core straight into
+        the global grid with the q/precip clamps (the core scatter,
+        tile_full_grid_with_local_state_vec_res + mpires.f90:444-478).
+        Returns (new xs, the flat grid [atmo, logp, precip]), allocated
+        here once a cycle."""
+        if len(packs) != len(self.packs):
+            raise ValueError("predict_all: one class state per pack")
+        grid = torch.empty(self.grid_size, dtype=packs[0].std.out_mean.dtype,
+                           device=self.device)
         new_x = []
-        outvecs = []
-        for p, cs in zip(packs, hstate.classes):
+        for p, cs, index in zip(packs, hstate.classes, self.core_index):
             x = esn_step(p.res, cs.x, cs.feedback, p.hyper.leakage)
             lm = None if self.ml_only else cs.local_model
-            outvecs.append(readout(p.res.wout, x, lm, p.std.out_mean,
-                                   p.std.out_std))
+            readout(p.res.wout, x, lm, p.std.out_mean, p.std.out_std,
+                    scatter=CoreScatter(grid, index, self.q_block,
+                                        self.p_block))
             new_x.append(x)
-        return new_x, outvecs
+        return new_x, grid
 
-    def assemble_global(self, packs, outvecs):
-        """Scatter region outputs into global grids + clamps
-        (tile_full_grid_with_local_state_vec_res + mpires.f90:444-478):
-        one core-scatter launch for all classes.  Returns (atmo, logp,
-        precip)."""
-        if len(packs) != len(self.packs):
-            raise ValueError("assemble_global: one output per pack")
+    def assemble_global(self, packs, grid):
+        """The global (atmo (4, K, lat, lon), logp, precip) of predict_all's
+        grid: views, no launch (the readout assembled and clamped it)."""
         g = self.geom
-        return core_scatter(outvecs, self.core_table, self.NVAR, self.nz,
-                            g.nlat, g.nlon)
+        return split_grid(grid, self.NVAR, self.nz, g.nlat, g.nlon)
 
     def build_feedback(self, packs, atmo, logp, precip, sst_grid, tisr_grid):
         """Per-class standardized feedback vectors (sendrecievegrid
@@ -278,11 +292,14 @@ class HybridAtmosphere:
         return state, safe
 
     def _run_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
-                    tyear, sfc_carry=None) -> GCMState:
+                    tyear, sfc_carry=None) -> tuple[GCMState, torch.Tensor]:
         """The window from a cold start: the surface from climatology and
         the hybrid SST and the forcing (K17 and K5), zero carries (one
         fill), stepone, gcm_steps leapfrog steps from istep 0 (so the
-        shortwave cadence inside a window is static)."""
+        shortwave cadence inside a window is static).  Returns (the
+        window's end state, its forcing's fsol plane): solar_flux_traced
+        at tyear with 4 SOLC, the TISR plane of the same date
+        (tisr_field's, bit for bit)."""
         if sfc_carry is not None:
             raise NotImplementedError(
                 f"persist_surface comes with {OPTIONS_SLICE}")
@@ -294,7 +311,7 @@ class HybridAtmosphere:
         gstate = GCMState(spectral=spec, sfc=sfc, radiation=radiation,
                           fluxes=fluxes, istep=0)
         gstate = gcm.stepone(gstate, forcing)
-        return gcm.run_window(gstate, forcing, self.gcm_steps)
+        return gcm.run_window(gstate, forcing, self.gcm_steps), forcing.fsol
 
     def speedy_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
                       tyear, sfc_carry=None):
@@ -302,8 +319,8 @@ class HybridAtmosphere:
         mpires.f90:1516-1628), then the fields at leapfrog level 0 (iogrid
         31; GCM.grid_state).  Returns (atmo (4, K, lat, lon), logp,
         window FluxAccumulator)."""
-        gstate = self._run_window(spec, sst_hybrid, imon, fmon, tyear,
-                                  sfc_carry)
+        gstate, _ = self._run_window(spec, sst_hybrid, imon, fmon, tyear,
+                                     sfc_carry)
         atmo, logp, _ = self.gcm.grid_state(gstate.spectral)
         return atmo, logp, gstate.fluxes
 
@@ -321,7 +338,9 @@ class HybridAtmosphere:
                    hours_per_entry: int = 1):
         """TISR input field (lat, lon) for the current date: the analytic
         Hartmann daily-mean insolation, one K17b launch (tyear a host
-        number; the table branch comes with the cycle options)."""
+        number; the table branch comes with the cycle options).  The
+        ML-only cycle calls it; the coupled cycle feeds back its window's
+        fsol plane, the same plane made by K17."""
         if table is not None:
             raise NotImplementedError(f"TISR tables come with {OPTIONS_SLICE}")
         return tisr_plane(tyear, self._slat, self._clat, self.geom.nlon)
@@ -346,11 +365,10 @@ class HybridAtmosphere:
         rf = torch.profiler.record_function
         packs = self._with_params(params)
         with rf("predict_all"):
-            new_x, outvecs = self.predict_all(packs, hstate)
-        with rf("assemble_global"):
-            atmo, logp, precip = self.assemble_global(packs, outvecs)
+            new_x, grid = self.predict_all(packs, hstate)
+        atmo, logp, precip = self.assemble_global(packs, grid)
         safe = hstate.safe
-        fc_atmo = fc_logp = None
+        fc_atmo = fc_logp = tisr = None
         if not self.ml_only:
             with rf("inject_to_speedy"):
                 spec, safe = self.inject_to_speedy(atmo, logp)
@@ -361,13 +379,16 @@ class HybridAtmosphere:
             # The driver stops on the flag.
             prev = hstate.safe if torch.is_tensor(hstate.safe) else \
                 torch.full((), bool(hstate.safe), device=self.device)
+            # the window's forcing already holds this date's TISR plane
+            # (its fsol), so the coupled cycle launches no K17b
             with rf("speedy_window"):
-                gstate = self._run_window(spec, hstate.sst_grid, imon, fmon,
-                                          tyear)
+                gstate, tisr = self._run_window(spec, hstate.sst_grid, imon,
+                                                fmon, tyear)
                 fc_atmo, fc_logp, safe = self.gcm.grid_state(
                     gstate.spectral, select=(prev, safe, atmo, logp))
         with rf("build_feedback"):
-            tisr = self.tisr_field(tyear, hour_of_year)
+            if tisr is None:
+                tisr = self.tisr_field(tyear, hour_of_year)
             feedbacks = self.build_feedback(packs, atmo, logp, precip,
                                             hstate.sst_grid, tisr)
         if self.ml_only:

@@ -50,13 +50,11 @@ SIGNATURES = {
                         ctypes.POINTER(_i), _i, _i, _i, _i, _f, _f, _vp,
                         _vp],
     "readout_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp,
-                       _vp],
+                       _vp, _vp, _ll, _ll, _ll, _ll, _vp],
     "window_gather_launch": [_i, ctypes.POINTER(_vp), _ll, _ll, _i,
                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                              ctypes.POINTER(_ll), _vp],
-    "core_scatter_launch": [_i, _i, ctypes.POINTER(_vp), ctypes.POINTER(_ll),
-                            _vp, _ll, _ll, _ll, _ll, _ll, _vp, _vp],
     "sht_analysis_launch": [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                             _i, _vp, _vp],
     "sht_synthesis_launch": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,

@@ -1,9 +1,10 @@
 // Host build of the arithmetic of K17-K20 (surface_forcing.cuh,
-// inject_spectral.cuh, gate_check.cuh, window_select.cuh): K17 and K17b
-// as loops over the grid points, K20 over its output elements; K18's blocks with their threads
-// written out as loops in phase order and their shared memory starting as
-// NaN, so that a phase reading what an earlier one did not write shows;
-// K19 as one loop over each variable.  It is not part of the kernel
+// inject_spectral.cuh, gate_check.cuh, window_select.cuh): K17's per-point
+// body and K17b as loops over the grid points, K20 over its output
+// elements; K17's row blocks and K18's blocks with their threads written
+// out as loops in phase order and their shared memory starting as NaN, so
+// that a phase reading what an earlier one did not write shows; K19 as
+// one loop over each variable.  It is not part of the kernel
 // library; the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC glue_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions.  The entry points take
@@ -22,9 +23,9 @@
 namespace {
 
 template <typename T>
-void surface_forcing(int nlat, int nlon, const void* const* in, void* sfc,
-                     void* frc, const double* scal,
-                     const int* ix) {
+SfIO<T> surface_forcing_io(int nlat, int nlon, const void* const* in,
+                           void* sfc, void* frc, const double* scal,
+                           const int* ix) {
   SfIO<T> io;
   const T* const* p = (const T* const*)in;
   io.stl12 = p[0];
@@ -49,7 +50,36 @@ void surface_forcing(int nlat, int nlon, const void* const* in, void* sfc,
   io.nlon = nlon;
   for (int k = 0; k < SC_COUNT; ++k) io.s.v[k] = (T)scal[k];
   for (int k = 0; k < IX_COUNT; ++k) io.s.ix[k] = ix ? ix[k] : 0;
-  for (long long i = 0; i < io.G; ++i) surface_forcing_at(io, i);
+  return io;
+}
+
+// K17's row blocks, a row at a time: the point threads' phase 1 (before
+// the solar warp, so a read of the row's shared terms would see NaN), the
+// solar warp's lanes, the barrier, the point threads' phase 2
+template <typename T>
+void surface_forcing_rows(const SfIO<T>& io, int nlat) {
+  for (int j = 0; j < nlat; ++j) {
+    SfRow<T> row;
+    memset(&row, 0xff, sizeof row);
+    for (int c = 0; c < io.nlon; ++c) sf_block_points(io, j, c);
+    if (!io.frc) continue;
+    for (int lane = 0; lane < 32; ++lane) sf_block_solar(io, row, j, lane);
+    for (int c = 0; c < io.nlon; ++c) sf_block_solar_store(io, row, j, c);
+  }
+}
+
+// K17 as the per-point body (block 0) or as the kernel's row blocks
+// (block 1)
+template <typename T>
+void surface_forcing(int block, int nlat, int nlon, const void* const* in,
+                     void* sfc, void* frc, const double* scal,
+                     const int* ix) {
+  const SfIO<T> io = surface_forcing_io<T>(nlat, nlon, in, sfc, frc, scal,
+                                           ix);
+  if (block)
+    surface_forcing_rows(io, nlat);
+  else
+    for (long long i = 0; i < io.G; ++i) surface_forcing_at(io, i);
 }
 
 template <typename T>
@@ -129,15 +159,16 @@ void select_fields(int K, long long G, const void* out, const void* prev,
 
 }  // namespace
 
-// K17 over the grid.
-extern "C" int surface_forcing_host(int is_double, int nlat, int nlon,
-                                    const void* const* in, void* sfc,
-                                    void* frc,
-                                    const double* scal, const int* ix) {
+// K17 over the grid: block 0, the per-point body; block 1, the kernel's
+// row blocks.
+extern "C" int surface_forcing_host(int is_double, int block, int nlat,
+                                    int nlon, const void* const* in,
+                                    void* sfc, void* frc, const double* scal,
+                                    const int* ix) {
   if (is_double)
-    surface_forcing<double>(nlat, nlon, in, sfc, frc, scal, ix);
+    surface_forcing<double>(block, nlat, nlon, in, sfc, frc, scal, ix);
   else
-    surface_forcing<float>(nlat, nlon, in, sfc, frc, scal, ix);
+    surface_forcing<float>(block, nlat, nlon, in, sfc, frc, scal, ix);
   return 0;
 }
 

@@ -2,7 +2,9 @@
 //
 // Replaces (JAX package) speedy_ml_tpu/esn/reservoir.py: quad_expand +
 // readout, fused with Standardizer.unstandardize_output as
-// hybrid/model.py:366-367 applies it.  Computes
+// hybrid/model.py:366-367 applies it, and, given the grid, with
+// esn/domain.py:271,290 unpack_core_vector + scatter_core and the clamps
+// of HybridAtmosphere.assemble_global (hybrid/model.py:373-402).  Computes
 //   aug      = [local_model (S) ; x with odd indices squared (n)]
 //   out[r,o] = (sum_a Wout[r,o,a] * aug[r,a]) * out_std[r,o] + out_mean[r,o]
 // (out_std/out_mean null: the bare product).  With bf16 Wout, aug is
@@ -13,6 +15,11 @@
 // T30 m=6000 layout Wout is (1056, 136, 5892) + 2 x (48, 136, 6180) in the
 // coupled form, about 1.88 GB in bf16 (0.56 ms).  2 flops per weight is
 // far below any compute rate.
+// The store: into the (R, O) vector, or (the coupled and ML-only cycles)
+// straight into its element of the assembled grid with the q and precip
+// clamps, through the inverse table RegionLayout.core_output_index
+// (readout.cuh RoScatter): the core scatter, formerly K4, a launch of
+// its own.
 // Design: block (region r, tile of output rows).  The block builds aug for
 // its region in shared memory (A*4 bytes, 23-24 KB at m=6000), rounded
 // once; each warp then streams whole Wout rows (readout.cuh): a 4-element
@@ -30,8 +37,7 @@
 #include "common.cuh"
 #include "readout.cuh"
 
-#define READOUT_THREADS 256
-#define READOUT_WARPS (READOUT_THREADS / 32)
+#define READOUT_THREADS (RO_WARPS * 32)
 
 template <int ES, bool VEC>
 __global__ void __launch_bounds__(READOUT_THREADS)
@@ -39,7 +45,7 @@ readout_kernel(const unsigned char* __restrict__ wout,
                const float* __restrict__ x, const float* __restrict__ lm,
                const float* __restrict__ out_mean,
                const float* __restrict__ out_std, int O, int S, int n,
-               int tile_rows, float* __restrict__ out) {
+               int tile_rows, float* __restrict__ out, const RoScatter sc) {
   extern __shared__ float4 aug_s[];
   float* aug = reinterpret_cast<float*>(aug_s);
   const int r = blockIdx.x;
@@ -54,68 +60,66 @@ readout_kernel(const unsigned char* __restrict__ wout,
   const int lane = threadIdx.x & 31;
   const int o0 = blockIdx.y * tile_rows;
   const int o_end = min(O, o0 + tile_rows);
-  for (int o = o0 + warp; o < o_end; o += READOUT_WARPS) {
+  for (int o = o0 + warp; o < o_end; o += RO_WARPS) {
     const long long k = (long long)r * O + o;
     float acc = ro_lane_dot<ES, VEC>(wout + (size_t)k * A * ES, aug, A, lane);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0)
-      out[k] = out_std ? ro_unstd(acc, out_std[k], out_mean[k]) : acc;
+      ro_store(out_std ? ro_unstd(acc, out_std[k], out_mean[k]) : acc, k,
+               out, sc);
   }
-}
-
-// Rows per block: all O where R blocks already give ~4 per SM, else
-// fewer, a multiple of the warps, so that R * tiles reaches that count.
-static int auto_tile_rows(int device, int R, int O) {
-  int sms = 132;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int want = 4 * sms;
-  int tiles = (want + R - 1) / R;
-  const int most = (O + READOUT_WARPS - 1) / READOUT_WARPS;
-  tiles = tiles < 1 ? 1 : (tiles > most ? most : tiles);
-  const int rows = (O + tiles - 1) / tiles;
-  return (rows + READOUT_WARPS - 1) / READOUT_WARPS * READOUT_WARPS;
 }
 
 template <int ES>
 static int launch(int device, const void* wout, const void* x,
                   const void* lm, const void* out_mean, const void* out_std,
-                  int R, int O, int S, int n, void* out, cudaStream_t st) {
+                  int R, int O, int S, int n, void* out, const RoScatter& sc,
+                  cudaStream_t st) {
   const int A = S + n;
   const size_t smem = ((size_t)A + 4) * sizeof(float);
   const bool vec = ro_vector_ok(wout, A, ES);
   void (*kern)(const unsigned char*, const float*, const float*,
-               const float*, const float*, int, int, int, int, float*) =
+               const float*, const float*, int, int, int, int, float*,
+               const RoScatter) =
       vec ? &readout_kernel<ES, true> : &readout_kernel<ES, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int tile_rows = auto_tile_rows(device, R, O);
+  int sms = 132;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int tile_rows = ro_tile_rows(sms, R, O);
   const dim3 grid(R, (O + tile_rows - 1) / tile_rows);
   kern<<<grid, READOUT_THREADS, smem, st>>>(
       (const unsigned char*)wout, (const float*)x, (const float*)lm,
       (const float*)out_mean, (const float*)out_std, O, S, n, tile_rows,
-      (float*)out);
+      (float*)out, sc);
   return (int)cudaGetLastError();
 }
 
 // wout_bf16: 1 for bfloat16 Wout, 0 for float32.  lm null when S == 0;
-// out_mean/out_std both null for the bare product.
+// out_mean/out_std both null for the bare product.  grid null: the
+// outputs go to out (R, O); else into the flat grid through index (R, O)
+// with the clamps of [q0, q1) and [p0, p1) (readout.cuh RoScatter), and
+// out is not written.
 SPEEDY_API int readout_launch(int device, int wout_bf16, const void* wout,
                               const void* x, const void* lm,
                               const void* out_mean, const void* out_std,
                               int R, int O, int S, int n, void* out,
+                              void* grid, const void* index, long long q0,
+                              long long q1, long long p0, long long p1,
                               void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (R < 1 || O < 1 || n < 1)
+  if (R < 1 || O < 1 || n < 1 || (grid ? !index : !out))
     return (int)cudaErrorInvalidValue;
+  const RoScatter sc = {(float*)grid, (const int*)index, q0, q1, p0, p1};
   cudaStream_t st = (cudaStream_t)stream;
   return wout_bf16 ? launch<2>(device, wout, x, lm, out_mean, out_std, R, O,
-                               S, n, out, st)
+                               S, n, out, sc, st)
                    : launch<4>(device, wout, x, lm, out_mean, out_std, R, O,
-                               S, n, out, st);
+                               S, n, out, sc, st);
 }

@@ -1,8 +1,10 @@
 // K2's arithmetic, shared by the CUDA kernel (readout.cu) and its host
 // build (dense_host.cpp, which the CPU tests compile with g++ and hold
 // against the plain PyTorch version): the augmented vector, its rounding
-// to bfloat16, one lane's share of a Wout row's dot product and the
-// unstandardize epilogue.  Wout elements are read as raw bits (bfloat16:
+// to bfloat16, one lane's share of a Wout row's dot product, the
+// unstandardize epilogue, the store (into the (R, O) vector, or into the
+// assembled grid with the clamps: the core scatter) and the rows a block
+// takes.  Wout elements are read as raw bits (bfloat16:
 // the upper half of a float), so the same code runs on both sides.
 //
 // A row is split over RO_LANES lanes.  On the vector path a row that
@@ -29,6 +31,7 @@
 
 #define RO_LANES 32   // lanes that share one Wout row (a warp)
 #define RO_UNROLL 4   // 16-byte words a lane loads before their products
+#define RO_WARPS 8    // warps of a block, each on its own rows
 
 RO_HD float ro_from_bits(uint32_t u) {
 #ifdef __CUDA_ARCH__
@@ -204,4 +207,50 @@ RO_HD float ro_unstd(float acc, float std, float mean) {
   const float p = acc * std;  // built with -ffp-contract=off
   return p + mean;
 #endif
+}
+
+// Where K2 stores its outputs straight into the assembled grid, K4's
+// former work (the JAX package's unpack_core_vector + scatter_core and the
+// clamps of HybridAtmosphere.assemble_global): grid is the flat
+// [atmo (4, K, lat, lon), logp, precip] and index[k] the element of it
+// that the class's output k = r O + o fills (-1: none; the cores tile the
+// grid once, so no two outputs share an element); [q0, q1) is the
+// humidity block, [p0, p1) the precip block.  grid null: the outputs go
+// to the (R, O) vector.
+struct RoScatter {
+  float* grid;
+  const int* index;
+  long long q0, q1, p0, p1;
+};
+
+// v as grid element e holds it: q = max(q, 1e-6), precip < 1e-5 -> 0;
+// the comparisons keep NaN, as the JAX clamps do
+RO_HD float ro_clamp(float v, long long e, const RoScatter& sc) {
+  if (e >= sc.q0 && e < sc.q1) return v < 1e-6f ? 1e-6f : v;
+  if (e >= sc.p0 && e < sc.p1) return v < 1e-5f ? 0.f : v;
+  return v;
+}
+
+// The store of output k (value v): into the grid where sc has one, else
+// out[k]
+RO_HD void ro_store(float v, long long k, float* out, const RoScatter& sc) {
+  if (!sc.grid) {
+    out[k] = v;
+    return;
+  }
+  const long long e = sc.index[k];
+  if (e >= 0) sc.grid[e] = ro_clamp(v, e, sc);
+}
+
+// Rows per block on a card of `sms` SMs: all O where R blocks already
+// give ~4 per SM, else fewer, a multiple of the warps, so that R * tiles
+// reaches that count (the 48-region polar classes: one region's rows over
+// several blocks, each storing its own)
+RO_HD int ro_tile_rows(int sms, int R, int O) {
+  const int want = 4 * sms;
+  int tiles = (want + R - 1) / R;
+  const int most = (O + RO_WARPS - 1) / RO_WARPS;
+  tiles = tiles < 1 ? 1 : (tiles > most ? most : tiles);
+  const int rows = (O + tiles - 1) / tiles;
+  return (rows + RO_WARPS - 1) / RO_WARPS * RO_WARPS;
 }

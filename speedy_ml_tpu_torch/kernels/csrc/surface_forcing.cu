@@ -1,7 +1,9 @@
 // K17: the SPEEDY window's entry, the climatological surface and the
-// daily forcing's grid fields, one thread per grid point; K17b: the TISR
-// plane of the hybrid's feedback, one thread per grid point (the
-// arithmetic: surface_forcing.cuh, which says what is computed).
+// daily forcing's grid fields, a block per latitude row; K17b: the TISR
+// plane of the hybrid's feedback on the ML-only cycle, one thread per grid
+// point (the arithmetic: surface_forcing.cuh, which says what is
+// computed).  The coupled cycle feeds back K17's own fsol plane, which is
+// K17b's plane at the same tyear (hybrid/model.py).
 //
 // Replaces (JAX package) speedy_ml_tpu/physics/land_sea.py:89-115,
 // 191-243 (forint, forin5, interp_climatology, init_surface_state), the
@@ -12,23 +14,43 @@
 // and 11 forcing planes.
 //
 // Bound on an H100 SXM: memory, and latency-sized: at T30 ~0.44 MB read
-// and written, 0.13 us at 3.35 TB/s; ~300 FLOP a point (the solar rows'
-// sines and cosines are worked out again at every point of a row).
-// Design (a first one): blocks of 128 threads over the 4,608 points,
-// coalesced loads and stores, every operation rounded apart in the plain
-// version's order (compiled without FMA contraction, SOURCE_FLAGS in
+// and written, 0.13 us at 3.35 TB/s.  The first design (a thread per
+// point, 36 blocks of 128) ran the whole solar chain, nine dependent
+// sines, cosines, an arccosine and a division, at every one of the 4,608
+// points before its first forcing store, and issued its 16 table loads
+// from the same thread: 0.0028 ms.  Design: a block per latitude
+// row (48 at T30).  Its point threads, one a point, issue every load of
+// their point at kernel start and form and store the surface and the
+// latitude-free forcing planes; meanwhile two lanes of one more warp work
+// out the row's solar terms once (fsol on one lane, oz and zenit on the
+// other) into shared memory.  One barrier, then the five solar planes.
+// A thread's dependent chain sets the time: 16-byte accesses (four points
+// a thread) took 0.0037 ms, 8-byte ones 0.0026, one point a thread 0.0023
+// (PERF.md).  Every operation is rounded apart in the plain version's
+// order (compiled without FMA contraction, SOURCE_FLAGS in
 // kernels/build.py).
 
 #include "common.cuh"
 #include "surface_forcing.cuh"
 
-constexpr int kSfBlock = 128;
+constexpr int kSfBlock = 128;         // K17b: threads a block
+constexpr int kSfPointThreads = 256;  // K17: most point threads a block
 
 template <typename T>
-__global__ void __launch_bounds__(kSfBlock)
-    surface_forcing_kernel(const SfIO<T> io) {
-  const long long i = (long long)blockIdx.x * kSfBlock + threadIdx.x;
-  if (i < io.G) surface_forcing_at(io, i);
+__global__ void __launch_bounds__(kSfPointThreads + 32)
+    surface_forcing_kernel(const SfIO<T> io, int npt) {
+  __shared__ SfRow<T> row;
+  const int j = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t < npt) {
+    for (int c = t; c < io.nlon; c += npt) sf_block_points(io, j, c);
+  } else if (io.frc) {
+    sf_block_solar(io, row, j, t - npt);
+  }
+  __syncthreads();
+  if (io.frc && t < npt)
+    for (int c = t; c < io.nlon; c += npt)
+      sf_block_solar_store(io, row, j, c);
 }
 
 template <typename T>
@@ -51,6 +73,7 @@ static SfScalars<T> scalars(const double* scal, const int* ix) {
 static unsigned blocks_for(long long G) {
   return (unsigned)((G + kSfBlock - 1) / kSfBlock);
 }
+
 
 template <typename T>
 static void launch(int nlat, int nlon, const void* const* in, void* sfc,
@@ -79,7 +102,11 @@ static void launch(int nlat, int nlon, const void* const* in, void* sfc,
   io.G = (long long)nlat * nlon;
   io.nlon = nlon;
   io.s = scalars<T>(scal, ix);
-  surface_forcing_kernel<T><<<blocks_for(io.G), kSfBlock, 0, stream>>>(io);
+  // a row's point threads (whole warps, at most kSfPointThreads), then
+  // the solar warp
+  int npt = (nlon + 31) / 32 * 32;
+  if (npt > kSfPointThreads) npt = kSfPointThreads;
+  surface_forcing_kernel<T><<<nlat, npt + 32, 0, stream>>>(io, npt);
 }
 
 // in: 16 pointers (surface_forcing.cuh SfIO order: stl12, snowd12,

@@ -10,10 +10,18 @@
 // fields whose analysis gives tcorh and qcorh); the zonal solar rows of
 // sol_oz_traced and solar_flux_traced (physics/radiation.py:118-160),
 // stored as (lat, lon) planes; and, for K17b, the Hartmann insolation
-// plane of HybridAtmosphere.tisr_field (hybrid/model.py:541-544).  One
-// point (j, i) of the grid a call: every latitude's solar row is worked
-// out again by each point of that row, from the same scalars, so no
-// point waits on another.
+// plane of HybridAtmosphere.tisr_field (hybrid/model.py:541-544).
+//
+// The arithmetic is written once, as functions of values: the surface of
+// a point (sf_surface_v), the forcing planes that do not depend on the
+// latitude (sf_forcing_v), and the solar rows split into their tyear
+// terms (sf_year_sol, sf_year_zen) and a latitude's (sf_lat_fsol,
+// sf_lat_zen).  K17's row block calls them (a latitude row a block, the
+// solar terms worked out once a row: sf_block_*), and so do the
+// per-point body (surface_forcing_at: the block's phases for one point,
+// its row's solar terms worked out at the point, the host check's
+// reference for the block's shared terms and barrier) and K17b's point
+// (tisr_at), at the end.
 //
 // Every operation is the plain version's (kernels/surface_forcing.py),
 // in its order and rounded apart (the source is compiled without FMA
@@ -95,31 +103,52 @@ COL_HD T sf_max_at(T x, T lo) {
   return x < lo ? lo : x;
 }
 
-// forint: a + wint (b - a), a the month imon, b imon2
+// forint of one point's two months: a + wint (b - a), a the month imon,
+// b imon2
 template <typename T>
-COL_HD T sf_forint(const T* f12, const SfScalars<T>& s, long long G,
-                   long long i) {
-  const T a = f12[s.ix[IX_IMON] * G + i];
-  const T b = f12[s.ix[IX_IMON2] * G + i];
+COL_HD T sf_forint_v(const SfScalars<T>& s, T a, T b) {
   return a + s.v[SC_WINT] * (b - a);
 }
 
-// forin5: wm2 f[imon-2] + wm1 f[imon-1] + w0 f[imon] + wp1 f[imon+1]
-// + wp2 f[imon+2], summed left to right
+// forin5 of one point's five months f = (imon-2, imon-1, imon, imon+1,
+// imon+2): wm2 f[0] + wm1 f[1] + w0 f[2] + wp1 f[3] + wp2 f[4], summed left
+// to right
 template <typename T>
-COL_HD T sf_forin5(const T* f12, const SfScalars<T>& s, long long G,
-                   long long i) {
-  T acc = s.v[SC_WM2] * f12[s.ix[IX_IM2] * G + i];
-  acc = acc + s.v[SC_WM1] * f12[s.ix[IX_IM1] * G + i];
-  acc = acc + s.v[SC_W0] * f12[s.ix[IX_IMON] * G + i];
-  acc = acc + s.v[SC_WP1] * f12[s.ix[IX_IP1] * G + i];
-  return acc + s.v[SC_WP2] * f12[s.ix[IX_IP2] * G + i];
+COL_HD T sf_forin5_v(const SfScalars<T>& s, const T* f) {
+  T acc = s.v[SC_WM2] * f[0];
+  acc = acc + s.v[SC_WM1] * f[1];
+  acc = acc + s.v[SC_W0] * f[2];
+  acc = acc + s.v[SC_WP1] * f[3];
+  return acc + s.v[SC_WP2] * f[4];
 }
 
-// solar_flux_traced at s.v[SC_TYEAR] for one latitude (csol = 4 SOLC,
-// csolp = csol / pi)
+// the index (IX_*) of the k-th month that forin5 and forint read, in the
+// order of their values above
+COL_HD int sf_month5(int k) {
+  return k == 0 ? IX_IM2 : k == 1 ? IX_IM1 : k == 2 ? IX_IMON
+                                             : k == 3 ? IX_IP1 : IX_IP2;
+}
+COL_HD int sf_month2(int k) { return k == 0 ? IX_IMON : IX_IMON2; }
+
+// The terms of solar_flux_traced that depend on tyear alone
 template <typename T>
-COL_HD T sf_fsol(const SfScalars<T>& s, T slat, T clat) {
+struct SfYearSol {
+  T fdis, cdecl, sdecl, tdecl;
+};
+// ... and those of sol_oz_traced's ozone and zenith rows
+template <typename T>
+struct SfYearZen {
+  T coz1, czen, szen;
+};
+// A latitude row's solar terms (what the forcing's solar planes read)
+template <typename T>
+struct SfRow {
+  T fsol, oz, zenit;
+};
+
+// solar_flux_traced's tyear terms at s.v[SC_TYEAR]
+template <typename T>
+COL_HD SfYearSol<T> sf_year_sol(const SfScalars<T>& s) {
   const T alpha = s.v[SC_TWO_PI] * s.v[SC_TYEAR];
   const T ca1 = col_cos(alpha), sa1 = col_sin(alpha);
   const T ca2 = ca1 * ca1 - sa1 * sa1;
@@ -136,27 +165,87 @@ COL_HD T sf_fsol(const SfScalars<T>& s, T slat, T clat) {
   fdis = fdis + T(0.001280) * sa1;
   fdis = fdis + T(0.000719) * ca2;
   fdis = fdis + T(0.000077) * sa2;
-  const T cdecl = col_cos(decl), sdecl = col_sin(decl);
-  const T tdecl = sdecl / cdecl;
-  const T ch0 = sf_min_at(sf_max_at(-tdecl * slat / clat, T(-1)), T(1));
-  const T h0 = col_acos(ch0);
-  const T sh0 = col_sin(h0);
-  return s.v[SC_CSOLP] * fdis * (h0 * slat * sdecl + sh0 * clat * cdecl);
+  SfYearSol<T> y;
+  y.fdis = fdis;
+  y.cdecl = col_cos(decl);
+  y.sdecl = col_sin(decl);
+  y.tdecl = y.sdecl / y.cdecl;
+  return y;
 }
 
-// The surface of point i (interp_climatology + init_surface_state):
-// writes the SF_* planes; returns stl, snowd, sst_am and sice, what the
-// forcing reads.
+// solar_flux_traced of one latitude from the tyear terms (csol = 4 SOLC,
+// csolp = csol / pi)
 template <typename T>
-COL_HD void sf_surface_at(const SfIO<T>& io, long long i, T& stl, T& snowd,
-                          T& sst_am, T& sice) {
-  const SfScalars<T>& s = io.s;
-  const long long G = io.G;
-  stl = sf_forin5(io.stl12, s, G, i);
-  snowd = sf_forint(io.snowd12, s, G, i);
-  const T soilw = sf_forint(io.soilw12, s, G, i);
-  const T sst0 = sf_forin5(io.sst12, s, G, i);
-  const T sice0 = sf_forint(io.sice12, s, G, i);
+COL_HD T sf_lat_fsol(const SfScalars<T>& s, const SfYearSol<T>& y, T slat,
+                     T clat) {
+  const T ch0 = sf_min_at(sf_max_at(-y.tdecl * slat / clat, T(-1)), T(1));
+  const T h0 = col_acos(ch0);
+  const T sh0 = col_sin(h0);
+  return s.v[SC_CSOLP] * y.fdis *
+         (h0 * slat * y.sdecl + sh0 * clat * y.cdecl);
+}
+
+// solar_flux_traced at s.v[SC_TYEAR] for one latitude (K17b's point)
+template <typename T>
+COL_HD T sf_fsol(const SfScalars<T>& s, T slat, T clat) {
+  return sf_lat_fsol(s, sf_year_sol(s), slat, clat);
+}
+
+// sol_oz_traced's tyear terms of the ozone and zenith rows
+template <typename T>
+COL_HD SfYearZen<T> sf_year_zen(const SfScalars<T>& s) {
+  const T alpha = s.v[SC_TWO_PI] * (s.v[SC_TYEAR] + s.v[SC_DAY10]);
+  const T calpha = col_cos(alpha);
+  const T rzen = sf_divs(-calpha * T(23.45) * s.v[SC_PI], T(180));
+  SfYearZen<T> z;
+  z.coz1 = sf_max_at(calpha, T(0));
+  z.czen = col_cos(rzen);
+  z.szen = col_sin(rzen);
+  return z;
+}
+
+// a latitude's ozone factor oz and zenit from the tyear terms
+template <typename T>
+COL_HD void sf_lat_zen(const SfScalars<T>& s, const SfYearZen<T>& z, T slat,
+                       T clat, T& oz, T& zenit) {
+  const T flat2 = T(1.5) * (slat * slat) - T(0.5);
+  oz = s.v[SC_OZ_A] * (T(1) + z.coz1 * slat + T(1.8) * flat2);
+  const T zd = T(1) - (clat * z.czen + slat * z.szen);
+  zenit = T(1) + T(1) * (zd * zd);
+}
+
+// The row of latitude (slat, clat): fsol, oz, zenit
+template <typename T>
+COL_HD SfRow<T> sf_row(const SfScalars<T>& s, T slat, T clat) {
+  SfRow<T> r;
+  r.fsol = sf_lat_fsol(s, sf_year_sol(s), slat, clat);
+  sf_lat_zen(s, sf_year_zen(s), slat, clat, r.oz, r.zenit);
+  return r;
+}
+
+// The forcing's five solar planes of a point of row r: o[FC_FSOL ..
+// FC_STRATZ]
+template <typename T>
+COL_HD void sf_solar_v(const SfScalars<T>& s, const SfRow<T>& r, T* o) {
+  o[FC_FSOL] = r.fsol;
+  o[FC_OZUPP] = r.fsol * s.v[SC_OZ_B] * r.zenit;
+  o[FC_OZONE] = r.fsol * r.oz * r.zenit;
+  o[FC_ZENIT] = r.zenit;
+  o[FC_STRATZ] = sf_max_at(T(6) - r.fsol, T(0));
+}
+
+// The surface of one point (interp_climatology + init_surface_state) from
+// its months' values stl5, sst5 (forin5's order) and snowd2, soilw2,
+// sice2 (forint's) and the hybrid SST hyb (has_hyb): o[SF_*].
+template <typename T>
+COL_HD void sf_surface_v(const SfScalars<T>& s, const T* stl5, const T* sst5,
+                         const T* snowd2, const T* soilw2, const T* sice2,
+                         bool has_hyb, T hyb, T* o) {
+  const T stl = sf_forin5_v(s, stl5);
+  const T snowd = sf_forint_v(s, snowd2[0], snowd2[1]);
+  const T soilw = sf_forint_v(s, soilw2[0], soilw2[1]);
+  const T sst0 = sf_forin5_v(s, sst5);
+  const T sice0 = sf_forint_v(s, sice2[0], sice2[1]);
   // the sea-ice adjustment (atm2sea)
   const T sstfr = s.v[SC_SSTFR];
   const bool warm = sst0 > sstfr;
@@ -166,86 +255,144 @@ COL_HD void sf_surface_at(const SfIO<T>& io, long long i, T& stl, T& snowd,
   const T sice_c = sf_max_at(sice0, T(0.5));
   const T tice_c = sstfr + (sst0 - sstfr) / sice_c;
   const T sst = warm ? sst_w : sstfr;
-  sice = warm ? sice_w : sice_c;
+  const T sice = warm ? sice_w : sice_c;
   const T tice = warm ? sstfr : tice_c;
   // the hybrid SST (cpl_sea.f90:38-46), then the ice blend
-  sst_am = sst;
-  if (io.sst_hyb) {
-    const T hyb = io.sst_hyb[i];
+  T sst_am = sst;
+  if (has_hyb) {
     const T diff = sst_am - hyb;
     sst_am = (diff < T(6) ? hyb : sst_am) + s.v[SC_SST_BIAS];
   }
   sst_am = sst_am + sice * (tice - sst_am);
-  T* o = io.sfc;
-  o[SF_STL * G + i] = stl;
-  o[SF_SNOWD * G + i] = snowd;
-  o[SF_SOILW * G + i] = soilw;
-  o[SF_SST * G + i] = sst;
-  o[SF_SICE * G + i] = sice;
-  o[SF_TICE * G + i] = tice;
-  o[SF_SST_AM * G + i] = sst_am;
-  o[SF_ZERO * G + i] = T(0);   // the ocean model's SST when icsea <= 0
+  o[SF_STL] = stl;
+  o[SF_SNOWD] = snowd;
+  o[SF_SOILW] = soilw;
+  o[SF_SST] = sst;
+  o[SF_SICE] = sice;
+  o[SF_TICE] = tice;
+  o[SF_SST_AM] = sst_am;
+  o[SF_ZERO] = T(0);   // the ocean model's SST when icsea <= 0
 }
 
-// The forcing of point i from the surface (stl_am, snowd_am, sst_am,
-// sice_am): writes the FC_* planes.
+// The forcing planes of one point that do not depend on the latitude
+// (the albedos and the fields of the diffusion corrections,
+// ini_fordate.f90:72-113), from the point's alb0, fmask_l (fl), fmask_s
+// (fs), phis0 and the surface (stl_am, snowd_am, sst_am, sice_am):
+// o[FC_CORH], o[FC_QCORR], o[FC_ALB_L .. FC_SNOWC].
 template <typename T>
-COL_HD void sf_forcing_at(const SfIO<T>& io, long long i, T stl_am,
-                          T snowd_am, T sst_am, T sice_am) {
-  const SfScalars<T>& s = io.s;
-  const long long G = io.G;
-  const int j = (int)(i / io.nlon);
-  const T slat = io.slat[j], clat = io.clat[j];
-  // the zonal solar forcing (sol_oz_traced)
-  const T fsol = sf_fsol(s, slat, clat);
-  const T alpha = s.v[SC_TWO_PI] * (s.v[SC_TYEAR] + s.v[SC_DAY10]);
-  const T calpha = col_cos(alpha);
-  const T coz1 = sf_max_at(calpha, T(0));
-  const T rzen = sf_divs(-calpha * T(23.45) * s.v[SC_PI], T(180));
-  const T czen = col_cos(rzen), szen = col_sin(rzen);
-  const T flat2 = T(1.5) * (slat * slat) - T(0.5);
-  const T oz = s.v[SC_OZ_A] * (T(1) + coz1 * slat + T(1.8) * flat2);
-  const T zd = T(1) - (clat * czen + slat * szen);
-  const T zenit = T(1) + T(1) * (zd * zd);
+COL_HD void sf_forcing_v(const SfScalars<T>& s, T alb0, T fl, T fs, T phis0,
+                         T stl_am, T snowd_am, T sst_am, T sice_am, T* o) {
   // the surface albedo
   const T snowc = sf_min_at(sf_divs(snowd_am, T(60)), T(1));
-  const T alb0 = io.alb0[i], fl = io.fmask_l[i];
   const T alb_l = alb0 + snowc * (T(0.60) - alb0);
   const T alb_s = T(0.07) + sice_am * s.v[SC_ALBICE_SEA];
-  // the fields of the diffusion corrections (ini_fordate.f90:72-113)
-  const T corh = s.v[SC_GAMLAT] * io.phis0[i];
-  const T tsfc = fl * stl_am + io.fmask_s[i] * sst_am;
+  const T corh = s.v[SC_GAMLAT] * phis0;
+  const T tsfc = fl * stl_am + fs * sst_am;
   const T tref = tsfc + corh;
   const T psfc = col_pow(tsfc / tref, s.v[SC_PEXP]);
   const T qref = qsat_from_t(tref, T(1));
   const T qsfc = qsat_from_t(tsfc, psfc);
-  T* o = io.frc;
-  o[FC_CORH * G + i] = corh;
-  o[FC_QCORR * G + i] = T(0.7) * (qref - qsfc);
-  o[FC_FSOL * G + i] = fsol;
-  o[FC_OZUPP * G + i] = fsol * s.v[SC_OZ_B] * zenit;
-  o[FC_OZONE * G + i] = fsol * oz * zenit;
-  o[FC_ZENIT * G + i] = zenit;
-  o[FC_STRATZ * G + i] = sf_max_at(T(6) - fsol, T(0));
-  o[FC_ALB_L * G + i] = alb_l;
-  o[FC_ALB_S * G + i] = alb_s;
-  o[FC_ALBSFC * G + i] = alb_s + fl * (alb_l - alb_s);
-  o[FC_SNOWC * G + i] = snowc;
+  o[FC_CORH] = corh;
+  o[FC_QCORR] = T(0.7) * (qref - qsfc);
+  o[FC_ALB_L] = alb_l;
+  o[FC_ALB_S] = alb_s;
+  o[FC_ALBSFC] = alb_s + fl * (alb_l - alb_s);
+  o[FC_SNOWC] = snowc;
 }
+
+// ---- K17's row block: a latitude row j a block.  Its point threads
+// (thread c on point c of the row, then c + the point threads, ...) issue
+// every load of their point at once, form the surface planes and the
+// forcing planes that do not depend on the latitude and store them;
+// meanwhile lanes 0 and 1 of the solar warp work out the row's fsol and
+// its oz and zenit (each with its own tyear terms) into shared memory
+// (SfRow).  One barrier, then the point threads store the five solar
+// planes.  Every value is the per-point body's, from the same functions.
+
+// Phase 1 of point c of row j: every load, then the surface planes and
+// the forcing planes of sf_forcing_v, stored
+template <typename T>
+COL_HD void sf_block_points(const SfIO<T>& io, int j, int c) {
+  const SfScalars<T>& s = io.s;
+  const long long G = io.G;
+  const long long i = (long long)j * io.nlon + c;
+  T stl5[5], sst5[5], snowd2[2], soilw2[2], sice2[2], hyb = T(0);
+  T am[4], alb0 = T(0), fl = T(0), fs = T(0), phis0 = T(0);
+  if (io.sfc) {
+    for (int k = 0; k < 5; ++k) {
+      stl5[k] = io.stl12[s.ix[sf_month5(k)] * G + i];
+      sst5[k] = io.sst12[s.ix[sf_month5(k)] * G + i];
+    }
+    for (int k = 0; k < 2; ++k) {
+      snowd2[k] = io.snowd12[s.ix[sf_month2(k)] * G + i];
+      soilw2[k] = io.soilw12[s.ix[sf_month2(k)] * G + i];
+      sice2[k] = io.sice12[s.ix[sf_month2(k)] * G + i];
+    }
+    if (io.sst_hyb) hyb = io.sst_hyb[i];
+  } else {
+    am[0] = io.stl_am[i];
+    am[1] = io.snowd_am[i];
+    am[2] = io.sst_am[i];
+    am[3] = io.sice_am[i];
+  }
+  if (io.frc) {
+    alb0 = io.alb0[i];
+    fl = io.fmask_l[i];
+    fs = io.fmask_s[i];
+    phis0 = io.phis0[i];
+  }
+  if (io.sfc) {
+    T o[SF_PLANES];
+    sf_surface_v(s, stl5, sst5, snowd2, soilw2, sice2, io.sst_hyb != nullptr,
+                 hyb, o);
+    for (int p = 0; p < SF_PLANES; ++p) io.sfc[p * G + i] = o[p];
+    am[0] = o[SF_STL];
+    am[1] = o[SF_SNOWD];
+    am[2] = o[SF_SST_AM];
+    am[3] = o[SF_SICE];
+  }
+  if (!io.frc) return;
+  T f[FC_PLANES];
+  sf_forcing_v(s, alb0, fl, fs, phis0, am[0], am[1], am[2], am[3], f);
+  io.frc[FC_CORH * G + i] = f[FC_CORH];
+  io.frc[FC_QCORR * G + i] = f[FC_QCORR];
+  for (int p = FC_ALB_L; p < FC_PLANES; ++p) io.frc[p * G + i] = f[p];
+}
+
+// Phase 1 of the solar warp's lane `lane` for row j: lane 0 the row's
+// fsol, lane 1 its oz and zenit, into shared memory
+template <typename T>
+COL_HD void sf_block_solar(const SfIO<T>& io, SfRow<T>& row, int j,
+                           int lane) {
+  if (lane == 0)
+    row.fsol = sf_lat_fsol(io.s, sf_year_sol(io.s), io.slat[j], io.clat[j]);
+  else if (lane == 1)
+    sf_lat_zen(io.s, sf_year_zen(io.s), io.slat[j], io.clat[j], row.oz,
+               row.zenit);
+}
+
+// Phase 2 of point c of row j, after the barrier: the five solar planes
+// from shared memory
+template <typename T>
+COL_HD void sf_block_solar_store(const SfIO<T>& io, const SfRow<T>& row,
+                                 int j, int c) {
+  const long long i = (long long)j * io.nlon + c;
+  T o[FC_PLANES];
+  sf_solar_v(io.s, row, o);
+  for (int p = FC_FSOL; p <= FC_STRATZ; ++p) io.frc[p * io.G + i] = o[p];
+}
+
+// ---- the per-point body: one point (j, c) alone, its row's solar terms
+// worked out again at the point (the first design's layout: the host
+// check's reference for the row block), and K17b's point
 
 // K17 at point i: the surface, the forcing, or the one then the other.
 template <typename T>
 COL_HD void surface_forcing_at(const SfIO<T>& io, long long i) {
-  T stl, snowd, sst_am, sice;
-  if (io.sfc) {
-    sf_surface_at(io, i, stl, snowd, sst_am, sice);
-  } else {
-    stl = io.stl_am[i];
-    snowd = io.snowd_am[i];
-    sst_am = io.sst_am[i];
-    sice = io.sice_am[i];
-  }
-  if (io.frc) sf_forcing_at(io, i, stl, snowd, sst_am, sice);
+  const int j = (int)(i / io.nlon), c = (int)(i % io.nlon);
+  sf_block_points(io, j, c);
+  if (io.frc)
+    sf_block_solar_store(io, sf_row(io.s, io.slat[j], io.clat[j]), j, c);
 }
 
 // K17b at point i: the TISR plane, solar_flux_traced of the point's

@@ -6,9 +6,15 @@ augmented vector is rounded to bf16 before the product and the sum is
 f32, as the JAX readout does (aug.astype(bfloat16) with an f32
 accumulator).  out_mean/out_std None: the bare product.
 
-On a CPU tensor `readout` runs `readout_plain`; on a CUDA tensor it
-launches the kernel or raises.  The kernel streams Wout with 16-byte loads
-where `vector_path(wout)` holds, else element by element.
+Given a CoreScatter, the outputs go straight to their elements of the
+assembled grid with the q and precip clamps (the core scatter,
+kernels/core_scatter.py), not to an (R, O) vector: the cycle's three
+readout launches assemble its grid, with no launch of their own.
+
+On a CPU tensor `readout` runs `readout_plain` (and `scatter_plain`); on a
+CUDA tensor it launches the kernel or raises.  The kernel streams Wout
+with 16-byte loads where `vector_path(wout)` holds, else element by
+element.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from speedy_ml_tpu_torch.kernels import build as kb
+from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
+                                                      scatter_plain)
 
 
 def quad_expand(x: torch.Tensor) -> torch.Tensor:
@@ -48,14 +56,20 @@ def readout_plain(wout, x, local_model=None, out_mean=None, out_std=None
     return out * out_std + out_mean
 
 
-def readout(wout, x, local_model=None, out_mean=None, out_std=None
-            ) -> torch.Tensor:
+def readout(wout, x, local_model=None, out_mean=None, out_std=None, *,
+            scatter: CoreScatter | None = None):
     """Readout (R, O) of every region: wout (R, O, S + n), x (R, n),
-    local_model (R, S) or None (S = 0), out_mean/out_std (R, O) or None."""
+    local_model (R, S) or None (S = 0), out_mean/out_std (R, O) or None.
+    With `scatter`, the outputs are stored into scatter.grid instead (with
+    the clamps), and the call returns None."""
     if (out_mean is None) != (out_std is None):
         raise ValueError("readout: pass both out_mean and out_std or neither")
     if x.device.type == "cpu":
-        return readout_plain(wout, x, local_model, out_mean, out_std)
+        out = readout_plain(wout, x, local_model, out_mean, out_std)
+        if scatter is None:
+            return out
+        scatter_plain(out, scatter)
+        return None
     if x.device.type != "cuda":
         raise ValueError(f"readout: no kernel for device {x.device}")
     R, O, A = wout.shape
@@ -77,12 +91,22 @@ def readout(wout, x, local_model=None, out_mean=None, out_std=None
     if out_mean is not None:
         kb.require(out_mean, "out_mean", f32, (R, O), dev)
         kb.require(out_std, "out_std", f32, (R, O), dev)
-    out = torch.empty((R, O), dtype=f32, device=dev)
+    if scatter is None:
+        out, sc = torch.empty((R, O), dtype=f32, device=dev), None
+    else:
+        out, sc = None, scatter
+        if sc.grid.dim() != 1:
+            raise ValueError("readout: scatter.grid must be flat")
+        kb.require(sc.grid, "scatter.grid", f32, None, dev)
+        kb.require(sc.index, "scatter.index", torch.int32, (R, O), dev)
     ptr = lambda t: None if t is None else t.data_ptr()
+    q, p = (sc.q, sc.p) if sc is not None else ((0, 0), (0, 0))
     code = kb.library().readout_launch(
         kb.device_index(x), int(wout.dtype == torch.bfloat16),
         wout.data_ptr(), x.data_ptr(), ptr(local_model), ptr(out_mean),
-        ptr(out_std), R, O, S, n, out.data_ptr(),
+        ptr(out_std), R, O, S, n, ptr(out),
+        None if sc is None else sc.grid.data_ptr(),
+        None if sc is None else sc.index.data_ptr(), q[0], q[1], p[0], p[1],
         kb.stream_of(x))
     kb.check(code, "readout")
     readout.launches += 1

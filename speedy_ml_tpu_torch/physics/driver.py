@@ -217,19 +217,30 @@ class PhysicsModel:
 
     def compute(self, ug, vg, tg, qg, phig, pslg, *, bd: BoundaryData,
                 sfc: SurfaceState, forcing: DailyForcing,
-                carry: RadiationCarry, lradsw: bool, sppt_pattern=None,
-                sums=None):
-        """Physics tendencies from grid fields at the physics time level.
+                carry: RadiationCarry, lradsw: bool, sppt_pattern=None):
+        """Physics tendencies from grid fields at the physics time level:
+        the JAX package's PhysicsModel.compute.
 
         Inputs (K, lat, lon) except pslg (lat, lon); lradsw a host bool
-        (shortwave every nstrad steps); sums None, or on a leapfrog step
-        (fluxes, rsteps, delt2): the window's FluxAccumulator and the
-        Python factors of its sums (GCM.leapfrog).  Returns (utend, vtend,
-        ttend, qtend, carry', FluxDiag, the new FluxAccumulator or, without
-        sums, None).  The step is the kernels K9 (or
-        K9_moist_shortwave with the shortwave), K10a_down_surface, K10b
-        and K12 (or K12_pbl_flux with the sums) in this order; the stage
-        methods below can be called (and timed) alone."""
+        (shortwave every nstrad steps).  Returns (utend, vtend, ttend,
+        qtend, carry', FluxDiag), as the JAX method does.  The step is the
+        kernels K9 (or K9_moist_shortwave with the shortwave),
+        K10a_down_surface, K10b and K12 in this order; the stage methods
+        below can be called (and timed) alone."""
+        return self.compute_with_sums(
+            ug, vg, tg, qg, phig, pslg, bd=bd, sfc=sfc, forcing=forcing,
+            carry=carry, lradsw=lradsw, sppt_pattern=sppt_pattern)[:6]
+
+    def compute_with_sums(self, ug, vg, tg, qg, phig, pslg, *,
+                          bd: BoundaryData, sfc: SurfaceState,
+                          forcing: DailyForcing, carry: RadiationCarry,
+                          lradsw: bool, sppt_pattern=None, sums=None):
+        """`compute` and, on a leapfrog step, the window's flux sums in the
+        same launches.  sums: None, or (fluxes, rsteps, delt2): the
+        window's FluxAccumulator and the Python factors of its sums
+        (GCM.leapfrog), formed by K12_pbl_flux in place of K12.  Returns
+        compute's six values and the new FluxAccumulator (None without
+        sums)."""
         if sppt_pattern is not None:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
         # --- humidity, convection, large-scale condensation, and every
@@ -285,7 +296,7 @@ class PhysicsModel:
         the lowest level) summed onto the moist ones, and the fluxes for
         the coupler.  Returns (utend, vtend, ttend, qtend, FluxDiag, the new
         FluxAccumulator or None).  sums: None, or (fluxes, rsteps, delt2)
-        as in compute: the window's flux sums in the same launch
+        as in compute_with_sums: the window's flux sums in the same launch
         (K12_pbl_flux)."""
         args = (m, phig, fx, carry.tt_rsw, carry.ssrd, dfabs_lw, sfc.tice_am,
                 sfc.sice_am, self.pbl_tabs)

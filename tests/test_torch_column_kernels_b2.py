@@ -25,11 +25,11 @@ go through
       K13's per-column bodies, K12_pbl_flux's against K12's and then
       K16's (K = 5, 7, 8, both dtypes, 1 to 100 columns);
   (c) one whole physics step, with and without the shortwave, with and
-      without the window's flux sums, through PhysicsModel.compute with
-      every kernel's CPU route replaced by its host-built block or body
-      (K9 or K9_moist_shortwave, K10a_down_surface, K10b, K12 or
-      K12_pbl_flux), against the JAX package's PhysicsModel.compute and
-      GCM.leapfrog's sums, float64, 1e-10: the wiring between kernels;
+      without the window's flux sums, through
+      PhysicsModel.compute_with_sums with every kernel's CPU route
+      replaced by its host-built block or body (K9 or K9_moist_shortwave,
+      K10a_down_surface, K10b, K12 or K12_pbl_flux), against the JAX
+      package's PhysicsModel.compute and GCM.leapfrog's sums, float64, 1e-10: the wiring between kernels;
   (d) the wrappers' operand checks and their table blobs.
 The launch code itself runs only on a card (chip_smoke.py).
 """
@@ -634,9 +634,9 @@ def test_host_built_step_matches_jax_compute(lib, step_setup, lradsw, sums,
     fluxes = flux_sums(74, torch.float64)
     jout = jphys.compute(*map(jnp.asarray, args), bd=jbd, sfc=jsfc,
                          forcing=jf, carry=jcarry, lradsw=jnp.asarray(lradsw))
-    tout = phys.compute(*map(_t, args), bd=bd, sfc=tsfc, forcing=tf,
-                        carry=tcarry, lradsw=lradsw,
-                        sums=(fluxes, RSTEPS, DELT2) if sums else None)
+    tout = phys.compute_with_sums(
+        *map(_t, args), bd=bd, sfc=tsfc, forcing=tf, carry=tcarry,
+        lradsw=lradsw, sums=(fluxes, RSTEPS, DELT2) if sums else None)
     assert calls == dict(K9=int(not lradsw), K9_moist_shortwave=int(lradsw),
                          K10a_down_surface=1, K10b=1, K12=int(not sums),
                          K12_pbl_flux=int(sums))

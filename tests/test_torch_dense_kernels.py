@@ -12,7 +12,12 @@ the plain PyTorch versions on inputs made from a seed with numpy:
       coupled, 4 mod 8) with Wout starting 0 or 8 bytes past a 16-byte
       boundary: on inputs whose f32 sums are exact in any order, equal to
       readout_plain bit for bit (and unequal without the rounding of aug);
-      on random inputs within chip_smoke's K2_RTOL;
+      on random inputs within chip_smoke's K2_RTOL; and K2's store into
+      the assembled grid (the core scatter, with the q and precip clamps)
+      on the T10 layout's interior and polar classes, each class with the
+      card's rows per block, whole regions and T30's polar tile, coupled
+      and ML-only: bit for bit the vectors then core_scatter_plain, and
+      readout_plain then core_scatter_plain within K2_RTOL;
   K14 both tile lists (all of ss's tiles, or its upper triangle mirrored;
       then st's) cover every output exactly once at A = 37, 5,892, 6,180,
       O = 5, 136 and tiles of 128 and 64 outputs a side; the
@@ -24,6 +29,7 @@ The launch code itself runs only on a card (chip_smoke.py).
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 import sys
@@ -33,6 +39,11 @@ import numpy as np
 import pytest
 import torch
 
+from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.esn.domain import RegionLayout
+from speedy_ml_tpu_torch.kernels.core_scatter import (core_scatter_plain,
+                                                      grid_blocks,
+                                                      split_grid)
 from speedy_ml_tpu_torch.kernels.gram_update import gram_update_plain
 from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout_plain,
                                                  vector_path)
@@ -58,12 +69,13 @@ def host_lib(tmp_path_factory):
                     str(CSRC / "dense_host.cpp"), "-o", str(so)],
                    check=True, capture_output=True, text=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.readout_host.argtypes = [i] + [vp] * 5 + [i] * 4 + [vp]
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.readout_host.argtypes = [i] + [vp] * 5 + [i] * 5 + [vp] * 3 + [ll] * 4
+    lib.readout_tile_rows_host.argtypes = [i] * 3
     lib.gram_update_host.argtypes = [i, i, i] + [vp] * 3 + [i] * 5 + [vp] * 2
     lib.gram_coverage_host.argtypes = [i, i, i, i, vp, vp]
-    for fn in (lib.readout_host, lib.gram_update_host,
-               lib.gram_coverage_host):
+    for fn in (lib.readout_host, lib.readout_tile_rows_host,
+               lib.gram_update_host, lib.gram_coverage_host):
         fn.restype = i
     return lib
 
@@ -90,12 +102,18 @@ def wout_at(values: torch.Tensor, offset_bytes: int) -> torch.Tensor:
     return w
 
 
-def host_readout(lib, wout, x, lm=None, mean=None, std=None):
+def host_readout(lib, wout, x, lm=None, mean=None, std=None, tile=None,
+                 grid=None, index=None, q=(0, 0), p=(0, 0)):
+    """K2's host build: (the (R, O) outputs, or None where they went into
+    `grid` through `index`, the path taken); tile: rows a block (all
+    O by default)."""
     R, O, A = wout.shape
-    out = torch.empty((R, O), dtype=torch.float32)
+    out = None if grid is not None else torch.empty((R, O),
+                                                    dtype=torch.float32)
     path = lib.readout_host(int(wout.dtype == torch.bfloat16), _ptr(wout),
                             _ptr(x), _ptr(lm), _ptr(mean), _ptr(std), R, O,
-                            A - x.shape[1], x.shape[1], _ptr(out))
+                            A - x.shape[1], x.shape[1], tile or O, _ptr(out),
+                            _ptr(grid), _ptr(index), *q, *p)
     assert path == int(vector_path(wout)), "vector_path disagrees with C"
     return out, path
 
@@ -172,6 +190,83 @@ def test_readout_random_within_card_tolerance(host_lib, width):
     ref = readout_plain(w, x, lm)
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= K2_RTOL * scale
+
+
+@functools.lru_cache(maxsize=None)
+def t10_layout():
+    """The T10 layout of 128 regions: classes of 16, 96 and 16 regions, a
+    core of 2 x 2 points (O = 136, as at T30), and the tables of the core
+    scatter."""
+    lay = RegionLayout(Geometry(trunc=10, nlon=32, nlat=16, nlev=NZ_T10),
+                       128)
+    table = torch.as_tensor(lay.core_source_table(lay.classes, 4, NZ_T10))
+    index = [torch.as_tensor(i) for i in
+             lay.core_output_index(lay.classes, 4, NZ_T10)]
+    return lay, table, index
+
+
+NZ_T10 = 8
+
+
+@pytest.mark.parametrize("inputs", ["exact", "random"])
+@pytest.mark.parametrize("form", ["coupled", "ML-only"])
+@pytest.mark.parametrize("tiles", ["card", "whole regions", "T30 polar"])
+def test_readout_scatter_epilogue(host_lib, tiles, form, inputs):
+    """K2's store into the grid: every class of the T10 layout read out
+    by the host build (blocks of `tiles` rows, so that a polar region's
+    rows span several blocks, each storing its own) straight into one
+    grid starting as NaN, with the unstandardize epilogue: bit for bit
+    the host build's (R, O) vectors then core_scatter_plain, every element
+    written; against readout_plain then core_scatter_plain, bit for bit
+    on exact operands and within K2_RTOL of the bare product's scale on
+    random ones (where the clamps did bite)."""
+    lay, table, index = t10_layout()
+    g = lay.geom
+    total, q, p = grid_blocks(4, NZ_T10, g.nlat, g.nlon)
+    grid = torch.full((total,), float("nan"))
+    vecs, plains, scale = [], [], 0.0
+    rng = np.random.default_rng(23)
+    for c, (cls, idx) in enumerate(zip(lay.classes, index)):
+        R, O = idx.shape
+        S = O - cls.core_shape[0] * cls.core_shape[1] if form == "coupled" \
+            else 0
+        if inputs == "exact":
+            w, x, lm, mean, std = exact_readout_inputs(c, R, O, S, 40)
+        else:
+            w = torch.as_tensor(rng.normal(0, 0.02, (R, O, S + 40)).astype(
+                np.float32)).to(torch.bfloat16)
+            x = torch.as_tensor(np.tanh(rng.normal(0, 1, (R, 40))).astype(
+                np.float32))
+            lm = torch.as_tensor(rng.normal(0, 1, (R, S)).astype(
+                np.float32)) if S else None
+            mean, std = (torch.as_tensor(rng.uniform(*b, (R, O)).astype(
+                np.float32)) for b in ((-1e-5, 1e-5), (0.5, 2.0)))
+            scale = max(scale, float(readout_plain(w, x, lm).abs().max()))
+        tile = {"card": host_lib.readout_tile_rows_host(132, R, O),
+                "whole regions": O,
+                "T30 polar": host_lib.readout_tile_rows_host(132, 48, O)}[
+            tiles]
+        assert tile % 8 == 0 or tile == O
+        got, path = host_readout(host_lib, w, x, lm, mean, std, tile, grid,
+                                 idx, q, p)
+        assert got is None and path == 1
+        vecs.append(host_readout(host_lib, w, x, lm, mean, std)[0])
+        plains.append(readout_plain(w, x, lm, mean, std))
+    assert not grid.isnan().any()
+    fused = split_grid(grid, 4, NZ_T10, g.nlat, g.nlon)
+    for a, b in zip(fused, core_scatter_plain(vecs, table, 4, NZ_T10,
+                                              g.nlat, g.nlon)):
+        assert torch.equal(a, b)
+    ref = core_scatter_plain(plains, table, 4, NZ_T10, g.nlat, g.nlon)
+    if inputs == "exact":
+        for a, b in zip(fused, ref):
+            assert torch.equal(a, b)
+        return
+    err = max(float((a - b).abs().max()) for a, b in zip(fused, ref))
+    assert err <= K2_RTOL * scale
+    # the clamps did bite: q at its floor, precip zeroed
+    assert float(fused[0][3].min()) == float(torch.tensor(1e-6))
+    assert 0 < int((fused[2] == 0).sum()) < fused[2].numel()
 
 
 def test_vector_path_rule():

@@ -1,9 +1,9 @@
 """Port parity: region tiling, packing and the gather/scatter index tables.
 
 The JAX package (speedy_ml_tpu.esn.domain) is the reference; the port
-(speedy_ml_tpu_torch.esn.domain and the plain versions of the K3/K4
-kernels) must reproduce it exactly in float64 at the real T30 layout
-(1,152 regions, no reservoirs).
+(speedy_ml_tpu_torch.esn.domain, the plain version of K3 and the core
+scatter's plain versions, now K2's store) must reproduce it exactly in
+float64 at the real T30 layout (1,152 regions, no reservoirs).
 """
 
 import jax.numpy as jnp
@@ -16,7 +16,11 @@ from speedy_ml_tpu.esn.domain import RegionLayout as JLayout
 from speedy_ml_tpu.esn.standardize import Standardizer as JStandardizer
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.esn.domain import RegionLayout
-from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
+from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
+                                                      core_scatter_plain,
+                                                      grid_blocks,
+                                                      scatter_plain,
+                                                      split_grid)
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 
 NVAR, NZ = 4, 8
@@ -119,8 +123,8 @@ def test_unpack_scatter_matches_jax(layouts):
 
 
 def test_core_scatter_plain_matches_jax_assemble(layouts):
-    """K4's plain version (index table + clamps) equals the JAX
-    unpack_core_vector + scatter_core + assemble_global clamps."""
+    """The core scatter's plain version (index table + clamps) equals the
+    JAX unpack_core_vector + scatter_core + assemble_global clamps."""
     jl, tl = layouts
     rng = np.random.default_rng(2)
     g = Geometry()
@@ -142,8 +146,8 @@ def test_core_scatter_plain_matches_jax_assemble(layouts):
     precip = jnp.where(precip < 1e-5, 0.0, precip)
 
     table = torch.as_tensor(tl.core_source_table(tl.classes, NVAR, NZ))
-    got = core_scatter([_t(v) for v in vecs], table, NVAR, NZ, g.nlat,
-                       g.nlon)
+    got = core_scatter_plain([_t(v) for v in vecs], table, NVAR, NZ, g.nlat,
+                             g.nlon)
     for a, b in zip(got, (atmo, logp, precip)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     # the clamps did bite on this input
@@ -173,6 +177,51 @@ def test_window_gather_plain_matches_jax_feedback(layouts, fields):
     got = window_gather((_t(atmo), *[_t(f) for f in flat]), idx, means, stds)
     for a, b in zip(got, refs):
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_scatter_plain_matches_core_scatter_plain(layouts, dtype):
+    """K2's store into the grid, plain version: each class's (Rc, O)
+    outputs through core_output_index, clamped by block, equal the gather
+    through core_source_table bit for bit, NaN kept; every element of the
+    grid (starting as NaN) written."""
+    _, tl = layouts
+    rng = np.random.default_rng(5)
+    g = Geometry()
+    vecs = []
+    for c in tl.classes:
+        xc, yc = c.core_shape
+        v = rng.normal(scale=1e-5, size=(c.count, (NVAR * NZ + 2) * xc * yc))
+        v[0, ::97] = np.nan
+        vecs.append(torch.as_tensor(v).to(dtype))
+    total, q, p = grid_blocks(NVAR, NZ, g.nlat, g.nlon)
+    grid = torch.full((total,), float("nan"), dtype=dtype)
+    for v, i in zip(vecs, tl.core_output_index(tl.classes, NVAR, NZ)):
+        scatter_plain(v, CoreScatter(grid, torch.as_tensor(i), q, p))
+    table = torch.as_tensor(tl.core_source_table(tl.classes, NVAR, NZ))
+    ref = core_scatter_plain(vecs, table, NVAR, NZ, g.nlat, g.nlon)
+    for a, b in zip(split_grid(grid, NVAR, NZ, g.nlat, g.nlon), ref):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert int(grid.isnan().sum()) == sum(int(v.isnan().sum()) for v in vecs)
+    assert float(ref[0][3].nan_to_num(1.0).min()) == float(
+        torch.tensor(1e-6, dtype=dtype))
+
+
+def test_core_output_index_inverts_the_source_table(layouts):
+    _, tl = layouts
+    table = tl.core_source_table(tl.classes, NVAR, NZ)
+    idx = tl.core_output_index(tl.classes, NVAR, NZ)
+    assert [i.shape for i in idx] == [
+        (c.count, (NVAR * NZ + 2) * c.core_shape[0] * c.core_shape[1])
+        for c in tl.classes]
+    flat = np.concatenate([i.ravel() for i in idx])
+    assert flat.dtype == np.int32
+    assert np.array_equal(table[flat], np.arange(flat.size))
+    with pytest.raises(ValueError, match="exactly once"):
+        tl.core_output_index(tl.classes + tl.classes[:1], NVAR, NZ)
+    with pytest.raises(ValueError, match="exactly once"):
+        tl.core_output_index(tl.classes[:2], NVAR, NZ)
 
 
 def test_core_source_table_covers_grid_once(layouts):

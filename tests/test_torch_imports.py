@@ -149,7 +149,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     from speedy_ml_tpu_torch.core.geometry import Geometry
     from speedy_ml_tpu_torch.dycore.init import rest_state
     from speedy_ml_tpu_torch.dycore.model import DycoreModel
-    from speedy_ml_tpu_torch.kernels.core_scatter import core_scatter
+    from speedy_ml_tpu_torch.kernels.core_scatter import CoreScatter
     from speedy_ml_tpu_torch.kernels.esn_step import esn_step
     from speedy_ml_tpu_torch.kernels.gram_update import gram_update
     from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
@@ -159,7 +159,7 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
     from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 
-    wrappers = (esn_step, readout, window_gather, core_scatter, sht_analysis,
+    wrappers = (esn_step, readout, window_gather, sht_analysis,
                 sht_synthesis, grid_dynamics, spectral_tail, gram_update)
     before = [w.launches for w in wrappers]
     g = torch.Generator().manual_seed(0)
@@ -173,8 +173,13 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     idx = torch.arange(32, dtype=torch.int32).reshape(2, 16)
     ones = torch.ones((2, 16))
     window_gather(fields, [idx], [ones * 0], [ones])
-    core_scatter([torch.rand((2, 18), generator=g)],
-                 torch.arange(36, dtype=torch.int32), 4, 1, 2, 3)
+    # the readout's store into the grid (the core scatter)
+    grid = torch.full((36,), float("nan"))
+    assert readout(torch.rand((2, 18, 16), generator=g), y,
+                   scatter=CoreScatter(
+                       grid, torch.arange(36, dtype=torch.int32).view(2, 18),
+                       (18, 24), (30, 36))) is None
+    assert not grid.isnan().any()
     gram_update(torch.zeros((2, 19, 19)), torch.zeros((2, 3, 19)),
                 torch.rand((4, 2, 16), generator=g),
                 torch.rand((4, 2, 3), generator=g),

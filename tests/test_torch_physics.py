@@ -377,6 +377,44 @@ def test_physics_compute_matches(setup, lradsw):
     assert float(np.abs(np.asarray(jout[5].precnv)).max()) > 0
 
 
+@pytest.mark.parametrize("lradsw", [True, False], ids=["sw", "no_sw"])
+def test_compute_unpacks_as_the_jax_caller(setup, lradsw):
+    """compute returns the JAX package's six values, so the JAX GCM's own
+    unpacking (speedy_ml_tpu/gcm.py: ut, vt, tt, qt, carry2, diag) works
+    on the port; each value within 1e-10 of JAX's in float64.  The flux
+    sums of a leapfrog step come from compute_with_sums, whose first six
+    values are compute's."""
+    land, jsht, jbd, jphys, sht, bd, phys = setup
+    jsfc, tsfc, jf, tf = _surface_and_forcing(setup)
+    g = sht.geom
+    c = make_columns(11)
+    tile = lambda a: np.resize(np.asarray(a).T, (KX, g.nlat * g.nlon)) \
+        .reshape(KX, g.nlat, g.nlon)
+    rng = np.random.default_rng(12)
+    args = (rng.uniform(-25.0, 25.0, (KX, g.nlat, g.nlon)),
+            rng.uniform(-25.0, 25.0, (KX, g.nlat, g.nlon)), tile(c["ta"]),
+            tile(c["qa"]), tile(c["phi"]),
+            np.log(rng.uniform(0.75, 1.03, (g.nlat, g.nlon))))
+    kw = dict(bd=bd, sfc=tsfc, forcing=tf, lradsw=lradsw,
+              carry=RadiationCarry.zeros(KX, g.nlat, g.nlon, torch.float64))
+    ut, vt, tt, qt, carry2, diag = phys.compute(*map(_t, args), **kw)
+    jut, jvt, jtt, jqt, jcarry2, jdiag = jphys.compute(
+        *map(jnp.asarray, args), bd=jbd, sfc=jsfc, forcing=jf,
+        carry=JCarry.zeros(KX, g.nlat, g.nlon, jnp.float64),
+        lradsw=jnp.asarray(lradsw))
+    for got, ref in ((ut, jut), (vt, jvt), (tt, jtt), (qt, jqt)):
+        _close(got, ref, 1e-10)
+    for k in carry2.__dataclass_fields__:
+        _close(getattr(carry2, k), getattr(jcarry2, k), 1e-10)
+    assert diag._fields == jdiag._fields
+    for got, ref in zip(diag, jdiag):
+        _close(got, ref, 1e-10)
+    *six, fluxes = phys.compute_with_sums(*map(_t, args), **kw)
+    assert fluxes is None
+    for a, b in zip(six, (ut, vt, tt, qt)):
+        assert torch.equal(a, b)
+
+
 def test_unported_physics_options_raise():
     g = Geometry(**GEOM)
     with pytest.raises(NotImplementedError, match="RDF"):

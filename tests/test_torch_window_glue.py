@@ -98,8 +98,8 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dp = ctypes.POINTER(ctypes.c_double)
-    lib.surface_forcing_host.argtypes = [i, i, i, ctypes.POINTER(vp), vp, vp,
-                                         dp, ctypes.POINTER(i)]
+    lib.surface_forcing_host.argtypes = [i] * 4 + [ctypes.POINTER(vp), vp,
+                                                   vp, dp, ctypes.POINTER(i)]
     lib.tisr_host.argtypes = [i, i, i, vp, vp, vp, dp]
     lib.inject_block_host.argtypes = [i] * 4 + [vp] * 8
     lib.gate_host.argtypes = [i, i, ll, vp, dp, vp, vp]
@@ -219,28 +219,32 @@ def test_surface_forcing_plain_matches_jax(imon, fmon, hybrid):
     assert 0 < int((tf.snowc == 1.0).sum()) < tf.snowc.numel()
 
 
-def _host_k17(lib, bd, phys, month, sst, sfc, dtype):
+def _host_k17(lib, bd, phys, month, sst, sfc, dtype, block=0,
+              forcing=True):
     """K17 built for the host: (surface planes or None, forcing planes or
-    None), every output starting as NaN."""
+    None), every output starting as NaN.  block 0: the per-point body;
+    block 1: the kernel's row blocks."""
     nlat, nlon = bd.sst12.shape[-2:]
     day = phys.day_args(TYEAR)
     ins = [None] * 16
     if month is not None:
         ins[:5] = [bd.stl12, bd.snowd12, bd.soilw12, bd.sst12, bd.sice12]
         ins[5] = sst
-    ins[6:10] = [bd.alb0, bd.fmask_l, bd.fmask_s, bd.phis0]
-    if month is None:
-        ins[10:14] = [sfc.stl_am, sfc.snowd_am, sfc.sst_am, sfc.sice_am]
-    ins[14:16] = [day.slat, day.clat]
-    scal, ix = sfk._scalars(month, SST_BIAS, TYEAR, day.gamlat, day.pexp)
+    if forcing:
+        ins[6:10] = [bd.alb0, bd.fmask_l, bd.fmask_s, bd.phis0]
+        if month is None:
+            ins[10:14] = [sfc.stl_am, sfc.snowd_am, sfc.sst_am, sfc.sice_am]
+        ins[14:16] = [day.slat, day.clat]
+    scal, ix = sfk._scalars(month, SST_BIAS, TYEAR if forcing else None,
+                            day.gamlat, day.pexp)
     planes = None if month is None else torch.full(
         (len(sfk.SURFACE), nlat, nlon), float("nan"), dtype=dtype)
-    frc = torch.full((len(sfk.FORCING), nlat, nlon), float("nan"),
-                     dtype=dtype)
+    frc = None if not forcing else torch.full(
+        (len(sfk.FORCING), nlat, nlon), float("nan"), dtype=dtype)
     ptrs = (ctypes.c_void_p * 16)(*[_ptr(t) for t in ins])
-    assert lib.surface_forcing_host(int(dtype == torch.float64), nlat, nlon,
-                                    ptrs, _ptr(planes), _ptr(frc), scal,
-                                    ix) == 0
+    assert lib.surface_forcing_host(int(dtype == torch.float64), block,
+                                    nlat, nlon, ptrs, _ptr(planes),
+                                    _ptr(frc), scal, ix) == 0
     return planes, frc
 
 
@@ -271,6 +275,37 @@ def test_surface_forcing_host_matches_plain(lib, imon, fmon, mode, dtype):
             assert ulp_err(got, ref) <= K17_ULPS
     # the surface has no transcendental function: bit for bit
     assert torch.equal(got_s, ref_s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["window", "surface", "forcing"])
+@pytest.mark.parametrize("hybrid", [True, False], ids=["hybrid",
+                                                       "no_hybrid"])
+def test_surface_forcing_row_blocks_match_point_body(lib, hybrid, mode,
+                                                     dtype):
+    """K17's row blocks (the point threads' loads and latitude-free
+    planes, the solar warp's row terms in shared memory starting as NaN,
+    the barrier, the solar planes) bit for bit against the first design's
+    per-point body, on the mixed land mask with sea ice: the window's call
+    (surface and forcing), the surface alone and the forcing of a given
+    surface."""
+    _, _, bd, phys = port_side(dtype)
+    month = (11, 0.75)
+    sst = torch.as_tensor(hybrid_sst(11)).to(dtype) if hybrid else None
+    sfc = None
+    if mode == "forcing":
+        sfc = land_sea.surface_state(_host_k17(
+            lib, bd, phys, month, sst, None, dtype, forcing=False)[0], 0)
+    m = None if mode == "forcing" else month
+    kw = dict(forcing=mode != "surface")
+    ref = _host_k17(lib, bd, phys, m, sst, sfc, dtype, **kw)
+    got = _host_k17(lib, bd, phys, m, sst, sfc, dtype, block=1, **kw)
+    for g_, r_ in zip(got, ref):
+        assert (g_ is None) == (r_ is None)
+        if r_ is not None:
+            assert not torch.isnan(r_).any()
+            assert torch.equal(g_, r_)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -547,41 +582,83 @@ def test_zero_carries_are_views_of_one_buffer():
     assert tuple(fx.precip.shape) == (48, 96)
 
 
-def test_coupled_cycle_calls_each_kernel_once(monkeypatch):
-    """One coupled cycle on the CPU: K17 once (surface and forcing in one
-    call), K18, K19, K20 (with the gate's select) and K17b once each."""
+@functools.lru_cache(maxsize=None)
+def t10_hybrid(ml_only: bool):
+    """A T10 float64 GCM on the CPU and an untrained hybrid on it."""
     g = Geometry(**GEOMS["T10"], nlev=8)
     gcm = GCM(g, dtype=torch.float64, nsteps_day=8, device="cpu",
               bd=synthetic_boundary_data(g, dtype=torch.float64))
-    hyb = build_untrained_hybrid(gcm, n_regions=128, m=300, ml_only=False,
-                                 device="cpu")
-    calls = []
+    return gcm, build_untrained_hybrid(gcm, n_regions=128, m=300,
+                                       ml_only=ml_only, device="cpu")
 
-    def spy(module, name):
-        fn = getattr(module, name)
 
-        def wrapped(*a, **kw):
-            calls.append((name, sorted(k for k, v in kw.items()
-                                       if v is not None)))
-            return fn(*a, **kw)
-        monkeypatch.setattr(module, name, wrapped)
+def _spy(monkeypatch, calls, module, name):
+    """Record (name, its keyword arguments that are not None) and the
+    positional arguments of every call of module.name."""
+    fn = getattr(module, name)
 
-    spy(driver_module, "surface_forcing")
-    spy(hybrid_model, "inject_spectral")
-    spy(hybrid_model, "gate_check")
-    spy(hybrid_model, "tisr_plane")
-    spy(gcm_module, "window_select")
+    def wrapped(*a, **kw):
+        calls.append((name, sorted(k for k, v in kw.items()
+                                   if v is not None), a))
+        return fn(*a, **kw)
+    monkeypatch.setattr(module, name, wrapped)
+
+
+def _t10_sst(g):
     lat = np.asarray(g.lat_radians)
-    s = hyb.init_state(np.broadcast_to(290.0 - 20 * np.sin(lat)[:, None] ** 2,
-                                       (g.nlat, g.nlon)).copy())
+    return np.broadcast_to(290.0 - 20 * np.sin(lat)[:, None] ** 2,
+                           (g.nlat, g.nlon)).copy()
+
+
+@pytest.mark.parametrize("cycle", ["coupled", "ml_only"])
+def test_coupled_cycle_calls_each_kernel_once(monkeypatch, cycle):
+    """One coupled cycle on the CPU: K17 once (surface and forcing in one
+    call), K18, K19 and K20 (with the gate's select) once each, and no
+    K17b: the TISR plane it feeds back is its window's fsol.  An ML-only
+    cycle runs none of them but K17b, once."""
+    gcm, hyb = t10_hybrid(cycle == "ml_only")
+    calls = []
+    _spy(monkeypatch, calls, driver_module, "surface_forcing")
+    _spy(monkeypatch, calls, hybrid_model, "inject_spectral")
+    _spy(monkeypatch, calls, hybrid_model, "gate_check")
+    _spy(monkeypatch, calls, hybrid_model, "tisr_plane")
+    _spy(monkeypatch, calls, gcm_module, "window_select")
+    s = hyb.init_state(_t10_sst(gcm.geom))
     s, diag = hyb.cycle(s, 0, 0.5, 0.05)
-    names = [c[0] for c in calls]
-    assert sorted(names) == sorted(["surface_forcing", "inject_spectral",
-                                    "gate_check", "window_select",
-                                    "tisr_plane"]), calls
+    names = sorted(c[0] for c in calls)
+    if cycle == "ml_only":
+        assert names == ["tisr_plane"], calls
+        assert torch.isfinite(diag["atmo"]).all()
+        return
+    assert names == sorted(["surface_forcing", "inject_spectral",
+                            "gate_check", "window_select"]), calls
     assert ("surface_forcing", ["day", "month", "sst_bias",
-                                "sst_hybrid"]) in calls
+                                "sst_hybrid"]) in [c[:2] for c in calls]
     assert bool(s.safe) and torch.isfinite(diag["speedy_atmo"]).all()
+
+
+@pytest.mark.parametrize("tyear", [0.05, 0.61])
+def test_coupled_cycle_feeds_back_the_window_fsol(monkeypatch, tyear):
+    """The TISR plane of a coupled cycle's feedback is its window's
+    forcing.fsol, and that plane equals tisr_plain (K17b's plain version)
+    at the same tyear, bit for bit."""
+    gcm, hyb = t10_hybrid(False)
+    calls = []
+    _spy(monkeypatch, calls, hybrid_model, "window_gather")
+    _spy(monkeypatch, calls, driver_module, "surface_forcing")
+    s = hyb.init_state(_t10_sst(gcm.geom))
+    hyb.cycle(s, 3, 0.4, tyear)
+    fb = [a for nm, _, a in calls if nm == "window_gather"
+          and a[1] is hyb.feedback_index]
+    (fields, *_), = fb
+    tisr = fields[4]
+    g = gcm.geom
+    assert torch.equal(tisr, sfk.tisr_plain(tyear, hyb._slat, hyb._clat,
+                                            g.nlon))
+    frc = dict(zip(sfk.FORCING, sfk.forcing_plain(
+        gcm.bd, *[torch.zeros(g.nlat, g.nlon, dtype=torch.float64)] * 4,
+        gcm.phys.day_args(tyear), g.nlon)))
+    assert torch.equal(tisr, frc["fsol"])
 
 
 def test_c_signatures_match_the_entry_points():
