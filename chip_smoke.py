@@ -21,7 +21,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      scatter that was K4, coupled and ML-only: bit-identical to its
      vectors then core_scatter_plain, within K2_RTOL of readout_plain
      then core_scatter_plain; timed in the main path's form, into the
-     grid), K3 window gather,
+     grid), K3 window gather (its date form, the ML-only cycle's, equal
+     to it on K17b's plane, timed beside it),
      K15 spectral_stack (both stacks at the leapfrog's (jd, jp) = (1, 0)
      and stepone's (0, 0), the dynamics stack alone (the dry core's) and
      the physics stack alone (the window exit's), bit-identical to the
@@ -49,8 +50,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      within K17_ULPS of each plane's scale; the surface alone and the
      forcing alone give the same planes; its fsol plane, which the
      coupled cycle feeds back, equal to K17b's TISR plane), K17b
-     tisr_plane (likewise), K18 inject_spectral (float32 and float64,
-     bit-identical), K19 gate_check (float32 and float64, bit-identical
+     tisr_plane (likewise; on no cycle's path), K6_inject_synthesis (the
+     injection's K6 with K18's spectral glue as phase 0: its state equal
+     to inject_spectral_plain's, its grid to the unfused K6 on that plain
+     stack, bit for bit), K19 gate_check (float32 and float64, bit-identical
      extrema; each bound tripped in turn and a NaN must read unsafe), K20
      window_select (alone, with ok true and with prev false, float32 and
      float64, bit-identical; K6's fields of the physics stack equal to
@@ -61,16 +64,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      24 steps from the card's state before it, the columns whose physics
      decision fell the other way counted and capped (window_steps);
   6. the ML-only main path, run_prediction with the writer, every launch
-     counter set to 0 before and read after (K1, K2, K3, K17b); fields
-     finite, T in [150, 350] K; one ML-only cycle with the kernels
-     against the plain versions;
+     counter set to 0 before and read after (K1, K2, K3; no K17b: K3
+     takes the date); fields finite, T in [150, 350] K; cycle_ms, device
+     busy and launches per cycle from a profile; one ML-only cycle with
+     the kernels against the plain versions;
   7. the coupled main path, run_prediction: launches of every kernel
-     (K5-K9, K9_moist_shortwave, K10a_down_surface, K12, K12_pbl_flux,
-     K15, K17-K20 at most LAUNCHES_PER_CYCLE a cycle; no K17b: the
-     cycle feeds back its window's fsol plane),
+     (K5-K9, K6_inject_synthesis, K9_moist_shortwave, K10a_down_surface,
+     K12, K12_pbl_flux, K15, K17, K19, K20 at most LAUNCHES_PER_CYCLE a
+     cycle; no K17b: the cycle feeds back its window's fsol plane),
      cycle_ms (median and range of 5 x 20 cycles), device busy, idle
      share, device launches per cycle (at most LAUNCHES_MAX in the
-     5-cycle profile) and how many of them plain, device ms per stage,
+     5-cycle profile) and how many of them plain, device ms per stage
+     (inject_to_speedy must be five launches),
      every plain launch of each stage listed (at most PLAIN_MAX a cycle
      in all), the window's launches split into kernel and plain launches,
      per kernel inside the window (K5-K10b, K12, K15, K17, K20 and the
@@ -143,14 +148,14 @@ TAIL_RTOL = 1e-5
 # kernels spread between sessions), and the most launches per coupled
 # cycle (the counts of the first designs: one launch per call)
 SHT_SESSIONS = 5
-LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
+LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 53, "K5_sht_analysis": 28,
                       "K7_grid_dynamics": 26, "K8_spectral_tail": 26,
                       "K9_column_moist": 16, "K9_moist_shortwave": 10,
                       "K10a_down_surface": 26,
                       "K12_column_pbl": 2, "K12_pbl_flux": 24,
                       "K15_spectral_stack": 27,
                       "K17_surface_forcing": 1,
-                      "K18_inject_spectral": 1, "K19_gate_check": 1,
+                      "K6_inject_synthesis": 1, "K19_gate_check": 1,
                       "K20_window_select": 1}
 # the most device launches (kernels, copies, fills) a coupled cycle may
 # take in the 5-cycle profile of phase 7: 3,311.6 before K15 and K16
@@ -161,8 +166,12 @@ LAUNCHES_PER_CYCLE = {"K6_sht_synthesis": 54, "K5_sht_analysis": 28,
 # 322.8 before K9_moist_shortwave and K12_pbl_flux took the shortwave and
 # the window's flux sums into the physics step's launches (34 fewer),
 # 288.8 before K2 took the core scatter (K4) into its store and the
-# coupled cycle fed back its window's fsol plane in place of K17b's
-LAUNCHES_MAX = 290
+# coupled cycle fed back its window's fsol plane in place of K17b's,
+# 286.8 before the injection's K6 took K18's spectral glue (K6_inject)
+LAUNCHES_MAX = 288
+# the launches of inject_to_speedy: the clamp and the cat (plain), K5,
+# K6_inject, K19
+INJECT_LAUNCHES = 5
 # the most plain launches (PyTorch's own kernels, copies, fills) of a
 # coupled cycle in phase 7's per-stage profile
 PLAIN_MAX = 20
@@ -853,8 +862,7 @@ def main():
         fail(f"the speedy_ml_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, str(ROOT))
     from speedy_ml_tpu_torch.core.geometry import Geometry
-    from speedy_ml_tpu_torch.core.spectral import (SpectralTransform,
-                                                   shift_left, shift_right)
+    from speedy_ml_tpu_torch.core.spectral import shift_left, shift_right
     from speedy_ml_tpu_torch.data.calendar import ModelDate
     from speedy_ml_tpu_torch.dycore.state import SpectralState
     from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator, GCMState
@@ -886,7 +894,7 @@ def main():
     from speedy_ml_tpu_torch.kernels.grid_dynamics import (
         grid_dynamics, grid_dynamics_plain)
     from speedy_ml_tpu_torch.kernels.inject_spectral import (
-        inject_spectral, inject_spectral_plain)
+        inject_spectral_plain, inject_synthesis)
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
                                                      readout_plain)
     from speedy_ml_tpu_torch.kernels.readout import \
@@ -1185,6 +1193,22 @@ def main():
         measure(torch, lambda: window_gather(*ga), reps=50),
         measure(torch, lambda: window_gather_plain(*ga), reps=50),
         bound_ms(4 * (4 * n_out + n_src), 2 * n_out, PEAK_F32_S))
+    # K3's date form (the ML-only cycle's): each TISR element worked out
+    # where it is read must equal K3 gathering K17b's plane at the same
+    # tyear, bit for bit; timed beside the plane form, each the median of
+    # SHT_SESSIONS sessions
+    gd = ((*fields[:4], hyb.tisr_date(tyear)),) + ga[1:]
+    kd = window_gather(*gd)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(kd, kf)):
+        fail("K3's date form differs from K3 on K17b's TISR plane")
+    (k3p_ms, _), k3p_runs = measure_median(torch,
+                                           lambda: window_gather(*ga))
+    (k3d_ms, _), k3d_runs = measure_median(torch,
+                                           lambda: window_gather(*gd))
+    fmt_runs = lambda rs: ", ".join(f"{r:.4f}" for r in rs)
+    log(f"K3 date form: equal to K3 on K17b's plane (torch.equal); "
+        f"{k3d_ms:.4f} ms ({fmt_runs(k3d_runs)}), plane form {k3p_ms:.4f} ms "
+        f"({fmt_runs(k3p_runs)}), median of {SHT_SESSIONS} sessions [{card}]")
 
     # K17 and K17b: the window's entry (surface and forcing of this
     # cycle's date and SST, one launch) and the TISR plane, against their
@@ -1326,48 +1350,53 @@ def main():
             tyear, hyb._slat, hyb._clat, nlon), reps=20),
         bound_ms(4 * (G + 2 * nlat), 60 * G, PEAK_F32_S))
 
-    # K18: the injection's spectral glue on this cycle's analysed grid,
-    # float32 and float64 (a float64 transform's tables), against the
-    # plain version: the same values (tolerance 0)
-    sht64 = SpectralTransform(g, dtype=f64, device=dev)
+    # K6_inject: the injection's synthesis with K18's spectral glue as its
+    # phase 0, on this cycle's analysed grid: the state against
+    # inject_spectral_plain's, the grid against the unfused K6 launched
+    # on that plain stack (tolerance 0, bit for bit)
     spec_in = sht.analysis(torch.cat([atmo[0], torch.clamp(atmo[3], min=0.0),
                                       logp[None], atmo[1], atmo[2]]),
                            2 * K + 1)
-    err18 = 0.0
-    for label, sh_, sp_ in (("float32", sht, spec_in),
-                            ("float64", sht64,
-                             spec_in.to(torch.complex128))):
-        ks18, kstk = inject_spectral(sh_, sp_, K)
-        ps18, pstk = inject_spectral_plain(sh_, sp_, K)
-        e = max([max_abs_diff(torch, getattr(ks18, f), getattr(ps18, f))
-                 for f in SpectralState.FIELDS]
-                + [max_abs_diff(torch, kstk, pstk)])
-        log(f"K18 {label}: state (2 levels) and stack {tuple(kstk.shape)} "
-            f"max_abs_err={e:.3e} (tolerance 0)")
-        if label == "float32":
-            err18 = e
-        elif e > 0.0:
-            fail("K18 (float64) disagrees with its plain version")
-    (k18_ms, k18_c), k18_runs = measure_median(
-        torch, lambda: inject_spectral(sht, spec_in, K))
-    log("K18 sessions (device ms): " + ", ".join(f"{r:.4f}"
-                                                 for r in k18_runs))
-    # read: K5's 4K + 1 fields and the tables; written: the state's
-    # 2 (4K + 1) fields and the stack's 4K
+    ks6, kgrid = inject_synthesis(sht, spec_in, K)
+    ps6, pstk = inject_spectral_plain(sht, spec_in, K)
+    pgrid = sht.synthesis(pstk, 2 * K)
+    e_state = max(max_abs_diff(torch, getattr(ks6, f), getattr(ps6, f))
+                  for f in SpectralState.FIELDS)
+    e_grid = max_abs_diff(torch, kgrid, pgrid)
+    same = all(torch.equal(getattr(ks6, f), getattr(ps6, f))
+               for f in SpectralState.FIELDS) and torch.equal(kgrid, pgrid)
+    log(f"K6_inject: the state (2 levels) max_abs_err={e_state:.3e} "
+        f"against inject_spectral_plain, the grid {tuple(kgrid.shape)} "
+        f"{e_grid:.3e} against K6 on the plain stack (tolerance 0; "
+        f"{'bit for bit' if same else 'NOT bit for bit'})")
+    if not same:
+        fail("K6_inject disagrees with K18's plain version then K6")
+    (k6i_ms, k6i_c), k6i_runs = measure_median(
+        torch, lambda: inject_synthesis(sht, spec_in, K))
+    log("K6_inject sessions (device ms): " + ", ".join(f"{r:.4f}"
+                                                       for r in k6i_runs))
+    # read: K5's 4K + 1 fields, the tables, K6's Legendre rows, dft_inv
+    # and cosgr; written: the state's 2 (4K + 1) fields and the grid's 4K
+    # planes.  Operations: K18's ~40 K a coefficient and K6's at 4K fields
+    iy = g.nlat_half
     ok &= record(
-        "K18_inject_spectral",
-        "speedy_ml_tpu_torch/kernels/csrc/inject_spectral.cu",
-        "speedy_ml_tpu/hybrid/model.py:404", err18, 0.0, (k18_ms, k18_c),
-        measure(torch, lambda: inject_spectral_plain(sht, spec_in, K),
-                reps=10),
-        bound_ms(8 * MN * ((4 * K + 1) + 2 * (4 * K + 1) + 4 * K)
-                 + 4 * sht.inject_blob.numel(), MN * 40 * K, PEAK_F32_S))
+        "K6_inject_synthesis",
+        "speedy_ml_tpu_torch/kernels/csrc/sht_synthesis.cu",
+        "speedy_ml_tpu/hybrid/model.py:404", max(e_state, e_grid), 0.0,
+        (k6i_ms, k6i_c),
+        measure(torch, lambda: sht_synthesis_plain(
+            inject_spectral_plain(sht, spec_in, K)[1], sht.dft_inv,
+            sht.cpol_even_g, sht.cpol_odd_g, sht.cosgr, 2 * K), reps=10),
+        bound_ms(8 * MN * 3 * (4 * K + 1) + 4 * sht.inject_blob.numel()
+                 + 8 * g.mx * nlon + 4 * iy * MN + 4 * nlat + 4 * 4 * K * G,
+                 MN * 40 * K + 4 * K * (4 * iy * MN + 4 * iy * g.mx
+                                        + 4 * G * g.mx), PEAK_F32_S))
 
     # K19: the gate on this cycle's grid back from K6, float32 and
     # float64: the flag and the eight extrema equal to the plain version's;
     # then each bound tripped in turn by one value just beyond it, and a
     # NaN: the kernel's flag must read unsafe
-    back = sht.synthesis(inject_spectral(sht, spec_in, K)[1], 2 * K)
+    back = kgrid
     err19 = 0.0
     for label, b_ in (("float32", back), ("float64", back.double())):
         ksafe, kext = gate_check(b_, K)
@@ -1983,11 +2012,12 @@ def main():
                "K15_spectral_stack": spectral_stack,
                "K17_surface_forcing": sfc_forcing.surface_forcing,
                "K17b_tisr_plane": sfc_forcing.tisr_plane,
-               "K18_inject_spectral": inject_spectral,
+               "K6_inject_synthesis": inject_synthesis,
                "K19_gate_check": gate_check,
                "K20_window_select": window_select}
-    ml_kernels = ["K1_esn_step", "K2_readout_scatter", "K3_window_gather",
-                  "K17b_tisr_plane"]
+    ml_kernels = ["K1_esn_step", "K2_readout_scatter", "K3_window_gather"]
+    # K17b is on no cycle's path: the ML-only cycle's K3 takes the date,
+    # the coupled cycle feeds back its window's fsol plane
     coupled_kernels = [nm for nm in kernels if nm != "K17b_tisr_plane"]
     out_dir = ROOT / "output" / "chip_smoke"
 
@@ -2036,7 +2066,10 @@ def main():
                                       ml_kernels)
     if len(dts) != CYCLES_ML:
         fail(f"ML-only run_prediction stopped after {len(dts)} cycles")
-    results["K17b_tisr_plane"]["launches"] = counts["K17b_tisr_plane"]
+    if sfc_forcing.tisr_plane.launches:
+        fail(f"the ML-only cycle launched K17b "
+             f"{sfc_forcing.tisr_plane.launches} times")
+    results["K17b_tisr_plane"]["launches"] = sfc_forcing.tisr_plane.launches
     log(f"ML-only main path: run_prediction {len(dts)} cycles in "
         f"{wall:.3f} s with the writer; launches {counts}; "
         + check_stream(path, CYCLES_ML))
@@ -2050,10 +2083,14 @@ def main():
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / N_TIMED * 1e3)
     walls.sort()
-    busy, _, _ = profile_device(torch, run, reps=1)
+    busy, kk_ml, _ = profile_device(torch, run, reps=1)
     log(f"ML-only cycle_ms: {walls[2]:.4f} median (min {walls[0]:.4f}, "
         f"max {walls[-1]:.4f}) over 5 x {N_TIMED} cycles; device busy "
-        f"{busy / N_TIMED:.4f} ms/cycle [{card}]")
+        f"{busy / N_TIMED:.4f} ms/cycle; "
+        f"{sum(e.count for e in kk_ml) / N_TIMED:g} device launches per "
+        f"cycle (" + ", ".join(f"{kernel_name(e.key)} "
+                               f"{e.count / N_TIMED:g}" for e in kk_ml)
+        + f") [{card}]")
     # one ML-only cycle with the kernels vs the plain versions
     mp = hyb_ml.packs
     k_state, k_diag = hyb_ml.cycle(fin_ml, imon, fmon, tyear)
@@ -2070,7 +2107,8 @@ def main():
         p_x.append(xx)
     p_grid = core_scatter_plain(p_out, core_table, 4, nz, nlat, nlon)
     p_fb = window_gather_plain(
-        (*p_grid, fin_ml.sst_grid, hyb_ml.tisr_field(tyear).contiguous()),
+        (*p_grid, fin_ml.sst_grid, sfc_forcing.tisr_plain(
+            tyear, hyb_ml._slat, hyb_ml._clat, nlon)),
         hyb_ml.feedback_index, [pk.std.in_mean for pk in mp],
         [pk.std.in_std for pk in mp])
     scale = max(float((o - pk.std.out_mean).abs().max())
@@ -2138,10 +2176,18 @@ def main():
     for nm, fn in stages.items():
         fn()
         reps = 2 if nm == "speedy_window" else 3
-        ms, kk, _ = profile_device(torch, fn, reps=reps)
+        if nm == "inject_to_speedy":
+            ms, kk, _ = profile_counts(torch, fn, reps, lambda kk: sum(
+                e.count for e in kk) < INJECT_LAUNCHES * reps)
+        else:
+            ms, kk, _ = profile_device(torch, fn, reps=reps)
         n_launch = sum(e.count for e in kk) / reps
         if n_launch == 0:
             fail(f"the profile of {nm} saw no device work")
+        if nm == "inject_to_speedy" and n_launch != INJECT_LAUNCHES:
+            fail(f"inject_to_speedy ran {n_launch:g} launches, not "
+                 f"{INJECT_LAUNCHES}: " + ", ".join(
+                     f"{kernel_name(e.key)} {e.count / reps:g}" for e in kk))
         plain = [e for e in kk if kernel_name(e.key) not in ours]
         n_plain = sum(e.count for e in plain) / reps
         n_plain_all += n_plain

@@ -180,7 +180,8 @@ class SpectralTransform:
         self.dft_inv = c((np.exp(1j * ang) * cm[None, :]).T)      # (mx, nlon)
         # complex tables times a real operand: the i*gradx factor
         self.igradx = (1j * self.gradx.to(self.cdtype))[:, None]
-        # the tables of the injection's spectral glue (K18), built once
+        # the tables of the injection's spectral glue (K18, phase 0 of
+        # K6_inject), built once
         self.inject_blob = inject_blob(self)
 
     def set_mesh(self, mesh, axis: str = "regions"):

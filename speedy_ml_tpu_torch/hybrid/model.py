@@ -16,12 +16,14 @@ vector (build_local_model, K3 with a core-only table).
 
 The window's entry and exit and the injection's glue are kernels too:
 K17 (the surface and forcing, whose fsol plane is also the coupled
-cycle's TISR field), K18 (the injection's spectral glue), K19 (the gate),
-K20 (the exit, with the gate's select) and, on the ML-only cycle, K17b
-(the TISR field).  The safety gate is a select, not a branch: the window
-always runs, and K20 keeps the injected fields where ok is false, so an
-unsafe state (and any NaN it makes) stays out of the next state.  The
-flag stays on the device.
+cycle's TISR field), K6_inject (the injection's spectral glue, K18, as
+phase 0 of the synthesis of its gate's fields), K19 (the gate) and K20
+(the exit, with the gate's select).  The ML-only cycle hands K3 the date,
+and K3 works out the TISR elements it gathers (tisr_field, K17b, makes
+the plane for a caller who asks for it).  The safety gate is a select,
+not a branch: the window always runs, and K20 keeps the injected fields
+where ok is false, so an unsafe state (and any NaN it makes) stays out
+of the next state.  The flag stays on the device.
 
 Layouts follow the JAX package: fields (V, K, lat, lon), class vectors
 (Rc, I) / (Rc, O), and the same packing order, so both compute the same
@@ -47,9 +49,9 @@ from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
                                                       grid_blocks,
                                                       split_grid)
 from speedy_ml_tpu_torch.kernels.gate_check import gate_check
-from speedy_ml_tpu_torch.kernels.inject_spectral import inject_spectral
+from speedy_ml_tpu_torch.kernels.inject_spectral import inject_synthesis
 from speedy_ml_tpu_torch.kernels.readout import readout
-from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate, tisr_plane
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 
 OPTIONS_SLICE = "a later slice of the port (cycle options: slab ocean, " \
@@ -264,9 +266,12 @@ class HybridAtmosphere:
     def build_feedback(self, packs, atmo, logp, precip, sst_grid, tisr_grid):
         """Per-class standardized feedback vectors (sendrecievegrid
         scatter + standardize, mpires.f90:561-750): one window-gather
-        launch for all classes."""
+        launch for all classes.  tisr_grid: the TISR plane, or its date
+        (a TisrDate)."""
         fields = tuple(f.contiguous() for f in
-                       (atmo, logp, precip, sst_grid, tisr_grid))
+                       (atmo, logp, precip, sst_grid)) + (
+            tisr_grid if isinstance(tisr_grid, TisrDate)
+            else tisr_grid.contiguous(),)
         return window_gather(fields, self.feedback_index,
                              [p.std.in_mean for p in packs],
                              [p.std.in_std for p in packs])
@@ -275,20 +280,20 @@ class HybridAtmosphere:
         """Grid -> spectral with truncation, and back (iogrid 30).
 
         One analysis launch (K5) for [T, q, logp | u, v] (u, v times 1/cos
-        for vdspec), K18 for vds, the truncations, uvspec and the state's
-        two levels, one synthesis launch (K6) for the fields the safety
-        check reads, and K19 for the gate.  Returns (SpectralState, safe),
-        safe a 0-d bool tensor: the physical-range gate on the
+        for vdspec), one launch (K6_inject) for vds, the truncations,
+        uvspec, the state's two levels and the synthesis of the fields the
+        safety check reads, and K19 for the gate.  Returns (SpectralState,
+        safe), safe a 0-d bool tensor: the physical-range gate on the
         post-transform fields (ppo_iogrid.f90:563-577)."""
         sht = self.gcm.sht
         K = self.nz
         qg = torch.clamp(atmo[3], min=0.0)
         spec = sht.analysis(torch.cat([atmo[0], qg, logp[None], atmo[1],
                                        atmo[2]]), 2 * K + 1)
-        state, stack = inject_spectral(sht, spec, K)
         # the double transform: back to grid for the safety check (and the
         # smoothing the trained weights expect)
-        safe, _ = gate_check(sht.synthesis(stack, 2 * K), K)
+        state, grid = inject_synthesis(sht, spec, K)
+        safe, _ = gate_check(grid, K)
         return state, safe
 
     def _run_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
@@ -339,11 +344,18 @@ class HybridAtmosphere:
         """TISR input field (lat, lon) for the current date: the analytic
         Hartmann daily-mean insolation, one K17b launch (tyear a host
         number; the table branch comes with the cycle options).  The
-        ML-only cycle calls it; the coupled cycle feeds back its window's
-        fsol plane, the same plane made by K17."""
+        cycles do not call it: the coupled cycle feeds back its window's
+        fsol plane, the same plane made by K17, and the ML-only cycle
+        hands K3 the date (tisr_date), whose TISR elements are this
+        plane's bit for bit."""
         if table is not None:
             raise NotImplementedError(f"TISR tables come with {OPTIONS_SLICE}")
         return tisr_plane(tyear, self._slat, self._clat, self.geom.nlon)
+
+    def tisr_date(self, tyear) -> TisrDate:
+        """The date of tisr_field's plane, as K3 takes it in place of the
+        plane (tyear a host number)."""
+        return TisrDate(tyear, self._slat, self._clat)
 
     # ------------------------------------------------------------------
 
@@ -388,7 +400,7 @@ class HybridAtmosphere:
                     gstate.spectral, select=(prev, safe, atmo, logp))
         with rf("build_feedback"):
             if tisr is None:
-                tisr = self.tisr_field(tyear, hour_of_year)
+                tisr = self.tisr_date(tyear)
             feedbacks = self.build_feedback(packs, atmo, logp, precip,
                                             hstate.sst_grid, tisr)
         if self.ml_only:

@@ -33,10 +33,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # flags of single sources, after NVCC_FLAGS.  The column physics rounds
 # every operation apart (no FMA contraction): its convection decides by
 # comparing sums, as the plain version does; so does the window's entry
-# (K17), which reuses its humidity.
+# (K17), which reuses its humidity, and K3, whose date form works out
+# K17b's insolation (surface_forcing.cuh sf_fsol) with the same bits.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "column_moist.cu", "column_longwave.cu", "column_pbl.cu",
-    "surface_forcing.cu")}
+    "surface_forcing.cu", "window_gather.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -54,11 +55,13 @@ SIGNATURES = {
     "window_gather_launch": [_i, ctypes.POINTER(_vp), _ll, _ll, _i,
                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
-                             ctypes.POINTER(_ll), _vp],
+                             ctypes.POINTER(_ll), _vp, _vp, _dp, _i, _vp],
     "sht_analysis_launch": [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                             _i, _vp, _vp],
     "sht_synthesis_launch": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                              _vp, _vp],
+    "inject_synthesis_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                                _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
     "grid_dynamics_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _f, _f,
                              _i, _i, _vp, _vp],
     "spectral_tail_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
@@ -80,8 +83,6 @@ SIGNATURES = {
     "surface_forcing_launch": [_i, _i, _i, _i, ctypes.POINTER(_vp), _vp, _vp,
                                _dp, ctypes.POINTER(_i), _vp],
     "tisr_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _dp, _vp],
-    "inject_spectral_launch": [_i, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp,
-                               _vp, _vp, _vp, _vp],
     "gate_check_launch": [_i, _i, _i, _ll, _vp, _dp, _vp, _vp, _vp],
     "window_select_launch": [_i, _i, _i, _ll, _vp, _vp, _vp, _vp, _vp, _vp,
                              _vp, _vp, _vp],

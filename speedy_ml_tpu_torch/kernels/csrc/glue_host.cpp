@@ -1,11 +1,12 @@
-// Host build of the arithmetic of K17-K20 (surface_forcing.cuh,
-// inject_spectral.cuh, gate_check.cuh, window_select.cuh): K17's per-point
-// body and K17b as loops over the grid points, K20 over its output
-// elements; K17's row blocks and K18's blocks with their threads written
-// out as loops in phase order and their shared memory starting as NaN, so
-// that a phase reading what an earlier one did not write shows; K19 as
-// one loop over each variable.  It is not part of the kernel
-// library; the CPU tests compile it with a host C++ compiler
+// Host build of the arithmetic of K3 and K17-K20 (window_gather.cuh,
+// surface_forcing.cuh, inject_spectral.cuh, gate_check.cuh,
+// window_select.cuh): K17's per-point body and K17b as loops over the grid
+// points, K3 and K20 over their output elements; K17's row blocks and
+// K18's first-design blocks with their threads written out as loops in
+// phase order and their shared memory starting as NaN, so that a phase
+// reading what an earlier one did not write shows; K19 as one loop over
+// each variable.  It is not part of the kernel library; the CPU tests
+// compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC glue_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions.  The entry points take
 // the launch's arguments less the device and the stream, and return 0, or
@@ -18,6 +19,7 @@
 #include "gate_check.cuh"
 #include "inject_spectral.cuh"
 #include "surface_forcing.cuh"
+#include "window_gather.cuh"
 #include "window_select.cuh"
 
 namespace {
@@ -159,6 +161,23 @@ void select_fields(int K, long long G, const void* out, const void* prev,
 
 }  // namespace
 
+// K3 over its output elements, with the launch's arguments (src[4] null:
+// the date form).
+extern "C" int window_gather_host(void* const* src, long long atmo_size,
+                                  long long grid_size, int n_classes,
+                                  void* const* idx, void* const* mean,
+                                  void* const* stdv, void* const* out,
+                                  const long long* counts, const void* slat,
+                                  const void* clat, const double* scal,
+                                  int nlon) {
+  if (n_classes < 1 || n_classes > MAX_CLASSES) return 1;
+  const GatherArgs a =
+      window_gather_args(src, atmo_size, grid_size, n_classes, idx, mean,
+                         stdv, out, counts, slat, clat, scal, nlon);
+  for (long long t = 0; t < a.start[n_classes]; ++t) window_gather_at(a, t);
+  return 0;
+}
+
 // K17 over the grid: block 0, the per-point body; block 1, the kernel's
 // row blocks.
 extern "C" int surface_forcing_host(int is_double, int block, int nlat,
@@ -182,7 +201,7 @@ extern "C" int tisr_host(int is_double, int nlat, int nlon, const void* slat,
   return 0;
 }
 
-// K18's blocks.
+// K18's first-design blocks (K6_inject's reference: sht_host.cpp).
 extern "C" int inject_block_host(int K, int is_double, int mx, int nx,
                                  const void* spec, void* vor, void* div,
                                  void* tem, void* ps, void* tr, void* stk,

@@ -220,6 +220,18 @@ SHT_HD ShtSynBlock sht_syn_block(const ShtSynArgs& a, int ft, int lp,
   return b;
 }
 
+// Phase 0: the block's Legendre rows, in 16-byte words, one (pair, m)
+// row at a time.
+template <class Copy>
+SHT_HD void sht_syn_stage_legendre(const Copy& cp, const ShtSynArgs& a,
+                                   const ShtSynSmem& s, const ShtSynBlock& b,
+                                   int t, int T) {
+  const size_t mn = (size_t)a.mx * a.nx;
+  sht_stage_rows(cp, (sht_v4*)s.cp, s.cs / 4,
+                 (const sht_v4*)(a.cpol_g + b.j0 * mn), a.nx / 4,
+                 b.np * a.mx, a.nx / 4, t, T);
+}
+
 // Phase 0, staged as one group: the block's coefficients and Legendre
 // rows, in 16-byte words, one (field or pair, m) row at a time.
 template <class Copy>
@@ -230,9 +242,7 @@ SHT_HD void sht_syn_stage_coef(const Copy& cp, const ShtSynArgs& a,
   sht_stage_rows(cp, (sht_v4*)s.v, s.vs / 4,
                  (const sht_v4*)(a.spec + b.f0 * mn), a.nx / 2, b.nf * a.mx,
                  a.nx / 2, t, T);
-  sht_stage_rows(cp, (sht_v4*)s.cp, s.cs / 4,
-                 (const sht_v4*)(a.cpol_g + b.j0 * mn), a.nx / 4,
-                 b.np * a.mx, a.nx / 4, t, T);
+  sht_syn_stage_legendre(cp, a, s, b, t, T);
 }
 
 // Phase 0, staged as a second group that lands during phase 1: dft_inv.

@@ -1,6 +1,8 @@
-// Host build of K6's and K5's arithmetic (sht.cuh): the code the CUDA
-// kernels run, with every thread of every block written out as loops on
-// the CPU, beside a naive loop in the first designs' order.  It is not
+// Host build of K6's and K5's arithmetic (sht.cuh) and of K6_inject's
+// phase 0 (inject_spectral.cuh): the code the CUDA kernels run, with
+// every thread of every block written out as loops on the CPU (K6_inject's
+// warps lane by lane in phase order, the exchange of neighbours as
+// copies), beside a naive loop in the first designs' order.  It is not
 // part of the kernel library; the CPU tests compile it with a host C++
 // compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC sht_host.cpp -o lib.so
@@ -13,6 +15,7 @@
 
 #include <vector>
 
+#include "inject_spectral.cuh"
 #include "sht.cuh"
 
 namespace {
@@ -73,6 +76,74 @@ extern "C" int sht_synthesis_host(const void* spec, const void* dft_inv,
     for (int t = 0; t < T; ++t) sht_syn_stage_coef(cp, a, s, b, t, T);
     for (int t = 0; t < T; ++t) sht_syn_stage_dft(cp, a, s, t, T);
     for (int t = 0; t < T; ++t) sht_syn_legendre(a, s, b, tl.ft, tl.lp, t, T);
+    for (int t = 0; t < T; ++t)
+      sht_syn_dft(a, s, b, tl.ft, tl.lp, t, T, count);
+  }
+  return 0;
+}
+
+// K6_inject: K's state and the grid (4K, nlat, nlon) of [t, q | u, v]
+// from K5's output spec (4K + 1, mx, nx) and the blob (inject_blob),
+// with K6's tables as above; count and tile as there.  1 for an nx that
+// the kernel does not take.
+extern "C" int inject_synthesis_host(int K, const void* spec,
+                                     const void* blob, const void* dft_inv,
+                                     const void* cpol_g, const void* cosgr,
+                                     int nlat, int nlon, int mx, int nx,
+                                     void* vor, void* div, void* tem,
+                                     void* ps, void* tr, void* out,
+                                     int* count, int sms, long long smem_max,
+                                     int* tile) {
+  const int B = 4 * K;
+  if (K <= 0 || nx > 32) return 1;
+  const ShtSynTile tl =
+      sht_inj_choose(B, nlat, nlon, mx, nx, sms, (size_t)smem_max);
+  const size_t bytes = sht_syn_smem_bytes(tl.ft, tl.lp, mx, nx, nlon);
+  if (tl.blocks <= 0 || bytes > (size_t)smem_max) return 1;
+  tile[0] = tl.ft;
+  tile[1] = tl.lp;
+  tile[2] = tl.threads;
+  tile[3] = tl.blocks;
+  const ShtSynArgs a = {nullptr, (const sht_c*)dft_inv, (const float*)cpol_g,
+                        (const float*)cosgr, 2 * K, B, nlat, nlon, mx, nx,
+                        (float*)out};
+  const InjSynArgs ia = {(const stack_c<float>*)spec, (const float*)blob,
+                         (stack_c<float>*)vor, (stack_c<float>*)div,
+                         (stack_c<float>*)tem, (stack_c<float>*)ps,
+                         (stack_c<float>*)tr, K};
+  HostSmem mem(bytes);
+  const HostCopy cp;
+  const int T = tl.threads, W = T / 32;
+  std::vector<InjLane> L(32);
+  std::vector<InjNb> nb(32);
+  for (int blk = 0; blk < tl.blocks; ++blk) {
+    const ShtSynSmem s =
+        sht_syn_carve(mem.reset(), tl.ft, tl.lp, mx, nx, nlon);
+    const ShtSynBlock b = sht_syn_block(a, tl.ft, tl.lp, blk);
+    const InjBlk B = inj_blk(a, ia, b, tl.lp);
+    for (int t = 0; t < T; ++t) sht_syn_stage_legendre(cp, a, s, b, t, T);
+    for (int t = 0; t < T; ++t) sht_syn_stage_dft(cp, a, s, t, T);
+    for (int w = 0; w < W; ++w)
+      for (int m = w; m < mx; m += W) {
+        if (!B.uv) {
+          for (int n = 0; n < 32; ++n) inj_tq_lane(B, a, s, m, n);
+          continue;
+        }
+        memset(L.data(), 0xff, L.size() * sizeof(InjLane));
+        memset(nb.data(), 0xff, nb.size() * sizeof(InjNb));
+        for (int n = 0; n < 32; ++n) inj_uv_load(L[n], B, a, m, n);
+        for (int n = 0; n < 32; ++n) {
+          // a shuffle outside the warp returns the lane's own value
+          auto xch = [&](int v, int fl, int d) {
+            const int j = (n + d >= 0 && n + d < 32) ? n + d : n;
+            return v ? L[j].div[fl] : L[j].vor[fl];
+          };
+          inj_uv_exchange(B, nx, n, xch, nb[n]);
+        }
+        for (int n = 0; n < 32; ++n) inj_uv_out(L[n], nb[n], B, a, s, m, n);
+      }
+    for (int t = 0; t < T; ++t)
+      sht_syn_legendre(a, s, b, tl.ft, tl.lp, t, T);
     for (int t = 0; t < T; ++t)
       sht_syn_dft(a, s, b, tl.ft, tl.lp, t, T, count);
   }

@@ -12,7 +12,9 @@ analysis gives tcorh and qcorh.  A call makes either or both: the window
 asks for both (the forcing then reads the surface made in the same
 thread), init_surface_state for the surface, daily_forcing for the
 forcing of a surface it is given.  K17b writes the plane of
-solar_flux_traced that HybridAtmosphere.tisr_field feeds back.
+solar_flux_traced, HybridAtmosphere.tisr_field; the ML-only cycle hands
+K3 the date instead (TisrDate), and K3 works out the plane's elements
+where it reads them.
 
 The month indices and weights, tyear and the constants that Python works
 out reach the kernel as host numbers (kernel arguments), so a call reads
@@ -47,6 +49,15 @@ SCALARS = ("wint", "wm2", "wm1", "w0", "wp1", "wp2", "sstfr", "sst_bias",
            "albice_sea", "gamlat", "pexp")
 INDICES = ("imon", "imon2", "im2", "im1", "ip1", "ip2")
 CSOL = 4.0 * pc.SOLC   # the Hartmann insolation's solar constant
+
+
+class TisrDate(NamedTuple):
+    """The TISR plane of a date, as K3's date form takes it: tyear (a
+    host number) and the latitudes' sines and cosines (lat,); the plane
+    is tisr_plain(tyear, slat, clat, nlon)."""
+    tyear: float
+    slat: torch.Tensor
+    clat: torch.Tensor
 
 
 class DayArgs(NamedTuple):
@@ -197,6 +208,12 @@ def _scalars(month, sst_bias: float, tyear, gamlat: float, pexp: float):
     return scal, ix
 
 
+def tisr_scalars(tyear):
+    """The scalars of the TISR plane at tyear as a C array (the kernels'
+    SfScalars; K17b and K3's date form read tyear, 2 pi and 4 SOLC / pi)."""
+    return _scalars(None, 0.0, tyear, 0.0, 0.0)[0]
+
+
 def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
                     sfc=None, day: DayArgs | None = None):
     """(the SURFACE planes (8, lat, lon) or None, the FORCING planes (11,
@@ -286,7 +303,7 @@ def tisr_plane(tyear, slat, clat, nlon: int) -> torch.Tensor:
     nlat = slat.shape[0]
     kb.require(slat, "slat", dt, (nlat,), dev)
     kb.require(clat, "clat", dt, (nlat,), dev)
-    scal, _ = _scalars(None, 0.0, tyear, 0.0, 0.0)
+    scal = tisr_scalars(tyear)
     out = torch.empty((nlat, nlon), dtype=dt, device=dev)
     code = kb.library().tisr_launch(
         kb.device_index(slat), int(dt == torch.float64), nlat, nlon,

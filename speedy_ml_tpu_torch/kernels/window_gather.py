@@ -5,10 +5,14 @@ For every class c: out_c = (src[idx_c] - in_mean_c) / in_std_c, where
 src is the flat concatenation [atmo (V, K, lat, lon), logp, precip, sst,
 tisr] and idx_c (Rc, I) int32 is the class's RegionLayout.pack_table.
 All classes go in one launch.  The kernel writes NaN for an index outside
-the source (the plain version raises).
+the source (the plain version raises).  The TISR field is a plane (lat,
+lon), or its date (surface_forcing.TisrDate): the kernel then works out
+each TISR element it reads as K17b's point does (csrc/window_gather.cuh),
+and no plane is made.
 
-On CPU tensors `window_gather` runs `window_gather_plain`; on CUDA
-tensors it launches the kernel or raises.
+On CPU tensors `window_gather` runs `window_gather_plain` (with a date,
+on the plane tisr_plain makes); on CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -18,8 +22,11 @@ import ctypes
 import torch
 
 from speedy_ml_tpu_torch.kernels import build as kb
+from speedy_ml_tpu_torch.kernels.surface_forcing import (TisrDate,
+                                                         tisr_plain,
+                                                         tisr_scalars)
 
-MAX_CLASSES = 8   # csrc/common.cuh
+MAX_CLASSES = 8   # csrc/window_gather.cuh
 
 
 def window_gather_plain(fields, idx, in_mean, in_std) -> list:
@@ -30,14 +37,20 @@ def window_gather_plain(fields, idx, in_mean, in_std) -> list:
 
 
 def window_gather(fields, idx, in_mean, in_std) -> list:
-    """Standardized packed input vectors (Rc, I) of every class."""
+    """Standardized packed input vectors (Rc, I) of every class.  fields:
+    (atmo, logp, precip, sst, tisr), tisr a (lat, lon) plane or a
+    TisrDate."""
     if not (len(idx) == len(in_mean) == len(in_std)):
         raise ValueError("window_gather: one idx/in_mean/in_std per class")
     if len(fields) != 5:
         raise ValueError("window_gather: fields are (atmo, logp, precip, "
                          "sst, tisr)")
-    atmo = fields[0]
+    atmo, tisr = fields[0], fields[4]
+    date = isinstance(tisr, TisrDate)
     if atmo.device.type == "cpu":
+        if date:
+            fields = (*fields[:4], tisr_plain(tisr.tyear, tisr.slat,
+                                              tisr.clat, atmo.shape[-1]))
         return window_gather_plain(fields, idx, in_mean, in_std)
     if atmo.device.type != "cuda":
         raise ValueError(f"window_gather: no kernel for device {atmo.device}")
@@ -52,8 +65,15 @@ def window_gather(fields, idx, in_mean, in_std) -> list:
         raise ValueError(f"window_gather: atmo shape {tuple(atmo.shape)}, "
                          "expected (V, K, lat, lon)")
     grid = tuple(atmo.shape[-2:])
-    for name, f in zip(("logp", "precip", "sst", "tisr"), fields[1:]):
+    planes = fields[1:4] if date else fields[1:]
+    for name, f in zip(("logp", "precip", "sst", "tisr"), planes):
         kb.require(f, name, f32, grid, dev)
+    slat = clat = scal = None
+    if date:
+        kb.require(tisr.slat, "tisr.slat", f32, grid[:1], dev)
+        kb.require(tisr.clat, "tisr.clat", f32, grid[:1], dev)
+        slat, clat = tisr.slat.data_ptr(), tisr.clat.data_ptr()
+        scal = tisr_scalars(tisr.tyear)
     G = grid[0] * grid[1]
     outs = []
     for c in range(nc):
@@ -65,10 +85,11 @@ def window_gather(fields, idx, in_mean, in_std) -> list:
     vp = ctypes.c_void_p
     arr = lambda ts: (vp * nc)(*[t.data_ptr() for t in ts])
     code = kb.library().window_gather_launch(
-        kb.device_index(atmo), (vp * 5)(*[f.data_ptr() for f in fields]),
+        kb.device_index(atmo),
+        (vp * 5)(*[f.data_ptr() for f in (atmo, *planes)], *[None] * date),
         atmo.numel(), G, nc, arr(idx), arr(in_mean), arr(in_std), arr(outs),
-        (ctypes.c_longlong * nc)(*[t.numel() for t in idx]),
-        kb.stream_of(atmo))
+        (ctypes.c_longlong * nc)(*[t.numel() for t in idx]), slat, clat,
+        scal, grid[1] if date else 0, kb.stream_of(atmo))
     kb.check(code, "window_gather")
     window_gather.launches += 1
     return outs

@@ -14,6 +14,13 @@ inputs made from a seed with numpy:
   - it is within chip_smoke's SHT_RTOL of each field's scale of the plain
     PyTorch version (float32) and of the JAX package's spec_to_grid /
     grid_to_spec (float32 on the CPU).
+K6_inject (the injection's synthesis with K18's glue as its phase 0,
+inject_spectral.cuh) is built into the same library: at T30 with K = 8
+and at T10 with K = 5 (and on tiles picked for fewer SMs), on
+K5's analysis of seeded fields, its state and grid equal K18's
+first-design blocks (glue_host.cpp) followed by K6's tiles bit for bit,
+every grid output written once and every state element set (all start
+as NaN).
 The launch code itself runs only on a card (chip_smoke.py).
 """
 
@@ -73,6 +80,24 @@ def host_lib(tmp_path_factory):
     lib.sht_analysis_host.restype = i
     lib.sht_synthesis_naive.restype = None
     lib.sht_analysis_naive.restype = None
+    lib.inject_synthesis_host.argtypes = ([i] + [vp] * 5 + [i] * 4 + [vp] * 7
+                                          + [i, ll, vp])
+    lib.inject_synthesis_host.restype = i
+    return lib
+
+
+@pytest.fixture(scope="module")
+def glue_lib(tmp_path_factory):
+    """csrc/glue_host.cpp (K18's first-design blocks) built with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernels' arithmetic for the host")
+    so = tmp_path_factory.mktemp("glue_host") / "libglue_host.so"
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    str(CSRC / "glue_host.cpp"), "-o", str(so)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    lib.inject_block_host.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
     return lib
 
 
@@ -198,3 +223,65 @@ def test_analysis_tiles(host_lib, tables, jax_refs, B, n0):
            "against sht_analysis_plain")
     _close(torch.view_as_real(out), jax_refs["ana", B],
            "against the JAX package's grid_to_spec")
+
+
+# (geometry, K, SMs the tile is picked for): the card's 132 SMs (at T30L8
+# 3 latitude pairs a block, 8 latitude groups); at T30L8 90 SMs give 5
+# pairs a block in 5 groups, the last one ragged, and at K = 7 100 SMs 4
+# pairs in 6 groups
+INJECT_CASES = [("T30", 8, SMS), ("T10", 5, SMS), ("T30", 8, 90),
+                ("T30", 7, 100)]
+
+
+@pytest.mark.parametrize("geom,K,sms", INJECT_CASES)
+def test_inject_synthesis_block(host_lib, glue_lib, geom, K, sms):
+    """K6_inject's blocks (a warp per row m forming the block's field's
+    coefficients from K5's rows and the tables, the neighbours exchanged,
+    the state stored by two latitude groups, then K6's phases) against
+    K18's blocks and K6's tiles one after the other, bit for bit."""
+    g = Geometry(**dict(GEOMS[geom], nlev=K))
+    sht = SpectralTransform(g, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(40 + K)
+    field = lambda mean, sd: mean + sd * rng.normal(size=(K, g.nlat, g.nlon))
+    grid = np.concatenate([field(250.0, 20.0),
+                           np.maximum(field(5.0, 4.0), 0.0),
+                           0.05 * rng.normal(size=(1, g.nlat, g.nlon)),
+                           field(0.0, 15.0), field(0.0, 10.0)])
+    spec = sht.analysis(torch.as_tensor(grid.astype(np.float32)),
+                        2 * K + 1).contiguous()
+    mx, nx, nlat, nlon, B = g.mx, g.nx, g.nlat, g.nlon, 4 * K
+    nan = complex("nan+nanj")
+    new = lambda *sh: torch.full(sh, nan, dtype=torch.complex64)
+    shapes = dict(vor=(2, K, mx, nx), div=(2, K, mx, nx), t=(2, K, mx, nx),
+                  ps=(2, mx, nx), tr=(2, 1, K, mx, nx))
+    ref = {k: new(*v) for k, v in shapes.items()}
+    stk = new(B, mx, nx)
+    assert glue_lib.inject_block_host(
+        K, 0, mx, nx, _ptr(spec), *(_ptr(ref[k]) for k in shapes), _ptr(stk),
+        _ptr(sht.inject_blob)) == 0
+    tabs = (_ptr(sht.dft_inv), _ptr(sht.cpol_g), _ptr(sht.cosgr))
+    ref_grid = torch.full((B, nlat, nlon), float("nan"))
+    count = torch.zeros((B, nlat, nlon), dtype=torch.int32)
+    tile6 = (ctypes.c_int * 4)()
+    assert host_lib.sht_synthesis_host(
+        _ptr(stk), *tabs, 2 * K, B, nlat, nlon, mx, nx, _ptr(ref_grid),
+        _ptr(count), sms, SMEM_MAX, tile6) == 0
+    got = {k: new(*v) for k, v in shapes.items()}
+    got_grid = torch.full((B, nlat, nlon), float("nan"))
+    count.zero_()
+    tile = (ctypes.c_int * 4)()
+    assert host_lib.inject_synthesis_host(
+        K, _ptr(spec), _ptr(sht.inject_blob), *tabs, nlat, nlon, mx, nx,
+        *(_ptr(got[k]) for k in shapes), _ptr(got_grid), _ptr(count), sms,
+        SMEM_MAX, tile) == 0
+    # K6's tile at 4K fields, at 512 threads
+    assert list(tile) == [tile6[0], tile6[1], 512, tile6[3]]
+    assert bool((count == 1).all()), (
+        f"outputs written {int(count.min())}..{int(count.max())} times, "
+        f"tile {list(tile)}")
+    assert not torch.isnan(got_grid).any()
+    assert _same_bits(got_grid, ref_grid)
+    for k in shapes:
+        assert not torch.isnan(torch.view_as_real(got[k])).any(), k
+        assert _same_bits(torch.view_as_real(got[k]),
+                          torch.view_as_real(ref[k])), k

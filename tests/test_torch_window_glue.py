@@ -1,6 +1,8 @@
 """The window's entry and exit and the injection's glue: K17 and K17b
-(kernels/surface_forcing.py), K18 (kernels/inject_spectral.py), K19
-(kernels/gate_check.py) and K20 (kernels/window_select.py), without a card.
+(kernels/surface_forcing.py), K18 (kernels/inject_spectral.py, phase 0 of
+K6_inject), K19 (kernels/gate_check.py) and K20
+(kernels/window_select.py), and K3's date form (kernels/window_gather.py),
+without a card.
 
 The plain versions against the JAX package in float64 on the CPU, on
 inputs made from a seed with numpy (T30 grids):
@@ -9,19 +11,22 @@ inputs made from a seed with numpy (T30 grids):
     (the month wrap), without a hybrid SST and with one on both sides of
     the 6 K test; every field within RTOL_F64 of its scale;
   - K17b: HybridAtmosphere.tisr_field;
-  - K18: vdspec, trunct and uv_grid of inject_to_speedy, the injected
-    state and the gate.
+  - K18 and K6_inject (inject_synthesis): vdspec, trunct and uv_grid of
+    inject_to_speedy, the injected state and the gate.
 kernels/csrc/glue_host.cpp compiles the headers the CUDA kernels include
 (surface_forcing.cuh, inject_spectral.cuh, gate_check.cuh,
-window_select.cuh) for the host with g++ -ffp-contract=off, and the test
-holds them against the plain versions: K18's blocks (shared memory
-starting as NaN), K19 and K20 bit for bit in float32 and float64; K17 and
+window_select.cuh, window_gather.cuh) for the host with g++
+-ffp-contract=off, and the test holds them against the plain versions:
+K18's first-design blocks (shared memory starting as NaN), K19 and K20
+bit for bit in float32 and float64; K3's date form bit for bit against
+K17b's host plane gathered (float32); K17 and
 K17b in float64 within RTOL_F64, in float32 within K17_ULPS of each
 plane's scale (the host's cosf, sinf, acosf, expf and powf are glibc's,
 the CPU plain version's over whole rows are PyTorch's vectorized ones,
 which differ in the last bit; on the card both sides call the same CUDA
 functions).  K19: each of the gate's eight bounds tripped in turn, a NaN,
-and a safe grid.  The wiring: a coupled cycle calls each kernel once.
+and a safe grid.  The wiring: a coupled cycle calls each kernel once, an
+ML-only cycle none of them (K3 takes the date).
 The launch code itself runs only on a card (chip_smoke.py).
 """
 
@@ -61,7 +66,9 @@ from speedy_ml_tpu_torch.kernels import surface_forcing as sfk
 from speedy_ml_tpu_torch.kernels.gate_check import (GATE_BOUNDS, gate_check,
                                                     gate_check_plain)
 from speedy_ml_tpu_torch.kernels.inject_spectral import (
-    inject_spectral, inject_spectral_plain)
+    inject_spectral_plain, inject_synthesis)
+from speedy_ml_tpu_torch.kernels.window_gather import (window_gather,
+                                                       window_gather_plain)
 from speedy_ml_tpu_torch.kernels.window_select import (window_select,
                                                        window_select_plain)
 from speedy_ml_tpu_torch.physics import driver as driver_module
@@ -104,6 +111,9 @@ def lib(tmp_path_factory):
     lib.inject_block_host.argtypes = [i] * 4 + [vp] * 8
     lib.gate_host.argtypes = [i, i, ll, vp, dp, vp, vp]
     lib.select_host.argtypes = [i, i, ll] + [vp] * 8
+    pv = ctypes.POINTER(vp)
+    lib.window_gather_host.argtypes = [pv, ll, ll, i, pv, pv, pv, pv,
+                                       ctypes.POINTER(ll), vp, vp, dp, i]
     return lib
 
 
@@ -334,6 +344,68 @@ def test_tisr_plane(lib, tyear, dtype):
     assert torch.equal(HybridAtmosphere.tisr_field(hyb, tyear), ref)
 
 
+def _host_gather(lib, fields, idx, mean, std, date=None):
+    """K3 built for the host over all the classes' outputs (starting as
+    NaN): fields (atmo, logp, precip, sst, tisr plane or None), date
+    (slat, clat, tyear) for tisr None."""
+    vp = ctypes.c_void_p
+    nc = len(idx)
+    outs = [torch.full(i.shape, float("nan")) for i in idx]
+    arr = lambda ts: (vp * nc)(*[_ptr(t) for t in ts])
+    slat, clat, tyear = date if date is not None else (None, None, 0.0)
+    scal = sfk.tisr_scalars(tyear) if date is not None else None
+    atmo = fields[0]
+    assert lib.window_gather_host(
+        (vp * 5)(*[_ptr(f) for f in fields]), atmo.numel(),
+        atmo.shape[-2] * atmo.shape[-1], nc, arr(idx), arr(mean), arr(std),
+        arr(outs), (ctypes.c_longlong * nc)(*[i.numel() for i in idx]),
+        _ptr(slat), _ptr(clat), scal, atmo.shape[-1]) == 0
+    return outs
+
+
+@pytest.mark.parametrize("tyear", [0.05, 0.61])
+def test_gather_date_form_host(lib, tyear):
+    """K3's date form built for the host (float32): each TISR element
+    worked out from the date where it is read equals K17b's host plane
+    gathered by the plane form, bit for bit; the plane form equals the
+    plain version on that plane; an index outside the source gives NaN in
+    both forms.  Two classes, tables reading every source block and the
+    whole TISR block."""
+    g, _, _, phys = port_side(torch.float32)
+    K, nlat, nlon = 8, g.nlat, g.nlon
+    G = nlat * nlon
+    rng = np.random.default_rng(21)
+    f32 = lambda *s: torch.as_tensor(rng.normal(size=s)).float()
+    atmo = f32(4, K, nlat, nlon)
+    n_src = atmo.numel() + 4 * G
+    tisr_block = atmo.numel() + 3 * G + np.arange(G)
+    tables = [np.concatenate([rng.integers(0, n_src, 3000), tisr_block]),
+              rng.integers(atmo.numel() + 2 * G, n_src, 2000)]
+    idx = [torch.as_tensor(t.astype(np.int32)).reshape(r, -1)
+           for t, r in zip(tables, (2, 4))]
+    mean = [f32(*i.shape) for i in idx]
+    std = [torch.as_tensor(rng.uniform(0.5, 2.0, i.shape)).float()
+           for i in idx]
+    plane = torch.full((nlat, nlon), float("nan"))
+    assert lib.tisr_host(0, nlat, nlon, _ptr(phys.slat_t), _ptr(phys.clat_t),
+                         _ptr(plane), sfk.tisr_scalars(tyear)) == 0
+    fields = (atmo, f32(nlat, nlon), f32(nlat, nlon), f32(nlat, nlon))
+    by_plane = _host_gather(lib, fields + (plane,), idx, mean, std)
+    by_date = _host_gather(lib, fields + (None,), idx, mean, std,
+                           (phys.slat_t, phys.clat_t, tyear))
+    plain = window_gather_plain(fields + (plane,), idx, mean, std)
+    for a, b, c in zip(by_date, by_plane, plain):
+        assert not torch.isnan(a).any()
+        assert torch.equal(a, b) and torch.equal(b, c)
+    # an index outside the source
+    bad = [torch.tensor([[0, n_src, 5]], dtype=torch.int32)]
+    one = [torch.ones(1, 3)]
+    for fl, date in ((fields + (plane,), None),
+                     (fields + (None,), (phys.slat_t, phys.clat_t, tyear))):
+        out, = _host_gather(lib, fl, bad, one, one, date)
+        assert torch.isnan(out).tolist() == [[False, True, False]]
+
+
 # ------------------------------------------------------------------- K18
 
 @functools.lru_cache(maxsize=None)
@@ -380,7 +452,7 @@ def test_inject_blocks_match_plain(lib, K, geom, dtype):
     sht = transform(geom, K, dtype)
     spec = analysed(40 + K, sht.geom, K, dtype)
     got, got_stk = host_inject(lib, sht, spec, K)
-    ref, ref_stk = inject_spectral(sht, spec, K)
+    ref, ref_stk = inject_spectral_plain(sht, spec, K)
     for k, v in got.items():
         assert torch.equal(v, getattr(ref, k)), k
     assert torch.equal(got_stk, ref_stk)
@@ -399,9 +471,10 @@ def grid_atmo(seed, g):
 
 
 def test_inject_plain_matches_jax():
-    """inject_to_speedy (K5, K18, K6, K19 on the card) against the JAX
-    package's, and K18's stack back on the grid against its vdspec,
-    trunct and uv_grid (hybrid/model.py:410-421)."""
+    """inject_to_speedy (K5, K6_inject, K19 on the card) against the JAX
+    package's, and inject_synthesis's CPU route (K6_inject's plain
+    version: K18's stack, then the synthesis) against its vdspec, trunct
+    and uv_grid (hybrid/model.py:410-421): the state and the grid."""
     K = 8
     g = JGeometry(**T30)
     jsht = JST(g, dtype=jnp.float64, zonal="dft")
@@ -423,8 +496,11 @@ def test_inject_plain_matches_jax():
     spec = sht.analysis(torch.cat([tatmo[0], torch.clamp(tatmo[3], min=0.0),
                                    tlogp[None], tatmo[1], tatmo[2]]),
                         2 * K + 1)
+    istate, back = inject_synthesis(sht, spec, K)
+    for k in SpectralState.FIELDS:
+        assert torch.equal(getattr(istate, k), getattr(state, k)), k
     _, stk = inject_spectral_plain(sht, spec, K)
-    back = sht.synthesis(stk, 2 * K)
+    assert torch.equal(back, sht.synthesis(stk, 2 * K))
     jvor, jdiv = jsht.vdspec(jnp.asarray(atmo[1]), jnp.asarray(atmo[2]),
                              kcos=2)
     u2, v2 = jsht.uv_grid(jsht.trunct(jvor), jsht.trunct(jdiv))
@@ -613,24 +689,33 @@ def _t10_sst(g):
 @pytest.mark.parametrize("cycle", ["coupled", "ml_only"])
 def test_coupled_cycle_calls_each_kernel_once(monkeypatch, cycle):
     """One coupled cycle on the CPU: K17 once (surface and forcing in one
-    call), K18, K19 and K20 (with the gate's select) once each, and no
-    K17b: the TISR plane it feeds back is its window's fsol.  An ML-only
-    cycle runs none of them but K17b, once."""
+    call), K6_inject, K19 and K20 (with the gate's select) once each, and
+    no K17b: the TISR plane it feeds back is its window's fsol.  An
+    ML-only cycle runs none of them, K17b neither: its one K3 launch of
+    the feedback takes the date."""
     gcm, hyb = t10_hybrid(cycle == "ml_only")
     calls = []
     _spy(monkeypatch, calls, driver_module, "surface_forcing")
-    _spy(monkeypatch, calls, hybrid_model, "inject_spectral")
+    _spy(monkeypatch, calls, hybrid_model, "inject_synthesis")
     _spy(monkeypatch, calls, hybrid_model, "gate_check")
     _spy(monkeypatch, calls, hybrid_model, "tisr_plane")
     _spy(monkeypatch, calls, gcm_module, "window_select")
+    _spy(monkeypatch, calls, hybrid_model, "window_gather")
     s = hyb.init_state(_t10_sst(gcm.geom))
     s, diag = hyb.cycle(s, 0, 0.5, 0.05)
+    gathers = [c[2] for c in calls if c[0] == "window_gather"]
+    calls = [c for c in calls if c[0] != "window_gather"]
     names = sorted(c[0] for c in calls)
+    (fields, *_), = [a for a in gathers if a[1] is hyb.feedback_index]
     if cycle == "ml_only":
-        assert names == ["tisr_plane"], calls
+        assert names == [], calls
+        date = fields[4]
+        assert isinstance(date, sfk.TisrDate) and date.tyear == 0.05
+        assert date.slat is hyb._slat and date.clat is hyb._clat
         assert torch.isfinite(diag["atmo"]).all()
         return
-    assert names == sorted(["surface_forcing", "inject_spectral",
+    assert torch.is_tensor(fields[4])
+    assert names == sorted(["surface_forcing", "inject_synthesis",
                             "gate_check", "window_select"]), calls
     assert ("surface_forcing", ["day", "month", "sst_bias",
                                 "sst_hybrid"]) in [c[:2] for c in calls]
@@ -678,8 +763,8 @@ def test_c_signatures_match_the_entry_points():
 
 
 @pytest.mark.parametrize("kernel", ["surface_forcing", "tisr_plane",
-                                    "inject_spectral", "gate_check",
-                                    "window_select"])
+                                    "inject_synthesis", "gate_check",
+                                    "window_select", "window_gather_date"])
 def test_wrappers_raise_off_cpu_and_cuda(kernel):
     _, sht, bd, phys = port_side(torch.float32)
     meta = lambda t: t.to("meta")
@@ -690,9 +775,16 @@ def test_wrappers_raise_off_cpu_and_cuda(kernel):
                 month=(0, 0.3))
         elif kernel == "tisr_plane":
             sfk.tisr_plane(0.3, meta(phys.slat_t), meta(phys.clat_t), 96)
-        elif kernel == "inject_spectral":
-            inject_spectral(sht, torch.zeros(
+        elif kernel == "inject_synthesis":
+            inject_synthesis(sht, torch.zeros(
                 33, 31, 32, dtype=torch.complex64, device="meta"), 8)
+        elif kernel == "window_gather_date":
+            one = torch.ones(1, 4, device="meta")
+            window_gather((torch.zeros(4, 8, 48, 96, device="meta"),
+                           *[torch.zeros(48, 96, device="meta")] * 3,
+                           sfk.TisrDate(0.3, meta(phys.slat_t),
+                                        meta(phys.clat_t))),
+                          [one.int()], [one], [one])
         elif kernel == "gate_check":
             gate_check(torch.zeros(32, 48, 96, device="meta"), 8)
         else:
