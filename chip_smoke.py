@@ -101,8 +101,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      40 discarded samples, 64 pairs, time chunks of 16, region chunks of
      96, the solve in float64) with K14 and K1 launched; finite Wout, the
      solve's residual <= 1e-8 for 8 regions of each class, stage times,
-     FLOP/s and peak memory; then the trained weights (bf16) through 12
-     coupled cycles of run_prediction, the fields finite.
+     FLOP/s and peak memory; then the trained weights (a bf16 copy)
+     through 12 coupled cycles of run_prediction, the fields finite;
+     10f. the checkpoint at full width: save_hybrid and load_hybrid of the
+     trained hybrid (float32 Wout) and of its bf16 copy (loaded, then
+     cast), every parameter tensor torch.equal to the saved one; two
+     coupled cycles of run_prediction from one state by the bf16 hybrid
+     and by its loaded twin, equal bit for bit; train_hybrid_production
+     with atmo_ckpt twice: the first trains and saves, the second loads,
+     launches no K14 and no K1, and its packs equal the first's; seconds
+     and bytes of each save and load;
+ 11. the paths from files (a temporary directory; no h5py): 1,152
+     reference-format workers (synthesize_reference_worker, one seeded
+     generator a region, no SST input in a seeded 30% of the regions: n =
+     5,760 and 6,160) through import_reference_weights, 4 coupled cycles
+     of run_prediction with the writer, K1 launched in its per-region cols
+     mode only, fields finite, T in [150, 350] K; fort.20-24 and fort.26
+     written at T30 (seeded continents, fills), GCM(bd=None, bc_path=) on
+     the card, its BoundaryData equal to load_boundary_data on the CPU bit
+     for bit, one window finite; save_gcm_restart of that window's state,
+     load_gcm_restart into a fresh state, the next window equal to the
+     original's bit for bit.
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -117,6 +136,7 @@ import dataclasses
 import inspect
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -207,6 +227,10 @@ K14_RTOL_F64 = 1e-12
 # chip_smoke --k14-lists: the chunk lengths at which both tile lists are timed
 K14_LIST_CS = (16, 32, 48, 64, 96, 128)
 RESIDUAL_MAX = 1e-8
+# phase 11: the share of land regions (no SST input: n = 6,160 against
+# 5,760) in the reference-format workers, and the imported cycles
+LAND_SHARE = 0.3
+CYCLES_IMPORTED = 4
 # torch.profiler sessions: idle time at either end of the profiled work,
 # and how often a session that saw no device event is run again
 PROFILE_PAD_S = 0.02
@@ -629,6 +653,331 @@ def k14_lists(torch, n, S, O, card):
         f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
 
 
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def pack_tensors(pk) -> dict:
+    """A ClassPack's parameter tensors by name."""
+    out = {k: getattr(pk.res, k) for k in ("cols", "vals", "win_vals",
+                                           "wout", "mean", "std",
+                                           "win_cols")}
+    out.update({f"std_{k}": getattr(pk.std, k) for k in (
+        "comp_mean", "comp_std", "in_mean", "in_std", "out_mean",
+        "out_std")})
+    return out
+
+
+def same_packs(torch, a, b, what: str):
+    """Every parameter tensor of every pack equal (torch.equal), and the
+    static parts; fails naming the first that differs."""
+    for p, q in zip(a, b):
+        ta, tb = pack_tensors(p), pack_tensors(q)
+        for k, v in ta.items():
+            w = tb[k]
+            if (v is None) != (w is None) or (v is not None and not (
+                    v.dtype == w.dtype and torch.equal(v, w))):
+                fail(f"{what}: class {p.cls.name} {k} differs")
+        if (p.res.n_in, p.res.shifts, p.hyper) != (q.res.n_in, q.res.shifts,
+                                                   q.hyper):
+            fail(f"{what}: class {p.cls.name}'s static parts differ")
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} packs against {len(b)}")
+
+
+def same_states(torch, a, b) -> bool:
+    """Two HybridStates equal bit for bit (every class's x, feedback and
+    local model, and the gate)."""
+    return bool(a.safe) == bool(b.safe) and all(
+        torch.equal(getattr(p, k), getattr(q, k))
+        for p, q in zip(a.classes, b.classes)
+        for k in ("x", "feedback", "local_model"))
+
+
+def phase_checkpoint(torch, gcm, layout, hyb_t, hyb_bf, src, hyper, truth,
+                     dates, train_wall, card):
+    """Phase 10f: save and load the trained hybrid at full width (hyb_t,
+    float32 Wout; then hyb_bf, its bf16 cast), two coupled cycles of the
+    trained and the loaded bf16 hybrid from one state, and
+    train_hybrid_production's atmo_ckpt twice (the second call loads and
+    trains nothing)."""
+    import tempfile
+
+    from speedy_ml_tpu_torch.data.checkpoint import load_hybrid, save_hybrid
+    from speedy_ml_tpu_torch.hybrid.chunked import train_hybrid_production
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.gram_update import gram_update
+
+    dev = torch.device("cuda")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for form, hyb in (("float32", hyb_t), ("bf16", hyb_bf)):
+            path = tmp / form
+            _, t_save = timed(lambda: save_hybrid(hyb, str(path)))
+            nbytes = dir_bytes(path)
+            loaded, t_load = timed(lambda: load_hybrid(
+                gcm, layout, str(path), device=dev))
+            if form == "bf16":
+                loaded.cast_wout_bf16()
+            same_packs(torch, loaded.packs, hyb.packs,
+                       f"the {form} checkpoint")
+            parts.append(f"{form} Wout: save {t_save:.2f} s, "
+                         f"{nbytes / 1e9:.3f} GB on disk, load onto the "
+                         f"card {t_load:.2f} s")
+            shutil.rmtree(path)
+            if form == "float32":
+                del loaded
+                torch.cuda.empty_cache()
+        # two coupled cycles of the trained and the loaded hybrid
+        st0 = hyb_bf.init_state(truth["sst"][-1])
+        date = dates[-1].advance_hours(6)
+        a, _ = run_prediction(hyb_bf, st0, date, 2, stop_if_unsafe=False)
+        b, _ = run_prediction(loaded, st0, date, 2, stop_if_unsafe=False)
+        if not same_states(torch, a, b):
+            fail("two coupled cycles of the loaded hybrid differ from the "
+                 "trained hybrid's")
+        del loaded, a, b
+        torch.cuda.empty_cache()
+        log("checkpoint (save_hybrid, load_hybrid; every parameter tensor "
+            "torch.equal after the load, and after the bf16 cast): "
+            + "; ".join(parts) + "; two coupled cycles of run_prediction "
+            f"from one state, trained and loaded hybrid: equal bit for bit "
+            f"[{card}]")
+
+        # train_hybrid_production with atmo_ckpt: trains and saves, then
+        # loads and trains nothing (no K14, no K1)
+        ck = str(tmp / "atmo")
+        kw = dict(hybrid=True, stride=1, time_chunk=TIME_CHUNK,
+                  n_discard=N_DISCARD, region_chunk=REGION_CHUNK,
+                  solve_dtype=torch.float64, atmo_ckpt=ck, device=dev)
+        first, t_first = timed(lambda: train_hybrid_production(
+            gcm, layout, src, hyper, TRAIN_SEED, **kw))
+        nbytes = dir_bytes(ck)
+        for fn in (esn_step, gram_update):
+            fn.launches = 0
+        second, t_second = timed(lambda: train_hybrid_production(
+            gcm, layout, src, hyper, TRAIN_SEED, **kw))
+        n14, n1 = gram_update.launches, esn_step.launches
+        if n14 or n1:
+            fail(f"the resumed train_hybrid_production launched K14 {n14} "
+                 f"and K1 {n1} times")
+        same_packs(torch, second.packs, first.packs, "the resumed training")
+        log(f"atmo_ckpt: the first train_hybrid_production call trained and "
+            f"saved in {t_first:.2f} s ({nbytes / 1e9:.3f} GB), the second "
+            f"loaded it in {t_second:.2f} s (the training alone: "
+            f"{train_wall:.1f} s in 10c) and launched no K14 and no K1; its "
+            f"packs equal the first's [{card}]")
+        del first, second
+        torch.cuda.empty_cache()
+
+
+def write_boundary_files(np, root: Path, geom, seed: int):
+    """fort.20-24 and fort.26 in the reference's layout (records of
+    little-endian float32 rows of nlon, north to south): seeded smooth
+    continents with a fractional coast and orography over them, monthly
+    climatologies with a seasonal cycle, and the reference's fills: -999
+    (read as 0) in the snow and the sea ice, and negative values (filled
+    by fillsf from their row) in the SST, over land most of all, and the
+    land temperature."""
+    rng = np.random.default_rng(seed)
+    lat = geom.lat_radians[:, None]
+    lon = np.arange(geom.nlon)[None, :] * 2 * np.pi / geom.nlon
+    shape = (geom.nlat, geom.nlon)
+
+    def smooth():
+        f = sum(rng.normal() * np.cos(k * lon + rng.uniform(0, 2 * np.pi))
+                * np.cos(l * lat + rng.uniform(0, 2 * np.pi))
+                for k in range(1, 5) for l in range(4))
+        return (f - f.mean()) / f.std()
+
+    fmask = np.clip(0.5 + 0.8 * smooth(), 0.0, 1.0)
+    land = fmask > 0.9
+
+    def holes(f, frac, value, where=True):
+        f = f.copy()
+        f[(rng.uniform(size=shape) < frac) & where] = value
+        return f
+
+    season = lambda m, amp: amp * np.sin(lat) * np.cos(
+        2 * np.pi * (m - 0.5) / 12)
+    ones = np.ones(shape)
+    sst = 273.0 + 27.0 * np.cos(lat) ** 2 * ones + rng.uniform(-1, 1, shape)
+    stl = 250.0 + 40.0 * np.cos(lat) ** 2 * ones + rng.uniform(-2, 2, shape)
+    polar = np.clip((np.abs(np.rad2deg(lat)) - 60.0) / 20.0, 0.0, 1.0) * ones
+
+    def write(unit, records):
+        data = np.stack([r[::-1] for r in records]).astype("<f4")
+        data.tofile(root / f"fort.{unit}")
+
+    months = range(12)
+    write(20, [2000.0 * fmask * np.clip(0.5 + 0.3 * smooth(), 0, 1), fmask,
+               rng.uniform(0.07, 0.4, shape), rng.uniform(0, 0.8, shape),
+               rng.uniform(0, 0.8, shape)])
+    write(21, [holes(holes(sst + season(m, 2.0), 0.05, -1.0), 0.5, -1.0,
+                     land) for m in months])
+    write(22, [holes(np.clip(polar + season(m, 0.2), -0.05, 1.0), 0.03,
+                     -999.0) for m in months])
+    write(23, [holes(stl + season(m, 8.0), 0.05, -2.0) for m in months])
+    write(24, [holes(60.0 * polar * rng.uniform(0, 1, shape), 0.03, -999.0)
+               for _ in months])
+    write(26, [rng.uniform(0.05, 0.35, shape) for _ in range(36)])
+
+
+def phase_files(torch, np, gcm, layout, date0, card):
+    """Phase 11: the paths from files.  (a) reference-format weights at
+    full width through import_reference_weights, 4 coupled cycles of
+    run_prediction with K1 in its per-region cols mode; (b) fort.20-26
+    written at T30, a GCM on the card from them against the CPU load, and
+    one window; (c) a GCM restart: the next window from the loaded state
+    against the next window from the original."""
+    import tempfile
+
+    from speedy_ml_tpu_torch.data.checkpoint import (gcm_leaves,
+                                                     load_gcm_restart,
+                                                     save_gcm_restart)
+    from speedy_ml_tpu_torch.data.reference_import import (
+        import_reference_weights, synthesize_reference_worker)
+    from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.physics.boundaries import (BoundaryData,
+                                                        load_boundary_data)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = gcm.geom
+    nz = g.nlev
+
+    # -- 11a. reference-format weights: one seeded generator per region;
+    #    land regions (a seeded mask) have no SST input, so n is ragged
+    land = np.random.default_rng(SEED + 21).uniform(
+        size=layout.n_regions) < LAND_SHARE
+    shapes = {int(r): (c.core_shape, c.input_shape) for c in layout.classes
+              for r in c.region_ids}
+    seen = {}
+
+    def reader(region):
+        core, inp = shapes[region]
+        w = synthesize_reference_worker(
+            np.random.default_rng([SEED, 22, region]), nz, core, inp,
+            has_sst=not land[region], m=M, model_identity=True)
+        seen[w["n"]] = seen.get(w["n"], 0) + 1
+        return w
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyb_r = import_reference_weights(gcm, layout, nz, reader, device=dev)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    for pk in hyb_r.packs:
+        if (pk.res.cols.ndim != 3 or pk.res.win_cols is None
+                or pk.res.shifts is not None):
+            fail(f"imported class {pk.cls.name} is not in the per-region "
+                 f"cols form")
+    hyb_r.cast_wout_bf16()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "pred"
+        st = hyb_r.init_state(sst_month0(g))
+        torch.cuda.synchronize()
+        esn_step.launches = 0
+        esn_step.mode_launches = [0, 0, 0]
+        end, dts = run_prediction(hyb_r, st, date0, CYCLES_IMPORTED,
+                                  output_path=str(out))
+        torch.cuda.synchronize()
+        modes = list(esn_step.mode_launches)
+        z = np.load(str(out) + ".npz")
+        atmo = z["atmo"]
+    want = CYCLES_IMPORTED * len(hyb_r.packs)
+    if modes != [0, 0, want]:
+        fail(f"K1 ran {modes} launches by mode (shifts, shared cols, "
+             f"per-region cols) in {CYCLES_IMPORTED} imported cycles, not "
+             f"{want} in per-region cols")
+    if len(dts) != CYCLES_IMPORTED or not bool(end.safe):
+        fail(f"the imported hybrid stopped after {len(dts)} cycles")
+    if not np.isfinite(atmo).all():
+        fail("the imported hybrid's fields are not finite")
+    tmin, tmax = float(atmo[:, 0].min()), float(atmo[:, 0].max())
+    if not (150.0 <= tmin and tmax <= 350.0):
+        fail(f"the imported hybrid's T is outside [150, 350] K: "
+             f"{tmin}..{tmax}")
+    log(f"reference import: {layout.n_regions} synthesized workers "
+        f"(n: " + ", ".join(f"{n} x {c}" for n, c in sorted(seen.items()))
+        + f"; m={M}, identity model block) assembled on the card in "
+        f"{t_imp:.2f} s wall; {CYCLES_IMPORTED} coupled cycles of "
+        f"run_prediction (bf16 Wout), K1 launched {modes[2]} times in its "
+        f"per-region cols mode (mode 2, win_cols), fields finite, T "
+        f"{tmin:.2f}..{tmax:.2f} K [{card}]")
+    del hyb_r, end, st
+    torch.cuda.empty_cache()
+
+    # -- 11b. boundary files at T30, a GCM on the card from them
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_boundary_files(np, root, g, SEED + 23)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gcm_f = GCM(g, dtype=torch.float32, bc_path=str(root), device=dev)
+        torch.cuda.synchronize()
+        t_gcm = time.perf_counter() - t0
+        cpu_bd = load_boundary_data(g, path=str(root), dtype=torch.float32,
+                                    device="cpu")
+        for k in BoundaryData.__dataclass_fields__:
+            a = getattr(gcm_f.bd, k)
+            if a.device.type != dev.type or not torch.equal(
+                    a.cpu(), getattr(cpu_bd, k)):
+                fail(f"the GCM's boundary field {k} differs from the CPU "
+                     f"load")
+        steps = gcm_f.nsteps_day * 6 // 24
+        state, forcing = gcm_f.init_state(date0)
+        w1 = gcm_f.run_window(gcm_f.stepone(state, forcing), forcing, steps)
+        spec = [getattr(w1.spectral, k) for k in ("vor", "div", "t", "ps",
+                                                  "tr")]
+        if not all(bool(torch.isfinite(torch.view_as_real(v)).all())
+                   for v in spec):
+            fail("the window of the file-loaded GCM is not finite")
+        log(f"boundary files: fort.20-24 and fort.26 at T{g.trunc} "
+            f"({g.nlat}x{g.nlon}, a seeded mixed land mask, land fraction "
+            f"{float(cpu_bd.fmask_l.mean()):.3f}); GCM(bd=None, bc_path=) on "
+            f"the card in {t_gcm:.2f} s, its BoundaryData equal to "
+            f"load_boundary_data on the CPU, field by field and bit for "
+            f"bit; a window ({steps} steps after stepone) finite [{card}]")
+
+        # -- 11c. the GCM restart
+        path = root / "restart.npz"
+        t0 = time.perf_counter()
+        save_gcm_restart(w1, str(path))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_gcm_restart(str(path), gcm_f.init_state(date0)[0])
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+        a = gcm_f.run_window(w1, forcing, steps)
+        b = gcm_f.run_window(back, forcing, steps)
+        if a.istep != b.istep or not all(
+                torch.equal(x, y) for x, y in zip(gcm_leaves(a)[:-1],
+                                                  gcm_leaves(b)[:-1])):
+            fail("the window from the restarted state differs from the "
+                 "window from the original")
+        log(f"GCM restart: save_gcm_restart {t_save:.3f} s "
+            f"({nbytes / 1e6:.3f} MB, {len(gcm_leaves(w1))} leaves), "
+            f"load_gcm_restart onto the card {t_load:.3f} s; the next "
+            f"window from the loaded state equal to the original's, bit for "
+            f"bit; phase 11 took {time.perf_counter() - t_phase:.1f} s "
+            f"[{card}]")
+
+
 def phase_training(torch, gcm, layout, date0, card, record):
     """Phase 10: K14's checks, the nature run and the forecasts,
     train_hybrid_production at full width, its checks and the trained
@@ -643,6 +992,7 @@ def phase_training(torch, gcm, layout, date0, card, record):
                                                     train_class_production,
                                                     train_hybrid_production)
     from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
     from speedy_ml_tpu_torch.hybrid.training import (generate_nature_run,
                                                      make_imperfect_forecasts)
     from speedy_ml_tpu_torch.kernels import column_longwave as clw
@@ -807,13 +1157,15 @@ def phase_training(torch, gcm, layout, date0, card, record):
         f"accumulate stage, solve {solve_flops / 1e12:.2f} TFLOP at "
         f"{solve_flops / timings['solve'] / 1e12:.2f} TFLOP/s [{card}]")
 
-    # -- 10e. the trained weights in the coupled cycle
-    hyb_t.cast_wout_bf16()
-    st = hyb_t.init_state(truth["sst"][-1])
+    # -- 10e. the trained weights in the coupled cycle, in bf16 (a cast
+    #    copy: hyb_t keeps its float32 Wout for 10f)
+    hyb_bf = HybridAtmosphere(gcm, layout, hyb_t.packs, ml_only=False,
+                              device=dev).cast_wout_bf16()
+    st = hyb_bf.init_state(truth["sst"][-1])
     date = dates[-1].advance_hours(6)
     trip = None
     for i in range(CYCLES_TRAINED):
-        st, _ = run_prediction(hyb_t, st, date, 1, stop_if_unsafe=False)
+        st, _ = run_prediction(hyb_bf, st, date, 1, stop_if_unsafe=False)
         date = date.advance_hours(6)
         if trip is None and not bool(st.safe):
             trip = i
@@ -824,8 +1176,12 @@ def phase_training(torch, gcm, layout, date0, card, record):
                          f"cycle {i}")
     log(f"trained weights (bf16 Wout): {CYCLES_TRAINED} coupled cycles of "
         f"run_prediction, state finite; the gate "
-        + ("did not trip" if trip is None else f"tripped at cycle {trip}")
-        + f"; phase 10 took {time.perf_counter() - t_phase:.1f} s")
+        + ("did not trip" if trip is None else f"tripped at cycle {trip}"))
+
+    # -- 10f. the checkpoint at full width
+    phase_checkpoint(torch, gcm, layout, hyb_t, hyb_bf, src, hyper, truth,
+                     dates, wall, card)
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return counts["K14"]
 
 
@@ -2421,6 +2777,9 @@ def main():
     # -- 10. training at full width --------------------------------------
     results["K14_gram_update"]["launches"] = phase_training(
         torch, gcm, hyb.layout, date0, card, record)
+
+    # -- 11. the paths from files ------------------------------------------
+    phase_files(torch, np, gcm, hyb.layout, date0, card)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")

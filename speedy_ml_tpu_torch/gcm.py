@@ -8,8 +8,8 @@ shortwave cadence (every NSTRAD steps) is a Python branch and a window
 makes no host read.
 
 The daily day loop with the slab coupler (run_days) and SPPT come with
-later slices; constructing a GCM needs a BoundaryData (the reader of the
-reference's boundary files is not ported yet).
+later slices.  Without a BoundaryData the GCM reads the reference's
+fort.20-26 files from bc_path or $SPEEDY_ML_BC_PATH.
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ from speedy_ml_tpu_torch.dycore.state import SpectralState
 from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
                                                         spectral_stack)
 from speedy_ml_tpu_torch.kernels.window_select import window_select
-from speedy_ml_tpu_torch.physics.boundaries import (BC_FILES_SLICE,
-                                                    BoundaryData)
+from speedy_ml_tpu_torch.physics.boundaries import (BoundaryData,
+                                                    boundary_path,
+                                                    load_boundary_data)
 from speedy_ml_tpu_torch.physics.driver import (OPTIONAL_SLICE,
                                                 DailyForcing, PhysicsModel,
                                                 RadiationCarry, zero_views)
@@ -88,14 +89,11 @@ class GCM:
         self.device = resolve_device(device)
         if sppt_on:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
-        if bd is None:
-            raise NotImplementedError(
-                f"reading the boundary files (bc_path={bc_path!r}) comes "
-                f"with {BC_FILES_SLICE}; pass bd=synthetic_boundary_data"
-                "(geom, ...) or another BoundaryData")
         if (sstan_monthly is not None or sstom12 is not None
                 or sstan_year0 != 1990):
             raise NotImplementedError(f"SST anomalies come with {SLAB_SLICE}")
+        if bd is None:
+            bc_path = boundary_path(bc_path)
         self.geom = geom
         self.const = constants
         self.dtype = dtype
@@ -106,6 +104,8 @@ class GCM:
         self.phys = PhysicsModel(geom, constants, dtype=dtype,
                                  device=self.device)
         self.sppt = None
+        if bd is None:
+            bd = load_boundary_data(geom, self.sht, constants.grav, bc_path)
         self.bd = bd.to(device=self.device, dtype=dtype)
         self.cpl = cpl_flags if cpl_flags is not None else CplFlags()
         self.nsteps_day = nsteps_day

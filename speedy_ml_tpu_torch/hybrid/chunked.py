@@ -32,12 +32,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
+from speedy_ml_tpu_torch.data.era import era_to_truth
 from speedy_ml_tpu_torch.esn.domain import RegionLayout, build_layout
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                generate, radius_by_lat)
@@ -55,10 +57,6 @@ from speedy_ml_tpu_torch.hybrid.training import (NVAR, as_tensors,
                                                  class_noise,
                                                  precip_noise_info)
 from speedy_ml_tpu_torch.physics.land_sea import SLAB_SLICE
-
-ERA_SLICE = "the ERA5 slice of the port (A13: once data files are in the " \
-    "repository)"
-CKPT_SLICE = "the checkpoint slice of the port (A9)"
 
 
 class ArraySource:
@@ -98,8 +96,77 @@ class ArraySource:
 
 
 class ERASource:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ERASource comes with {ERA_SLICE}")
+    """SeriesSource over yearly ERA5 files (data.era.ERA5Reader) plus an
+    optional model-forecast reader (e.g. data.model_states.ModelStateReader's
+    model_at); loads whole years lazily with an LRU of one year, which
+    matches the reference's year-loop streaming reads
+    (speedy_res_interface.f90:439-632).
+
+    Sample hours live on the 365-day MODEL calendar (8,760 h/year): leap
+    years' Feb-29 records are spliced OUT of the file via
+    ERA5Reader.valid_hour_index (the reference's splice at
+    speedy_res_interface.f90:588-596), and a requested chunk may span a
+    year boundary: the read splits per year-file and concatenates.
+
+    sst_climo: optional (365, lat, lon) daily SST climatology; when given
+    SSTs become anomalies against it (train_on_sst_anomalies).  truth_at
+    and model_at return what ArraySource's do, the same keys as tensors
+    on the CPU; the trainer moves them to its device."""
+
+    VARS = ("t", "u", "v", "q", "logp", "precip", "sst", "tisr")
+
+    def __init__(self, reader, year0: int, n_samples: int,
+                 sample_stride_hours: int = 1, model_reader=None,
+                 sst_climo=None):
+        self.reader = reader
+        self.year0 = year0
+        self._n = n_samples
+        self.stride_h = sample_stride_hours
+        self.model_reader = model_reader
+        self.sst_climo = None if sst_climo is None else np.asarray(sst_climo)
+        self._cache_year = None
+        self._cache = None
+        self._cache_valid = None
+
+    @property
+    def n_samples(self) -> int:
+        return self._n
+
+    def _hours(self, idx: np.ndarray) -> np.ndarray:
+        return np.asarray(idx) * self.stride_h
+
+    def _year_data(self, year: int):
+        """(raw year arrays, Feb-29-spliced hour index) with a 1-year LRU."""
+        if self._cache_year != year:
+            self._cache = self.reader.read_year(year, variables=self.VARS)
+            self._cache_valid = self.reader.valid_hour_index(year)
+            self._cache_year = year
+        return self._cache, self._cache_valid
+
+    def truth_at(self, idx: np.ndarray) -> dict:
+        hours = self._hours(idx)
+        years = self.year0 + hours // 8760
+        parts = []
+        # ascending year order keeps sample order AND leaves the latest
+        # year cached for the caller's next (time-ordered) chunk
+        for y in sorted(int(v) for v in np.unique(years)):
+            off = hours[years == y] - (y - self.year0) * 8760
+            data, valid = self._year_data(y)
+            parts.append({k: data[k][valid[off]] for k in self.VARS})
+        raw = (parts[0] if len(parts) == 1 else
+               {k: np.concatenate([p[k] for p in parts]) for k in self.VARS})
+        truth = era_to_truth(raw, sst_climo=self.sst_climo,
+                             hour_of_year=(hours % 8760
+                                           if self.sst_climo is not None
+                                           else None))
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in truth.items()}
+
+    def model_at(self, idx: np.ndarray) -> Optional[dict]:
+        if self.model_reader is None:
+            return None
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in self.model_reader(self._hours(idx)).items()}
 
 
 # ----------------------------------------------------------------------
@@ -381,6 +448,23 @@ def ocean_series_production(*args, **kwargs):
                               f"{SLAB_SLICE}")
 
 
+def _ckpt_mismatch(meta: dict, layout: RegionLayout, hyper: ESNHyper,
+                   hybrid: bool) -> list:
+    """What differs between a checkpoint's meta.json and this call."""
+    diff = []
+    if meta["n_classes"] != len(layout.classes):
+        diff.append(f"n_classes {meta['n_classes']} (the call: "
+                    f"{len(layout.classes)})")
+    if meta["ml_only"] != (not hybrid):
+        diff.append(f"ml_only {meta['ml_only']} (the call: {not hybrid})")
+    want = dataclasses.asdict(hyper)
+    for i in range(min(meta["n_classes"], len(layout.classes))):
+        got = meta[f"hyper_{i}"]
+        diff += [f"class {i} {k} {got.get(k)!r} (the call: {v!r})"
+                 for k, v in want.items() if got.get(k) != v]
+    return diff
+
+
 def train_hybrid_production(gcm, layout: RegionLayout, source,
                             hyper: ESNHyper, seed: int, *,
                             ocean: bool = False, ocean_hyper=None,
@@ -393,20 +477,39 @@ def train_hybrid_production(gcm, layout: RegionLayout, source,
     hybrid atmosphere on `device` (default CUDA; raises without one).
     Class i draws from derive_seed(seed, i); keywords go to
     train_class_production (dtype defaults to the GCM's, the dtype the
-    cycle runs in).  The slab ocean (ocean, ocean_hyper, hybrid_ocean,
-    slab_stride, ocean_region_chunk) comes with A10 and a checkpoint
-    (atmo_ckpt) with A9: anything but their defaults raises rather than
-    half work."""
+    cycle runs in).
+
+    atmo_ckpt: a directory for the trained atmosphere: saved there
+    (data.checkpoint.save_hybrid, meta.json written last) once the
+    classes are trained, and loaded instead of training when a complete
+    checkpoint (one with meta.json) is there.  One whose n_classes,
+    ml_only or hyperparameters differ from this call's raises ValueError
+    naming what differs; a directory without meta.json is trained again
+    and replaced.
+
+    The slab ocean (ocean, ocean_hyper, hybrid_ocean, slab_stride,
+    ocean_region_chunk) comes with A10: anything but its defaults raises
+    rather than half work."""
+    from speedy_ml_tpu_torch.data.checkpoint import (load_hybrid, read_meta,
+                                                     save_hybrid)
     if (ocean or hybrid_ocean or ocean_hyper is not None
             or slab_stride != 28 or ocean_region_chunk != 32):
         raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
-    if atmo_ckpt is not None:
-        raise NotImplementedError(f"atmo_ckpt comes with {CKPT_SLICE}")
     device = resolve_device(device)
     kw.setdefault("dtype", gcm.dtype)
+    if atmo_ckpt is not None and (Path(atmo_ckpt) / "meta.json").exists():
+        diff = _ckpt_mismatch(read_meta(atmo_ckpt), layout, hyper, hybrid)
+        if diff:
+            raise ValueError(f"the checkpoint at {atmo_ckpt} was trained "
+                             f"otherwise: " + "; ".join(diff))
+        return load_hybrid(gcm, layout, atmo_ckpt, dtype=kw["dtype"],
+                           device=device)
     packs = [train_class_production(layout, cls, source, hyper,
                                     derive_seed(seed, i), gcm.geom.nlev,
                                     hybrid=hybrid, device=device, **kw)
              for i, cls in enumerate(layout.classes)]
-    return HybridAtmosphere(gcm, layout, packs, ml_only=not hybrid,
-                            device=device)
+    hyb = HybridAtmosphere(gcm, layout, packs, ml_only=not hybrid,
+                           device=device)
+    if atmo_ckpt is not None:
+        save_hybrid(hyb, atmo_ckpt)
+    return hyb

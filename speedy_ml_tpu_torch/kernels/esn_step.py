@@ -135,7 +135,11 @@ def esn_step(vals, x, u=None, win_vals=None, *, shifts=None, cols=None,
         float(leakage), float(1.0 - leakage), y.data_ptr(), kb.stream_of(x))
     kb.check(code, "esn_step")
     esn_step.launches += 1
+    esn_step.mode_launches[mode] += 1
     return y
 
 
 esn_step.launches = 0
+# the launches by mode: 0 shared shifts, 1 shared cols (n, J), 2 per-region
+# cols (R, n, J) (reference-imported reservoirs)
+esn_step.mode_launches = [0, 0, 0]

@@ -263,7 +263,7 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
                                ml_only=False, device="cpu")
 
 
-def test_unported_options_raise(pair_f64, coupled_pair):
+def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     """The options of later slices raise; ml_only=False now runs."""
     _, thyb = pair_f64
     _, chyb = coupled_pair
@@ -294,8 +294,12 @@ def test_unported_options_raise(pair_f64, coupled_pair):
     with pytest.raises(NotImplementedError, match="persist_surface"):
         chyb.speedy_window(None, None, 0, 0.5, 0.05, sfc_carry=object())
     g, bd = chyb.gcm.geom, chyb.gcm.bd
-    for kw, match in ((dict(), "boundary files"),
-                      (dict(bd=bd, sppt_on=True), "SPPT"),
+    # without bd the GCM reads the boundary files, from $SPEEDY_ML_BC_PATH
+    # when no bc_path is given (tests/test_torch_boundaries.py)
+    monkeypatch.delenv("SPEEDY_ML_BC_PATH", raising=False)
+    with pytest.raises(FileNotFoundError, match="boundary files"):
+        GCM(g, dtype=torch.float64, device="cpu")
+    for kw, match in ((dict(bd=bd, sppt_on=True), "SPPT"),
                       (dict(bd=bd, cgrate_on=True), "cgrate"),
                       (dict(bd=bd, sstan_monthly=np.zeros(1)), "anomal")):
         with pytest.raises(NotImplementedError, match=match):

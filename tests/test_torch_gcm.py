@@ -87,7 +87,7 @@ def test_init_stepone_and_leapfrog_match(pair):
     _close_gcm_state(a, b)
 
 
-def test_boundary_conversion_and_unported_options(pair):
+def test_boundary_conversion_and_unported_options(pair, monkeypatch):
     jgcm, tgcm = pair
     bd = boundary_from_numpy(jgcm.bd, device="cpu", dtype=torch.float64)
     for k in bd.__dataclass_fields__:
@@ -95,7 +95,10 @@ def test_boundary_conversion_and_unported_options(pair):
                                       getattr(tgcm.bd, k).numpy(), k)
     _close(tgcm.phis, jgcm.phis, 1e-12)
     g = tgcm.geom
-    with pytest.raises(NotImplementedError, match="boundary files"):
+    # without bd the GCM reads the boundary files: from bc_path or
+    # $SPEEDY_ML_BC_PATH (tests/test_torch_boundaries.py), else it raises
+    monkeypatch.delenv("SPEEDY_ML_BC_PATH", raising=False)
+    with pytest.raises(FileNotFoundError, match="boundary files"):
         GCM(g, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="SPPT"):
         GCM(g, bd=tgcm.bd, sppt_on=True, device="cpu")

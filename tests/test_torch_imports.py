@@ -59,6 +59,31 @@ def test_training_modules_are_checked():
         assert repr(name) in out.stdout, name
 
 
+IO_MODULES = ("data/checkpoint.py", "data/era.py", "data/model_states.py",
+              "data/reference_import.py", "physics/boundaries.py")
+
+
+def test_port_imports_without_h5py():
+    """The machine with the card has no h5py: every module of the port
+    and chip_smoke import with it hidden (the readers import it where
+    they read), and still load no JAX; the reader modules are among
+    them."""
+    code = "import sys\nsys.modules['h5py'] = None\n" + _IMPORT_ALL.replace(
+        "print(len(names), bad)",
+        "assert 'h5py' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print(len(names), bad, sorted(names))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad, names = out.stdout.strip().split(" ", 2)
+    assert int(n) >= 20 and bad == "[]"
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(IO_MODULES) <= files
+    for m in IO_MODULES:
+        assert repr("speedy_ml_tpu_torch." + m[:-3].replace("/", ".")) \
+            in names, m
+
+
 def _imported_modules(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -140,6 +165,18 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
                                 ESNHyper(), 0, 8),
             lambda: streaming_standardizer(layout, layout.classes[0], src,
                                            8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    from speedy_ml_tpu_torch.data.checkpoint import load_hybrid
+    from speedy_ml_tpu_torch.data.reference_import import (
+        assemble_reference_class, import_reference_weights)
+    from speedy_ml_tpu_torch.physics.boundaries import load_boundary_data
+    for call in (
+            lambda: load_hybrid(gcm, layout, str(tmp_path / "none")),
+            lambda: import_reference_weights(gcm, layout, 8, None),
+            lambda: assemble_reference_class(layout, layout.classes[0], [],
+                                             8),
+            lambda: load_boundary_data(g, path=str(tmp_path / "none"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,6 +1,7 @@
 """The port's entry points take every option the JAX package's take.
 
-For GCM, train_hybrid and train_hybrid_production, every parameter with
+For GCM, train_hybrid, train_hybrid_production, the checkpoint loader
+and the data readers, every parameter with
 a default in the JAX entry point (inspect.signature) is a parameter of the
 port's with the same default: the same value, or for the two frameworks'
 own types the counterpart (jnp.float32 -> torch.float32, the dataclasses
@@ -19,21 +20,55 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from speedy_ml_tpu.data import checkpoint as jck
+from speedy_ml_tpu.data import era as jera
+from speedy_ml_tpu.data import model_states as jms
+from speedy_ml_tpu.data import reference_import as jri
 from speedy_ml_tpu.gcm import GCM as JGCM
+from speedy_ml_tpu.hybrid import chunked as jchunked
 from speedy_ml_tpu.hybrid.chunked import \
     train_hybrid_production as j_train_production
 from speedy_ml_tpu.hybrid.training import train_hybrid as j_train_hybrid
+from speedy_ml_tpu.physics import boundaries as jbd
 from speedy_ml_tpu_torch.core.geometry import Geometry
+from speedy_ml_tpu_torch.data import checkpoint as tck
+from speedy_ml_tpu_torch.data import era as tera
+from speedy_ml_tpu_torch.data import model_states as tms
+from speedy_ml_tpu_torch.data import reference_import as tri
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.gcm import GCM
+from speedy_ml_tpu_torch.hybrid import chunked as tchunked
 from speedy_ml_tpu_torch.hybrid.chunked import train_hybrid_production
 from speedy_ml_tpu_torch.hybrid.training import train_hybrid
+from speedy_ml_tpu_torch.physics import boundaries as tbd
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
 
 PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
          "train_hybrid": (j_train_hybrid, train_hybrid),
          "train_hybrid_production": (j_train_production,
-                                     train_hybrid_production)}
+                                     train_hybrid_production),
+         # the checkpoints and the data readers (A9, A13, A13b)
+         "load_hybrid": (jck.load_hybrid, tck.load_hybrid),
+         "load_boundary_data": (jbd.load_boundary_data,
+                                tbd.load_boundary_data),
+         "ERASource": (jchunked.ERASource.__init__,
+                       tchunked.ERASource.__init__),
+         "ERA5Reader": (jera.ERA5Reader.__init__, tera.ERA5Reader.__init__),
+         "ERA5Reader.stream_samples": (jera.ERA5Reader.stream_samples,
+                                       tera.ERA5Reader.stream_samples),
+         "era_to_truth": (jera.era_to_truth, tera.era_to_truth),
+         "ModelStateReader": (jms.ModelStateReader.__init__,
+                              tms.ModelStateReader.__init__),
+         "write_model_states": (jms.write_model_states,
+                                tms.write_model_states),
+         "generate_model_state_files": (jms.generate_model_state_files,
+                                        tms.generate_model_state_files),
+         "synthesize_reference_worker": (jri.synthesize_reference_worker,
+                                         tri.synthesize_reference_worker),
+         "assemble_reference_class": (jri.assemble_reference_class,
+                                      tri.assemble_reference_class),
+         "import_reference_weights": (jri.import_reference_weights,
+                                      tri.import_reference_weights)}
 # each unported option with a value other than its default
 UNPORTED = {
     "GCM": {"sstan_year0": 1991},

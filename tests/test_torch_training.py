@@ -359,10 +359,6 @@ def test_unported_options_raise(layouts, nature_pair):
         (lambda: chunked.train_hybrid_production(tgcm, tl, src, HYPER, 0,
                                                  ocean=True, device="cpu"),
          "A10"),
-        (lambda: chunked.train_hybrid_production(tgcm, tl, src, HYPER, 0,
-                                                 atmo_ckpt="x",
-                                                 device="cpu"), "A9"),
-        (lambda: chunked.ERASource(None, 1990, 10), "A13"),
     ]
     for call, slice_ in cases:
         with pytest.raises(NotImplementedError, match=slice_):
