@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (speedy_ml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--ptxas] [--kernels] [--k14-lists]
+    python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -121,7 +121,23 @@ Phases, each fatal on failure (exit code 1, no result line):
      the card, its BoundaryData equal to load_boundary_data on the CPU bit
      for bit, one window finite; save_gcm_restart of that window's state,
      load_gcm_restart into a fresh state, the next window equal to the
-     original's bit for bit.
+     original's bit for bit;
+ 12. the persistent coupled surface and the daily slab coupler
+     (phase_surface): K21 slab_couple in its three forms (accumulate,
+     couple with icsea 0, 2, 3, 4 and isstan 1, the day form with three
+     anomaly planes; the gate tripped over window sums holding NaN) and
+     K17's carry form against their plain versions, float32 and float64,
+     0 difference, timed; eight persistent coupled cycles at full width
+     through run_prediction on the aquaplanet with smooth continents (K21
+     eight launches, the sums zero after cycles 4 and 8 only, stl_lm off
+     the climatology over land after a coupling, fields finite, T in
+     [150, 350] K), four more with host syncs forbidden, launches a cycle
+     (at most LAUNCHES_MAX + 1), busy and cycle_ms; the gate's select
+     (safe false keeps the sums bit for bit); GCM.run_days for 2 days with
+     icsea 2, isstan 1 and seeded anomalies (sst_am the ice blend of
+     sst_om within 1e-4 K, s a day, launches a day) and
+     generate_nature_run with its default 5 days of spin-up.
+--surface runs phase 12 alone after phase 3 (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -231,13 +247,17 @@ RESIDUAL_MAX = 1e-8
 # 5,760) in the reference-format workers, and the imported cycles
 LAND_SHARE = 0.3
 CYCLES_IMPORTED = 4
+# phase 12: the persistent coupled cycles (two couplings) and the days of
+# GCM.run_days
+PERSIST_CYCLES = 8
+RUN_DAYS = 2
 # torch.profiler sessions: idle time at either end of the profiled work,
 # and how often a session that saw no device event is run again
 PROFILE_PAD_S = 0.02
 PROFILE_TRIES = 3
 # the record_function ranges of the coupled cycle
 RANGES = ("predict_all", "inject_to_speedy", "speedy_window", "physics",
-          "build_feedback", "build_local_model")
+          "build_feedback", "build_local_model", "slab_couple")
 
 
 def fail(msg: str):
@@ -978,6 +998,372 @@ def phase_files(torch, np, gcm, layout, date0, card):
             f"[{card}]")
 
 
+def continents_bd(torch, np, bd, geom):
+    """The boundary data `bd` (the synthetic aquaplanet) with smooth
+    continents and a fractional coast (fmask_l from 0 to 1), its other
+    fields as they are: land for the slab land model to move, on which
+    SPEEDY runs."""
+    lat = geom.lat_radians[:, None]
+    lon = np.arange(geom.nlon)[None, :] * 2 * np.pi / geom.nlon
+    fm = np.clip(0.5 + np.cos(2 * lon) * np.cos(lat)
+                 + 0.4 * np.sin(lon + 3 * lat), 0.0, 1.0)
+    t = lambda a: torch.as_tensor(a, dtype=bd.fmask_l.dtype,
+                                  device=bd.fmask_l.device)
+    return dataclasses.replace(
+        bd, fmask=t(fm), fmask_l=t(fm), fmask_s=t(1.0 - fm),
+        bmask_l=t((fm > 0.5).astype(float)),
+        bmask_s=t((fm <= 0.5).astype(float)))
+
+
+def phase_surface(torch, np, gcm, hyb, date0, card, record, kernels):
+    """Phase 12: the persistent coupled surface and the daily slab
+    coupler.  (a) K21 in its three forms (accumulate, couple with icsea
+    0, 2, 3 and 4 and isstan 1, the day form with three anomaly planes),
+    with a tripped gate over window sums that hold NaN, and K17's carry
+    form, against their plain versions in float32 and float64 on a seeded
+    mixed land mask with sea ice: 0 difference; timed. (b) Eight
+    persistent coupled cycles at full width from step 0 through
+    run_prediction, on the aquaplanet with smooth continents: K21 eight
+    launches, the sums zero after cycles 4 and 8 and non-zero and finite
+    otherwise, stl_lm off the climatology over land after a coupling,
+    the fields finite and T in [150, 350] K, four more cycles with host
+    syncs forbidden, launches a cycle (at most LAUNCHES_MAX + 1) and
+    device busy. (c) The gate's select (C4): a cycle from a state whose
+    safe is false keeps the sums bit for bit, and a coupling from one
+    gives a finite surface. (d) GCM.run_days for 2 days with
+    CplFlags(icsea=2, isstan=1) and a seeded anomaly series, sst_am the
+    ice blend of sst_om within 1e-4 K; then generate_nature_run with its
+    default 5 days of spin-up.  Returns K21's launches in (b)."""
+    from speedy_ml_tpu_torch.data.calendar import ModelDate
+    from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+    from speedy_ml_tpu_torch.hybrid.training import generate_nature_run
+    from speedy_ml_tpu_torch.kernels import slab_couple as k21
+    from speedy_ml_tpu_torch.kernels import surface_forcing as sfk
+    from speedy_ml_tpu_torch.physics import land_sea
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    g = gcm.geom
+    nlat, nlon = g.nlat, g.nlon
+    G = nlat * nlon
+    imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
+    lat_deg = np.rad2deg(g.lat_radians)
+
+    # -- (a) the kernels against their plain versions ---------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rnd = lambda lo, hi, *lead: lo + (hi - lo) * torch.rand(
+        lead + (nlat, nlon), generator=gen, device=dev, dtype=f64)
+    fm = torch.where(rnd(0, 1) < 0.4, 0.0, rnd(0, 1))
+    bd64 = dataclasses.replace(
+        gcm.bd.to(dtype=f64), fmask_l=fm, fmask_s=1.0 - fm,
+        phis0=2.0e4 * fm * rnd(0, 1), alb0=rnd(0.1, 0.6),
+        stl12=rnd(250, 310, 12), snowd12=rnd(0, 100, 12),
+        soilw12=rnd(0, 1, 12), sst12=rnd(268, 305, 12),
+        sice12=torch.where(rnd(0, 1, 12) < 0.5, 0.0, rnd(0, 1, 12)))
+    ops64 = dict(pert=[rnd(-2, 2) for _ in range(3)],
+                 acc=[rnd(-60, 60) for _ in range(4)],
+                 win=[rnd(-20, 20) for _ in range(4)], an=rnd(-1.5, 1.5),
+                 planes=[rnd(-1.5, 1.5) for _ in range(3)],
+                 om12=bd64.sst12 + rnd(-0.5, 0.5, 12),
+                 stl=rnd(250, 310))
+    wsst64 = torch.as_tensor(land_sea.sea_domain_mask("elnino", lat_deg,
+                                                      nlon), device=dev)
+    forms = [("accumulate", 0, True), ("accumulate, gate tripped", 0, False),
+             ("couple icsea 0", 0, True), ("couple icsea 2", 2, True),
+             ("couple icsea 3 (sstom12)", 3, True), ("couple icsea 4", 4,
+                                                      True),
+             ("couple, gate tripped", 0, False), ("day fmon 0.25", 0, True),
+             ("day fmon 0.75", 2, True)]
+    worst, k21_err, main_args = {}, 0.0, None
+    for dt in (f32, f64):
+        c = lambda t: t.to(dt).contiguous()
+        bd_ = bd64.to(dtype=dt)
+        clim = land_sea.init_surface_state(bd_, imon, fmon,
+                                           flags=land_sea.CplFlags(icsea=2))
+        carry = dataclasses.replace(clim, **{
+            k: getattr(clim, k) + c(p) for k, p in zip(
+                ("stl_lm", "sst_om", "tice_om"), ops64["pert"])})
+        acc = [c(a) for a in ops64["acc"]]
+        win = [c(w) for w in ops64["win"]]
+        win_nan = [w.clone() for w in win]
+        for w in win_nan:
+            w[nlat // 2, 7] = float("nan")
+        coef = land_sea.build_slab_coeffs(bd_, lat_deg, dt, device=dev)
+        for label, icsea, gate in forms:
+            flags = land_sea.CplFlags(icsea=icsea, isstan=1)
+            kw = dict(wsst=c(wsst64),
+                      sstom12=c(ops64["om12"]) if icsea == 3 else None)
+            month = (imon, fmon)
+            if label.startswith("day"):
+                fm_ = float(label.split()[-1])
+                month = (imon, fm_)
+                kw.update(sstan=([c(p) for p in ops64["planes"]], fm_))
+            else:
+                kw.update(window=win if gate else win_nan,
+                          ok=torch.tensor(gate, device=dev),
+                          do_couple=label.startswith("couple"),
+                          sstan=c(ops64["an"]))
+            k = k21.slab_couple(bd_, coef, carry, acc, month, flags, **kw)
+            p = k21.slab_couple_plain(bd_, coef, carry, acc, month, flags,
+                                      **kw)
+            err = 0.0
+            for a, b in zip(k, p):
+                if (a is None) != (b is None):
+                    fail(f"K21 ({label}) returned other outputs than its "
+                         f"plain version")
+                if a is None:
+                    continue
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"K21 ({label}, {dt}) is not finite")
+                err = max(err, max_abs_diff(torch, a, b))
+            worst[f"{label}, {str(dt)[6:]}"] = err
+            if dt == f32:
+                k21_err = max(k21_err, err)
+            if label == "couple icsea 0" and dt == f32:
+                main_args = (bd_, coef, carry, acc, month, flags,
+                             dict(kw, sstan=None),
+                             [c(p) for p in ops64["planes"]])
+        # K17's carry form: the forcing reads the carried stl_lm
+        day = (gcm.phys.day_args(tyear) if dt == f32 else sfk.DayArgs(
+            tyear, torch.as_tensor(g.sin_lat, dtype=f64, device=dev),
+            torch.as_tensor(g.cos_lat, dtype=f64, device=dev),
+            gcm.phys.gamlat, gcm.phys.pexp))
+        stl = c(ops64["stl"])
+        ks, kf = sfk.surface_forcing(bd_, month=(imon, fmon), day=day,
+                                     sst_hybrid=bd_.sst12[imon] - 1.0,
+                                     stl_carry=stl)
+        ps = sfk.surface_plain(bd_, imon, fmon,
+                               sst_hybrid=bd_.sst12[imon] - 1.0)
+        q = dict(zip(sfk.SURFACE, ps))
+        pf = sfk.forcing_plain(bd_, stl, q["snowd"], q["sst_am"], q["sice"],
+                               day, nlon)
+        e17 = max(max_abs_diff(torch, ks, ps), max_abs_diff(torch, kf, pf))
+        worst[f"K17 carry form, {str(dt)[6:]}"] = e17
+    bad = {k: v for k, v in worst.items() if v > 0}
+    log(f"K21 slab_couple and K17's carry form against their plain "
+        f"versions ({len(worst)} cases, float32 and float64, a seeded "
+        f"mixed land mask with sea ice; the gate tripped over window sums "
+        f"holding NaN): max_abs_err {max(worst.values()):.3e} "
+        f"(tolerance 0); cases that differ: {bad or 'none'}")
+    if bad:
+        fail("K21 or K17's carry form disagrees with its plain version")
+    # times: the cycle's two forms and the day form, float32 at T30
+    bd_, coef, carry, acc, month, flags, kw, planes = main_args
+    win, ok = kw["window"], kw["ok"]
+    couple = lambda: k21.slab_couple(bd_, coef, carry, acc, month, flags,
+                                     window=win, ok=ok, do_couple=True)
+    accum = lambda: k21.slab_couple(bd_, coef, carry, acc, month, flags,
+                                    window=win, ok=ok, do_couple=False)
+    day_kw = dict(sstan=(planes, fmon))
+    dayf = lambda: k21.slab_couple(bd_, coef, carry, acc, month, flags,
+                                   **day_kw)
+    # bytes: couple, the months forin5 and forint read (16 planes), the
+    # carry (3), the coefficients (6), the sums and the window's (8), the
+    # flag, out 10 + 4 planes; accumulate 8 in, 4 out; the day form 16 +
+    # 3 + 6 + 4 + 3 in, 10 out.  Operations: ~80 a point when coupling
+    nb = lambda planes: 4 * G * planes
+    (kc, kc_c), kc_runs = measure_median(torch, couple)
+    (ka, _), _ = measure_median(torch, accum)
+    (kd, _), _ = measure_median(torch, dayf)
+    ba = bound_ms(nb(12), 4 * G, PEAK_F32_S)
+    bday = bound_ms(nb(42), 80 * G, PEAK_F32_S)
+    log(f"K21 sessions, couple form (device ms): "
+        + ", ".join(f"{r:.4f}" for r in kc_runs)
+        + f"; accumulate form {ka:.4f} ms (bound {ba[0]:.5f}); day form "
+        f"{kd:.4f} ms (bound {bday[0]:.5f}) [{card}]")
+    record("K21_slab_couple",
+           "speedy_ml_tpu_torch/kernels/csrc/slab_couple.cu",
+           "speedy_ml_tpu/physics/land_sea.py:244", k21_err, 0.0,
+           (kc, kc_c),
+           measure(torch, lambda: k21.slab_couple_plain(
+               bd_, coef, carry, acc, month, flags, window=win, ok=ok,
+               do_couple=True), reps=10),
+           bound_ms(nb(47) + 1, 80 * G, PEAK_F32_S))
+
+    # -- (b) eight persistent coupled cycles at full width ----------------
+    gcm_l = GCM(g, dtype=f32, bd=continents_bd(torch, np, gcm.bd, g),
+                device=dev)
+    h = HybridAtmosphere(gcm_l, hyb.layout, hyb.packs, ml_only=False,
+                         device=dev)
+    h.persist_surface = True
+    land = gcm_l.bd.fmask_l >= 1.0 / 3.0
+    out = ROOT / "output" / "chip_smoke" / "prediction_persist.npz"
+    s = h.init_state(sst_month0(g))
+    date = date0
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    walls, notes = [], []
+    for i in range(1, PERSIST_CYCLES + 1):
+        out.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        s, dts = run_prediction(h, s, date, 1, output_path=str(out))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(dts) != 1 or not bool(s.safe):
+            fail(f"persistent cycle {i} tripped the gate")
+        z = np.load(out)
+        t_field = z["atmo"][:, 0]
+        if not all(np.isfinite(z[k]).all() for k in z.files) or not (
+                150.0 <= t_field.min() and t_field.max() <= 350.0):
+            fail(f"persistent cycle {i}: fields not finite or T outside "
+                 f"[150, 350] K ({t_field.min()}..{t_field.max()})")
+        for k in s.sfc.__dataclass_fields__:
+            if not bool(torch.isfinite(getattr(s.sfc, k)).all()):
+                fail(f"persistent cycle {i}: sfc.{k} is not finite")
+        fx = torch.stack([s.fluxes.hflux_l, s.fluxes.hflux_s,
+                          s.fluxes.hflux_i, s.fluxes.precip])
+        fx_max = float(fx.abs().max())
+        if not bool(torch.isfinite(fx).all()) or (
+                (fx_max == 0.0) != (i % 4 == 0)):
+            fail(f"persistent cycle {i}: the sums {fx_max:.3e} (zero "
+                 f"only after a coupling, finite)")
+        if i % 4 == 0:
+            stlcl = sfk.surface_plain(gcm_l.bd, date.month - 1,
+                                      date.tmonth)[0]
+            moved = float((s.sfc.stl_lm - stlcl).abs()[land].max())
+            if not moved > 0.0:
+                fail(f"cycle {i} coupled, but stl_lm over land is the "
+                     f"climatology")
+            notes.append(f"after cycle {i} stl_lm {moved:.3f} K off the "
+                         f"climatology over land")
+        else:
+            notes.append(f"sums after cycle {i} max {fx_max:.4g}")
+        date = date.advance_hours(6)
+    torch.cuda.synchronize()
+    n21 = k21.slab_couple.launches
+    n17 = kernels["K17_surface_forcing"].launches
+    if n21 != PERSIST_CYCLES or n17 != PERSIST_CYCLES + 1:
+        fail(f"persistent cycles: K21 {n21} and K17 {n17} launches, "
+             f"expected {PERSIST_CYCLES} and {PERSIST_CYCLES + 1}")
+    log(f"persistent surface: {PERSIST_CYCLES} coupled cycles through "
+        f"run_prediction from step 0, K21 {n21} launches, K17 {n17} (one "
+        f"more: the first cycle's climatology); " + "; ".join(notes)
+        + f"; T {t_field.min():.2f}..{t_field.max():.2f} K; wall per "
+        f"cycle with the "
+        f"writer {', '.join(f'{w:.3f}' for w in walls)} s")
+    # no host sync in four cycles (an accumulation to a coupling)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            s, _ = h.cycle(s, date.month - 1, date.tmonth, date.tyear)
+            date = date.advance_hours(6)
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"a persistent cycle synchronizes with the host: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # launches and busy a cycle, and the cycle's wall time.  After the
+    # long phases before it a short profile can drop device events: the
+    # session is run again while it saw fewer of the port's kernels than
+    # the wrappers count for the same work
+    ours = port_kernel_names()
+
+    def profile_all(fn):
+        for w in kernels.values():
+            w.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        n_kern = sum(w.launches for w in kernels.values())
+        return profile_counts(torch, fn, 1, lambda kk: sum(
+            e.count for e in kk if kernel_name(e.key) in ours) < n_kern)
+
+    n_prof = 4
+    busy, kern, _ = profile_all(lambda: run_prediction(h, s, date, n_prof))
+    launches = sum(e.count for e in kern) / n_prof
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_prediction(h, s, date, N_TIMED)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / N_TIMED * 1e3)
+    walls.sort()
+    log(f"persistent coupled cycle: {launches:g} device launches a cycle "
+        f"(at most {LAUNCHES_MAX + 1}), device busy {busy / n_prof:.4f} "
+        f"ms/cycle, cycle_ms {walls[2]:.4f} median (min {walls[0]:.4f}, "
+        f"max {walls[-1]:.4f}) over 5 x {N_TIMED} cycles, idle share "
+        f"{1 - busy / n_prof / walls[2]:.1%} [{card}]")
+    if launches > LAUNCHES_MAX + 1:
+        fail(f"{launches:g} launches a persistent cycle, more than "
+             f"{LAUNCHES_MAX + 1}")
+
+    # -- (c) the gate's select (C4) ----------------------------------------
+    unsafe = torch.zeros((), dtype=torch.bool, device=dev)
+    s_acc = dataclasses.replace(s, safe=unsafe, step=4 * (s.step // 4) + 1)
+    s2, _ = h.cycle(s_acc, date.month - 1, date.tmonth, date.tyear)
+    before = torch.stack(list(dataclasses.astuple(s_acc.fluxes)))
+    after = torch.stack(list(dataclasses.astuple(s2.fluxes)))
+    if bool(s2.safe) or not torch.equal(before, after) or not bool(
+            torch.isfinite(after).all()) or s2.sfc is not s_acc.sfc:
+        fail("a cycle with the gate tripped changed the sums or the "
+             "surface")
+    s_cpl = dataclasses.replace(s, safe=unsafe, step=4 * (s.step // 4) + 3)
+    s3, _ = h.cycle(s_cpl, date.month - 1, date.tmonth, date.tyear)
+    if not all(bool(torch.isfinite(getattr(s3.sfc, k)).all())
+               for k in s3.sfc.__dataclass_fields__):
+        fail("a coupling with the gate tripped gave a surface that is not "
+             "finite")
+    if float(torch.stack(list(dataclasses.astuple(
+            s3.fluxes))).abs().max()) != 0.0:
+        fail("a coupling with the gate tripped left non-zero sums")
+    log("gate (C4): with safe false a persistent cycle keeps the sums bit "
+        "for bit (finite) and the surface; a coupling with it gives a "
+        "finite surface and zero sums")
+
+    # -- (d) the day loop and the nature run's spin-up ----------------------
+    sstan = np.random.default_rng(SEED + 22).normal(
+        0.0, 1.0, (24, nlat, nlon)).astype(np.float32)
+    gcm_d = GCM(g, dtype=f32, bd=gcm_l.bd, device=dev,
+                cpl_flags=land_sea.CplFlags(icsea=2, isstan=1),
+                sstan_monthly=sstan, sstan_year0=1990)
+    d0 = ModelDate(1990, 6, 1)
+    st, fo = gcm_d.init_state(d0)
+    st = gcm_d.stepone(st, fo)
+    torch.cuda.synchronize()
+    k21.slab_couple.launches = 0
+    t0 = time.perf_counter()
+    st, d2 = gcm_d.run_days(st, d0, RUN_DAYS)
+    torch.cuda.synchronize()
+    sec_day = (time.perf_counter() - t0) / RUN_DAYS
+    sf = st.sfc
+    blend = sf.sst_om + sf.sice_am * (sf.tice_am - sf.sst_om)
+    e_blend = max_abs_diff(torch, sf.sst_am, blend)
+    atmo, _, _ = gcm_d.grid_state(st.spectral)
+    if (k21.slab_couple.launches != RUN_DAYS or e_blend > 1e-4
+            or not bool(torch.isfinite(atmo).all())
+            or not (150.0 <= float(atmo[0].min())
+                    and float(atmo[0].max()) <= 350.0)):
+        fail(f"run_days: K21 {k21.slab_couple.launches} launches, sst_am "
+             f"{e_blend:.3e} K off the ice blend of sst_om, or the state "
+             f"not finite / T out of range")
+    busy_d, kern_d, _ = profile_all(lambda: gcm_d.run_days(st, d2, 1))
+    log(f"run_days (icsea 2, isstan 1, anomalies): {RUN_DAYS} days to "
+        f"{d2.year}-{d2.month:02d}-{d2.day:02d}, {sec_day:.3f} s a day, "
+        f"{sum(e.count for e in kern_d):g} device launches and "
+        f"{busy_d:.3f} device ms a day; sst_am {e_blend:.3e} K off "
+        f"sst_om's ice blend (tolerance 1e-4), T "
+        f"{float(atmo[0].min()):.2f}..{float(atmo[0].max()):.2f} K "
+        f"[{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    truth, _, dates = generate_nature_run(gcm_l, date0, 4)
+    torch.cuda.synchronize()
+    t_nature = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v).all()) for v in truth.values()) or (
+            dates[0].day != 6):
+        fail("the nature run after its 5-day spin-up is not finite or "
+             "starts on the wrong day")
+    log(f"generate_nature_run, 5 days of spin-up (its default) and 4 "
+        f"samples: {t_nature:.2f} s; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return n21
+
+
 def phase_training(torch, gcm, layout, date0, card, record):
     """Phase 10: K14's checks, the nature run and the forecasts,
     train_hybrid_production at full width, its checks and the trained
@@ -1192,6 +1578,10 @@ def main():
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel checks (phase 4); prints "
                          "no result line")
+    ap.add_argument("--surface", action="store_true",
+                    help="after the hybrids, run phase 12 (the persistent "
+                         "surface and the slab coupler, K21) alone; prints "
+                         "no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -1253,6 +1643,7 @@ def main():
         inject_spectral_plain, inject_synthesis)
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
                                                      readout_plain)
+    from speedy_ml_tpu_torch.kernels.slab_couple import slab_couple
     from speedy_ml_tpu_torch.kernels.readout import \
         vector_path as readout_vector_path
     from speedy_ml_tpu_torch.kernels.sht_analysis import (
@@ -1347,6 +1738,33 @@ def main():
             bound_ms=bound[0], bound_by=bound[1],
             library_ms=None if library is None else library[0])
         return ok
+
+    # every kernel's wrapper, by its name in the kernels line
+    kernels = {"K1_esn_step": esn_step, "K2_readout_scatter": readout,
+               "K3_window_gather": window_gather,
+               "K5_sht_analysis": sht_analysis,
+               "K6_sht_synthesis": sht_synthesis,
+               "K7_grid_dynamics": grid_dynamics,
+               "K8_spectral_tail": spectral_tail,
+               "K9_column_moist": column_moist,
+               "K9_moist_shortwave": moist_shortwave,
+               "K10a_down_surface": clw.down_surface,
+               "K10b_radlw_up": clw.radlw_up,
+               "K12_column_pbl": column_pbl,
+               "K12_pbl_flux": pbl_flux,
+               "K15_spectral_stack": spectral_stack,
+               "K17_surface_forcing": sfc_forcing.surface_forcing,
+               "K17b_tisr_plane": sfc_forcing.tisr_plane,
+               "K6_inject_synthesis": inject_synthesis,
+               "K19_gate_check": gate_check,
+               "K20_window_select": window_select,
+               "K21_slab_couple": slab_couple}
+    if args.surface:
+        phase_surface(torch, np, gcm, hyb, date0, card, record, kernels)
+        log(f"chip_smoke --surface: phase 12 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
 
     ok = True
     # K1: ESN step, all classes (one launch each), plus the linear mode
@@ -2353,28 +2771,12 @@ def main():
     del gcm_c
 
     # -- 6. the ML-only main path (PR 1's phases, shortened) -------------
-    kernels = {"K1_esn_step": esn_step, "K2_readout_scatter": readout,
-               "K3_window_gather": window_gather,
-               "K5_sht_analysis": sht_analysis,
-               "K6_sht_synthesis": sht_synthesis,
-               "K7_grid_dynamics": grid_dynamics,
-               "K8_spectral_tail": spectral_tail,
-               "K9_column_moist": column_moist,
-               "K9_moist_shortwave": moist_shortwave,
-               "K10a_down_surface": clw.down_surface,
-               "K10b_radlw_up": clw.radlw_up,
-               "K12_column_pbl": column_pbl,
-               "K12_pbl_flux": pbl_flux,
-               "K15_spectral_stack": spectral_stack,
-               "K17_surface_forcing": sfc_forcing.surface_forcing,
-               "K17b_tisr_plane": sfc_forcing.tisr_plane,
-               "K6_inject_synthesis": inject_synthesis,
-               "K19_gate_check": gate_check,
-               "K20_window_select": window_select}
     ml_kernels = ["K1_esn_step", "K2_readout_scatter", "K3_window_gather"]
     # K17b is on no cycle's path: the ML-only cycle's K3 takes the date,
-    # the coupled cycle feeds back its window's fsol plane
-    coupled_kernels = [nm for nm in kernels if nm != "K17b_tisr_plane"]
+    # the coupled cycle feeds back its window's fsol plane; K21 is the
+    # persistent surface's (phase 12), off this path
+    coupled_kernels = [nm for nm in kernels
+                       if nm not in ("K17b_tisr_plane", "K21_slab_couple")]
     out_dir = ROOT / "output" / "chip_smoke"
 
     def drive(h, st0, n, path, names):
@@ -2491,6 +2893,9 @@ def main():
     if sfc_forcing.tisr_plane.launches:
         fail(f"the coupled cycle launched K17b "
              f"{sfc_forcing.tisr_plane.launches} times")
+    if slab_couple.launches:
+        fail(f"the coupled cycle without persist_surface launched K21 "
+             f"{slab_couple.launches} times")
     for nm, c in counts.items():
         results[nm]["launches"] = c
     log(f"coupled main path: run_prediction {len(dts)} cycles in "
@@ -2780,6 +3185,10 @@ def main():
 
     # -- 11. the paths from files ------------------------------------------
     phase_files(torch, np, gcm, hyb.layout, date0, card)
+
+    # -- 12. the persistent surface and the slab coupler --------------------
+    results["K21_slab_couple"]["launches"] = phase_surface(
+        torch, np, gcm, hyb, date0, card, record, kernels)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")

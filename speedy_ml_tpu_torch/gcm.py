@@ -7,9 +7,12 @@ the step functions; one window is `nsteps` leapfrog steps (the hybrid's
 shortwave cadence (every NSTRAD steps) is a Python branch and a window
 makes no host read.
 
-The daily day loop with the slab coupler (run_days) and SPPT come with
-later slices.  Without a BoundaryData the GCM reads the reference's
-fort.20-26 files from bc_path or $SPEEDY_ML_BC_PATH.
+The day loop (run_days) runs a day's window and then the slab
+coupler's exchange, one K21 launch (kernels/slab_couple.py); the GCM
+holds the slab coefficients, the elnino weights and the observed SST
+anomalies on its device, built once.  SPPT comes with a later slice.
+Without a BoundaryData the GCM reads the reference's fort.20-26 files
+from bc_path or $SPEEDY_ML_BC_PATH.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
@@ -24,6 +28,7 @@ from speedy_ml_tpu_torch.core.constants import PhysicalConstants
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.dycore.model import DycoreModel, GridTendencies
 from speedy_ml_tpu_torch.dycore.state import SpectralState
+from speedy_ml_tpu_torch.kernels.slab_couple import FLUX_FIELDS, slab_couple
 from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
                                                         spectral_stack)
 from speedy_ml_tpu_torch.kernels.window_select import window_select
@@ -33,8 +38,11 @@ from speedy_ml_tpu_torch.physics.boundaries import (BoundaryData,
 from speedy_ml_tpu_torch.physics.driver import (OPTIONAL_SLICE,
                                                 DailyForcing, PhysicsModel,
                                                 RadiationCarry, zero_views)
-from speedy_ml_tpu_torch.physics.land_sea import (SLAB_SLICE, CplFlags,
-                                                  SurfaceState)
+from speedy_ml_tpu_torch.physics.land_sea import (CplFlags, SurfaceState,
+                                                  build_slab_coeffs,
+                                                  coupled_state,
+                                                  sea_domain_mask,
+                                                  sstan_for_window)
 
 NSTRAD = 3   # shortwave radiation period in steps (mod_tsteps.f90:65)
 
@@ -83,15 +91,16 @@ class GCM:
                  scan_unroll: int = 1, cgrate_on: bool = False,
                  cpl_flags: Optional[CplFlags] = None, sstan_monthly=None,
                  sstan_year0: int = 1990, sstom12=None, *, device=None):
+        # cpl_flags: coupling modes (mod_cpl_flags.f90); sstan_monthly:
+        # observed monthly SST anomalies (M, nlat, nlon) starting Jan of
+        # sstan_year0 (the fort.30 anomaly file, obs_ssta); sstom12:
+        # ocean-model SST climatology for icsea>=3 (12, nlat, nlon).
         # scan_unroll: the JAX package's leapfrog steps unrolled per scan
         # iteration, numerically identical; the port runs its steps one by
         # one, so any value gives the same GCM
         self.device = resolve_device(device)
         if sppt_on:
             raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
-        if (sstan_monthly is not None or sstom12 is not None
-                or sstan_year0 != 1990):
-            raise NotImplementedError(f"SST anomalies come with {SLAB_SLICE}")
         if bd is None:
             bc_path = boundary_path(bc_path)
         self.geom = geom
@@ -108,6 +117,24 @@ class GCM:
             bd = load_boundary_data(geom, self.sht, constants.grav, bc_path)
         self.bd = bd.to(device=self.device, dtype=dtype)
         self.cpl = cpl_flags if cpl_flags is not None else CplFlags()
+        # the slab models' tables, host numpy worked out once, on the
+        # device: the coefficients, the elnino blend weights (wsst_ob,
+        # cpl_sea.f90:33-35), the anomaly series (a day's three months
+        # are views of it) and the ocean model's climatology
+        lat_deg = np.rad2deg(geom.lat_radians)
+        kw = dict(dtype=dtype, device=self.device)
+        self.slab = build_slab_coeffs(self.bd, lat_deg, dtype,
+                                      sea_domains=self.cpl.sea_domains,
+                                      device=self.device)
+        self.wsst_ob = (torch.as_tensor(sea_domain_mask(
+            "elnino", lat_deg, geom.nlon), **kw)
+            if self.cpl.icsea >= 4 else None)
+        self.sstan_monthly = (None if sstan_monthly is None else
+                              torch.as_tensor(np.asarray(sstan_monthly),
+                                              **kw))
+        self.sstan_year0 = sstan_year0
+        self.sstom12 = (None if sstom12 is None else
+                        torch.as_tensor(np.asarray(sstom12), **kw))
         self.nsteps_day = nsteps_day
         # spectral orography (a static table)
         self.phis = self.sht.trunct(self.sht.grid_to_spec(self.bd.orog))
@@ -116,19 +143,59 @@ class GCM:
         raise NotImplementedError("the multi-GPU GCM comes with the "
                                   "multi-GPU slice of the port (A16)")
 
+    def sstan_months(self, date):
+        """The observed anomalies of the (previous, this, next) month of
+        `date` (a ModelDate): three (lat, lon) views of the series, months
+        out of its range clamped to its edges (the reference keeps the
+        anomaly constant at end-of-file); None when there is no series or
+        the flags use none (isstan <= 0 and icsea < 4)."""
+        if self.sstan_monthly is None or (self.cpl.isstan <= 0
+                                          and self.cpl.icsea < 4):
+            return None
+        M = self.sstan_monthly.shape[0]
+        i = (date.year - self.sstan_year0) * 12 + (date.month - 1)
+        return tuple(self.sstan_monthly[k]
+                     for k in np.clip([i - 1, i, i + 1], 0, M - 1))
+
+    def sstan_for(self, date) -> Optional[torch.Tensor]:
+        """Observed SST anomaly at `date` (obs_ssta + the 3-month forint,
+        cpl_sea.f90:85-88 + 246-279), or None (sstan_months)."""
+        months = self.sstan_months(date)
+        if months is None:
+            return None
+        return sstan_for_window(torch.stack(months), date.tmonth)
+
+    def couple(self, sfc: SurfaceState, fluxes, imon, fmon, *, sstan=None,
+               window=None, ok=None, do_couple: bool = True):
+        """The slab coupler (couple_daily) and the persistent surface's
+        accumulation in one K21 launch: (the coupled SurfaceState, or sfc
+        when do_couple is false; the FluxAccumulator of the sums, zero
+        after a coupling, or None without a window).  fluxes: the sums
+        (a FluxAccumulator); window: the window's FluxAccumulator, counted
+        where ok (a 0-d bool tensor) is true; sstan: as slab_couple's."""
+        fields = lambda f: [getattr(f, k) for k in FLUX_FIELDS]
+        win = None if window is None else fields(window)
+        planes, fx = slab_couple(self.bd, self.slab, sfc, fields(fluxes),
+                                 (imon, fmon), self.cpl, window=win, ok=ok,
+                                 do_couple=do_couple, sstan=sstan,
+                                 wsst=self.wsst_ob, sstom12=self.sstom12)
+        return (sfc if planes is None else coupled_state(planes),
+                None if fx is None else FluxAccumulator(*fx))
+
     def forcing_for(self, sfc: SurfaceState, tyear) -> DailyForcing:
         """Date-dependent forcing (fordate) of the surface sfc."""
         return self.phys.daily_forcing(self.bd, sfc, tyear, self.sht)
 
     def window_entry(self, imon, fmon, tyear, sst_hybrid=None,
-                     sst_bias: float = 0.0):
+                     sst_bias: float = 0.0, sfc_carry=None):
         """(the climatological surface of (imon, fmon) with the hybrid SST,
         its forcing at tyear): init_surface_state and forcing_for in one
         K17 launch and the K5 analysis; imon, fmon and tyear host
-        numbers."""
+        numbers.  sfc_carry: the persistent surface, whose slab models'
+        fields the window takes (PhysicsModel.surface_and_forcing)."""
         return self.phys.surface_and_forcing(self.bd, imon, fmon, tyear,
                                              self.sht, sst_hybrid, sst_bias,
-                                             self.cpl)
+                                             self.cpl, sfc_carry)
 
     def init_state(self, date, spectral: Optional[SpectralState] = None,
                    sst_hybrid=None, sst_bias: float = 0.0
@@ -219,6 +286,27 @@ class GCM:
             gstate = self.leapfrog(gstate, forcing)
         return gstate
 
-    def run_days(self, gstate, date, ndays, stepone_first=False):
-        raise NotImplementedError(f"the day loop with the slab coupler "
-                                  f"comes with {SLAB_SLICE}")
+    def run_days(self, gstate: GCMState, date, ndays: int,
+                 stepone_first: bool = False):
+        """agcm_main day loop: fordate (K17's forcing form and K5), the
+        sums zeroed (one fill), stepone on the first day when asked, a
+        day's leapfrog steps, the date advanced, then the coupler at the
+        new date with its observed anomaly (K21's day form).  istep runs
+        on across days.  Returns (state, date)."""
+        g = self.geom
+        for _ in range(ndays):
+            forcing = self.forcing_for(gstate.sfc, date.tyear)
+            gstate = dataclasses.replace(gstate, fluxes=FluxAccumulator.zeros(
+                g.nlat, g.nlon, self.dtype, self.device))
+            if stepone_first:
+                gstate = self.stepone(gstate, forcing)
+                stepone_first = False
+            gstate = self.run_window(gstate, forcing, self.nsteps_day)
+            date = date.advance_day()
+            # the exchange at day end (agcm_to_coupler/coupler_to_agcm)
+            months = self.sstan_months(date)
+            sfc, _ = self.couple(
+                gstate.sfc, gstate.fluxes, date.month - 1, date.tmonth,
+                sstan=None if months is None else (months, date.tmonth))
+            gstate = dataclasses.replace(gstate, sfc=sfc)
+        return gstate, date

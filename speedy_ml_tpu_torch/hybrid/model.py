@@ -25,6 +25,13 @@ not a branch: the window always runs, and K20 keeps the injected fields
 where ok is false, so an unsafe state (and any NaN it makes) stays out
 of the next state.  The flag stays on the device.
 
+With persist_surface (the JAX package's default product path) the
+coupled cycle carries the slab land, sea and ice temperatures and the
+window fluxes' sums across cycles: the window starts from the carried
+surface (K17's carry form), and one K21 launch after it adds the
+window's sums where ok is true (a select again) or, on every fourth
+cycle, runs the daily coupler and zeroes the sums.
+
 Layouts follow the JAX package: fields (V, K, lat, lon), class vectors
 (Rc, I) / (Rc, O), and the same packing order, so both compute the same
 cycle from the same parameters.
@@ -44,7 +51,7 @@ from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
-from speedy_ml_tpu_torch.gcm import GCMState, zero_carries
+from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState, zero_carries
 from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
                                                       grid_blocks,
                                                       split_grid)
@@ -53,10 +60,10 @@ from speedy_ml_tpu_torch.kernels.inject_spectral import inject_synthesis
 from speedy_ml_tpu_torch.kernels.readout import readout
 from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate, tisr_plane
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
+from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
 OPTIONS_SLICE = "a later slice of the port (cycle options: slab ocean, " \
-    "persistent surface, climatology tables, components, vertical " \
-    "localization, sharding)"
+    "climatology tables, components, vertical localization, sharding)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +84,10 @@ class HybridState:
     safe: bool | torch.Tensor
     step: int                  # cycle counter (host-side)
     ocean: tuple = ()          # slab-ocean states (later slice)
-    sfc: object = None         # persistent surface (later slice)
+    # persistent coupled surface (persist_surface): the carried
+    # SurfaceState and the FluxAccumulator of the sums toward the daily
+    # coupler; None until the first persistent cycle
+    sfc: object = None
     fluxes: object = None
 
 
@@ -139,7 +149,9 @@ class HybridAtmosphere:
         self.layout = layout
         self.packs = list(packs)
         self.ml_only = ml_only
-        # JAX-package switches a caller may set; the cycle raises on them
+        # JAX-package switches a caller may set: persist_surface carries
+        # the coupled surface across cycles; the cycle raises on
+        # emit_components
         self.emit_components = False
         self.persist_surface = False
         self.device = self.packs[0].res.vals.device
@@ -299,18 +311,17 @@ class HybridAtmosphere:
     def _run_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
                     tyear, sfc_carry=None) -> tuple[GCMState, torch.Tensor]:
         """The window from a cold start: the surface from climatology and
-        the hybrid SST and the forcing (K17 and K5), zero carries (one
-        fill), stepone, gcm_steps leapfrog steps from istep 0 (so the
-        shortwave cadence inside a window is static).  Returns (the
-        window's end state, its forcing's fsol plane): solar_flux_traced
-        at tyear with 4 SOLC, the TISR plane of the same date
-        (tisr_field's, bit for bit)."""
-        if sfc_carry is not None:
-            raise NotImplementedError(
-                f"persist_surface comes with {OPTIONS_SLICE}")
+        the hybrid SST and the forcing (K17 and K5; with sfc_carry, the
+        persistent surface, the slab models' fields are the carry's and
+        the forcing reads its stl_lm), zero carries (one fill), stepone,
+        gcm_steps leapfrog steps from istep 0 (so the shortwave cadence
+        inside a window is static).  Returns (the window's end state, its
+        forcing's fsol plane): solar_flux_traced at tyear with 4 SOLC, the
+        TISR plane of the same date (tisr_field's, bit for bit)."""
         gcm = self.gcm
         g = gcm.geom
-        sfc, forcing = gcm.window_entry(imon, fmon, tyear, sst_hybrid)
+        sfc, forcing = gcm.window_entry(imon, fmon, tyear, sst_hybrid,
+                                        sfc_carry=sfc_carry)
         radiation, fluxes = zero_carries(g.nlev, g.nlat, g.nlon, gcm.dtype,
                                          self.device)
         gstate = GCMState(spectral=spec, sfc=sfc, radiation=radiation,
@@ -322,8 +333,9 @@ class HybridAtmosphere:
                       tyear, sfc_carry=None):
         """SPEEDY for one 6-h window from a cold start (run_model,
         mpires.f90:1516-1628), then the fields at leapfrog level 0 (iogrid
-        31; GCM.grid_state).  Returns (atmo (4, K, lat, lon), logp,
-        window FluxAccumulator)."""
+        31; GCM.grid_state).  sfc_carry: the persistent coupled surface
+        (a SurfaceState) or None (the climatology).  Returns (atmo (4, K,
+        lat, lon), logp, window FluxAccumulator)."""
         gstate, _ = self._run_window(spec, sst_hybrid, imon, fmon, tyear,
                                      sfc_carry)
         atmo, logp, _ = self.gcm.grid_state(gstate.spectral)
@@ -363,16 +375,17 @@ class HybridAtmosphere:
         if self.emit_components:
             raise NotImplementedError(
                 f"emit_components comes with {OPTIONS_SLICE}")
-        if self.persist_surface:
-            raise NotImplementedError(
-                f"persist_surface comes with {OPTIONS_SLICE}")
 
     def cycle_with_params(self, params, hstate: HybridState, imon, fmon,
                           tyear, hour_of_year=None, sst_bias=0.0) -> tuple:
         """One 6-h hybrid step with explicit parameters (the JAX
         _cycle_jit, hybrid/model.py:579-749, without the options of later
         slices).  imon (0-based month) and fmon are host numbers; tyear a
-        float.  Returns (new_state, diagnostics dict)."""
+        float.  With persist_surface the coupled cycle carries the slab
+        surface and the flux sums in the state (sfc, fluxes): the first
+        cycle starts them from the climatology (one K17 launch, one fill),
+        and after the window K21 accumulates or, when step % 4 == 3,
+        couples (JAX :614-659).  Returns (new_state, diagnostics dict)."""
         self._check_options()
         rf = torch.profiler.record_function
         packs = self._with_params(params)
@@ -381,7 +394,17 @@ class HybridAtmosphere:
         atmo, logp, precip = self.assemble_global(packs, grid)
         safe = hstate.safe
         fc_atmo = fc_logp = tisr = None
+        new_sfc, new_fluxes = hstate.sfc, hstate.fluxes
         if not self.ml_only:
+            carry = acc = None
+            if self.persist_surface:
+                carry, acc = hstate.sfc, hstate.fluxes
+                if carry is None:   # first cycle: the climatology
+                    g = self.geom
+                    carry = init_surface_state(self.gcm.bd, imon, fmon,
+                                               flags=self.gcm.cpl)
+                    acc = FluxAccumulator.zeros(g.nlat, g.nlon, self.dtype,
+                                                self.device)
             with rf("inject_to_speedy"):
                 spec, safe = self.inject_to_speedy(atmo, logp)
             # the gate (ppo_iogrid.f90:563-577, mpires.f90:721) as a
@@ -395,9 +418,19 @@ class HybridAtmosphere:
             # (its fsol), so the coupled cycle launches no K17b
             with rf("speedy_window"):
                 gstate, tisr = self._run_window(spec, hstate.sst_grid, imon,
-                                                fmon, tyear)
+                                                fmon, tyear, carry)
                 fc_atmo, fc_logp, safe = self.gcm.grid_state(
                     gstate.spectral, select=(prev, safe, atmo, logp))
+            if self.persist_surface:
+                # the window's sums count where ok (safe, now prev & safe)
+                # is true, as the JAX cycle hands the coupler zeros for a
+                # skipped window; the daily exchange on every fourth cycle
+                # (agcm_to_coupler/coupler_to_agcm), at the cycle's date
+                cpd = 24 // self.TIMESTEP_HOURS
+                with rf("slab_couple"):
+                    new_sfc, new_fluxes = self.gcm.couple(
+                        carry, acc, imon, fmon, window=gstate.fluxes,
+                        ok=safe, do_couple=hstate.step % cpd == cpd - 1)
         with rf("build_feedback"):
             if tisr is None:
                 tisr = self.tisr_date(tyear)
@@ -413,8 +446,8 @@ class HybridAtmosphere:
             for x, fb, lm in zip(new_x, feedbacks, locals_))
         new_state = HybridState(classes=classes, sst_grid=hstate.sst_grid,
                                 safe=safe, step=hstate.step + 1,
-                                ocean=hstate.ocean, sfc=hstate.sfc,
-                                fluxes=hstate.fluxes)
+                                ocean=hstate.ocean, sfc=new_sfc,
+                                fluxes=new_fluxes)
         diag = dict(atmo=atmo, logp=logp, precip=precip,
                     speedy_atmo=fc_atmo, speedy_logp=fc_logp)
         return new_state, diag

@@ -227,15 +227,13 @@ def generate_nature_run(gcm, date0, n_samples: int, timestep_hours: int = 6,
     GCM's device.
 
     Returns (truth dict of tensors (see the module docstring), the GCM
-    state after each day of windows, the sample dates).  The spin-up runs
-    GCM.run_days, whose daily slab coupler comes with A10: spinup_days
-    must be 0 for now."""
-    if spinup_days:
-        raise NotImplementedError(f"spinup_days > 0 runs GCM.run_days, "
-                                  f"which comes with {SLAB_SLICE}")
+    state after each day of windows, the sample dates).  The spin-up
+    (spinup_days, after stepone) runs GCM.run_days, the day loop with the
+    slab coupler."""
     state, forcing = gcm.init_state(date0)
     date = date0
     state = gcm.stepone(state, forcing)
+    state, date = gcm.run_days(state, date, spinup_days)
     steps = gcm.nsteps_day * timestep_hours // 24
     windows_per_day = 24 // timestep_hours
 

@@ -33,11 +33,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # flags of single sources, after NVCC_FLAGS.  The column physics rounds
 # every operation apart (no FMA contraction): its convection decides by
 # comparing sums, as the plain version does; so does the window's entry
-# (K17), which reuses its humidity, and K3, whose date form works out
-# K17b's insolation (surface_forcing.cuh sf_fsol) with the same bits.
+# (K17), which reuses its humidity, K3, whose date form works out K17b's
+# insolation (surface_forcing.cuh sf_fsol) with the same bits, and K21,
+# which reuses K17's climatology.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "column_moist.cu", "column_longwave.cu", "column_pbl.cu",
-    "surface_forcing.cu", "window_gather.cu")}
+    "surface_forcing.cu", "window_gather.cu", "slab_couple.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -86,6 +87,8 @@ SIGNATURES = {
     "gate_check_launch": [_i, _i, _i, _ll, _vp, _dp, _vp, _vp, _vp],
     "window_select_launch": [_i, _i, _i, _ll, _vp, _vp, _vp, _vp, _vp, _vp,
                              _vp, _vp, _vp],
+    "slab_couple_launch": [_i, _i, _ll, ctypes.POINTER(_vp), _vp, _vp, _dp,
+                           ctypes.POINTER(_i), _d, ctypes.POINTER(_i), _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

@@ -1,7 +1,7 @@
-// Host build of the arithmetic of K3 and K17-K20 (window_gather.cuh,
+// Host build of the arithmetic of K3, K17-K21 (window_gather.cuh,
 // surface_forcing.cuh, inject_spectral.cuh, gate_check.cuh,
-// window_select.cuh): K17's per-point body and K17b as loops over the grid
-// points, K3 and K20 over their output elements; K17's row blocks and
+// window_select.cuh, slab_couple.cuh): K17's per-point body, K17b and K21
+// as loops over the grid points, K3 and K20 over their output elements; K17's row blocks and
 // K18's first-design blocks with their threads written out as loops in
 // phase order and their shared memory starting as NaN, so that a phase
 // reading what an earlier one did not write shows; K19 as one loop over
@@ -18,6 +18,7 @@
 
 #include "gate_check.cuh"
 #include "inject_spectral.cuh"
+#include "slab_couple.cuh"
 #include "surface_forcing.cuh"
 #include "window_gather.cuh"
 #include "window_select.cuh"
@@ -46,6 +47,7 @@ SfIO<T> surface_forcing_io(int nlat, int nlon, const void* const* in,
   io.sice_am = p[13];
   io.slat = p[14];
   io.clat = p[15];
+  io.stl_carry = p[16];
   io.sfc = (T*)sfc;
   io.frc = (T*)frc;
   io.G = (long long)nlat * nlon;
@@ -248,5 +250,24 @@ extern "C" int select_host(int is_double, int K, long long G,
   else
     select_fields<float>(K, G, out, prev, safe, atmo_in, logp_in, atmo, logp,
                          ok);
+  return 0;
+}
+
+// K21 over the grid points, with the launch's arguments; 1 for operands
+// that do not fit the options.
+extern "C" int slab_couple_host(int is_double, long long G,
+                                const void* const* in, void* sfc, void* fx,
+                                const double* scal, const int* ix,
+                                double w_an, const int* op) {
+  if (slab_check(in, sfc, fx, op)) return 1;
+  if (is_double) {
+    const SlabIO<double> io =
+        slab_io<double>(G, in, sfc, fx, scal, ix, w_an, op);
+    for (long long i = 0; i < G; ++i) slab_couple_at(io, i);
+  } else {
+    const SlabIO<float> io =
+        slab_io<float>(G, in, sfc, fx, scal, ix, w_an, op);
+    for (long long i = 0; i < G; ++i) slab_couple_at(io, i);
+  }
   return 0;
 }

@@ -97,6 +97,7 @@ static void launch(int nlat, int nlon, const void* const* in, void* sfc,
   io.sice_am = p[13];
   io.slat = p[14];
   io.clat = p[15];
+  io.stl_carry = p[16];
   io.sfc = (T*)sfc;
   io.frc = (T*)frc;
   io.G = (long long)nlat * nlon;
@@ -109,10 +110,10 @@ static void launch(int nlat, int nlon, const void* const* in, void* sfc,
   surface_forcing_kernel<T><<<nlat, npt + 32, 0, stream>>>(io, npt);
 }
 
-// in: 16 pointers (surface_forcing.cuh SfIO order: stl12, snowd12,
+// in: 17 pointers (surface_forcing.cuh SfIO order: stl12, snowd12,
 // soilw12, sst12, sice12, sst_hyb, alb0, fmask_l, fmask_s, phis0, stl_am,
-// snowd_am, sst_am, sice_am, slat, clat), the ones a call does not read
-// null; sfc (SF_PLANES, G) and frc (FC_PLANES, G), either null; scal:
+// snowd_am, sst_am, sice_am, slat, clat, stl_carry), the ones a call does
+// not read null (stl_carry only with both outputs); sfc (SF_PLANES, G) and frc (FC_PLANES, G), either null; scal:
 // SC_COUNT doubles, ix: IX_COUNT ints (kernels/surface_forcing.py).
 SPEEDY_API int surface_forcing_launch(int device, int is_double, int nlat,
                                       int nlon, const void* const* in,
@@ -121,7 +122,8 @@ SPEEDY_API int surface_forcing_launch(int device, int is_double, int nlat,
                                       void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (nlat <= 0 || nlon <= 0 || (!sfc && !frc) || !scal || (sfc && !ix))
+  if (nlat <= 0 || nlon <= 0 || (!sfc && !frc) || !scal || (sfc && !ix) ||
+      (in[16] && !(sfc && frc)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)

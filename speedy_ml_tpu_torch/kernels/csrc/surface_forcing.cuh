@@ -70,14 +70,20 @@ struct SfScalars {
 // The operands (G = nlat * nlon points): the monthly tables (12, G); the
 // hybrid SST (G) or null; alb0, fmask_l, fmask_s, phis0 (G); the given
 // surface stl_am, snowd_am, sst_am, sice_am (G), read when no surface is
-// made in the same call; slat, clat (nlat).  Out: the surface planes
-// (SF_PLANES, G) or null, the forcing planes (FC_PLANES, G) or null.
+// made in the same call; slat, clat (nlat); the carried land temperature
+// stl_lm (G) or null: the carry form, in which the forcing made with the
+// surface reads it for stl_am (the persistent surface's window,
+// hybrid/model.py), the surface planes staying as computed.  Out: the
+// surface planes (SF_PLANES, G) or null, the forcing planes (FC_PLANES, G)
+// or null.
 template <typename T>
 struct SfIO {
   const T *stl12, *snowd12, *soilw12, *sst12, *sice12, *sst_hyb;
   const T *alb0, *fmask_l, *fmask_s, *phis0;
   const T *stl_am, *snowd_am, *sst_am, *sice_am;
   const T *slat, *clat;
+  const T* stl_carry;   // the carry form: the forcing's stl_am, or null
+
   T *sfc, *frc;
   long long G;
   int nlon;
@@ -234,6 +240,59 @@ COL_HD void sf_solar_v(const SfScalars<T>& s, const SfRow<T>& r, T* o) {
   o[FC_STRATZ] = sf_max_at(T(6) - r.fsol, T(0));
 }
 
+// The date's climatology of one point (interp_climatology): the
+// interpolated months and the sea-ice adjustment (atm2sea), sst0 the
+// adjustment's input (sstcl0)
+template <typename T>
+struct SfClim {
+  T stl, snowd, soilw, sst0, sst, sice, tice;
+};
+
+// interp_climatology of one point from its months' values stl5, sst5
+// (forin5's order) and snowd2, soilw2, sice2 (forint's)
+template <typename T>
+COL_HD SfClim<T> sf_climatology_v(const SfScalars<T>& s, const T* stl5,
+                                  const T* sst5, const T* snowd2,
+                                  const T* soilw2, const T* sice2) {
+  SfClim<T> c;
+  c.stl = sf_forin5_v(s, stl5);
+  c.snowd = sf_forint_v(s, snowd2[0], snowd2[1]);
+  c.soilw = sf_forint_v(s, soilw2[0], soilw2[1]);
+  c.sst0 = sf_forin5_v(s, sst5);
+  const T sice0 = sf_forint_v(s, sice2[0], sice2[1]);
+  // the sea-ice adjustment (atm2sea)
+  const T sstfr = s.v[SC_SSTFR];
+  const bool warm = c.sst0 > sstfr;
+  const T sice_w = sf_min_at(sice0, T(0.5));
+  const T sst_w =
+      sice_w > T(0) ? sstfr + (c.sst0 - sstfr) / (T(1) - sice_w) : c.sst0;
+  const T sice_c = sf_max_at(sice0, T(0.5));
+  const T tice_c = sstfr + (c.sst0 - sstfr) / sice_c;
+  c.sst = warm ? sst_w : sstfr;
+  c.sice = warm ? sice_w : sice_c;
+  c.tice = warm ? sstfr : tice_c;
+  return c;
+}
+
+// The months' values of point i that the climatology reads (the tables
+// (12, G) in the order of sf_climatology_v's arguments)
+template <typename T>
+COL_HD void sf_load_months(const SfScalars<T>& s, const T* stl12,
+                           const T* sst12, const T* snowd12,
+                           const T* soilw12, const T* sice12, long long G,
+                           long long i, T* stl5, T* sst5, T* snowd2,
+                           T* soilw2, T* sice2) {
+  for (int k = 0; k < 5; ++k) {
+    stl5[k] = stl12[s.ix[sf_month5(k)] * G + i];
+    sst5[k] = sst12[s.ix[sf_month5(k)] * G + i];
+  }
+  for (int k = 0; k < 2; ++k) {
+    snowd2[k] = snowd12[s.ix[sf_month2(k)] * G + i];
+    soilw2[k] = soilw12[s.ix[sf_month2(k)] * G + i];
+    sice2[k] = sice12[s.ix[sf_month2(k)] * G + i];
+  }
+}
+
 // The surface of one point (interp_climatology + init_surface_state) from
 // its months' values stl5, sst5 (forin5's order) and snowd2, soilw2,
 // sice2 (forint's) and the hybrid SST hyb (has_hyb): o[SF_*].
@@ -241,35 +300,20 @@ template <typename T>
 COL_HD void sf_surface_v(const SfScalars<T>& s, const T* stl5, const T* sst5,
                          const T* snowd2, const T* soilw2, const T* sice2,
                          bool has_hyb, T hyb, T* o) {
-  const T stl = sf_forin5_v(s, stl5);
-  const T snowd = sf_forint_v(s, snowd2[0], snowd2[1]);
-  const T soilw = sf_forint_v(s, soilw2[0], soilw2[1]);
-  const T sst0 = sf_forin5_v(s, sst5);
-  const T sice0 = sf_forint_v(s, sice2[0], sice2[1]);
-  // the sea-ice adjustment (atm2sea)
-  const T sstfr = s.v[SC_SSTFR];
-  const bool warm = sst0 > sstfr;
-  const T sice_w = sf_min_at(sice0, T(0.5));
-  const T sst_w =
-      sice_w > T(0) ? sstfr + (sst0 - sstfr) / (T(1) - sice_w) : sst0;
-  const T sice_c = sf_max_at(sice0, T(0.5));
-  const T tice_c = sstfr + (sst0 - sstfr) / sice_c;
-  const T sst = warm ? sst_w : sstfr;
-  const T sice = warm ? sice_w : sice_c;
-  const T tice = warm ? sstfr : tice_c;
+  const SfClim<T> c = sf_climatology_v(s, stl5, sst5, snowd2, soilw2, sice2);
   // the hybrid SST (cpl_sea.f90:38-46), then the ice blend
-  T sst_am = sst;
+  T sst_am = c.sst;
   if (has_hyb) {
     const T diff = sst_am - hyb;
     sst_am = (diff < T(6) ? hyb : sst_am) + s.v[SC_SST_BIAS];
   }
-  sst_am = sst_am + sice * (tice - sst_am);
-  o[SF_STL] = stl;
-  o[SF_SNOWD] = snowd;
-  o[SF_SOILW] = soilw;
-  o[SF_SST] = sst;
-  o[SF_SICE] = sice;
-  o[SF_TICE] = tice;
+  sst_am = sst_am + c.sice * (c.tice - sst_am);
+  o[SF_STL] = c.stl;
+  o[SF_SNOWD] = c.snowd;
+  o[SF_SOILW] = c.soilw;
+  o[SF_SST] = c.sst;
+  o[SF_SICE] = c.sice;
+  o[SF_TICE] = c.tice;
   o[SF_SST_AM] = sst_am;
   o[SF_ZERO] = T(0);   // the ocean model's SST when icsea <= 0
 }
@@ -317,18 +361,13 @@ COL_HD void sf_block_points(const SfIO<T>& io, int j, int c) {
   const long long G = io.G;
   const long long i = (long long)j * io.nlon + c;
   T stl5[5], sst5[5], snowd2[2], soilw2[2], sice2[2], hyb = T(0);
-  T am[4], alb0 = T(0), fl = T(0), fs = T(0), phis0 = T(0);
+  T am[4] = {T(0), T(0), T(0), T(0)};
+  T alb0 = T(0), fl = T(0), fs = T(0), phis0 = T(0);
   if (io.sfc) {
-    for (int k = 0; k < 5; ++k) {
-      stl5[k] = io.stl12[s.ix[sf_month5(k)] * G + i];
-      sst5[k] = io.sst12[s.ix[sf_month5(k)] * G + i];
-    }
-    for (int k = 0; k < 2; ++k) {
-      snowd2[k] = io.snowd12[s.ix[sf_month2(k)] * G + i];
-      soilw2[k] = io.soilw12[s.ix[sf_month2(k)] * G + i];
-      sice2[k] = io.sice12[s.ix[sf_month2(k)] * G + i];
-    }
+    sf_load_months(s, io.stl12, io.sst12, io.snowd12, io.soilw12, io.sice12,
+                   G, i, stl5, sst5, snowd2, soilw2, sice2);
     if (io.sst_hyb) hyb = io.sst_hyb[i];
+    if (io.stl_carry) am[0] = io.stl_carry[i];
   } else {
     am[0] = io.stl_am[i];
     am[1] = io.snowd_am[i];
@@ -346,7 +385,7 @@ COL_HD void sf_block_points(const SfIO<T>& io, int j, int c) {
     sf_surface_v(s, stl5, sst5, snowd2, soilw2, sice2, io.sst_hyb != nullptr,
                  hyb, o);
     for (int p = 0; p < SF_PLANES; ++p) io.sfc[p * G + i] = o[p];
-    am[0] = o[SF_STL];
+    if (!io.stl_carry) am[0] = o[SF_STL];
     am[1] = o[SF_SNOWD];
     am[2] = o[SF_SST_AM];
     am[3] = o[SF_SICE];

@@ -11,7 +11,9 @@ whose first two, corh and REFRH1 (qref - qsfc), are the fields whose K5
 analysis gives tcorh and qcorh.  A call makes either or both: the window
 asks for both (the forcing then reads the surface made in the same
 thread), init_surface_state for the surface, daily_forcing for the
-forcing of a surface it is given.  K17b writes the plane of
+forcing of a surface it is given.  The persistent surface's window
+makes both in the carry form: its forcing reads the carried land
+temperature (stl_carry) for stl_am.  K17b writes the plane of
 solar_flux_traced, HybridAtmosphere.tisr_field; the ML-only cycle hands
 K3 the date instead (TisrDate), and K3 works out the plane's elements
 where it reads them.
@@ -113,12 +115,11 @@ def forin5(for12, imon: int, fmon: float):
 
 # ---- the plain versions
 
-def surface_plain(bd, imon: int, fmon: float, sst_hybrid=None,
-                  sst_bias: float = 0.0) -> torch.Tensor:
-    """The SURFACE planes (plain PyTorch): the date-interpolated
-    climatology with the sea-ice adjustment (atm2sea/atm2land,
-    cpl_sea.f90:92-114), the hybrid SST injection (cpl_sea.f90:38-46) and
-    the ice blend."""
+def climatology_plain(bd, imon: int, fmon: float) -> dict:
+    """The date-interpolated climatology with the sea-ice adjustment
+    (interp_climatology; atm2sea/atm2land, cpl_sea.f90:92-114): stlcl,
+    snowdcl, soilwcl, sstcl, sicecl, ticecl and sstcl0, the SST before
+    the adjustment."""
     stlcl = forin5(bd.stl12, imon, fmon)
     snowdcl = forint(bd.snowd12, imon, fmon)
     soilwcl = forint(bd.soilw12, imon, fmon)
@@ -133,9 +134,20 @@ def surface_plain(bd, imon: int, fmon: float, sst_hybrid=None,
     sicecl_c = torch.clamp(sicecl, min=0.5)
     ticecl_c = pc.SSTFR + (sstcl - pc.SSTFR) / sicecl_c
     sstcl_c = torch.full_like(sstcl, pc.SSTFR)
-    sst = torch.where(warm, sstcl_w, sstcl_c)
-    sice = torch.where(warm, sicecl_w, sicecl_c)
-    tice = torch.where(warm, ticecl_w, ticecl_c)
+    return dict(stlcl=stlcl, snowdcl=snowdcl, soilwcl=soilwcl,
+                sstcl=torch.where(warm, sstcl_w, sstcl_c),
+                sicecl=torch.where(warm, sicecl_w, sicecl_c),
+                ticecl=torch.where(warm, ticecl_w, ticecl_c), sstcl0=sstcl)
+
+
+def surface_plain(bd, imon: int, fmon: float, sst_hybrid=None,
+                  sst_bias: float = 0.0) -> torch.Tensor:
+    """The SURFACE planes (plain PyTorch): the date-interpolated
+    climatology with the sea-ice adjustment (climatology_plain), the
+    hybrid SST injection (cpl_sea.f90:38-46) and the ice blend."""
+    cl = climatology_plain(bd, imon, fmon)
+    stlcl, snowdcl, soilwcl = cl["stlcl"], cl["snowdcl"], cl["soilwcl"]
+    sst, sice, tice = cl["sstcl"], cl["sicecl"], cl["ticecl"]
     sst_am = sst
     if sst_hybrid is not None:
         diff = sst_am - sst_hybrid
@@ -215,20 +227,26 @@ def tisr_scalars(tyear):
 
 
 def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
-                    sfc=None, day: DayArgs | None = None):
+                    sfc=None, day: DayArgs | None = None, stl_carry=None):
     """(the SURFACE planes (8, lat, lon) or None, the FORCING planes (11,
     lat, lon) or None).
 
     month: (imon, fmon), host numbers: make the surface (with sst_hybrid,
     a (lat, lon) field or None, and sst_bias).  day: make the forcing,
     from the surface made in the same call or, without a month, from
-    `sfc` (a SurfaceState)."""
+    `sfc` (a SurfaceState).  stl_carry: the carry form (with month and
+    day): the forcing reads this (lat, lon) land temperature for stl_am,
+    the persistent surface's carried stl_lm; the surface planes stay as
+    computed."""
     if month is None and day is None:
         raise ValueError("surface_forcing: ask for the surface (month=) or "
                          "the forcing (day=)")
     if day is not None and month is None and sfc is None:
         raise ValueError("surface_forcing: the forcing without a month "
                          "needs the surface sfc=")
+    if stl_carry is not None and (month is None or day is None):
+        raise ValueError("surface_forcing: the carry form (stl_carry=) "
+                         "makes the surface and the forcing")
     dev = bd.sst12.device
     nlat, nlon = bd.sst12.shape[-2:]
     if dev.type == "cpu":
@@ -239,6 +257,8 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
             p = dict(zip(SURFACE, planes)) if planes is not None else dict(
                 stl=sfc.stl_am, snowd=sfc.snowd_am, sst_am=sfc.sst_am,
                 sice=sfc.sice_am)
+            if stl_carry is not None:
+                p["stl"] = stl_carry
             frc = forcing_plain(bd, p["stl"], p["snowd"], p["sst_am"],
                                 p["sice"], day, nlon)
         return planes, frc
@@ -249,7 +269,7 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
         raise TypeError(f"surface_forcing: dtype {dt}, the kernel takes "
                         "float32 or float64")
     grid = (nlat, nlon)
-    ins = [None] * 16
+    ins = [None] * 17
     if month is not None:
         for i, nm in enumerate(("stl12", "snowd12", "soilw12", "sst12",
                                 "sice12")):
@@ -270,6 +290,9 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
         kb.require(day.slat, "slat", dt, (nlat,), dev)
         kb.require(day.clat, "clat", dt, (nlat,), dev)
         ins[14], ins[15] = day.slat, day.clat
+        if stl_carry is not None:
+            kb.require(stl_carry, "stl_carry", dt, grid, dev)
+            ins[16] = stl_carry
     scal, ix = _scalars(month, sst_bias, None if day is None else day.tyear,
                         0.0 if day is None else day.gamlat,
                         0.0 if day is None else day.pexp)
@@ -277,7 +300,7 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
         (len(SURFACE),) + grid, dtype=dt, device=dev)
     frc = None if day is None else torch.empty((len(FORCING),) + grid,
                                                dtype=dt, device=dev)
-    ptrs = (ctypes.c_void_p * 16)(*[None if t is None else t.data_ptr()
+    ptrs = (ctypes.c_void_p * 17)(*[None if t is None else t.data_ptr()
                                     for t in ins])
     ptr = lambda t: None if t is None else t.data_ptr()
     code = kb.library().surface_forcing_launch(

@@ -46,6 +46,7 @@ from speedy_ml_tpu_torch.gcm import GCM
 from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
 from speedy_ml_tpu_torch.hybrid.driver import run_prediction
 from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+from speedy_ml_tpu_torch.physics import land_sea
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 N_REGIONS, M = 128, 300
@@ -227,6 +228,65 @@ def test_two_coupled_cycles_f64_match_jax(coupled_pair):
     assert float((td["speedy_atmo"] - td["atmo"]).abs().max()) > 1e-3
 
 
+def test_persist_surface_cycles_carry_the_surface(coupled_pair):
+    """persist_surface runs (JAX parity: tests/test_torch_land_sea.py):
+    four cycles from step 0 carry the surface and the sums, which grow
+    over three windows and are zero after the coupling on the fourth;
+    speedy_window with the climatology as its carry is the window
+    without one, bit for bit, and with a warmer carry it is not."""
+    _, thyb = coupled_pair
+    h = HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=False,
+                         device="cpu")
+    h.persist_surface = True
+    s = h.init_state(_sst(h.geom))
+    date = ModelDate(1990, 1, 1)
+    sums = []
+    for i in range(4):
+        s, d = h.cycle(s, date.month - 1, date.tmonth, date.tyear)
+        assert s.step == i + 1 and bool(s.safe)
+        sums.append(float(s.fluxes.hflux_s.abs().max()))
+        for k in s.sfc.__dataclass_fields__:
+            assert bool(torch.isfinite(getattr(s.sfc, k)).all()), k
+        date = date.advance_hours(6)
+    assert 0 < sums[0] < sums[1] < sums[2] and sums[3] == 0.0
+    imon, fmon, tyear = 0, 0.5, 0.05
+    carry = land_sea.init_surface_state(h.gcm.bd, imon, fmon)
+    spec, _ = h.inject_to_speedy(d["atmo"], d["logp"])
+    a = h.speedy_window(spec, s.sst_grid, imon, fmon, tyear)
+    b = h.speedy_window(spec, s.sst_grid, imon, fmon, tyear,
+                        sfc_carry=carry)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    warm = dataclasses.replace(carry, tice_om=carry.tice_om + 5.0)
+    c = h.speedy_window(spec, s.sst_grid, imon, fmon, tyear, sfc_carry=warm)
+    assert not torch.equal(a[2].hflux_i, c[2].hflux_i)
+
+
+def test_gcm_sst_anomaly_options_match_jax(coupled_pair):
+    """GCM(sstan_monthly=, sstan_year0=, sstom12=) builds on the port as
+    in the JAX package: the anomaly at a date (the forint of its three
+    months, clamped at the series' ends) at 1e-12, the ocean model's
+    climatology and the elnino weights on the GCM's device."""
+    jhyb, thyb = coupled_pair
+    jgcm, tgcm = jhyb.gcm, thyb.gcm
+    rng = np.random.default_rng(12)
+    sstan = rng.normal(0, 1.0, (14, tgcm.geom.nlat, tgcm.geom.nlon))
+    om12 = np.asarray(jgcm.bd.sst12) + 0.5
+    flags = dict(icsea=4, isstan=1)
+    jg = JGCM(jgcm.geom, dtype=jnp.float64, nsteps_day=8, bd=jgcm.bd,
+              cpl_flags=type(jgcm.cpl)(**flags), sstan_monthly=sstan,
+              sstan_year0=1989, sstom12=om12)
+    tg = GCM(tgcm.geom, dtype=torch.float64, nsteps_day=8, bd=tgcm.bd,
+             cpl_flags=land_sea.CplFlags(**flags), sstan_monthly=sstan,
+             sstan_year0=1989, sstom12=om12, device="cpu")
+    assert tg.sstan_year0 == 1989
+    np.testing.assert_array_equal(tg.sstom12.numpy(), om12)
+    np.testing.assert_array_equal(tg.wsst_ob.numpy(),
+                                  np.asarray(jg.wsst_ob))
+    for d in ((1989, 1, 1), (1989, 6, 20), (1990, 2, 10), (1991, 5, 1)):
+        _close(tg.sstan_for(ModelDate(*d)),
+               jg.sstan_for(JModelDate(*d)), 1e-12)
+
+
 def test_safety_gate_holds_speedy_and_stops_driver(coupled_pair):
     """An unphysical assembled state sets safe=False, keeps SPEEDY's
     output finite (the injected grids stand in) and stops run_prediction
@@ -280,19 +340,16 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
             with pytest.raises(NotImplementedError):
                 call()
         s = h.init_state(_sst(h.geom))
-        for flag in ("emit_components", "persist_surface"):
-            setattr(h, flag, True)
-            try:
-                with pytest.raises(NotImplementedError):
-                    h.cycle(s, 0, 0.5, 0.05)
-            finally:
-                setattr(h, flag, False)
+        h.emit_components = True
+        try:
+            with pytest.raises(NotImplementedError):
+                h.cycle(s, 0, 0.5, 0.05)
+        finally:
+            h.emit_components = False
         for kw in (dict(truth_provider=lambda i: {}),
                    dict(time_mean_path="x"), dict(cycles_per_dispatch=2)):
             with pytest.raises(NotImplementedError):
                 run_prediction(h, s, ModelDate(1990, 1, 1), 1, **kw)
-    with pytest.raises(NotImplementedError, match="persist_surface"):
-        chyb.speedy_window(None, None, 0, 0.5, 0.05, sfc_carry=object())
     g, bd = chyb.gcm.geom, chyb.gcm.bd
     # without bd the GCM reads the boundary files, from $SPEEDY_ML_BC_PATH
     # when no bc_path is given (tests/test_torch_boundaries.py)
@@ -300,8 +357,7 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     with pytest.raises(FileNotFoundError, match="boundary files"):
         GCM(g, dtype=torch.float64, device="cpu")
     for kw, match in ((dict(bd=bd, sppt_on=True), "SPPT"),
-                      (dict(bd=bd, cgrate_on=True), "cgrate"),
-                      (dict(bd=bd, sstan_monthly=np.zeros(1)), "anomal")):
+                      (dict(bd=bd, cgrate_on=True), "cgrate")):
         with pytest.raises(NotImplementedError, match=match):
             GCM(g, dtype=torch.float64, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="RDF"):

@@ -10,6 +10,8 @@ level's signal, floored at 1e-3 of the whole array's magnitude (the
 humidity of the top levels is rounding noise).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +27,9 @@ from speedy_ml_tpu_torch.convert import (boundary_from_numpy,
                                          gcm_state_from_numpy)
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.data.calendar import ModelDate
-from speedy_ml_tpu_torch.gcm import GCM
+from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator
+from speedy_ml_tpu_torch.physics.land_sea import (couple_daily,
+                                                  interp_climatology)
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
@@ -104,7 +108,34 @@ def test_boundary_conversion_and_unported_options(pair, monkeypatch):
         GCM(g, bd=tgcm.bd, sppt_on=True, device="cpu")
     with pytest.raises(NotImplementedError, match="cgrate"):
         GCM(g, bd=tgcm.bd, cgrate_on=True, device="cpu")
-    for call in (lambda: tgcm.run_days(None, None, 1),
-                 lambda: tgcm.set_mesh(None)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        tgcm.set_mesh(None)
+
+
+def test_run_days_runs_the_day_and_the_coupler(pair):
+    """GCM.run_days for one day (JAX parity with the flags and anomalies:
+    tests/test_torch_land_sea.py) is fordate, the sums zeroed, stepone
+    first, 36 steps and couple_daily at the new date, bit for bit; on the
+    land planet the slab land model moves stl_lm off the climatology, on
+    the aquaplanet it stays there."""
+    _, tgcm = pair
+    date = ModelDate(1990, 7, 1)
+    ts, tf = tgcm.init_state(date)
+    got, day2 = tgcm.run_days(ts, date, 1, stepone_first=True)
+    assert (day2.month, day2.day) == (7, 2) and got.istep == 36
+    g = tgcm.geom
+    ref = dataclasses.replace(ts, fluxes=FluxAccumulator.zeros(
+        g.nlat, g.nlon, torch.float64, "cpu"))
+    forcing = tgcm.forcing_for(ts.sfc, date.tyear)
+    ref = tgcm.run_window(tgcm.stepone(ref, forcing), forcing, 36)
+    sfc = couple_daily(ref.sfc, tgcm.slab, tgcm.bd, ref.fluxes,
+                       day2.month - 1, day2.tmonth, flags=tgcm.cpl)
+    for k in FIELDS:
+        assert torch.equal(getattr(got.spectral, k),
+                           getattr(ref.spectral, k)), k
+    for k in sfc.__dataclass_fields__:
+        assert torch.equal(getattr(got.sfc, k), getattr(sfc, k)), k
+    stlcl = interp_climatology(tgcm.bd, day2.month - 1,
+                               day2.tmonth)["stlcl"]
+    moved = float((got.sfc.stl_lm - stlcl).abs().max())
+    assert (moved > 1e-6) == bool(tgcm.bd.fmask_l.max() > 0.5), moved

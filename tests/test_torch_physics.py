@@ -423,7 +423,41 @@ def test_unported_physics_options_raise():
     with pytest.raises(NotImplementedError, match="SPPT"):
         phys.compute(*(None,) * 6, bd=None, sfc=None, forcing=None,
                      carry=None, lradsw=True, sppt_pattern=1.0)
-    for fn in (land_sea.couple_daily, land_sea.build_slab_coeffs,
-               land_sea.sea_domain_mask, land_sea.sstan_for_window):
-        with pytest.raises(NotImplementedError):
-            fn()
+
+
+def test_slab_coupler_functions_match_jax():
+    """The four functions of the daily coupler on the synthetic
+    aquaplanet and land planet: sea_domain_mask and build_slab_coeffs
+    equal to the JAX package's, couple_daily (default flags, seeded
+    fluxes) and sstan_for_window at 1e-12 (tests/test_torch_land_sea.py
+    covers every flag branch)."""
+    from speedy_ml_tpu.physics import land_sea as jls
+    g = Geometry(**GEOM)
+    jg = JGeometry(**GEOM)
+    lat = np.rad2deg(g.lat_radians)
+    np.testing.assert_array_equal(
+        land_sea.sea_domain_mask("elnino", lat, g.nlon),
+        jls.sea_domain_mask("elnino", lat, g.nlon))
+    rng = np.random.default_rng(19)
+    fx = {k: rng.normal(0, 30.0, (g.nlat, g.nlon))
+          for k in ("hflux_l", "hflux_s", "hflux_i")}
+    for land in (False, True):
+        jbd = jsynthetic(jg, JST(jg, dtype=jnp.float64), land=land)
+        bd = boundary_from_numpy(jbd, device="cpu", dtype=torch.float64)
+        jco = jls.build_slab_coeffs(jbd, lat, jnp.float64)
+        co = land_sea.build_slab_coeffs(bd, lat, torch.float64)
+        for a, b in zip(co, jco):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        jsfc = jls.init_surface_state(jbd, jnp.asarray(2), jnp.asarray(0.3))
+        sfc = land_sea.init_surface_state(bd, 2, 0.3)
+        ref = jls.couple_daily(jsfc, jco, jbd,
+                               {k: jnp.asarray(v) for k, v in fx.items()},
+                               jnp.asarray(2), jnp.asarray(0.3))
+        got = land_sea.couple_daily(
+            sfc, co, bd, {k: torch.as_tensor(v) for k, v in fx.items()},
+            2, 0.3)
+        for k in ref.__dataclass_fields__:
+            _close(getattr(got, k), getattr(ref, k))
+    win = rng.normal(0, 1.0, (3, g.nlat, g.nlon))
+    _close(land_sea.sstan_for_window(torch.as_tensor(win), 0.7),
+           jls.sstan_for_window(jnp.asarray(win), jnp.asarray(0.7)))

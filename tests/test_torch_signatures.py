@@ -17,6 +17,7 @@ import dataclasses
 import inspect
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -71,7 +72,6 @@ PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
                                       tri.import_reference_weights)}
 # each unported option with a value other than its default
 UNPORTED = {
-    "GCM": {"sstan_year0": 1991},
     "train_hybrid": {"vert_overlap": 1, "ocean_hyper": object()},
     "train_hybrid_production": {"ocean_hyper": object(), "slab_stride": 7,
                                 "ocean_region_chunk": 16}}
@@ -119,6 +119,19 @@ def _call(name, **kw):
 def test_unported_option_raises_naming_a10(name, option):
     with pytest.raises(NotImplementedError, match="A10"):
         _call(name, **{option: UNPORTED[name][option]})
+
+
+def test_gcm_sst_anomaly_options_are_taken():
+    """GCM(sstan_monthly=, sstan_year0=, sstom12=), once unported, build
+    the GCM with the series and the climatology on its device."""
+    sstan = np.ones((3, GEOM.nlat, GEOM.nlon))
+    om12 = np.full((12, GEOM.nlat, GEOM.nlon), 280.0)
+    g = _call("GCM", sstan_year0=1991, sstan_monthly=sstan, sstom12=om12)
+    assert g.sstan_year0 == 1991
+    assert g.sstan_monthly.shape == sstan.shape
+    assert g.sstom12.dtype == torch.float64
+    assert g.wsst_ob is None and g.slab.cdsea.shape == (GEOM.nlat,
+                                                        GEOM.nlon)
 
 
 def test_gcm_defaults_and_scan_unroll_build_the_same_gcm():

@@ -283,12 +283,20 @@ def _close_fields(got, ref, rtol=1e-9):
 
 
 @pytest.fixture(scope="module")
-def nature_pair():
+def nature_gcms():
+    """The JAX package's and the port's T10 GCMs (nsteps_day = 8) on the
+    synthetic aquaplanet, float64."""
     jg = JGeometry(**GCM_GEOM)
     jgcm = JGCM(jg, dtype=jnp.float64, nsteps_day=8,
                 bd=jsynthetic(jg, JST(jg, dtype=jnp.float64)))
     tgcm = GCM(Geometry(**GCM_GEOM), dtype=torch.float64, nsteps_day=8,
                bd=boundary_from_numpy(jgcm.bd, **CPU), device="cpu")
+    return jgcm, tgcm
+
+
+@pytest.fixture(scope="module")
+def nature_pair(nature_gcms):
+    jgcm, tgcm = nature_gcms
     jt, jsnaps, jdates = jtraining.generate_nature_run(
         jgcm, JModelDate(1990, 1, 1), 4, spinup_days=0)
     tt, tsnaps, tdates = training.generate_nature_run(
@@ -338,14 +346,32 @@ def test_train_hybrid_production_runs_the_cycle(nature_pair):
         assert bool(torch.isfinite(cs.x).all())
 
 
+def test_nature_run_spinup_matches_jax(nature_gcms):
+    """generate_nature_run with a day of spin-up (GCM.run_days: the day's
+    8 steps, then the slab coupler) before its 4 samples: the truth, the
+    dates and the surface the spin-up coupled, 1e-9 of each field level's
+    signal."""
+    jgcm, tgcm = nature_gcms
+    jt, jsnaps, jdates = jtraining.generate_nature_run(
+        jgcm, JModelDate(1990, 1, 1), 4, spinup_days=1)
+    tt, tsnaps, tdates = training.generate_nature_run(
+        tgcm, ModelDate(1990, 1, 1), 4, spinup_days=1)
+    assert [(d.year, d.month, d.day, d.hour) for d in tdates] == \
+        [(d.year, d.month, d.day, d.hour) for d in jdates]
+    assert (tdates[0].month, tdates[0].day) == (1, 2)
+    for k in ("atmo", "logp", "precip", "sst", "tisr"):
+        _close_fields(tt[k], jt[k])
+    for k in jsnaps[0].sfc.__dataclass_fields__:
+        _close_fields(getattr(tsnaps[0].sfc, k), getattr(jsnaps[0].sfc, k))
+    assert tsnaps[0].istep == int(jsnaps[0].istep) == 16
+
+
 def test_unported_options_raise(layouts, nature_pair):
     """The options of later slices raise, naming the slice."""
     _, tl = layouts
     _, (tt, _, _, tm), tgcm = nature_pair
     src = chunked.ArraySource(tt, tm)
     cases = [
-        (lambda: training.generate_nature_run(tgcm, ModelDate(1990, 1, 1),
-                                              1, spinup_days=1), "A10"),
         (lambda: training.train_hybrid(tgcm, tl, tt, tm, HYPER, 0,
                                        num_vert_levels=2, device="cpu"),
          "A10"),

@@ -230,13 +230,15 @@ def test_surface_forcing_plain_matches_jax(imon, fmon, hybrid):
 
 
 def _host_k17(lib, bd, phys, month, sst, sfc, dtype, block=0,
-              forcing=True):
+              forcing=True, stl_carry=None):
     """K17 built for the host: (surface planes or None, forcing planes or
     None), every output starting as NaN.  block 0: the per-point body;
-    block 1: the kernel's row blocks."""
+    block 1: the kernel's row blocks.  stl_carry: the carry form's land
+    temperature."""
     nlat, nlon = bd.sst12.shape[-2:]
     day = phys.day_args(TYEAR)
-    ins = [None] * 16
+    ins = [None] * 17
+    ins[16] = stl_carry
     if month is not None:
         ins[:5] = [bd.stl12, bd.snowd12, bd.soilw12, bd.sst12, bd.sice12]
         ins[5] = sst
@@ -251,7 +253,7 @@ def _host_k17(lib, bd, phys, month, sst, sfc, dtype, block=0,
         (len(sfk.SURFACE), nlat, nlon), float("nan"), dtype=dtype)
     frc = None if not forcing else torch.full(
         (len(sfk.FORCING), nlat, nlon), float("nan"), dtype=dtype)
-    ptrs = (ctypes.c_void_p * 16)(*[_ptr(t) for t in ins])
+    ptrs = (ctypes.c_void_p * 17)(*[_ptr(t) for t in ins])
     assert lib.surface_forcing_host(int(dtype == torch.float64), block,
                                     nlat, nlon, ptrs, _ptr(planes),
                                     _ptr(frc), scal, ix) == 0
@@ -316,6 +318,43 @@ def test_surface_forcing_row_blocks_match_point_body(lib, hybrid, mode,
         if r_ is not None:
             assert not torch.isnan(r_).any()
             assert torch.equal(g_, r_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("block", [0, 1], ids=["point_body", "row_blocks"])
+def test_surface_forcing_carry_form(lib, block, dtype):
+    """K17's carry form (the persistent surface's window): the forcing
+    reads the carried land temperature for stl_am, the surface planes
+    stay as computed; the host build (per-point body and row blocks)
+    against the plain version, which is forcing_plain of the surface with
+    stl_am replaced: the surface bit for bit, the forcing as the window
+    form's tolerance (RTOL_F64, K17_ULPS)."""
+    _, _, bd, phys = port_side(dtype)
+    month = (11, 0.75)
+    sst = torch.as_tensor(hybrid_sst(11)).to(dtype)
+    rng = np.random.default_rng(17)
+    stl = (bd.stl12[11] + torch.as_tensor(
+        rng.normal(0, 3.0, tuple(bd.stl12.shape[-2:]))).to(dtype))
+    day = phys.day_args(TYEAR)
+    ref_s, ref_f = sfk.surface_forcing(bd, month=month, sst_hybrid=sst,
+                                       sst_bias=SST_BIAS, day=day,
+                                       stl_carry=stl)
+    p = dict(zip(sfk.SURFACE, ref_s))
+    assert torch.equal(ref_f, sfk.forcing_plain(
+        bd, stl, p["snowd"], p["sst_am"], p["sice"], day, bd.sst12.shape[-1]))
+    got_s, got_f = _host_k17(lib, bd, phys, month, sst, None, dtype,
+                             block=block, stl_carry=stl)
+    _, no_carry = _host_k17(lib, bd, phys, month, sst, None, dtype,
+                            block=block)
+    assert torch.equal(got_s, ref_s)
+    assert not torch.isnan(got_f).any()
+    if dtype == torch.float64:
+        assert field_err(got_f, ref_f) <= RTOL_F64
+    else:
+        assert ulp_err(got_f, ref_f) <= K17_ULPS
+    # the carried temperature reached the diffusion corrections
+    assert not torch.equal(got_f[1], no_carry[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
