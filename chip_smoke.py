@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (speedy_ml_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--k14-lists]
+    python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
+                          [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -136,8 +137,36 @@ Phases, each fatal on failure (exit code 1, no result line):
      (safe false keeps the sums bit for bit); GCM.run_days for 2 days with
      icsea 2, isstan 1 and seeded anomalies (sst_am the ice blend of
      sst_om within 1e-4 K, s a day, launches a day) and
-     generate_nature_run with its default 5 days of spin-up.
---surface runs phase 12 alone after phase 3 (no result line).
+     generate_nature_run with its default 5 days of spin-up;
+ 13. the slab ocean (phase_ocean): K22 slab_ocean in its three forms
+     (push, push_mean at three steps, sst with a land fill and the 272 K
+     floor) against its plain version at the full-width shapes, float32
+     and float64, 0 difference, a negative control (the mean summed in
+     slot order) that must differ, each form timed; a nature run of 8
+     slab strides (224 samples) and train_hybrid_production(ocean=True)
+     loading phase 10's atmosphere from its atmo_ckpt (OCEAN_HYPER, region
+     chunks of 32, the solve in float64): Wout finite, the solve's
+     residual <= 1e-8 for 8 regions of each class, stage seconds, solve
+     FLOP/s, peak memory; K1 and K2 (bare, S = 0 and 4) at the ocean's
+     shapes against their plain versions, timed; the ocean hybrid (phase
+     10's standardizers and reservoirs with a seeded untrained readout,
+     the trained ocean, a land mask of smooth continents) armed by
+     start_prediction on the last 16 samples with the 6-h forecast from
+     the last one, then 30 persistent coupled cycles of run_prediction:
+     the SST grid new on the 28th only (>= 272 K, land the floored fill)
+     and bit for bit unchanged on the other 29, K1 and K2 6 launches on
+     the slab step and 3 on the others, K22 once a cycle and twice on
+     the slab step, the state finite, T in [150, 350] K; a slab step with
+     host syncs forbidden; launches and busy of a slab step and of
+     another cycle by kernel (the slab step's extra: 3 K1, 3 K2, 1 K22,
+     and the ocean kernels' device time; checked where the profiler saw
+     every launch, after OCEAN_PAD launches of K17b that absorb the
+     events a session loses first); save_hybrid and load_hybrid of
+     the ocean hybrid, every ocean tensor equal, and two cycles from step
+     26 (the second a slab step) by it and its loaded twin equal bit for
+     bit.
+--surface runs phase 12 alone after phase 3 (no result line); --ocean
+trains phase 10's atmosphere and runs phase 13 alone (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -148,6 +177,7 @@ without the package beside this script.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import inspect
 import json
@@ -156,6 +186,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -247,6 +278,19 @@ RESIDUAL_MAX = 1e-8
 # 5,760) in the reference-format workers, and the imported cycles
 LAND_SHARE = 0.3
 CYCLES_IMPORTED = 4
+# phase 13: the ocean's nature run in slab strides (28 samples each), the
+# sync window of start_prediction, the persistent coupled cycles (one slab
+# step), the ocean's Gram region chunk, the step of K22's negative
+# control (its oldest slot is not slot 0), how far a slab step's extra
+# busy may be from its ocean kernels' device time, and the launches that
+# go before a profiled cycle for the events a session loses first
+OCEAN_STRIDES = 8
+OCEAN_SYNC = 16
+OCEAN_CYCLES = 30
+OCEAN_REGION_CHUNK = 32
+OCEAN_STEP = 5
+OCEAN_BUSY_TOL_MS = 0.05
+OCEAN_PAD = 32
 # phase 12: the persistent coupled cycles (two couplings) and the days of
 # GCM.run_days
 PERSIST_CYCLES = 8
@@ -716,12 +760,12 @@ def same_states(torch, a, b) -> bool:
 
 
 def phase_checkpoint(torch, gcm, layout, hyb_t, hyb_bf, src, hyper, truth,
-                     dates, train_wall, card):
+                     dates, train_wall, card, ck: str):
     """Phase 10f: save and load the trained hybrid at full width (hyb_t,
     float32 Wout; then hyb_bf, its bf16 cast), two coupled cycles of the
     trained and the loaded bf16 hybrid from one state, and
     train_hybrid_production's atmo_ckpt twice (the second call loads and
-    trains nothing)."""
+    trains nothing), into the directory ck, which phase 13 loads."""
     import tempfile
 
     from speedy_ml_tpu_torch.data.checkpoint import load_hybrid, save_hybrid
@@ -777,7 +821,6 @@ def phase_checkpoint(torch, gcm, layout, hyb_t, hyb_bf, src, hyper, truth,
 
         # train_hybrid_production with atmo_ckpt: trains and saves, then
         # loads and trains nothing (no K14, no K1)
-        ck = str(tmp / "atmo")
         kw = dict(hybrid=True, stride=1, time_chunk=TIME_CHUNK,
                   n_discard=N_DISCARD, region_chunk=REGION_CHUNK,
                   solve_dtype=torch.float64, atmo_ckpt=ck, device=dev)
@@ -1364,11 +1407,568 @@ def phase_surface(torch, np, gcm, hyb, date0, card, record, kernels):
     return n21
 
 
-def phase_training(torch, gcm, layout, date0, card, record):
+def atmosphere_checkpoint(torch, gcm, layout, date0, ck: str, card):
+    """--ocean alone: phase 10's atmosphere (its nature run, forecasts and
+    train_hybrid_production settings), trained and saved to `ck` by
+    train_hybrid_production's atmo_ckpt, for phase 13 to load."""
+    from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
+    from speedy_ml_tpu_torch.hybrid.chunked import (ArraySource,
+                                                    train_hybrid_production)
+    from speedy_ml_tpu_torch.hybrid.training import (generate_nature_run,
+                                                     make_imperfect_forecasts)
+    t0 = time.perf_counter()
+    truth, _, dates = generate_nature_run(gcm, date0, N_NATURE,
+                                          spinup_days=0)
+    model = make_imperfect_forecasts(gcm, truth, dates)
+    train_hybrid_production(
+        gcm, layout, ArraySource(truth, model), ESNHyper(), TRAIN_SEED,
+        hybrid=True, stride=1, time_chunk=TIME_CHUNK, n_discard=N_DISCARD,
+        region_chunk=REGION_CHUNK, solve_dtype=torch.float64, atmo_ckpt=ck,
+        device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    log(f"the atmosphere of phase 10 trained and saved for phase 13: "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def phase_ocean(torch, np, gcm, layout, date0, card, record, kernels,
+                atmo_ckpt: str):
+    """Phase 13: the slab ocean.  (a) K22 in its three forms against its
+    plain version at the full-width shapes, float32 and float64, 0
+    difference, with a negative control (the mean summed in slot order),
+    each form timed beside its bound. (b) A nature run of OCEAN_STRIDES
+    slab strides on phase 10's aquaplanet, then
+    train_hybrid_production(ocean=True) loading phase 10's atmosphere from
+    atmo_ckpt: OCEAN_HYPER, region chunks of OCEAN_REGION_CHUNK, the
+    solve in float64; finite Wout, the solve's residual for 8 regions of
+    each class, stage seconds, solve FLOP/s and peak memory; K1 and K2 at
+    the ocean's shapes against their plain versions, timed. (c) The
+    ocean hybrid with phase 10's standardizers and reservoirs and a
+    seeded untrained readout (phase 10's, fit to 64 samples, diverges in
+    a closed loop within its first cycles), and a land mask of smooth
+    continents for the ML SST's land fill: start_prediction on the last
+    OCEAN_SYNC samples with the imperfect model's 6-h forecast from the
+    last one, then OCEAN_CYCLES persistent coupled cycles through
+    run_prediction: the SST grid new on the slab step only (every point
+    >= 272 K, land the floored fill) and bit for bit unchanged on the
+    others, K1 and K2 three more launches and K22 one more on the slab
+    step, the state finite and T in [150, 350] K; a slab step with host
+    syncs forbidden; launches and device busy of a slab step and of
+    another cycle, by kernel (checked where the profiler saw every
+    launch). (d) save_hybrid and load_hybrid of that
+    hybrid: every ocean tensor equal; two cycles from step 26 (the
+    second a slab step) by the hybrid and its loaded twin, equal bit for
+    bit.  Returns K22's launches in (c)."""
+
+    from speedy_ml_tpu_torch.data.checkpoint import load_hybrid, save_hybrid
+    from speedy_ml_tpu_torch.esn.ocean import OCEAN_HYPER, ocean_index_map
+    from speedy_ml_tpu_torch.esn.train import (NormalEq, accumulate_batches,
+                                               discard_transient, solve_wout)
+    from speedy_ml_tpu_torch.hybrid.chunked import (ArraySource,
+                                                    ocean_series_production,
+                                                    train_hybrid_production)
+    from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.model import (HybridAtmosphere,
+                                                  ocean_snapshot)
+    from speedy_ml_tpu_torch.hybrid.training import (fit_ocean_class,
+                                                     generate_nature_run,
+                                                     make_imperfect_forecasts)
+    from speedy_ml_tpu_torch.kernels import slab_ocean as k22
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step, esn_step_plain
+    from speedy_ml_tpu_torch.kernels.gram_update import gram_update
+    from speedy_ml_tpu_torch.kernels.readout import (readout, readout_plain,
+                                                     vector_path)
+    from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    g = gcm.geom
+    nz, nlat, nlon = g.nlev, g.nlat, g.nlon
+    G = nlat * nlon
+    stride = HybridAtmosphere.SLAB_STRIDE
+    W = stride - 1
+    classes = layout.classes
+    # the land of smooth continents (phase 12's), for the ML SST's fill
+    land = continents_bd(torch, np, gcm.bd, g).fmask_l > 0.0
+
+    # -- (a) K22 against its plain version at the full-width shapes --------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    idx = [torch.as_tensor(ocean_index_map(c, nz).astype(np.int32),
+                           device=dev) for c in classes]
+    widths = [(4 * nz + 4) * c.input_shape[0] * c.input_shape[1]
+              for c in classes]
+    worst, main = {}, None
+    for dt in (f32, f64):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                         dtype=f64).to(dt)
+        unif = lambda lo, hi, *shape: (lo + (hi - lo) * torch.rand(
+            shape, generator=gen, device=dev, dtype=f64)).to(dt)
+        fbs = [rnd(c.count, w) for c, w in zip(classes, widths)]
+        rings = [rnd(W, c.count, len(i)) for c, i in zip(classes, idx)]
+        outs = [rnd(c.count, c.core_shape[0] * c.core_shape[1])
+                for c in classes]
+        means = [unif(280.0, 290.0, c.count, 1) for c in classes]
+        stds = [unif(2.0, 6.0, c.count, 1) for c in classes]
+        outs[1][0, 0] = -1e3         # below the floor after unstandardizing
+        table = k22.sst_table(layout, classes, unif(250.0, 300.0, nlat, nlon),
+                              land, device=dev, dtype=dt)
+        for form, step in (("push", OCEAN_STEP), ("push_mean", OCEAN_STEP),
+                           ("push_mean", 0), ("push_mean", W - 1)):
+            rk = [r.clone() for r in rings]
+            rp = [r.clone() for r in rings]
+            kw = dict(step=step, fbs=fbs, idx_maps=idx)
+            a = k22.slab_ocean(form, bufs=rk, **kw)
+            b = k22.slab_ocean_plain(form, bufs=rp, **kw)
+            err = max(max_abs_diff(torch, x, y) for x, y in zip(rk, rp))
+            if a is not None:
+                err = max([err] + [max_abs_diff(torch, x, y)
+                                   for x, y in zip(a, b)])
+            worst[f"{form} step {step}, {str(dt)[6:]}"] = err
+        kw = dict(outs=outs, mean_sst=means, std_sst=stds, table=table)
+        a, b = k22.slab_ocean("sst", **kw), k22.slab_ocean_plain("sst", **kw)
+        worst[f"sst, {str(dt)[6:]}"] = max_abs_diff(torch, a, b)
+        if float(a.min()) < k22.SST_MIN or not torch.equal(
+                a[land], torch.clamp_min(table.base[land], k22.SST_MIN)):
+            fail("K22's SST grid is below 272 K or its land is not the fill")
+        if dt == f32:
+            main = (fbs, rings, kw)
+    bad = {k: v for k, v in worst.items() if v > 0}
+    # the negative control: at OCEAN_STEP the oldest slot is OCEAN_STEP + 1;
+    # the mean summed from slot 0 must differ from the kernel's
+    fbs, rings, sst_kw = main
+    rk = [r.clone() for r in rings]
+    means_k = k22.slab_ocean("push_mean", bufs=rk, step=OCEAN_STEP, fbs=fbs,
+                             idx_maps=idx)
+    wrong = []
+    for r in rk:
+        s_ = r[0].clone()
+        for o in range(1, W):
+            s_ = s_ + r[o]
+        wrong.append(s_ * (1.0 / W))
+    neg = max(max_abs_diff(torch, x, y) for x, y in zip(means_k, wrong))
+    log(f"K22 slab_ocean against its plain version at the full-width "
+        f"shapes ({len(worst)} cases: push, push_mean at steps "
+        f"{OCEAN_STEP}, 0, {W - 1}, sst, float32 and float64): "
+        f"max_abs_err {max(worst.values()):.3e} (tolerance 0); cases that "
+        f"differ: {bad or 'none'}; negative control, the mean summed in "
+        f"slot order: {neg:.3e} off (must differ)")
+    if bad:
+        fail("K22 disagrees with its plain version")
+    if not neg > 0:
+        fail("K22's negative control (the mean in slot order) passed")
+    N = sum(r[0].numel() for r in rings)
+    n_idx = sum(i.numel() for i in idx)
+    R_all = sum(c.count for c in classes)
+    O_all = sum(o.numel() for o in sst_kw["outs"])
+    push = lambda: k22.slab_ocean("push", bufs=rings, step=OCEAN_STEP,
+                                  fbs=fbs, idx_maps=idx)
+    pmean = lambda: k22.slab_ocean("push_mean", bufs=rings, step=OCEAN_STEP,
+                                   fbs=fbs, idx_maps=idx)
+    sstf = lambda: k22.slab_ocean("sst", **sst_kw)
+    (kp, kp_c), kp_runs = measure_median(torch, push)
+    (km, km_c), km_runs = measure_median(torch, pmean)
+    (ks, ks_c), ks_runs = measure_median(torch, sstf)
+    b_push = bound_ms(4 * (2 * N + n_idx), 0, PEAK_F32_S)
+    b_mean = bound_ms(4 * ((W + 2) * N + n_idx), W * N, PEAK_F32_S)
+    b_sst = bound_ms(4 * (O_all + 2 * R_all + 3 * G) + G, 3 * G, PEAK_F32_S)
+    pl_mean = measure(torch, lambda: k22.slab_ocean_plain(
+        "push_mean", bufs=rings, step=OCEAN_STEP, fbs=fbs, idx_maps=idx),
+        reps=10)
+    pl_sst = measure(torch, lambda: k22.slab_ocean_plain("sst", **sst_kw),
+                     reps=10)
+    log(f"K22 forms, float32, median of {SHT_SESSIONS} sessions (device "
+        f"ms): push {kp:.4f} (sessions "
+        + ", ".join(f"{r:.4f}" for r in kp_runs) + f"; bound "
+        f"{b_push[0]:.5f}, {b_push[0] / kp:.0%} of it); push_mean {km:.4f} "
+        f"(sessions " + ", ".join(f"{r:.4f}" for r in km_runs)
+        + f"; bound {b_mean[0]:.5f}, {b_mean[0] / km:.0%}; plain "
+        f"{pl_mean[0]:.4f}); sst {ks:.4f} (sessions "
+        + ", ".join(f"{r:.4f}" for r in ks_runs) + f"; bound "
+        f"{b_sst[0]:.6f}, {b_sst[0] / ks:.0%}; plain {pl_sst[0]:.4f}); "
+        f"{N} ocean inputs a slot, {W} slots [{card}]")
+    record("K22_slab_ocean",
+           "speedy_ml_tpu_torch/kernels/csrc/slab_ocean.cu",
+           "speedy_ml_tpu/hybrid/model.py:678", max(worst.values()), 0.0,
+           (kp, kp_c),
+           measure(torch, lambda: k22.slab_ocean_plain(
+               "push", bufs=rings, step=OCEAN_STEP, fbs=fbs, idx_maps=idx),
+               reps=10),
+           b_push)
+    log("  (K22's ms, plain_ms and bound_ms in the kernels line are the "
+        "push form's, the one every cycle launches)")
+    del main, fbs, rings, sst_kw
+
+    # -- (b) the nature run and the ocean's training at full width ---------
+    parts = {"a": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    truth, _, dates = generate_nature_run(gcm, date0, OCEAN_STRIDES * stride,
+                                          spinup_days=0)
+    torch.cuda.synchronize()
+    t_nature = time.perf_counter() - t0
+    for key, v in truth.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"the ocean's nature run: {key} is not finite")
+    src = ArraySource(truth)
+    hyper = ESNHyper()
+    timings = {}
+    for fn in (esn_step, gram_update):
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = train_hybrid_production(
+        gcm, layout, src, hyper, TRAIN_SEED, hybrid=True, ocean=True,
+        atmo_ckpt=atmo_ckpt, ocean_region_chunk=OCEAN_REGION_CHUNK,
+        stride=1, time_chunk=TIME_CHUNK, n_discard=N_DISCARD,
+        region_chunk=REGION_CHUNK, solve_dtype=f64, timings=timings,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if gram_update.launches <= 0 or esn_step.launches <= 0:
+        fail("the ocean's training launched no K14 or no K1")
+    solve_flops = 0.0
+    for op in h.ocean_packs:
+        if not bool(torch.isfinite(op.res.wout).all()):
+            fail(f"ocean class {op.cls.name}: Wout is not finite")
+        R, O_, A = op.res.wout.shape
+        solve_flops += R * (2.0 / 3.0 * A ** 3 + 2.0 * A * A * O_)
+    # the solve's residual for the first 8 regions of each class, from the
+    # same series and reservoirs, in float64
+    worst_res = worst_w = 0.0
+    n_disc = inspect.signature(fit_ocean_class).parameters[
+        "n_discard"].default
+    for cls, p, op in zip(classes, h.packs, h.ocean_packs):
+        o_series, target, _ = ocean_series_production(
+            layout, cls, p.std, src, nz, slab_stride=stride,
+            time_chunk=max(TIME_CHUNK, 128), dtype=f32, device=dev)
+        r8 = dataclasses.replace(
+            op.res, vals=op.res.vals[:, :8].contiguous(),
+            win_vals=op.res.win_vals[:8].contiguous(), wout=op.res.wout[:8])
+        cut = lambda t: t[:, :8].contiguous()
+        S_o = op.res.wout.shape[2] - op.res.n
+        model_in = None
+        if op.hybrid_readout:
+            model_in = torch.cat([target[:1], target[:-1]])
+        L = o_series.shape[0] - n_disc
+        x0 = discard_transient(r8, op.hyper, cut(o_series[:n_disc]))
+        eq, _ = accumulate_batches(
+            r8, op.hyper, cut(o_series[n_disc:]), cut(target[n_disc:]),
+            None if model_in is None else cut(model_in[n_disc:]), x0,
+            max(1, L - 1))
+        eq64 = NormalEq(eq.ss.double(), eq.st.double())
+        w64 = solve_wout(eq64, op.hyper, S_o)
+        bm, br = ((op.hyper.beta_model ** 2, op.hyper.beta_res ** 2)
+                  if op.hyper.using_prior else
+                  (op.hyper.beta_model, op.hyper.beta_res))
+        ridge = torch.full((eq.ss.shape[1],), br, dtype=f64, device=dev)
+        ridge[:S_o] = bm
+        lhs = torch.linalg.matmul(eq64.ss, w64.transpose(1, 2)) \
+            + ridge[None, :, None] * w64.transpose(1, 2)
+        rhs = eq64.st.transpose(1, 2)
+        rel = (torch.linalg.matrix_norm(lhs - rhs)
+               / torch.linalg.matrix_norm(rhs))
+        worst_res = max(worst_res, float(rel.max()))
+        w_run = op.res.wout[:8].double()
+        worst_w = max(worst_w, float((w64.float().double() - w_run).abs()
+                                     .max() / w_run.abs().max()))
+    log(f"ocean training: a nature run of {OCEAN_STRIDES * stride} samples "
+        f"at 6 h on the aquaplanet (no spin-up) in "
+        f"{t_nature:.2f} s; train_hybrid_production(ocean=True) loading "
+        f"phase 10's atmosphere: {wall:.1f} s; OCEAN_HYPER m="
+        f"{OCEAN_HYPER.m}, n " + ", ".join(
+            f"{op.cls.name} {op.res.n} (A {op.res.wout.shape[2]})"
+            for op in h.ocean_packs)
+        + f"; region chunks of {OCEAN_REGION_CHUNK}, solve in float64; "
+        f"stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                    timings.items())
+        + f"; solve {solve_flops / 1e12:.2f} TFLOP at "
+        f"{solve_flops / timings['ocean_solve'] / 1e12:.2f} TFLOP/s; peak "
+        f"memory allocated {peak:.2f} GiB; K14 {gram_update.launches} and "
+        f"K1 {esn_step.launches} launches; residual <= {worst_res:.3e} "
+        f"over 8 regions of each class (tolerance {RESIDUAL_MAX:.0e}), "
+        f"their Wout from the retained chunk vs the run's {worst_w:.3e} "
+        f"of its scale [{card}]")
+    if not worst_res <= RESIDUAL_MAX:
+        fail("the ocean's ridge solve's residual is too large")
+
+    # K1 and K2 at the ocean's shapes against their plain versions
+    xs = [torch.tanh(torch.randn((op.cls.count, op.res.n), generator=gen,
+                                 device=dev)) for op in h.ocean_packs]
+    us = [torch.randn((op.cls.count, op.res.n_in), generator=gen,
+                      device=dev) for op in h.ocean_packs]
+    step_args = [dict(vals=op.res.vals, x=x, u=u, win_vals=op.res.win_vals,
+                      shifts=op.res.shifts, leakage=op.hyper.leakage)
+                 for op, x, u in zip(h.ocean_packs, xs, us)]
+    e1 = max(max_abs_diff(torch, esn_step(**a), esn_step_plain(**a))
+             for a in step_args)
+    k1 = measure_median(torch, lambda: [esn_step(**a) for a in step_args])
+    p1 = measure(torch, lambda: [esn_step_plain(**a) for a in step_args])
+    nb1 = op1 = 0
+    for a in step_args:
+        J, R, n = a["vals"].shape
+        nb1 += 4 * (J * R * n + 3 * R * n + a["u"].numel())
+        op1 += R * n * (2 * J + 4)
+    b1 = bound_ms(nb1, op1, PEAK_F32_S)
+    e2, lines2 = 0.0, []
+    for S in (0, 4):
+        wr = [torch.randn((op.cls.count, 4, S + op.res.n), generator=gen,
+                          device=dev) / op.res.n ** 0.5
+              for op in h.ocean_packs]
+        lm = [None if S == 0 else torch.randn((op.cls.count, S),
+                                              generator=gen, device=dev)
+              for op in h.ocean_packs]
+        if not all(vector_path(w) for w in wr):
+            fail(f"K2 at the ocean's shapes (S={S}) is off its vector path")
+        for w, x, l in zip(wr, xs, lm):
+            ref = readout_plain(w, x, l)
+            e2 = max(e2, max_abs_diff(torch, readout(w, x, l), ref)
+                     / max_abs(torch, ref))
+        k2 = measure_median(torch, lambda: [readout(w, x, l) for w, x, l in
+                                            zip(wr, xs, lm)])
+        p2 = measure(torch, lambda: [readout_plain(w, x, l) for w, x, l in
+                                     zip(wr, xs, lm)])
+        nb2 = sum(4 * (w.numel() + x.numel() + w.shape[0] * 4
+                       + (0 if l is None else l.numel()))
+                  for w, x, l in zip(wr, xs, lm))
+        b2 = bound_ms(nb2, sum(2 * w.numel() for w in wr), PEAK_F32_S)
+        lines2.append(f"S={S}: {k2[0][0]:.4f} ms (sessions "
+                      + ", ".join(f"{r:.4f}" for r in k2[1])
+                      + f"; bound {b2[0]:.4f}, {b2[0] / k2[0][0]:.0%} of "
+                      f"it; plain {p2[0]:.4f})")
+    log(f"K1 at the ocean's shapes (3 classes, J = {step_args[0]['vals'].shape[0]}"
+        f", n = " + ", ".join(str(op.res.n) for op in h.ocean_packs)
+        + f"): max_abs_err {e1:.3e} (tolerance 1e-5), {k1[0][0]:.4f} ms "
+        f"(sessions " + ", ".join(f"{r:.4f}" for r in k1[1])
+        + f"; bound {b1[0]:.4f}, {b1[0] / k1[0][0]:.0%} of it; plain "
+        f"{p1[0]:.4f}); K2 bare, float32 Wout (R, 4, S + n), vector path: "
+        f"max err {e2:.3e} of the scale (tolerance {K2_RTOL:.0e}), "
+        + "; ".join(lines2) + f" [{card}]")
+    if e1 > 1e-5 or e2 > K2_RTOL:
+        fail("K1 or K2 at the ocean's shapes disagrees with its plain "
+             "version")
+    del xs, us, step_args
+
+    # -- (c) start_prediction, then the persistent coupled cycles ---------
+    parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+    # phase 10's readout, fit to 64 samples at a ridge of 1e-6, diverges in
+    # a closed loop within its first cycles (T beyond 1e5 K by the second),
+    # so the cycles run its standardizers and reservoirs with a seeded
+    # untrained readout (build_untrained_hybrid's 1e-3 normal), as the main
+    # path runs untrained weights; the ocean is the trained one
+    gw = torch.Generator(device=dev).manual_seed(SEED + 23)
+    packs = [p._replace(res=dataclasses.replace(p.res, wout=1e-3 * torch.randn(
+        p.res.wout.shape, generator=gw, device=dev))) for p in h.packs]
+    h = HybridAtmosphere(gcm, layout, packs, ml_only=False,
+                         ocean_packs=h.ocean_packs, base_sst=h.base_sst,
+                         sea_mask=land, device=dev)
+    del packs
+    sync = {k: v[-OCEAN_SYNC:] for k, v in truth.items()}
+    last = {k: torch.cat([truth[k][-1:]] * 2) for k in ("atmo", "logp",
+                                                         "sst")}
+    fc = make_imperfect_forecasts(gcm, last, [dates[-1]] * 2)
+    model_next = {k: fc[k][1] for k in ("atmo", "logp")}
+    h.persist_surface = True
+    s = h.start_prediction(sync, model_next, truth["sst"][-1])
+    if not (s.step == 0 and len(s.ocean) == len(classes)):
+        fail("start_prediction did not arm the ocean")
+    date = dates[-1].advance_hours(6)
+    base_floor = torch.clamp_min(h.base_sst, k22.SST_MIN)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    walls, stepped = [], []
+    for i in range(OCEAN_CYCLES):
+        before = {nm: kernels[nm].launches for nm in
+                  ("K1_esn_step", "K2_readout_scatter", "K22_slab_ocean")}
+        prev, slab = s.sst_grid, s.step % stride == stride - 1
+        t0 = time.perf_counter()
+        s, dts = run_prediction(h, s, date, 1, stop_if_unsafe=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = {nm: kernels[nm].launches - c for nm, c in before.items()}
+        want = {"K1_esn_step": 6 if slab else 3,
+                "K2_readout_scatter": 6 if slab else 3,
+                "K22_slab_ocean": 2 if slab else 1}
+        if got != want:
+            fail(f"ocean cycle {i + 1} (step {s.step - 1}): launches {got}, "
+                 f"expected {want}")
+        if slab:
+            stepped.append(i + 1)
+            if torch.equal(s.sst_grid, prev):
+                fail(f"the slab step (cycle {i + 1}) left the SST grid")
+            if float(s.sst_grid.min()) < k22.SST_MIN or not torch.equal(
+                    s.sst_grid[land], base_floor[land]):
+                fail("after the slab step the SST grid is below 272 K or "
+                     "its land is not the fill")
+            sst_moved = float((s.sst_grid - prev).abs().max())
+        elif s.sst_grid is not prev or not torch.equal(s.sst_grid, prev):
+            fail(f"cycle {i + 1}, no slab step, changed the SST grid")
+        tensors = [s.sst_grid] + [t for c in s.classes for t in
+                                  (c.x, c.feedback, c.local_model)] + [
+            t for o in s.ocean for t in (o.x, o.buffer)]
+        if not all(bool(torch.isfinite(t).all()) for t in tensors):
+            fail(f"ocean cycle {i + 1}: the state is not finite")
+        date = date.advance_hours(6)
+    if stepped != [stride]:
+        fail(f"slab steps at cycles {stepped}, expected [{stride}]")
+    n22 = kernels["K22_slab_ocean"].launches
+    _, d = h.cycle(ocean_snapshot(s), date.month - 1, date.tmonth,
+                   date.tyear)
+    t_min, t_max = float(d["speedy_atmo"][0].min()), float(
+        d["speedy_atmo"][0].max())
+    if not all(bool(torch.isfinite(d[k]).all()) for k in (
+            "atmo", "logp", "speedy_atmo", "speedy_logp")) or not (
+            150.0 <= t_min and t_max <= 350.0):
+        fail(f"after the ocean cycles the fields are not finite or T is "
+             f"outside [150, 350] K ({t_min}..{t_max})")
+    log(f"ocean cycles (phase 10's standardizers and reservoirs, a seeded "
+        f"untrained readout, the trained ocean, {int(land.sum())} land "
+        f"points): start_prediction on the last {OCEAN_SYNC} samples "
+        f"with the 6-h forecast from the last, then {OCEAN_CYCLES} "
+        f"persistent coupled cycles of run_prediction: the SST grid new "
+        f"on cycle {stride} only (up to {sst_moved:.3f} K off the "
+        f"start), >= 272 K, land the floored fill, bit for bit unchanged "
+        f"on the other {OCEAN_CYCLES - 1}; K1 and K2 6 launches on the "
+        f"slab step and 3 on the others, K22 {n22} ({OCEAN_CYCLES} cycles, "
+        f"two on the slab step); safe {bool(s.safe)}; state finite, SPEEDY "
+        f"T {t_min:.2f}..{t_max:.2f} K; wall per cycle "
+        f"{statistics.median(walls):.3f} s median [{card}]")
+    # a slab step with host syncs forbidden
+    at = lambda st, k: dataclasses.replace(ocean_snapshot(st), step=k)
+    slab_state = at(s, stride * (s.step // stride + 1) + stride - 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h.cycle(slab_state, date.month - 1, date.tmonth, date.tyear)
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"a slab-step cycle synchronizes with the host: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # launches and busy of a slab step and of another cycle.  A session
+    # can lose its first device events (three when phase 13 runs alone, ~14
+    # after phases 10-12): OCEAN_PAD launches of K17b, which no cycle
+    # launches, go first and are left out of the counts.  A session that
+    # still sees fewer of the port's kernels than the wrappers count is
+    # profiled again (profile_counts); if all its tries come up short, the
+    # launches stand on the wrappers' counters (checked above) and the
+    # profile is only logged
+    ours = port_kernel_names()
+    pad = lambda: [tisr_plane(date.tyear, h._slat, h._clat, nlon)
+                   for _ in range(OCEAN_PAD)]
+    is_pad = lambda e: kernel_name(e.key) == "tisr_kernel"
+    seen = lambda kk: sum(e.count for e in kk if kernel_name(e.key) in ours
+                          and not is_pad(e))
+    prof = {}
+    for label, k in (("slab step", slab_state.step),
+                     ("no slab step", slab_state.step + 2)):
+        st_k = at(s, k)
+        fn = lambda: h.cycle(st_k, date.month - 1, date.tmonth, date.tyear)
+        fn()
+        for w in kernels.values():
+            w.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        n_kern = sum(w.launches for w in kernels.values())
+        ms, kk, _ = profile_counts(torch, lambda: (pad(), fn()), 1,
+                                   lambda kk: seen(kk) < n_kern)
+        complete = seen(kk) >= n_kern
+        kk = [e for e in kk if not is_pad(e)]
+        oc = {kernel_name(e.key): (e.count, _self_device_us(e) / 1e3)
+              for e in kk}
+        prof[label] = (sum(_self_device_us(e) for e in kk) / 1e3,
+                       sum(e.count for e in kk), oc, complete)
+    (ms_s, n_s, oc_s, ok_s), (ms_n, n_n, oc_n, ok_n) = prof["slab step"], \
+        prof["no slab step"]
+    extra = {nm: (oc_s.get(nm, (0, 0))[0] - oc_n.get(nm, (0, 0))[0],
+                  oc_s.get(nm, (0, 0))[1] - oc_n.get(nm, (0, 0))[1])
+             for nm in ("esn_step_kernel", "readout_kernel",
+                        "slab_push_kernel", "slab_sst_kernel")}
+    ocean_ms = sum(v[1] for v in extra.values())
+    log(f"ocean cycle profile: a slab step {n_s:g} device launches, "
+        f"{ms_s:.4f} ms busy; another cycle {n_n:g} launches, {ms_n:.4f} "
+        f"ms busy; the slab step's extra: {n_s - n_n:g} launches, "
+        f"{ms_s - ms_n:.4f} ms, of which the ocean's kernels "
+        f"{ocean_ms:.4f} ms; by kernel (launches, ms) "
+        + ", ".join(f"{k} {v[0]:g}, {v[1]:.4f}" for k, v in extra.items())
+        + ("" if ok_s and ok_n else "; the profiler lost device events in "
+           "every session, so these are not checked (the wrappers' counts "
+           "above are)") + f" [{card}]")
+    want = {"esn_step_kernel": 3, "readout_kernel": 3,
+            "slab_push_kernel": 0, "slab_sst_kernel": 1}
+    if ok_s and ok_n:
+        if {k: v[0] for k, v in extra.items()} != want or n_s - n_n != 7:
+            fail(f"the slab step's extra launches by kernel "
+                 f"{ {k: v[0] for k, v in extra.items()} } ({n_s - n_n:g} "
+                 f"in all), expected {want} (the ocean's K1, K2 and K22's "
+                 f"SST form)")
+        # its busy is the other cycle's and the ocean kernels', to within
+        # the run-to-run spread of the other kernels (~0.01 ms a cycle)
+        if abs((ms_s - ms_n) - ocean_ms) > OCEAN_BUSY_TOL_MS:
+            fail(f"the slab step's extra busy {ms_s - ms_n:.4f} ms is not "
+                 f"the ocean kernels' {ocean_ms:.4f} ms (within "
+                 f"{OCEAN_BUSY_TOL_MS} ms)")
+
+    # -- (d) the ocean hybrid's checkpoint ---------------------------------
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ocean")
+        _, t_save = timed(lambda: save_hybrid(h, path))
+        nbytes = dir_bytes(path)
+        twin, t_load = timed(lambda: load_hybrid(gcm, layout, path,
+                                                 device=dev))
+    for a, b in zip(h.ocean_packs, twin.ocean_packs):
+        for k in ("cols", "vals", "win_vals", "wout", "mean", "std"):
+            if not torch.equal(getattr(a.res, k), getattr(b.res, k)):
+                fail(f"the loaded ocean pack {a.cls.name}: res.{k} differs")
+        if not (torch.equal(a.mean_sst, b.mean_sst)
+                and torch.equal(a.std_sst, b.std_sst)
+                and np.array_equal(a.idx_map, b.idx_map)
+                and (a.hyper, a.hybrid_readout, a.res.shifts)
+                == (b.hyper, b.hybrid_readout, b.res.shifts)):
+            fail(f"the loaded ocean pack {a.cls.name} differs")
+    if not (torch.equal(h.base_sst, twin.base_sst)
+            and torch.equal(h.sea_mask, twin.sea_mask)):
+        fail("the loaded base_sst or sea_mask differs")
+    same_packs(torch, twin.packs, h.packs, "the ocean hybrid's checkpoint")
+    twin.persist_surface = True
+    st0 = dataclasses.replace(s, step=stride - 2)
+    a_, _ = run_prediction(h, ocean_snapshot(st0), date, 2,
+                           stop_if_unsafe=False)
+    b_, _ = run_prediction(twin, ocean_snapshot(st0), date, 2,
+                           stop_if_unsafe=False)
+    if not (same_states(torch, a_, b_) and torch.equal(a_.sst_grid,
+                                                       b_.sst_grid)
+            and not torch.equal(a_.sst_grid, st0.sst_grid)
+            and all(torch.equal(p.x, q.x) and torch.equal(p.buffer, q.buffer)
+                    for p, q in zip(a_.ocean, b_.ocean))):
+        fail("two cycles (the second a slab step) of the loaded ocean "
+             "hybrid differ from the hybrid's")
+    log(f"ocean checkpoint: save_hybrid {t_save:.2f} s, {nbytes / 1e9:.3f} "
+        f"GB on disk, load_hybrid {t_load:.2f} s; every ocean tensor equal; "
+        f"two cycles from step {st0.step} (the second a slab step) by the "
+        f"hybrid and its loaded twin equal bit for bit; phase 13 took "
+        f"{time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items())
+        + f", (d) {time.perf_counter() - t_phase - sum(parts.values()):.1f}"
+        f") [{card}]")
+    return n22
+
+
+def phase_training(torch, gcm, layout, date0, card, record, atmo_ckpt: str):
     """Phase 10: K14's checks, the nature run and the forecasts,
     train_hybrid_production at full width, its checks and the trained
-    weights in the coupled cycle.  Returns the launches of K14 in the
-    training run."""
+    weights in the coupled cycle; its atmosphere saved to atmo_ckpt (10f).
+    Returns the launches of K14 in the training run."""
 
     from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
     from speedy_ml_tpu_torch.esn.train import NormalEq, solve_wout
@@ -1566,7 +2166,7 @@ def phase_training(torch, gcm, layout, date0, card, record):
 
     # -- 10f. the checkpoint at full width
     phase_checkpoint(torch, gcm, layout, hyb_t, hyb_bf, src, hyper, truth,
-                     dates, wall, card)
+                     dates, wall, card, atmo_ckpt)
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return counts["K14"]
 
@@ -1582,6 +2182,10 @@ def main():
                     help="after the hybrids, run phase 12 (the persistent "
                          "surface and the slab coupler, K21) alone; prints "
                          "no result line")
+    ap.add_argument("--ocean", action="store_true",
+                    help="after the hybrids, train phase 10's atmosphere "
+                         "and run phase 13 (the slab ocean, K22) alone; "
+                         "prints no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -1644,6 +2248,7 @@ def main():
     from speedy_ml_tpu_torch.kernels.readout import (quad_expand, readout,
                                                      readout_plain)
     from speedy_ml_tpu_torch.kernels.slab_couple import slab_couple
+    from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean
     from speedy_ml_tpu_torch.kernels.readout import \
         vector_path as readout_vector_path
     from speedy_ml_tpu_torch.kernels.sht_analysis import (
@@ -1758,7 +2363,22 @@ def main():
                "K6_inject_synthesis": inject_synthesis,
                "K19_gate_check": gate_check,
                "K20_window_select": window_select,
-               "K21_slab_couple": slab_couple}
+               "K21_slab_couple": slab_couple,
+               "K22_slab_ocean": slab_ocean}
+    # phases 10 and 13 share the atmosphere's checkpoint in a directory
+    # removed at exit
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    atexit.register(shutil.rmtree, work, True)
+    atmo_ckpt = str(work / "atmo")
+    if args.ocean:
+        atmosphere_checkpoint(torch, gcm, hyb.layout, date0, atmo_ckpt,
+                              card)
+        phase_ocean(torch, np, gcm, hyb.layout, date0, card, record,
+                    kernels, atmo_ckpt)
+        log(f"chip_smoke --ocean: phase 13 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
     if args.surface:
         phase_surface(torch, np, gcm, hyb, date0, card, record, kernels)
         log(f"chip_smoke --surface: phase 12 passed, "
@@ -2774,9 +3394,11 @@ def main():
     ml_kernels = ["K1_esn_step", "K2_readout_scatter", "K3_window_gather"]
     # K17b is on no cycle's path: the ML-only cycle's K3 takes the date,
     # the coupled cycle feeds back its window's fsol plane; K21 is the
-    # persistent surface's (phase 12), off this path
+    # persistent surface's (phase 12) and K22 the slab ocean's (phase 13),
+    # off this path
     coupled_kernels = [nm for nm in kernels
-                       if nm not in ("K17b_tisr_plane", "K21_slab_couple")]
+                       if nm not in ("K17b_tisr_plane", "K21_slab_couple",
+                                     "K22_slab_ocean")]
     out_dir = ROOT / "output" / "chip_smoke"
 
     def drive(h, st0, n, path, names):
@@ -2896,6 +3518,9 @@ def main():
     if slab_couple.launches:
         fail(f"the coupled cycle without persist_surface launched K21 "
              f"{slab_couple.launches} times")
+    if slab_ocean.launches:
+        fail(f"the coupled cycle without ocean packs launched K22 "
+             f"{slab_ocean.launches} times")
     for nm, c in counts.items():
         results[nm]["launches"] = c
     log(f"coupled main path: run_prediction {len(dts)} cycles in "
@@ -3181,7 +3806,7 @@ def main():
 
     # -- 10. training at full width --------------------------------------
     results["K14_gram_update"]["launches"] = phase_training(
-        torch, gcm, hyb.layout, date0, card, record)
+        torch, gcm, hyb.layout, date0, card, record, atmo_ckpt)
 
     # -- 11. the paths from files ------------------------------------------
     phase_files(torch, np, gcm, hyb.layout, date0, card)
@@ -3189,6 +3814,10 @@ def main():
     # -- 12. the persistent surface and the slab coupler --------------------
     results["K21_slab_couple"]["launches"] = phase_surface(
         torch, np, gcm, hyb, date0, card, record, kernels)
+
+    # -- 13. the slab ocean ---------------------------------------------------
+    results["K22_slab_ocean"]["launches"] = phase_ocean(
+        torch, np, gcm, hyb.layout, date0, card, record, kernels, atmo_ckpt)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")

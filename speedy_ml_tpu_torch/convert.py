@@ -11,6 +11,12 @@ Reservoir fields: cols, vals, win_vals, wout, mean, std, n_in, shifts,
 win_cols (None allowed).  Standardizer fields: comp_mean, comp_std,
 in_mean, in_std, out_mean, out_std.
 
+`ocean_packs_from_numpy` does the same for the slab ocean's parameters
+(the JAX package's `hyb.params[1]`: per class a (reservoir, mean_sst,
+std_sst) triple), and `ocean_states_from_numpy` / `ocean_states_to_numpy`
+carry the slab ocean's states (x, buffer, lm) across, with the roll
+between the JAX buffer and the port's ring.
+
 `boundary_from_numpy`, `spectral_state_from_numpy` and
 `gcm_state_from_numpy` read boundary data, a two-level spectral state and
 a GCM state the same way, field by field.
@@ -24,7 +30,8 @@ import torch
 from speedy_ml_tpu_torch.esn.domain import RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import BatchedReservoir, ESNHyper
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
-from speedy_ml_tpu_torch.hybrid.model import ClassPack
+from speedy_ml_tpu_torch.hybrid.model import (ClassPack, OceanClassState,
+                                              OceanPack)
 
 STD_FIELDS = ("comp_mean", "comp_std", "in_mean", "in_std", "out_mean",
               "out_std")
@@ -80,6 +87,55 @@ def params_from_numpy(atmo, layout: RegionLayout, hyper: ESNHyper, *,
         s = Standardizer(**{k: f(getattr(std, k)) for k in STD_FIELDS})
         packs.append(ClassPack(cls=cls, res=r, hyper=hyper, std=s))
     return packs
+
+
+def ocean_packs_from_numpy(ocean, layout: RegionLayout, hyper: ESNHyper, *,
+                           device, dtype=torch.float32,
+                           hybrid_readout: bool = False) -> list[OceanPack]:
+    """OceanPacks for layout.classes (in order) from per-class numpy
+    (reservoir, mean_sst, std_sst) triples; the index maps are
+    esn/ocean.py's ocean_index_map.  Floats become `dtype`, mean_sst and
+    std_sst (Rc, 1)."""
+    from speedy_ml_tpu_torch.esn.ocean import ocean_index_map
+    if len(ocean) != len(layout.classes):
+        raise ValueError(f"{len(ocean)} ocean parameter triples for "
+                         f"{len(layout.classes)} region classes")
+    device = torch.device(device)
+    col = lambda a: tensor_from_numpy(np.asarray(a).reshape(-1, 1), device,
+                                      dtype)
+    packs = []
+    for cls, (res, mean_sst, std_sst) in zip(layout.classes, ocean):
+        r = reservoir_from_numpy(res, device=device, dtype=dtype)
+        if r.vals.shape[1] != cls.count:
+            raise ValueError(f"ocean class {cls.name}: {cls.count} regions, "
+                             f"parameters for {r.vals.shape[1]}")
+        packs.append(OceanPack(
+            cls=cls, res=r, hyper=hyper,
+            idx_map=ocean_index_map(cls, layout.geom.nlev),
+            mean_sst=col(mean_sst), std_sst=col(std_sst),
+            hybrid_readout=hybrid_readout))
+    return packs
+
+
+def ocean_states_from_numpy(states, step: int, *, device,
+                            dtype=torch.float32) -> tuple:
+    """OceanClassStates from objects with x, buffer (the JAX package's
+    buffer, oldest first) and lm (None allowed) at cycle `step`: the
+    buffer becomes the ring (rolled by step mod W)."""
+    from speedy_ml_tpu_torch.kernels.slab_ocean import buffer_to_ring
+    f = lambda a: tensor_from_numpy(a, device, dtype)
+    return tuple(OceanClassState(
+        x=f(o.x), buffer=buffer_to_ring(f(o.buffer), step).contiguous(),
+        lm=None if o.lm is None else f(o.lm)) for o in states)
+
+
+def ocean_states_to_numpy(states, step: int) -> list[dict]:
+    """The port's OceanClassStates at cycle `step` as dicts of numpy
+    arrays (x, buffer, lm), the buffer in the JAX package's order."""
+    from speedy_ml_tpu_torch.kernels.slab_ocean import ring_to_buffer
+    host = lambda t: None if t is None else t.detach().cpu().numpy()
+    return [dict(x=host(o.x), buffer=host(ring_to_buffer(o.buffer, step)),
+                 lm=host(o.lm)) for o in states]
 
 
 def boundary_from_numpy(bd, *, device, dtype=torch.float32):

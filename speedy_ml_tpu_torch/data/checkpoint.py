@@ -5,7 +5,10 @@ formats, so that each package reads what the other writes:
 1. a hybrid: one .npz per region class (class_<i>.npz: res_*, std_*,
    n_in, region_ids, and shifts / win_cols when present) and meta.json
    (format_version 2, vals_layout, n_classes, ml_only, has_ocean,
-   hyper_<i>);
+   hyper_<i>); with a slab ocean also ocean_<i>.npz (res_*, n_in,
+   idx_map, shifts, mean_sst, std_sst), ocean_hyper_<i> and
+   ocean_hybrid_<i> in meta.json, and ocean_aux.npz (base_sst,
+   sea_mask);
 2. a GCM restart: one .npz of the GCMState's leaves (n_leaves, leaf_<i>)
    in the JAX pytree's order;
 3. the reference's per-worker weight files: data/reference_import.py
@@ -39,9 +42,9 @@ from speedy_ml_tpu_torch.convert import (STD_FIELDS, reservoir_from_numpy,
                                          tensor_from_numpy)
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
-from speedy_ml_tpu_torch.hybrid.model import ClassPack, HybridAtmosphere
+from speedy_ml_tpu_torch.hybrid.model import (ClassPack, HybridAtmosphere,
+                                              OceanPack)
 from speedy_ml_tpu_torch.hybrid.training import VERT_SLICE
-from speedy_ml_tpu_torch.physics.land_sea import SLAB_SLICE
 
 # Checkpoint format history (the JAX package's):
 #   (unversioned) res_vals row-major (R, n, J), no 'shifts'
@@ -91,12 +94,14 @@ def _write_dir(path, write):
 
 
 def save_hybrid(hyb, path: str):
-    """Save every class pack of a hybrid (anything with packs and ml_only;
-    the port's hybrids hold no ocean or vertical-group packs) to the
-    directory `path`, in the JAX package's format."""
+    """Save every class pack and slab-ocean pack of a hybrid (anything
+    with packs, ml_only and ocean_packs, base_sst, sea_mask; the port's
+    hybrids hold no vertical-group packs) to the directory `path`, in the
+    JAX package's format."""
+    ocean_packs = getattr(hyb, "ocean_packs", None)
     meta = {"format_version": FORMAT_VERSION, "vals_layout": "slot_major",
             "n_classes": len(hyb.packs), "ml_only": bool(hyb.ml_only),
-            "has_ocean": False}
+            "has_ocean": ocean_packs is not None}
 
     def write(d: Path):
         for i, pk in enumerate(hyb.packs):
@@ -114,6 +119,21 @@ def save_hybrid(hyb, path: str):
                     .astype(np.int32)
             np.savez(d / f"class_{i}.npz", **arrs)
             meta[f"hyper_{i}"] = dataclasses.asdict(pk.hyper)
+        for i, op in enumerate(ocean_packs or ()):
+            arrs = {f"res_{k}": _to_numpy(getattr(op.res, k))
+                    for k in RES_FIELDS}
+            arrs["n_in"] = np.asarray(op.res.n_in)
+            arrs["idx_map"] = np.asarray(op.idx_map)
+            if op.res.shifts is not None:
+                arrs["shifts"] = np.asarray(op.res.shifts, dtype=np.int64)
+            arrs["mean_sst"] = _to_numpy(op.mean_sst)
+            arrs["std_sst"] = _to_numpy(op.std_sst)
+            np.savez(d / f"ocean_{i}.npz", **arrs)
+            meta[f"ocean_hyper_{i}"] = dataclasses.asdict(op.hyper)
+            meta[f"ocean_hybrid_{i}"] = bool(op.hybrid_readout)
+        if ocean_packs and hyb.base_sst is not None:
+            np.savez(d / "ocean_aux.npz", base_sst=_to_numpy(hyb.base_sst),
+                     sea_mask=_to_numpy(hyb.sea_mask))
         (d / "meta.json").write_text(json.dumps(meta, indent=1))
 
     _write_dir(path, write)
@@ -128,9 +148,6 @@ def read_meta(path: str) -> dict:
             f"checkpoint at {path} has format_version {ver}; this build "
             f"reads version {FORMAT_VERSION} (res_vals slot-major (J, R, n)). "
             "Re-save the checkpoint with the matching build.")
-    if meta.get("has_ocean"):
-        raise NotImplementedError(f"the slab-ocean packs of a checkpoint "
-                                  f"come with {SLAB_SLICE}")
     if any(k.startswith("zspec_") for k in meta):
         raise NotImplementedError(f"the vertical-localization packs of a "
                                   f"checkpoint come with {VERT_SLICE}")
@@ -181,8 +198,27 @@ def load_hybrid(gcm, layout, path: str, dtype=torch.float32, *,
                                   for k in STD_FIELDS})
         packs.append(ClassPack(cls=cls, res=res,
                                hyper=ESNHyper(**meta[f"hyper_{i}"]), std=std))
+    ocean_packs = base_sst = sea_mask = None
+    if meta.get("has_ocean"):
+        ocean_packs = []
+        for i, cls in enumerate(layout.classes):
+            with np.load(p / f"ocean_{i}.npz") as z:
+                res = _reservoir(z, i, cls, device, dtype)
+                f = lambda k: tensor_from_numpy(z[k], device, dtype)
+                ocean_packs.append(OceanPack(
+                    cls=cls, res=res,
+                    hyper=ESNHyper(**meta[f"ocean_hyper_{i}"]),
+                    idx_map=np.asarray(z["idx_map"]),
+                    mean_sst=f("mean_sst"), std_sst=f("std_sst"),
+                    hybrid_readout=meta.get(f"ocean_hybrid_{i}", False)))
+        aux = p / "ocean_aux.npz"
+        if aux.exists():
+            with np.load(aux) as z:
+                base_sst = tensor_from_numpy(z["base_sst"], device, dtype)
+                sea_mask = tensor_from_numpy(z["sea_mask"], device)
     return HybridAtmosphere(gcm, layout, packs, ml_only=meta["ml_only"],
-                            device=device)
+                            ocean_packs=ocean_packs, base_sst=base_sst,
+                            sea_mask=sea_mask, device=device)
 
 
 # ----------------------------------------------------------------------

@@ -31,7 +31,6 @@ and the host readback that kept one chunk in flight.
 from __future__ import annotations
 
 import dataclasses
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -41,6 +40,9 @@ import torch
 from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.data.era import era_to_truth
 from speedy_ml_tpu_torch.esn.domain import RegionLayout, build_layout
+from speedy_ml_tpu_torch.esn.ocean import (OCEAN_HYPER, ocean_index_map,
+                                           ocean_target_slice, rolling_mean,
+                                           sst_core_from_input)
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                generate, radius_by_lat)
 from speedy_ml_tpu_torch.esn.standardize import (Standardizer,
@@ -55,8 +57,8 @@ from speedy_ml_tpu_torch.hybrid.build import derive_seed
 from speedy_ml_tpu_torch.hybrid.model import ClassPack, HybridAtmosphere
 from speedy_ml_tpu_torch.hybrid.training import (NVAR, as_tensors,
                                                  class_noise,
-                                                 precip_noise_info)
-from speedy_ml_tpu_torch.physics.land_sea import SLAB_SLICE
+                                                 fit_ocean_class,
+                                                 precip_noise_info, timed)
 
 
 class ArraySource:
@@ -240,21 +242,6 @@ def streaming_standardizer(layout: RegionLayout, cls, source, nz: int, *,
 # chunked accumulation
 # ----------------------------------------------------------------------
 
-def _timed(timings: Optional[dict], key: str, device, fn):
-    """fn(), its wall seconds added to timings[key] (the device
-    synchronized on both sides) when timings is a dict."""
-    if timings is None:
-        return fn()
-    sync = (lambda: torch.cuda.synchronize(device)) \
-        if device.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    out = fn()
-    sync()
-    timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
-    return out
-
-
 @dataclasses.dataclass
 class ClassTrainer:
     """One class's production training, piece by piece: the reservoir,
@@ -388,16 +375,16 @@ def class_trainer(layout: RegionLayout, cls, source, hyper: ESNHyper,
     `std` is given) and the reservoirs, drawn from `seed`."""
     device = resolve_device(device)
     if std is None:
-        std = _timed(timings, "standardizer", device,
-                     lambda: streaming_standardizer(
-                         layout, cls, source, nz,
-                         time_chunk=max(time_chunk, 128),
-                         precip_eps=precip_eps, dtype=dtype, device=device))
+        std = timed(timings, "standardizer", device,
+                    lambda: streaming_standardizer(
+                        layout, cls, source, nz,
+                        time_chunk=max(time_chunk, 128),
+                        precip_eps=precip_eps, dtype=dtype, device=device))
     Rc = cls.count
     radius = radius_by_lat(layout.lat_start[cls.region_ids],
                            layout.lat_end[cls.region_ids])
     I = hyper_inputs(layout, cls, nz)
-    cols, vals, win, shifts = _timed(
+    cols, vals, win, shifts = timed(
         timings, "generate", device,
         lambda: generate(seed, Rc, I, hyper, radius, dtype=dtype,
                          topology=topology, device=device))
@@ -435,17 +422,68 @@ def train_class_production(layout: RegionLayout, cls, source, hyper: ESNHyper,
     parts = []
     for r0 in range(0, cls.count, region_chunk):
         r1 = min(r0 + region_chunk, cls.count)
-        eq = _timed(timings, "accumulate", device,
-                    lambda: tr.normal_equations(r0, r1))
-        parts.append(_timed(timings, "solve", device,
-                            lambda: solve_wout(eq, hyper, tr.S, solve_dtype)))
+        eq = timed(timings, "accumulate", device,
+                   lambda: tr.normal_equations(r0, r1))
+        parts.append(timed(timings, "solve", device,
+                           lambda: solve_wout(eq, hyper, tr.S, solve_dtype)))
         del eq
     return tr.pack(torch.cat(parts))
 
 
-def ocean_series_production(*args, **kwargs):
-    raise NotImplementedError(f"the slab-ocean series comes with "
-                              f"{SLAB_SLICE}")
+def ocean_series_production(layout: RegionLayout, cls, atmo_std, source,
+                            nz: int, *, slab_stride: int = 28,
+                            stride: int = 1, time_chunk: int = 512,
+                            precip_eps: float = 0.001, dtype=torch.float32,
+                            device=None):
+    """Stream the slab-ocean training series from a SeriesSource, on
+    `device` (default CUDA; raises without one).
+
+    The slab inputs are trailing `slab_stride`-sample rolling means of
+    the atmo-standardized ocean-input sub-vector, sampled at the slab
+    cadence; targets are the SST core at the same cadence
+    (get_training_data_from_atmo's rolling average + stride,
+    mod_slab_ocean_reservoir.f90:272-376).  The 6-h base series is
+    sub-series 0 of `stride` (hourly sources).  Time chunks stream
+    through, the rolling window's last slab_stride - 1 samples carried
+    across chunk edges: the full truth is never held.  The mean SST grid
+    (base_sst, the land fill of mpires.f90:458-472) is summed as the
+    chunks go.
+
+    Returns (o_series (T_slab, Rc, I_o), target (T_slab, Rc, O), the mean
+    SST grid (lat, lon))."""
+    device = resolve_device(device)
+    idx_map = torch.as_tensor(ocean_index_map(cls, nz), dtype=torch.long,
+                              device=device)
+    sl = ocean_target_slice(cls, nz)
+    W = slab_stride
+    sub_idx = np.arange(0, source.n_samples, stride)
+    T = len(sub_idx)
+    o_parts, t_parts = [], []
+    sst_sum, n_sst = None, 0
+    carry = torch.zeros((0, cls.count, len(idx_map)), dtype=dtype,
+                        device=device)
+    for pos in range(0, T, time_chunk):
+        idx = sub_idx[pos:pos + time_chunk]
+        truth = as_tensors(source.truth_at(idx), device)
+        series = gather_pack_inputs(truth, cls.iy_in, cls.ix_in, precip_eps,
+                                    dtype)
+        z = (series - atmo_std.in_mean) / atmo_std.in_std
+        full = torch.cat([carry, z[:, :, idx_map]])
+        rm = rolling_mean(full, W)[carry.shape[0]:]
+        C, Rc = z.shape[:2]
+        tgt = sst_core_from_input(
+            cls, z[:, :, sl[0]:sl[1]].reshape(C * Rc, -1)).reshape(C, Rc, -1)
+        carry = full[-(W - 1):] if W > 1 else full[:0]
+        # the slab-cadence positions of this chunk (global phase W - 1)
+        keep = torch.as_tensor((pos + np.arange(len(idx))) % W == W - 1,
+                               device=device)
+        o_parts.append(rm[keep])
+        t_parts.append(tgt[keep])
+        s = truth["sst"].sum(dim=0)
+        sst_sum = s if sst_sum is None else sst_sum + s
+        n_sst += truth["sst"].shape[0]
+    return (torch.cat(o_parts), torch.cat(t_parts),
+            sst_sum / max(n_sst, 1))
 
 
 def _ckpt_mismatch(meta: dict, layout: RegionLayout, hyper: ESNHyper,
@@ -487,14 +525,18 @@ def train_hybrid_production(gcm, layout: RegionLayout, source,
     naming what differs; a directory without meta.json is trained again
     and replaced.
 
-    The slab ocean (ocean, ocean_hyper, hybrid_ocean, slab_stride,
-    ocean_region_chunk) comes with A10: anything but its defaults raises
-    rather than half work."""
+    ocean: after the atmosphere (trained or loaded), each class's slab
+    ocean from ocean_series_production and fit_ocean_class (ocean_hyper,
+    default OCEAN_HYPER; class i from derive_seed(seed, 500 + i);
+    slab_stride samples a slab step; ocean_region_chunk regions a Gram;
+    the solve in the keywords' solve_dtype; hybrid_ocean: the hybrid slab
+    readout), base_sst the mean SST of the series and sea_mask fmask_l >
+    0.  The JAX package moved the atmosphere's packs to the host for the
+    ocean stage (a 16 GB card); on the port's card they stay.  A dict
+    under the keyword `timings` also collects the ocean stages' seconds
+    (ocean_series, ocean_generate, ocean_accumulate, ocean_solve)."""
     from speedy_ml_tpu_torch.data.checkpoint import (load_hybrid, read_meta,
                                                      save_hybrid)
-    if (ocean or hybrid_ocean or ocean_hyper is not None
-            or slab_stride != 28 or ocean_region_chunk != 32):
-        raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
     device = resolve_device(device)
     kw.setdefault("dtype", gcm.dtype)
     if atmo_ckpt is not None and (Path(atmo_ckpt) / "meta.json").exists():
@@ -502,14 +544,41 @@ def train_hybrid_production(gcm, layout: RegionLayout, source,
         if diff:
             raise ValueError(f"the checkpoint at {atmo_ckpt} was trained "
                              f"otherwise: " + "; ".join(diff))
-        return load_hybrid(gcm, layout, atmo_ckpt, dtype=kw["dtype"],
-                           device=device)
-    packs = [train_class_production(layout, cls, source, hyper,
-                                    derive_seed(seed, i), gcm.geom.nlev,
-                                    hybrid=hybrid, device=device, **kw)
-             for i, cls in enumerate(layout.classes)]
-    hyb = HybridAtmosphere(gcm, layout, packs, ml_only=not hybrid,
-                           device=device)
-    if atmo_ckpt is not None:
-        save_hybrid(hyb, atmo_ckpt)
-    return hyb
+        hyb = load_hybrid(gcm, layout, atmo_ckpt, dtype=kw["dtype"],
+                          device=device)
+    else:
+        packs = [train_class_production(layout, cls, source, hyper,
+                                        derive_seed(seed, i), gcm.geom.nlev,
+                                        hybrid=hybrid, device=device, **kw)
+                 for i, cls in enumerate(layout.classes)]
+        hyb = HybridAtmosphere(gcm, layout, packs, ml_only=not hybrid,
+                               device=device)
+        if atmo_ckpt is not None:
+            save_hybrid(hyb, atmo_ckpt)
+    if not ocean:
+        return hyb
+    nz, dtype, timings = gcm.geom.nlev, kw["dtype"], kw.get("timings")
+    ocean_hyper = ocean_hyper or OCEAN_HYPER
+    ocean_packs, base_sst = [], None
+    for i, (cls, p) in enumerate(zip(layout.classes, hyb.packs)):
+        o_series, target, mean_sst = timed(
+            timings, "ocean_series", device,
+            lambda: ocean_series_production(
+                layout, cls, p.std, source, nz, slab_stride=slab_stride,
+                stride=kw.get("stride", 1),
+                time_chunk=max(kw.get("time_chunk", 128), 128),
+                precip_eps=kw.get("precip_eps", 0.001), dtype=dtype,
+                device=device))
+        ocean_packs.append(fit_ocean_class(
+            cls, o_series, target, p, ocean_hyper,
+            derive_seed(seed, 500 + i), nz, dtype=dtype,
+            topology=kw.get("topology", "shift"), hybrid_ocean=hybrid_ocean,
+            region_chunk=ocean_region_chunk,
+            solve_dtype=kw.get("solve_dtype"), timings=timings,
+            device=device))
+        if i == 0:
+            base_sst = mean_sst.to(dtype)
+    return HybridAtmosphere(gcm, layout, hyb.packs, ml_only=not hybrid,
+                            ocean_packs=ocean_packs, base_sst=base_sst,
+                            sea_mask=gcm.bd.fmask_l.to(device) > 0.0,
+                            device=device)

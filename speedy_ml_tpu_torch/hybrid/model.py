@@ -32,6 +32,14 @@ surface (K17's carry form), and one K21 launch after it adds the
 window's sums where ok is true (a select again) or, on every fourth
 cycle, runs the daily coupler and zeroes the sums.
 
+With ocean packs (the slab ocean, the JAX package's product default) the
+cycle also pushes each class's ocean inputs, a sub-vector of the bottom
+pack's new feedback, into a ring of the last SLAB_STRIDE - 1 cycles (K22),
+and every SLAB_STRIDE-th cycle (a slab step) averages the ring, steps the
+slab ESNs (K1), reads them out (K2) and makes the new SST grid that the
+next cycles' feedback and windows see (K22 again).  Whether a cycle is a
+slab step is a host decision on the host step counter.
+
 Layouts follow the JAX package: fields (V, K, lat, lon), class vectors
 (Rc, I) / (Rc, O), and the same packing order, so both compute the same
 cycle from the same parameters.
@@ -40,7 +48,7 @@ cycle from the same parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,7 +57,7 @@ from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.dycore.state import SpectralState
 from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
-                                               esn_step)
+                                               esn_step, synchronize)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
 from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState, zero_carries
 from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
@@ -58,11 +66,12 @@ from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
 from speedy_ml_tpu_torch.kernels.gate_check import gate_check
 from speedy_ml_tpu_torch.kernels.inject_spectral import inject_synthesis
 from speedy_ml_tpu_torch.kernels.readout import readout
+from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean, sst_table
 from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate, tisr_plane
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
-OPTIONS_SLICE = "a later slice of the port (cycle options: slab ocean, " \
+OPTIONS_SLICE = "a later slice of the port (cycle options: " \
     "climatology tables, components, vertical localization, sharding)"
 
 
@@ -75,6 +84,27 @@ class ClassState:
 
 
 @dataclasses.dataclass(frozen=True)
+class OceanClassState:
+    """Slab-ocean reservoir state for one region class.
+
+    buffer is a ring, not the JAX package's buffer: slot k holds the ocean
+    inputs pushed at the cycles = k (mod W), W = SLAB_STRIDE - 1, so it is
+    the JAX buffer (oldest first) rolled by step mod W
+    (kernels/slab_ocean.py buffer_to_ring, ring_to_buffer); at step 0, where
+    init_state and start_prediction seed it, the two are the same.  The
+    cycle writes the ring in place (one slot a cycle, not a copy of the
+    whole buffer): the next state shares the tensor, so a caller who keeps
+    a state to run again from copies it first (ocean_snapshot)."""
+    x: torch.Tensor            # (Rc, n_o)
+    buffer: torch.Tensor       # (W, Rc, I_o) ring of the atmo inputs
+    # standardized SST local model of the hybrid slab readout: the previous
+    # slab step's own output (predict_slab persists its output as the next
+    # step's imperfect model, mod_slab_ocean_reservoir.f90:1236-1238); None
+    # for ML-only slabs
+    lm: object = None          # (Rc, O_o) or None
+
+
+@dataclasses.dataclass(frozen=True)
 class HybridState:
     classes: tuple             # tuple[ClassState, ...]
     sst_grid: torch.Tensor     # (lat, lon) current SST seen by the ESNs
@@ -83,7 +113,7 @@ class HybridState:
     # carries a 0-d bool tensor on the device
     safe: bool | torch.Tensor
     step: int                  # cycle counter (host-side)
-    ocean: tuple = ()          # slab-ocean states (later slice)
+    ocean: tuple = ()          # OceanClassState per class (empty: no ML ocean)
     # persistent coupled surface (persist_surface): the carried
     # SurfaceState and the FluxAccumulator of the sums toward the daily
     # coupler; None until the first persistent cycle
@@ -108,6 +138,32 @@ class ClassPack(NamedTuple):
         return self.zspec is None or self.zspec.bottom
 
 
+class OceanPack(NamedTuple):
+    """Slab-ocean reservoirs for one region class.
+
+    idx_map: static indices into the class's atmo input vector (the
+    atmo_training_data_idx equivalent, esn/ocean.py ocean_index_map);
+    mean_sst/std_sst (Rc, 1): the atmo standardizer's SST scalars (the
+    outputs unstandardize with them).  hybrid_readout: the readout sees
+    [previous SST output ; x~] instead of x~ alone (predict_slab vs
+    predict_slab_ml, mod_slab_ocean_reservoir.f90:1201-1296)."""
+    cls: RegionClass
+    res: BatchedReservoir
+    hyper: ESNHyper
+    idx_map: np.ndarray
+    mean_sst: torch.Tensor
+    std_sst: torch.Tensor
+    hybrid_readout: bool = False
+
+
+def ocean_snapshot(hstate: HybridState) -> HybridState:
+    """The state with copies of its ocean rings, which the next cycle then
+    does not write (the cycle writes a ring in place)."""
+    return dataclasses.replace(hstate, ocean=tuple(
+        dataclasses.replace(o, buffer=o.buffer.clone())
+        for o in hstate.ocean))
+
+
 def _on(t: torch.Tensor, device: torch.device) -> bool:
     return t.device.type == device.type and (
         device.index is None or t.device.index == device.index)
@@ -119,21 +175,20 @@ class HybridAtmosphere:
     TIMESTEP_HOURS = 6
     NVAR = 4  # T, u, v, q
 
+    SLAB_STRIDE = 28   # atmosphere cycles per ocean step (168 h / 6 h)
+
     def __init__(self, gcm, layout: RegionLayout, packs: list[ClassPack],
                  ml_only: bool = False, ocean_packs=None, base_sst=None,
                  sea_mask=None, *, device=None):
         """gcm may be None when ml_only: geometry then comes from
         layout.geom and the dtype from the packs; the coupled cycle needs
         a GCM on the same device.  device: where the cycle runs (default
-        CUDA; raises without one); the packs must be there."""
+        CUDA; raises without one); the packs must be there, and so must
+        the slab ocean's: ocean_packs (an OceanPack per layout class, in
+        order), base_sst (lat, lon), the land fill of the ML SST grid, and
+        sea_mask (lat, lon), > 0 where that fill applies (land)."""
         if not ml_only and (gcm is None or not hasattr(gcm, "dyn")):
             raise ValueError("the coupled cycle (ml_only=False) needs a GCM")
-        if ocean_packs:
-            raise NotImplementedError(
-                f"slab-ocean packs come with {OPTIONS_SLICE}")
-        if base_sst is not None or sea_mask is not None:
-            raise NotImplementedError(
-                f"the ML-ocean land fill comes with {OPTIONS_SLICE}")
         device = resolve_device(device)
         if not ml_only and not _on(gcm.phis, device):
             raise ValueError(f"the GCM lives on {gcm.device}, not on "
@@ -145,10 +200,24 @@ class HybridAtmosphere:
             if not _on(p.res.vals, device):
                 raise ValueError(f"pack {p.cls.name} lives on "
                                  f"{p.res.vals.device}, not on {device}")
+        for op in ocean_packs or ():
+            for nm, t in (("res.vals", op.res.vals),
+                          ("res.wout", op.res.wout),
+                          ("mean_sst", op.mean_sst),
+                          ("std_sst", op.std_sst)):
+                if not _on(t, device):
+                    raise ValueError(f"ocean pack {op.cls.name}: {nm} lives "
+                                     f"on {t.device}, not on {device}")
+        for nm, t in (("base_sst", base_sst), ("sea_mask", sea_mask)):
+            if t is not None and not (torch.is_tensor(t) and _on(t, device)):
+                raise ValueError(f"{nm} must be a tensor on {device}")
         self.gcm = gcm
         self.layout = layout
         self.packs = list(packs)
         self.ml_only = ml_only
+        self.ocean_packs = list(ocean_packs) if ocean_packs else None
+        self.base_sst = base_sst
+        self.sea_mask = sea_mask
         # JAX-package switches a caller may set: persist_surface carries
         # the coupled surface across cycles; the cycle raises on
         # emit_components
@@ -190,6 +259,26 @@ class HybridAtmosphere:
                                      device=self.device)
         self._clat = torch.as_tensor(g.cos_lat, dtype=self.dtype,
                                      device=self.device)
+        # the slab ocean's tables (K22): the index maps on the device, and
+        # the SST form's source table, land fill and mask
+        self.ocean_index = self.ocean_table = None
+        if self.ocean_packs:
+            if len(self.ocean_packs) != len(layout.classes) or any(
+                    op.cls is not cls for op, cls in zip(self.ocean_packs,
+                                                         layout.classes)):
+                raise ValueError("one ocean pack per layout class, in order")
+            bottom = self._bottom_index()
+            self.ocean_index = []
+            for op, bi in zip(self.ocean_packs, bottom):
+                idx = np.asarray(op.idx_map)
+                if idx.min() < 0 or idx.max() >= self.packs[bi].res.n_in:
+                    raise ValueError(f"ocean pack {op.cls.name}: its index "
+                                     f"map leaves the input vector")
+                self.ocean_index.append(torch.as_tensor(
+                    idx.astype(np.int32), device=self.device))
+            self.ocean_table = sst_table(
+                layout, [op.cls for op in self.ocean_packs], base_sst,
+                sea_mask, device=self.device, dtype=self.dtype)
 
     def set_mesh(self, mesh, shard_gcm: bool = True):
         raise NotImplementedError(f"the sharded cycle comes with "
@@ -216,7 +305,102 @@ class HybridAtmosphere:
             (), dtype=torch.bool, device=self.device)
         return HybridState(classes=tuple(cls_states),
                            sst_grid=torch.as_tensor(sst_grid, **kw),
-                           safe=safe, step=0)
+                           safe=safe, step=0,
+                           ocean=self._init_ocean_states())
+
+    def _init_ocean_states(self) -> tuple:
+        if not self.ocean_packs:
+            return ()
+        W = self.SLAB_STRIDE - 1
+        kw = dict(dtype=self.dtype, device=self.device)
+        out = []
+        for op in self.ocean_packs:
+            Rc = op.cls.count
+            lm = (torch.zeros((Rc, op.res.n_outputs), **kw)
+                  if op.hybrid_readout else None)
+            out.append(OceanClassState(
+                x=torch.zeros((Rc, op.res.n), **kw),
+                buffer=torch.zeros((W, Rc, len(op.idx_map)), **kw), lm=lm))
+        return tuple(out)
+
+    def start_prediction(self, truth_sync: dict, model_next: Optional[dict],
+                         sst0) -> HybridState:
+        """Synchronize the reservoirs on a truth window, then arm the first
+        cycle (start_prediction/synchronize, mod_reservoir.f90:938-959,
+        1352-1379).
+
+        truth_sync: dict of grids (T, ...) as in hybrid.training; the last
+        sample is the initial condition.  model_next: the imperfect
+        model's forecast grids (atmo, logp) valid one step after the
+        window's end, or None (zeros).  The ocean rings are seeded from
+        the window (step 0: the ring is the JAX buffer)."""
+        from speedy_ml_tpu_torch.esn.ocean import (ocean_target_slice,
+                                                   sst_core_from_input)
+        from speedy_ml_tpu_torch.hybrid.training import (as_tensors,
+                                                         pack_class_series)
+        kw = dict(dtype=self.dtype, device=self.device)
+        truth = as_tensors(truth_sync, self.device)
+        cls_states = []
+        for p in self.packs:
+            series = pack_class_series(self.layout, p.cls, truth,
+                                       zspec=p.zspec)
+            z = p.std.standardize_input(series.to(self.dtype))
+            x = synchronize(p.res, torch.zeros((p.cls.count, p.res.n), **kw),
+                            z[:-1], p.hyper.leakage)
+            if model_next is not None:
+                m = as_tensors(model_next, self.device, self.dtype)
+                vec = self.layout.pack_vector(p.cls, m["atmo"],
+                                              logp=m["logp"], core_only=True)
+                S = p.res.n_speedy
+                lm = ((vec[:, :S] - p.std.out_mean[:, :S])
+                      / p.std.out_std[:, :S])
+            else:
+                lm = torch.zeros((p.cls.count, p.res.n_speedy), **kw)
+            cls_states.append(ClassState(x=x, feedback=z[-1].contiguous(),
+                                         local_model=lm.contiguous()))
+        # the ocean rings from the sync window, paired with the BOTTOM atmo
+        # pack of each class (the slab ocean reads the lowest-level inputs,
+        # get_training_data_from_atmo)
+        ocean_states = []
+        if self.ocean_packs:
+            W = self.SLAB_STRIDE - 1
+            for op, bi, idx in zip(self.ocean_packs, self._bottom_index(),
+                                   self.ocean_index):
+                p = self.packs[bi]
+                series = pack_class_series(self.layout, op.cls, truth)
+                z = p.std.standardize_input(series.to(self.dtype))
+                o_series = z[:, :, idx.long()]
+                T = o_series.shape[0]
+                reps = (W + T - 1) // T
+                buf = o_series.repeat(reps, 1, 1)[-W:].contiguous()
+                lm = None
+                if op.hybrid_readout:
+                    # the slab local model starts as the last observed SST
+                    # core, standardized (start_prediction_slab seeds its
+                    # outvec from the final SST, mod_slab_ocean_reservoir.f90:
+                    # 769-800)
+                    sl = ocean_target_slice(op.cls, self.nz)
+                    lm = sst_core_from_input(
+                        op.cls, z[-1, :, sl[0]:sl[1]]).contiguous()
+                ocean_states.append(OceanClassState(
+                    x=torch.zeros((op.cls.count, op.res.n), **kw),
+                    buffer=buf, lm=lm))
+        safe = True if self.ml_only else torch.ones(
+            (), dtype=torch.bool, device=self.device)
+        return HybridState(classes=tuple(cls_states),
+                           sst_grid=torch.as_tensor(sst0, **kw),
+                           safe=safe, step=0, ocean=tuple(ocean_states))
+
+    def _bottom_index(self) -> list:
+        """Index into packs of each layout class's bottom pack (the one
+        carrying the surface blocks), in layout.classes order."""
+        out = []
+        for cls in self.layout.classes:
+            for i, p in enumerate(self.packs):
+                if p.cls is cls and p.bottom:
+                    out.append(i)
+                    break
+        return out
 
     # ------------------------------------------------------------------
     # pieces of the cycle
@@ -224,28 +408,33 @@ class HybridAtmosphere:
 
     @property
     def params(self):
-        """Model parameters: (atmo (res, std) tuple, ocean tuple)."""
-        return (tuple((p.res, p.std) for p in self.packs), ())
+        """Model parameters: (atmo (res, std) tuple, ocean (res, mean_sst,
+        std_sst) tuple)."""
+        return (tuple((p.res, p.std) for p in self.packs),
+                tuple((op.res, op.mean_sst, op.std_sst)
+                      for op in (self.ocean_packs or ())))
 
     def cast_wout_bf16(self):
         """Store the readout weights in bfloat16 (in place on the packs).
 
         The readout is bound by the Wout read (3.6 GB in f32 at m=6000 x
         1,152 regions); bf16 halves it.  The readout kernel rounds the
-        augmented state to bf16 and keeps an f32 sum."""
+        augmented state to bf16 and keeps an f32 sum.  The slab ocean's
+        Wout (73 MB, read once every SLAB_STRIDE cycles) stays as it is."""
         self.packs = [p._replace(res=dataclasses.replace(
             p.res, wout=p.res.wout.to(torch.bfloat16)))
             for p in self.packs]
         return self
 
     def _with_params(self, params):
+        """(atmo packs, ocean packs) with the parameters of `params`."""
         atmo_p, ocean_p = params
-        if ocean_p:
-            raise NotImplementedError(
-                f"slab-ocean parameters come with {OPTIONS_SLICE}")
-        return [ClassPack(cls=p.cls, res=r, hyper=p.hyper, std=s,
-                          zspec=p.zspec)
-                for p, (r, s) in zip(self.packs, atmo_p)]
+        packs = [ClassPack(cls=p.cls, res=r, hyper=p.hyper, std=s,
+                           zspec=p.zspec)
+                 for p, (r, s) in zip(self.packs, atmo_p)]
+        opacks = [op._replace(res=r, mean_sst=m, std_sst=s)
+                  for op, (r, m, s) in zip(self.ocean_packs or (), ocean_p)]
+        return packs, opacks
 
     def predict_all(self, packs, hstate: HybridState):
         """ESN step + readout for every region (predict/predict_ml,
@@ -388,7 +577,7 @@ class HybridAtmosphere:
         couples (JAX :614-659).  Returns (new_state, diagnostics dict)."""
         self._check_options()
         rf = torch.profiler.record_function
-        packs = self._with_params(params)
+        packs, opacks = self._with_params(params)
         with rf("predict_all"):
             new_x, grid = self.predict_all(packs, hstate)
         atmo, logp, precip = self.assemble_global(packs, grid)
@@ -441,16 +630,56 @@ class HybridAtmosphere:
         else:
             with rf("build_local_model"):
                 locals_ = self.build_local_model(packs, fc_atmo, fc_logp)
+        sst_grid, ocean = hstate.sst_grid, hstate.ocean
+        if opacks and ocean:
+            with rf("slab_ocean"):
+                sst_grid, ocean = self.slab_step(opacks, hstate, feedbacks)
         classes = tuple(
             ClassState(x=x, feedback=fb, local_model=lm)
             for x, fb, lm in zip(new_x, feedbacks, locals_))
-        new_state = HybridState(classes=classes, sst_grid=hstate.sst_grid,
+        new_state = HybridState(classes=classes, sst_grid=sst_grid,
                                 safe=safe, step=hstate.step + 1,
-                                ocean=hstate.ocean, sfc=new_sfc,
+                                ocean=ocean, sfc=new_sfc,
                                 fluxes=new_fluxes)
         diag = dict(atmo=atmo, logp=logp, precip=precip,
                     speedy_atmo=fc_atmo, speedy_logp=fc_logp)
         return new_state, diag
+
+    def slab_step(self, opacks, hstate: HybridState, feedbacks) -> tuple:
+        """The slab ocean of one cycle (JAX :678-726; parallelmain.f90:
+        236-248, mpires.f90:753-757): the bottom feedback's ocean inputs
+        into each ring (K22, in place), and on a slab step (step %
+        SLAB_STRIDE == SLAB_STRIDE - 1, a host decision) the rings' means,
+        the slab ESN step (K1) and readout (K2, bare; with hybrid_readout
+        the previous output is the local model, and the new one replaces
+        it) per class, and the new SST grid (K22).  Returns (the SST grid,
+        the ocean states): on other cycles hstate's grid, x and lm."""
+        fbs = [feedbacks[i] for i in self._bottom_index()]
+        bufs = [o.buffer for o in hstate.ocean]
+        kw = dict(bufs=bufs, step=hstate.step, fbs=fbs,
+                  idx_maps=self.ocean_index)
+        if hstate.step % self.SLAB_STRIDE != self.SLAB_STRIDE - 1:
+            slab_ocean("push", **kw)
+            return hstate.sst_grid, hstate.ocean
+        means = slab_ocean("push_mean", **kw)
+        outs, states = [], []
+        for op, ocs, u in zip(opacks, hstate.ocean, means):
+            x = esn_step(op.res, ocs.x, u, op.hyper.leakage)
+            lm = None
+            if op.hybrid_readout:
+                lm = ocs.lm if ocs.lm is not None else torch.zeros(
+                    (op.cls.count, op.res.n_outputs), dtype=self.dtype,
+                    device=self.device)
+            out = readout(op.res.wout, x, lm)
+            outs.append(out)
+            states.append(OceanClassState(
+                x=x, buffer=ocs.buffer,
+                lm=out if op.hybrid_readout else None))
+        sst = slab_ocean("sst", outs=outs,
+                         mean_sst=[op.mean_sst for op in opacks],
+                         std_sst=[op.std_sst for op in opacks],
+                         table=self.ocean_table)
+        return sst, tuple(states)
 
     def cycle(self, hstate: HybridState, imon, fmon, tyear,
               hour_of_year=None, sst_bias=0.0) -> tuple:

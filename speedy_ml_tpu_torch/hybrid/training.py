@@ -23,8 +23,10 @@ stay clean.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
@@ -36,12 +38,17 @@ from speedy_ml_tpu_torch.esn.standardize import (Standardizer,
                                                  compute_standardizer,
                                                  core_component_map,
                                                  n_components)
-from speedy_ml_tpu_torch.esn.train import (find_closest_divisor, solve_wout,
+from speedy_ml_tpu_torch.esn.ocean import (OCEAN_HYPER, ocean_index_map,
+                                           ocean_target_slice, rolling_mean,
+                                           sst_core_from_input)
+from speedy_ml_tpu_torch.esn.train import (accumulate_batches,
+                                           discard_transient,
+                                           find_closest_divisor, solve_wout,
                                            train_subseries)
 from speedy_ml_tpu_torch.hybrid.build import derive_seed
-from speedy_ml_tpu_torch.hybrid.model import ClassPack, HybridAtmosphere
+from speedy_ml_tpu_torch.hybrid.model import (ClassPack, HybridAtmosphere,
+                                              OceanPack)
 from speedy_ml_tpu_torch.physics.constants import SOLC
-from speedy_ml_tpu_torch.physics.land_sea import SLAB_SLICE
 from speedy_ml_tpu_torch.physics.radiation import solar_flux_traced
 
 NVAR = 4
@@ -182,14 +189,135 @@ def train_class(layout: RegionLayout, cls, truth: dict, model: Optional[dict],
     return ClassPack(cls=cls, res=res, hyper=hyper, std=std)
 
 
-def fit_ocean_class(*args, **kwargs):
-    raise NotImplementedError(f"the slab-ocean trainer comes with "
-                              f"{SLAB_SLICE}")
+def timed(timings: Optional[dict], key: str, device, fn):
+    """fn(), its wall seconds added to timings[key] (the device
+    synchronized on both sides) when timings is a dict."""
+    if timings is None:
+        return fn()
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+    return out
 
 
-def train_ocean_class(*args, **kwargs):
-    raise NotImplementedError(f"the slab-ocean trainer comes with "
-                              f"{SLAB_SLICE}")
+def fit_ocean_class(cls, o_series, target, atmo_pack, hyper, seed: int,
+                    nz: int, *, n_discard: int = 2, dtype=torch.float32,
+                    topology: str = "shift", hybrid_ocean: bool = False,
+                    region_chunk: int = 32, solve_dtype=None,
+                    timings: Optional[dict] = None,
+                    device=None) -> OceanPack:
+    """Generate and ridge-fit the slab reservoirs of one class from
+    prepared (T_slab, Rc, I_o) inputs and (T_slab, Rc, O) SST targets, on
+    `device` (default CUDA; raises without one).
+
+    One batch of the T_slab - n_discard paired samples
+    (train_slab_ocean_model:1331), region_chunk regions at a time: each
+    chunk's Gram (region_chunk, A, A) is accumulated by K14 and solved
+    (solve_dtype: the solve's precision, default the Gram's).
+    hybrid_ocean: the readout also sees the previous slab step's SST core
+    as a local-model block (predict_slab,
+    mod_slab_ocean_reservoir.f90:1201-1249); its training stand-in is the
+    lagged truth SST (persistence).  mean_sst and std_sst: the atmosphere
+    standardizer's SST component.  timings: a dict that collects wall
+    seconds of the stages ocean_generate, ocean_accumulate, ocean_solve."""
+    device = resolve_device(device)
+    o_series = torch.as_tensor(o_series).to(device=device, dtype=dtype)
+    target = torch.as_tensor(target).to(device=device, dtype=dtype)
+    T_slab, Rc, I_o = o_series.shape
+    # initialize_slab_ocean_model:31
+    cols, vals, win, shifts = timed(
+        timings, "ocean_generate", device,
+        lambda: generate(seed, Rc, I_o, hyper, np.full(Rc, 0.9), dtype=dtype,
+                         topology=topology, device=device))
+    n = vals.shape[2]
+    O = target.shape[2]
+    S_o = O if hybrid_ocean else 0
+    kw = dict(dtype=dtype, device=device)
+    res = BatchedReservoir(cols=cols, vals=vals, win_vals=win, n_in=I_o,
+                           wout=torch.zeros((Rc, O, S_o + n), **kw),
+                           mean=torch.zeros((Rc, I_o), **kw),
+                           std=torch.ones((Rc, I_o), **kw), shifts=shifts)
+    # model_in[k]: the SST core one slab step before target[k]
+    model_in = (torch.cat([target[:1], target[:-1]])
+                if hybrid_ocean else None)
+    L = T_slab - n_discard
+    batch_size = max(1, L - 1)
+    parts = []
+    for r0 in range(0, Rc, region_chunk):
+        r1 = min(r0 + region_chunk, Rc)
+        res_ch = dataclasses.replace(
+            res, vals=res.vals[:, r0:r1].contiguous(),
+            win_vals=res.win_vals[r0:r1].contiguous(),
+            cols=res.cols if res.cols.dim() == 2
+            else res.cols[r0:r1].contiguous(),
+            wout=res.wout[r0:r1], mean=res.mean[r0:r1], std=res.std[r0:r1])
+        cut = lambda t: None if t is None else t[:, r0:r1].contiguous()
+
+        def accumulate():
+            x0 = discard_transient(res_ch, hyper, cut(o_series[:n_discard]))
+            return accumulate_batches(
+                res_ch, hyper, cut(o_series[n_discard:]),
+                cut(target[n_discard:]),
+                None if model_in is None else cut(model_in[n_discard:]), x0,
+                batch_size)[0]
+
+        eq = timed(timings, "ocean_accumulate", device, accumulate)
+        parts.append(timed(timings, "ocean_solve", device,
+                           lambda: solve_wout(eq, hyper, S_o, solve_dtype)))
+        del eq
+    res = dataclasses.replace(res, wout=torch.cat(parts))
+    sst_comp = NVAR * nz + 2   # components: atmo (4 nz), logp, precip, sst
+    std = atmo_pack.std
+    return OceanPack(
+        cls=cls, res=res, hyper=hyper, idx_map=ocean_index_map(cls, nz),
+        mean_sst=std.comp_mean[:, sst_comp:sst_comp + 1].contiguous(),
+        std_sst=std.comp_std[:, sst_comp:sst_comp + 1].contiguous(),
+        hybrid_readout=hybrid_ocean)
+
+
+def ocean_series(cls, z_in: torch.Tensor, nz: int, slab_stride: int):
+    """The slab inputs and targets of a class's standardized atmo input
+    series z_in (T, Rc, I): the trailing slab_stride-sample rolling means
+    of the ocean inputs, and the SST core, at the slab cadence (samples
+    slab_stride - 1, 2 slab_stride - 1, ...)."""
+    idx = torch.as_tensor(ocean_index_map(cls, nz), dtype=torch.long,
+                          device=z_in.device)
+    o_series = rolling_mean(z_in[:, :, idx], slab_stride)
+    o_series = o_series[slab_stride - 1::slab_stride]   # (T_slab, Rc, I_o)
+    sl = ocean_target_slice(cls, nz)
+    sst_block = z_in[slab_stride - 1::slab_stride][:, :, sl[0]:sl[1]]
+    T_slab, Rc, _ = o_series.shape
+    target = sst_core_from_input(
+        cls, sst_block.reshape(T_slab * Rc, -1)).reshape(T_slab, Rc, -1)
+    return o_series, target
+
+
+def train_ocean_class(layout: RegionLayout, cls, atmo_pack, hyper,
+                      seed: int, nz: int, *, slab_stride: int = 28,
+                      n_discard: int = 2, dtype=torch.float32,
+                      truth: dict = None, precip_eps: float = 0.001,
+                      topology: str = "shift", hybrid_ocean: bool = False,
+                      device=None) -> OceanPack:
+    """Train the slab-ocean reservoirs of one class in memory
+    (train_slab_ocean_model / get_training_data_from_atmo,
+    mod_slab_ocean_reservoir.f90:173-376), on `device` (default CUDA).
+
+    Inputs: the atmo-standardized vectors through the ocean index map,
+    slab_stride-rolling-averaged and strided to the slab step; target: the
+    one-slab-step-ahead SST core."""
+    device = resolve_device(device)
+    series = pack_class_series(layout, cls, as_tensors(truth, device),
+                               precip_eps).to(dtype)
+    z_in = atmo_pack.std.standardize_input(series)
+    o_series, target = ocean_series(cls, z_in, nz, slab_stride)
+    return fit_ocean_class(cls, o_series, target, atmo_pack, hyper, seed, nz,
+                           n_discard=n_discard, dtype=dtype,
+                           topology=topology, hybrid_ocean=hybrid_ocean,
+                           device=device)
 
 
 def train_hybrid(gcm, layout: RegionLayout, truth: dict,
@@ -199,22 +327,38 @@ def train_hybrid(gcm, layout: RegionLayout, truth: dict,
                  vert_overlap: int = 0, device=None,
                  **kw) -> HybridAtmosphere:
     """Train every region class in memory and assemble the hybrid
-    atmosphere; class i draws from derive_seed(seed, 16 i).  The slab
-    ocean (ocean, ocean_hyper, hybrid_ocean) and vertical groups
-    (num_vert_levels, vert_overlap) come with A10: anything but their
-    defaults raises."""
+    atmosphere; class i draws from derive_seed(seed, 16 i).  With ocean,
+    each class's slab ocean too (ocean_hyper, default OCEAN_HYPER; class i
+    from derive_seed(seed, 500 + i); hybrid_ocean: the hybrid slab
+    readout), the land fill base_sst (the truth's mean SST) and sea_mask
+    (fmask_l > 0).  Vertical groups (num_vert_levels, vert_overlap) come
+    with A10: anything but their defaults raises."""
     if num_vert_levels > 1 or vert_overlap != 0:
         raise NotImplementedError(f"vertical groups (num_vert_levels > 1, "
                                   f"vert_overlap) come with {VERT_SLICE}")
-    if ocean or hybrid_ocean or ocean_hyper is not None:
-        raise NotImplementedError(f"the slab ocean comes with {SLAB_SLICE}")
     device = resolve_device(device)
+    nz = gcm.geom.nlev
     packs = [train_class(layout, cls, truth, model, hyper,
-                         derive_seed(seed, i * 16), gcm.geom.nlev,
-                         device=device, **kw)
+                         derive_seed(seed, i * 16), nz, device=device, **kw)
              for i, cls in enumerate(layout.classes)]
+    ocean_packs = base_sst = sea_mask = None
+    if ocean:
+        ocean_hyper = ocean_hyper or OCEAN_HYPER
+        dtype = kw.get("dtype", torch.float32)
+        ocean_packs = [train_ocean_class(
+            layout, cls, p, ocean_hyper, derive_seed(seed, 500 + i), nz,
+            truth=truth, dtype=dtype, topology=kw.get("topology", "shift"),
+            hybrid_ocean=hybrid_ocean, device=device)
+            for i, (cls, p) in enumerate(zip(layout.classes, packs))]
+        # land points of the ML SST grid get the training period's mean SST
+        # (base_sst_grid, initialize_prediction:845-885); the mask: land
+        # where the boundary land fraction is above 0
+        base_sst = as_tensors({"sst": truth["sst"]}, device)["sst"] \
+            .mean(dim=0).to(dtype)
+        sea_mask = gcm.bd.fmask_l.to(device) > 0.0
     return HybridAtmosphere(gcm, layout, packs, ml_only=model is None,
-                            device=device)
+                            ocean_packs=ocean_packs, base_sst=base_sst,
+                            sea_mask=sea_mask, device=device)
 
 
 # ----------------------------------------------------------------------

@@ -34,11 +34,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every operation apart (no FMA contraction): its convection decides by
 # comparing sums, as the plain version does; so does the window's entry
 # (K17), which reuses its humidity, K3, whose date form works out K17b's
-# insolation (surface_forcing.cuh sf_fsol) with the same bits, and K21,
-# which reuses K17's climatology.
+# insolation (surface_forcing.cuh sf_fsol) with the same bits, K21,
+# which reuses K17's climatology, and K22, whose unstandardize is the
+# plain version's multiply, then add.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "column_moist.cu", "column_longwave.cu", "column_pbl.cu",
-    "surface_forcing.cu", "window_gather.cu", "slab_couple.cu")}
+    "surface_forcing.cu", "window_gather.cu", "slab_couple.cu",
+    "slab_ocean.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -89,6 +91,15 @@ SIGNATURES = {
                              _vp, _vp, _vp],
     "slab_couple_launch": [_i, _i, _ll, ctypes.POINTER(_vp), _vp, _vp, _dp,
                            ctypes.POINTER(_i), _d, ctypes.POINTER(_i), _vp],
+    "slab_ocean_push_launch": [_i, _i, _i, ctypes.POINTER(_vp),
+                               ctypes.POINTER(_vp), ctypes.POINTER(_vp),
+                               ctypes.POINTER(_vp), ctypes.POINTER(_ll),
+                               ctypes.POINTER(_i), ctypes.POINTER(_i), _i, _i,
+                               _d, _vp],
+    "slab_ocean_sst_launch": [_i, _i, _i, ctypes.POINTER(_vp),
+                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
+                              ctypes.POINTER(_ll), ctypes.POINTER(_i), _vp,
+                              _vp, _vp, _ll, _d, _vp, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

@@ -1,7 +1,8 @@
-// Host build of the arithmetic of K3, K17-K21 (window_gather.cuh,
+// Host build of the arithmetic of K3, K17-K22 (window_gather.cuh,
 // surface_forcing.cuh, inject_spectral.cuh, gate_check.cuh,
-// window_select.cuh, slab_couple.cuh): K17's per-point body, K17b and K21
-// as loops over the grid points, K3 and K20 over their output elements; K17's row blocks and
+// window_select.cuh, slab_couple.cuh, slab_ocean.cuh): K17's per-point
+// body, K17b, K21 and K22's SST form as loops over the grid points, K3,
+// K20 and K22's push forms over their output elements; K17's row blocks and
 // K18's first-design blocks with their threads written out as loops in
 // phase order and their shared memory starting as NaN, so that a phase
 // reading what an earlier one did not write shows; K19 as one loop over
@@ -19,6 +20,7 @@
 #include "gate_check.cuh"
 #include "inject_spectral.cuh"
 #include "slab_couple.cuh"
+#include "slab_ocean.cuh"
 #include "surface_forcing.cuh"
 #include "window_gather.cuh"
 #include "window_select.cuh"
@@ -268,6 +270,55 @@ extern "C" int slab_couple_host(int is_double, long long G,
     const SlabIO<float> io =
         slab_io<float>(G, in, sfc, fx, scal, ix, w_an, op);
     for (long long i = 0; i < G; ++i) slab_couple_at(io, i);
+  }
+  return 0;
+}
+
+// K22's push forms over every class's slot elements, with the launch's
+// arguments; 1 for arguments that do not fit.
+extern "C" int slab_ocean_push_host(int is_double, int n_classes,
+                                    void* const* fb, void* const* idx,
+                                    void* const* buf, void* const* mean,
+                                    const long long* counts, const int* width,
+                                    const int* fb_width, int W, int slot,
+                                    double rw) {
+  if (is_double) {
+    SoPush<double> a;
+    if (slab_push_args(&a, n_classes, fb, idx, buf, mean, counts, width,
+                       fb_width, W, slot, rw))
+      return 1;
+    for (long long t = 0; t < a.start[n_classes]; ++t) slab_push_at(a, t);
+  } else {
+    SoPush<float> a;
+    if (slab_push_args(&a, n_classes, fb, idx, buf, mean, counts, width,
+                       fb_width, W, slot, rw))
+      return 1;
+    for (long long t = 0; t < a.start[n_classes]; ++t) slab_push_at(a, t);
+  }
+  return 0;
+}
+
+// K22's SST form over the grid points, with the launch's arguments; 1 for
+// arguments that do not fit.
+extern "C" int slab_ocean_sst_host(int is_double, int n_classes,
+                                   void* const* out, void* const* mean_sst,
+                                   void* const* std_sst,
+                                   const long long* counts, const int* width,
+                                   const void* src, const void* base,
+                                   const void* land, long long G, double tmin,
+                                   void* sst) {
+  if (is_double) {
+    SoSst<double> a;
+    if (slab_sst_args(&a, n_classes, out, mean_sst, std_sst, counts, width,
+                      src, base, land, G, tmin, sst))
+      return 1;
+    for (long long g = 0; g < G; ++g) slab_sst_at(a, g);
+  } else {
+    SoSst<float> a;
+    if (slab_sst_args(&a, n_classes, out, mean_sst, std_sst, counts, width,
+                      src, base, land, G, tmin, sst))
+      return 1;
+    for (long long g = 0; g < G; ++g) slab_sst_at(a, g);
   }
   return 0;
 }

@@ -330,9 +330,26 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     with pytest.raises(ValueError, match="needs a GCM"):
         HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=False,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="slab-ocean"):
+    # the slab ocean runs (tests/test_torch_ocean.py); its packs, like the
+    # atmosphere's, must be on the hybrid's device
+    from speedy_ml_tpu_torch.esn.ocean import ocean_index_map
+    from speedy_ml_tpu_torch.hybrid.model import OceanPack
+    on_meta = []
+    for p in thyb.packs:
+        xc, yc = p.cls.core_shape
+        res = dataclasses.replace(p.res, wout=torch.zeros(
+            (p.cls.count, xc * yc, p.res.n), device="meta"))
+        on_meta.append(OceanPack(
+            cls=p.cls, res=res, hyper=p.hyper,
+            idx_map=ocean_index_map(p.cls, thyb.nz),
+            mean_sst=torch.zeros((p.cls.count, 1), dtype=torch.float64),
+            std_sst=torch.ones((p.cls.count, 1), dtype=torch.float64)))
+    with pytest.raises(ValueError, match="ocean pack .*lives on meta"):
         HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=True,
-                         ocean_packs=[object()], device="cpu")
+                         ocean_packs=on_meta, device="cpu")
+    with pytest.raises(ValueError, match="base_sst must be a tensor on cpu"):
+        HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=True,
+                         base_sst=np.zeros(3), device="cpu")
     for h in (thyb, chyb):
         for call in (lambda: h.set_tisr_table(None),
                      lambda: h.set_sst_table(None),

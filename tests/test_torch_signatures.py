@@ -1,16 +1,17 @@
 """The port's entry points take every option the JAX package's take.
 
-For GCM, train_hybrid, train_hybrid_production, the checkpoint loader
-and the data readers, every parameter with
+For GCM, train_hybrid, train_hybrid_production, the slab ocean's
+trainers and start_prediction, the checkpoint loader and the data
+readers, every parameter with
 a default in the JAX entry point (inspect.signature) is a parameter of the
 port's with the same default: the same value, or for the two frameworks'
 own types the counterpart (jnp.float32 -> torch.float32, the dataclasses
 Geometry and PhysicalConstants by their fields).  The options whose
-modules are not ported yet (the SST anomalies, the slab ocean, the
-vertical groups: A10) take their defaults and raise NotImplementedError
-naming A10 for any other value; scan_unroll, a JAX compile setting that
-changes no number, is taken and changes nothing.  The positional `key`
-of the trainers is a JAX PRNG key where the port takes an int seed.
+modules are not ported yet (the vertical groups: A10) take their defaults
+and raise NotImplementedError naming A10 for any other value; scan_unroll,
+a JAX compile setting that changes no number, is taken and changes
+nothing.  The positional `key` of the trainers is a JAX PRNG key where
+the port takes an int seed.
 """
 
 import dataclasses
@@ -27,8 +28,10 @@ from speedy_ml_tpu.data import model_states as jms
 from speedy_ml_tpu.data import reference_import as jri
 from speedy_ml_tpu.gcm import GCM as JGCM
 from speedy_ml_tpu.hybrid import chunked as jchunked
+from speedy_ml_tpu.hybrid import training as jtraining
 from speedy_ml_tpu.hybrid.chunked import \
     train_hybrid_production as j_train_production
+from speedy_ml_tpu.hybrid.model import HybridAtmosphere as JHybridAtmosphere
 from speedy_ml_tpu.hybrid.training import train_hybrid as j_train_hybrid
 from speedy_ml_tpu.physics import boundaries as jbd
 from speedy_ml_tpu_torch.core.geometry import Geometry
@@ -39,7 +42,9 @@ from speedy_ml_tpu_torch.data import reference_import as tri
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.gcm import GCM
 from speedy_ml_tpu_torch.hybrid import chunked as tchunked
+from speedy_ml_tpu_torch.hybrid import training as ttraining
 from speedy_ml_tpu_torch.hybrid.chunked import train_hybrid_production
+from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
 from speedy_ml_tpu_torch.hybrid.training import train_hybrid
 from speedy_ml_tpu_torch.physics import boundaries as tbd
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
@@ -48,6 +53,16 @@ PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
          "train_hybrid": (j_train_hybrid, train_hybrid),
          "train_hybrid_production": (j_train_production,
                                      train_hybrid_production),
+         # the slab ocean (A10b)
+         "fit_ocean_class": (jtraining.fit_ocean_class,
+                             ttraining.fit_ocean_class),
+         "train_ocean_class": (jtraining.train_ocean_class,
+                               ttraining.train_ocean_class),
+         "ocean_series_production": (jchunked.ocean_series_production,
+                                     tchunked.ocean_series_production),
+         "HybridAtmosphere.start_prediction": (
+             JHybridAtmosphere.start_prediction,
+             HybridAtmosphere.start_prediction),
          # the checkpoints and the data readers (A9, A13, A13b)
          "load_hybrid": (jck.load_hybrid, tck.load_hybrid),
          "load_boundary_data": (jbd.load_boundary_data,
@@ -71,10 +86,7 @@ PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
          "import_reference_weights": (jri.import_reference_weights,
                                       tri.import_reference_weights)}
 # each unported option with a value other than its default
-UNPORTED = {
-    "train_hybrid": {"vert_overlap": 1, "ocean_hyper": object()},
-    "train_hybrid_production": {"ocean_hyper": object(), "slab_stride": 7,
-                                "ocean_region_chunk": 16}}
+UNPORTED = {"train_hybrid": {"vert_overlap": 1}}
 GEOM = Geometry(trunc=10, nlon=32, nlat=16, nlev=8)
 
 
@@ -106,12 +118,9 @@ def _call(name, **kw):
         return GCM(GEOM, dtype=torch.float64,
                    bd=synthetic_boundary_data(GEOM, dtype=torch.float64),
                    device="cpu", **kw)
-    # the trainers check their options before any work: no data is needed
-    if name == "train_hybrid":
-        return train_hybrid(None, None, None, None, ESNHyper(), 0,
-                            device="cpu", **kw)
-    return train_hybrid_production(None, None, None, ESNHyper(), 0,
-                                   device="cpu", **kw)
+    # the trainer checks its options before any work: no data is needed
+    return train_hybrid(None, None, None, None, ESNHyper(), 0, device="cpu",
+                        **kw)
 
 
 @pytest.mark.parametrize("name,option", [(n, o) for n, opts in

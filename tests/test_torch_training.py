@@ -367,24 +367,21 @@ def test_nature_run_spinup_matches_jax(nature_gcms):
 
 
 def test_unported_options_raise(layouts, nature_pair):
-    """The options of later slices raise, naming the slice."""
+    """The options of later slices raise, naming the slice: vertical
+    groups, with or without the slab ocean."""
     _, tl = layouts
     _, (tt, _, _, tm), tgcm = nature_pair
-    src = chunked.ArraySource(tt, tm)
     cases = [
         (lambda: training.train_hybrid(tgcm, tl, tt, tm, HYPER, 0,
                                        num_vert_levels=2, device="cpu"),
          "A10"),
         (lambda: training.train_hybrid(tgcm, tl, tt, tm, HYPER, 0,
-                                       ocean=True, device="cpu"), "A10"),
+                                       ocean=True, num_vert_levels=2,
+                                       device="cpu"), "A10"),
         (lambda: training.pack_class_series(tl, tl.classes[0], tt,
                                             zspec=object()), "A10"),
-        (lambda: training.fit_ocean_class(), "A10"),
-        (lambda: training.train_ocean_class(), "A10"),
-        (lambda: chunked.ocean_series_production(), "A10"),
-        (lambda: chunked.train_hybrid_production(tgcm, tl, src, HYPER, 0,
-                                                 ocean=True, device="cpu"),
-         "A10"),
+        (lambda: training.pack_class_model_series(tl, tl.classes[0], tm,
+                                                  zspec=object()), "A10"),
     ]
     for call, slice_ in cases:
         with pytest.raises(NotImplementedError, match=slice_):
