@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (speedy_ml_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
-                          [--k14-lists]
+                          [--options] [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -165,8 +165,23 @@ Phases, each fatal on failure (exit code 1, no result line):
      the ocean hybrid, every ocean tensor equal, and two cycles from step
      26 (the second a slab step) by it and its loaded twin equal bit for
      bit.
+ 14. the forecast's options (phase_options): K23 sst_by_date against its
+     plain version (float32 and float64), 0 difference, timed; K2's
+     components form on the main path's inputs against
+     readout_components_plain within K2_RTOL, a negative control (the
+     vector rounded to bf16) that must differ, its store into three grids
+     bit for bit its vectors then the core scatter, timed beside the main
+     form; 8 coupled cycles of run_prediction from 1990-01-31 12:00 with
+     a 365-day SST table (the aquaplanet SST, a seeded seasonal term, a
+     bias ramp), a 6-hourly TISR table of 1,460 rows, emit_components, a
+     writer, a seeded truth provider and time means: the stream's keys,
+     two months of time means, fields finite, T in [150, 350] K, the
+     state's SST the plain table day bit for bit, K23 once a cycle; the
+     launches a cycle beside the main path's (one more), busy and ms a
+     cycle with and without the writer and the time means.
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
-trains phase 10's atmosphere and runs phase 13 alone (no result line).
+trains phase 10's atmosphere and runs phase 13 alone (no result line);
+--options runs phase 14 alone (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -291,6 +306,16 @@ OCEAN_REGION_CHUNK = 32
 OCEAN_STEP = 5
 OCEAN_BUSY_TOL_MS = 0.05
 OCEAN_PAD = 32
+# phase 14: the forecast's options' cycles (from 1990-01-31 12:00, over a
+# month boundary), the SST table's bias ramp, the TISR table's rows (6 h
+# apart), the launches that go before a profiled cycle for the events a
+# late session loses first, and the cycles of each timed run with the
+# time means or the writer
+OPT_CYCLES = 8
+OPT_BIAS_PER_YEAR = 2.0
+OPT_TISR_ROWS = 1460
+OPT_PAD = 32
+OPT_IO_CYCLES = 10
 # phase 12: the persistent coupled cycles (two couplings) and the days of
 # GCM.run_days
 PERSIST_CYCLES = 8
@@ -301,7 +326,8 @@ PROFILE_PAD_S = 0.02
 PROFILE_TRIES = 3
 # the record_function ranges of the coupled cycle
 RANGES = ("predict_all", "inject_to_speedy", "speedy_window", "physics",
-          "build_feedback", "build_local_model", "slab_couple")
+          "build_feedback", "build_local_model", "slab_couple", "slab_ocean",
+          "sst_by_date")
 
 
 def fail(msg: str):
@@ -1964,6 +1990,351 @@ def phase_ocean(torch, np, gcm, layout, date0, card, record, kernels,
     return n22
 
 
+def option_tables(torch, np, geom, dev):
+    """Phase 14's synthetic climatology tables on the card: a 365-day SST
+    table, the aquaplanet's month-0 SST with a seeded seasonal term and
+    noise (some points below 273 K, the rest take the bias), and a
+    6-hourly TISR table of OPT_TISR_ROWS rows, a seasonal cosine of
+    latitude."""
+    rng = np.random.default_rng(SEED + 14)
+    lat = np.asarray(geom.lat_radians)
+    day = np.arange(365)[:, None, None]
+    sst = (sst_month0(geom)[None] + 3.0 * np.sin(2 * np.pi * day / 365.0)
+           * np.sin(lat)[None, :, None]
+           + rng.normal(0.0, 0.4, (365, geom.nlat, geom.nlon)))
+    hpe = 8760 // OPT_TISR_ROWS
+    k = np.arange(OPT_TISR_ROWS)[:, None, None]
+    decl = 0.41 * np.sin(2 * np.pi * k * hpe / 8760.0)
+    tisr = (1361.0 / np.pi * np.clip(np.cos(lat[None, :, None] - decl), 0,
+                                     None) * np.ones((1, 1, geom.nlon)))
+    f32 = torch.float32
+    return (torch.as_tensor(sst, dtype=f32, device=dev),
+            torch.as_tensor(tisr, dtype=f32, device=dev), hpe)
+
+
+def phase_options(torch, np, hyb, date0, card, record, kernels, work: Path,
+                  out_dir: Path):
+    """Phase 14: the forecast's options.  (a) K23 sst_by_date against its
+    plain version (float32 and float64, days at both ends of the table,
+    biases of both signs), 0 difference, timed beside its bound. (b) K2's
+    components form on the main path's inputs (a coupled state two cycles
+    in): out, v_p and v_ml against readout_components_plain within
+    K2_RTOL of each one's scale, a negative control (the plain readout,
+    its vector rounded to bf16) that must differ; its store into three
+    grids bit for bit its own vectors then the core scatter (the main
+    grid with the clamps, v_p and v_ml without); timed beside the main
+    form. (c) OPT_CYCLES coupled cycles of run_prediction from 1990-01-31
+    12:00 with both tables, emit_components, a writer, a seeded
+    truth_provider, a bias ramp and time_mean_path: the npz keys and
+    shapes, two months in the time-mean file, fields finite, T in [150,
+    350] K, the state's SST the plain version's table day bit for bit,
+    K23 once a cycle; launches a cycle with the options, profiled beside
+    the main path in the same session order (one more: K23); device busy
+    and ms a cycle with and without the writer and the time mean.  The
+    options are off again at the end.  Returns (K23's launches, K2's
+    launches) in (c)."""
+    from speedy_ml_tpu_torch.data.calendar import ModelDate, hour_of_year_365
+    from speedy_ml_tpu_torch.esn.reservoir import esn_step
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.kernels import sst_by_date as k23
+    from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
+                                                          core_scatter_plain,
+                                                          grid_blocks)
+    from speedy_ml_tpu_torch.kernels.readout import (
+        readout, readout_components_plain, readout_plain)
+    from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    g = hyb.geom
+    nz, nlat, nlon = g.nlev, g.nlat, g.nlon
+    G = nlat * nlon
+    sst_t, tisr_t, hpe = option_tables(torch, np, g, dev)
+
+    # -- (a) K23 against its plain version -------------------------------
+    worst = {}
+    for dt in (f32, f64):
+        tab = sst_t.to(dt)
+        for day, bias in ((0, 0.37), (364, -2.5), (180, 0.0), (31, 1.0)):
+            worst[f"day {day} bias {bias} {str(dt)[6:]}"] = max_abs_diff(
+                torch, k23.sst_by_date(tab, day, bias),
+                k23.sst_by_date_plain(tab, day, bias))
+    bad = {k: v for k, v in worst.items() if v > 0}
+    taken = int((sst_t[31] > k23.T_OPEN).sum())
+    log(f"K23 sst_by_date against its plain version ({len(worst)} cases: "
+        f"float32 and float64, days 0, 364, 180, 31, biases of both "
+        f"signs): max_abs_err {max(worst.values()):.3e} (tolerance 0); "
+        f"cases that differ: {bad or 'none'}; {taken} of {G} points take "
+        f"the bias on day 31")
+    if bad:
+        fail("K23 disagrees with its plain version")
+    if not 0 < taken < G:
+        fail("phase 14's SST table does not straddle 273 K")
+    day, bias = 31, 1.0
+    k23_fn = lambda: k23.sst_by_date(sst_t, day, bias)
+    (kd, kc), runs = measure_median(torch, k23_fn)
+    b23 = bound_ms(2 * 4 * G, 2 * G, PEAK_F32_S)
+    log(f"K23 float32, median of {SHT_SESSIONS} sessions: {kd:.4f} ms "
+        f"(sessions " + ", ".join(f"{r:.4f}" for r in runs) + f"; bound "
+        f"{b23[0]:.6f}, {b23[0] / kd:.1%} of it) [{card}]")
+    record("K23_sst_by_date",
+           "speedy_ml_tpu_torch/kernels/csrc/sst_by_date.cu",
+           "speedy_ml_tpu/hybrid/model.py:546", max(worst.values()), 0.0,
+           (kd, kc), measure(torch, lambda: k23.sst_by_date_plain(
+               sst_t, day, bias), reps=10), b23)
+
+    # -- (b) K2's components form on the main path's inputs -----------------
+    s = hyb.init_state(sst_month0(g))
+    imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
+    for _ in range(2):
+        s, _ = hyb.cycle(s, imon, fmon, tyear)
+    packs = hyb.packs
+    xs = [esn_step(p.res, cs.x, cs.feedback, p.hyper.leakage)
+          for p, cs in zip(packs, s.classes)]
+    args = [dict(wout=p.res.wout, x=x, local_model=cs.local_model,
+                 out_mean=p.std.out_mean, out_std=p.std.out_std)
+            for p, x, cs in zip(packs, xs, s.classes)]
+    err = {"out": 0.0, "v_p": 0.0, "v_ml": 0.0}
+    ctl = 0.0
+    for a in args:
+        bare = {k: a[k] for k in ("wout", "x", "local_model")}
+        R, O, _ = a["wout"].shape
+        parts = [torch.empty((R, O), device=dev) for _ in range(2)]
+        k_out = readout(**bare, parts=parts)
+        ref = readout_components_plain(**bare)
+        for nm, kv, pv in zip(err, (k_out, *parts), ref):
+            err[nm] = max(err[nm], float((kv - pv).abs().max())
+                          / float(pv.abs().max()))
+        ctl = max(ctl, float((readout_plain(**bare) - ref[0]).abs().max())
+                  / float(ref[0].abs().max()))
+    n_grid, q_blk, p_blk = grid_blocks(4, nz, nlat, nlon)
+    core_table = torch.as_tensor(hyb.layout.core_source_table(
+        [p.cls for p in packs], 4, nz), device=dev).long()
+
+    def store(grids, comp=True):
+        for a, idx in zip(args, hyb.core_index):
+            readout(**a, scatter=CoreScatter(grids[0], idx, q_blk, p_blk),
+                    parts=grids[1:] if comp else None)
+        return grids
+
+    grids = store([torch.full((n_grid,), float("nan"), device=dev)
+                   for _ in range(3)])
+    vecs = []
+    for a in args:
+        R, O, _ = a["wout"].shape
+        parts = [torch.empty((R, O), device=dev) for _ in range(2)]
+        vecs.append((readout(**a, parts=parts), *parts))
+    main = torch.cat([t.reshape(-1) for t in core_scatter_plain(
+        [v[0] for v in vecs], core_table, 4, nz, nlat, nlon)])
+    same = [torch.equal(grids[0], main)] + [
+        torch.equal(grids[j], torch.cat([v[j].reshape(-1)
+                                         for v in vecs])[core_table])
+        for j in (1, 2)]
+    log(f"K2 components form (bare, three classes, the main path's inputs "
+        f"two cycles in): against readout_components_plain "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f" of each one's scale (tolerance {K2_RTOL:.0e}); negative "
+        f"control, the vector rounded to bf16 (the main form's plain "
+        f"version): {ctl:.3e} off (must exceed it); into three grids "
+        f"(starting as NaN) bit for bit its vectors then the core scatter: "
+        f"{same}")
+    if max(err.values()) > K2_RTOL:
+        fail("K2's components form disagrees with readout_components_plain")
+    if not ctl > K2_RTOL:
+        fail("K2's components tolerance does not tell the vector rounded "
+             "to bf16 from the right one")
+    if any(bool(t.isnan().any()) for t in grids) or not all(same):
+        fail("K2's components form did not store the three grids as its "
+             "vectors")
+    bufs = [torch.empty(n_grid, device=dev) for _ in range(3)]
+    (kcomp, kcomp_c), runs_c = measure_median(torch, lambda: store(bufs))
+    (kmain, _), runs_m = measure_median(torch, lambda: store(bufs, False))
+    nbytes = ops = 0
+    for a in args:
+        R, O, A = a["wout"].shape
+        nbytes += (a["wout"].numel() * a["wout"].element_size()
+                   + 4 * (a["x"].numel() + a["local_model"].numel()
+                          + 4 * R * O + 2 * R * O))
+        ops += 2 * R * O * A
+    b2c = bound_ms(nbytes, ops, PEAK_F32_S)
+    plain = measure(torch, lambda: [
+        readout_components_plain(**a) for a in args], reps=3)
+    log(f"K2 into the grid, three launches, median of {SHT_SESSIONS} "
+        f"sessions: components form {kcomp:.4f} ms (sessions "
+        + ", ".join(f"{r:.4f}" for r in runs_c) + f"), main form "
+        f"{kmain:.4f} ms (sessions " + ", ".join(f"{r:.4f}" for r in runs_m)
+        + f"); components bound {b2c[0]:.4f} ms ({b2c[0] / kcomp:.0%} of "
+        f"it); plain {plain[0]:.4f} ms [{card}]")
+    record("K2_readout_components",
+           "speedy_ml_tpu_torch/kernels/csrc/readout.cu",
+           "speedy_ml_tpu/hybrid/model.py:354", max(err.values()), K2_RTOL,
+           (kcomp, kcomp_c), plain, b2c)
+    del args, xs, vecs, grids, bufs, main
+
+    # -- (c) the forecast with the options through run_prediction ----------
+    h = hyb
+    h.set_sst_table(sst_t)
+    h.set_tisr_table(tisr_t, hpe)
+    h.emit_components = True
+    start = ModelDate(1990, 1, 31, 12)
+    st0 = h.init_state(sst_month0(g))
+    rng = np.random.default_rng(SEED + 140)
+    truth = [dict(atmo=rng.normal(250.0, 10.0, (4, nz, nlat, nlon)),
+                  sst=rng.normal(290.0, 3.0, (nlat, nlon)))
+             for _ in range(OPT_CYCLES)]
+    path = out_dir / "prediction_options.npz"
+    tm_path = work / "time_means.npz"
+    path.unlink(missing_ok=True)
+    kw = dict(sst_bias_per_year=OPT_BIAS_PER_YEAR)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    fin, dts = run_prediction(h, st0, start, OPT_CYCLES,
+                              output_path=str(path),
+                              truth_provider=lambda i: truth[i],
+                              time_mean_path=str(tm_path), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n23 = kernels["K23_sst_by_date"].launches
+    n2 = kernels["K2_readout_scatter"].launches
+    if len(dts) != OPT_CYCLES or n23 != OPT_CYCLES or n2 != 3 * OPT_CYCLES:
+        fail(f"the options' run: {len(dts)} cycles, K23 {n23} launches, K2 "
+             f"{n2} (expected {OPT_CYCLES}, {OPT_CYCLES}, "
+             f"{3 * OPT_CYCLES})")
+    if tisr_plane.launches:
+        fail("the options' run launched K17b")
+    z = np.load(path)
+    comp = [f"{p}_{f}" for p in ("vp", "vml") for f in ("atmo", "logp",
+                                                        "precip")]
+    want = {"atmo": (4, nz, nlat, nlon), "truth_atmo": (4, nz, nlat, nlon),
+            **{k: (nlat, nlon) for k in ("logp", "precip", "sst",
+                                         "truth_sst")},
+            **{k: ((4, nz, nlat, nlon) if k.endswith("atmo")
+                   else (nlat, nlon)) for k in comp}}
+    got = {k: z[k].shape[1:] for k in z.files}
+    if got != want or any(z[k].shape[0] != OPT_CYCLES for k in z.files):
+        fail(f"the options' stream {dict((k, z[k].shape) for k in z.files)}"
+             f", expected {want} with {OPT_CYCLES} records")
+    if not all(np.isfinite(z[k]).all() for k in z.files):
+        fail("a field of the options' stream is not finite")
+    tf = z["atmo"][:, 0]
+    if not (150.0 <= tf.min() and tf.max() <= 350.0):
+        fail(f"T outside [150, 350] K: {tf.min()}..{tf.max()}")
+    if not np.array_equal(z["truth_sst"], np.stack(
+            [t["sst"] for t in truth]).astype(np.float32)):
+        fail("the truth stream is not the provider's")
+    tm = np.load(tm_path)
+    if list(tm["month"]) != [1, 2] or list(tm["n_samples"]) != [
+            2, OPT_CYCLES - 2] or not all(
+            np.isfinite(tm[k]).all() for k in tm.files):
+        fail(f"the time-mean file: months {list(tm['month'])}, samples "
+             f"{list(tm['n_samples'])}, expected [1, 2] and "
+             f"[2, {OPT_CYCLES - 2}], finite")
+    last = dts[-1]
+    b_last = OPT_BIAS_PER_YEAR * ((OPT_CYCLES - 1) * 6) / 8760.0
+    want_sst = k23.sst_by_date_plain(
+        sst_t, k23.table_day(hour_of_year_365(last), 365), b_last)
+    if not torch.equal(fin.sst_grid, want_sst):
+        fail("the state's SST is not the plain version's table day")
+    vp_max = float(np.abs(z["vp_atmo"][-1]).max())
+    if not vp_max > 0:
+        fail("v_p is zero on the last cycle of the options' run")
+    log(f"options' forecast: run_prediction {OPT_CYCLES} coupled cycles "
+        f"from {start.year}-{start.month:02d}-{start.day:02d} "
+        f"{start.hour:02d}:00 with an SST table (365 days, the bias ramp "
+        f"{OPT_BIAS_PER_YEAR} K/year), a TISR table ({OPT_TISR_ROWS} rows, "
+        f"{hpe} h apart), emit_components, a writer, a truth provider and "
+        f"time means in {wall:.3f} s: K23 {n23} launches, K2 {n2} "
+        f"(components form), no K17b; stream keys {sorted(z.files)}, "
+        f"finite, T {tf.min():.3f}..{tf.max():.3f} K, v_p up to "
+        f"{vp_max:.3e}; time means of months "
+        f"{[int(v) for v in tm['month']]} "
+        f"({[int(v) for v in tm['n_samples']]} cycles); the state's SST "
+        f"the plain table day bit for bit")
+    # launches a cycle, the main path beside the options, each after
+    # OPT_PAD launches of K17b that absorb the events a late session
+    # loses first; timed with and without the writer and the time means
+    ours = port_kernel_names()
+    pad = lambda: [tisr_plane(tyear, h._slat, h._clat, nlon)
+                   for _ in range(OPT_PAD)]
+    is_pad = lambda e: kernel_name(e.key) == "tisr_kernel"
+    n_prof = 5
+    prof = {}
+    for label, on in (("main path", False), ("options", True)):
+        h.emit_components = on
+        if not on:
+            h.sst_table = h.tisr_table = None
+        else:
+            h.set_sst_table(sst_t)
+            h.set_tisr_table(tisr_t, hpe)
+        fn = lambda: run_prediction(h, fin, start, n_prof, **kw)
+        fn()
+        for w in kernels.values():
+            w.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        n_kern = sum(w.launches for w in kernels.values())
+        seen = lambda kk: sum(e.count for e in kk
+                              if kernel_name(e.key) in ours
+                              and not is_pad(e))
+        ms, kk, _ = profile_counts(torch, lambda: (pad(), fn()), 1,
+                                   lambda kk: seen(kk) < n_kern)
+        kk = [e for e in kk if not is_pad(e)]
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n_prof * 1e3)
+        prof[label] = (sum(e.count for e in kk) / n_prof, ms / n_prof,
+                       statistics.median(walls), seen(kk) >= n_kern)
+    (n_main, busy_main, ms_main, ok_m), (n_opt, busy_opt, ms_opt, ok_o) = (
+        prof["main path"], prof["options"])
+    h.set_sst_table(sst_t)
+    h.set_tisr_table(tisr_t, hpe)
+    h.emit_components = True
+    # the host's share: the time means alone (one device-to-host copy of
+    # the four fields a cycle, the sigma->p interpolation, the file at the
+    # end), then the writer with the truth streams (ten fields and two
+    # truth fields to the host a cycle, the compressed file at the end)
+    io = {"time means": dict(time_mean_path=str(work / "timed_tm.npz")),
+          "writer and truth streams": dict(
+              output_path=str(work / "timed"),
+              truth_provider=lambda i: truth[i % OPT_CYCLES])}
+    ms_io = {}
+    for label, extra in io.items():
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_prediction(h, fin, start, OPT_IO_CYCLES, **extra, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / OPT_IO_CYCLES * 1e3)
+        ms_io[label] = min(walls)
+    h.sst_table = h.tisr_table = None
+    h.tisr_hours_per_entry = 1
+    h.emit_components = False
+    log(f"options' cycle profile ({n_prof} cycles of run_prediction, no "
+        f"writer): {n_opt:g} device launches a cycle against the main "
+        f"path's {n_main:g} in the same session order (K23 one more), "
+        f"busy {busy_opt:.4f} ms against {busy_main:.4f}; ms a cycle "
+        f"(median of 3 x {n_prof}): main path {ms_main:.2f}, options "
+        f"{ms_opt:.2f}; with the options and (the better of 2 x "
+        f"{OPT_IO_CYCLES}) " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in ms_io.items())
+        + ("" if ok_m and ok_o else "; the profiler lost device events in "
+           "every session, so the launches are not checked (the wrappers' "
+           "counts above are)") + f"; phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if ok_m and ok_o and n_opt - n_main != 1:
+        fail(f"the options' cycle takes {n_opt - n_main:g} launches more "
+             f"than the main path's, not one (K23)")
+    return n23, n2
+
+
 def phase_training(torch, gcm, layout, date0, card, record, atmo_ckpt: str):
     """Phase 10: K14's checks, the nature run and the forecasts,
     train_hybrid_production at full width, its checks and the trained
@@ -2186,6 +2557,11 @@ def main():
                     help="after the hybrids, train phase 10's atmosphere "
                          "and run phase 13 (the slab ocean, K22) alone; "
                          "prints no result line")
+    ap.add_argument("--options", action="store_true",
+                    help="after the hybrids, run phase 14 (the forecast's "
+                         "options: the climatology tables, K23, K2's "
+                         "components form, the truth streams and the time "
+                         "means) alone; prints no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -2249,6 +2625,7 @@ def main():
                                                      readout_plain)
     from speedy_ml_tpu_torch.kernels.slab_couple import slab_couple
     from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean
+    from speedy_ml_tpu_torch.kernels.sst_by_date import sst_by_date
     from speedy_ml_tpu_torch.kernels.readout import \
         vector_path as readout_vector_path
     from speedy_ml_tpu_torch.kernels.sht_analysis import (
@@ -2364,12 +2741,21 @@ def main():
                "K19_gate_check": gate_check,
                "K20_window_select": window_select,
                "K21_slab_couple": slab_couple,
-               "K22_slab_ocean": slab_ocean}
+               "K22_slab_ocean": slab_ocean,
+               "K23_sst_by_date": sst_by_date}
     # phases 10 and 13 share the atmosphere's checkpoint in a directory
     # removed at exit
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, work, True)
     atmo_ckpt = str(work / "atmo")
+    out_dir = ROOT / "output" / "chip_smoke"
+    if args.options:
+        phase_options(torch, np, hyb, date0, card, record, kernels, work,
+                      out_dir)
+        log(f"chip_smoke --options: phase 14 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
     if args.ocean:
         atmosphere_checkpoint(torch, gcm, hyb.layout, date0, atmo_ckpt,
                               card)
@@ -3394,12 +3780,11 @@ def main():
     ml_kernels = ["K1_esn_step", "K2_readout_scatter", "K3_window_gather"]
     # K17b is on no cycle's path: the ML-only cycle's K3 takes the date,
     # the coupled cycle feeds back its window's fsol plane; K21 is the
-    # persistent surface's (phase 12) and K22 the slab ocean's (phase 13),
-    # off this path
+    # persistent surface's (phase 12), K22 the slab ocean's (phase 13) and
+    # K23 the SST table's (phase 14), off this path
     coupled_kernels = [nm for nm in kernels
                        if nm not in ("K17b_tisr_plane", "K21_slab_couple",
-                                     "K22_slab_ocean")]
-    out_dir = ROOT / "output" / "chip_smoke"
+                                     "K22_slab_ocean", "K23_sst_by_date")]
 
     def drive(h, st0, n, path, names):
         """run_prediction with the counters of `names` set to 0 before
@@ -3521,6 +3906,9 @@ def main():
     if slab_ocean.launches:
         fail(f"the coupled cycle without ocean packs launched K22 "
              f"{slab_ocean.launches} times")
+    if sst_by_date.launches:
+        fail(f"the coupled cycle without an SST table launched K23 "
+             f"{sst_by_date.launches} times")
     for nm, c in counts.items():
         results[nm]["launches"] = c
     log(f"coupled main path: run_prediction {len(dts)} cycles in "
@@ -3819,9 +4207,14 @@ def main():
     results["K22_slab_ocean"]["launches"] = phase_ocean(
         torch, np, gcm, hyb.layout, date0, card, record, kernels, atmo_ckpt)
 
+    # -- 14. the forecast's options ---------------------------------------------
+    (results["K23_sst_by_date"]["launches"],
+     results["K2_readout_components"]["launches"]) = phase_options(
+        torch, np, hyb, date0, card, record, kernels, work, out_dir)
+
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")
-    order = list(kernels) + ["K14_gram_update"]
+    order = list(kernels) + ["K14_gram_update", "K2_readout_components"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}

@@ -18,13 +18,25 @@ import torch
 
 from speedy_ml_tpu_torch.data.calendar import ModelDate, hour_of_year_365
 
-LATER_SLICE = "a later slice of the port (prediction-loop options)"
+LATER_SLICE = "a later slice of the port (the captured cycle)"
 
 
 def _host_f32(v) -> np.ndarray:
     if torch.is_tensor(v):
         return v.detach().to("cpu", torch.float32).numpy()
     return np.asarray(v, dtype=np.float32)
+
+
+def _host_fields(diag: dict, sst_grid) -> list:
+    """(atmo, logp, precip, sst) of a cycle as host numpy arrays in the
+    model's dtype: one device-to-host copy of the four fields joined."""
+    fields = (diag["atmo"], diag["logp"], diag["precip"], sst_grid)
+    flat = torch.cat([f.reshape(-1) for f in fields]).to("cpu").numpy()
+    out, start = [], 0
+    for f in fields:
+        out.append(flat[start:start + f.numel()].reshape(tuple(f.shape)))
+        start += f.numel()
+    return out
 
 
 class PredictionWriter:
@@ -107,18 +119,32 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
 
     Returns (final state, list of dates).  Stops early if the SPEEDY
     safety gate trips (parallelmain.f90:268-270).  sst_bias_per_year:
-    non-stationary-climate SST ramp (K/year) handed to the cycle.
-    consolidate=False leaves the stream as .partN.npz chunk files."""
-    if truth_provider is not None:
-        raise NotImplementedError(f"truth_provider comes with {LATER_SLICE}")
-    if time_mean_path:
-        raise NotImplementedError(f"time-mean products come with "
-                                  f"{LATER_SLICE}")
+    non-stationary-climate SST ramp (K/year) applied to the SST table's
+    climatology over open water (mod_utilities.f90:1806-1823 ramp +
+    current_sst_bias of get_sst_by_date).  truth_provider: optional
+    callable cycle_index -> dict of truth grids, written beside the
+    prediction as truth_* streams (write_truth_data, mpires.f90:918-1112).
+    time_mean_path: where the monthly sigma->p time means of the cycles'
+    physical fields are saved (timemean.py; the fields come to the host
+    once a cycle).  consolidate=False leaves the stream as .partN.npz
+    chunk files."""
     if cycles_per_dispatch != 1:
         raise NotImplementedError(f"cycles_per_dispatch > 1 comes with "
                                   f"{LATER_SLICE}")
 
     writer = PredictionWriter(output_path) if output_path else None
+    tmean = None
+    if time_mean_path:
+        # monthly sigma->p time-mean products beside the stream
+        # (ppo_tminc/ppo_tmout; timemean.py)
+        from speedy_ml_tpu_torch.timemean import TimeMeanAccumulator
+        bd = getattr(hyb.gcm, "bd", None)
+        if bd is None:
+            raise ValueError("time_mean_path needs the hybrid's GCM and its "
+                             "boundary data (the orography of the MSL "
+                             "pressure)")
+        tmean = TimeMeanAccumulator(
+            hyb.gcm.geom, phis=bd.phis0.detach().to("cpu").numpy())
     date = start_date
     dates = []
     params = hyb.params
@@ -139,7 +165,12 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
         dates.append(date)
         date = date.advance_hours(timestep_hours)
         if writer:
+            if truth_provider is not None:
+                tr = truth_provider(i)
+                diag = dict(diag, **{f"truth_{k}": v for k, v in tr.items()})
             writer.append(diag, hstate.sst_grid)
+        if tmean is not None:
+            tmean.add(dates[-1], *_host_fields(diag, hstate.sst_grid))
         if progress_every and (i + 1) % progress_every == 0:
             print(f"cycle {i + 1}/{n_cycles} ({date.year}-{date.month:02d}"
                   f"-{date.day:02d}) safe={bool(prev_safe)} "
@@ -149,4 +180,6 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
             writer.consolidate()
         else:
             writer.flush(wait=True)
+    if tmean is not None:
+        tmean.save(time_mean_path)
     return hstate, dates

@@ -32,6 +32,15 @@ surface (K17's carry form), and one K21 launch after it adds the
 window's sums where ok is true (a select again) or, on every fourth
 cycle, runs the daily coupler and zeroes the sums.
 
+The cycle's options (the JAX package's, A10c-1): with an SST table
+(set_sst_table), an hour of the year and no slab ocean, the cycle first
+replaces the state's SST grid with the table's day and the bias ramp (one
+K23 launch); with a TISR table (set_tisr_table) and an hour of the year,
+the TISR field both cycles feed back is the table's row, a view handed to
+K3 (no launch); with emit_components the readout's launches (K2's
+components form) also store its SPEEDY and reservoir parts, v_p and v_ml,
+into two more grids, which the diagnostics return without the clamps.
+
 With ocean packs (the slab ocean, the JAX package's product default) the
 cycle also pushes each class's ocean inputs, a sub-vector of the bottom
 pack's new feedback, into a ring of the last SLAB_STRIDE - 1 cycles (K22),
@@ -67,12 +76,13 @@ from speedy_ml_tpu_torch.kernels.gate_check import gate_check
 from speedy_ml_tpu_torch.kernels.inject_spectral import inject_synthesis
 from speedy_ml_tpu_torch.kernels.readout import readout
 from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean, sst_table
+from speedy_ml_tpu_torch.kernels.sst_by_date import sst_by_date, table_day
 from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate, tisr_plane
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
 OPTIONS_SLICE = "a later slice of the port (cycle options: " \
-    "climatology tables, components, vertical localization, sharding)"
+    "vertical localization, sharding)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,9 +228,18 @@ class HybridAtmosphere:
         self.ocean_packs = list(ocean_packs) if ocean_packs else None
         self.base_sst = base_sst
         self.sea_mask = sea_mask
-        # JAX-package switches a caller may set: persist_surface carries
-        # the coupled surface across cycles; the cycle raises on
-        # emit_components
+        # date-indexed climatology tables (set_tisr_table/set_sst_table),
+        # in the hybrid's dtype on its device: tisr_table (n_entries, lat,
+        # lon), entry k valid at hour k * tisr_hours_per_entry of the
+        # 365-day year; sst_table (365, lat, lon) daily
+        # (get_tisr_by_date/get_sst_by_date, mpires.f90:1644-1725).
+        # Absent: the analytic TISR, the SST held or the ML ocean's
+        self.tisr_table = None
+        self.tisr_hours_per_entry = 1
+        self.sst_table = None
+        # JAX-package switches a caller may set: emit_components stores the
+        # readout's v_p/v_ml parts in the diagnostics; persist_surface
+        # carries the coupled surface across cycles
         self.emit_components = False
         self.persist_surface = False
         self.device = self.packs[0].res.vals.device
@@ -284,11 +303,27 @@ class HybridAtmosphere:
         raise NotImplementedError(f"the sharded cycle comes with "
                                   f"{OPTIONS_SLICE}")
 
+    def _table(self, table, name: str) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(table) if not torch.is_tensor(table)
+                            else table)
+        if t.dim() != 3 or tuple(t.shape[1:]) != (self.geom.nlat,
+                                                  self.geom.nlon):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"(n, {self.geom.nlat}, {self.geom.nlon})")
+        return t.to(device=self.device, dtype=self.dtype).contiguous()
+
     def set_tisr_table(self, table, hours_per_entry: int = 1):
-        raise NotImplementedError(f"TISR tables come with {OPTIONS_SLICE}")
+        """Install a TISR climatology over one 365-day year (full_tisr of
+        get_tisr_by_date, mpires.f90:1644-1676).  table: (n_entries, lat,
+        lon), entry k valid at hour k * hours_per_entry into the year;
+        stored contiguous, so that a row is a contiguous view."""
+        self.tisr_table = self._table(table, "set_tisr_table")
+        self.tisr_hours_per_entry = int(hours_per_entry)
 
     def set_sst_table(self, table):
-        raise NotImplementedError(f"SST tables come with {OPTIONS_SLICE}")
+        """Install a daily SST climatology (365, lat, lon) (full_sst of
+        get_sst_by_date, mpires.f90:1679-1725)."""
+        self.sst_table = self._table(table, "set_sst_table")
 
     # ------------------------------------------------------------------
 
@@ -436,26 +471,35 @@ class HybridAtmosphere:
                   for op, (r, m, s) in zip(self.ocean_packs or (), ocean_p)]
         return packs, opacks
 
-    def predict_all(self, packs, hstate: HybridState):
+    def predict_all(self, packs, hstate: HybridState,
+                    components: bool = False):
         """ESN step + readout for every region (predict/predict_ml,
         mod_reservoir.f90:1416-1533): the readout applies
         unstandardize_output and stores each region's core straight into
         the global grid with the q/precip clamps (the core scatter,
         tile_full_grid_with_local_state_vec_res + mpires.f90:444-478).
         Returns (new xs, the flat grid [atmo, logp, precip]), allocated
-        here once a cycle."""
+        here once a cycle.  components=True (K2's components form) also
+        returns (v_p, v_ml): two more flat grids of the readout's
+        standardized SPEEDY and reservoir parts, without the clamps
+        (outvec_component_contribs, mod_reservoir.f90:1456-1467)."""
         if len(packs) != len(self.packs):
             raise ValueError("predict_all: one class state per pack")
-        grid = torch.empty(self.grid_size, dtype=packs[0].std.out_mean.dtype,
-                           device=self.device)
+        grids = torch.empty((3 if components else 1, self.grid_size),
+                            dtype=packs[0].std.out_mean.dtype,
+                            device=self.device)
+        grid = grids[0]
+        parts = (grids[1], grids[2]) if components else None
         new_x = []
         for p, cs, index in zip(packs, hstate.classes, self.core_index):
             x = esn_step(p.res, cs.x, cs.feedback, p.hyper.leakage)
             lm = None if self.ml_only else cs.local_model
             readout(p.res.wout, x, lm, p.std.out_mean, p.std.out_std,
                     scatter=CoreScatter(grid, index, self.q_block,
-                                        self.p_block))
+                                        self.p_block), parts=parts)
             new_x.append(x)
+        if components:
+            return new_x, grid, parts
         return new_x, grid
 
     def assemble_global(self, packs, grid):
@@ -542,16 +586,27 @@ class HybridAtmosphere:
 
     def tisr_field(self, tyear, hour_of_year=None, table=None,
                    hours_per_entry: int = 1):
-        """TISR input field (lat, lon) for the current date: the analytic
+        """TISR input field (lat, lon) for the current date.  With a table
+        and an hour of the year (host ints), its row (hour_of_year //
+        hours_per_entry) % n_entries, as get_tisr_by_date indexes it
+        (mpires.f90:1644-1676): a view, no launch.  Otherwise the analytic
         Hartmann daily-mean insolation, one K17b launch (tyear a host
-        number; the table branch comes with the cycle options).  The
-        cycles do not call it: the coupled cycle feeds back its window's
-        fsol plane, the same plane made by K17, and the ML-only cycle
-        hands K3 the date (tisr_date), whose TISR elements are this
-        plane's bit for bit."""
-        if table is not None:
-            raise NotImplementedError(f"TISR tables come with {OPTIONS_SLICE}")
+        number).  Without a table the cycles do not call it: the coupled
+        cycle feeds back its window's fsol plane, the same plane made by
+        K17, and the ML-only cycle hands K3 the date (tisr_date), whose
+        TISR elements are this plane's bit for bit."""
+        if table is not None and hour_of_year is not None:
+            return table[(int(hour_of_year) // int(hours_per_entry))
+                         % table.shape[0]]
         return tisr_plane(tyear, self._slat, self._clat, self.geom.nlon)
+
+    def sst_by_date(self, hour_of_year, sst_bias, table):
+        """The daily climatology's SST with the non-stationary bias ramp
+        over open water (get_sst_by_date, mpires.f90:1679-1725: the bias
+        added where SST > 273 K): day (hour_of_year // 24) % n_days of
+        `table`, one K23 launch (the day and the bias host numbers)."""
+        return sst_by_date(table, table_day(hour_of_year, table.shape[0]),
+                           sst_bias)
 
     def tisr_date(self, tyear) -> TisrDate:
         """The date of tisr_field's plane, as K3 takes it in place of the
@@ -560,26 +615,41 @@ class HybridAtmosphere:
 
     # ------------------------------------------------------------------
 
-    def _check_options(self):
-        if self.emit_components:
-            raise NotImplementedError(
-                f"emit_components comes with {OPTIONS_SLICE}")
-
     def cycle_with_params(self, params, hstate: HybridState, imon, fmon,
                           tyear, hour_of_year=None, sst_bias=0.0) -> tuple:
         """One 6-h hybrid step with explicit parameters (the JAX
         _cycle_jit, hybrid/model.py:579-749, without the options of later
         slices).  imon (0-based month) and fmon are host numbers; tyear a
-        float.  With persist_surface the coupled cycle carries the slab
-        surface and the flux sums in the state (sfc, fluxes): the first
-        cycle starts them from the climatology (one K17 launch, one fill),
-        and after the window K21 accumulates or, when step % 4 == 3,
-        couples (JAX :614-659).  Returns (new_state, diagnostics dict)."""
-        self._check_options()
+        float; hour_of_year a host int into the 365-day year, which the
+        climatology tables need (without it they are not read), and
+        sst_bias the SST ramp's offset (K) that the SST table's day takes
+        over open water.  With persist_surface the coupled cycle carries
+        the slab surface and the flux sums in the state (sfc, fluxes): the
+        first cycle starts them from the climatology (one K17 launch, one
+        fill), and after the window K21 accumulates or, when step % 4 == 3,
+        couples (JAX :614-659).  With emit_components the diagnostics also
+        hold vp_atmo, vp_logp, vp_precip, vml_atmo, vml_logp and
+        vml_precip (JAX :735-747).  Returns (new_state, diagnostics
+        dict)."""
         rf = torch.profiler.record_function
         packs, opacks = self._with_params(params)
+        # the SST that the ESN inputs and SPEEDY see this cycle: without an
+        # ML ocean, the daily climatology (JAX :590-596); K23 writes it
+        if (self.sst_table is not None and hour_of_year is not None
+                and not self.ocean_packs):
+            with rf("sst_by_date"):
+                hstate = dataclasses.replace(hstate, sst_grid=self.sst_by_date(
+                    hour_of_year, sst_bias, self.sst_table))
+        # the TISR of the tables: a row of the table (a view)
+        tisr_row = None
+        if self.tisr_table is not None and hour_of_year is not None:
+            tisr_row = self.tisr_field(tyear, hour_of_year,
+                                       table=self.tisr_table,
+                                       hours_per_entry=self.tisr_hours_per_entry)
+        components = bool(self.emit_components)
         with rf("predict_all"):
-            new_x, grid = self.predict_all(packs, hstate)
+            out = self.predict_all(packs, hstate, components=components)
+        new_x, grid = out[0], out[1]
         atmo, logp, precip = self.assemble_global(packs, grid)
         safe = hstate.safe
         fc_atmo = fc_logp = tisr = None
@@ -604,7 +674,9 @@ class HybridAtmosphere:
             prev = hstate.safe if torch.is_tensor(hstate.safe) else \
                 torch.full((), bool(hstate.safe), device=self.device)
             # the window's forcing already holds this date's TISR plane
-            # (its fsol), so the coupled cycle launches no K17b
+            # (its fsol), so the coupled cycle launches no K17b; a TISR
+            # table's row takes its place (K17 still makes fsol for
+            # SPEEDY's radiation)
             with rf("speedy_window"):
                 gstate, tisr = self._run_window(spec, hstate.sst_grid, imon,
                                                 fmon, tyear, carry)
@@ -621,7 +693,9 @@ class HybridAtmosphere:
                         carry, acc, imon, fmon, window=gstate.fluxes,
                         ok=safe, do_couple=hstate.step % cpd == cpd - 1)
         with rf("build_feedback"):
-            if tisr is None:
+            if tisr_row is not None:
+                tisr = tisr_row
+            elif tisr is None:
                 tisr = self.tisr_date(tyear)
             feedbacks = self.build_feedback(packs, atmo, logp, precip,
                                             hstate.sst_grid, tisr)
@@ -643,6 +717,14 @@ class HybridAtmosphere:
                                 fluxes=new_fluxes)
         diag = dict(atmo=atmo, logp=logp, precip=precip,
                     speedy_atmo=fc_atmo, speedy_logp=fc_logp)
+        if components:
+            # the standardized v_p/v_ml parts as global grids (the
+            # reference's v_p/v_ml NetCDF streams): views of the grids
+            # K2's components form stored without the clamps
+            for name, flat in zip(("vp", "vml"), out[2]):
+                a, l, p = self.assemble_global(packs, flat)
+                diag.update({f"{name}_atmo": a, f"{name}_logp": l,
+                             f"{name}_precip": p})
         return new_state, diag
 
     def slab_step(self, opacks, hstate: HybridState, feedbacks) -> tuple:

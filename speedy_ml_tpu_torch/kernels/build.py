@@ -100,6 +100,10 @@ SIGNATURES = {
                               ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                               ctypes.POINTER(_ll), ctypes.POINTER(_i), _vp,
                               _vp, _vp, _ll, _d, _vp, _vp],
+    "sst_by_date_launch": [_i, _i, _vp, _ll, _ll, _ll, _d, _vp, _vp],
+    "readout_components_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                                  _i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
+                                  _ll, _ll, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

@@ -1,7 +1,7 @@
 // Host build of K2's and K14's arithmetic (readout.cuh, gram_update.cuh):
 // the code the CUDA kernels run, with the warp and the thread blocks
 // written out as loops on the CPU (K2's with its store into the assembled
-// grid).  It is not part of the kernel library;
+// grid, and its components form).  It is not part of the kernel library;
 // the CPU tests compile it with a host C++ compiler
 //   g++ -O2 -ffp-contract=off -shared -fPIC dense_host.cpp -o lib.so
 // and hold it against the plain PyTorch versions, so that an error in the
@@ -17,33 +17,52 @@
 
 // The rows [o0, o_end) of region r, as one block's warps take them
 // (warp w on rows o0 + w, o0 + w + RO_WARPS, ...), each stored by lane 0
-template <int ES, bool VEC>
+// The butterfly of the warp's lane values (__shfl_xor_sync)
+static void ro_butterfly(float* v) {
+  float w[RO_LANES];
+  for (int off = RO_LANES / 2; off > 0; off >>= 1) {
+    for (int l = 0; l < RO_LANES; ++l) w[l] = v[l] + v[l ^ off];
+    for (int l = 0; l < RO_LANES; ++l) v[l] = w[l];
+  }
+}
+
+template <int ES, bool VEC, bool COMP>
 static void readout_rows(const unsigned char* wout, const float* aug, int r,
-                         int O, int A, int o0, int o_end,
+                         int O, int S, int A, int o0, int o_end,
                          const float* out_mean, const float* out_std,
-                         float* out, const RoScatter& sc) {
+                         float* out, const RoScatter& sc,
+                         const RoParts& pt) {
   for (int warp = 0; warp < RO_WARPS; ++warp)
     for (int o = o0 + warp; o < o_end; o += RO_WARPS) {
       const long long k = (long long)r * O + o;
       const unsigned char* row = wout + (size_t)k * A * ES;
-      float v[RO_LANES], w[RO_LANES];
+      if (COMP) {
+        float p[RO_LANES], m[RO_LANES];
+        for (int l = 0; l < RO_LANES; ++l)
+          ro_lane_dot2<ES, VEC>(row, aug, A, S, l, p[l], m[l]);
+        ro_butterfly(p);
+        ro_butterfly(m);
+        const float acc = p[0] + m[0];
+        ro_store_parts(out_std ? ro_unstd(acc, out_std[k], out_mean[k])
+                               : acc,
+                       p[0], m[0], k, out, sc, pt);
+        continue;
+      }
+      float v[RO_LANES];
       for (int l = 0; l < RO_LANES; ++l)
         v[l] = ro_lane_dot<ES, VEC>(row, aug, A, l);
-      for (int off = RO_LANES / 2; off > 0; off >>= 1) {  // __shfl_xor_sync
-        for (int l = 0; l < RO_LANES; ++l) w[l] = v[l] + v[l ^ off];
-        for (int l = 0; l < RO_LANES; ++l) v[l] = w[l];
-      }
+      ro_butterfly(v);
       ro_store(out_std ? ro_unstd(v[0], out_std[k], out_mean[k]) : v[0], k,
                out, sc);
     }
 }
 
 // The blocks (region r, tile t of tile_rows rows), each building its aug
-template <int ES>
+template <int ES, bool COMP>
 static int readout_es(const void* wout, const float* x, const float* lm,
                       const float* out_mean, const float* out_std, int R,
                       int O, int S, int n, int tile_rows, float* out,
-                      const RoScatter& sc) {
+                      const RoScatter& sc, const RoParts& pt) {
   const int A = S + n;
   const bool vec = ro_vector_ok(wout, A, ES);
   // aug as the kernel keeps it in shared memory: 16-byte aligned
@@ -53,15 +72,17 @@ static int readout_es(const void* wout, const float* x, const float* lm,
     for (int o0 = 0; o0 < O; o0 += tile_rows) {
       for (int a = 0; a < A; ++a) {
         const float v = ro_aug(x, lm, r, a, S, n);
-        aug[a] = ES == 2 ? ro_round_bf16(v) : v;
+        aug[a] = ES == 2 && !COMP ? ro_round_bf16(v) : v;
       }
       const int o_end = o0 + tile_rows < O ? o0 + tile_rows : O;
       if (vec)
-        readout_rows<ES, true>((const unsigned char*)wout, aug, r, O, A, o0,
-                               o_end, out_mean, out_std, out, sc);
+        readout_rows<ES, true, COMP>((const unsigned char*)wout, aug, r, O,
+                                     S, A, o0, o_end, out_mean, out_std, out,
+                                     sc, pt);
       else
-        readout_rows<ES, false>((const unsigned char*)wout, aug, r, O, A, o0,
-                                o_end, out_mean, out_std, out, sc);
+        readout_rows<ES, false, COMP>((const unsigned char*)wout, aug, r, O,
+                                      S, A, o0, o_end, out_mean, out_std,
+                                      out, sc, pt);
     }
   delete[] buf;
   return vec ? 1 : 0;
@@ -77,13 +98,37 @@ extern "C" int readout_host(int wout_bf16, const void* wout, const void* x,
                             const void* index, long long q0, long long q1,
                             long long p0, long long p1) {
   const RoScatter sc = {(float*)grid, (const int*)index, q0, q1, p0, p1};
+  const RoParts pt = {nullptr, nullptr};
   return wout_bf16
-             ? readout_es<2>(wout, (const float*)x, (const float*)lm,
-                             (const float*)out_mean, (const float*)out_std,
-                             R, O, S, n, tile_rows, (float*)out, sc)
-             : readout_es<4>(wout, (const float*)x, (const float*)lm,
-                             (const float*)out_mean, (const float*)out_std,
-                             R, O, S, n, tile_rows, (float*)out, sc);
+             ? readout_es<2, false>(wout, (const float*)x, (const float*)lm,
+                                    (const float*)out_mean,
+                                    (const float*)out_std, R, O, S, n,
+                                    tile_rows, (float*)out, sc, pt)
+             : readout_es<4, false>(wout, (const float*)x, (const float*)lm,
+                                    (const float*)out_mean,
+                                    (const float*)out_std, R, O, S, n,
+                                    tile_rows, (float*)out, sc, pt);
+}
+
+// The components form: readout_components_launch's arguments less the
+// device and the stream, with tile_rows; returns the path as readout_host
+extern "C" int readout_components_host(
+    int wout_bf16, const void* wout, const void* x, const void* lm,
+    const void* out_mean, const void* out_std, int R, int O, int S, int n,
+    int tile_rows, void* out, void* vp, void* vml, void* grid,
+    const void* index, long long q0, long long q1, long long p0,
+    long long p1) {
+  const RoScatter sc = {(float*)grid, (const int*)index, q0, q1, p0, p1};
+  const RoParts pt = {(float*)vp, (float*)vml};
+  return wout_bf16
+             ? readout_es<2, true>(wout, (const float*)x, (const float*)lm,
+                                   (const float*)out_mean,
+                                   (const float*)out_std, R, O, S, n,
+                                   tile_rows, (float*)out, sc, pt)
+             : readout_es<4, true>(wout, (const float*)x, (const float*)lm,
+                                   (const float*)out_mean,
+                                   (const float*)out_std, R, O, S, n,
+                                   tile_rows, (float*)out, sc, pt);
 }
 
 // The rows a block of the kernel takes on a card of `sms` SMs

@@ -1,7 +1,8 @@
-// Host build of the arithmetic of K3, K17-K22 (window_gather.cuh,
+// Host build of the arithmetic of K3, K17-K23 (window_gather.cuh,
 // surface_forcing.cuh, inject_spectral.cuh, gate_check.cuh,
-// window_select.cuh, slab_couple.cuh, slab_ocean.cuh): K17's per-point
-// body, K17b, K21 and K22's SST form as loops over the grid points, K3,
+// window_select.cuh, slab_couple.cuh, slab_ocean.cuh, sst_by_date.cuh):
+// K17's per-point body, K17b, K21, K22's SST form and K23 as loops over
+// the grid points, K3,
 // K20 and K22's push forms over their output elements; K17's row blocks and
 // K18's first-design blocks with their threads written out as loops in
 // phase order and their shared memory starting as NaN, so that a phase
@@ -21,6 +22,7 @@
 #include "inject_spectral.cuh"
 #include "slab_couple.cuh"
 #include "slab_ocean.cuh"
+#include "sst_by_date.cuh"
 #include "surface_forcing.cuh"
 #include "window_gather.cuh"
 #include "window_select.cuh"
@@ -319,6 +321,22 @@ extern "C" int slab_ocean_sst_host(int is_double, int n_classes,
                       src, base, land, G, tmin, sst))
       return 1;
     for (long long g = 0; g < G; ++g) slab_sst_at(a, g);
+  }
+  return 0;
+}
+
+// K23 over the grid points, with the launch's arguments; 1 for a day
+// outside the table.
+extern "C" int sst_by_date_host(int is_double, const void* table,
+                                long long n_days, long long day, long long G,
+                                double bias, void* out) {
+  if (G < 1 || day < 0 || day >= n_days) return 1;
+  for (long long g = 0; g < G; ++g) {
+    if (is_double)
+      sst_by_date_at((const double*)table, day, G, bias, (double*)out, g);
+    else
+      sst_by_date_at((const float*)table, day, G, (float)bias, (float*)out,
+                     g);
   }
   return 0;
 }

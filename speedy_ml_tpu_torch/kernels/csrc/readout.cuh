@@ -15,6 +15,13 @@
 // one per lane.  Each lane sums its elements in that order with fmaf; the
 // lanes' sums are then added by the xor butterfly of offsets 16, 8, 4, 2,
 // 1 (shuffles on the card; dense_host.cpp repeats them).
+//
+// The components form (the JAX package's predict_all(components=True),
+// hybrid/model.py:338-372) splits each row's sum at S: v_p over the
+// local-model block (a < S) and v_ml over the reservoir block, two
+// accumulators filled in the same pass and order (ro_lane_dot2), added
+// for the main output; aug is then NOT rounded to bf16 (there the JAX
+// einsum of a bf16 Wout and the f32 vector promotes to f32).
 
 #pragma once
 
@@ -119,6 +126,11 @@ struct RoElem<2> {
 #endif
     return ro_from_bits((uint32_t)h << 16);
   }
+  // element j of a word (the order of dot)
+  static RO_HD float word_at(const RoWord& v, int j) {
+    return ro_from_bits((j & 1) ? (v.w[j >> 1] & 0xffff0000u)
+                                : (v.w[j >> 1] << 16));
+  }
   // acc + the word's 8 products with aug[0..7] (16-byte aligned)
   static RO_HD float dot(const RoWord& v, const float* aug, float acc) {
 #ifdef __CUDA_ARCH__
@@ -148,6 +160,9 @@ struct RoElem<4> {
     memcpy(&f, row + 4 * (size_t)a, 4);
 #endif
     return f;
+  }
+  static RO_HD float word_at(const RoWord& v, int j) {
+    return ro_from_bits(v.w[j]);
   }
   static RO_HD float dot(const RoWord& v, const float* aug, float acc) {
 #ifdef __CUDA_ARCH__
@@ -199,6 +214,86 @@ RO_HD float ro_lane_dot(const unsigned char* row, const float* aug, int A,
   return acc;
 }
 
+// The components form's word: its elements into p (a < S) or m (the
+// rest), a0 the index of its first element; a word wholly on one side
+// takes dot's path
+template <int ES>
+RO_HD void ro_dot2(const RoWord& v, const float* aug, int a0, int S,
+                   float& p, float& m) {
+  constexpr int N = 16 / ES;
+  if (a0 >= S) {
+    m = RoElem<ES>::dot(v, aug, m);
+    return;
+  }
+  if (a0 + N <= S) {
+    p = RoElem<ES>::dot(v, aug, p);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float t = RoElem<ES>::word_at(v, j);
+    if (a0 + j < S)
+      p = fmaf(t, aug[j], p);
+    else
+      m = fmaf(t, aug[j], m);
+  }
+}
+
+// ro_lane_dot split at S: lane `lane`'s share of the row's sum over a < S
+// into p and over a >= S into m, element by element in ro_lane_dot's
+// order
+template <int ES, bool VEC>
+RO_HD void ro_lane_dot2(const unsigned char* row, const float* aug, int A,
+                        int S, int lane, float& p, float& m) {
+  p = 0.f;
+  m = 0.f;
+  if (!VEC) {
+    for (int a = lane; a < A; a += RO_LANES) {
+      const float t = RoElem<ES>::at(row, a);
+      if (a < S)
+        p = fmaf(t, aug[a], p);
+      else
+        m = fmaf(t, aug[a], m);
+    }
+    return;
+  }
+  constexpr int N = 16 / ES;
+  const int head = ro_head(row, ES) < A ? ro_head(row, ES) : A;
+  const int nw = (A - head) / N;
+  const int t0 = head + nw * N;
+  if (lane < head) {
+    const float t = RoElem<ES>::at(row, lane);
+    if (lane < S)
+      p = fmaf(t, aug[lane], p);
+    else
+      m = fmaf(t, aug[lane], m);
+  }
+  const unsigned char* body = row + (size_t)head * ES;
+  const float* ab = aug + head;
+  int c = lane;
+  for (; c + (RO_UNROLL - 1) * RO_LANES < nw; c += RO_UNROLL * RO_LANES) {
+    RoWord v[RO_UNROLL];
+#pragma unroll
+    for (int u = 0; u < RO_UNROLL; ++u)
+      v[u] = ro_load16(body + (size_t)(c + u * RO_LANES) * 16);
+#pragma unroll
+    for (int u = 0; u < RO_UNROLL; ++u)
+      ro_dot2<ES>(v[u], ab + (size_t)(c + u * RO_LANES) * N,
+                  head + (c + u * RO_LANES) * N, S, p, m);
+  }
+  for (; c < nw; c += RO_LANES)
+    ro_dot2<ES>(ro_load16(body + (size_t)c * 16), ab + (size_t)c * N,
+                head + c * N, S, p, m);
+  if (lane < A - t0) {
+    const int a = t0 + lane;
+    const float t = RoElem<ES>::at(row, a);
+    if (a < S)
+      p = fmaf(t, aug[a], p);
+    else
+      m = fmaf(t, aug[a], m);
+  }
+}
+
 // out = acc * std + mean, each operation rounded on its own
 RO_HD float ro_unstd(float acc, float std, float mean) {
 #ifdef __CUDA_ARCH__
@@ -240,6 +335,33 @@ RO_HD void ro_store(float v, long long k, float* out, const RoScatter& sc) {
   }
   const long long e = sc.index[k];
   if (e >= 0) sc.grid[e] = ro_clamp(v, e, sc);
+}
+
+// Where the components form stores v_p and v_ml (standardized, no
+// clamps): with the grid, two flat grids of its layout, at the same
+// element (cores tile the grid, so every element is written); without,
+// two (R, O) vectors beside out.  Null in the main form.
+struct RoParts {
+  float* vp;
+  float* vml;
+};
+
+// The components form's store of output k: v (the main output, stored as
+// ro_store does), vp and vml
+RO_HD void ro_store_parts(float v, float vp, float vml, long long k,
+                          float* out, const RoScatter& sc,
+                          const RoParts& pt) {
+  ro_store(v, k, out, sc);
+  if (!sc.grid) {
+    pt.vp[k] = vp;
+    pt.vml[k] = vml;
+    return;
+  }
+  const long long e = sc.index[k];
+  if (e >= 0) {
+    pt.vp[e] = vp;
+    pt.vml[e] = vml;
+  }
 }
 
 // Rows per block on a card of `sms` SMs: all O where R blocks already

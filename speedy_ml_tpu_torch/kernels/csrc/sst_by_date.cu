@@ -1,0 +1,52 @@
+// K23: the day's SST of a daily climatology table with the bias ramp (the
+// arithmetic: sst_by_date.cuh, which says what is computed).  The hybrid
+// cycle with an SST table, an hour of the year and no slab ocean launches
+// it once, before anything reads the cycle's SST grid.
+//
+// Replaces (JAX package) speedy_ml_tpu/hybrid/model.py:546-553,
+// HybridAtmosphere.sst_by_date, and its use in _cycle_jit (:590-596),
+// which XLA fused into the cycle.
+// In/out at full width (T30, 48 x 96 = 4,608 points): reads one plane of
+// the (365, 48, 96) table and writes one plane, 18.4 KB each in float32.
+//
+// Bound on an H100 SXM: memory, 36.9 KB, 0.000011 ms at 3.35 TB/s: a
+// launch floor.  Design: the first, simple one; one thread a grid point,
+// neighbouring threads on neighbouring points (coalesced).  The day and the
+// bias are host numbers, kernel arguments.
+
+#include "common.cuh"
+#include "sst_by_date.cuh"
+
+constexpr int kSbdBlock = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kSbdBlock)
+    sst_by_date_kernel(const T* __restrict__ table, long long day,
+                       long long G, T bias, T* __restrict__ out) {
+  const long long g = (long long)blockIdx.x * kSbdBlock + threadIdx.x;
+  if (g < G) sst_by_date_at(table, day, G, bias, out, g);
+}
+
+template <typename T>
+static int launch(const void* table, long long day, long long G,
+                  double bias, void* out, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((G + kSbdBlock - 1) / kSbdBlock);
+  sst_by_date_kernel<T><<<grid, kSbdBlock, 0, stream>>>(
+      (const T*)table, day, G, (T)bias, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+// table (n_days, G) and out (G,) of the element type (is_double: double,
+// else float); day in [0, n_days); bias cast to the type.
+SPEEDY_API int sst_by_date_launch(int device, int is_double,
+                                  const void* table, long long n_days,
+                                  long long day, long long G, double bias,
+                                  void* out, void* stream) {
+  cudaError_t err = speedy_set_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (G < 1 || day < 0 || day >= n_days || !table || !out)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_double ? launch<double>(table, day, G, bias, out, s)
+                   : launch<float>(table, day, G, bias, out, s);
+}

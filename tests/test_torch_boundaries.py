@@ -25,6 +25,7 @@ from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.core.spectral import SpectralTransform
 from speedy_ml_tpu_torch.gcm import GCM
 from speedy_ml_tpu_torch.physics import boundaries as tb
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 TRUNCATED = ("phis0", "forog")

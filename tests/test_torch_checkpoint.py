@@ -41,6 +41,7 @@ from speedy_ml_tpu_torch.esn.reservoir import ESNHyper, esn_step, readout
 from speedy_ml_tpu_torch.gcm import GCM
 from speedy_ml_tpu_torch.hybrid import chunked
 from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 N_REGIONS, M = 128, 300

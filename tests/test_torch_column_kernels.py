@@ -59,6 +59,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"
 sys.path.insert(0, str(REPO))
 from chip_smoke import column_errors  # noqa: E402  (the card check's rule)
+from torch_lane import one_thread_per_pool  # noqa: E402, F401
 
 NLAT, NLON = 16, 32
 NGP = NLAT * NLON

@@ -77,6 +77,7 @@ from test_torch_column_kernels import (GEOM, NGP, NLAT, NLON, _close, _hold,
                                        host_moist, host_up, jax_down_surface,
                                        make_columns, moist_inputs, phys_for,
                                        sfc_dict, surface_kwargs)
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 KX = 8
 SOLAR = ((0.0, 420.0), (0.0, 15.0), (0.0, 15.0), (1.0, 4.0), (0.0, 10.0))

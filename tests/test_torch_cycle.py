@@ -47,6 +47,7 @@ from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
 from speedy_ml_tpu_torch.hybrid.driver import run_prediction
 from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
 from speedy_ml_tpu_torch.physics import land_sea
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 N_REGIONS, M = 128, 300
@@ -324,7 +325,10 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
 
 
 def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
-    """The options of later slices raise; ml_only=False now runs."""
+    """The options of later slices raise (set_mesh, cycles_per_dispatch >
+    1); ml_only=False now runs, and so do the climatology tables,
+    emit_components, truth_provider and time_mean_path
+    (tests/test_torch_cycle_options.py)."""
     _, thyb = pair_f64
     _, chyb = coupled_pair
     with pytest.raises(ValueError, match="needs a GCM"):
@@ -351,22 +355,12 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
         HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=True,
                          base_sst=np.zeros(3), device="cpu")
     for h in (thyb, chyb):
-        for call in (lambda: h.set_tisr_table(None),
-                     lambda: h.set_sst_table(None),
-                     lambda: h.set_mesh(None)):
-            with pytest.raises(NotImplementedError):
-                call()
+        with pytest.raises(NotImplementedError):
+            h.set_mesh(None)
         s = h.init_state(_sst(h.geom))
-        h.emit_components = True
-        try:
-            with pytest.raises(NotImplementedError):
-                h.cycle(s, 0, 0.5, 0.05)
-        finally:
-            h.emit_components = False
-        for kw in (dict(truth_provider=lambda i: {}),
-                   dict(time_mean_path="x"), dict(cycles_per_dispatch=2)):
-            with pytest.raises(NotImplementedError):
-                run_prediction(h, s, ModelDate(1990, 1, 1), 1, **kw)
+        with pytest.raises(NotImplementedError):
+            run_prediction(h, s, ModelDate(1990, 1, 1), 1,
+                           cycles_per_dispatch=2)
     g, bd = chyb.gcm.geom, chyb.gcm.bd
     # without bd the GCM reads the boundary files, from $SPEEDY_ML_BC_PATH
     # when no bc_path is given (tests/test_torch_boundaries.py)

@@ -33,6 +33,7 @@ from speedy_ml_tpu_torch.hybrid import chunked
 from speedy_ml_tpu_torch.hybrid.training import (generate_nature_run,
                                                  make_imperfect_forecasts)
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 LEAP0 = 1992
 NAMES_3D = ("Temperature", "U-wind", "V-wind", "Specific-Humidity")

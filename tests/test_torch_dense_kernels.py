@@ -52,6 +52,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"
 sys.path.insert(0, str(REPO))
 from chip_smoke import K2_RTOL  # noqa: E402  (the card check's tolerance)
+from torch_lane import one_thread_per_pool  # noqa: E402, F401
 
 # (S, n) of the T30 m=6000 classes, ML-only and coupled
 WIDTHS = {"interior ML-only": (0, 5760), "polar ML-only": (0, 6048),

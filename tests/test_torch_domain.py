@@ -22,6 +22,7 @@ from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
                                                       scatter_plain,
                                                       split_grid)
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 NVAR, NZ = 4, 8
 

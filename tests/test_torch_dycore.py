@@ -25,6 +25,7 @@ from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.dycore.init import rest_state
 from speedy_ml_tpu_torch.dycore.model import DycoreModel
 from speedy_ml_tpu_torch.dycore.state import SpectralState
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 RTOL = 1e-10

@@ -31,6 +31,7 @@ from speedy_ml_tpu_torch.gcm import GCM, FluxAccumulator
 from speedy_ml_tpu_torch.physics.land_sea import (couple_daily,
                                                   interp_climatology)
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 RTOL = 1e-9

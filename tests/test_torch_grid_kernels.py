@@ -46,6 +46,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"
 sys.path.insert(0, str(REPO))
 from chip_smoke import K7_ULPS  # noqa: E402  (the card check's tolerance)
+from torch_lane import one_thread_per_pool  # noqa: E402, F401
 
 NLAT, NLON = 16, 32
 RAGGED = (15, 31)   # 465 columns: the last block of the kernel's 16 holds 1

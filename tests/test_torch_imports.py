@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_lane import one_thread_per_pool  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "speedy_ml_tpu_torch"
 

@@ -60,6 +60,7 @@ from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
 from speedy_ml_tpu_torch.kernels import slab_couple as k21
 from speedy_ml_tpu_torch.kernels import surface_forcing as sfk
 from speedy_ml_tpu_torch.physics import land_sea
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"

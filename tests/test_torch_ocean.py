@@ -56,6 +56,7 @@ from speedy_ml_tpu_torch.esn.standardize import Standardizer
 from speedy_ml_tpu_torch.hybrid import chunked, training
 from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
 from speedy_ml_tpu_torch.kernels import slab_ocean as k22
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 NZ = 8
@@ -68,16 +69,6 @@ HYPER = ESNHyper(m=300, noise_mag=0.0)
 OHYPER = ESNHyper(m=300, sigma=0.6, beta_res=1e-2, noise_mag=0.0,
                   using_prior=False)
 CPU = dict(device="cpu", dtype=torch.float64)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this module's many small ops (the tier-1 lane
-    runs six test processes on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jhyper(h):

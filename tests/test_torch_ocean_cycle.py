@@ -38,16 +38,7 @@ from speedy_ml_tpu_torch.gcm import GCM
 from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere, ocean_snapshot
 from speedy_ml_tpu_torch.kernels import slab_ocean as k22
 from test_torch_ocean import GEOM, _signal_close, ocean_pair, sync_window
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this module's many small ops (the tier-1 lane
-    runs six test processes on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 
 def _close_ocean(ts, js, rtol):

@@ -27,6 +27,7 @@ from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.esn.domain import RegionLayout
 from speedy_ml_tpu_torch.esn.ocean import ocean_index_map
 from speedy_ml_tpu_torch.kernels import slab_ocean as k22
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"

@@ -48,6 +48,7 @@ from speedy_ml_tpu_torch.physics.humidity import (qsat_from_t,
                                                   spec_hum_to_rh)
 from speedy_ml_tpu_torch.physics.surface import sflset, suflux
 from speedy_ml_tpu_torch.physics.vdiff import vdifsc
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=8)
 KX = 8

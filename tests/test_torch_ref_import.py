@@ -30,6 +30,7 @@ from speedy_ml_tpu_torch.data.calendar import ModelDate
 from speedy_ml_tpu_torch.esn.domain import RegionLayout
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.gcm import GCM
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 NZ = 2
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=NZ)

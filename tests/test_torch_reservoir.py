@@ -16,6 +16,7 @@ import torch
 from speedy_ml_tpu.esn import reservoir as jres
 from speedy_ml_tpu_torch.esn import reservoir as tres
 from speedy_ml_tpu_torch.kernels.readout import readout as readout_fused
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 R, N, I, O, J = 5, 96, 12, 20, 4
 

@@ -46,6 +46,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"
 sys.path.insert(0, str(REPO))
 from chip_smoke import SHT_RTOL  # noqa: E402  (the card check's tolerance)
+from torch_lane import one_thread_per_pool  # noqa: E402, F401
 
 GEOMS = {"T30": dict(trunc=30, nlon=96, nlat=48, nlev=8),
          "T10": dict(trunc=10, nlon=32, nlat=16, nlev=8)}

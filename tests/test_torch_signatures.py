@@ -48,6 +48,7 @@ from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
 from speedy_ml_tpu_torch.hybrid.training import train_hybrid
 from speedy_ml_tpu_torch.physics import boundaries as tbd
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
          "train_hybrid": (j_train_hybrid, train_hybrid),

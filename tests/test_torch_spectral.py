@@ -18,6 +18,7 @@ from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.core.spectral import SpectralTransform
 from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis_plain
 from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis_plain
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOMS = {"T30": dict(trunc=30, nlon=96, nlat=48, nlev=8),
          "T10": dict(trunc=10, nlon=32, nlat=16, nlev=8)}

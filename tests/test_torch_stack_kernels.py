@@ -55,6 +55,7 @@ from speedy_ml_tpu_torch.physics import driver as phys_driver
 from speedy_ml_tpu_torch.kernels.spectral_stack import (spectral_stack,
                                                         stack_blob)
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"

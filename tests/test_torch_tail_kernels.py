@@ -36,6 +36,7 @@ from speedy_ml_tpu_torch.dycore.model import DycoreModel
 from speedy_ml_tpu_torch.dycore.state import SpectralState
 from speedy_ml_tpu_torch.kernels.spectral_tail import (XJ_ROW, blob_size,
                                                        tail_blob)
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"

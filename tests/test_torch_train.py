@@ -28,22 +28,12 @@ from speedy_ml_tpu_torch.esn import train as ttrain
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.kernels.gram_update import (gram_update,
                                                      gram_update_plain)
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float64))
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this module's many small ops: the tier-1 lane
-    runs six test processes on the host's cores, and torch's default of
-    one thread per core made them contend (a 3 s test took 300 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _rel(got, ref):
     """max |got - ref| over max |ref|."""

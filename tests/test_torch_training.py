@@ -41,6 +41,7 @@ from speedy_ml_tpu_torch.esn.train import NormalEq
 from speedy_ml_tpu_torch.gcm import GCM
 from speedy_ml_tpu_torch.hybrid import chunked, training
 from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 GEOM = dict(trunc=10, nlon=32, nlat=16, nlev=2)
 NZ = 2
@@ -52,17 +53,6 @@ HYPER = ESNHyper(m=432, deg=3, sigma=0.5, leakage=1.0, beta_res=0.1,
                  beta_model=1.0, noise_mag=0.0)
 CPU = dict(device="cpu", dtype=torch.float64)
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for this module's many small ops: the tier-1 lane
-    runs six test processes on the host's cores, and torch's default of
-    one thread per core made them contend (a 3 s test took 300 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _rel(got, ref):
     got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)

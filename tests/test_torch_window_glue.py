@@ -75,6 +75,7 @@ from speedy_ml_tpu_torch.physics import driver as driver_module
 from speedy_ml_tpu_torch.physics import land_sea
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
 from speedy_ml_tpu_torch.physics.driver import PhysicsModel
+from torch_lane import one_thread_per_pool  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "speedy_ml_tpu_torch" / "kernels" / "csrc"
