@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (speedy_ml_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
-                          [--options] [--k14-lists]
+                          [--options] [--vertical] [--physics]
+                          [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -179,9 +180,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      state's SST the plain table day bit for bit, K23 once a cycle; the
      launches a cycle beside the main path's (one more), busy and ms a
      cycle with and without the writer and the time means.
+ 15. vertical localization (phase_vertical): train_hybrid with two groups
+     of levels ([0, 4) seeing [0, 5), [4, 8) seeing [3, 8)) on phase 10's
+     nature run and forecasts at full width (1,152 regions, m = 6000 a
+     group, region chunks of 96, the solve in float64): six packs, stage
+     seconds, the solve's TFLOP/s; the localized hybrid (those
+     standardizers and reservoirs, a seeded untrained bf16 readout): K2's
+     store through the bands bit for bit its vectors then the core
+     scatter, K3's two gathers within an ulp of the plain version; 8
+     coupled cycles of run_prediction (K1 and K2 six launches a cycle,
+     fields finite, T in [150, 350] K), launches and busy beside the main
+     path's (+3 K1, +3 K2); the localized checkpoint saved and loaded,
+     equal, its twin's cycles bit for bit;
+ 16. the optional physics (phase_physics) on a T30 GCM with SPPT, RDF and
+     cgrate on: K24 (both forms), K25 (both forms), K26 (and a trigger
+     case) against their plain versions on a step's inputs, float32 and
+     float64, 0 difference, K8's tendency form beside its main form, each
+     timed; a day from a spun-up state, every step finite, T in [150,
+     350] K, the first 24 steps held against the plain step on the CPU
+     (phase 5's rule); launches per leapfrog step with all three on (15
+     kernel launches, 1 plain: the draw).
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
 trains phase 10's atmosphere and runs phase 13 alone (no result line);
---options runs phase 14 alone (no result line).
+--options runs phase 14 alone, --vertical phase 15 (with its own nature
+run) and --physics phase 16 (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -318,6 +340,17 @@ OPT_PAD = 32
 OPT_IO_CYCLES = 10
 # phase 12: the persistent coupled cycles (two couplings) and the days of
 # GCM.run_days
+# phase 16 (the optional physics): RDF's pattern seed, SPPT's generator
+# seed, and the steps of its day held one by one against the CPU
+RDF_SEED = 7
+PHYS_SEED = 11
+PHYS_HELD = 24
+PHYS_SPINUP = 5
+# phase 15 (vertical localization): two groups of levels, an overlap of
+# one level, and the localized hybrid's coupled cycles
+VERT_GROUPS = 2
+VERT_OVERLAP = 1
+VERT_CYCLES = 8
 PERSIST_CYCLES = 8
 RUN_DAYS = 2
 # torch.profiler sessions: idle time at either end of the profiled work,
@@ -537,7 +570,7 @@ def window_errs(torch, gcm, gcm_c, gk, gp, magnitude=False):
     return {v: signal_err(a[v].cpu(), b[v], magnitude) for v in a}
 
 
-def window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p, nsteps):
+def window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p, nsteps, eta_fn=None):
     """nsteps leapfrog steps of gcm from gk, each held to gcm_c's step (on
     the CPU) from the same state.  The two sides' physics see grids that
     differ in the last bits (their transforms sum in other orders), so a
@@ -548,7 +581,8 @@ def window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p, nsteps):
     such a flip, and gcm_c's step takes gcm's tendencies there.  Returns (gcm's
     state after the steps, the worst step's window_errs, the flipped
     columns of each step, the largest relative tendency difference in the
-    other columns)."""
+    other columns).  eta_fn: with SPPT, a function that draws the step's
+    noise on the card; both sides' steps then take that draw."""
     seen, flips, near = [], [], 0.0
 
     def physics(gm, patch):
@@ -575,10 +609,14 @@ def window_steps(torch, gcm, gcm_c, gk, fo_k, fo_p, nsteps):
         seen.clear()
         gcm._physics_fn = physics(gcm, lambda t: seen.append(t) or t)
         gcm_c._physics_fn = physics(gcm_c, adopt)
+        kw_k = kw_c = {}
+        if eta_fn is not None:
+            eta = eta_fn()
+            kw_k, kw_c = dict(eta=eta), dict(eta=eta.cpu())
         try:
-            nk = gcm.leapfrog(gk, fo_k)
+            nk = gcm.leapfrog(gk, fo_k, **kw_k)
             nc = gcm_c.leapfrog(to_device(torch, gk, torch.device("cpu")),
-                                fo_p)
+                                fo_p, **kw_c)
         finally:
             del gcm._physics_fn, gcm_c._physics_fn
         step = window_errs(torch, gcm, gcm_c, nk, nc)
@@ -2335,7 +2373,611 @@ def phase_options(torch, np, hyb, date0, card, record, kernels, work: Path,
     return n23, n2
 
 
-def phase_training(torch, gcm, layout, date0, card, record, atmo_ckpt: str):
+def phase_vertical(torch, np, gcm, layout, hyb_main, date0, card, kernels,
+                   data=None):
+    """Phase 15: vertical localization at full width.  (a) The nature run
+    and forecasts of phase 10 (`data`, or made here when phase 15 runs
+    alone), then train_hybrid with VERT_GROUPS groups of levels and an
+    overlap of VERT_OVERLAP (m = 6000 a group, ESNHyper's defaults, noise
+    0.2, phase 10's discarded samples and time chunks, region chunks of
+    REGION_CHUNK, the solve in float64): six packs, Wout finite, stage
+    seconds and the solve's TFLOP/s.  (b) The localized hybrid of those
+    standardizers and reservoirs with a seeded untrained readout (bf16,
+    as the main path; phase 10's trained readout diverges in a closed
+    loop) two cycles in: K2's store into the grid bit for bit its vectors
+    then core_scatter_plain through the bands' source table, and within
+    K2_RTOL of readout_plain's; K3's feedback and local-model gathers
+    against window_gather_plain within an ulp.  (c) VERT_CYCLES coupled
+    cycles of run_prediction, every counter set to 0 before: fields
+    finite, T in [150, 350] K, K1 and K2 six launches a cycle, K3 two;
+    a localized cycle's launches and busy beside the main path's in the
+    same session order (+3 K1, +3 K2).  (d) save_hybrid and load_hybrid
+    of the localized hybrid: every tensor and zspec equal, two cycles of
+    each from one state equal bit for bit."""
+    from speedy_ml_tpu_torch.data.checkpoint import load_hybrid, save_hybrid
+    from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
+    from speedy_ml_tpu_torch.hybrid import training
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.model import HybridAtmosphere
+    from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
+                                                          core_scatter_plain,
+                                                          grid_blocks,
+                                                          split_grid)
+    from speedy_ml_tpu_torch.esn.reservoir import esn_step
+    from speedy_ml_tpu_torch.kernels.readout import readout, readout_plain
+    from speedy_ml_tpu_torch.kernels.window_gather import (
+        window_gather, window_gather_plain)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = gcm.geom
+    nz, nlat, nlon = g.nlev, g.nlat, g.nlon
+    stage = {}
+    # -- (a) the data and the training --------------------------------------
+    if data is None:
+        t0 = time.perf_counter()
+        truth, _, dates = training.generate_nature_run(gcm, date0, N_NATURE,
+                                                       spinup_days=0)
+        model = training.make_imperfect_forecasts(gcm, truth, dates)
+        torch.cuda.synchronize()
+        stage["nature run and forecasts"] = time.perf_counter() - t0
+    else:
+        truth, model, dates = data
+    hyper = ESNHyper()
+    timers = {"accumulate": training.train_subseries,
+              "solve": training.solve_wout}
+
+    def timed(name, fn):
+        def w(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage[name] = stage.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return w
+
+    for name, fn in timers.items():
+        setattr(training, {"accumulate": "train_subseries",
+                           "solve": "solve_wout"}[name], timed(name, fn))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        hyb_v = training.train_hybrid(
+            gcm, layout, truth, model, hyper, TRAIN_SEED,
+            num_vert_levels=VERT_GROUPS, vert_overlap=VERT_OVERLAP,
+            n_discard=N_DISCARD, n_batches=(N_NATURE - N_DISCARD)
+            // TIME_CHUNK, region_chunk=REGION_CHUNK,
+            solve_dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        training.train_subseries = timers["accumulate"]
+        training.solve_wout = timers["solve"]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    packs = hyb_v.packs
+    if len(packs) != VERT_GROUPS * len(layout.classes) or [
+            tuple(p.zspec)[:4] for p in packs[:VERT_GROUPS]] != [
+            (0, 4, 0, 5), (4, 8, 3, 8)]:
+        fail("phase 15: the localized hybrid's packs are not the six "
+             "groups [0, 4) seeing [0, 5) and [4, 8) seeing [3, 8)")
+    solve_flops = 0.0
+    for pk in packs:
+        if not bool(torch.isfinite(pk.res.wout).all()):
+            fail(f"phase 15: pack {pk.cls.name} {tuple(pk.zspec)}: Wout is "
+                 f"not finite")
+        R, O_, A = pk.res.wout.shape
+        solve_flops += R * (2.0 / 3.0 * A ** 3 + 2.0 * A * A * O_)
+    stage["pack, standardize, generate"] = wall - stage["accumulate"] \
+        - stage["solve"]
+    log(f"phase 15: train_hybrid with {VERT_GROUPS} vertical groups, overlap "
+        f"{VERT_OVERLAP}: {len(packs)} packs ("
+        + ", ".join(f"{p.cls.name} z{p.zspec.z0}-{p.zspec.z1}: R="
+                    f"{p.cls.count} n={p.res.n} I={p.res.n_in} "
+                    f"S={p.res.n_speedy} O={p.res.n_outputs}"
+                    for p in packs)
+        + f"), m={hyper.m}, {N_NATURE - N_DISCARD} pairs, region chunks of "
+        f"{REGION_CHUNK}, solve in float64: {wall:.1f} s; stages (wall s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+        + f"; solve {solve_flops / 1e12:.2f} TFLOP at "
+        f"{solve_flops / stage['solve'] / 1e12:.2f} TFLOP/s; peak memory "
+        f"{peak:.2f} GiB [{card}]")
+
+    # -- (b) K2's store and K3 at the localized shapes -----------------------
+    gw = torch.Generator(device=dev).manual_seed(SEED + 31)
+    packs = [p._replace(res=dataclasses.replace(p.res, wout=1e-3 * torch.randn(
+        p.res.wout.shape, generator=gw, device=dev))) for p in packs]
+    del hyb_v
+    hyb = HybridAtmosphere(gcm, layout, packs, ml_only=False,
+                           device=dev).cast_wout_bf16()
+    del packs
+    imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
+    s = hyb.init_state(sst_month0(g))
+    for _ in range(2):
+        s, _ = hyb.cycle(s, imon, fmon, tyear)
+    xs = [esn_step(p.res, cs.x, cs.feedback, p.hyper.leakage)
+          for p, cs in zip(hyb.packs, s.classes)]
+    args = [dict(wout=p.res.wout, x=x, local_model=cs.local_model,
+                 out_mean=p.std.out_mean, out_std=p.std.out_std)
+            for p, x, cs in zip(hyb.packs, xs, s.classes)]
+    table = torch.as_tensor(layout.core_source_table(
+        [p.cls for p in hyb.packs], 4, nz, [p.zspec for p in hyb.packs]),
+        device=dev)
+    n_grid, q_blk, p_blk = grid_blocks(4, nz, nlat, nlon)
+    grid = torch.full((n_grid,), float("nan"), device=dev)
+    for a, idx in zip(args, hyb.core_index):
+        readout(**a, scatter=CoreScatter(grid, idx, q_blk, p_blk))
+    vecs = [readout(**a) for a in args]
+    want = core_scatter_plain(vecs, table, 4, nz, nlat, nlon)
+    parts = split_grid(grid, 4, nz, nlat, nlon)
+    if bool(grid.isnan().any()) or not all(
+            torch.equal(a_, b_) for a_, b_ in zip(parts, want)):
+        fail("phase 15: K2's store through the bands differs from its "
+             "vectors then core_scatter_plain")
+    e2 = max(float((v - readout_plain(**a)).abs().max())
+             / float(readout_plain(**a).abs().max())
+             for v, a in zip(vecs, args))
+    atmo, logp, precip = parts
+    tisr = hyb.tisr_field(tyear).contiguous()
+    fields = (atmo, logp, precip, s.sst_grid, tisr)
+    fb = (fields, hyb.feedback_index, [p.std.in_mean for p in hyb.packs],
+          [p.std.in_std for p in hyb.packs])
+    lm_fields = (atmo.contiguous(),) + (logp.contiguous(),) * 4
+    S = [p.res.n_speedy for p in hyb.packs]
+    lm = (lm_fields, hyb.local_index,
+          [p.std.out_mean[:, :k].contiguous() for p, k in zip(hyb.packs, S)],
+          [p.std.out_std[:, :k].contiguous() for p, k in zip(hyb.packs, S)])
+    e3 = 0.0
+    for ga in (fb, lm):
+        for k_, p_ in zip(window_gather(*ga), window_gather_plain(*ga)):
+            ulp = float((torch.finfo(torch.float32).eps * p_.abs()).max())
+            e3 = max(e3, float((k_ - p_).abs().max()) / max(ulp, 1e-30))
+    log(f"phase 15: K2's store through the six packs' bands bit for bit "
+        f"its vectors then core_scatter_plain, every grid element written "
+        f"once; K2 against readout_plain {e2:.3e} of its scale (tolerance "
+        f"{K2_RTOL:.0e}); K3's feedback and local-model gathers {e3:.3f} "
+        f"ulps of their scale from window_gather_plain (tolerance 1)")
+    if not (e2 <= K2_RTOL and e3 <= 1.0):
+        fail("phase 15: K2 or K3 disagrees at the localized shapes")
+
+    # -- (c) the localized cycles ---------------------------------------------
+    for w in kernels.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    end, dts = run_prediction(hyb, s, date0, VERT_CYCLES)
+    torch.cuda.synchronize()
+    t_cyc = (time.perf_counter() - t0) / VERT_CYCLES
+    counts = {nm: kernels[nm].launches for nm in
+              ("K1_esn_step", "K2_readout_scatter", "K3_window_gather")}
+    if len(dts) != VERT_CYCLES or counts != {
+            "K1_esn_step": 6 * VERT_CYCLES,
+            "K2_readout_scatter": 6 * VERT_CYCLES,
+            "K3_window_gather": 2 * VERT_CYCLES}:
+        fail(f"phase 15: {len(dts)} cycles, launches {counts}")
+    _, d = hyb.cycle(end, imon, fmon, tyear)
+    for nm in ("atmo", "logp", "speedy_atmo", "speedy_logp"):
+        if not bool(torch.isfinite(d[nm]).all()):
+            fail(f"phase 15: {nm} is not finite after the localized cycles")
+    tmin, tmax = float(d["speedy_atmo"][0].min()), \
+        float(d["speedy_atmo"][0].max())
+    if not (bool(end.safe) and 150.0 <= tmin and tmax <= 350.0):
+        fail(f"phase 15: SPEEDY T {tmin}..{tmax} K, safe {bool(end.safe)}")
+    # a session can lose its first device events (PERF.md §7): OCEAN_PAD
+    # launches of K17b, which no cycle launches, go first in each call and
+    # are left out of the counts and the busy time
+    from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+    pad = lambda: [tisr_plane(tyear, hyb._slat, hyb._clat, nlon)
+                   for _ in range(OCEAN_PAD)]
+    prof = {}
+    for label, h, st in (("main path", hyb_main, None),
+                         ("localized", hyb, end),
+                         ("main path again", hyb_main, None),
+                         ("localized again", hyb, end)):
+        if st is None:
+            st = h.init_state(sst_month0(g))
+            st, _ = h.cycle(st, imon, fmon, tyear)
+        fn = lambda: (pad(), h.cycle(st, imon, fmon, tyear))
+        fn()
+        _, kk, _ = profile_device(torch, fn, 4)
+        kk = [e for e in kk if kernel_name(e.key) != "tisr_kernel"]
+        prof[label] = (sum(_self_device_us(e) for e in kk) / 1e3 / 4,
+                       sum(e.count for e in kk) / 4,
+                       {kernel_name(e.key): e.count / 4 for e in kk})
+    ms_m, n_m, by_m = prof["main path again"]
+    ms_v, n_v, by_v = prof["localized again"]
+    extra = {k: by_v.get(k, 0) - by_m.get(k, 0)
+             for k in ("esn_step_kernel", "readout_kernel")}
+    log(f"phase 15: {VERT_CYCLES} localized coupled cycles of run_prediction "
+        f"({t_cyc * 1e3:.1f} ms a cycle on the host clock), safe, finite, "
+        f"SPEEDY T {tmin:.3f}..{tmax:.3f} K; launches {counts}; profiled "
+        f"(4 cycles a session): localized {prof['localized'][1]:g}, "
+        f"{n_v:g} launches a cycle, busy {prof['localized'][0]:.4f}, "
+        f"{ms_v:.4f} ms; the main path {prof['main path'][1]:g}, {n_m:g}, "
+        f"busy {prof['main path'][0]:.4f}, {ms_m:.4f} ms; extra K1 and K2 "
+        f"launches {extra} [{card}]")
+    if extra != {"esn_step_kernel": 3, "readout_kernel": 3}:
+        fail(f"phase 15: a localized cycle's extra launches {extra}, not 3 "
+             f"K1 and 3 K2")
+
+    # -- (d) the localized checkpoint ---------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_hybrid(hyb, tmp + "/vert")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_hybrid(gcm, layout, tmp + "/vert", device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        nbytes = dir_bytes(tmp + "/vert")
+    back.cast_wout_bf16()
+    if [p.zspec for p in back.packs] != [p.zspec for p in hyb.packs]:
+        fail("phase 15: the loaded checkpoint's zspecs differ")
+    same_packs(torch, hyb.packs, back.packs, "the localized checkpoint")
+    a, b = end, end
+    for _ in range(2):
+        a, da = hyb.cycle(a, imon, fmon, tyear)
+        b, db = back.cycle(b, imon, fmon, tyear)
+    for nm in ("atmo", "logp", "precip", "speedy_atmo", "speedy_logp"):
+        if not torch.equal(da[nm], db[nm]):
+            fail(f"phase 15: the loaded twin's {nm} differs after two "
+                 f"cycles")
+    log(f"phase 15: the localized checkpoint ({nbytes / 1e9:.2f} GB) saved "
+        f"in {t_save:.2f} s, loaded in {t_load:.2f} s, every tensor and "
+        f"zspec equal, two cycles of the twin bit for bit; phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    del back, hyb
+    torch.cuda.empty_cache()
+
+
+def phase_physics(torch, np, gcm, date0, card, record, kernels):
+    """Phase 16: the optional physics (A15) on a T30L8 float32 GCM with
+    SPPT, RDF (init_randfh(RDF_SEED)) and the cgrate limiter all on.
+    (a) One stepone and two leapfrog steps (a shortwave step and another)
+    with each new kernel's wrapper recording its inputs: K24 (both forms),
+    K25 (both forms) and K26 against their plain versions on those inputs,
+    in float32 and in float64 (the inputs cast), 0 difference; K8's
+    tendency form: t, ps and tr bit for bit its main form's, vor's and
+    div's tendencies within TAIL_RTOL of the plain tendency form's; a
+    trigger case (vor's tendency grown to 1e-3 of the field, as
+    tests/test_cgrate.py grows it) that must damp, bit for bit the plain
+    version's; each kernel timed as the median of SHT_SESSIONS sessions
+    beside its plain version and bound.  (b) A day (nsteps_day leapfrog
+    steps after stepone) from date0: every step finite, T in [150, 350]
+    K, from a state the plain GCM spun up PHYS_SPINUP days from rest;
+    the first PHYS_HELD steps each from the card's state against the
+    plain step on the CPU from the same state and the same draw
+    (window_steps with phase 5's flip rule), the rest on the card alone;
+    K24-K26's launches over the day (their counters set to 0 before it).
+    (c) A profiled leapfrog step with all three on: its kernel and plain
+    launches (the main path's ten, K24 twice, K6 once more, K25, K26; the
+    draw's one plain launch).  Returns {kernel name: launches in (b)}."""
+    from speedy_ml_tpu_torch.dycore import model as dymod
+    from speedy_ml_tpu_torch.dycore.model import DycoreModel
+    from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.kernels import cgrate as k26
+    from speedy_ml_tpu_torch.kernels import rdf as k25
+    from speedy_ml_tpu_torch.kernels import sppt as k24
+    from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
+    from speedy_ml_tpu_torch.physics import driver as drv
+    from speedy_ml_tpu_torch.physics.randfor import init_randfh, rdf_weights
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    g = gcm.geom
+    K, nlat, nlon, mx, nx = g.nlev, g.nlat, g.nlon, g.mx, g.nx
+    G, MN = nlat * nlon, mx * nx
+    gcm_o = GCM(g, dtype=f32, bd=gcm.bd, nsteps_day=gcm.nsteps_day,
+                sppt_on=True, cgrate_on=True, device=dev)
+    randfh = init_randfh(RDF_SEED, g, gcm_o.sht)
+    gcm_o.phys.randfh = randfh
+    log(f"phase 16: a T{g.trunc}L{K} float32 GCM with SPPT (phi "
+        f"{gcm_o.sppt.phi:.6f}), RDF (init_randfh({RDF_SEED}), rms "
+        f"{float(np.sqrt((randfh ** 2).mean())):.4f} K/day-scale) and "
+        f"cgrate on")
+
+    # -- (a) the kernels against their plain versions -------------------
+    seen = {"rdf": {}, "perturb": [], "cgrate": [], "tail": []}
+    o_rdf, o_pert = drv.rdf, drv.sppt_perturb
+    o_cg, o_tail = dymod.cgrate, dymod.spectral_tail
+
+    def rec_rdf(tt, h, v, xs=None):
+        seen["rdf"][xs is not None] = (tt.clone(), h, v.clone(), xs)
+        return o_rdf(tt, h, v, xs)
+
+    def rec_pert(tends, pattern, mu=None):
+        seen["perturb"].append(([t.clone() for t in tends], pattern, mu))
+        return o_pert(tends, pattern, mu)
+
+    def rec_cg(dyn, state, out, j1, dt, eps):
+        seen["cgrate"].append((state, dataclasses.replace(
+            out, vor=out.vor.clone(), div=out.div.clone()), j1, dt, eps))
+        return o_cg(dyn, state, out, j1, dt, eps)
+
+    def rec_tail(*a):
+        seen["tail"].append(a)
+        return o_tail(*a)
+
+    drv.rdf, drv.sppt_perturb = rec_rdf, rec_pert
+    dymod.cgrate, dymod.spectral_tail = rec_cg, rec_tail
+    try:
+        s0, fo = gcm_o.init_state(date0, sppt_seed=PHYS_SEED)
+        s1 = gcm_o.stepone(s0, fo)
+        s2 = gcm_o.leapfrog(s1, fo)          # istep 0: a shortwave step
+        s3 = gcm_o.leapfrog(s2, fo)          # istep 1: another
+    finally:
+        drv.rdf, drv.sppt_perturb = o_rdf, o_pert
+        dymod.cgrate, dymod.spectral_tail = o_cg, o_tail
+    torch.cuda.synchronize()
+    if not (True in seen["rdf"] and False in seen["rdf"]
+            and len(seen["perturb"]) == 2 and len(seen["cgrate"]) == 4):
+        fail("phase 16: the steps did not reach K24, K25 and K26 as "
+             "expected")
+    dyn64 = DycoreModel(g, dtype=f64, cgrate_on=True, device=dev)
+    worst = {}
+
+    def cast(t, rt, ct):
+        if t is None:
+            return None
+        return t.to(ct if t.is_complex() else rt).contiguous()
+
+    eta = gcm_o.sppt.noise(torch.Generator(device=dev).manual_seed(5))
+    eta[0, 1, 2] = complex(12.0, -11.0)       # parts beyond the clip
+    for rt, ct in ((f32, c64), (f64, c128)):
+        tag = str(rt)[6:]
+        # K24, the AR(1) form and the stationary first draw
+        sp = cast(s2.sppt_spec, rt, ct)
+        for nm, sig, phi in (("ar1", gcm_o.sppt.sigma, gcm_o.sppt.phi),
+                             ("init", gcm_o.sppt.sigma0, 0.0)):
+            st = torch.zeros_like(sp) if nm == "init" else sp
+            a = (st, cast(eta, rt, ct), cast(sig, rt, ct), phi)
+            worst[f"K24 {nm} {tag}"] = max_abs_diff(
+                torch, torch.view_as_real(k24.sppt_ar1(*a)),
+                torch.view_as_real(k24.sppt_ar1_plain(*a)))
+        # K24, the perturbation (each recorded step)
+        for i, (tends, pattern, mu) in enumerate(seen["perturb"]):
+            tt = [cast(t, rt, ct) for t in tends]
+            pk = k24.sppt_perturb([t.clone() for t in tt],
+                                  cast(pattern, rt, ct), cast(mu, rt, ct))
+            pp = k24.sppt_perturb_plain(tt, cast(pattern, rt, ct),
+                                        cast(mu, rt, ct))
+            worst[f"K24 perturb step {i} {tag}"] = max(
+                max_abs_diff(torch, a, b) for a, b in zip(pk, pp))
+        # K25, the shortwave form and the other
+        for xs_on, (tt, h, v, xs) in seen["rdf"].items():
+            xs_c = None if xs is None else k25.RdfHeating(
+                *[cast(t, rt, ct) for t in xs[:5]],
+                w=rdf_weights(gcm_o.phys.sig, nlon, rt, dev))
+            a = (cast(tt, rt, ct), cast(h, rt, ct), cast(v, rt, ct))
+            kt, kv = k25.rdf(a[0].clone(), a[1], a[2], xs_c)
+            pt, pv = k25.rdf_plain(*a, xs_c)
+            worst[f"K25 {'shortwave' if xs_on else 'other'} {tag}"] = max(
+                max_abs_diff(torch, kt, pt), max_abs_diff(torch, kv, pv))
+        # K26, stepone's two steps and the two leapfrog steps
+        dy = gcm_o.dyn if rt == f32 else dyn64
+        for i, (st, out, j1, dt_, eps) in enumerate(seen["cgrate"]):
+            stc = st.map(lambda t: cast(t, rt, ct))
+            oc = dataclasses.replace(out, vor=cast(out.vor, rt, ct),
+                                     div=cast(out.div, rt, ct))
+            ko = k26.cgrate(dy, stc, dataclasses.replace(
+                oc, vor=oc.vor.clone(), div=oc.div.clone()), j1, dt_, eps)
+            po = k26.cgrate_plain(dy, stc, oc, j1, dt_, eps)
+            worst[f"K26 step {i} {tag}"] = max(
+                max_abs_diff(torch, torch.view_as_real(getattr(ko, f)),
+                             torch.view_as_real(getattr(po, f)))
+                for f in ("vor", "div"))
+        # K26 where the trigger fires: vor's tendency grown
+        st, out, j1, dt_, eps = seen["cgrate"][-1]
+        stc = st.map(lambda t: cast(t, rt, ct))
+        grown = torch.stack([1e-3 * stc.vor[0], torch.zeros_like(
+            stc.vor[0])]).contiguous()
+        oc = dataclasses.replace(out, vor=grown, div=cast(out.div, rt, ct))
+        _, cd = k26.damp_plain(stc.vor[0], grown[0], dy.sht.elm2)
+        _, cd_free = k26.damp_plain(stc.vor[0], cast(out.vor, rt, ct)[0],
+                                    dy.sht.elm2)
+        ko = k26.cgrate(dy, stc, dataclasses.replace(
+            oc, vor=oc.vor.clone(), div=oc.div.clone()), j1, dt_, eps)
+        po = k26.cgrate_plain(dy, stc, oc, j1, dt_, eps)
+        undamped = k26.leapfrog_plain(dy, stc.vor, grown[0], j1, dt_, eps)
+        worst[f"K26 trigger {tag}"] = max(
+            max_abs_diff(torch, torch.view_as_real(getattr(ko, f)),
+                         torch.view_as_real(getattr(po, f)))
+            for f in ("vor", "div"))
+        if not float(cd) > 0.0 or torch.equal(ko.vor, undamped):
+            fail(f"phase 16: cgrate's trigger did not fire on a tendency "
+                 f"grown to 1e-3 of the field ({tag}: cd {float(cd)})")
+        log(f"K26 trigger case ({tag}): cd {float(cd):.6e} (0.8e-3 expected "
+            f"where every level triggers), the free run's cd "
+            f"{float(cd_free):.3e}; the damped step differs from the "
+            f"undamped one")
+    # K8's tendency form against its main form and its plain version
+    a = seen["tail"][-1]
+    main_ = spectral_tail(*a[:-1], False)
+    tend_ = spectral_tail(*a[:-1], True)
+    plain_ = gcm_o.dyn.spectral_tail_plain(*a[1:-1], True)
+    same = all(torch.equal(getattr(main_, f), getattr(tend_, f))
+               for f in ("t", "ps", "tr"))
+    e8 = max(per_field_err(torch, getattr(tend_, f)[0].reshape(-1, MN),
+                           getattr(plain_, f)[0].reshape(-1, MN))[0]
+             for f in ("vor", "div"))
+    bad = {k: v for k, v in worst.items() if v > 0}
+    log("K24-K26 against their plain versions on the inputs of stepone and "
+        "two leapfrog steps (" + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in worst.items())
+        + f"): tolerance 0; differing: {bad or 'none'}.  K8's tendency "
+        f"form: t, ps, tr {'bit for bit' if same else 'NOT equal to'} the "
+        f"main form's, vor/div tendencies {e8:.3e} of each field's scale "
+        f"from the plain tendency form (tolerance {TAIL_RTOL:.0e})")
+    if bad or not same or not e8 <= TAIL_RTOL:
+        fail("phase 16: an optional-physics kernel disagrees with its "
+             "plain version")
+
+    # timings at the main path's shapes (float32)
+    tends, pattern, mu = seen["perturb"][0]
+    tt_sw, h, v_sw, xs = seen["rdf"][True]
+    tt_o, _, v_o, _ = seen["rdf"][False]
+    st, out, j1, dt_, eps = seen["cgrate"][-1]
+    sp = s2.sppt_spec
+    k24_fn = lambda: (k24.sppt_ar1(sp, eta, gcm_o.sppt.sigma,
+                                   gcm_o.sppt.phi),
+                      k24.sppt_perturb(tends, pattern, mu))
+    k24_plain = lambda: (k24.sppt_ar1_plain(sp, eta, gcm_o.sppt.sigma,
+                                            gcm_o.sppt.phi),
+                         k24.sppt_perturb_plain(tends, pattern, mu))
+    t24, r24 = measure_median(torch, k24_fn)
+    ta1, _ = measure_median(torch, lambda: k24.sppt_ar1(
+        sp, eta, gcm_o.sppt.sigma, gcm_o.sppt.phi))
+    b24 = bound_ms(4 * (3 * 2 * K * MN + MN) + 4 * (9 * K * G + K),
+                   4 * K * MN + 3 * 4 * K * G, PEAK_F32_S)
+    record("K24_sppt", "speedy_ml_tpu_torch/kernels/csrc/sppt.cu",
+           "speedy_ml_tpu/physics/sppt.py:54",
+           max(v for k, v in worst.items() if k.startswith("K24")), 0.0,
+           t24, measure(torch, k24_plain), b24)
+    log(f"K24 both forms of a step, median of {SHT_SESSIONS} sessions: "
+        f"{t24[0]:.4f} ms (the AR(1) form alone {ta1[0]:.4f}; sessions "
+        + ", ".join(f"{r:.4f}" for r in r24) + f") [{card}]")
+    t25, r25 = measure_median(torch, lambda: k25.rdf(tt_sw, h, v_sw, xs))
+    t25o, _ = measure_median(torch, lambda: k25.rdf(tt_o, h, v_o))
+    b25 = bound_ms(4 * (5 * K * G + G + 2 * G + 3 * K + 2 * 2 * nlat * K),
+                   K * G * 8, PEAK_F32_S)
+    record("K25_rdf", "speedy_ml_tpu_torch/kernels/csrc/rdf.cu",
+           "speedy_ml_tpu/physics/randfor.py:83",
+           max(v for k, v in worst.items() if k.startswith("K25")), 0.0,
+           t25, measure(torch, lambda: k25.rdf_plain(tt_sw, h, v_sw, xs)),
+           b25)
+    log(f"K25 shortwave form, median of {SHT_SESSIONS} sessions: "
+        f"{t25[0]:.4f} ms (sessions " + ", ".join(f"{r:.4f}" for r in r25)
+        + f"); the other form {t25o[0]:.4f} ms [{card}]")
+    cg_out = lambda: dataclasses.replace(out, vor=out.vor.clone(),
+                                         div=out.div.clone())
+    o1, o2 = cg_out(), cg_out()
+    t26, r26 = measure_median(torch, lambda: k26.cgrate(
+        gcm_o.dyn, st, o1, j1, dt_, eps))
+    b26 = bound_ms(8 * 10 * K * MN + 2 * 4 * MN, 2 * 2 * 24 * K * MN,
+                   PEAK_F32_S)
+    record("K26_cgrate", "speedy_ml_tpu_torch/kernels/csrc/cgrate.cu",
+           "speedy_ml_tpu/dycore/model.py:565",
+           max(v for k, v in worst.items() if k.startswith("K26")), 0.0,
+           t26, measure(torch, lambda: k26.cgrate_plain(
+               gcm_o.dyn, st, o2, j1, dt_, eps)), b26)
+    log(f"K26, median of {SHT_SESSIONS} sessions: {t26[0]:.4f} ms "
+        f"(sessions " + ", ".join(f"{r:.4f}" for r in r26) + f") [{card}]")
+
+    # -- (b) a day with all three on ---------------------------------------
+    names = ("K24_sppt", "K25_rdf", "K26_cgrate")
+    counters = (k24.sppt_ar1, k24.sppt_perturb, k25.rdf, k26.cgrate)
+    gcm_c = GCM(g, dtype=f32, bd=gcm.bd.to(device=cpu),
+                nsteps_day=gcm.nsteps_day, sppt_on=True, cgrate_on=True,
+                device=cpu)
+    gcm_c.phys.randfh = randfh
+    # the day starts from a state the plain GCM (no options) spun up for
+    # PHYS_SPINUP days from rest: from rest the aquaplanet's surface
+    # pressure has almost no signal to hold a step's logp against
+    t0 = time.perf_counter()
+    spin, fo0 = gcm.init_state(date0)
+    spin = gcm.run_window(gcm.stepone(spin, fo0), fo0,
+                          PHYS_SPINUP * gcm.nsteps_day)
+    torch.cuda.synchronize()
+    log(f"phase 16: the plain GCM spun up {PHYS_SPINUP} days from rest "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    s, fo = gcm_o.init_state(date0, spectral=spin.spectral,
+                             sppt_seed=PHYS_SEED)
+    fo_c = to_device(torch, fo, cpu)
+    s = gcm_o.stepone(s, fo)
+    gen = s.sppt_gen
+    draw = lambda: gcm_o.sppt.noise(gen)
+    s, es, flips, near = window_steps(torch, gcm_o, gcm_c, s, fo, fo_c,
+                                      PHYS_HELD, eta_fn=draw)
+    tmin, tmax = 1e9, -1e9
+    for i in range(gcm_o.nsteps_day - PHYS_HELD):
+        s = gcm_o.leapfrog(s, fo)
+        t = gcm_o.sht.spec_to_grid(s.spectral.t[0])
+        lo, hi, fin = float(t.min()), float(t.max()), bool(
+            torch.isfinite(t).all())
+        tmin, tmax = min(tmin, lo), max(tmax, hi)
+        if not (fin and 150.0 <= lo and hi <= 350.0):
+            fail(f"phase 16: step {PHYS_HELD + i} of the day: T "
+                 f"{lo}..{hi} K, finite {fin}")
+    torch.cuda.synchronize()
+    counts = {"K24_sppt": k24.counter.launches, "K25_rdf": k25.rdf.launches,
+              "K26_cgrate": k26.cgrate.launches}
+    n_steps = gcm_o.nsteps_day
+    want = {"K24_sppt": 1 + 2 * n_steps, "K25_rdf": 2 + n_steps,
+            "K26_cgrate": 2 + n_steps}
+    log(f"a day with SPPT, RDF and cgrate (stepone + {n_steps} leapfrog "
+        f"steps, {time.perf_counter() - t0:.1f} s): T {tmin:.3f}..{tmax:.3f}"
+        f" K over the last {n_steps - PHYS_HELD} steps, finite; the first "
+        f"{PHYS_HELD} steps each against the plain step on the CPU from "
+        f"the same state and draw: worst " + ", ".join(
+            f"{v} {e:.3e}" for v, e in es.items())
+        + f" of each variable's signal (tolerance {WINDOW_STEP_RTOL:.0e}); "
+        f"flipped columns per step {flips} (at most {COLUMN_FLIPS:.1%} of "
+        f"{G}), the largest difference in the others {near:.3e}; "
+        f"launches {counts} (expected {want}: the init draw, then two K24 "
+        f"a leapfrog step; K25 and K26 at stepone's two steps and each "
+        f"leapfrog step)")
+    if (max(es.values()) > WINDOW_STEP_RTOL or max(flips) > COLUMN_FLIPS * G
+            or counts != want):
+        fail("phase 16: the day with the optional physics disagrees")
+    for nm in names:
+        if counts[nm] <= 0:
+            fail(f"phase 16: {nm} was not launched over the day")
+
+    # -- (c) a profiled leapfrog step with all three on ------------------
+    # the wrappers count the step's kernel launches; a profiler session
+    # late in chip_smoke can lose its first device events (PERF.md §7):
+    # OCEAN_PAD launches of K17b, which no step launches, go first in each
+    # call and are left out, and a session that still sees fewer of the
+    # port's kernels than the wrappers count is profiled again; if every
+    # try comes up short the launches stand on the wrappers' count
+    from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+    ours = port_kernel_names()
+    step = lambda: gcm_o.leapfrog(s, fo)
+    step()
+    torch.cuda.synchronize()
+    for w in kernels.values():
+        w.launches = 0
+    step()
+    torch.cuda.synchronize()
+    n_kern = sum(w.launches for w in kernels.values())
+    ph = gcm_o.phys
+    pad = lambda: [tisr_plane(date0.tyear, ph.slat_t, ph.clat_t, nlon)
+                   for _ in range(OCEAN_PAD)]
+    is_pad = lambda e: kernel_name(e.key) == "tisr_kernel"
+    seen = lambda kk: sum(e.count for e in kk if kernel_name(e.key) in ours
+                          and not is_pad(e))
+    reps = 10
+    ms, kk, _ = profile_counts(torch, lambda: (pad(), step()), reps,
+                               lambda kk: seen(kk) < reps * n_kern)
+    complete = seen(kk) >= reps * n_kern
+    kk = [e for e in kk if not is_pad(e)]
+    ms = sum(_self_device_us(e) for e in kk) / 1e3 / reps
+    kern = seen(kk) / reps
+    plain = sum(e.count for e in kk if kernel_name(e.key) not in ours) / reps
+    log(f"a leapfrog step with SPPT, RDF and cgrate: {n_kern} kernel "
+        f"launches by the wrappers' count; profiled {kern:g} kernel and "
+        f"{plain:g} plain ({ms:.4f} device ms; the main path's step: 10 "
+        f"kernel launches); by name: " + ", ".join(
+            f"{kernel_name(e.key)} {e.count / reps:g}" for e in kk)
+        + ("" if complete else "; the profiler lost device events in every "
+           "session, so the profile is not checked (the wrappers' count "
+           "is)") + f" [{card}]")
+    if n_kern != 15 or (complete and (kern != 15 or plain > 1)):
+        fail(f"phase 16: a leapfrog step with the options is {n_kern} "
+             f"kernel launches by the wrappers ({kern:g} kernel and "
+             f"{plain:g} plain profiled), not 15 and 1")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_training(torch, gcm, layout, date0, card, record, atmo_ckpt: str,
+                   keep: dict = None):
     """Phase 10: K14's checks, the nature run and the forecasts,
     train_hybrid_production at full width, its checks and the trained
     weights in the coupled cycle; its atmosphere saved to atmo_ckpt (10f).
@@ -2430,6 +3072,8 @@ def phase_training(torch, gcm, layout, date0, card, record, atmo_ckpt: str):
     model = make_imperfect_forecasts(gcm, truth, dates)
     torch.cuda.synchronize()
     stage["forecasts"] = time.perf_counter() - t0
+    if keep is not None:    # phase 15 trains on the same data
+        keep["data"] = (truth, model, dates)
     for nm, d in (("truth", truth), ("forecast", model)):
         for key, v in d.items():
             if not bool(torch.isfinite(v).all()):
@@ -2562,6 +3206,14 @@ def main():
                          "options: the climatology tables, K23, K2's "
                          "components form, the truth streams and the time "
                          "means) alone; prints no result line")
+    ap.add_argument("--vertical", action="store_true",
+                    help="after the hybrids, run phase 15 (vertical "
+                         "localization: the training, the localized cycles "
+                         "and checkpoint) alone; prints no result line")
+    ap.add_argument("--physics", action="store_true",
+                    help="after the hybrids, run phase 16 (the optional "
+                         "physics: SPPT, RDF and cgrate, K24-K26) alone; "
+                         "prints no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -2626,6 +3278,9 @@ def main():
     from speedy_ml_tpu_torch.kernels.slab_couple import slab_couple
     from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean
     from speedy_ml_tpu_torch.kernels.sst_by_date import sst_by_date
+    from speedy_ml_tpu_torch.kernels import cgrate as k26
+    from speedy_ml_tpu_torch.kernels import rdf as k25
+    from speedy_ml_tpu_torch.kernels import sppt as k24
     from speedy_ml_tpu_torch.kernels.readout import \
         vector_path as readout_vector_path
     from speedy_ml_tpu_torch.kernels.sht_analysis import (
@@ -2742,13 +3397,27 @@ def main():
                "K20_window_select": window_select,
                "K21_slab_couple": slab_couple,
                "K22_slab_ocean": slab_ocean,
-               "K23_sst_by_date": sst_by_date}
+               "K23_sst_by_date": sst_by_date,
+               "K24_sppt": k24.counter, "K25_rdf": k25.rdf,
+               "K26_cgrate": k26.cgrate}
     # phases 10 and 13 share the atmosphere's checkpoint in a directory
     # removed at exit
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, work, True)
     atmo_ckpt = str(work / "atmo")
     out_dir = ROOT / "output" / "chip_smoke"
+    if args.vertical:
+        phase_vertical(torch, np, gcm, hyb.layout, hyb, date0, card, kernels)
+        log(f"chip_smoke --vertical: phase 15 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
+    if args.physics:
+        phase_physics(torch, np, gcm, date0, card, record, kernels)
+        log(f"chip_smoke --physics: phase 16 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
     if args.options:
         phase_options(torch, np, hyb, date0, card, record, kernels, work,
                       out_dir)
@@ -3784,7 +4453,8 @@ def main():
     # K23 the SST table's (phase 14), off this path
     coupled_kernels = [nm for nm in kernels
                        if nm not in ("K17b_tisr_plane", "K21_slab_couple",
-                                     "K22_slab_ocean", "K23_sst_by_date")]
+                                     "K22_slab_ocean", "K23_sst_by_date",
+                                     "K24_sppt", "K25_rdf", "K26_cgrate")]
 
     def drive(h, st0, n, path, names):
         """run_prediction with the counters of `names` set to 0 before
@@ -4193,8 +4863,9 @@ def main():
     del hyb_bad, big
 
     # -- 10. training at full width --------------------------------------
+    keep = {}
     results["K14_gram_update"]["launches"] = phase_training(
-        torch, gcm, hyb.layout, date0, card, record, atmo_ckpt)
+        torch, gcm, hyb.layout, date0, card, record, atmo_ckpt, keep)
 
     # -- 11. the paths from files ------------------------------------------
     phase_files(torch, np, gcm, hyb.layout, date0, card)
@@ -4211,6 +4882,15 @@ def main():
     (results["K23_sst_by_date"]["launches"],
      results["K2_readout_components"]["launches"]) = phase_options(
         torch, np, hyb, date0, card, record, kernels, work, out_dir)
+
+    # -- 15. vertical localization ------------------------------------------------
+    phase_vertical(torch, np, gcm, hyb.layout, hyb, date0, card, kernels,
+                   keep.pop("data"))
+
+    # -- 16. the optional physics ------------------------------------------------
+    for nm, n in phase_physics(torch, np, gcm, date0, card, record,
+                               kernels).items():
+        results[nm]["launches"] = n
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from speedy_ml_tpu_torch.esn.domain import RegionLayout
+from speedy_ml_tpu_torch.esn.domain import RegionLayout, VertSpec
 from speedy_ml_tpu_torch.esn.reservoir import BatchedReservoir, ESNHyper
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
 from speedy_ml_tpu_torch.hybrid.model import (ClassPack, OceanClassState,
@@ -69,23 +69,30 @@ def reservoir_from_numpy(res, *, device, dtype=torch.float32
 
 
 def params_from_numpy(atmo, layout: RegionLayout, hyper: ESNHyper, *,
-                      device, dtype=torch.float32) -> list[ClassPack]:
+                      device, dtype=torch.float32,
+                      zspecs=None) -> list[ClassPack]:
     """ClassPacks for layout.classes (in order) from per-class numpy
     (reservoir, standardizer) pairs.  Float arrays become `dtype` except a
-    bfloat16 Wout, which stays bfloat16; index arrays become int32."""
-    if len(atmo) != len(layout.classes):
+    bfloat16 Wout, which stays bfloat16; index arrays become int32.  With
+    zspecs (a vertical group per pair, VertSpec fields), the pairs are a
+    localized hybrid's, class-major and group-minor."""
+    n_groups = 1 if zspecs is None else len(zspecs) // len(layout.classes)
+    if len(atmo) != n_groups * len(layout.classes) or (
+            zspecs is not None and len(zspecs) != len(atmo)):
         raise ValueError(f"{len(atmo)} parameter pairs for "
                          f"{len(layout.classes)} region classes")
     device = torch.device(device)
     f = lambda a: tensor_from_numpy(a, device, dtype)
     packs = []
-    for cls, (res, std) in zip(layout.classes, atmo):
+    classes = [c for c in layout.classes for _ in range(n_groups)]
+    for i, (cls, (res, std)) in enumerate(zip(classes, atmo)):
         r = reservoir_from_numpy(res, device=device, dtype=dtype)
         if r.vals.shape[1] != cls.count:
             raise ValueError(f"class {cls.name}: {cls.count} regions, "
                              f"parameters for {r.vals.shape[1]}")
         s = Standardizer(**{k: f(getattr(std, k)) for k in STD_FIELDS})
-        packs.append(ClassPack(cls=cls, res=r, hyper=hyper, std=s))
+        zs = None if zspecs is None else VertSpec(*zspecs[i])
+        packs.append(ClassPack(cls=cls, res=r, hyper=hyper, std=s, zspec=zs))
     return packs
 
 
@@ -162,7 +169,10 @@ def spectral_state_from_numpy(spec, *, device, dtype=torch.float32):
 
 def gcm_state_from_numpy(gstate, *, device, dtype=torch.float32):
     """A GCMState from any object with spectral/sfc/radiation/fluxes (read
-    field by field) and istep; the step counter becomes a host int."""
+    field by field) and istep; the step counter becomes a host int.  An
+    SPPT pattern (sppt_spec) comes along; the generator its draws come
+    from does not (the JAX key has no torch counterpart): the caller
+    gives the state one (dataclasses.replace(state, sppt_gen=...))."""
     from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState
     from speedy_ml_tpu_torch.physics.driver import RadiationCarry
     from speedy_ml_tpu_torch.physics.land_sea import SurfaceState
@@ -176,4 +186,8 @@ def gcm_state_from_numpy(gstate, *, device, dtype=torch.float32):
         sfc=f(SurfaceState, gstate.sfc),
         radiation=f(RadiationCarry, gstate.radiation),
         fluxes=f(FluxAccumulator, gstate.fluxes),
-        istep=int(np.asarray(gstate.istep)))
+        istep=int(np.asarray(gstate.istep)),
+        sppt_spec=(None if getattr(gstate, "sppt_spec", None) is None else
+                   torch.as_tensor(np.array(gstate.sppt_spec)).to(
+                       device=dev, dtype=torch.complex128
+                       if dtype == torch.float64 else torch.complex64)))

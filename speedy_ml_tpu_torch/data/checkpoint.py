@@ -5,8 +5,10 @@ formats, so that each package reads what the other writes:
 1. a hybrid: one .npz per region class (class_<i>.npz: res_*, std_*,
    n_in, region_ids, and shifts / win_cols when present) and meta.json
    (format_version 2, vals_layout, n_classes, ml_only, has_ocean,
-   hyper_<i>); with a slab ocean also ocean_<i>.npz (res_*, n_in,
-   idx_map, shifts, mean_sst, std_sst), ocean_hyper_<i> and
+   hyper_<i>, and zspec_<i> for a vertical group's pack: with vertical
+   localization the packs run class-major, group-minor); with a slab
+   ocean also ocean_<i>.npz (res_*, n_in, idx_map, shifts, mean_sst,
+   std_sst), ocean_hyper_<i> and
    ocean_hybrid_<i> in meta.json, and ocean_aux.npz (base_sst,
    sea_mask);
 2. a GCM restart: one .npz of the GCMState's leaves (n_leaves, leaf_<i>)
@@ -40,11 +42,11 @@ import torch
 from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.convert import (STD_FIELDS, reservoir_from_numpy,
                                          tensor_from_numpy)
+from speedy_ml_tpu_torch.esn.domain import VertSpec
 from speedy_ml_tpu_torch.esn.reservoir import ESNHyper
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
 from speedy_ml_tpu_torch.hybrid.model import (ClassPack, HybridAtmosphere,
                                               OceanPack)
-from speedy_ml_tpu_torch.hybrid.training import VERT_SLICE
 
 # Checkpoint format history (the JAX package's):
 #   (unversioned) res_vals row-major (R, n, J), no 'shifts'
@@ -95,9 +97,9 @@ def _write_dir(path, write):
 
 def save_hybrid(hyb, path: str):
     """Save every class pack and slab-ocean pack of a hybrid (anything
-    with packs, ml_only and ocean_packs, base_sst, sea_mask; the port's
-    hybrids hold no vertical-group packs) to the directory `path`, in the
-    JAX package's format."""
+    with packs, ml_only and ocean_packs, base_sst, sea_mask) to the
+    directory `path`, in the JAX package's format; a vertical group's
+    pack also writes its VertSpec as zspec_<i> in meta.json."""
     ocean_packs = getattr(hyb, "ocean_packs", None)
     meta = {"format_version": FORMAT_VERSION, "vals_layout": "slot_major",
             "n_classes": len(hyb.packs), "ml_only": bool(hyb.ml_only),
@@ -119,6 +121,9 @@ def save_hybrid(hyb, path: str):
                     .astype(np.int32)
             np.savez(d / f"class_{i}.npz", **arrs)
             meta[f"hyper_{i}"] = dataclasses.asdict(pk.hyper)
+            if pk.zspec is not None:
+                meta[f"zspec_{i}"] = [int(v) if not isinstance(v, bool)
+                                      else v for v in pk.zspec]
         for i, op in enumerate(ocean_packs or ()):
             arrs = {f"res_{k}": _to_numpy(getattr(op.res, k))
                     for k in RES_FIELDS}
@@ -148,10 +153,19 @@ def read_meta(path: str) -> dict:
             f"checkpoint at {path} has format_version {ver}; this build "
             f"reads version {FORMAT_VERSION} (res_vals slot-major (J, R, n)). "
             "Re-save the checkpoint with the matching build.")
-    if any(k.startswith("zspec_") for k in meta):
-        raise NotImplementedError(f"the vertical-localization packs of a "
-                                  f"checkpoint come with {VERT_SLICE}")
     return meta
+
+
+def read_zspec(meta: dict, i: int):
+    """Pack i's vertical group (a VertSpec from zspec_<i>), or None."""
+    z = meta.get(f"zspec_{i}")
+    if z is None:
+        return None
+    if not isinstance(z, list) or len(z) != len(VertSpec._fields):
+        raise ValueError(f"zspec_{i} in meta.json: {z!r} is not a VertSpec "
+                         f"({', '.join(VertSpec._fields)})")
+    return VertSpec(*[bool(v) if f in ("top", "bottom") else int(v)
+                      for f, v in zip(VertSpec._fields, z)])
 
 
 def _reservoir(z, i: int, cls, device, dtype):
@@ -186,18 +200,27 @@ def load_hybrid(gcm, layout, path: str, dtype=torch.float32, *,
     device = resolve_device(device)
     p = Path(path)
     meta = read_meta(path)
-    if meta["n_classes"] != len(layout.classes):
-        raise ValueError(f"checkpoint at {path} has {meta['n_classes']} "
-                         f"classes, the layout {len(layout.classes)}")
+    n, nc = meta["n_classes"], len(layout.classes)
+    zspecs = [read_zspec(meta, i) for i in range(n)]
+    # with vertical localization the packs run class-major, group-minor
+    n_groups = n // nc if n % nc == 0 else 0
+    n_z = sum(z is not None for z in zspecs)
+    if n_groups < 1 or (n_groups > 1) != (n_z > 0):
+        raise ValueError(f"checkpoint at {path} has {n} classes, the layout "
+                         f"{nc}" + (f", with {n_groups} vertical groups but "
+                                    f"zspec_<i> on {n_z} packs"
+                                    if n_groups > 1 else ""))
     packs = []
-    for i, cls in enumerate(layout.classes):
+    for i in range(n):
+        cls = layout.classes[i // n_groups]
         with np.load(p / f"class_{i}.npz") as z:
             res = _reservoir(z, i, cls, device, dtype)
             std = Standardizer(**{k: tensor_from_numpy(z[f"std_{k}"], device,
                                                        dtype)
                                   for k in STD_FIELDS})
         packs.append(ClassPack(cls=cls, res=res,
-                               hyper=ESNHyper(**meta[f"hyper_{i}"]), std=std))
+                               hyper=ESNHyper(**meta[f"hyper_{i}"]), std=std,
+                               zspec=zspecs[i]))
     ocean_packs = base_sst = sea_mask = None
     if meta.get("has_ocean"):
         ocean_packs = []
@@ -227,11 +250,14 @@ def load_hybrid(gcm, layout, path: str, dtype=torch.float32, *,
 
 def gcm_leaves(obj) -> list:
     """The leaves of a GCMState in the JAX pytree's order: the fields in
-    order, dataclasses flattened in their field order, None dropped."""
+    order, dataclasses flattened in their field order, None dropped.  The
+    SPPT generator is no leaf (the JAX state's key has no counterpart in
+    it): a restart keeps the pattern, and the loaded state draws from the
+    template's generator."""
     out = []
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if v is None:
+        if v is None or isinstance(v, torch.Generator):
             continue
         if dataclasses.is_dataclass(v):
             out += gcm_leaves(v)
@@ -244,8 +270,8 @@ def _rebuild(template, values):
     kw = {}
     for f in dataclasses.fields(template):
         v = getattr(template, f.name)
-        if v is None:
-            kw[f.name] = None
+        if v is None or isinstance(v, torch.Generator):
+            kw[f.name] = v
         elif dataclasses.is_dataclass(v):
             kw[f.name] = _rebuild(v, values)
         elif torch.is_tensor(v):

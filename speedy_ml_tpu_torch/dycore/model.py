@@ -15,6 +15,9 @@ One step (`step`) is six kernel launches around the physics:
   K5 (grid_to_spec of that stack, u and v scaled by 1/cos),
   K8 spectral_tail (vds, sptend, the semi-implicit correction, the
      diffusion, the drag and the leapfrog with its filter).
+With cgrate_on (off by default, as in the reference) K8 runs its tendency
+form, which leaves vor's and div's diffused tendencies to K26 cgrate (the
+growth-rate limiter, then their leapfrog): seven launches.
 On CPU tensors the kernels run their plain versions, which are built
 from SpectralTransform.uvspec and grad and the methods below
 (geopotential, grid_tendencies, to_spectral_tendencies, sptend,
@@ -35,6 +38,7 @@ from speedy_ml_tpu_torch.core.constants import (GAMMA_LAPSE, HSCALE, HSHUM,
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.core.spectral import SpectralTransform
 from speedy_ml_tpu_torch.dycore.state import SpectralState
+from speedy_ml_tpu_torch.kernels.cgrate import cgrate, damp_plain
 from speedy_ml_tpu_torch.kernels.grid_dynamics import (ColumnTables,
                                                        column_blob,
                                                        column_tendencies,
@@ -45,9 +49,6 @@ from speedy_ml_tpu_torch.kernels.spectral_stack import (dynamics_ncos,
                                                         stack_blob)
 from speedy_ml_tpu_torch.kernels.spectral_tail import (spectral_tail,
                                                        tail_blob)
-
-OPTIONAL_SLICE = "the optional-physics slice of the port (A15)"
-
 
 class ImplicitCoeffs(NamedTuple):
     """Semi-implicit gravity-wave + implicit-diffusion coefficients for
@@ -97,10 +98,6 @@ class DycoreModel:
                  alph: float = 0.5, rob: float = 0.05, wil: float = 0.53,
                  zonal: str = "dft", cgrate_on: bool = False, *,
                  device=None):
-        if cgrate_on:
-            raise NotImplementedError(
-                f"the cgrate limiter (off in the reference) comes with "
-                f"{OPTIONAL_SLICE}")
         self.device = resolve_device(device)
         self.geom = geom
         self.const = constants
@@ -397,11 +394,25 @@ class DycoreModel:
         new2 = fnew - (1.0 - wil) * eps * (new1 - 2.0 * oldj + fnew)
         return torch.stack([new1, new2], dim=0)
 
+    def _cgrate(self, vor, div, vordt, divdt):
+        """Eddy-kinetic-energy growth-rate limiter (cgrate,
+        dyn_step.f90:192-276): per field, the eddy (m > 0) growth rate
+        grate = -sum Re(fdt conj(invlap f)) is compared per level (k >= 1)
+        against grmax rnorm, rnorm = -sum Re(f conj(invlap f)) >= 0; on a
+        trigger every eddy coefficient of the tendency is damped by the
+        largest 0.8 grate / rnorm.  The plain formula (kernels/cgrate.py
+        damp_plain), K26's first phases."""
+        return (damp_plain(vor, vordt, self.sht.elm2)[0],
+                damp_plain(div, divdt, self.sht.elm2)[0])
+
     def spectral_tail_plain(self, A, state: SpectralState, phis,
                             corrections, imp: ImplicitCoeffs, j1: int,
                             dt: float, eps: float, j4: int,
-                            implicit: bool) -> SpectralState:
-        """K8's plain version: the step after the forward transforms."""
+                            implicit: bool, cg: bool = False
+                            ) -> SpectralState:
+        """K8's plain version: the step after the forward transforms; cg
+        its tendency form (vor[0], div[0] the diffused tendencies, vor[1],
+        div[1] zero)."""
         psdt, vordt, divdt, tdt, trdt = self.tendencies_from_analysis(A)
         divdt, tdt, psdt = self.sptend(state, j4, imp, phis, divdt, tdt,
                                        psdt)
@@ -410,9 +421,14 @@ class DycoreModel:
                                                         psdt)
         vordt, divdt, tdt, trdt = self.diffuse(state, imp, vordt, divdt,
                                                tdt, trdt, corrections)
+        if cg:
+            tend = lambda fdt: torch.stack([fdt, torch.zeros_like(fdt)])
+            vor, div = tend(vordt), tend(divdt)
+        else:
+            vor = self.timint(state.vor, vordt, j1, dt, eps)
+            div = self.timint(state.div, divdt, j1, dt, eps)
         return SpectralState(
-            vor=self.timint(state.vor, vordt, j1, dt, eps),
-            div=self.timint(state.div, divdt, j1, dt, eps),
+            vor=vor, div=div,
             t=self.timint(state.t, tdt, j1, dt, eps),
             ps=self.timint(state.ps, psdt, j1, dt, eps),
             tr=self.timint(state.tr, trdt, j1, dt, eps))
@@ -457,7 +473,9 @@ class DycoreModel:
         implicit = self.alph != 0.0
         new_state = spectral_tail(self, A, state, phis, corrections, imp,
                                   j1, dt, eps, 0 if implicit else j2 - 1,
-                                  implicit)                         # K8
+                                  implicit, self.cgrate_on)         # K8
+        if self.cgrate_on:
+            new_state = cgrate(self, state, new_state, j1, dt, eps)  # K26
         return new_state, aux
 
     def stepone(self, state: SpectralState, phis, physics_fn=None,

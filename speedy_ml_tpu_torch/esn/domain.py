@@ -103,6 +103,27 @@ def vert_specs(nz: int, num_vert_levels: int, vert_overlap: int
     return out
 
 
+FULL_COLUMN = None   # sentinel: single group spanning all levels (bottom)
+
+
+def full_column_spec(nz: int) -> VertSpec:
+    return VertSpec(z0=0, z1=nz, zi0=0, zi1=nz, top=True, bottom=True)
+
+
+def band(zspec, nz: int, core: bool) -> tuple:
+    """The atmo levels (lo, hi) of a vertical group's vectors: the core
+    [z0, z1) for its outputs and local model, the input window [zi0, zi1)
+    for its feedback; the full column for zspec None."""
+    if zspec is None:
+        return 0, nz
+    return (zspec.z0, zspec.z1) if core else (zspec.zi0, zspec.zi1)
+
+
+def is_bottom(zspec) -> bool:
+    """Whether a group carries the 2-D surface blocks (logp, precip, sst)."""
+    return zspec is None or zspec.bottom
+
+
 class VectorLayout(NamedTuple):
     """Slice offsets of each block inside the packed vector."""
     atmo: tuple        # (start, end)
@@ -212,20 +233,25 @@ class RegionLayout:
 
     def pack_table(self, cls: RegionClass, nvar: int, nz: int, *,
                    logp: bool, precip: bool, sst: bool, tisr: bool,
-                   core_only: bool = False) -> np.ndarray:
+                   core_only: bool = False, levels=None) -> np.ndarray:
         """(Rc, total) int32 source index of every packed-vector element.
 
         Indices point into the flat buffer [atmo (nvar, nz, lat, lon),
         logp, precip, sst, tisr (lat, lon) each]: the 2-D slots are fixed
         whether or not a block is packed.  The order is pack_vector's
-        (reference order, domain.py:252-269 of the JAX package)."""
+        (reference order, domain.py:252-269 of the JAX package) applied
+        to the atmo levels [lo, hi) = levels (default all nz): a vertical
+        group's band (band())."""
         nlat, nlon = self.geom.nlat, self.geom.nlon
         G = nlat * nlon
+        lo, hi = (0, nz) if levels is None else levels
+        if not 0 <= lo < hi <= nz:
+            raise ValueError(f"pack_table: levels {levels} outside [0, {nz})")
         w = self.window_index(cls, core_only).astype(np.int64)  # (Rc, y, x)
         Rc, ny, nx = w.shape
         # atmo: C-flatten (Rc, z, y, x, v) of (v * nz + z) * G + w
         v = np.arange(nvar)[None, None, None, None, :]
-        z = np.arange(nz)[None, :, None, None, None]
+        z = np.arange(lo, hi)[None, :, None, None, None]
         atmo = (v * nz + z) * G + w[:, None, :, :, None]
         parts = [atmo.reshape(Rc, -1)]
         base = nvar * nz * G
@@ -237,23 +263,38 @@ class RegionLayout:
             raise ValueError("pack_table: source index exceeds int32")
         return out.astype(np.int32)
 
-    def core_source_table(self, classes, nvar: int, nz: int) -> np.ndarray:
-        """Inverse of the core packing over all `classes` (in order).
+    def core_table(self, cls: RegionClass, nvar: int, nz: int,
+                   zspec=None) -> np.ndarray:
+        """(Rc, O) int32: the flat-output element [atmo (nvar, nz, lat,
+        lon), logp, precip] of each output of a pack of class cls and
+        vertical group zspec: its core band's atmo, and logp and precip if
+        it is a bottom group (None: the full column)."""
+        b = is_bottom(zspec)
+        return self.pack_table(cls, nvar, nz, logp=b, precip=b, sst=False,
+                               tisr=False, core_only=True,
+                               levels=band(zspec, nz, core=True))
+
+    def core_source_table(self, classes, nvar: int, nz: int,
+                          zspecs=None) -> np.ndarray:
+        """Inverse of the core packing over all `classes` (in order; with
+        zspecs, each entry's vertical group, the packs of a localized
+        hybrid).
 
         Returns (nvar*nz*G + 2*G,) int32: for every element of the flat
         output [atmo (nvar, nz, lat, lon), logp, precip], the offset of its
         value in the concatenation of the classes' flattened (Rc, O)
-        output vectors (O = nvar*nz*yc*xc + 2*yc*xc: atmo, logp, precip).
-        The cores must tile the grid exactly once."""
+        output vectors (O = nvar*nz*yc*xc + 2*yc*xc: atmo, logp, precip,
+        for the full column).  The cores must tile the grid exactly
+        once."""
         G = self.geom.nlat * self.geom.nlon
         A = nvar * nz * G
         table = np.full(A + 2 * G, -1, dtype=np.int64)
         start = 0
-        for cls in classes:
+        zspecs = [None] * len(classes) if zspecs is None else list(zspecs)
+        for cls, zs in zip(classes, zspecs):
             # the packed core vector's source index IS the inverse map:
             # element j of region r came from grid element src[r, j]
-            src = self.pack_table(cls, nvar, nz, logp=True, precip=True,
-                                  sst=False, tisr=False, core_only=True)
+            src = self.core_table(cls, nvar, nz, zs)
             Rc, O = src.shape
             off = start + np.arange(Rc * O).reshape(Rc, O)
             if np.any(table[src] >= 0):
@@ -268,17 +309,19 @@ class RegionLayout:
             raise ValueError("core_source_table: offset exceeds int32")
         return table.astype(np.int32)
 
-    def core_output_index(self, classes, nvar: int, nz: int) -> list:
-        """The inverse of core_source_table, per class of `classes`: an
-        (Rc, O) int32 array, the element of the flat output [atmo (nvar,
-        nz, lat, lon), logp, precip] that output o of region r fills
-        (where the readout stores it, kernels/core_scatter.py).  The cores
-        must tile the grid exactly once."""
+    def core_output_index(self, classes, nvar: int, nz: int,
+                          zspecs=None) -> list:
+        """The inverse of core_source_table, per class of `classes` (with
+        zspecs, each entry's vertical group): an (Rc, O) int32 array, the
+        element of the flat output [atmo (nvar, nz, lat, lon), logp,
+        precip] that output o of region r fills (where the readout stores
+        it, kernels/core_scatter.py).  The cores must tile the grid
+        exactly once."""
         G = self.geom.nlat * self.geom.nlon
         total = nvar * nz * G + 2 * G
-        idx = [self.pack_table(cls, nvar, nz, logp=True, precip=True,
-                               sst=False, tisr=False, core_only=True)
-               for cls in classes]
+        zspecs = [None] * len(classes) if zspecs is None else list(zspecs)
+        idx = [self.core_table(cls, nvar, nz, zs)
+               for cls, zs in zip(classes, zspecs)]
         count = np.bincount(np.concatenate([i.ravel() for i in idx]),
                             minlength=total)
         if count.size != total or np.any(count != 1):

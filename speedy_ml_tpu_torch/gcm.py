@@ -10,7 +10,16 @@ makes no host read.
 The day loop (run_days) runs a day's window and then the slab
 coupler's exchange, one K21 launch (kernels/slab_couple.py); the GCM
 holds the slab coefficients, the elnino weights and the observed SST
-anomalies on its device, built once.  SPPT comes with a later slice.
+anomalies on its device, built once.
+
+The optional physics of the reference, off by default: with sppt_on and a
+state that carries the SPPT pattern (init_state makes one; the hybrid's
+cold-start window carries none, and runs without SPPT), each leapfrog
+step draws the noise from the state's torch.Generator, advances the
+pattern (K24's AR(1) form), synthesizes it (K6) and hands it to the
+physics, whose K24 launch multiplies the tendencies; RDF is the physics'
+(PhysicsModel.randfh, K25), the cgrate limiter the dycore's (cgrate_on,
+K26).
 Without a BoundaryData the GCM reads the reference's fort.20-26 files
 from bc_path or $SPEEDY_ML_BC_PATH.
 """
@@ -35,9 +44,9 @@ from speedy_ml_tpu_torch.kernels.window_select import window_select
 from speedy_ml_tpu_torch.physics.boundaries import (BoundaryData,
                                                     boundary_path,
                                                     load_boundary_data)
-from speedy_ml_tpu_torch.physics.driver import (OPTIONAL_SLICE,
-                                                DailyForcing, PhysicsModel,
-                                                RadiationCarry, zero_views)
+from speedy_ml_tpu_torch.physics.driver import (DailyForcing, PhysicsModel,
+                                                RadiationCarry, SpptGrid,
+                                                zero_views)
 from speedy_ml_tpu_torch.physics.land_sea import (CplFlags, SurfaceState,
                                                   build_slab_coeffs,
                                                   coupled_state,
@@ -72,12 +81,19 @@ def zero_carries(K, nlat, nlon, dtype, device=None):
 
 @dataclasses.dataclass(frozen=True)
 class GCMState:
-    """Everything a window advances.  istep is a host int."""
+    """Everything a window advances.  istep is a host int.  sppt_spec and
+    sppt_gen: the SPPT pattern (K, mx, nx) complex and the torch.Generator
+    its draws come from (on the GCM's device), or None when SPPT is off
+    (the default; sppt_on=.false., mod_tsteps.f90:68).  The generator is
+    the JAX state's sppt_key, but it is not split: each step draws from it
+    in place, so a state stepped twice draws twice."""
     spectral: SpectralState
     sfc: SurfaceState
     radiation: RadiationCarry
     fluxes: FluxAccumulator
     istep: int = 0
+    sppt_spec: Optional[torch.Tensor] = None
+    sppt_gen: Optional[torch.Generator] = None
 
 
 class GCM:
@@ -99,8 +115,6 @@ class GCM:
         # iteration, numerically identical; the port runs its steps one by
         # one, so any value gives the same GCM
         self.device = resolve_device(device)
-        if sppt_on:
-            raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
         if bd is None:
             bc_path = boundary_path(bc_path)
         self.geom = geom
@@ -113,6 +127,9 @@ class GCM:
         self.phys = PhysicsModel(geom, constants, dtype=dtype,
                                  device=self.device)
         self.sppt = None
+        if sppt_on:
+            from speedy_ml_tpu_torch.physics.sppt import SPPT
+            self.sppt = SPPT(self.sht, geom.nlev, nsteps_day)
         if bd is None:
             bd = load_boundary_data(geom, self.sht, constants.grav, bc_path)
         self.bd = bd.to(device=self.device, dtype=dtype)
@@ -198,9 +215,12 @@ class GCM:
                                              self.cpl, sfc_carry)
 
     def init_state(self, date, spectral: Optional[SpectralState] = None,
-                   sst_hybrid=None, sst_bias: float = 0.0
-                   ) -> tuple[GCMState, DailyForcing]:
-        """agcm_init: surface + radiation init for `date` (a ModelDate)."""
+                   sst_hybrid=None, sst_bias: float = 0.0,
+                   sppt_seed: int = 0) -> tuple[GCMState, DailyForcing]:
+        """agcm_init: surface + radiation init for `date` (a ModelDate).
+        With sppt_on the state carries the SPPT pattern's first draw and
+        its generator, seeded from sppt_seed (the JAX package draws from
+        PRNGKey(sppt_seed): the draws differ, their law is the same)."""
         g = self.geom
         sfc, forcing = self.window_entry(date.month - 1, date.tmonth,
                                          date.tyear, sst_hybrid, sst_bias)
@@ -209,8 +229,14 @@ class GCM:
             spectral = rest_state(self.dyn, self.bd.orog)[0]
         radiation, fluxes = zero_carries(g.nlev, g.nlat, g.nlon, self.dtype,
                                          self.device)
+        sppt_spec = sppt_gen = None
+        if self.sppt is not None:
+            sppt_gen = torch.Generator(device=self.device)
+            sppt_gen.manual_seed(int(sppt_seed))
+            sppt_spec = self.sppt.init_state(self.sppt.noise(sppt_gen))
         state = GCMState(spectral=spectral, sfc=sfc, radiation=radiation,
-                         fluxes=fluxes, istep=0)
+                         fluxes=fluxes, istep=0, sppt_spec=sppt_spec,
+                         sppt_gen=sppt_gen)
         return state, forcing
 
     # ------------------------------------------------------------------
@@ -245,31 +271,47 @@ class GCM:
                              self.geom.nlev, select)
 
     def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
-                    sfc, forcing, carry, lradsw, sums=None, stack=None):
+                    sfc, forcing, carry, lradsw, sums=None, sppt=None,
+                    stack=None):
         """Spectral state (or the step's physics stack) -> grid fields ->
         PhysicsModel.compute_with_sums.  sums: None, or (fluxes, rsteps,
         delt2), the window's flux sums, which the physics step then forms
-        too (a leapfrog step).  The aux is (carry', FluxDiag, the new
-        FluxAccumulator or, without sums, None)."""
+        too (a leapfrog step).  sppt: None, or the step's SPPT pattern
+        (an SpptGrid, or the JAX package's tapered pattern).  The aux is
+        (carry', FluxDiag, the new FluxAccumulator or, without sums,
+        None)."""
         grid = self.physics_grid(state, j, dyn, stack)
         with torch.profiler.record_function("physics"):
             ut, vt, tt, qt, *aux = self.phys.compute_with_sums(
                 *grid, bd=self.bd, sfc=sfc, forcing=forcing, carry=carry,
-                lradsw=lradsw, sums=sums)
+                lradsw=lradsw, sums=sums, sppt_pattern=sppt)
         return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), tuple(aux)
 
-    def leapfrog(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
+    def leapfrog(self, gstate: GCMState, forcing: DailyForcing,
+                 eta: Optional[torch.Tensor] = None) -> GCMState:
         """One filtered leapfrog step with physics (stloop body); its
-        physics step also forms the window's flux sums (K12_pbl_flux)."""
+        physics step also forms the window's flux sums (K12_pbl_flux).
+        SPPT runs when the GCM has it and the state carries its pattern
+        (a window built without it, as the hybrid's cold start, runs
+        without SPPT, as in the JAX package): the draw is eta (K, mx, nx)
+        complex when given, else drawn from the state's generator."""
         lradsw = gstate.istep % NSTRAD == 0   # mod(istep, 3) == 1, 1-based
         sums = (gstate.fluxes, 1.0 / self.nsteps_day, self.dyn.delt2)
+        sppt_spec, pattern = gstate.sppt_spec, None
+        if self.sppt is not None and gstate.sppt_spec is not None:
+            if eta is None:
+                eta = self.sppt.noise(gstate.sppt_gen)
+            sppt_spec = self.sppt.step(gstate.sppt_spec, eta)       # K24
+            pattern = SpptGrid(self.sht.spec_to_grid(sppt_spec),    # K6
+                               self.sppt.mu)
         spec, (carry, _, fluxes) = self.dyn.leapfrog_step(
             gstate.spectral, self.phis, physics_fn=self._physics_fn,
             physics_args=(gstate.sfc, forcing, gstate.radiation, lradsw,
-                          sums),
+                          sums, pattern),
             corrections=(forcing.tcorh, forcing.qcorh))
         return GCMState(spectral=spec, sfc=gstate.sfc, radiation=carry,
-                        fluxes=fluxes, istep=gstate.istep + 1)
+                        fluxes=fluxes, istep=gstate.istep + 1,
+                        sppt_spec=sppt_spec, sppt_gen=gstate.sppt_gen)
 
     def stepone(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
         """Cold-start double half-step with physics (ini_stepone.f90)."""

@@ -64,7 +64,7 @@ import torch
 
 from speedy_ml_tpu_torch import resolve_device
 from speedy_ml_tpu_torch.dycore.state import SpectralState
-from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout
+from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout, band
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step, synchronize)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
@@ -81,8 +81,7 @@ from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate, tisr_plane
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
 from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
-OPTIONS_SLICE = "a later slice of the port (cycle options: " \
-    "vertical localization, sharding)"
+OPTIONS_SLICE = "the multi-GPU slice of the port (A16: the sharded cycle)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +135,10 @@ class ClassPack(NamedTuple):
 
     `cls`, `hyper` and `zspec` are static; `res` and `std` are the
     parameters (HybridAtmosphere.params).  zspec: vertical-localization
-    group, None for the full column (the only form in this slice)."""
+    group (esn.domain.VertSpec), None for the single full-column group.
+    With num_vert_levels > 1 each (horizontal class, vertical group) is a
+    pack of its own; only bottom groups carry logp/precip/sst
+    (res_domain.f90:206-256)."""
     cls: RegionClass
     res: BatchedReservoir
     hyper: ESNHyper
@@ -203,10 +205,11 @@ class HybridAtmosphere:
         if not ml_only and not _on(gcm.phis, device):
             raise ValueError(f"the GCM lives on {gcm.device}, not on "
                              f"{device}")
+        if ocean_packs and any(p.zspec is not None for p in packs):
+            raise NotImplementedError(
+                "the slab ocean with vertical localization is not wired "
+                "(nor in the JAX package, whose train_hybrid refuses it)")
         for p in packs:
-            if p.zspec is not None:
-                raise NotImplementedError(
-                    f"vertical-localization packs come with {OPTIONS_SLICE}")
             if not _on(p.res.vals, device):
                 raise ValueError(f"pack {p.cls.name} lives on "
                                  f"{p.res.vals.device}, not on {device}")
@@ -253,21 +256,29 @@ class HybridAtmosphere:
 
         # static index tables of the gather/scatter kernels, built once:
         # per pack its (Rc, I) pack_table and its (Rc, O) core output
-        # index (views of one device tensor)
+        # index (views of one device tensor).  A vertical group's tables
+        # take its bands (esn.domain.band): its input window's levels for
+        # the feedback, its core's for the local model and the store, and
+        # the 2-D blocks only for a bottom group (the JAX assemble_global,
+        # build_feedback and build_local_model, hybrid/model.py:375-505);
+        # one K3 launch and one K2 store a pack serve every group
         g = self.geom
         self.feedback_index = [torch.as_tensor(
             layout.pack_table(p.cls, self.NVAR, self.nz, logp=p.bottom,
-                              precip=p.bottom, sst=p.bottom, tisr=True),
+                              precip=p.bottom, sst=p.bottom, tisr=True,
+                              levels=band(p.zspec, self.nz, core=False)),
             device=self.device) for p in self.packs]
         # the local-model gather: K3 with core-only tables of the speedy
         # vector (atmo + logp: the output layout minus the precip block)
         self.local_index = [torch.as_tensor(
-            layout.pack_table(p.cls, self.NVAR, self.nz, logp=True,
+            layout.pack_table(p.cls, self.NVAR, self.nz, logp=p.bottom,
                               precip=False, sst=False, tisr=False,
-                              core_only=True), device=self.device)
-            for p in self.packs]
+                              core_only=True,
+                              levels=band(p.zspec, self.nz, core=True)),
+            device=self.device) for p in self.packs]
         idx = layout.core_output_index([p.cls for p in self.packs],
-                                       self.NVAR, self.nz)
+                                       self.NVAR, self.nz,
+                                       [p.zspec for p in self.packs])
         flat = torch.as_tensor(np.concatenate([i.ravel() for i in idx]),
                                device=self.device)
         self.core_index = [v.view(i.shape) for v, i in zip(
@@ -384,8 +395,10 @@ class HybridAtmosphere:
                             z[:-1], p.hyper.leakage)
             if model_next is not None:
                 m = as_tensors(model_next, self.device, self.dtype)
-                vec = self.layout.pack_vector(p.cls, m["atmo"],
-                                              logp=m["logp"], core_only=True)
+                lo, hi = band(p.zspec, self.nz, core=True)
+                vec = self.layout.pack_vector(
+                    p.cls, m["atmo"][:, lo:hi],
+                    logp=m["logp"] if p.bottom else None, core_only=True)
                 S = p.res.n_speedy
                 lm = ((vec[:, :S] - p.std.out_mean[:, :S])
                       / p.std.out_std[:, :S])

@@ -30,7 +30,9 @@ import numpy as np
 import torch
 
 from speedy_ml_tpu_torch import resolve_device
-from speedy_ml_tpu_torch.esn.domain import RegionLayout, build_layout
+from speedy_ml_tpu_torch.esn.domain import (RegionLayout, band,
+                                            build_layout, is_bottom,
+                                            vert_specs)
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                generate, radius_by_lat)
 from speedy_ml_tpu_torch.esn.standardize import (Standardizer,
@@ -52,8 +54,6 @@ from speedy_ml_tpu_torch.physics.constants import SOLC
 from speedy_ml_tpu_torch.physics.radiation import solar_flux_traced
 
 NVAR = 4
-VERT_SLICE = "the cycle-options slice of the port (A10: vertical " \
-    "localization, zspec packs)"
 
 
 def class_noise(seed: int, s: int, shape: tuple, dtype, device,
@@ -86,11 +86,6 @@ def as_tensors(d: dict, device=None, dtype=None) -> dict:
             for k, v in d.items()}
 
 
-def _no_zspec(zspec):
-    if zspec is not None:
-        raise NotImplementedError(f"vertical groups come with {VERT_SLICE}")
-
-
 def log_precip_transform(precip: torch.Tensor, eps: float = 0.001
                          ) -> torch.Tensor:
     """log(1 + P/eps) (get_training_data, mod_reservoir.f90:363-494)."""
@@ -99,25 +94,34 @@ def log_precip_transform(precip: torch.Tensor, eps: float = 0.001
 
 def pack_class_series(layout: RegionLayout, cls, truth: dict,
                       precip_eps: float = 0.001, zspec=None) -> torch.Tensor:
-    """Packed input series (T, Rc, I) for one region class (the full
-    column; vertical groups come with A10)."""
-    _no_zspec(zspec)
+    """Packed input series (T, Rc, I) for one region class.
+
+    zspec (VertSpec): vertical-localization group; the atmo levels of its
+    input window, and among the 2-D blocks only TISR unless it is a
+    bottom group (res_domain.f90:206-256, mod_reservoir.f90:1790-1811).
+    None: the full column (bottom)."""
     truth = as_tensors(truth)
+    b = is_bottom(zspec)
+    lo, hi = band(zspec, truth["atmo"].shape[2], core=False)
     return torch.stack([layout.pack_vector(
-        cls, truth["atmo"][t], logp=truth["logp"][t],
-        precip=log_precip_transform(truth["precip"][t], precip_eps),
-        sst=truth["sst"][t], tisr=truth["tisr"][t])
+        cls, truth["atmo"][t][:, lo:hi],
+        logp=truth["logp"][t] if b else None,
+        precip=(log_precip_transform(truth["precip"][t], precip_eps)
+                if b else None),
+        sst=truth["sst"][t] if b else None, tisr=truth["tisr"][t])
         for t in range(truth["atmo"].shape[0])])
 
 
 def pack_class_model_series(layout: RegionLayout, cls, model: dict,
                             zspec=None) -> torch.Tensor:
-    """Packed imperfect-model core series (T, Rc, S): atmo + logp."""
-    _no_zspec(zspec)
+    """Packed imperfect-model core series (T, Rc, S): atmo + logp (logp
+    only for a bottom vertical group; the atmo of the group's core)."""
     model = as_tensors(model)
+    b = is_bottom(zspec)
+    lo, hi = band(zspec, model["atmo"].shape[2], core=True)
     return torch.stack([layout.pack_vector(
-        cls, model["atmo"][t], logp=model["logp"][t], core_only=True)
-        for t in range(model["atmo"].shape[0])])
+        cls, model["atmo"][t][:, lo:hi], logp=model["logp"][t] if b else None,
+        core_only=True) for t in range(model["atmo"].shape[0])])
 
 
 def class_blocks(zspec=None) -> dict:
@@ -126,18 +130,26 @@ def class_blocks(zspec=None) -> dict:
     return dict(logp=bottom, precip=bottom, sst=bottom, tisr=True)
 
 
+def group_levels(nz: int, zspec=None) -> tuple:
+    """(nz_in, nz_core, z_off) of a vertical group (the full column for
+    None)."""
+    if zspec is None:
+        return nz, nz, 0
+    return zspec.nz_in, zspec.nz_core, zspec.z_off
+
+
 def class_standardizer(layout: RegionLayout, cls, series: torch.Tensor,
                        nz: int, zspec=None) -> Standardizer:
-    _no_zspec(zspec)
     xi, yi = cls.input_shape
     xc, yc = cls.core_shape
-    b = class_blocks()
-    comp_in = component_expansion(xi, yi, NVAR, nz, **b)
-    comp_out = core_component_map(xc, yc, NVAR, nz, nz, 0, logp=True,
-                                  precip=True)
+    b = class_blocks(zspec)
+    nz_in, nz_core, z_off = group_levels(nz, zspec)
+    comp_in = component_expansion(xi, yi, NVAR, nz_in, **b)
+    comp_out = core_component_map(xc, yc, NVAR, nz_in, nz_core, z_off,
+                                  logp=b["logp"], precip=b["precip"])
     return compute_standardizer(series, comp_in, comp_out,
-                                n_components(NVAR, nz, **b),
-                                nvar_nz=(NVAR, nz))
+                                n_components(NVAR, nz_in, **b),
+                                nvar_nz=(NVAR, nz_in))
 
 
 def train_class(layout: RegionLayout, cls, truth: dict, model: Optional[dict],
@@ -145,23 +157,35 @@ def train_class(layout: RegionLayout, cls, truth: dict, model: Optional[dict],
                 n_discard: int = 10, n_batches: int = 20,
                 precip_eps: float = 0.001, dtype=torch.float32,
                 topology: str = "shift", zspec=None,
+                region_chunk: Optional[int] = None, solve_dtype=None,
                 device=None) -> ClassPack:
     """Train all reservoirs of one class in memory (train_reservoir
-    equivalent) on `device` (default CUDA; raises without one)."""
-    _no_zspec(zspec)
+    equivalent) on `device` (default CUDA; raises without one).
+
+    zspec: vertical-localization group (None = full column).  The port's
+    two knobs beside the JAX options, which leave its result as it is at
+    their defaults: region_chunk accumulates and solves the normal
+    equations that many regions at a time (each region's equations are
+    its own, and the noise is drawn for the whole class and cut to the
+    chunk, so the result does not depend on it; a class's whole Gram at
+    full width is (Rc, A, A), 150 GB for the interior class in float32);
+    solve_dtype the precision of the ridge solve (default the Gram's, as
+    the JAX train_class solves)."""
     device = resolve_device(device)
     series = pack_class_series(layout, cls, as_tensors(truth, device),
-                               precip_eps).to(dtype)
+                               precip_eps, zspec=zspec).to(dtype)
     T, Rc, I = series.shape
-    std = class_standardizer(layout, cls, series, nz)
+    std = class_standardizer(layout, cls, series, nz, zspec=zspec)
     z_in = std.standardize_input(series)
+    b = class_blocks(zspec)
+    nz_in, nz_core, z_off = group_levels(nz, zspec)
     target = layout.input_to_target(
-        cls, z_in.reshape(T * Rc, I), NVAR, nz, nz, 0,
-        **class_blocks()).reshape(T, Rc, -1)
+        cls, z_in.reshape(T * Rc, I), NVAR, nz_in, nz_core, z_off,
+        **b).reshape(T, Rc, -1)
     z_model = None
     if model is not None:
-        mser = pack_class_model_series(layout, cls,
-                                       as_tensors(model, device)).to(dtype)
+        mser = pack_class_model_series(layout, cls, as_tensors(model, device),
+                                       zspec=zspec).to(dtype)
         S = mser.shape[2]
         z_model = (mser - std.out_mean[None, :, :S]) / std.out_std[None, :, :S]
 
@@ -178,15 +202,29 @@ def train_class(layout: RegionLayout, cls, truth: dict, model: Optional[dict],
                            mean=std.in_mean, std=std.in_std, shifts=shifts)
     L = T - n_discard
     batch_size = find_closest_divisor(max(1, L // n_batches), L)
-    noise = (class_noise(seed, 0, (Rc, I), dtype, device)
-             if hyper.noise_mag > 0 else None)
-    lay_in = build_layout(*cls.input_shape, NVAR, nz, **class_blocks())
-    eq, _ = train_subseries(res, hyper, z_in, target, z_model, n_discard,
-                            batch_size, noise=noise,
-                            precip_info=precip_noise_info(std, lay_in, nz,
-                                                          precip_eps))
-    res = dataclasses.replace(res, wout=solve_wout(eq, hyper, n_speedy=S))
-    return ClassPack(cls=cls, res=res, hyper=hyper, std=std)
+    lay_in = build_layout(*cls.input_shape, NVAR, nz_in, **b)
+    chunk = Rc if region_chunk is None else max(1, int(region_chunk))
+    parts = []
+    for r0 in range(0, Rc, chunk):
+        rows = slice(r0, min(r0 + chunk, Rc))
+        cut = lambda t: None if t is None else t[:, rows].contiguous()
+        res_ch = res if chunk >= Rc else dataclasses.replace(
+            res, vals=res.vals[:, rows].contiguous(),
+            win_vals=res.win_vals[rows].contiguous(),
+            cols=res.cols if res.cols.dim() == 2
+            else res.cols[rows].contiguous(),
+            wout=res.wout[rows], mean=res.mean[rows], std=res.std[rows])
+        noise = (class_noise(seed, 0, (Rc, I), dtype, device, rows)
+                 if hyper.noise_mag > 0 else None)
+        eq, _ = train_subseries(
+            res_ch, hyper, cut(z_in), cut(target), cut(z_model), n_discard,
+            batch_size, noise=noise,
+            precip_info=precip_noise_info(std, lay_in, nz_in, precip_eps,
+                                          rows))
+        parts.append(solve_wout(eq, hyper, S, solve_dtype))
+        del eq
+    res = dataclasses.replace(res, wout=torch.cat(parts))
+    return ClassPack(cls=cls, res=res, hyper=hyper, std=std, zspec=zspec)
 
 
 def timed(timings: Optional[dict], key: str, device, fn):
@@ -331,16 +369,29 @@ def train_hybrid(gcm, layout: RegionLayout, truth: dict,
     each class's slab ocean too (ocean_hyper, default OCEAN_HYPER; class i
     from derive_seed(seed, 500 + i); hybrid_ocean: the hybrid slab
     readout), the land fill base_sst (the truth's mean SST) and sea_mask
-    (fmask_l > 0).  Vertical groups (num_vert_levels, vert_overlap) come
-    with A10: anything but their defaults raises."""
-    if num_vert_levels > 1 or vert_overlap != 0:
-        raise NotImplementedError(f"vertical groups (num_vert_levels > 1, "
-                                  f"vert_overlap) come with {VERT_SLICE}")
+    (fmask_l > 0).  num_vert_levels > 1 enables vertical localization:
+    each class trains one pack per vertical group (vert_specs(nz,
+    num_vert_levels, vert_overlap), res_domain.f90:206-256), class i's
+    group g from derive_seed(seed, 16 i + g), the packs in class-major,
+    group-minor order; only bottom groups carry the surface blocks.  With
+    one group vert_overlap has no effect, as in the JAX package, and the
+    slab ocean with vertical groups raises, as there.  kw goes to
+    train_class (its region_chunk and solve_dtype included)."""
+    nz = gcm.geom.nlev if gcm is not None else None
+    if num_vert_levels > 1:
+        if ocean:
+            raise NotImplementedError(
+                "slab ocean with vertical localization is not wired; the "
+                "reference's production config uses num_vert_levels=1")
+        specs = vert_specs(nz, num_vert_levels, vert_overlap)
+    else:
+        specs = [None]
     device = resolve_device(device)
-    nz = gcm.geom.nlev
     packs = [train_class(layout, cls, truth, model, hyper,
-                         derive_seed(seed, i * 16), nz, device=device, **kw)
-             for i, cls in enumerate(layout.classes)]
+                         derive_seed(seed, i * 16 + gi), nz, zspec=zs,
+                         device=device, **kw)
+             for i, cls in enumerate(layout.classes)
+             for gi, zs in enumerate(specs)]
     ocean_packs = base_sst = sea_mask = None
     if ocean:
         ocean_hyper = ocean_hyper or OCEAN_HYPER

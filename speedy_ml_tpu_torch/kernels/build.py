@@ -36,11 +36,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (K17), which reuses its humidity, K3, whose date form works out K17b's
 # insolation (surface_forcing.cuh sf_fsol) with the same bits, K21,
 # which reuses K17's climatology, and K22, whose unstandardize is the
-# plain version's multiply, then add.
+# plain version's multiply, then add; so do K24-K26 (the optional
+# physics), which also write every operation with the _rn intrinsics.
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "column_moist.cu", "column_longwave.cu", "column_pbl.cu",
     "surface_forcing.cu", "window_gather.cu", "slab_couple.cu",
-    "slab_ocean.cu")}
+    "slab_ocean.cu", "sppt.cu", "rdf.cu", "cgrate.cu")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -69,7 +70,7 @@ SIGNATURES = {
                              _i, _i, _vp, _vp],
     "spectral_tail_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
-                             _f, _f, _vp, _vp, _vp, _vp, _vp, _vp],
+                             _f, _f, _vp, _vp, _vp, _vp, _vp, _i, _vp],
     "column_moist_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp,
                             _vp, _i, ctypes.POINTER(_vp), _i, _vp, _vp, _vp],
     "down_surface_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _vp,
@@ -104,6 +105,14 @@ SIGNATURES = {
     "readout_components_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i,
                                   _i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
                                   _ll, _ll, _vp],
+    "sppt_ar1_launch": [_i, _i, _i, _ll, _vp, _vp, _vp, _d, _d, _vp, _vp],
+    "sppt_perturb_launch": [_i, _i, _i, _ll, _vp, _vp, ctypes.POINTER(_vp),
+                            _vp],
+    "rdf_launch": [_i, _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                   _vp, _vp, _vp, _vp],
+    "cgrate_launch": [_i, _i, _i, _i, _i, ctypes.POINTER(_vp),
+                      ctypes.POINTER(_vp), _vp, _vp, ctypes.POINTER(_vp), _i,
+                      _d, _d, _d, _d, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

@@ -45,7 +45,7 @@ __device__ __forceinline__ void tail_gather(tail_c<float> v,
   }
 }
 
-template <int K>
+template <int K, bool CG>
 __global__ void __launch_bounds__(kTailBlock)
     spectral_tail_kernel(const TailIO<float> io,
                          const float* __restrict__ blob) {
@@ -68,20 +68,22 @@ __global__ void __launch_bounds__(kTailBlock)
     tail_xj(L, g);
     tail_gather(L.divdt, g, mask);
   }
-  tail_finish(L, io, tb, g);
+  tail_finish<float, K, CG>(L, io, tb, g);
 }
 
 // K levels (5, 7 or 8), one tracer.  A (1 + 9K, mx, nx), vor/div/t
 // (2, K, mx, nx), ps (2, mx, nx), tr (2, 1, K, mx, nx), phis/tcorh/qcorh
 // (mx, nx), all complex64 (tcorh/qcorh may be null); blob: the f32 tables
-// (tail_blob, 16-byte aligned); outputs shaped as the state.
+// (tail_blob, 16-byte aligned); outputs shaped as the state.  cg: the
+// tendency form (cgrate_on): vor's and div's diffused tendencies go to
+// level 0 of o_vor and o_div, whose leapfrog K26 runs.
 SPEEDY_API int spectral_tail_launch(
     int device, int K, int mx, int nx, const void* A, const void* vor,
     const void* div, const void* tem, const void* ps, const void* tr,
     const void* phis, const void* tcorh, const void* qcorh, const void* blob,
     int j1, int j4, int implicit, int trunc, float dt, float ew1, float ew2,
     float sdrag, float rgas, void* o_vor, void* o_div, void* o_t, void* o_ps,
-    void* o_tr, void* stream) {
+    void* o_tr, int cg, void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
   if (mx <= 0 || nx <= 0 || (j1 != 1 && j1 != 2) || (j4 != 0 && j4 != 1) ||
@@ -95,18 +97,24 @@ SPEEDY_API int spectral_tail_launch(
   const unsigned grid = (unsigned)((threads + kTailBlock - 1) / kTailBlock);
   cudaStream_t s = (cudaStream_t)stream;
   const float* b = (const float*)blob;
+#define TAIL_LAUNCH(KK)                                                \
+  if (cg)                                                              \
+    spectral_tail_kernel<KK, true><<<grid, kTailBlock, 0, s>>>(io, b); \
+  else                                                                 \
+    spectral_tail_kernel<KK, false><<<grid, kTailBlock, 0, s>>>(io, b);
   switch (K) {
     case 5:
-      spectral_tail_kernel<5><<<grid, kTailBlock, 0, s>>>(io, b);
+      TAIL_LAUNCH(5)
       break;
     case 7:
-      spectral_tail_kernel<7><<<grid, kTailBlock, 0, s>>>(io, b);
+      TAIL_LAUNCH(7)
       break;
     case 8:
-      spectral_tail_kernel<8><<<grid, kTailBlock, 0, s>>>(io, b);
+      TAIL_LAUNCH(8)
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef TAIL_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -343,8 +343,11 @@ TAIL_HD void tail_xj(TailLane<T, K>& L, const tail_c<T> (&yf)[K]) {
   L.divdt = d;
 }
 
-// dn: the group's corrected divdt (read only when io.implicit).
-template <typename T, int K>
+// dn: the group's corrected divdt (read only when io.implicit).  CG (the
+// tendency form, cgrate_on): vor's and div's diffused tendencies are
+// stored in level 0 of their outputs in place of their leapfrog, which K26
+// (cgrate.cuh) runs after the limiter; the other fields as always.
+template <typename T, int K, bool CG = false>
 TAIL_HD void tail_finish(TailLane<T, K>& L, const TailIO<T>& io,
                          const TailTab<T, K>& tb,
                          const tail_c<T> (&dn)[K]) {
@@ -398,7 +401,11 @@ TAIL_HD void tail_finish(TailLane<T, K>& L, const TailIO<T>& io,
   const size_t lev = (size_t)K * MN;  // one leapfrog level of a 3-D field
   tail_c<T>* out[4] = {io.o_vor, io.o_div, io.o_t, io.o_tr};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    step(L.old1[i], L.oldj[i], out[i], k * MN + idx, lev, fdt[i]);
+  for (int i = 0; i < 4; ++i) {
+    if (CG && i < 2)
+      out[i][k * MN + idx] = fdt[i];
+    else
+      step(L.old1[i], L.oldj[i], out[i], k * MN + idx, lev, fdt[i]);
+  }
   if (k == 0) step(L.ps1, L.psj, io.o_ps, idx, MN, L.psdt);
 }

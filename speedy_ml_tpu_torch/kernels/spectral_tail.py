@@ -56,13 +56,17 @@ def tail_blob(dyn, imp, dtype=torch.float32) -> torch.Tensor:
 
 
 def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
-                  dt: float, eps: float, j4: int, implicit: bool):
+                  dt: float, eps: float, j4: int, implicit: bool,
+                  cg: bool = False):
     """The new SpectralState after one step (see the module docstring);
     j4 is the level sptend reads, implicit whether the semi-implicit
-    correction runs (alph != 0)."""
+    correction runs (alph != 0).  cg: the tendency form (cgrate_on): the
+    new state's vor[0] and div[0] hold their diffused tendencies, whose
+    limiter and leapfrog K26 runs (kernels/cgrate.py); vor[1] and div[1]
+    are not written."""
     if A.device.type == "cpu":
         return dyn.spectral_tail_plain(A, state, phis, corrections, imp,
-                                       j1, dt, eps, j4, implicit)
+                                       j1, dt, eps, j4, implicit, cg)
     if A.device.type != "cuda":
         raise ValueError(f"spectral_tail: no kernel for device {A.device}")
     g = dyn.geom
@@ -101,7 +105,7 @@ def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
         float((1.0 - dyn.wil) * eps), float(dyn.sdrag),
         float(dyn.const.rgas), out["vor"].data_ptr(), out["div"].data_ptr(),
         out["t"].data_ptr(), out["ps"].data_ptr(), out["tr"].data_ptr(),
-        kb.stream_of(A))
+        int(cg), kb.stream_of(A))
     kb.check(code, "spectral_tail")
     spectral_tail.launches += 1
     return type(state)(**out)

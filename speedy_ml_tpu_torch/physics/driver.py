@@ -18,6 +18,12 @@ kernel and nothing else runs on the card; on a CPU tensor each runs its
 plain version.  The shortwave cadence is a Python branch on a host bool;
 data-dependent level indices (itop, icltop) stay on the device, never
 read by the host.
+
+The reference's optional physics, off by default: with randfh set (RDF)
+one K25 launch after the four adds the random diabatic forcing to the
+temperature tendency (and on a shortwave step forms the carry's randfv
+from the step's heating); with an SPPT pattern one K24 launch then
+multiplies the four tendencies by (1 + r).
 """
 
 from __future__ import annotations
@@ -44,10 +50,12 @@ from speedy_ml_tpu_torch.kernels.surface_forcing import (FORCING, DayArgs,
                                                          surface_forcing)
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.boundaries import BoundaryData
+from speedy_ml_tpu_torch.kernels.rdf import RdfHeating, rdf
+from speedy_ml_tpu_torch.kernels.sppt import sppt_perturb
 from speedy_ml_tpu_torch.physics.land_sea import (CplFlags, SurfaceState,
                                                   surface_state)
+from speedy_ml_tpu_torch.physics.randfor import rdf_weights
 
-OPTIONAL_SLICE = "the optional-physics slice of the port (A15)"
 VIEW_ALIGN = 64   # elements between the starts of zero_views' fields
 
 
@@ -115,15 +123,20 @@ class FluxDiag(NamedTuple):
     ts: torch.Tensor
 
 
+class SpptGrid(NamedTuple):
+    """SPPT's pattern as the leapfrog step hands it to the physics: the
+    synthesized grid (K, lat, lon), not yet clipped, and the taper mu
+    (K,); K24 forms clip(grid, -1, 1) * mu."""
+    grid: torch.Tensor
+    mu: torch.Tensor
+
+
 class PhysicsModel:
     """Static tables on one device (default CUDA; raises without one
     unless device="cpu") + the phypar step function."""
 
     def __init__(self, geom, constants, dtype=torch.float32, randfh=None,
                  *, device=None):
-        if randfh is not None:
-            raise NotImplementedError(
-                f"random diabatic forcing (RDF) comes with {OPTIONAL_SLICE}")
         self.device = resolve_device(device)
         self.geom = geom
         self.const = constants
@@ -170,6 +183,31 @@ class PhysicsModel:
         self.pbl_tabs = pbl_tables(sig, hsg, dsig, self.grdsig, self.grdscp,
                                    constants)
         self.sw_tabs = shortwave_tables(sig, dsig, self.grdscp)
+        # random diabatic forcing: the horizontal patterns (2, nlat, nlon)
+        # or None (RDF off, the reference's default: nstrdf=0), and
+        # xs_rdf's two vertical weights
+        self.rdf_w = rdf_weights(sig, geom.nlon, dtype, self.device)
+        self.randfh = randfh
+
+    @property
+    def randfh(self):
+        return self._randfh
+
+    @randfh.setter
+    def randfh(self, value):
+        """The RDF patterns (2, nlat, nlon), stored in the model's dtype on
+        its device (init_randfh's float32 array is taken as it is), or
+        None."""
+        if value is not None:
+            g = self.geom
+            value = torch.as_tensor(np.asarray(value) if not
+                                    torch.is_tensor(value) else value)
+            if tuple(value.shape) != (2, g.nlat, g.nlon):
+                raise ValueError(f"randfh: shape {tuple(value.shape)}, "
+                                 f"expected (2, {g.nlat}, {g.nlon})")
+            value = value.to(device=self.device, dtype=self.dtype) \
+                .contiguous()
+        self._randfh = value
 
     # ------------------------------------------------------------------
 
@@ -251,9 +289,15 @@ class PhysicsModel:
         window's FluxAccumulator and the Python factors of its sums
         (GCM.leapfrog), formed by K12_pbl_flux in place of K12.  Returns
         compute's six values and the new FluxAccumulator (None without
-        sums)."""
-        if sppt_pattern is not None:
-            raise NotImplementedError(f"SPPT comes with {OPTIONAL_SLICE}")
+        sums).
+
+        With randfh set (RDF), one K25 launch after the column kernels
+        adds the random diabatic forcing to ttend (and on a shortwave step
+        forms the carry's new randfv).  sppt_pattern: None, the JAX
+        package's tapered pattern (K, lat, lon), for which each tendency
+        is multiplied by (1 + pattern), or an SpptGrid (the synthesized
+        pattern and mu: K24 clips and tapers it); one K24 launch
+        multiplies the four tendencies, after RDF."""
         # --- humidity, convection, large-scale condensation, and every
         # nstrad steps clouds and shortwave radiation (K9, or
         # K9_moist_shortwave)
@@ -270,6 +314,20 @@ class PhysicsModel:
         # K12_pbl_flux)
         ut, vt, ttend, qtend, diag, fluxes = self.tendency_sums(
             m, phig, carry, sfc, fx, dfabs_lw, olr, sums)
+        # --- random diabatic forcing (phy_phypar.f90:202-215; K25)
+        if self.randfh is not None:
+            xs = (RdfHeating(ttm=m.ttend, tt_rsw=carry.tt_rsw,
+                             dfabs=dfabs_lw, rps=m.rps,
+                             grdscp=self.pbl_tabs.grdscp, w=self.rdf_w)
+                  if lradsw else None)
+            ttend, randfv = rdf(ttend, self.randfh, carry.randfv, xs)
+            carry = dataclasses.replace(carry, randfv=randfv)
+        # --- SPPT on the physics tendencies (phy_phypar.f90:218-228; K24)
+        if sppt_pattern is not None:
+            grid, mu = (sppt_pattern if isinstance(sppt_pattern, SpptGrid)
+                        else (sppt_pattern, None))
+            ut, vt, ttend, qtend = sppt_perturb((ut, vt, ttend, qtend),
+                                                grid, mu)
         return ut, vt, ttend, qtend, carry, diag, fluxes
 
     def moist(self, tg, qg, phig, pslg, bd, forcing, carry, lradsw):

@@ -209,7 +209,7 @@ def test_load_refuses_other_formats(jax_coupled, tmp_path):
     for edit, err, match in (
             (dict(format_version=1), ValueError, "format_version"),
             (dict(has_ocean=True), FileNotFoundError, "ocean_0"),
-            (dict(zspec_0=[0, 8, 0, 8]), NotImplementedError, "A10"),
+            (dict(zspec_0=[0, 8, 0, 8]), ValueError, "zspec_0"),
             (dict(n_classes=2), ValueError, "classes")):
         path.write_text(json.dumps(dict(good, **edit)))
         with pytest.raises(err, match=match):

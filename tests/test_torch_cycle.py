@@ -326,7 +326,7 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
 
 def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     """The options of later slices raise (set_mesh, cycles_per_dispatch >
-    1); ml_only=False now runs, and so do the climatology tables,
+    1); ml_only=False now runs, so do SPPT, RDF and cgrate, and so do the climatology tables,
     emit_components, truth_provider and time_mean_path
     (tests/test_torch_cycle_options.py)."""
     _, thyb = pair_f64
@@ -367,11 +367,14 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     monkeypatch.delenv("SPEEDY_ML_BC_PATH", raising=False)
     with pytest.raises(FileNotFoundError, match="boundary files"):
         GCM(g, dtype=torch.float64, device="cpu")
-    for kw, match in ((dict(bd=bd, sppt_on=True), "SPPT"),
-                      (dict(bd=bd, cgrate_on=True), "cgrate")):
-        with pytest.raises(NotImplementedError, match=match):
-            GCM(g, dtype=torch.float64, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="RDF"):
-        type(chyb.gcm.phys)(g, chyb.gcm.const, randfh=np.zeros(1))
+    # the optional physics is ported (tests/test_torch_optional_physics.py):
+    # the options are taken, and RDF's patterns are checked
+    assert GCM(g, dtype=torch.float64, device="cpu", bd=bd,
+               sppt_on=True).sppt is not None
+    assert GCM(g, dtype=torch.float64, device="cpu", bd=bd,
+               cgrate_on=True).dyn.cgrate_on
+    with pytest.raises(ValueError, match="randfh"):
+        type(chyb.gcm.phys)(g, chyb.gcm.const, randfh=np.zeros(1),
+                            device="cpu")
     with pytest.raises(NotImplementedError):
         chyb.gcm.sht.set_mesh(None)

@@ -157,8 +157,10 @@ def test_twenty_dry_steps_match(models):
 
 def test_cgrate_and_state_helpers():
     g = Geometry(**GEOM)
-    with pytest.raises(NotImplementedError, match="cgrate"):
-        DycoreModel(g, dtype=torch.float64, cgrate_on=True, device="cpu")
+    # the limiter is ported (tests/test_torch_optional_physics.py)
+    assert DycoreModel(g, dtype=torch.float64, cgrate_on=True,
+                       device="cpu").cgrate_on
+    assert not DycoreModel(g, dtype=torch.float64, device="cpu").cgrate_on
     z = SpectralState.zeros(g, torch.complex128)
     assert z.tr.shape == (2, 1, 8, g.mx, g.nx)
     assert [a.shape for a in z.at_level(1)][3] == (g.mx, g.nx)

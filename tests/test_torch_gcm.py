@@ -105,10 +105,12 @@ def test_boundary_conversion_and_unported_options(pair, monkeypatch):
     monkeypatch.delenv("SPEEDY_ML_BC_PATH", raising=False)
     with pytest.raises(FileNotFoundError, match="boundary files"):
         GCM(g, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="SPPT"):
-        GCM(g, bd=tgcm.bd, sppt_on=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="cgrate"):
-        GCM(g, bd=tgcm.bd, cgrate_on=True, device="cpu")
+    # SPPT and cgrate are ported (tests/test_torch_optional_physics.py);
+    # off by default, as in the JAX package
+    assert tgcm.sppt is None and not tgcm.dyn.cgrate_on
+    on = GCM(g, bd=tgcm.bd, sppt_on=True, cgrate_on=True, device="cpu",
+             dtype=torch.float64)
+    assert on.sppt is not None and on.dyn.cgrate_on
     with pytest.raises(NotImplementedError):
         tgcm.set_mesh(None)
 

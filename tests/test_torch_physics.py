@@ -417,13 +417,18 @@ def test_compute_unpacks_as_the_jax_caller(setup, lradsw):
 
 
 def test_unported_physics_options_raise():
+    """RDF and SPPT, once unported, are taken
+    (tests/test_torch_optional_physics.py holds them against the JAX
+    package): randfh is stored in the model's dtype, and a pattern of
+    the wrong shape raises."""
     g = Geometry(**GEOM)
-    with pytest.raises(NotImplementedError, match="RDF"):
-        PhysicsModel(g, PhysicalConstants(), randfh=np.zeros((2, 16, 32)))
-    phys = PhysicsModel(g, PhysicalConstants(), device="cpu")
-    with pytest.raises(NotImplementedError, match="SPPT"):
-        phys.compute(*(None,) * 6, bd=None, sfc=None, forcing=None,
-                     carry=None, lradsw=True, sppt_pattern=1.0)
+    phys = PhysicsModel(g, PhysicalConstants(), randfh=np.zeros((2, 16, 32)),
+                        device="cpu")
+    assert phys.randfh.dtype == torch.float32
+    with pytest.raises(ValueError, match="randfh"):
+        PhysicsModel(g, PhysicalConstants(), randfh=np.zeros((2, 16, 31)),
+                     device="cpu")
+    assert PhysicsModel(g, PhysicalConstants(), device="cpu").randfh is None
 
 
 def test_slab_coupler_functions_match_jax():

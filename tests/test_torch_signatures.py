@@ -6,9 +6,10 @@ readers, every parameter with
 a default in the JAX entry point (inspect.signature) is a parameter of the
 port's with the same default: the same value, or for the two frameworks'
 own types the counterpart (jnp.float32 -> torch.float32, the dataclasses
-Geometry and PhysicalConstants by their fields).  The options whose
-modules are not ported yet (the vertical groups: A10) take their defaults
-and raise NotImplementedError naming A10 for any other value; scan_unroll,
+Geometry and PhysicalConstants by their fields).  Every option is
+ported (UNPORTED is empty since the vertical groups, A10c-2); the slab
+ocean with vertical groups raises, as the JAX package's train_hybrid
+does; scan_unroll,
 a JAX compile setting that changes no number, is taken and changes
 nothing.  The positional `key` of the trainers is a JAX PRNG key where
 the port takes an int seed.
@@ -87,7 +88,10 @@ PAIRS = {"GCM": (JGCM.__init__, GCM.__init__),
          "import_reference_weights": (jri.import_reference_weights,
                                       tri.import_reference_weights)}
 # each unported option with a value other than its default
-UNPORTED = {"train_hybrid": {"vert_overlap": 1}}
+UNPORTED = {}
+# the options ported last (vertical localization, A10c-2): each, with the
+# slab ocean and vertical groups, meets the JAX package's own refusal
+A10_OPTIONS = {"train_hybrid": {"vert_overlap": 1}}
 GEOM = Geometry(trunc=10, nlon=32, nlat=16, nlev=8)
 
 
@@ -125,10 +129,15 @@ def _call(name, **kw):
 
 
 @pytest.mark.parametrize("name,option", [(n, o) for n, opts in
-                                         UNPORTED.items() for o in opts])
+                                         A10_OPTIONS.items() for o in opts])
 def test_unported_option_raises_naming_a10(name, option):
-    with pytest.raises(NotImplementedError, match="A10"):
-        _call(name, **{option: UNPORTED[name][option]})
+    """No option is unported (UNPORTED is empty): A10's options are
+    taken, and the one case the JAX package refuses, the slab ocean with
+    vertical groups, raises before any work as it does there."""
+    assert not UNPORTED
+    with pytest.raises(NotImplementedError, match="vertical localization"):
+        _call(name, ocean=True, num_vert_levels=2,
+              **{option: A10_OPTIONS[name][option]})
 
 
 def test_gcm_sst_anomaly_options_are_taken():

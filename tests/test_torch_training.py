@@ -357,22 +357,25 @@ def test_nature_run_spinup_matches_jax(nature_gcms):
 
 
 def test_unported_options_raise(layouts, nature_pair):
-    """The options of later slices raise, naming the slice: vertical
-    groups, with or without the slab ocean."""
+    """The vertical groups, once unported, are taken
+    (tests/test_torch_vertical.py holds them against the JAX package);
+    what still raises is what the JAX package refuses too: the slab ocean
+    with vertical groups.  A group's series take its bands."""
+    from speedy_ml_tpu_torch.esn.domain import vert_specs
     _, tl = layouts
     _, (tt, _, _, tm), tgcm = nature_pair
-    cases = [
-        (lambda: training.train_hybrid(tgcm, tl, tt, tm, HYPER, 0,
-                                       num_vert_levels=2, device="cpu"),
-         "A10"),
-        (lambda: training.train_hybrid(tgcm, tl, tt, tm, HYPER, 0,
-                                       ocean=True, num_vert_levels=2,
-                                       device="cpu"), "A10"),
-        (lambda: training.pack_class_series(tl, tl.classes[0], tt,
-                                            zspec=object()), "A10"),
-        (lambda: training.pack_class_model_series(tl, tl.classes[0], tm,
-                                                  zspec=object()), "A10"),
-    ]
-    for call, slice_ in cases:
-        with pytest.raises(NotImplementedError, match=slice_):
-            call()
+    with pytest.raises(NotImplementedError, match="vertical localization"):
+        training.train_hybrid(tgcm, tl, tt, tm, HYPER, 0, ocean=True,
+                              num_vert_levels=2, device="cpu")
+    top, bot = vert_specs(8, 2, 1)
+    cls = tl.classes[0]
+    full = training.pack_class_series(tl, cls, tt)
+    xi, yi = cls.input_shape
+    assert training.pack_class_series(tl, cls, tt, zspec=top).shape[2] \
+        == 4 * 5 * xi * yi + xi * yi
+    assert training.pack_class_series(tl, cls, tt, zspec=bot).shape[2] \
+        == 4 * 5 * xi * yi + 4 * xi * yi
+    assert full.shape[2] == 4 * 8 * xi * yi + 4 * xi * yi
+    xc, yc = cls.core_shape
+    assert training.pack_class_model_series(tl, cls, tm, zspec=top) \
+        .shape[2] == 4 * 4 * xc * yc
