@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
                           [--options] [--vertical] [--physics]
-                          [--k14-lists]
+                          [--dispatch] [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -200,10 +200,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      350] K, the first 24 steps held against the plain step on the CPU
      (phase 5's rule); launches per leapfrog step with all three on (15
      kernel launches, 1 plain: the draw).
+ 17. the batched prediction loop (phase_dispatch: run_prediction with
+     cycles_per_dispatch > 1 as replays of captured CUDA graphs of the
+     cycle): the device-scalar forms of K3 (the date and a TISR table's
+     row), K17, K21, K22's push forms and K23 against their by-value forms
+     and their plain versions, float32 and float64, 0 difference, timed;
+     the coupled main path in dispatches of 4 across a day against the
+     eager loop (stream, time means, dates, final state bit for bit, the
+     launches kernel by kernel), the forms replayed at a second date; the
+     persistent surface with the slab ocean, a TISR table and the
+     components, the SST and TISR tables with a bias ramp, and the ML-only
+     cycle, 28 cycles each in one dispatch, bit for bit; a NaN in the
+     state's SST tripping the gate mid-dispatch (the dates stop there, as
+     the eager loop's); one dispatch under set_sync_debug_mode("error");
+     cycle_ms for K = 1 and K = 28 (5 x 20 cycles), device busy, the idle
+     share, device and host launches a cycle.
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
 trains phase 10's atmosphere and runs phase 13 alone (no result line);
 --options runs phase 14 alone, --vertical phase 15 (with its own nature
-run) and --physics phase 16 (no result line).
+run), --physics phase 16 and --dispatch phase 17 (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -353,6 +368,23 @@ VERT_OVERLAP = 1
 VERT_CYCLES = 8
 PERSIST_CYCLES = 8
 RUN_DAYS = 2
+# phase 17 (the batched prediction loop)
+DISPATCH_K = 28        # cycles a dispatch in the timed captured runs
+DISPATCH_CHECK_K = 4   # cycles a dispatch in the checks (they cross a day)
+DISPATCH_CHECK = 8     # cycles of the main path's check
+DISPATCH_STRETCH = 28  # cycles of each product form's stretch
+DISPATCH_DATE2 = (1990, 7, 15)   # the second date of the replayed forms
+DISPATCH_FORMS = ("K3_window_gather_dev", "K17_surface_forcing_dev",
+                  "K21_slab_couple_dev", "K22_slab_ocean_dev",
+                  "K23_sst_by_date_dev")
+# the kernels the coupled main path does not launch (phase 7)
+OFF_MAIN_PATH = ("K17b_tisr_plane", "K21_slab_couple", "K22_slab_ocean",
+                 "K23_sst_by_date", "K24_sppt", "K25_rdf", "K26_cgrate")
+# the CUDA API calls that put work on the card, as the profiler names the
+# host's runtime events
+HOST_LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                   "cudaMemcpyAsync", "cudaMemsetAsync")
 # torch.profiler sessions: idle time at either end of the profiled work,
 # and how often a session that saw no device event is run again
 PROFILE_PAD_S = 0.02
@@ -463,6 +495,27 @@ def measure_median(torch, fn, sessions: int = SHT_SESSIONS, reps: int = 50):
     """measure() in `sessions` sessions: the medians of (device_ms,
     call_ms), and the device ms of every session."""
     runs = [measure(torch, fn, reps=reps) for _ in range(sessions)]
+    return ((statistics.median(r[0] for r in runs),
+             statistics.median(r[1] for r in runs)), [r[0] for r in runs])
+
+
+def measure_one_launch(torch, fn, sessions: int = SHT_SESSIONS,
+                       reps: int = 50):
+    """measure_median for a fn that is one kernel launch a call, counting
+    only the sessions in which the profiler saw every launch: late in a
+    run a session can lose half of them, which halves its per-call time
+    (phase 16's K25 and K26 read bimodal so).  Up to 3 x sessions
+    tries."""
+    runs = []
+    for _ in range(3 * sessions):
+        call = time_ms(torch, fn, reps)
+        dev, kk, _ = profile_device(torch, fn, reps)
+        if sum(e.count for e in kk) == reps:
+            runs.append((dev, call))
+        if len(runs) == sessions:
+            break
+    if not runs:
+        fail("the profiler lost launches in every session")
     return ((statistics.median(r[0] for r in runs),
              statistics.median(r[1] for r in runs)), [r[0] for r in runs])
 
@@ -3186,6 +3239,551 @@ def phase_training(torch, gcm, layout, date0, card, record, atmo_ckpt: str,
     return counts["K14"]
 
 
+def same_bits(torch, a, b) -> bool:
+    """Two tensors equal bit for bit (NaN included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def seeded_ocean_packs(torch, hyb, seed: int) -> list:
+    """Untrained slab-ocean packs for hyb's layout at OCEAN_HYPER's size:
+    seeded reservoirs (esn.reservoir.generate), a 1e-3 normal readout,
+    the SST unstandardized as 288 K + the output."""
+    from speedy_ml_tpu_torch.esn.ocean import OCEAN_HYPER, ocean_index_map
+    from speedy_ml_tpu_torch.esn.reservoir import BatchedReservoir, generate
+    from speedy_ml_tpu_torch.hybrid.build import derive_seed
+    from speedy_ml_tpu_torch.hybrid.model import OceanPack
+    dev = hyb.device
+    out = []
+    for i, cls in enumerate(hyb.layout.classes):
+        idx = ocean_index_map(cls, hyb.nz)
+        R, I = cls.count, len(idx)
+        cols, vals, win, shifts = generate(
+            derive_seed(seed, i), R, I, OCEAN_HYPER, 0.9, radius_iters=30,
+            device=dev)
+        xc, yc = cls.core_shape
+        gen = torch.Generator(device=dev).manual_seed(
+            derive_seed(seed, 100 + i))
+        wout = 1e-3 * torch.randn((R, xc * yc, vals.shape[2]), generator=gen,
+                                  device=dev)
+        res = BatchedReservoir(cols=cols, vals=vals, win_vals=win, wout=wout,
+                               mean=torch.zeros((R, I), device=dev),
+                               std=torch.ones((R, I), device=dev), n_in=I,
+                               shifts=shifts)
+        out.append(OceanPack(cls=cls, res=res, hyper=OCEAN_HYPER,
+                             idx_map=idx,
+                             mean_sst=torch.full((R, 1), 288.0, device=dev),
+                             std_sst=torch.ones((R, 1), device=dev)))
+    return out
+
+
+def phase_dispatch(torch, np, gcm, hyb, date0, card, record, kernels,
+                   work: Path) -> dict:
+    """Phase 17: the batched prediction loop (run_prediction with
+    cycles_per_dispatch > 1) as replays of captured CUDA graphs of the
+    cycle (hybrid/graph.py).  (a) The device-scalar forms of K17 (with
+    and without the carry), K21 (accumulate and couple), K22's push and
+    push_mean, K23 and K3 (the date, and a TISR table's row) against
+    their by-value forms (torch.equal) and their plain versions (0
+    difference), float32 and float64 (K3 float32, the type it takes),
+    each timed.  (b) The coupled main path at full width: run_prediction
+    over DISPATCH_CHECK cycles from 1990-01-01 12:00 in dispatches of
+    DISPATCH_CHECK_K (they cross a day) against the eager loop (K = 1)
+    from the same state: the stream, the time means, the dates and the
+    final state equal bit for bit, every kernel's launches equal the
+    eager loop's; then from that state 3 cycles at DISPATCH_DATE2, with
+    no new capture, against 3 eager cycles there.  (c) The product forms,
+    DISPATCH_STRETCH cycles each in one dispatch against the eager loop,
+    bit for bit: the persistent surface with the slab ocean (seeded
+    untrained ocean packs, smooth continents), a TISR table and
+    emit_components from step 0 (the first cycle eager, then the coupler
+    on steps 3, 7, ... and a slab step on 27); the SST and TISR tables
+    with emit_components and a bias ramp; the ML-only cycle.  (d) The
+    gate: a NaN in the state's SST grid at one point trips it on the
+    second cycle of a dispatch; the dates stop there, as the eager loop's,
+    and the records kept are equal.  (e) The replays of one dispatch
+    under torch.cuda.set_sync_debug_mode("error").  (f) cycle_ms of the
+    coupled main path for K = 1 and K = DISPATCH_K (5 runs of N_TIMED
+    cycles each, median and range), device busy a cycle, the idle share,
+    the device launches and the CUDA API launches the host issues a
+    cycle, from one profile of each.  Returns each device-scalar form's
+    launches on its captured path, by its name in the kernels line."""
+    from speedy_ml_tpu_torch.data.calendar import ModelDate, hour_of_year_365
+    from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.hybrid.build import build_untrained_hybrid
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.graph import dispatcher, tree_tensors
+    from speedy_ml_tpu_torch.hybrid.model import (ROW_SF, HybridAtmosphere,
+                                                  ocean_snapshot)
+    from speedy_ml_tpu_torch.kernels import slab_couple as k21
+    from speedy_ml_tpu_torch.kernels import slab_ocean as k22
+    from speedy_ml_tpu_torch.kernels import sst_by_date as k23
+    from speedy_ml_tpu_torch.kernels import surface_forcing as sfk
+    from speedy_ml_tpu_torch.kernels import window_gather as k3
+    from speedy_ml_tpu_torch.physics import land_sea
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    g = gcm.geom
+    nz, nlat, nlon = g.nlev, g.nlat, g.nlon
+    G = nlat * nlon
+    imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
+    phys = gcm.phys
+    sst0 = sst_month0(g)
+    sst_t, tisr_t, hpe = option_tables(torch, np, g, dev)
+    gcm_l = GCM(g, dtype=f32, bd=continents_bd(torch, np, gcm.bd, g),
+                device=dev)
+    land = (gcm_l.bd.fmask_l >= 1.0 / 3.0).to(f32)
+    h_oc = HybridAtmosphere(
+        gcm_l, hyb.layout, hyb.packs, ml_only=False,
+        ocean_packs=seeded_ocean_packs(torch, hyb, SEED + 23),
+        base_sst=torch.as_tensor(sst0, dtype=f32, device=dev),
+        sea_mask=land, device=dev)
+    s0 = hyb.init_state(sst0)
+    for _ in range(2):
+        s0, d0 = hyb.cycle(s0, imon, fmon, tyear)
+    row_of = lambda h, *a, **kw: torch.tensor(h.scalar_row(*a, **kw),
+                                              dtype=f64, device=dev)
+    when = lambda d: f"{d.year}-{d.month:02d}-{d.day:02d} {d.hour:02d}:00"
+
+    # -- (a) the device-scalar forms --------------------------------------
+    worst = {}
+    slat64 = torch.as_tensor(g.sin_lat, dtype=f64, device=dev)
+    clat64 = torch.as_tensor(g.cos_lat, dtype=f64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 170)
+    rnd = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev, dtype=f64)
+    stl64 = rnd(250, 310, nlat, nlon)
+    acc64 = [rnd(-60, 60, nlat, nlon) for _ in range(4)]
+    win64 = [rnd(-20, 20, nlat, nlon) for _ in range(4)]
+    pert64 = [rnd(-2, 2, nlat, nlon) for _ in range(3)]
+    args = {}
+    for dt in (f32, f64):
+        c = lambda t: t.to(dt).contiguous()
+        bd_ = gcm.bd.to(dtype=dt)
+        day_ = phys.day_args(tyear) if dt == f32 else sfk.DayArgs(
+            tyear, slat64, clat64, phys.gamlat, phys.pexp)
+        sst_ = c(s0.sst_grid)
+        sf = row_of(hyb, imon, fmon, tyear)[:ROW_SF]
+        ty = str(dt)[6:]
+        for carry in (None, c(stl64)):
+            kw = dict(month=(imon, fmon), sst_hybrid=sst_, day=day_,
+                      stl_carry=carry)
+            kv = torch.cat(sfk.surface_forcing(bd_, **kw))
+            kd = torch.cat(sfk.surface_forcing(bd_, scalars=sf, **kw))
+            ps = sfk.surface_plain(bd_, imon, fmon, sst_hybrid=sst_)
+            q = dict(zip(sfk.SURFACE, ps))
+            pf = sfk.forcing_plain(bd_, q["stl"] if carry is None else carry,
+                                   q["snowd"], q["sst_am"], q["sice"], day_,
+                                   nlon)
+            if not torch.equal(kd, kv):
+                fail(f"K17's device-scalar form ({ty}) differs from its "
+                     f"by-value form")
+            nm = "K17" + (" carry" if carry is not None else "")
+            worst[f"{nm} {ty}"] = max_abs_diff(torch, kd,
+                                               torch.cat([ps, pf]))
+            if dt == f32 and carry is None:
+                args["K17"] = (bd_, kw, sf)
+        clim = land_sea.init_surface_state(bd_, imon, fmon)
+        carry = dataclasses.replace(clim, **{
+            k: getattr(clim, k) + c(p)
+            for k, p in zip(("stl_lm", "sst_om", "tice_om"), pert64)})
+        coef = land_sea.build_slab_coeffs(bd_, np.rad2deg(g.lat_radians), dt,
+                                          device=dev)
+        for couple in (False, True):
+            kw = dict(window=[c(w) for w in win64],
+                      ok=torch.tensor(True, device=dev), do_couple=couple)
+            a21 = (bd_, coef, carry, [c(a) for a in acc64], (imon, fmon),
+                   land_sea.CplFlags(icsea=2))
+            kv = k21.slab_couple(*a21, **kw)
+            kd = k21.slab_couple(*a21, scalars=sf, **kw)
+            pl = k21.slab_couple_plain(*a21, **kw)
+            for x, y in zip(kd, kv):
+                if (x is None) != (y is None) or (
+                        x is not None and not torch.equal(x, y)):
+                    fail(f"K21's device-scalar form ({ty}) differs from "
+                         f"its by-value form")
+            form = "couple" if couple else "accumulate"
+            worst[f"K21 {form} {ty}"] = max(
+                max_abs_diff(torch, x, y) for x, y in zip(kd, pl)
+                if x is not None)
+            if dt == f32 and couple:
+                args["K21"] = (a21, kw, sf)
+        # K22's push forms on the slab ocean's full-width rings
+        W = h_oc.SLAB_STRIDE - 1
+        fbs = [rnd(-2, 2, h_oc.packs[i].cls.count,
+                   h_oc.packs[i].res.n_in).to(dt).contiguous()
+               for i in h_oc._bottom_index()]
+        rings = [rnd(-2, 2, W, op.cls.count, len(op.idx_map)).to(dt)
+                 .contiguous() for op in h_oc.ocean_packs]
+        for step in (5, W - 1, 2 * W + 26):
+            slot = torch.tensor([float(step % W)], dtype=f64, device=dev)
+            for form in ("push", "push_mean"):
+                r_v, r_d, r_p = ([r.clone() for r in rings]
+                                 for _ in range(3))
+                kw = dict(step=step, fbs=fbs, idx_maps=h_oc.ocean_index)
+                mv = k22.slab_ocean(form, bufs=r_v, **kw)
+                md = k22.slab_ocean(form, bufs=r_d, slot=slot, **kw)
+                mp = k22.slab_ocean_plain(form, bufs=r_p, **kw)
+                outs_d = r_d + (md or [])
+                if not all(torch.equal(x, y) for x, y in
+                           zip(outs_d, r_v + (mv or []))):
+                    fail(f"K22's device-scalar form ({form}, step {step}, "
+                         f"{ty}) differs from its by-value form")
+                worst[f"K22 {form} step {step} {ty}"] = max(
+                    max_abs_diff(torch, x, y)
+                    for x, y in zip(outs_d, r_p + (mp or [])))
+                if dt == f32 and form == "push" and step == 5:
+                    args["K22"] = (rings, kw, slot)
+        tab = sst_t.to(dt).contiguous()
+        for day, bias in ((31, 1.0), (364, -2.5)):
+            dv = torch.tensor([float(day), bias], dtype=f64, device=dev)
+            kd = k23.sst_by_date(tab, 0, 0.0, dv)
+            if not torch.equal(kd, k23.sst_by_date(tab, day, bias)):
+                fail(f"K23's device-scalar form ({ty}) differs from its "
+                     f"by-value form")
+            worst[f"K23 day {day} {ty}"] = max_abs_diff(
+                torch, kd, k23.sst_by_date_plain(tab, day, bias))
+            if dt == f32 and day == 31:
+                args["K23"] = (tab, dv, day, bias)
+    # K3 (float32): the date, and the TISR table's row
+    atmo, logp, precip = d0["atmo"], d0["logp"], d0["precip"]
+    ga = ([hyb.feedback_index, [p.std.in_mean for p in hyb.packs],
+           [p.std.in_std for p in hyb.packs]])
+    base = (atmo, logp, precip, s0.sst_grid)
+    sf32 = row_of(hyb, imon, fmon, tyear)[:ROW_SF]
+    r = (hour_of_year_365(date0) // hpe) % tisr_t.shape[0]
+    forms3 = {
+        "date": ((*base, hyb.tisr_date(tyear, sf32)),
+                 (*base, hyb.tisr_date(tyear)),
+                 (*base, sfk.tisr_plain(tyear, hyb._slat, hyb._clat, nlon))),
+        "table row": ((*base, k3.TisrRow(tisr_t, torch.tensor(
+            [float(r)], dtype=f64, device=dev))), (*base, tisr_t[r]),
+            (*base, tisr_t[r]))}
+    for nm, (fd, fv, fp) in forms3.items():
+        kd = k3.window_gather(fd, *ga)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(kd, k3.window_gather(fv, *ga))):
+            fail(f"K3's device-scalar form ({nm}) differs from its by-value "
+                 f"form")
+        worst[f"K3 {nm} float32"] = max(
+            max_abs_diff(torch, x, y)
+            for x, y in zip(kd, k3.window_gather_plain(fp, *ga)))
+    bad = {k: v for k, v in worst.items() if v > 0}
+    log(f"device-scalar forms against their by-value forms (torch.equal) and "
+        f"their plain versions ({len(worst)} cases, float32 and float64): "
+        f"max_abs_err {max(worst.values()):.3e} (tolerance 0); cases that "
+        f"differ: {bad or 'none'}")
+    if bad:
+        fail("a device-scalar form disagrees with its plain version")
+    # times (float32), each the median of SHT_SESSIONS sessions, beside
+    # the by-value form
+
+    def k17_plain(bd_, kw):
+        ps = sfk.surface_plain(bd_, imon, fmon, sst_hybrid=kw["sst_hybrid"])
+        q = dict(zip(sfk.SURFACE, ps))
+        return ps, sfk.forcing_plain(bd_, q["stl"], q["snowd"], q["sst_am"],
+                                     q["sice"], kw["day"], nlon)
+
+    n_out = sum(i.numel() for i in hyb.feedback_index)
+    n_src = sum(f.numel() for f in base) + G
+    rings, kw22, slot = args["K22"]
+    N22 = sum(x[0].numel() for x in rings)
+    n_idx = sum(i.numel() for i in kw22["idx_maps"])
+    bd_, kw17, sf = args["K17"]
+    a21, kw21, _ = args["K21"]
+    tab, dv, day, bias = args["K23"]
+    fd3 = forms3["date"][0]
+    cases = {
+        "K17_surface_forcing_dev": (
+            "speedy_ml_tpu_torch/kernels/csrc/surface_forcing.cu",
+            "speedy_ml_tpu/physics/land_sea.py:191",
+            lambda: sfk.surface_forcing(bd_, scalars=sf, **kw17),
+            lambda: sfk.surface_forcing(bd_, **kw17),
+            lambda: k17_plain(bd_, kw17),
+            bound_ms(4 * (G * (16 + 5 + 19) + 2 * nlat),
+                     130 * G + 150 * nlat, PEAK_F32_S),
+            [k for k in worst if k.startswith("K17")]),
+        "K21_slab_couple_dev": (
+            "speedy_ml_tpu_torch/kernels/csrc/slab_couple.cu",
+            "speedy_ml_tpu/physics/land_sea.py:244",
+            lambda: k21.slab_couple(*a21, scalars=sf, **kw21),
+            lambda: k21.slab_couple(*a21, **kw21),
+            lambda: k21.slab_couple_plain(*a21, **kw21),
+            bound_ms(4 * G * 47 + 1, 80 * G, PEAK_F32_S),
+            [k for k in worst if k.startswith("K21")]),
+        "K22_slab_ocean_dev": (
+            "speedy_ml_tpu_torch/kernels/csrc/slab_ocean.cu",
+            "speedy_ml_tpu/hybrid/model.py:678",
+            lambda: k22.slab_ocean("push", bufs=rings, slot=slot, **kw22),
+            lambda: k22.slab_ocean("push", bufs=rings, **kw22),
+            lambda: k22.slab_ocean_plain("push", bufs=rings, **kw22),
+            bound_ms(4 * (2 * N22 + n_idx), 0, PEAK_F32_S),
+            [k for k in worst if k.startswith("K22")]),
+        "K23_sst_by_date_dev": (
+            "speedy_ml_tpu_torch/kernels/csrc/sst_by_date.cu",
+            "speedy_ml_tpu/hybrid/model.py:546",
+            lambda: k23.sst_by_date(tab, 0, 0.0, dv),
+            lambda: k23.sst_by_date(tab, day, bias),
+            lambda: k23.sst_by_date_plain(tab, day, bias),
+            bound_ms(2 * 4 * G, 2 * G, PEAK_F32_S),
+            [k for k in worst if k.startswith("K23")]),
+        "K3_window_gather_dev": (
+            "speedy_ml_tpu_torch/kernels/csrc/window_gather.cu",
+            "speedy_ml_tpu/esn/domain.py:252, "
+            "speedy_ml_tpu/hybrid/model.py:525",
+            lambda: k3.window_gather(fd3, *ga),
+            lambda: k3.window_gather(forms3["date"][1], *ga),
+            lambda: k3.window_gather_plain(forms3["date"][2], *ga),
+            bound_ms(4 * (4 * n_out + n_src), 2 * n_out, PEAK_F32_S),
+            [k for k in worst if k.startswith("K3")])}
+    for nm, (src, rep, fn_d, fn_v, fn_p, bound, keys, *_) in cases.items():
+        (kd_ms, kd_c), runs = measure_one_launch(torch, fn_d)
+        (kv_ms, _), runs_v = measure_one_launch(torch, fn_v)
+        log(f"{nm}: {kd_ms:.4f} ms (sessions "
+            + ", ".join(f"{x:.4f}" for x in runs) + f"), the by-value form "
+            f"{kv_ms:.4f} ms (" + ", ".join(f"{x:.4f}" for x in runs_v)
+            + f"), medians of the sessions that saw every launch [{card}]")
+        record(nm, src, rep, max(worst[k] for k in keys), 0.0,
+               (kd_ms, kd_c), measure(torch, fn_p, reps=10), bound)
+    log("  (K22_slab_ocean_dev's numbers are the push form's; "
+        "K3_window_gather_dev's the date form's)")
+
+    # -- helpers: K = 1 against K > 1 ----------------------------------------
+    def counts():
+        out = {nm: fn.launches for nm, fn in kernels.items()}
+        for nm, fn in (("K17_surface_forcing_dev", sfk.surface_forcing),
+                       ("K21_slab_couple_dev", k21.slab_couple),
+                       ("K22_slab_ocean_dev", k22.slab_ocean),
+                       ("K23_sst_by_date_dev", k23.sst_by_date),
+                       ("K3_window_gather_dev", k3.window_gather)):
+            out[nm] = fn.dev_launches
+        return out
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+        for fn in (sfk.surface_forcing, k21.slab_couple, k22.slab_ocean,
+                   k23.sst_by_date, k3.window_gather):
+            fn.dev_launches = 0
+
+    def pair(tag, h, st, date, n, K, same_final=True, **kw):
+        """run_prediction of n cycles from st eagerly and in dispatches of
+        K, each with a writer and time means, the counters set to 0 before
+        each run; fails unless the streams, the time means, the dates and
+        (same_final) the final states are equal bit for bit.  Returns
+        (final, dates, launches, wall s) of each, K = 1 first."""
+        res = []
+        for k in (1, K):
+            d = work / f"dispatch_{tag}_k{k}"
+            s_in = ocean_snapshot(st) if h.ocean_packs else st
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            fin, dts = run_prediction(
+                h, s_in, date, n, output_path=str(d / "pred"),
+                time_mean_path=str(d / "tm.npz")
+                if getattr(h.gcm, "bd", None) is not None else None,
+                cycles_per_dispatch=k, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res.append((fin, dts, counts(), wall, d))
+        (f1, d1, c1, _, p1), (fk, dk, ck, _, pk) = res
+        if [str(x) for x in d1] != [str(x) for x in dk]:
+            fail(f"{tag}: the dates of K = {K} ({len(dk)}) differ from the "
+                 f"eager loop's ({len(d1)})")
+        for fname in ("pred.npz", "tm.npz"):
+            if not (p1 / fname).exists():
+                continue
+            z1, zk = np.load(p1 / fname), np.load(pk / fname)
+            if sorted(z1.files) != sorted(zk.files):
+                fail(f"{tag}: {fname} keys {sorted(zk.files)} against "
+                     f"{sorted(z1.files)}")
+            for key in z1.files:
+                a, b = z1[key], zk[key]
+                if a.shape != b.shape or a.dtype != b.dtype or not (
+                        a.tobytes() == b.tobytes()):
+                    fail(f"{tag}: {fname} {key} of K = {K} differs from the "
+                         f"eager loop's")
+        if same_final:
+            ta, tb = tree_tensors(f1), tree_tensors(fk)
+            if len(ta) != len(tb) or not all(
+                    same_bits(torch, a, b) for a, b in zip(ta, tb)) or \
+                    f1.step != fk.step or bool(f1.safe) != bool(fk.safe):
+                fail(f"{tag}: the final state of K = {K} differs from the "
+                     f"eager loop's")
+        return res
+
+    disp = dispatcher(hyb)
+    # -- (b) the coupled main path -------------------------------------------
+    start = ModelDate(1990, 1, 1, 12)
+    n_cap = disp.captures
+    r_main = pair("main", hyb, s0, start, DISPATCH_CHECK, DISPATCH_CHECK_K)
+    c1, ck = r_main[0][2], r_main[1][2]
+    path = [nm for nm in kernels if nm not in OFF_MAIN_PATH]
+    for nm in path:
+        if ck[nm] == 0:
+            fail(f"{nm} was not launched on the captured main path")
+        if ck[nm] != c1[nm]:
+            fail(f"the captured main path launched {nm} {ck[nm]} times, the "
+                 f"eager loop {c1[nm]}")
+    if ck["K17_surface_forcing_dev"] != DISPATCH_CHECK:
+        fail(f"K17's device-scalar form ran "
+             f"{ck['K17_surface_forcing_dev']} times in "
+             f"{DISPATCH_CHECK} captured cycles")
+    launches = {"K17_surface_forcing_dev": ck["K17_surface_forcing_dev"]}
+    log(f"captured main path: run_prediction {DISPATCH_CHECK} coupled "
+        f"cycles from {when(start)} in dispatches of {DISPATCH_CHECK_K} "
+        f"(across a day) against the eager loop: stream, time means, dates "
+        f"and final state bit for bit; launches equal kernel by kernel "
+        f"({sum(c1[nm] for nm in path)} in all: "
+        + ", ".join(f"{nm.split('_')[0]} {ck[nm]}" for nm in path)
+        + f"), K17's device-scalar form {ck['K17_surface_forcing_dev']}; "
+        f"{disp.captures - n_cap} form(s) captured; {r_main[0][3]:.3f} s "
+        f"eager, {r_main[1][3]:.3f} s batched with the writer and time means")
+    n_cap = disp.captures
+    fin = r_main[1][0]
+    date2 = ModelDate(*DISPATCH_DATE2)
+    pair("date2", hyb, fin, date2, 3, DISPATCH_CHECK_K)
+    if disp.captures != n_cap:
+        fail(f"the second date captured {disp.captures - n_cap} new form(s)")
+    log(f"second date: 3 cycles from {when(date2)} replayed by the forms "
+        f"captured at {when(start)} (no new capture) equal the eager "
+        f"cycles there, bit for bit")
+
+    # -- (c) the product forms --------------------------------------------
+    h_oc.persist_surface = True
+    h_oc.emit_components = True
+    h_oc.set_tisr_table(tisr_t, hpe)
+    n_cap = disp.captures
+    r = pair("persist_ocean", h_oc, h_oc.init_state(sst0), date0,
+             DISPATCH_STRETCH, DISPATCH_STRETCH)
+    ck = r[1][2]
+    # the first cycle runs eagerly (by value), the others replayed
+    want = {nm: DISPATCH_STRETCH - 1 for nm in (
+        "K17_surface_forcing_dev", "K21_slab_couple_dev",
+        "K22_slab_ocean_dev", "K3_window_gather_dev")}
+    for nm, n in want.items():
+        if ck[nm] != n:
+            fail(f"persist_ocean: {nm} ran {ck[nm]} times, not {n}")
+    launches["K21_slab_couple_dev"] = ck["K21_slab_couple_dev"]
+    launches["K22_slab_ocean_dev"] = ck["K22_slab_ocean_dev"]
+    oc_disp = dispatcher(h_oc)
+    log(f"persistent surface + slab ocean + TISR table + components: "
+        f"{DISPATCH_STRETCH} cycles from step 0 in one dispatch (the first "
+        f"cycle eager; couplings on steps 3, 7, ...; a slab step on 27) "
+        f"equal the eager loop bit for bit; {oc_disp.captures} forms "
+        f"captured; device-scalar launches K21 {ck['K21_slab_couple_dev']}, "
+        f"K22 {ck['K22_slab_ocean_dev']}, K3 {ck['K3_window_gather_dev']}, "
+        f"K17 {ck['K17_surface_forcing_dev']}; {r[0][3]:.3f} s eager, "
+        f"{r[1][3]:.3f} s batched")
+    h_tb = HybridAtmosphere(gcm, hyb.layout, hyb.packs, ml_only=False,
+                            device=dev)
+    h_tb.set_sst_table(sst_t)
+    h_tb.set_tisr_table(tisr_t, hpe)
+    h_tb.emit_components = True
+    r = pair("tables", h_tb, s0, ModelDate(1990, 1, 31, 12),
+             DISPATCH_STRETCH, DISPATCH_STRETCH,
+             sst_bias_per_year=OPT_BIAS_PER_YEAR)
+    ck = r[1][2]
+    if ck["K23_sst_by_date_dev"] != DISPATCH_STRETCH:
+        fail(f"tables: K23's device-scalar form ran "
+             f"{ck['K23_sst_by_date_dev']} times")
+    launches["K23_sst_by_date_dev"] = ck["K23_sst_by_date_dev"]
+    log(f"SST and TISR tables + components + bias ramp: {DISPATCH_STRETCH} "
+        f"cycles from 1990-01-31 12:00 in one dispatch equal the eager loop "
+        f"bit for bit; device-scalar launches K23 "
+        f"{ck['K23_sst_by_date_dev']}, K3 {ck['K3_window_gather_dev']}, K17 "
+        f"{ck['K17_surface_forcing_dev']}; {r[0][3]:.3f} s eager, "
+        f"{r[1][3]:.3f} s batched")
+    del h_tb
+    h_ml = build_untrained_hybrid(gcm, n_regions=N_REGIONS, m=M, seed=SEED,
+                                  ml_only=True, radius_iters=30, device=dev)
+    h_ml.cast_wout_bf16()
+    r = pair("ml_only", h_ml, h_ml.init_state(sst0), date0,
+             DISPATCH_STRETCH, DISPATCH_STRETCH)
+    ck = r[1][2]
+    if ck["K3_window_gather_dev"] != DISPATCH_STRETCH:
+        fail(f"ml_only: K3's device-scalar form ran "
+             f"{ck['K3_window_gather_dev']} times")
+    launches["K3_window_gather_dev"] = ck["K3_window_gather_dev"]
+    log(f"ML-only: {DISPATCH_STRETCH} cycles in one dispatch equal the eager "
+        f"loop bit for bit; K3's device-scalar form (the date) "
+        f"{ck['K3_window_gather_dev']} launches; {r[0][3]:.3f} s eager, "
+        f"{r[1][3]:.3f} s batched")
+    del h_ml, h_oc, oc_disp
+
+    # -- (d) the gate ---------------------------------------------------------
+    bad = dataclasses.replace(s0, sst_grid=s0.sst_grid.clone())
+    bad.sst_grid[nlat // 2, nlon // 3] = float("nan")
+    r = pair("gate", hyb, bad, start, DISPATCH_CHECK, DISPATCH_CHECK_K,
+             same_final=False)
+    if len(r[1][1]) != 2:
+        fail(f"the gate: {len(r[1][1])} dates kept, not 2 (the NaN in the "
+             f"SST trips it on the second cycle)")
+    if bool(r[1][0].safe):
+        fail("the gate: the dispatch's final state reads safe")
+    log(f"gate: a NaN in the state's SST grid trips it on the second cycle of "
+        f"a dispatch of {DISPATCH_CHECK_K}; the dates stop there (2), as the "
+        f"eager loop's, and the records kept are equal bit for bit")
+
+    # -- (e) one dispatch with host syncs forbidden ---------------------------
+    recs = disp.records(DISPATCH_CHECK_K)
+    per = [(d.month - 1, d.tmonth, d.tyear, hour_of_year_365(d), 0.0)
+           for d in (start.advance_hours(6 * i)
+                     for i in range(DISPATCH_CHECK_K))]
+    s_e = disp.dispatch(s0, per, recs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_e = disp.dispatch(s_e, per, recs)
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"a dispatch synchronizes with the host: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"sync debug: the replays of one dispatch ({DISPATCH_CHECK_K} "
+        f"cycles) ran under torch.cuda.set_sync_debug_mode('error')")
+
+    # -- (f) cycle_ms, busy and launches, K = 1 and K = DISPATCH_K ---------
+    timing = {}
+    for K in (1, DISPATCH_K):
+        run = lambda: run_prediction(hyb, s0, date0, N_TIMED,
+                                     cycles_per_dispatch=K)
+        run()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / N_TIMED * 1e3)
+        walls.sort()
+        busy, kk, prof = profile_device(torch, run, reps=1, ranges=True)
+        host = sum(e.count for e in prof.key_averages()
+                   if e.key in HOST_LAUNCH_API) / N_TIMED
+        timing[K] = (walls, busy / N_TIMED,
+                     sum(e.count for e in kk) / N_TIMED, host)
+    for K, (walls, busy, n_dev, host) in timing.items():
+        log(f"captured loop K = {K}: cycle_ms {walls[2]:.4f} median (min "
+            f"{walls[0]:.4f}, max {walls[-1]:.4f}) over 5 runs of "
+            f"run_prediction x {N_TIMED} cycles, no writer; device busy "
+            f"{busy:.4f} ms/cycle, idle share {1 - busy / walls[2]:.1%} of "
+            f"the median; {n_dev:g} device launches a cycle; {host:g} CUDA "
+            f"API launches a cycle from the host (profiler runtime events "
+            f"{', '.join(HOST_LAUNCH_API[:5])}...) [{card}]")
+    w1, wk = timing[1][0][2], timing[DISPATCH_K][0][2]
+    log(f"phase 17: K = {DISPATCH_K} runs a coupled cycle in {wk:.4f} ms "
+        f"against {w1:.4f} ms eager ({w1 / wk:.2f}x); "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -3214,6 +3812,12 @@ def main():
                     help="after the hybrids, run phase 16 (the optional "
                          "physics: SPPT, RDF and cgrate, K24-K26) alone; "
                          "prints no result line")
+    ap.add_argument("--dispatch", action="store_true",
+                    help="after the hybrids, run phase 17 (the batched "
+                         "prediction loop: the captured cycle's replays "
+                         "against the eager loop, the device-scalar forms, "
+                         "cycle_ms for K = 1 and 28) alone; prints no "
+                         "result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -3409,6 +4013,13 @@ def main():
     if args.vertical:
         phase_vertical(torch, np, gcm, hyb.layout, hyb, date0, card, kernels)
         log(f"chip_smoke --vertical: phase 15 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
+    if args.dispatch:
+        phase_dispatch(torch, np, gcm, hyb, date0, card, record, kernels,
+                       work)
+        log(f"chip_smoke --dispatch: phase 17 passed, "
             f"{time.perf_counter() - t_start:.1f} s after the card check; "
             f"no result line [{card}]")
         return
@@ -4892,9 +5503,15 @@ def main():
                                kernels).items():
         results[nm]["launches"] = n
 
+    # -- 17. the batched prediction loop ------------------------------------------
+    for nm, n in phase_dispatch(torch, np, gcm, hyb, date0, card, record,
+                                kernels, work).items():
+        results[nm]["launches"] = n
+
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")
-    order = list(kernels) + ["K14_gram_update", "K2_readout_components"]
+    order = (list(kernels) + ["K14_gram_update", "K2_readout_components"]
+             + list(DISPATCH_FORMS))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}

@@ -183,19 +183,21 @@ class GCM:
         return sstan_for_window(torch.stack(months), date.tmonth)
 
     def couple(self, sfc: SurfaceState, fluxes, imon, fmon, *, sstan=None,
-               window=None, ok=None, do_couple: bool = True):
+               window=None, ok=None, do_couple: bool = True, scalars=None):
         """The slab coupler (couple_daily) and the persistent surface's
         accumulation in one K21 launch: (the coupled SurfaceState, or sfc
         when do_couple is false; the FluxAccumulator of the sums, zero
         after a coupling, or None without a window).  fluxes: the sums
         (a FluxAccumulator); window: the window's FluxAccumulator, counted
-        where ok (a 0-d bool tensor) is true; sstan: as slab_couple's."""
+        where ok (a 0-d bool tensor) is true; sstan: as slab_couple's;
+        scalars: K21's device-scalar form's row (slab_couple's), or None."""
         fields = lambda f: [getattr(f, k) for k in FLUX_FIELDS]
         win = None if window is None else fields(window)
         planes, fx = slab_couple(self.bd, self.slab, sfc, fields(fluxes),
                                  (imon, fmon), self.cpl, window=win, ok=ok,
                                  do_couple=do_couple, sstan=sstan,
-                                 wsst=self.wsst_ob, sstom12=self.sstom12)
+                                 wsst=self.wsst_ob, sstom12=self.sstom12,
+                                 scalars=scalars)
         return (sfc if planes is None else coupled_state(planes),
                 None if fx is None else FluxAccumulator(*fx))
 
@@ -204,15 +206,17 @@ class GCM:
         return self.phys.daily_forcing(self.bd, sfc, tyear, self.sht)
 
     def window_entry(self, imon, fmon, tyear, sst_hybrid=None,
-                     sst_bias: float = 0.0, sfc_carry=None):
+                     sst_bias: float = 0.0, sfc_carry=None, scalars=None):
         """(the climatological surface of (imon, fmon) with the hybrid SST,
         its forcing at tyear): init_surface_state and forcing_for in one
         K17 launch and the K5 analysis; imon, fmon and tyear host
         numbers.  sfc_carry: the persistent surface, whose slab models'
-        fields the window takes (PhysicsModel.surface_and_forcing)."""
+        fields the window takes (PhysicsModel.surface_and_forcing).
+        scalars: K17's device-scalar form's row (surface_forcing's), or
+        None."""
         return self.phys.surface_and_forcing(self.bd, imon, fmon, tyear,
                                              self.sht, sst_hybrid, sst_bias,
-                                             self.cpl, sfc_carry)
+                                             self.cpl, sfc_carry, scalars)
 
     def init_state(self, date, spectral: Optional[SpectralState] = None,
                    sst_hybrid=None, sst_bias: float = 0.0,

@@ -18,8 +18,6 @@ import torch
 
 from speedy_ml_tpu_torch.data.calendar import ModelDate, hour_of_year_365
 
-LATER_SLICE = "a later slice of the port (the captured cycle)"
-
 
 def _host_f32(v) -> np.ndarray:
     if torch.is_tensor(v):
@@ -127,11 +125,20 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
     time_mean_path: where the monthly sigma->p time means of the cycles'
     physical fields are saved (timemean.py; the fields come to the host
     once a cycle).  consolidate=False leaves the stream as .partN.npz
-    chunk files."""
-    if cycles_per_dispatch != 1:
-        raise NotImplementedError(f"cycles_per_dispatch > 1 comes with "
-                                  f"{LATER_SLICE}")
+    chunk files.
 
+    cycles_per_dispatch = K > 1 runs the cycles in dispatches of K (the
+    JAX package's lax.scan path, _run_prediction_batched), unless a
+    truth_provider is given (truth joins per cycle on the host): on the
+    card each dispatch replays a captured CUDA graph of the cycle
+    (hybrid/graph.py) and never waits for the card, the records stay on
+    the device and come to the host with one copy a dispatch, and the
+    previous dispatch's records go to the writer and the time means while
+    the next one runs.  The gate is read once a dispatch: the dates after
+    the first unsafe cycle are dropped (its record is kept), and the final
+    state is the one at the end of that dispatch."""
+    if int(cycles_per_dispatch) < 1:
+        raise ValueError(f"cycles_per_dispatch {cycles_per_dispatch} < 1")
     writer = PredictionWriter(output_path) if output_path else None
     tmean = None
     if time_mean_path:
@@ -145,6 +152,13 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
                              "pressure)")
         tmean = TimeMeanAccumulator(
             hyb.gcm.geom, phis=bd.phis0.detach().to("cpu").numpy())
+    if cycles_per_dispatch > 1 and truth_provider is None:
+        hstate, dates = _run_batched(
+            hyb, hstate, start_date, n_cycles, writer, tmean,
+            stop_if_unsafe, timestep_hours, sst_bias_per_year,
+            progress_every, int(cycles_per_dispatch))
+        _finish(writer, tmean, consolidate, time_mean_path)
+        return hstate, dates
     date = start_date
     dates = []
     params = hyb.params
@@ -175,6 +189,11 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
             print(f"cycle {i + 1}/{n_cycles} ({date.year}-{date.month:02d}"
                   f"-{date.day:02d}) safe={bool(prev_safe)} "
                   f"t={time.strftime('%H:%M:%S')}", flush=True)
+    _finish(writer, tmean, consolidate, time_mean_path)
+    return hstate, dates
+
+
+def _finish(writer, tmean, consolidate, time_mean_path):
     if writer:
         if consolidate:
             writer.consolidate()
@@ -182,4 +201,67 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
             writer.flush(wait=True)
     if tmean is not None:
         tmean.save(time_mean_path)
-    return hstate, dates
+
+
+def _run_batched(hyb, hstate, start_date, n_cycles, writer, tmean,
+                 stop_if_unsafe, timestep_hours, sst_bias_per_year,
+                 progress_every, K):
+    """run_prediction's loop in dispatches of K cycles (JAX
+    hybrid/driver.py:195-309): the per-cycle host numbers of the whole run
+    up front, a dispatch (graph.CycleDispatch) into a K-slot record buffer
+    on the device, its copy to the host started, the previous dispatch's
+    records drained into the writer and the time means meanwhile, then
+    this dispatch's gate flags read."""
+    from speedy_ml_tpu_torch.hybrid.graph import dispatcher
+    disp = dispatcher(hyb)
+    all_dates = [start_date]
+    for _ in range(n_cycles - 1):
+        all_dates.append(all_dates[-1].advance_hours(timestep_hours))
+    per = [(d.month - 1, d.tmonth, d.tyear, hour_of_year_365(d),
+            sst_bias_per_year * (i * timestep_hours) / 8760.0)
+           for i, d in enumerate(all_dates)]
+    records = disp.records(min(K, max(n_cycles, 1)))
+
+    def drain(rec, chunk_dates):
+        for b, d in enumerate(chunk_dates):
+            if writer:
+                writer.append({k: v[b] for k, v in rec.items()
+                               if k != "safe"}, rec["sst"][b])
+            if tmean is not None:
+                tmean.add(d, rec["atmo"][b], rec["logp"][b],
+                          rec["precip"][b], rec["sst"][b])
+
+    dates, done, pending = [], 0, None
+    next_progress = progress_every or None
+    while done < n_cycles:
+        k = min(K, n_cycles - done)
+        hstate = disp.dispatch(hstate, per[done:done + k], records)
+        fetched = disp.fetch(records, k)
+        # the previous dispatch's records while this one runs
+        if pending is not None:
+            drain(*pending)
+            pending = None
+        rec = disp.wait(fetched)
+        chunk = all_dates[done:done + k]
+        safe = rec["safe"] != 0
+        n_ok = k
+        if stop_if_unsafe and not safe.all():
+            n_ok = int(np.argmin(safe)) + 1     # the first unsafe cycle
+            rec = {nm: v[:n_ok] for nm, v in rec.items()}
+            chunk = chunk[:n_ok]
+        pending = (rec, chunk)
+        dates.extend(chunk)
+        done += k
+        if n_ok < k:
+            print(f"prediction stopped: SPEEDY safety gate at cycle "
+                  f"{len(dates) - 1}")
+            break
+        if next_progress is not None and done >= next_progress:
+            d = all_dates[done - 1]
+            print(f"cycle {done}/{n_cycles} ({d.year}-{d.month:02d}"
+                  f"-{d.day:02d}) safe={bool(safe[-1])} "
+                  f"t={time.strftime('%H:%M:%S')}", flush=True)
+            next_progress += progress_every
+    if pending is not None:
+        drain(*pending)
+    return disp.result(hstate), dates

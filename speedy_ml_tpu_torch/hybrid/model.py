@@ -77,11 +77,26 @@ from speedy_ml_tpu_torch.kernels.inject_spectral import inject_synthesis
 from speedy_ml_tpu_torch.kernels.readout import readout
 from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean, sst_table
 from speedy_ml_tpu_torch.kernels.sst_by_date import sst_by_date, table_day
-from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate, tisr_plane
-from speedy_ml_tpu_torch.kernels.window_gather import window_gather
+from speedy_ml_tpu_torch.kernels.surface_forcing import (INDICES, SCALARS,
+                                                         TisrDate,
+                                                         scalar_values,
+                                                         tisr_plane)
+from speedy_ml_tpu_torch.kernels.window_gather import TisrRow, window_gather
 from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
 OPTIONS_SLICE = "the multi-GPU slice of the port (A16: the sharded cycle)"
+
+# The cycle's row of per-cycle scalars (cycle_with_params(scalars=),
+# HybridAtmosphere.scalar_row), float64 with the integers as exact
+# doubles: K17's date as surface_forcing.scalar_values lists it (K21 and
+# K3's date form read it too), K23's day and bias, the TISR table's row,
+# K22's ring slot.  A captured CUDA graph of the cycle (hybrid/graph.py)
+# reads the date from it, so that each replay takes its own.
+ROW_SF = len(SCALARS) + len(INDICES)
+ROW_SST = ROW_SF
+ROW_TISR = ROW_SF + 2
+ROW_SLOT = ROW_SF + 3
+ROW_LEN = ROW_SF + 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -524,11 +539,11 @@ class HybridAtmosphere:
     def build_feedback(self, packs, atmo, logp, precip, sst_grid, tisr_grid):
         """Per-class standardized feedback vectors (sendrecievegrid
         scatter + standardize, mpires.f90:561-750): one window-gather
-        launch for all classes.  tisr_grid: the TISR plane, or its date
-        (a TisrDate)."""
+        launch for all classes.  tisr_grid: the TISR plane, its date (a
+        TisrDate) or a table's row (a TisrRow)."""
         fields = tuple(f.contiguous() for f in
                        (atmo, logp, precip, sst_grid)) + (
-            tisr_grid if isinstance(tisr_grid, TisrDate)
+            tisr_grid if isinstance(tisr_grid, (TisrDate, TisrRow))
             else tisr_grid.contiguous(),)
         return window_gather(fields, self.feedback_index,
                              [p.std.in_mean for p in packs],
@@ -555,7 +570,8 @@ class HybridAtmosphere:
         return state, safe
 
     def _run_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
-                    tyear, sfc_carry=None) -> tuple[GCMState, torch.Tensor]:
+                    tyear, sfc_carry=None,
+                    scalars=None) -> tuple[GCMState, torch.Tensor]:
         """The window from a cold start: the surface from climatology and
         the hybrid SST and the forcing (K17 and K5; with sfc_carry, the
         persistent surface, the slab models' fields are the carry's and
@@ -563,11 +579,13 @@ class HybridAtmosphere:
         gcm_steps leapfrog steps from istep 0 (so the shortwave cadence
         inside a window is static).  Returns (the window's end state, its
         forcing's fsol plane): solar_flux_traced at tyear with 4 SOLC, the
-        TISR plane of the same date (tisr_field's, bit for bit)."""
+        TISR plane of the same date (tisr_field's, bit for bit).  scalars:
+        K17's device-scalar form's row (the first ROW_SF of the cycle's),
+        or None."""
         gcm = self.gcm
         g = gcm.geom
         sfc, forcing = gcm.window_entry(imon, fmon, tyear, sst_hybrid,
-                                        sfc_carry=sfc_carry)
+                                        sfc_carry=sfc_carry, scalars=scalars)
         radiation, fluxes = zero_carries(g.nlev, g.nlat, g.nlon, gcm.dtype,
                                          self.device)
         gstate = GCMState(spectral=spec, sfc=sfc, radiation=radiation,
@@ -613,23 +631,48 @@ class HybridAtmosphere:
                          % table.shape[0]]
         return tisr_plane(tyear, self._slat, self._clat, self.geom.nlon)
 
-    def sst_by_date(self, hour_of_year, sst_bias, table):
+    def sst_by_date(self, hour_of_year, sst_bias, table, dev=None):
         """The daily climatology's SST with the non-stationary bias ramp
         over open water (get_sst_by_date, mpires.f90:1679-1725: the bias
         added where SST > 273 K): day (hour_of_year // 24) % n_days of
-        `table`, one K23 launch (the day and the bias host numbers)."""
-        return sst_by_date(table, table_day(hour_of_year, table.shape[0]),
-                           sst_bias)
+        `table`, one K23 launch (the day and the bias host numbers; with
+        dev, K23's device-scalar form reads them from the cycle's row)."""
+        day = table_day(hour_of_year, table.shape[0])
+        if dev is None:
+            return sst_by_date(table, day, sst_bias)
+        return sst_by_date(table, day, sst_bias, dev)
 
-    def tisr_date(self, tyear) -> TisrDate:
+    def tisr_date(self, tyear, dev=None) -> TisrDate:
         """The date of tisr_field's plane, as K3 takes it in place of the
-        plane (tyear a host number)."""
-        return TisrDate(tyear, self._slat, self._clat)
+        plane (tyear a host number; dev: the date's row on the card, which
+        K3's device-scalar form reads instead)."""
+        return TisrDate(tyear, self._slat, self._clat, dev)
+
+    def scalar_row(self, imon, fmon, tyear, hour_of_year=None,
+                   sst_bias: float = 0.0, step: int = 0) -> list:
+        """The cycle's row of per-cycle scalars (ROW_* layout) for these
+        host numbers and the host step: what the kernels' device-scalar
+        forms read in place of the host numbers, the same values."""
+        phys = getattr(self.gcm, "phys", None)
+        v, ix = scalar_values((imon, fmon), 0.0, tyear,
+                              phys.gamlat if phys is not None else 0.0,
+                              phys.pexp if phys is not None else 0.0)
+        day = row = 0
+        if hour_of_year is not None:
+            if self.sst_table is not None:
+                day = table_day(hour_of_year, self.sst_table.shape[0])
+            if self.tisr_table is not None:
+                row = ((int(hour_of_year) // int(self.tisr_hours_per_entry))
+                       % self.tisr_table.shape[0])
+        slot = step % (self.SLAB_STRIDE - 1) if self.ocean_packs else 0
+        return v + [float(i) for i in ix] + [float(day), float(sst_bias),
+                                             float(row), float(slot)]
 
     # ------------------------------------------------------------------
 
     def cycle_with_params(self, params, hstate: HybridState, imon, fmon,
-                          tyear, hour_of_year=None, sst_bias=0.0) -> tuple:
+                          tyear, hour_of_year=None, sst_bias=0.0,
+                          scalars=None) -> tuple:
         """One 6-h hybrid step with explicit parameters (the JAX
         _cycle_jit, hybrid/model.py:579-749, without the options of later
         slices).  imon (0-based month) and fmon are host numbers; tyear a
@@ -642,23 +685,36 @@ class HybridAtmosphere:
         fill), and after the window K21 accumulates or, when step % 4 == 3,
         couples (JAX :614-659).  With emit_components the diagnostics also
         hold vp_atmo, vp_logp, vp_precip, vml_atmo, vml_logp and
-        vml_precip (JAX :735-747).  Returns (new_state, diagnostics
-        dict)."""
+        vml_precip (JAX :735-747).  scalars: None, or the cycle's row of
+        per-cycle scalars (scalar_row of these host numbers and the
+        state's step, a float64 tensor on the hybrid's device): the kernels
+        that read the date (K17, K21, K23, K3, K22's push) take it from the
+        row, in their device-scalar forms, so that a captured CUDA graph of
+        the cycle (hybrid/graph.py) replays at each cycle's date; the host
+        numbers then choose only what the host chooses (the tables, the
+        coupler's day, the slab step) and feed the CPU route.  Returns
+        (new_state, diagnostics dict)."""
         rf = torch.profiler.record_function
         packs, opacks = self._with_params(params)
+        sf = None if scalars is None else scalars[:ROW_SF]
         # the SST that the ESN inputs and SPEEDY see this cycle: without an
         # ML ocean, the daily climatology (JAX :590-596); K23 writes it
         if (self.sst_table is not None and hour_of_year is not None
                 and not self.ocean_packs):
             with rf("sst_by_date"):
                 hstate = dataclasses.replace(hstate, sst_grid=self.sst_by_date(
-                    hour_of_year, sst_bias, self.sst_table))
-        # the TISR of the tables: a row of the table (a view)
+                    hour_of_year, sst_bias, self.sst_table,
+                    None if scalars is None
+                    else scalars[ROW_SST:ROW_SST + 2]))
+        # the TISR of the tables: a row of the table (a view; K3 reads the
+        # row from the cycle's row in the device-scalar form)
         tisr_row = None
         if self.tisr_table is not None and hour_of_year is not None:
-            tisr_row = self.tisr_field(tyear, hour_of_year,
-                                       table=self.tisr_table,
-                                       hours_per_entry=self.tisr_hours_per_entry)
+            tisr_row = self.tisr_field(
+                tyear, hour_of_year, table=self.tisr_table,
+                hours_per_entry=self.tisr_hours_per_entry) \
+                if scalars is None else TisrRow(
+                    self.tisr_table, scalars[ROW_TISR:ROW_TISR + 1])
         components = bool(self.emit_components)
         with rf("predict_all"):
             out = self.predict_all(packs, hstate, components=components)
@@ -692,7 +748,7 @@ class HybridAtmosphere:
             # SPEEDY's radiation)
             with rf("speedy_window"):
                 gstate, tisr = self._run_window(spec, hstate.sst_grid, imon,
-                                                fmon, tyear, carry)
+                                                fmon, tyear, carry, sf)
                 fc_atmo, fc_logp, safe = self.gcm.grid_state(
                     gstate.spectral, select=(prev, safe, atmo, logp))
             if self.persist_surface:
@@ -704,12 +760,13 @@ class HybridAtmosphere:
                 with rf("slab_couple"):
                     new_sfc, new_fluxes = self.gcm.couple(
                         carry, acc, imon, fmon, window=gstate.fluxes,
-                        ok=safe, do_couple=hstate.step % cpd == cpd - 1)
+                        ok=safe, do_couple=hstate.step % cpd == cpd - 1,
+                        scalars=sf)
         with rf("build_feedback"):
             if tisr_row is not None:
                 tisr = tisr_row
             elif tisr is None:
-                tisr = self.tisr_date(tyear)
+                tisr = self.tisr_date(tyear, sf)
             feedbacks = self.build_feedback(packs, atmo, logp, precip,
                                             hstate.sst_grid, tisr)
         if self.ml_only:
@@ -720,7 +777,9 @@ class HybridAtmosphere:
         sst_grid, ocean = hstate.sst_grid, hstate.ocean
         if opacks and ocean:
             with rf("slab_ocean"):
-                sst_grid, ocean = self.slab_step(opacks, hstate, feedbacks)
+                sst_grid, ocean = self.slab_step(
+                    opacks, hstate, feedbacks, None if scalars is None
+                    else scalars[ROW_SLOT:ROW_SLOT + 1])
         classes = tuple(
             ClassState(x=x, feedback=fb, local_model=lm)
             for x, fb, lm in zip(new_x, feedbacks, locals_))
@@ -740,7 +799,8 @@ class HybridAtmosphere:
                              f"{name}_precip": p})
         return new_state, diag
 
-    def slab_step(self, opacks, hstate: HybridState, feedbacks) -> tuple:
+    def slab_step(self, opacks, hstate: HybridState, feedbacks,
+                  slot=None) -> tuple:
         """The slab ocean of one cycle (JAX :678-726; parallelmain.f90:
         236-248, mpires.f90:753-757): the bottom feedback's ocean inputs
         into each ring (K22, in place), and on a slab step (step %
@@ -748,11 +808,12 @@ class HybridAtmosphere:
         the slab ESN step (K1) and readout (K2, bare; with hybrid_readout
         the previous output is the local model, and the new one replaces
         it) per class, and the new SST grid (K22).  Returns (the SST grid,
-        the ocean states): on other cycles hstate's grid, x and lm."""
+        the ocean states): on other cycles hstate's grid, x and lm.  slot:
+        None, or the ring's slot on the card (K22's device-scalar form)."""
         fbs = [feedbacks[i] for i in self._bottom_index()]
         bufs = [o.buffer for o in hstate.ocean]
         kw = dict(bufs=bufs, step=hstate.step, fbs=fbs,
-                  idx_maps=self.ocean_index)
+                  idx_maps=self.ocean_index, slot=slot)
         if hstate.step % self.SLAB_STRIDE != self.SLAB_STRIDE - 1:
             slab_ocean("push", **kw)
             return hstate.sst_grid, hstate.ocean

@@ -59,7 +59,8 @@ SIGNATURES = {
     "window_gather_launch": [_i, ctypes.POINTER(_vp), _ll, _ll, _i,
                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                              ctypes.POINTER(_vp), ctypes.POINTER(_vp),
-                             ctypes.POINTER(_ll), _vp, _vp, _dp, _i, _vp],
+                             ctypes.POINTER(_ll), _vp, _vp, _dp, _i, _vp,
+                             _vp, _vp],
     "sht_analysis_launch": [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                             _i, _vp, _vp],
     "sht_synthesis_launch": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
@@ -85,23 +86,24 @@ SIGNATURES = {
     "spectral_stack_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                               _vp, _i, _i, _vp, _vp, _vp],
     "surface_forcing_launch": [_i, _i, _i, _i, ctypes.POINTER(_vp), _vp, _vp,
-                               _dp, ctypes.POINTER(_i), _vp],
+                               _dp, ctypes.POINTER(_i), _vp, _vp],
     "tisr_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _dp, _vp],
     "gate_check_launch": [_i, _i, _i, _ll, _vp, _dp, _vp, _vp, _vp],
     "window_select_launch": [_i, _i, _i, _ll, _vp, _vp, _vp, _vp, _vp, _vp,
                              _vp, _vp, _vp],
     "slab_couple_launch": [_i, _i, _ll, ctypes.POINTER(_vp), _vp, _vp, _dp,
-                           ctypes.POINTER(_i), _d, ctypes.POINTER(_i), _vp],
+                           ctypes.POINTER(_i), _d, ctypes.POINTER(_i), _vp,
+                           _vp],
     "slab_ocean_push_launch": [_i, _i, _i, ctypes.POINTER(_vp),
                                ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                                ctypes.POINTER(_vp), ctypes.POINTER(_ll),
                                ctypes.POINTER(_i), ctypes.POINTER(_i), _i, _i,
-                               _d, _vp],
+                               _d, _vp, _vp],
     "slab_ocean_sst_launch": [_i, _i, _i, ctypes.POINTER(_vp),
                               ctypes.POINTER(_vp), ctypes.POINTER(_vp),
                               ctypes.POINTER(_ll), ctypes.POINTER(_i), _vp,
                               _vp, _vp, _ll, _d, _vp, _vp],
-    "sst_by_date_launch": [_i, _i, _vp, _ll, _ll, _ll, _d, _vp, _vp],
+    "sst_by_date_launch": [_i, _i, _vp, _ll, _ll, _ll, _d, _vp, _vp, _vp],
     "readout_components_launch": [_i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i,
                                   _i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
                                   _ll, _ll, _vp],

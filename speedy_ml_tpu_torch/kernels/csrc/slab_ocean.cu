@@ -21,6 +21,9 @@
 // K3) and one thread a grid point (sst); neighbouring threads touch
 // neighbouring elements of each slot, so the slots stream coalesced.
 // Compiled without FMA contraction (SOURCE_FLAGS in kernels/build.py).
+// The push forms' device-scalar form reads the slot from device memory: a
+// captured CUDA graph of the cycle (hybrid/graph.py) refills it before
+// each replay.
 
 #include "common.cuh"
 #include "slab_ocean.cuh"
@@ -28,11 +31,19 @@
 constexpr int kPushBlock = 256;
 constexpr int kSstBlock = 128;
 
+// slot_dev: null, or the device-scalar form's slot (a double in device
+// memory) read in place of a.slot
 template <typename T>
 __global__ void __launch_bounds__(kPushBlock)
-    slab_push_kernel(const SoPush<T> a) {
+    slab_push_kernel(const SoPush<T> a, const double* __restrict__ slot_dev) {
   const long long t = (long long)blockIdx.x * kPushBlock + threadIdx.x;
-  if (t < a.start[a.n_classes]) slab_push_at(a, t);
+  if (t >= a.start[a.n_classes]) return;
+  if (slot_dev) {
+    const int slot = (int)slot_dev[0];
+    if (slot >= 0 && slot < a.W) slab_push_at(a, t, slot);
+  } else {
+    slab_push_at(a, t);
+  }
 }
 
 template <typename T>
@@ -46,7 +57,7 @@ template <typename T>
 static int push(int n_classes, void* const* fb, void* const* idx,
                 void* const* buf, void* const* mean, const long long* counts,
                 const int* width, const int* fb_width, int W, int slot,
-                double rw, cudaStream_t stream) {
+                double rw, const double* slot_dev, cudaStream_t stream) {
   SoPush<T> a;
   if (slab_push_args(&a, n_classes, fb, idx, buf, mean, counts, width,
                      fb_width, W, slot, rw))
@@ -54,7 +65,7 @@ static int push(int n_classes, void* const* fb, void* const* idx,
   const long long total = a.start[n_classes];
   if (total == 0) return (int)cudaSuccess;
   const unsigned grid = (unsigned)((total + kPushBlock - 1) / kPushBlock);
-  slab_push_kernel<T><<<grid, kPushBlock, 0, stream>>>(a);
+  slab_push_kernel<T><<<grid, kPushBlock, 0, stream>>>(a, slot_dev);
   return (int)cudaGetLastError();
 }
 
@@ -76,7 +87,9 @@ static int sst(int n_classes, void* const* out, void* const* mean_sst,
 // The push forms: per class c the device pointers fb[c] (Rc, fb_width[c]),
 // idx[c] (width[c] int32), buf[c] (W, Rc, width[c]) and mean[c] (Rc,
 // width[c]; all null for the push form), counts[c] = Rc * width[c]; slot
-// = step mod W; rw the mean's factor 1/W.
+// = step mod W; rw the mean's factor 1/W.  slot_dev: null, or the
+// device-scalar form's slot, a double in device memory read in place of
+// slot (which must then be 0); a slot outside [0, W) writes nothing.
 SPEEDY_API int slab_ocean_push_launch(int device, int is_double,
                                       int n_classes, void* const* fb,
                                       void* const* idx, void* const* buf,
@@ -84,15 +97,16 @@ SPEEDY_API int slab_ocean_push_launch(int device, int is_double,
                                       const long long* counts,
                                       const int* width, const int* fb_width,
                                       int W, int slot, double rw,
-                                      void* stream) {
+                                      const double* slot_dev, void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
+  if (slot_dev && slot != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return is_double
              ? push<double>(n_classes, fb, idx, buf, mean, counts, width,
-                            fb_width, W, slot, rw, s)
+                            fb_width, W, slot, rw, slot_dev, s)
              : push<float>(n_classes, fb, idx, buf, mean, counts, width,
-                           fb_width, W, slot, rw, s);
+                           fb_width, W, slot, rw, slot_dev, s);
 }
 
 // The SST form: per class c the device pointers out[c] (Rc, width[c]),

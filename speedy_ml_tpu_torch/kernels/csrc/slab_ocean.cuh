@@ -68,9 +68,10 @@ struct SoPush {
   T rw;
 };
 
-// element t of all the classes' slots, in class order
+// element t of all the classes' slots, in class order, at ring slot `slot`
+// (a.slot, or the device-scalar form's)
 template <typename T>
-COL_HD void slab_push_at(const SoPush<T>& a, long long t) {
+COL_HD void slab_push_at(const SoPush<T>& a, long long t, int slot) {
   const int c = so_class_of(t, a.start, a.n_classes);
   const long long k = t - a.start[c];
   const long long size = a.start[c + 1] - a.start[c];
@@ -78,16 +79,21 @@ COL_HD void slab_push_at(const SoPush<T>& a, long long t) {
   const int j = (int)(k - r * a.width[c]);
   const T v = a.fb[c][r * a.fb_width[c] + a.idx[c][j]];
   T* buf = a.buf[c];
-  buf[(long long)a.slot * size + k] = v;
+  buf[(long long)slot * size + k] = v;
   if (!a.mean[c]) return;
   // oldest first: slot + 1, ..., W - 1, 0, ..., slot (v, just written)
-  int o = a.slot + 1 == a.W ? 0 : a.slot + 1;
-  T s = o == a.slot ? v : buf[(long long)o * size + k];
+  int o = slot + 1 == a.W ? 0 : slot + 1;
+  T s = o == slot ? v : buf[(long long)o * size + k];
   for (int n = 1; n < a.W; ++n) {
     o = o + 1 == a.W ? 0 : o + 1;
-    s = s + (o == a.slot ? v : buf[(long long)o * size + k]);
+    s = s + (o == slot ? v : buf[(long long)o * size + k]);
   }
   a.mean[c][k] = s * a.rw;
+}
+
+template <typename T>
+COL_HD void slab_push_at(const SoPush<T>& a, long long t) {
+  slab_push_at(a, t, a.slot);
 }
 
 // The SST form.  Per class: out (Rc, width) the standardized slab

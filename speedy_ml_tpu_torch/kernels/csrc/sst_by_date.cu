@@ -12,7 +12,9 @@
 // Bound on an H100 SXM: memory, 36.9 KB, 0.000011 ms at 3.35 TB/s: a
 // launch floor.  Design: the first, simple one; one thread a grid point,
 // neighbouring threads on neighbouring points (coalesced).  The day and the
-// bias are host numbers, kernel arguments.
+// bias are host numbers, kernel arguments; in the device-scalar form, which
+// a captured CUDA graph of the cycle replays (hybrid/graph.py), two
+// doubles in device memory.
 
 #include "common.cuh"
 #include "sst_by_date.cuh"
@@ -27,26 +29,52 @@ __global__ void __launch_bounds__(kSbdBlock)
   if (g < G) sst_by_date_at(table, day, G, bias, out, g);
 }
 
+// The device-scalar form: the day and the bias read from dev[0], dev[1]
+// (a row of the captured cycle's per-cycle block, hybrid/graph.py), the
+// bias rounded to the type as the by-value form's argument is; a day
+// outside the table writes NaN
 template <typename T>
-static int launch(const void* table, long long day, long long G,
-                  double bias, void* out, cudaStream_t stream) {
+__global__ void __launch_bounds__(kSbdBlock)
+    sst_by_date_dev_kernel(const T* __restrict__ table, long long n_days,
+                           long long G, const double* __restrict__ dev,
+                           T* __restrict__ out) {
+  const long long g = (long long)blockIdx.x * kSbdBlock + threadIdx.x;
+  if (g >= G) return;
+  const long long day = (long long)dev[0];
+  if (day < 0 || day >= n_days)
+    out[g] = (T)__longlong_as_double(0x7ff8000000000000LL);
+  else
+    sst_by_date_at(table, day, G, (T)dev[1], out, g);
+}
+
+template <typename T>
+static int launch(const void* table, long long n_days, long long day,
+                  long long G, double bias, const double* dev, void* out,
+                  cudaStream_t stream) {
   const unsigned grid = (unsigned)((G + kSbdBlock - 1) / kSbdBlock);
-  sst_by_date_kernel<T><<<grid, kSbdBlock, 0, stream>>>(
-      (const T*)table, day, G, (T)bias, (T*)out);
+  if (dev)
+    sst_by_date_dev_kernel<T><<<grid, kSbdBlock, 0, stream>>>(
+        (const T*)table, n_days, G, dev, (T*)out);
+  else
+    sst_by_date_kernel<T><<<grid, kSbdBlock, 0, stream>>>(
+        (const T*)table, day, G, (T)bias, (T*)out);
   return (int)cudaGetLastError();
 }
 
 // table (n_days, G) and out (G,) of the element type (is_double: double,
-// else float); day in [0, n_days); bias cast to the type.
+// else float); day in [0, n_days); bias cast to the type.  dev: null, or
+// the device-scalar form's [day, bias] (two doubles in device memory),
+// read in place of day and bias.
 SPEEDY_API int sst_by_date_launch(int device, int is_double,
                                   const void* table, long long n_days,
                                   long long day, long long G, double bias,
-                                  void* out, void* stream) {
+                                  const double* dev, void* out,
+                                  void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (G < 1 || day < 0 || day >= n_days || !table || !out)
+  if (G < 1 || (!dev && (day < 0 || day >= n_days)) || !table || !out)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch<double>(table, day, G, bias, out, s)
-                   : launch<float>(table, day, G, bias, out, s);
+  return is_double ? launch<double>(table, n_days, day, G, bias, dev, out, s)
+                   : launch<float>(table, n_days, day, G, bias, dev, out, s);
 }

@@ -28,7 +28,10 @@
 // a thread) took 0.0037 ms, 8-byte ones 0.0026, one point a thread 0.0023
 // (PERF.md).  Every operation is rounded apart in the plain version's
 // order (compiled without FMA contraction, SOURCE_FLAGS in
-// kernels/build.py).
+// kernels/build.py).  K17's device-scalar form is the same block reading
+// the date's scalars from device memory (sdev), which a captured CUDA
+// graph of the hybrid cycle (hybrid/graph.py) refills before each replay;
+// the by-value form stays for the eager cycle.
 
 #include "common.cuh"
 #include "surface_forcing.cuh"
@@ -37,8 +40,7 @@ constexpr int kSfBlock = 128;         // K17b: threads a block
 constexpr int kSfPointThreads = 256;  // K17: most point threads a block
 
 template <typename T>
-__global__ void __launch_bounds__(kSfPointThreads + 32)
-    surface_forcing_kernel(const SfIO<T> io, int npt) {
+__device__ __forceinline__ void sf_block(const SfIO<T>& io, int npt) {
   __shared__ SfRow<T> row;
   const int j = blockIdx.x;
   const int t = threadIdx.x;
@@ -51,6 +53,25 @@ __global__ void __launch_bounds__(kSfPointThreads + 32)
   if (io.frc && t < npt)
     for (int c = t; c < io.nlon; c += npt)
       sf_block_solar_store(io, row, j, c);
+}
+
+// DEV: the device-scalar form, which reads the date's scalars and month
+// indices from sdev (sf_scalars_from) in place of io.s, so that a
+// captured CUDA graph of the cycle takes each replay's date from device
+// memory.  Each thread takes a copy of the operands with the date filled
+// in: 0.0024 ms against the by-value form's 0.0021 (PERF.md); one copy a
+// block staged in shared memory by one thread took 0.0029.
+template <typename T, bool DEV>
+__global__ void __launch_bounds__(kSfPointThreads + 32)
+    surface_forcing_kernel(const SfIO<T> io, const double* __restrict__ sdev,
+                           int npt) {
+  if constexpr (DEV) {
+    SfIO<T> d = io;
+    sf_scalars_from(d.s, sdev);
+    sf_block(d, npt);
+  } else {
+    sf_block(io, npt);
+  }
 }
 
 template <typename T>
@@ -77,8 +98,8 @@ static unsigned blocks_for(long long G) {
 
 template <typename T>
 static void launch(int nlat, int nlon, const void* const* in, void* sfc,
-                   void* frc, const double* scal,
-                   const int* ix, cudaStream_t stream) {
+                   void* frc, const double* scal, const int* ix,
+                   const double* sdev, cudaStream_t stream) {
   SfIO<T> io;
   const T* const* p = (const T* const*)in;
   io.stl12 = p[0];
@@ -102,34 +123,42 @@ static void launch(int nlat, int nlon, const void* const* in, void* sfc,
   io.frc = (T*)frc;
   io.G = (long long)nlat * nlon;
   io.nlon = nlon;
-  io.s = scalars<T>(scal, ix);
+  if (!sdev) io.s = scalars<T>(scal, ix);
   // a row's point threads (whole warps, at most kSfPointThreads), then
   // the solar warp
   int npt = (nlon + 31) / 32 * 32;
   if (npt > kSfPointThreads) npt = kSfPointThreads;
-  surface_forcing_kernel<T><<<nlat, npt + 32, 0, stream>>>(io, npt);
+  if (sdev)
+    surface_forcing_kernel<T, true><<<nlat, npt + 32, 0, stream>>>(io, sdev,
+                                                                    npt);
+  else
+    surface_forcing_kernel<T, false><<<nlat, npt + 32, 0, stream>>>(
+        io, nullptr, npt);
 }
 
 // in: 17 pointers (surface_forcing.cuh SfIO order: stl12, snowd12,
 // soilw12, sst12, sice12, sst_hyb, alb0, fmask_l, fmask_s, phis0, stl_am,
 // snowd_am, sst_am, sice_am, slat, clat, stl_carry), the ones a call does
 // not read null (stl_carry only with both outputs); sfc (SF_PLANES, G) and frc (FC_PLANES, G), either null; scal:
-// SC_COUNT doubles, ix: IX_COUNT ints (kernels/surface_forcing.py).
+// SC_COUNT doubles, ix: IX_COUNT ints (kernels/surface_forcing.py), both
+// host memory; or, in the device-scalar form, both null and sdev a device
+// pointer to SC_COUNT + IX_COUNT doubles (sf_scalars_from).
 SPEEDY_API int surface_forcing_launch(int device, int is_double, int nlat,
                                       int nlon, const void* const* in,
                                       void* sfc, void* frc,
                                       const double* scal, const int* ix,
-                                      void* stream) {
+                                      const double* sdev, void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (nlat <= 0 || nlon <= 0 || (!sfc && !frc) || !scal || (sfc && !ix) ||
+  if (nlat <= 0 || nlon <= 0 || (!sfc && !frc) ||
+      (sdev ? (scal || ix) : (!scal || (sfc && !ix))) ||
       (in[16] && !(sfc && frc)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
-    launch<double>(nlat, nlon, in, sfc, frc, scal, ix, s);
+    launch<double>(nlat, nlon, in, sfc, frc, scal, ix, sdev, s);
   else
-    launch<float>(nlat, nlon, in, sfc, frc, scal, ix, s);
+    launch<float>(nlat, nlon, in, sfc, frc, scal, ix, sdev, s);
   return (int)cudaGetLastError();
 }
 

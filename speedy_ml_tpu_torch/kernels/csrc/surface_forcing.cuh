@@ -67,6 +67,17 @@ struct SfScalars {
   int ix[IX_COUNT];
 };
 
+// The device-scalar form's SfScalars: d holds the SC_COUNT doubles, then
+// the IX_COUNT integers as doubles (kernels/surface_forcing.py
+// scalar_values, a row of the captured cycle's per-cycle block), rounded
+// to the element type as the host arguments are, so both forms read the
+// same values.
+template <typename T>
+COL_HD void sf_scalars_from(SfScalars<T>& s, const double* d) {
+  for (int k = 0; k < SC_COUNT; ++k) s.v[k] = (T)d[k];
+  for (int k = 0; k < IX_COUNT; ++k) s.ix[k] = (int)d[SC_COUNT + k];
+}
+
 // The operands (G = nlat * nlon points): the monthly tables (12, G); the
 // hybrid SST (G) or null; alb0, fmask_l, fmask_s, phis0 (G); the given
 // surface stl_am, snowd_am, sst_am, sice_am (G), read when no surface is

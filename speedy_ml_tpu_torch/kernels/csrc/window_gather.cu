@@ -25,7 +25,10 @@
 // insolation (two sines, three cosines, an arccosine, a division), which
 // saves the ML-only cycle the launch of K17b and the plane's round trip
 // through device memory.  An index outside the source yields NaN
-// (checked here, so the wrapper needs no device sync).
+// (checked here, so the wrapper needs no device sync).  The
+// device-scalar forms read the date, or the row of a TISR table, from
+// device memory: a captured CUDA graph of the hybrid cycle
+// (hybrid/graph.py) refills them before each replay.
 
 #include "common.cuh"
 #include "window_gather.cuh"
@@ -40,7 +43,10 @@ __global__ void window_gather_kernel(GatherArgs a) {
 // stdv[c], out[c] and its element count counts[c] (Rc * I).  The date
 // form reads slat, clat (nlat floats), scal (SC_COUNT doubles,
 // kernels/surface_forcing.py tisr_scalars) and nlon; the plane form none
-// of them (null, 0).
+// of them (null, 0).  The device-scalar forms: the date form with scal
+// null and date_dev a device pointer to the date's scalars
+// (sf_scalars_from's layout); the plane form with src[4] a TISR table and
+// tisr_row a device pointer to its row (a double).  Both null otherwise.
 SPEEDY_API int window_gather_launch(int device, void* const* src,
                                     long long atmo_size, long long grid_size,
                                     int n_classes, void* const* idx,
@@ -49,15 +55,20 @@ SPEEDY_API int window_gather_launch(int device, void* const* src,
                                     const long long* counts,
                                     const void* slat, const void* clat,
                                     const double* scal, int nlon,
-                                    void* stream) {
+                                    const double* date_dev,
+                                    const double* tisr_row, void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
   if (n_classes < 1 || n_classes > MAX_CLASSES ||
-      (!src[4] && (!slat || !clat || !scal || nlon <= 0)))
+      (!src[4] && (!slat || !clat || !(scal || date_dev) || nlon <= 0)) ||
+      (src[4] && date_dev) || (!src[4] && tisr_row))
     return (int)cudaErrorInvalidValue;
-  const GatherArgs a =
-      window_gather_args(src, atmo_size, grid_size, n_classes, idx, mean,
-                         stdv, out, counts, slat, clat, scal, nlon);
+  static const double kNoDate[SC_COUNT] = {};
+  GatherArgs a = window_gather_args(src, atmo_size, grid_size, n_classes,
+                                    idx, mean, stdv, out, counts, slat, clat,
+                                    scal ? scal : kNoDate, nlon);
+  a.date_dev = date_dev;
+  a.tisr_row = tisr_row;
   const long long total = a.start[n_classes];
   if (total == 0) return (int)cudaSuccess;
   const int block = 256;

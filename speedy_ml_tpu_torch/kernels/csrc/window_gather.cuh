@@ -37,6 +37,13 @@ struct GatherArgs {
   const float *slat, *clat;
   SfScalars<float> date;
   int nlon;
+  // the device-scalar forms (null: the values above): the date's scalars
+  // in device memory (sf_scalars_from's layout), read in place of date;
+  // the row of a TISR table, a double in device memory: src[4] is then
+  // the table (rows of grid_size) and the row is read where an element
+  // of the TISR block is
+  const double* date_dev;
+  const double* tisr_row;
 };
 
 // Index of the class whose half-open [start[c], start[c+1]) holds t.
@@ -66,8 +73,15 @@ COL_HD float wg_source(const GatherArgs& a, long long s) {
   const long long g = s2 - (long long)f * a.grid_size;
   if (f == 3 && !a.src[4]) {
     const int j = (int)(g / a.nlon);
+    if (a.date_dev) {
+      SfScalars<float> d;
+      sf_scalars_from(d, a.date_dev);
+      return sf_fsol(d, a.slat[j], a.clat[j]);
+    }
     return sf_fsol(a.date, a.slat[j], a.clat[j]);
   }
+  if (f == 3 && a.tisr_row)
+    return a.src[4][(long long)a.tisr_row[0] * a.grid_size + g];
   return a.src[1 + f][g];
 }
 

@@ -18,9 +18,12 @@ The window's sums count only where the gate's flag ok is true, by a
 select (a window that the gate skipped may hold NaN).
 
 The flags, the month indices and weights and do_couple are host values
-(kernel arguments); ok stays on the device.  On CPU tensors `slab_couple`
-runs `slab_couple_plain`, which is also the port's couple_daily; on CUDA
-tensors it launches the kernel or raises.
+(kernel arguments); ok stays on the device.  In the device-scalar form
+(scalars=), which a captured CUDA graph of the cycle replays
+(hybrid/graph.py), the month indices and weights are read on the card
+from K17's scalar row (surface_forcing.scalar_values).  On CPU tensors
+`slab_couple` runs `slab_couple_plain`, which is also the port's
+couple_daily; on CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from speedy_ml_tpu_torch.kernels import build as kb
 from speedy_ml_tpu_torch.kernels.surface_forcing import (_scalars,
                                                          climatology_plain,
                                                          forin5,
-                                                         forint_weights)
+                                                         forint_weights,
+                                                         require_scalars)
 from speedy_ml_tpu_torch.physics import constants as pc
 
 # the planes of the surface output: land_sea.SurfaceState's fields in
@@ -197,7 +201,7 @@ def operands(bd, coeffs, carry, acc, flags, *, window=None, ok=None,
 
 def slab_couple(bd, coeffs, carry, acc, month, flags, *, window=None,
                 ok=None, do_couple=True, sstan=None, wsst=None,
-                sstom12=None):
+                sstom12=None, scalars=None):
     """(the coupled surface (10, lat, lon), its planes SurfaceState's
     fields in order, or None when not coupling; the sums (4, lat, lon),
     FluxAccumulator's fields, or None without a window).
@@ -210,7 +214,10 @@ def slab_couple(bd, coeffs, carry, acc, month, flags, *, window=None,
     do_couple: a host bool.  sstan: the observed anomaly, None, a (lat,
     lon) plane, or ((prev, this, next) planes, fmon) (sstan_for_window);
     wsst: the elnino blend weights (icsea >= 4); sstom12: the ocean
-    model's SST climatology (12, lat, lon) (icsea >= 3; None: bd.sst12)."""
+    model's SST climatology (12, lat, lon) (icsea >= 3; None: bd.sst12).
+    scalars: None, or the device-scalar form's float64 tensor on the card
+    (surface_forcing.scalar_values of the month), read by the kernel in
+    place of the month's indices and weights; the CPU route reads month."""
     if window is None and not do_couple:
         raise ValueError("slab_couple: without a window there is nothing "
                          "but the coupling to do")
@@ -237,7 +244,11 @@ def slab_couple(bd, coeffs, carry, acc, month, flags, *, window=None,
         else:
             kb.require(t, nm, dt, (12,) + grid if nm.endswith("12")
                        else grid, dev)
-    scal, ix = _scalars(month, 0.0, None, 0.0, 0.0)
+    if scalars is None:
+        scal, ix = _scalars(month, 0.0, None, 0.0, 0.0)
+    else:
+        require_scalars(scalars, "scalars", dev)
+        scal = ix = None
     sfc = torch.empty((len(SURFACE_FIELDS),) + grid, dtype=dt,
                       device=dev) if do_couple else None
     fx = torch.empty((len(FLUX_FIELDS),) + grid, dtype=dt,
@@ -248,10 +259,12 @@ def slab_couple(bd, coeffs, carry, acc, month, flags, *, window=None,
     code = kb.library().slab_couple_launch(
         kb.device_index(bd.sst12), int(dt == torch.float64),
         grid[0] * grid[1], ptrs, ptr(sfc), ptr(fx), scal, ix, float(w_an),
-        op, kb.stream_of(bd.sst12))
+        op, ptr(scalars), kb.stream_of(bd.sst12))
     kb.check(code, "slab_couple")
     slab_couple.launches += 1
+    slab_couple.dev_launches += scalars is not None
     return sfc, fx
 
 
 slab_couple.launches = 0
+slab_couple.dev_launches = 0   # of them, the device-scalar form's

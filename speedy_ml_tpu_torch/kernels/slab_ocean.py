@@ -18,7 +18,9 @@ the cycles = k (mod W), which is the JAX buffer rolled by step mod W
     grid from the classes' standardized readouts, through an SstTable.
 The slab ESN step and readout between the two launches of a slab step are
 K1 and K2.  step is a host int, so the slot and the logical order are
-kernel arguments.
+kernel arguments; in the push forms' device-scalar form (slot=), which a
+captured CUDA graph of the cycle replays (hybrid/graph.py), the slot is
+read on the card.
 
 On CPU tensors `slab_ocean` runs `slab_ocean_plain`; on CUDA tensors it
 launches the kernel or raises.
@@ -140,7 +142,7 @@ def slab_ocean_plain(form: str, *, bufs=None, step: int = 0, fbs=None,
 
 def slab_ocean(form: str, *, bufs=None, step: int = 0, fbs=None,
                idx_maps=None, outs=None, mean_sst=None, std_sst=None,
-               table: SstTable = None):
+               table: SstTable = None, slot=None):
     """K22 in one of its forms, for all classes in one launch.
 
     push, push_mean: bufs, per class the ring (W, Rc, I_o), written in
@@ -149,13 +151,18 @@ def slab_ocean(form: str, *, bufs=None, step: int = 0, fbs=None,
     push_mean the W slots' means (Rc, I_o) per class.
     sst: outs, per class the standardized slab readout (Rc, O); mean_sst
     and std_sst, (Rc, 1) each; table, the SstTable.  Returns the new SST
-    grid (lat, lon), a tensor of its own."""
+    grid (lat, lon), a tensor of its own.
+    slot (push forms): None, or the device-scalar form's slot, step % W
+    as a float64 tensor of one element on the rings' device, read in place
+    of step's."""
     if form not in FORMS:
         raise ValueError(f"slab_ocean: form {form!r}, one of {FORMS}")
     lead = outs[0] if form == "sst" else bufs[0]
     kw = dict(bufs=bufs, step=step, fbs=fbs, idx_maps=idx_maps, outs=outs,
               mean_sst=mean_sst, std_sst=std_sst, table=table)
     if lead.device.type == "cpu":
+        if slot is not None and form != "sst":
+            kw["step"] = int(slot[0])   # the same slot and order
         return slab_ocean_plain(form, **kw)
     if lead.device.type != "cuda":
         raise ValueError(f"slab_ocean: no kernel for device {lead.device}")
@@ -214,14 +221,19 @@ def slab_ocean(form: str, *, bufs=None, step: int = 0, fbs=None,
     if form == "push_mean":
         means = [torch.empty(b.shape[1:], dtype=dt, device=dev)
                  for b in bufs]
+    if slot is not None:
+        kb.require(slot, "slot", torch.float64, (1,), dev)
     code = kb.library().slab_ocean_push_launch(
         kb.device_index(lead), int(dt == torch.float64), nc, arr(fbs),
         arr(idx_maps), arr(bufs), arr(means), counts([b[0] for b in bufs]),
         ints([b.shape[2] for b in bufs]), ints([f.shape[1] for f in fbs]),
-        W, step % W, 1.0 / W, kb.stream_of(lead))
+        W, 0 if slot is not None else step % W, 1.0 / W,
+        None if slot is None else slot.data_ptr(), kb.stream_of(lead))
     kb.check(code, "slab_ocean")
     slab_ocean.launches += 1
+    slab_ocean.dev_launches += slot is not None
     return means if form == "push_mean" else None
 
 
 slab_ocean.launches = 0
+slab_ocean.dev_launches = 0   # of them, the push forms' device-scalar form's

@@ -20,7 +20,11 @@ where it reads them.
 
 The month indices and weights, tyear and the constants that Python works
 out reach the kernel as host numbers (kernel arguments), so a call reads
-nothing back from the card.
+nothing back from the card.  K17's device-scalar form (scalars=) reads
+the same numbers from a float64 tensor on the card (scalar_values' list,
+a row of the captured cycle's per-cycle block, hybrid/graph.py), so that
+a replayed CUDA graph takes each cycle's date; TisrDate.dev does the same
+for K3's date form.
 
 On CPU tensors `surface_forcing` and `tisr_plane` run the plain versions;
 on CUDA tensors they launch the kernels or raise.
@@ -56,10 +60,13 @@ CSOL = 4.0 * pc.SOLC   # the Hartmann insolation's solar constant
 class TisrDate(NamedTuple):
     """The TISR plane of a date, as K3's date form takes it: tyear (a
     host number) and the latitudes' sines and cosines (lat,); the plane
-    is tisr_plain(tyear, slat, clat, nlon)."""
+    is tisr_plain(tyear, slat, clat, nlon).  dev: None, or the date's
+    scalar_values as a float64 tensor on the latitudes' device, which K3's
+    device-scalar form reads in place of tyear."""
     tyear: float
     slat: torch.Tensor
     clat: torch.Tensor
+    dev: object = None
 
 
 class DayArgs(NamedTuple):
@@ -194,9 +201,10 @@ def tisr_plain(tyear, slat, clat, nlon: int) -> torch.Tensor:
 
 # ---- the wrappers
 
-def _scalars(month, sst_bias: float, tyear, gamlat: float, pexp: float):
-    """The kernel's scalars and integers as C arrays (None for the
-    integers without a month)."""
+def scalar_values(month, sst_bias: float, tyear, gamlat: float,
+                  pexp: float) -> tuple[list, list | None]:
+    """The kernel's scalars (SCALARS order) and integers (INDICES order;
+    None without a month) as Python numbers."""
     vals = dict(sstfr=pc.SSTFR, sst_bias=float(sst_bias),
                 two_pi=2.0 * math.pi, day10=10.0 / 365.0, pi=math.pi,
                 oz_a=0.4 * pc.EPSSW, oz_b=0.5 * pc.EPSSW,
@@ -213,11 +221,22 @@ def _scalars(month, sst_bias: float, tyear, gamlat: float, pexp: float):
         m5, w5 = forin5_weights(*month)
         vals.update(zip(("wint", "wm2", "wm1", "w0", "wp1", "wp2"),
                         (w,) + w5))
-        ix = (ctypes.c_int * len(INDICES))(i0, i1, m5[0], m5[1], m5[3],
-                                           m5[4])
-    scal = (ctypes.c_double * len(SCALARS))(
-        *[float(vals.get(k, 0.0)) for k in SCALARS])
-    return scal, ix
+        ix = [i0, i1, m5[0], m5[1], m5[3], m5[4]]
+    return [float(vals.get(k, 0.0)) for k in SCALARS], ix
+
+
+def _scalars(month, sst_bias: float, tyear, gamlat: float, pexp: float):
+    """The kernel's scalars and integers as C arrays (None for the
+    integers without a month)."""
+    v, ix = scalar_values(month, sst_bias, tyear, gamlat, pexp)
+    return ((ctypes.c_double * len(SCALARS))(*v),
+            None if ix is None else (ctypes.c_int * len(INDICES))(*ix))
+
+
+def require_scalars(t, name: str, dev):
+    """Check a device-scalar form's float64 operand: scalar_values' list
+    (SCALARS then INDICES), contiguous, on `dev`."""
+    kb.require(t, name, torch.float64, (len(SCALARS) + len(INDICES),), dev)
 
 
 def tisr_scalars(tyear):
@@ -227,7 +246,8 @@ def tisr_scalars(tyear):
 
 
 def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
-                    sfc=None, day: DayArgs | None = None, stl_carry=None):
+                    sfc=None, day: DayArgs | None = None, stl_carry=None,
+                    scalars=None):
     """(the SURFACE planes (8, lat, lon) or None, the FORCING planes (11,
     lat, lon) or None).
 
@@ -237,7 +257,10 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
     `sfc` (a SurfaceState).  stl_carry: the carry form (with month and
     day): the forcing reads this (lat, lon) land temperature for stl_am,
     the persistent surface's carried stl_lm; the surface planes stay as
-    computed."""
+    computed.  scalars: None, or the device-scalar form's float64
+    tensor on the card (scalar_values of this call's month, sst_bias,
+    tyear, gamlat and pexp, then the indices): the kernel reads the date
+    from it; the CPU route reads the host numbers."""
     if month is None and day is None:
         raise ValueError("surface_forcing: ask for the surface (month=) or "
                          "the forcing (day=)")
@@ -293,9 +316,14 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
         if stl_carry is not None:
             kb.require(stl_carry, "stl_carry", dt, grid, dev)
             ins[16] = stl_carry
-    scal, ix = _scalars(month, sst_bias, None if day is None else day.tyear,
-                        0.0 if day is None else day.gamlat,
-                        0.0 if day is None else day.pexp)
+    if scalars is None:
+        scal, ix = _scalars(month, sst_bias,
+                            None if day is None else day.tyear,
+                            0.0 if day is None else day.gamlat,
+                            0.0 if day is None else day.pexp)
+    else:
+        require_scalars(scalars, "scalars", dev)
+        scal = ix = None
     planes = None if month is None else torch.empty(
         (len(SURFACE),) + grid, dtype=dt, device=dev)
     frc = None if day is None else torch.empty((len(FORCING),) + grid,
@@ -305,9 +333,11 @@ def surface_forcing(bd, *, month=None, sst_hybrid=None, sst_bias=0.0,
     ptr = lambda t: None if t is None else t.data_ptr()
     code = kb.library().surface_forcing_launch(
         kb.device_index(bd.sst12), int(dt == torch.float64), nlat, nlon, ptrs,
-        ptr(planes), ptr(frc), scal, ix, kb.stream_of(bd.sst12))
+        ptr(planes), ptr(frc), scal, ix, ptr(scalars),
+        kb.stream_of(bd.sst12))
     kb.check(code, "surface_forcing")
     surface_forcing.launches += 1
+    surface_forcing.dev_launches += scalars is not None
     return planes, frc
 
 
@@ -338,4 +368,5 @@ def tisr_plane(tyear, slat, clat, nlon: int) -> torch.Tensor:
 
 
 surface_forcing.launches = 0
+surface_forcing.dev_launches = 0   # of them, the device-scalar form's
 tisr_plane.launches = 0

@@ -229,7 +229,8 @@ class PhysicsModel:
 
     def surface_and_forcing(self, bd: BoundaryData, imon, fmon, tyear, sht,
                             sst_hybrid=None, sst_bias: float = 0.0,
-                            flags: CplFlags = CplFlags(), sfc_carry=None):
+                            flags: CplFlags = CplFlags(), sfc_carry=None,
+                            scalars=None):
         """(init_surface_state(bd, imon, fmon, sst_hybrid, sst_bias,
         flags), daily_forcing of that surface at tyear) in one K17 launch
         and the K5 analysis: the window's entry.  sfc_carry: the
@@ -237,11 +238,13 @@ class PhysicsModel:
         replace the climatology's (the ini_land restart path: stl_lm and
         stl_am its stl_lm, sst_om its sst_om, tice_om and tice_am its
         tice_om; sst_am stays), the forcing reading its stl_lm (K17's
-        carry form)."""
+        carry form).  scalars: None, or K17's device-scalar form's row on
+        the card (surface_forcing), from which the kernel reads the date."""
         planes, frc = surface_forcing(
             bd, month=(imon, fmon), sst_hybrid=sst_hybrid,
             sst_bias=sst_bias, day=self.day_args(tyear),
-            stl_carry=None if sfc_carry is None else sfc_carry.stl_lm)
+            stl_carry=None if sfc_carry is None else sfc_carry.stl_lm,
+            scalars=scalars)
         sfc = surface_state(planes, flags.icsea)
         if sfc_carry is not None:
             sfc = dataclasses.replace(

@@ -325,10 +325,11 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
 
 
 def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
-    """The options of later slices raise (set_mesh, cycles_per_dispatch >
-    1); ml_only=False now runs, so do SPPT, RDF and cgrate, and so do the climatology tables,
+    """The options of later slices raise (set_mesh); ml_only=False now
+    runs, so do SPPT, RDF and cgrate, the climatology tables,
     emit_components, truth_provider and time_mean_path
-    (tests/test_torch_cycle_options.py)."""
+    (tests/test_torch_cycle_options.py), and so does cycles_per_dispatch
+    > 1 (tests/test_torch_dispatch.py)."""
     _, thyb = pair_f64
     _, chyb = coupled_pair
     with pytest.raises(ValueError, match="needs a GCM"):
@@ -358,9 +359,9 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
         with pytest.raises(NotImplementedError):
             h.set_mesh(None)
         s = h.init_state(_sst(h.geom))
-        with pytest.raises(NotImplementedError):
-            run_prediction(h, s, ModelDate(1990, 1, 1), 1,
-                           cycles_per_dispatch=2)
+        final, dates = run_prediction(h, s, ModelDate(1990, 1, 1), 1,
+                                      cycles_per_dispatch=2)
+        assert len(dates) == 1 and final.step == 1
     g, bd = chyb.gcm.geom, chyb.gcm.bd
     # without bd the GCM reads the boundary files, from $SPEEDY_ML_BC_PATH
     # when no bc_path is given (tests/test_torch_boundaries.py)
