@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
                           [--options] [--vertical] [--physics]
-                          [--dispatch] [--k14-lists]
+                          [--dispatch] [--cli] [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -215,10 +215,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      the eager loop's); one dispatch under set_sync_debug_mode("error");
      cycle_ms for K = 1 and K = 28 (5 x 20 cycles), device busy, the idle
      share, device and host launches a cycle.
+ 18. the config-driven entry point (phase_cli; the earlier phases'
+     hybrids freed first): RunConfig's defaults
+     at full width, cut in time only and with a raised ridge, `python -m
+     speedy_ml_tpu_torch.main run cfg.json` in a subprocess (exit 0),
+     then main.main(["predict", cfg.json]) in this process from its
+     checkpoint: every kernel of the predict path launched (K22 once a
+     cycle and once more on the slab step), the same cycles and gate
+     flag, both streams and time means bit for bit; the stream exported
+     to NetCDF and read back.
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
 trains phase 10's atmosphere and runs phase 13 alone (no result line);
 --options runs phase 14 alone, --vertical phase 15 (with its own nature
-run), --physics phase 16 and --dispatch phase 17 (no result line).
+run), --physics phase 16, --dispatch phase 17 and --cli phase 18 (no
+result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -231,6 +241,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import dataclasses
+import gc
 import inspect
 import json
 import re
@@ -377,6 +388,24 @@ DISPATCH_DATE2 = (1990, 7, 15)   # the second date of the replayed forms
 DISPATCH_FORMS = ("K3_window_gather_dev", "K17_surface_forcing_dev",
                   "K21_slab_couple_dev", "K22_slab_ocean_dev",
                   "K23_sst_by_date_dev")
+# phase 18 (the CLI): RunConfig's own defaults (T30L8, 1,152 regions,
+# m = 6000, the slab ocean at m = 4000, the persistent surface, float32)
+# cut in time only: 224 nature-run samples (the ocean's 8 slab strides of
+# phase 13), 29 cycles (one slab step, at cycle 27), the default discard
+# and sync windows; and the atmosphere's ridge raised from beta_res 1e-3
+# (a ridge of 1e-6, at which the readout trained on 184 pairs trips the
+# gate at the first cycle on the card) to 1.0
+CLI_CUTS = dict(training_hours=6 * 224, prediction_hours=6 * 29)
+CLI_BETA_RES = 1.0
+# the kernels of the CLI's predict path, each launched at least once
+CLI_PREDICT_KERNELS = (
+    "K1_esn_step", "K2_readout_scatter", "K3_window_gather",
+    "K5_sht_analysis", "K6_sht_synthesis", "K7_grid_dynamics",
+    "K8_spectral_tail", "K9_column_moist", "K9_moist_shortwave",
+    "K10a_down_surface", "K10b_radlw_up", "K12_column_pbl", "K12_pbl_flux",
+    "K15_spectral_stack", "K17_surface_forcing", "K6_inject_synthesis",
+    "K19_gate_check", "K20_window_select", "K21_slab_couple",
+    "K22_slab_ocean")
 # the kernels the coupled main path does not launch (phase 7)
 OFF_MAIN_PATH = ("K17b_tisr_plane", "K21_slab_couple", "K22_slab_ocean",
                  "K23_sst_by_date", "K24_sppt", "K25_rdf", "K26_cgrate")
@@ -3784,6 +3813,251 @@ def phase_dispatch(torch, np, gcm, hyb, date0, card, record, kernels,
     return launches
 
 
+def port_kernels() -> dict:
+    """Every kernel's wrapper, by its name in the kernels line (K14 and
+    the forms apart)."""
+    from speedy_ml_tpu_torch.kernels import cgrate as k26
+    from speedy_ml_tpu_torch.kernels import column_longwave as clw
+    from speedy_ml_tpu_torch.kernels import rdf as k25
+    from speedy_ml_tpu_torch.kernels import sppt as k24
+    from speedy_ml_tpu_torch.kernels import surface_forcing as sfc_forcing
+    from speedy_ml_tpu_torch.kernels.column_moist import (column_moist,
+                                                          moist_shortwave)
+    from speedy_ml_tpu_torch.kernels.column_pbl import column_pbl, pbl_flux
+    from speedy_ml_tpu_torch.kernels.esn_step import esn_step
+    from speedy_ml_tpu_torch.kernels.gate_check import gate_check
+    from speedy_ml_tpu_torch.kernels.grid_dynamics import grid_dynamics
+    from speedy_ml_tpu_torch.kernels.inject_spectral import inject_synthesis
+    from speedy_ml_tpu_torch.kernels.readout import readout
+    from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
+    from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
+    from speedy_ml_tpu_torch.kernels.slab_couple import slab_couple
+    from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean
+    from speedy_ml_tpu_torch.kernels.spectral_stack import spectral_stack
+    from speedy_ml_tpu_torch.kernels.spectral_tail import spectral_tail
+    from speedy_ml_tpu_torch.kernels.sst_by_date import sst_by_date
+    from speedy_ml_tpu_torch.kernels.window_gather import window_gather
+    from speedy_ml_tpu_torch.kernels.window_select import window_select
+    return {"K1_esn_step": esn_step, "K2_readout_scatter": readout,
+            "K3_window_gather": window_gather,
+            "K5_sht_analysis": sht_analysis,
+            "K6_sht_synthesis": sht_synthesis,
+            "K7_grid_dynamics": grid_dynamics,
+            "K8_spectral_tail": spectral_tail,
+            "K9_column_moist": column_moist,
+            "K9_moist_shortwave": moist_shortwave,
+            "K10a_down_surface": clw.down_surface,
+            "K10b_radlw_up": clw.radlw_up,
+            "K12_column_pbl": column_pbl,
+            "K12_pbl_flux": pbl_flux,
+            "K15_spectral_stack": spectral_stack,
+            "K17_surface_forcing": sfc_forcing.surface_forcing,
+            "K17b_tisr_plane": sfc_forcing.tisr_plane,
+            "K6_inject_synthesis": inject_synthesis,
+            "K19_gate_check": gate_check,
+            "K20_window_select": window_select,
+            "K21_slab_couple": slab_couple,
+            "K22_slab_ocean": slab_ocean,
+            "K23_sst_by_date": sst_by_date,
+            "K24_sppt": k24.counter, "K25_rdf": k25.rdf,
+            "K26_cgrate": k26.cgrate}
+
+
+def phase_cli(torch, np, card, kernels, work: Path) -> dict:
+    """Phase 18: the config-driven entry point at full width.  A RunConfig
+    with its own defaults (T30L8, 1,152 regions, m = 6000, the slab ocean
+    at m = 4000 and the persistent surface on, float32, the shift
+    topology, self-contained: no era_path), cut in time only (CLI_CUTS)
+    and with the atmosphere's ridge raised (CLI_BETA_RES), each change
+    printed beside the default it replaces, saved as cfg.json;
+    `python -m speedy_ml_tpu_torch.main run cfg.json` in a subprocess
+    with no device argument: exit 0, its lines and wall s.  Then, in this
+    process with every launch counter at 0, main.main(["predict",
+    cfg.json]), which loads the checkpoint the subprocess wrote: the
+    launches of every kernel (each of CLI_PREDICT_KERNELS at least once;
+    K22 once a cycle and once more on the slab step, whose sst form
+    follows K1 and K2 at the ocean's shapes), the cycles run and the
+    gate's flag, the same as the subprocess's; its prediction.npz and
+    time_means.npz equal to the subprocess's bit for bit; predict ms a
+    cycle (run_prediction's wall over its cycles); the checkpoint's
+    bytes.  The stream exported with export_prediction_netcdf and read
+    back with scipy: the reference's variables at the stream's shapes,
+    equal to the stream.  Returns the launches."""
+    import contextlib
+    import io
+
+    from speedy_ml_tpu_torch import main as cli
+    from speedy_ml_tpu_torch.config import RunConfig
+    from speedy_ml_tpu_torch.data.netcdf_export import \
+        export_prediction_netcdf
+    from speedy_ml_tpu_torch.hybrid import driver
+
+    t_phase = time.perf_counter()
+    default = RunConfig()
+    cfg = dataclasses.replace(
+        default, **CLI_CUTS, checkpoint_path=str(work / "cli_ckpt"),
+        output_path=str(work / "cli_out"),
+        atmo=dataclasses.replace(default.atmo, beta_res=CLI_BETA_RES))
+    changes = [f"{k} {v} (default {getattr(default, k)})"
+               for k, v in CLI_CUTS.items()]
+    changes.append(f"atmo.beta_res {CLI_BETA_RES} (default "
+                   f"{default.atmo.beta_res})")
+    cfg_path = work / "cfg.json"
+    cfg.save(str(cfg_path))
+    g = cfg.geometry()
+    slab_stride = max(1, cfg.timestep_slab_hours // cfg.timestep_hours)
+    n_cycles = cfg.prediction_hours // cfg.timestep_hours
+    log(f"CLI config: RunConfig defaults, T{g.trunc}L{g.nlev} "
+        f"{g.nlat}x{g.nlon}, {cfg.n_regions} regions, atmosphere m="
+        f"{cfg.atmo.m}, ocean m={cfg.ocean.m}, slab_ocean {cfg.slab_ocean} "
+        f"(a slab step every {slab_stride} cycles), persist_surface "
+        f"{cfg.persist_surface}, {cfg.dtype}, topology {cfg.topology}, "
+        f"nsteps_day {cfg.nsteps_day}, self-contained (era_path "
+        f"{cfg.era_path}); changed: " + "; ".join(changes))
+
+    # -- 18a. `main run` in a subprocess, on the card by default
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "speedy_ml_tpu_torch.main", "run",
+         str(cfg_path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=900)
+    wall_run = time.perf_counter() - t0
+    for line in out.stdout.strip().splitlines():
+        log(f"  main run: {line}")
+    if out.returncode != 0:
+        fail(f"python -m speedy_ml_tpu_torch.main run exited "
+             f"{out.returncode}: {out.stderr.strip()[-2000:]}")
+    said = re.findall(r"^(\d+) cycles -> .*\(safe=(True|False)\)$",
+                      out.stdout, re.M)
+    if len(said) != 1:
+        fail(f"main run printed no prediction line: {out.stdout[-500:]}")
+    ck_bytes = dir_bytes(cfg.checkpoint_path)
+    log(f"main run: exit 0 in {wall_run:.1f} s wall (the process's start, "
+        f"the nature run, the forecasts, the atmosphere's and the ocean's "
+        f"training, the checkpoint, the sync window and {n_cycles} "
+        f"cycles), checkpoint {ck_bytes / 1e9:.3f} GB [{card}]")
+    run_dir = work / "cli_run"
+    Path(cfg.output_path).rename(run_dir)
+
+    # -- 18b. `main predict` in this process from that checkpoint
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    timed = {}
+    real_run = driver.run_prediction
+
+    def run_prediction(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_run(*a, **kw)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t
+        timed["cycles"] = len(res[1])
+        return res
+
+    printed = io.StringIO()
+    driver.run_prediction = run_prediction
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["predict", str(cfg_path)])
+    finally:
+        driver.run_prediction = real_run
+    torch.cuda.synchronize()
+    wall_predict = time.perf_counter() - t0
+    counts = {nm: fn.launches for nm, fn in kernels.items()}
+    for line in printed.getvalue().strip().splitlines():
+        log(f"  main predict: {line}")
+    if rc != 0:
+        fail(f"main.main(['predict', cfg.json]) returned {rc}")
+    mine = re.findall(r"^(\d+) cycles -> .*\(safe=(True|False)\)$",
+                      printed.getvalue(), re.M)
+    if mine != said:
+        fail(f"main predict ran {mine}, main run {said} (cycles, safe)")
+    cycles, safe = int(said[0][0]), said[0][1] == "True"
+    slab_steps = sum(1 for i in range(cycles)
+                     if i % slab_stride == slab_stride - 1)
+    log(f"main predict: {cycles} cycles of {n_cycles}, safe={safe} (main "
+        f"run: the same); {wall_predict:.1f} s wall with the checkpoint's "
+        f"load and the sync window; run_prediction {timed['s']:.3f} s, "
+        f"{timed['s'] / max(timed['cycles'], 1) * 1e3:.2f} ms a cycle with "
+        f"the writer and the time means [{card}]")
+    log(f"main predict launches: " + ", ".join(
+        f"{nm} {c}" for nm, c in counts.items()))
+    for nm in CLI_PREDICT_KERNELS:
+        if counts[nm] <= 0:
+            fail(f"{nm} was not launched by main predict")
+    if slab_steps < 1:
+        fail(f"main predict stopped after {cycles} cycles, before the "
+             f"slab step (every {slab_stride})")
+    if counts["K22_slab_ocean"] != cycles + slab_steps:
+        fail(f"K22 launched {counts['K22_slab_ocean']} times in {cycles} "
+             f"cycles with {slab_steps} slab step(s), not "
+             f"{cycles + slab_steps}")
+
+    # -- 18c. the two runs' streams, bit for bit
+    for name in ("prediction.npz", "time_means.npz"):
+        a = np.load(run_dir / name)
+        b = np.load(Path(cfg.output_path) / name)
+        if sorted(a.files) != sorted(b.files):
+            fail(f"{name}: main run wrote {sorted(a.files)}, main predict "
+                 f"{sorted(b.files)}")
+        for k in a.files:
+            if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+                fail(f"{name} {k}: main predict's differs from main run's")
+    z = np.load(Path(cfg.output_path) / "prediction.npz")
+    want = {"atmo": (cycles, 4, g.nlev, g.nlat, g.nlon),
+            "logp": (cycles, g.nlat, g.nlon),
+            "precip": (cycles, g.nlat, g.nlon),
+            "sst": (cycles, g.nlat, g.nlon)}
+    got = {k: z[k].shape for k in z.files}
+    if got != want:
+        fail(f"prediction stream shapes {got}, expected {want}")
+    for k in z.files:
+        if not np.isfinite(z[k]).all():
+            fail(f"the CLI's prediction field {k} is not finite")
+    t_field = z["atmo"][:, 0]
+    log(f"main run and main predict: prediction.npz and time_means.npz "
+        f"equal bit for bit; stream finite, T {t_field.min():.3f}.."
+        f"{t_field.max():.3f} K, SST {z['sst'].min():.3f}.."
+        f"{z['sst'].max():.3f} K")
+
+    # -- 18d. the NetCDF export, read back
+    from scipy.io import netcdf_file
+    nc = work / "cli_prediction.nc"
+    t0 = time.perf_counter()
+    export_prediction_netcdf(str(Path(cfg.output_path) / "prediction.npz"),
+                             str(nc))
+    t_nc = time.perf_counter() - t0
+    shapes = {"Temperature": want["atmo"][:1] + want["atmo"][2:],
+              "logp": want["logp"], "p6hr": want["precip"],
+              "SST": want["sst"], "Lat": (g.nlat,), "Lon": (g.nlon,),
+              "Sigma_Level": (g.nlev,)}
+    for nm in ("U-wind", "V-wind", "Specific-Humidity"):
+        shapes[nm] = shapes["Temperature"]
+    with netcdf_file(str(nc), "r", mmap=False) as f:
+        got = {k: tuple(v.shape) for k, v in f.variables.items()}
+        if got != shapes:
+            fail(f"the NetCDF export holds {got}, expected {shapes}")
+        same = (np.array_equal(f.variables["Temperature"][:],
+                               z["atmo"][:, 0])
+                and np.array_equal(f.variables["SST"][:], z["sst"])
+                and np.array_equal(f.variables["p6hr"][:],
+                                   z["precip"] * np.float32(21600.0)))
+        lat = f.variables["Lat"][:]
+    if not same:
+        fail("the NetCDF export's values differ from the stream's")
+    if not np.array_equal(lat, np.rad2deg(g.lat_radians).astype(np.float32)):
+        fail("the NetCDF export's latitudes are not the grid's")
+    log(f"NetCDF export: {nc.stat().st_size / 1e6:.1f} MB in {t_nc:.2f} s, "
+        f"read back with scipy: {len(shapes)} variables at the stream's "
+        f"shapes, Temperature, SST and p6hr equal to the stream")
+    shutil.rmtree(cfg.checkpoint_path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -3818,6 +4092,11 @@ def main():
                          "against the eager loop, the device-scalar forms, "
                          "cycle_ms for K = 1 and 28) alone; prints no "
                          "result line")
+    ap.add_argument("--cli", action="store_true",
+                    help="after the build, run phase 18 (the config-driven "
+                         "entry point at full width: main run in a "
+                         "subprocess, main predict from its checkpoint, "
+                         "the NetCDF export) alone; prints no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -3882,9 +4161,6 @@ def main():
     from speedy_ml_tpu_torch.kernels.slab_couple import slab_couple
     from speedy_ml_tpu_torch.kernels.slab_ocean import slab_ocean
     from speedy_ml_tpu_torch.kernels.sst_by_date import sst_by_date
-    from speedy_ml_tpu_torch.kernels import cgrate as k26
-    from speedy_ml_tpu_torch.kernels import rdf as k25
-    from speedy_ml_tpu_torch.kernels import sppt as k24
     from speedy_ml_tpu_torch.kernels.readout import \
         vector_path as readout_vector_path
     from speedy_ml_tpu_torch.kernels.sht_analysis import (
@@ -3913,6 +4189,21 @@ def main():
     kb.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{lib_path.relative_to(ROOT)}")
+
+    # every kernel's wrapper, by its name in the kernels line
+    kernels = port_kernels()
+    # phases 10 and 13 share the atmosphere's checkpoint, and phase 18
+    # writes its run, in a directory removed at exit; --cli runs phase 18
+    # alone, before the hybrids of phase 3
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    atexit.register(shutil.rmtree, work, True)
+
+    if args.cli:
+        phase_cli(torch, np, card, kernels, work)
+        log(f"chip_smoke --cli: phase 18 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
 
     # -- 3. the full-width hybrids ---------------------------------------
     dev = torch.device("cuda")
@@ -3980,34 +4271,6 @@ def main():
             library_ms=None if library is None else library[0])
         return ok
 
-    # every kernel's wrapper, by its name in the kernels line
-    kernels = {"K1_esn_step": esn_step, "K2_readout_scatter": readout,
-               "K3_window_gather": window_gather,
-               "K5_sht_analysis": sht_analysis,
-               "K6_sht_synthesis": sht_synthesis,
-               "K7_grid_dynamics": grid_dynamics,
-               "K8_spectral_tail": spectral_tail,
-               "K9_column_moist": column_moist,
-               "K9_moist_shortwave": moist_shortwave,
-               "K10a_down_surface": clw.down_surface,
-               "K10b_radlw_up": clw.radlw_up,
-               "K12_column_pbl": column_pbl,
-               "K12_pbl_flux": pbl_flux,
-               "K15_spectral_stack": spectral_stack,
-               "K17_surface_forcing": sfc_forcing.surface_forcing,
-               "K17b_tisr_plane": sfc_forcing.tisr_plane,
-               "K6_inject_synthesis": inject_synthesis,
-               "K19_gate_check": gate_check,
-               "K20_window_select": window_select,
-               "K21_slab_couple": slab_couple,
-               "K22_slab_ocean": slab_ocean,
-               "K23_sst_by_date": sst_by_date,
-               "K24_sppt": k24.counter, "K25_rdf": k25.rdf,
-               "K26_cgrate": k26.cgrate}
-    # phases 10 and 13 share the atmosphere's checkpoint in a directory
-    # removed at exit
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    atexit.register(shutil.rmtree, work, True)
     atmo_ckpt = str(work / "atmo")
     out_dir = ROOT / "output" / "chip_smoke"
     if args.vertical:
@@ -5507,6 +5770,16 @@ def main():
     for nm, n in phase_dispatch(torch, np, gcm, hyb, date0, card, record,
                                 kernels, work).items():
         results[nm]["launches"] = n
+
+    # -- 18. the config-driven entry point, the earlier phases' hybrids
+    #       freed: its subprocess trains at full width
+    hyb = packs = s = state0 = final = end = s_dbg = step_args = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before phase 18: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
+        f"reserved in this process")
+    phase_cli(torch, np, card, kernels, work)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")

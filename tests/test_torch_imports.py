@@ -86,6 +86,34 @@ def test_port_imports_without_h5py():
             in names, m
 
 
+CLI_MODULES = ("config.py", "main.py", "analysis.py", "plots.py",
+               "data/netcdf_export.py", "runtime/native.py")
+
+
+def test_port_imports_without_matplotlib_or_h5py():
+    """The machine with the card has neither matplotlib nor h5py: every
+    module of the port, the CLI's among them, and chip_smoke import with
+    both hidden and load neither (plots imports matplotlib inside its
+    functions)."""
+    code = ("import sys\nsys.modules['h5py'] = None\n"
+            "sys.modules['matplotlib'] = None\n") + _IMPORT_ALL.replace(
+        "print(len(names), bad)",
+        "loaded = sorted(m for m in sys.modules if sys.modules[m] and "
+        "m.split('.')[0] in ('h5py', 'matplotlib'))\n"
+        "print(len(names), bad, loaded, sorted(names))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, rest = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20
+    assert rest.startswith("[] [] "), rest[:200]
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(CLI_MODULES) <= files
+    for m in CLI_MODULES:
+        assert repr("speedy_ml_tpu_torch." + m[:-3].replace("/", ".")) \
+            in rest, m
+
+
 def _imported_modules(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
