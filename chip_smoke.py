@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
                           [--options] [--vertical] [--physics]
-                          [--dispatch] [--cli] [--k14-lists]
+                          [--dispatch] [--cli] [--experiments]
+                          [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -224,11 +225,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      cycle and once more on the slab step), the same cycles and gate
      flag, both streams and time means bit for bit; the stream exported
      to NetCDF and read back.
+ 19. the experiment programs (phase_experiments): the climate run's
+     stages A-E (run_climate) and both arms of the skill experiment
+     (skill_arm, shift and random) in the scripts' own configuration,
+     cut in time only (EXP_*): each stage's files, the result's keys and
+     values, a second run_climate that runs no stage, the atmosphere's
+     checkpoint deleted, finite RMSE; wall s of each stage and arm, stage
+     C's ms a cycle and simulated years a day, stage D's s a simulated
+     day, the arms' T-RMSE at days 1, 3, 7 and 14, K1 and K14 launches
+     in the random arm, peak host RSS; nothing written outside its work
+     directory.
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
 trains phase 10's atmosphere and runs phase 13 alone (no result line);
 --options runs phase 14 alone, --vertical phase 15 (with its own nature
-run), --physics phase 16, --dispatch phase 17 and --cli phase 18 (no
-result line).
+run), --physics phase 16, --dispatch phase 17, --cli phase 18 and
+--experiments phase 19 (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -406,6 +417,33 @@ CLI_PREDICT_KERNELS = (
     "K15_spectral_stack", "K17_surface_forcing", "K6_inject_synthesis",
     "K19_gate_check", "K20_window_select", "K21_slab_couple",
     "K22_slab_ocean")
+# phase 19 (the experiments): the scripts' own configuration (T30L8,
+# 1,152 regions, float32, the synthetic boundaries and the imperfect
+# model, m = 3000, a 30-day spin-up, the slab ocean at ridge 0.01, region
+# chunk 96, dispatch 32, the shift topology for the climate run, both
+# topologies for the skill arms at 4 ICs x 56 cycles) cut in time only:
+# 224 training samples (the slab ocean's 8 strides of phase 13; the
+# default is 8,760), stage C 120 cycles and stage D 30 days (the default
+# is 20 years of each), and the climatologies' year 112 samples (28
+# days; the default 1,460), so that the 224 truth samples hold whole
+# years, as the truth's day-of-year climatology requires
+EXP_N = 224
+EXP_CYCLES = 120
+EXP_BASE_DAYS = 30
+EXP_SPY = 112
+# the atmosphere's ridge of both programs: None keeps the scripts' (the
+# climate run's atmo_beta 0.05, the skill arms' beta_res 0.05)
+EXP_BETA = None
+EXP_LEADS = (("day1", 3), ("day3", 11), ("day7", 27), ("day14", 55))
+# the result's keys (scripts/climate_run.py:416-441)
+CLIMATE_KEYS = (
+    "m", "n_train", "years_requested", "sim_years", "cycles", "wall_s",
+    "sim_years_per_day", "safe_never_tripped", "slab_ocean", "ocean_beta",
+    "sst_bias", "t_sfc_global_first_year", "t_sfc_global_last_year",
+    "t_drift_K_per_decade", "mass_drift_rel", "mass_mean_kg", "nino34_std",
+    "nino34_peak_period_years", "climo_rms_hybrid", "climo_rms_speedy",
+    "hybrid_beats_speedy_climo", "figures", "calendar", "prediction_start",
+    "prediction_end", "peak_rss_pct", "boundary")
 # the kernels the coupled main path does not launch (phase 7)
 OFF_MAIN_PATH = ("K17b_tisr_plane", "K21_slab_couple", "K22_slab_ocean",
                  "K23_sst_by_date", "K24_sppt", "K25_rdf", "K26_cgrate")
@@ -4058,6 +4096,205 @@ def phase_cli(torch, np, card, kernels, work: Path) -> dict:
     return counts
 
 
+def tree_state(root: Path) -> dict:
+    """path -> (size, mtime) of every file under root, Python's bytecode
+    caches left out."""
+    return {str(f): (f.stat().st_size, f.stat().st_mtime_ns)
+            for f in root.rglob("*")
+            if f.is_file() and "__pycache__" not in f.parts}
+
+
+def phase_experiments(torch, np, card, kernels, work: Path):
+    """Phase 19: the experiment programs at full width.  The climate run
+    (run_climate: stages A-E, the figures left out, since the card's
+    machine has no matplotlib) and both arms of the skill experiment
+    (skill_arm, shift then random, on the same twin cache) in the
+    scripts' own configuration cut in time only (EXP_*), each change
+    printed beside the default it replaces, in work/experiments.  Fails
+    unless every stage's files are there, the result has the script's
+    keys (CLIMATE_KEYS) with every number finite (the Nino-3.4 peak may be
+    None: 30 days hold no 2-7-year band), a second run_climate on the
+    directory runs no stage and returns the same result, no ".atmo"
+    checkpoint is left, both arms' RMSE are finite, the random arm
+    launched K1 and K14, and no file outside the work directory was
+    written or changed.  Prints the wall s of each stage and of each
+    arm's training and evaluation, stage C's ms a cycle (run_prediction's
+    wall over its cycles), simulated years a day, cycles and gate flag,
+    stage D's s a simulated day, each arm's hybrid/SPEEDY T-RMSE at days
+    1, 3, 7 and 14 (the mean over its ICs), the peak host RSS."""
+    from speedy_ml_tpu_torch.experiments import climate_run as cr
+    from speedy_ml_tpu_torch.experiments import skill_experiment as se
+    from speedy_ml_tpu_torch.experiments.twin import (rss_pct,
+                                                      twin_cache_path,
+                                                      twin_data, twin_setup)
+    from speedy_ml_tpu_torch.hybrid import chunked, driver
+    from speedy_ml_tpu_torch.kernels.gram_update import gram_update
+
+    t_phase = time.perf_counter()
+    default = cr.ClimateConfig()
+    cfg = dataclasses.replace(default, n=EXP_N, **(
+        {} if EXP_BETA is None else dict(atmo_beta=EXP_BETA)))
+    skill_beta = 0.05 if EXP_BETA is None else EXP_BETA
+    ridge = ("the scripts' ridges (atmo_beta 0.05, the skill arms' "
+             "beta_res 0.05)" if EXP_BETA is None else
+             f"atmo_beta and the skill arms' beta_res {EXP_BETA} (the "
+             f"scripts' 0.05: at 0.05 a stage aborted on a non-finite "
+             f"readout)")
+    log(f"experiments config: {ridge}; the scripts' own otherwise: T30L8 "
+        f"48x96, 1,152 regions, float32, the synthetic boundaries and the "
+        f"imperfect model (+3 K SST and land, albedo x2), m {cfg.m}, a "
+        f"30-day spin-up, the slab ocean at ridge {cfg.ocean_beta}, region "
+        f"chunk {cfg.rchunk}, dispatch {cfg.dispatch}, topology shift for "
+        f"the climate run, the skill arms shift and random at "
+        f"{se.N_IC} ICs x {se.NCYC} cycles; cut in time only: n {EXP_N} "
+        f"(default {default.n}), stage C {EXP_CYCLES} cycles (default "
+        f"{default.years} years, {default.years * cr.SPY}), stage D "
+        f"{EXP_BASE_DAYS} days (default {default.years * 365}), the "
+        f"climatologies' year {EXP_SPY} samples (default {cr.SPY})")
+    out = work / "experiments"
+    before = tree_state(ROOT)
+    walls = {}
+
+    def timed(mod, name, key):
+        real = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                res = real(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                walls[key] = walls.get(key, 0.0) + time.perf_counter() - t
+            if key == "run_prediction":
+                walls["cycles"] = len(res[1])
+            return res
+        return mod, name, real, wrapper
+
+    patches = [timed(cr, "twin_data", "A"), timed(cr, "stage_training", "B"),
+               timed(cr, "stage_free_run", "C"),
+               timed(cr, "speedy_baseline", "D"),
+               timed(cr, "climate_products", "E"),
+               timed(cr, "verify_climate", "E"),
+               timed(driver, "run_prediction", "run_prediction"),
+               timed(chunked, "train_hybrid_production", "train")]
+    for mod, name, _, wrapper in patches:
+        setattr(mod, name, wrapper)
+    try:
+        twin = twin_setup(device=torch.device("cuda"))
+        kw = dict(twin=twin, cycles=EXP_CYCLES, baseline_days=EXP_BASE_DAYS,
+                  samples_per_year=EXP_SPY, figures=False,
+                  log=lambda m: log(f"  climate: {m}"))
+        t0 = time.perf_counter()
+        res, ran = cr.run_climate(cfg, out, out / "CLIMATE_RUN.json", **kw)
+        wall_climate = time.perf_counter() - t0
+        stage_walls = {k: walls.get(k, 0.0) for k in "ABCDE"}
+        pred = (walls["run_prediction"], walls["cycles"])
+        res2, ran2 = cr.run_climate(cfg, out, out / "CLIMATE_RUN.json", **kw)
+
+        # -- 19b. the skill arms on the same twin cache
+        data = twin_data(twin.gcm_true, twin.gcm_imp, EXP_N, out,
+                         source=twin.source, log=lambda m: None)
+        arms = {}
+        for topology in ("shift", "random"):
+            for fn in kernels.values():
+                fn.launches = 0
+            gram_update.launches = 0
+            walls.pop("train", None)
+            t0 = time.perf_counter()
+            arm = se.skill_arm(twin.gcm_imp, twin.layout, data.truth,
+                               data.model, data.dates, n_train=EXP_N,
+                               m=cfg.m, topology=topology,
+                               beta_res=skill_beta,
+                               log=lambda m: log(f"  skill: {m}"))
+            total = time.perf_counter() - t0
+            arms[topology] = (arm, walls["train"], total - walls["train"],
+                              kernels["K1_esn_step"].launches,
+                              gram_update.launches)
+    finally:
+        for mod, name, real, _ in patches:
+            setattr(mod, name, real)
+    peak_rss = rss_pct()
+
+    # -- 19c. the checks
+    if ran != list("ABCDE"):
+        fail(f"run_climate ran stages {ran} in a new directory, not A-E")
+    if ran2 or res2 != res:
+        fail(f"a second run_climate ran stages {ran2} (none expected) or "
+             f"returned another result")
+    ckpt = out / f"hybrid_m{cfg.m}_N{cfg.n}.ckpt"
+    want = [twin_cache_path(out, EXP_N, twin.source), ckpt / "meta.json",
+            out / "train_meta.json", out / "hybrid_climate.part0.npz",
+            out / "monthly_means.npz", out / "stage_c_done.json",
+            out / "speedy_baseline.npz", out / "CLIMATE_RUN.json"]
+    missing = [str(p.relative_to(out)) for p in want if not p.exists()]
+    if missing:
+        fail(f"the climate run left out {missing}")
+    atmo = [str(p) for p in out.rglob("*") if ".atmo" in p.name]
+    if atmo:
+        fail(f"the atmosphere's checkpoint is still there: {atmo}")
+    if tuple(res) != CLIMATE_KEYS:
+        fail(f"the result's keys {list(res)} are not the script's")
+
+    def numbers(v):
+        if isinstance(v, dict):
+            return [x for u in v.values() for x in numbers(u)]
+        return [v] if isinstance(v, (int, float)) and \
+            not isinstance(v, bool) else []
+
+    bad = [k for k, v in res.items()
+           if not all(np.isfinite(x) for x in numbers(v))
+           or (v is None and k != "nino34_peak_period_years")]
+    if bad:
+        fail(f"the result's {bad} are not finite numbers: "
+             f"{ {k: res[k] for k in bad} }")
+    if json.loads((out / "CLIMATE_RUN.json").read_text()) != res:
+        fail("CLIMATE_RUN.json is not the result run_climate returned")
+    done = json.loads((out / "stage_c_done.json").read_text())
+    if done["cycles"] != pred[1] or res["cycles"] != pred[1]:
+        fail(f"stage C ran {pred[1]} cycles, its file says "
+             f"{done['cycles']}, the result {res['cycles']}")
+
+    # -- 19d. what it printed
+    log(f"climate run: {wall_climate:.1f} s wall; stages " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stage_walls.items())
+        + f" (A: the nature run's {EXP_N + 160} samples after 30 days and "
+          f"the imperfect forecasts; E: host numpy) [{card}]")
+    ms = pred[0] / max(pred[1], 1) * 1e3
+    log(f"stage C: {pred[1]} of {EXP_CYCLES} cycles, safe={done['safe']}, "
+        f"run_prediction {pred[0]:.3f} s, {ms:.2f} ms a cycle with the "
+        f"writer and the time means (cycles_per_dispatch {cfg.dispatch}), "
+        f"{pred[1] / cr.SPY / (pred[0] / 86400.0):.1f} simulated years a "
+        f"day [{card}]")
+    log(f"stage D: {EXP_BASE_DAYS} days in {stage_walls['D']:.1f} s, "
+        f"{stage_walls['D'] / EXP_BASE_DAYS:.3f} s a simulated day [{card}]")
+    log(f"result: " + json.dumps({k: res[k] for k in (
+        "cycles", "safe_never_tripped", "t_sfc_global_first_year",
+        "t_sfc_global_last_year", "mass_drift_rel", "nino34_std",
+        "climo_rms_hybrid", "climo_rms_speedy")}))
+    for topology, (arm, t_train, t_eval, k1, k14) in arms.items():
+        eh, es = np.array(arm["hybrid_rmse"]), np.array(arm["speedy_rmse"])
+        if not (np.isfinite(eh).all() and np.isfinite(es).all()):
+            fail(f"the {topology} arm's RMSE are not finite")
+        log(f"skill arm {topology}: training {t_train:.1f} s, evaluation "
+            f"{t_eval:.1f} s ({se.N_IC} ICs x {len(eh)} cycles); hybrid/"
+            f"SPEEDY T-RMSE " + ", ".join(
+                f"{nm} {eh[i]:.3f}/{es[i]:.3f} K" for nm, i in EXP_LEADS)
+            + f"; K1 {k1}, K14 {k14} launches [{card}]")
+    if arms["random"][3] <= 0 or arms["random"][4] <= 0:
+        fail(f"the random arm launched K1 {arms['random'][3]} and K14 "
+             f"{arms['random'][4]} times")
+    changed = sorted(p for p, st in tree_state(ROOT).items()
+                     if before.get(p) != st)
+    if changed:
+        fail(f"phase 19 wrote outside its work directory: {changed[:10]}")
+    log(f"peak host RSS {peak_rss:.1f}% of the host's memory; nothing "
+        f"written outside {work}")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -4097,6 +4334,11 @@ def main():
                          "entry point at full width: main run in a "
                          "subprocess, main predict from its checkpoint, "
                          "the NetCDF export) alone; prints no result line")
+    ap.add_argument("--experiments", action="store_true",
+                    help="after the build, run phase 19 (the experiment "
+                         "programs: the climate run's stages and both skill "
+                         "arms at full width, cut in time) alone; prints no "
+                         "result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -4192,15 +4434,22 @@ def main():
 
     # every kernel's wrapper, by its name in the kernels line
     kernels = port_kernels()
-    # phases 10 and 13 share the atmosphere's checkpoint, and phase 18
-    # writes its run, in a directory removed at exit; --cli runs phase 18
-    # alone, before the hybrids of phase 3
+    # phases 10 and 13 share the atmosphere's checkpoint, and phases 18
+    # and 19 write their runs, in a directory removed at exit; --cli and
+    # --experiments run phase 18 or 19 alone, before the hybrids of
+    # phase 3
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, work, True)
 
     if args.cli:
         phase_cli(torch, np, card, kernels, work)
         log(f"chip_smoke --cli: phase 18 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
+    if args.experiments:
+        phase_experiments(torch, np, card, kernels, work)
+        log(f"chip_smoke --experiments: phase 19 passed, "
             f"{time.perf_counter() - t_start:.1f} s after the card check; "
             f"no result line [{card}]")
         return
@@ -5780,6 +6029,9 @@ def main():
         f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
         f"reserved in this process")
     phase_cli(torch, np, card, kernels, work)
+
+    # -- 19. the experiment programs
+    phase_experiments(torch, np, card, kernels, work)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         f"card check [{card}]")
