@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--ptxas] [--kernels] [--surface] [--ocean]
                           [--options] [--vertical] [--physics]
                           [--dispatch] [--cli] [--experiments]
-                          [--k14-lists]
+                          [--mesh] [--k14-lists]
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -235,11 +235,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      day, the arms' T-RMSE at days 1, 3, 7 and 14, K1 and K14 launches
      in the random arm, peak host RSS; nothing written outside its work
      directory.
+ 20. the hub-free sharded cycle (phase_mesh; run after phase 17, before
+     18): the main path's hybrid on a mesh of MESH_SHARDS shards (on as
+     many cards where they are visible, else all on cuda:0),
+     set_mesh(mesh, shard_gcm=False); MESH_CYCLES sharded cycles from
+     the unsharded state two cycles in, each cycle's fields and every
+     class's x, feedback and local model bit for bit the unsharded
+     cycle's; run_prediction both ways with every launch counter set to
+     0 before and read after (K1, K2 and K3 MESH_SHARDS times the
+     unsharded launches, every other kernel the same), the moves between
+     shards a cycle and their bytes, the host clock; busy and device
+     launches a cycle with K1, K2 and K3 apart (four profile sessions,
+     unsharded and sharded in turn); the dry run's training step at
+     m = 6000 (accumulate_batches on 8 interior regions a shard, T = 9,
+     solve_wout_sharded in float64: Wout bit for bit solve_wout's) and
+     its lat halo exchange of the SST.
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
 trains phase 10's atmosphere and runs phase 13 alone (no result line);
 --options runs phase 14 alone, --vertical phase 15 (with its own nature
-run), --physics phase 16, --dispatch phase 17, --cli phase 18 and
---experiments phase 19 (no result line).
+run), --physics phase 16, --dispatch phase 17, --cli phase 18,
+--experiments phase 19 and --mesh phase 20 (no result line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -399,6 +414,16 @@ DISPATCH_DATE2 = (1990, 7, 15)   # the second date of the replayed forms
 DISPATCH_FORMS = ("K3_window_gather_dev", "K17_surface_forcing_dev",
                   "K21_slab_couple_dev", "K22_slab_ocean_dev",
                   "K23_sst_by_date_dev")
+# phase 20 (the hub-free sharded cycle): the shards of the mesh (on four
+# cards where four are visible, else all on cuda:0), the sharded and
+# unsharded cycles held bit for bit, and the cycles of each profile
+# session, each after MESH_PAD launches of K17b (late in a full run a
+# session lost its first ~34 device events, OCEAN_PAD's 32 and then K1's
+# and K2's)
+MESH_SHARDS = 4
+MESH_CYCLES = 8
+MESH_PROFILE_CYCLES = 4
+MESH_PAD = 128
 # phase 18 (the CLI): RunConfig's own defaults (T30L8, 1,152 regions,
 # m = 6000, the slab ocean at m = 4000, the persistent surface, float32)
 # cut in time only: 224 nature-run samples (the ocean's 8 slab strides of
@@ -3851,6 +3876,173 @@ def phase_dispatch(torch, np, gcm, hyb, date0, card, record, kernels,
     return launches
 
 
+def phase_mesh(torch, np, gcm, hyb, date0, card, kernels):
+    """Phase 20: the hub-free sharded cycle (hybrid/sharded.py) at the main
+    path's full width on MESH_SHARDS shards, against the unsharded cycle
+    from the same parameters and state, bit for bit; the dry run's
+    training step at m = 6000 and its lat halo exchange; launches, busy
+    and the moves between shards a cycle."""
+    import copy
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+    from speedy_ml_tpu_torch.parallel.dryrun import (check_lat_halo,
+                                                     check_training_step)
+    from speedy_ml_tpu_torch.parallel.mesh import Mesh, gather_rows, make_mesh
+    t_phase = time.perf_counter()
+    g = gcm.geom
+    imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
+    visible = torch.cuda.device_count()
+    if visible >= MESH_SHARDS:
+        mesh = make_mesh(MESH_SHARDS)
+    else:
+        mesh = Mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+        log(f"phase 20: {visible} card(s) visible: the {MESH_SHARDS} shards "
+            f"all on cuda:0 (every line of the sharded cycle but the "
+            f"transport between cards)")
+    sh = copy.copy(hyb)
+    sh.set_mesh(mesh, shard_gcm=False)
+    ops = sh._sharded_ops
+    log(f"phase 20: {mesh}; sectors of {ops.W} longitudes, "
+        + ", ".join(f"{p.cls.name}: {t.Rloc} regions a shard"
+                    for p, t in zip(hyb.packs, ops.tables)))
+    s0 = hyb.init_state(sst_month0(g))
+    for _ in range(2):
+        s0, _ = hyb.cycle(s0, imon, fmon, tyear)
+    # the seconds of the phase's parts, in its last line
+    part_s, t_part = {}, [t_phase]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    part("set-up")
+
+    # -- (a) the cycles, bit for bit --------------------------------------
+    a, b = s0, sh.shard_state(s0)
+    for c in range(MESH_CYCLES):
+        a, da = hyb.cycle(a, imon, fmon, tyear)
+        b, db = sh.cycle(b, imon, fmon, tyear)
+        for k in ("atmo", "logp", "precip", "speedy_atmo", "speedy_logp"):
+            if not same_bits(torch, da[k], db[k]):
+                fail(f"phase 20: cycle {c}: the sharded {k} differs from the "
+                     f"unsharded")
+        for i, (ca, cb) in enumerate(zip(a.classes, b.classes)):
+            for nm in ("x", "feedback", "local_model"):
+                if not same_bits(torch, getattr(ca, nm),
+                                 gather_rows(getattr(cb, nm), ca.x.device)):
+                    fail(f"phase 20: cycle {c}: class {i}'s sharded {nm} "
+                         f"differs from the unsharded")
+        if not bool(a.safe) or not bool(b.safe):
+            fail(f"phase 20: cycle {c} tripped the gate")
+    log(f"phase 20: {MESH_CYCLES} sharded cycles bit for bit the unsharded "
+        f"(atmo, logp, precip, the window's fields, every class's x, "
+        f"feedback and local model)")
+    part("(a) cycles")
+
+    # -- (b) the main path's entry point, launches kernel by kernel ----------
+    runs = {}
+    for label, h, st in (("unsharded", hyb, s0),
+                         ("sharded", sh, sh.shard_state(s0))):
+        torch.cuda.synchronize()
+        for w in kernels.values():
+            w.launches = 0
+        moved = (ops.copies, ops.copy_bytes)
+        t0 = time.perf_counter()
+        fin, dts = run_prediction(h, st, date0, MESH_CYCLES)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / MESH_CYCLES * 1e3
+        if len(dts) != MESH_CYCLES:
+            fail(f"phase 20: the {label} run stopped after {len(dts)} cycles")
+        runs[label] = (fin, {nm: w.launches for nm, w in kernels.items()},
+                       wall, ops.copies - moved[0],
+                       ops.copy_bytes - moved[1])
+    (fa, ka, wa, _, _), (fb, kb_, wb, n_mv, b_mv) = (runs["unsharded"],
+                                                     runs["sharded"])
+    for i, (ca, cb) in enumerate(zip(fa.classes, fb.classes)):
+        if not same_bits(torch, ca.x, gather_rows(cb.x, ca.x.device)):
+            fail(f"phase 20: run_prediction's final class {i} x differs")
+    sharded_k = ("K1_esn_step", "K2_readout_scatter", "K3_window_gather")
+    for nm in kernels:
+        want = ka[nm] * (MESH_SHARDS if nm in sharded_k else 1)
+        if kb_[nm] != want:
+            fail(f"phase 20: {nm} launched {kb_[nm]} times in the sharded "
+                 f"run, {want} expected")
+    for nm in sharded_k + ("K5_sht_analysis", "K20_window_select"):
+        if kb_[nm] <= 0:
+            fail(f"phase 20: {nm} was not launched on the sharded path")
+    log(f"phase 20: run_prediction, {MESH_CYCLES} cycles each: launches a "
+        f"cycle sharded / unsharded: "
+        + ", ".join(f"{nm.split('_')[0]} {kb_[nm] / MESH_CYCLES:g}/"
+                    f"{ka[nm] / MESH_CYCLES:g}" for nm in sharded_k)
+        + f", the GCM's kernels the same; moves between shards a cycle "
+        f"{n_mv / MESH_CYCLES:g}, {b_mv / MESH_CYCLES / 2 ** 20:.4f} MiB; "
+        f"host clock {wb:.2f} against {wa:.2f} ms a cycle [{card}]")
+    part("(b) run_prediction")
+
+    # -- (c) busy and launches a cycle (profiler) ----------------------------
+    # a session can lose its first device events (PERF.md §7): MESH_PAD
+    # launches of K17b go first in each cycle and are left out, and a
+    # session that saw fewer of the cycle's launches of the port's kernels
+    # than the wrappers counted in a call is profiled again
+    # (profile_counts)
+    pad = lambda: [tisr_plane(tyear, hyb._slat, hyb._clat, g.nlon)
+                   for _ in range(MESH_PAD)]
+    names = {"esn_step_kernel": "K1", "readout_kernel": "K2",
+             "window_gather_kernel": "K3"}
+    port_names = port_kernel_names()
+    prof = {}
+    for label, h, st in (("unsharded", hyb, fa), ("sharded", sh, fb),
+                         ("unsharded again", hyb, fa),
+                         ("sharded again", sh, fb)):
+        fn = lambda h=h, st=st: (pad(), h.cycle(st, imon, fmon, tyear))
+        n = MESH_PROFILE_CYCLES
+        torch.cuda.synchronize()
+        for w in kernels.values():
+            w.launches = 0
+        fn()
+        want = n * sum(w.launches for nm, w in kernels.items()
+                       if nm != "K17b_tisr_plane")
+        seen = lambda kk: sum(e.count for e in kk
+                              if kernel_name(e.key) in port_names
+                              and kernel_name(e.key) != "tisr_kernel")
+        _, kk, _ = profile_counts(torch, fn, n, lambda kk: seen(kk) < want)
+        kk = [e for e in kk if kernel_name(e.key) != "tisr_kernel"]
+        got = seen(kk)
+        per = {}
+        for e in kk:
+            k = names.get(kernel_name(e.key), "other")
+            ms, cnt = per.get(k, (0.0, 0.0))
+            per[k] = (ms + _self_device_us(e) / 1e3 / n, cnt + e.count / n)
+        busy = sum(v[0] for v in per.values())
+        launches = sum(v[1] for v in per.values())
+        prof[label] = (busy, launches, per)
+        log(f"phase 20 profile, {label}: busy {busy:.4f} ms and "
+            f"{launches:g} device launches a cycle; "
+            + ", ".join(f"{k} {v[0]:.4f} ms, {v[1]:g}"
+                        for k, v in sorted(per.items()))
+            + ("" if got >= want else f"; the session lost launches: "
+               f"{got} of the port's {want}")
+            + f" [{card}]")
+    part("(c) profile")
+
+    # -- (d) the dry run's training step at full width, the lat halos ------
+    t0 = time.perf_counter()
+    shape = check_training_step(hyb.packs[1], mesh)
+    check_lat_halo(torch.as_tensor(sst_month0(g), dtype=torch.float32,
+                                   device=hyb.device), mesh)
+    log(f"phase 20: the sharded training step (8 regions a shard of the "
+        f"interior class, T = 9, the solve in float64): Wout {shape} bit "
+        f"for bit solve_wout's, in {time.perf_counter() - t0:.1f} s; the "
+        f"lat halo exchange of the SST over {MESH_SHARDS} bands exact")
+    part("(d) training step, halos")
+    log(f"phase 20 passed in {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items())
+        + f") [{card}]")
+    return prof
+
+
 def port_kernels() -> dict:
     """Every kernel's wrapper, by its name in the kernels line (K14 and
     the forms apart)."""
@@ -4339,6 +4531,11 @@ def main():
                          "programs: the climate run's stages and both skill "
                          "arms at full width, cut in time) alone; prints no "
                          "result line")
+    ap.add_argument("--mesh", action="store_true",
+                    help="after the hybrids, run phase 20 (the hub-free "
+                         "sharded cycle on 4 shards against the unsharded "
+                         "one, bit for bit; the sharded training step) "
+                         "alone; prints no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -4425,6 +4622,14 @@ def main():
                                                       surface_state)
 
     t_start = time.perf_counter()
+    # the full run's seconds a phase, printed before the kernels line
+    phase_s, t_lap = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     # -- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = kb.build(verbose=args.ptxas)
@@ -4499,6 +4704,7 @@ def main():
     K = g.nlev
 
     # -- 4. kernels against their plain versions ------------------------
+    lap("2-3 build, hybrids")
     results = {}
 
     def record(name, src, replaces, err, tol, kernel, plain, bound,
@@ -4525,6 +4731,12 @@ def main():
     if args.vertical:
         phase_vertical(torch, np, gcm, hyb.layout, hyb, date0, card, kernels)
         log(f"chip_smoke --vertical: phase 15 passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
+    if args.mesh:
+        phase_mesh(torch, np, gcm, hyb, date0, card, kernels)
+        log(f"chip_smoke --mesh: phase 20 passed, "
             f"{time.perf_counter() - t_start:.1f} s after the card check; "
             f"no result line [{card}]")
         return
@@ -5520,6 +5732,7 @@ def main():
         return
 
     # -- 5. the SPEEDY window on the card against the plain port on the
+    lap("4 kernels")
     #       CPU (float32): stepone from the same injected state, then each
     #       of the window's steps from the card's state before it, held to
     #       the plain step from the same state (window_steps: near-tie
@@ -5569,6 +5782,7 @@ def main():
     del gcm_c
 
     # -- 6. the ML-only main path (PR 1's phases, shortened) -------------
+    lap("5 SPEEDY window")
     ml_kernels = ["K1_esn_step", "K2_readout_scatter", "K3_window_gather"]
     # K17b is on no cycle's path: the ML-only cycle's K3 takes the date,
     # the coupled cycle feeds back its window's fsol plane; K21 is the
@@ -5685,6 +5899,7 @@ def main():
     del hyb_ml, fin_ml, k_state, k_diag
 
     # -- 7. the coupled main path ---------------------------------------
+    lap("6 ML-only")
     path = out_dir / "prediction.npz"
     final, dts, counts, wall = drive(hyb, state0, CYCLES, path,
                                      coupled_kernels)
@@ -5945,6 +6160,7 @@ def main():
         f"safe, finite, SPEEDY T {tmin:.3f}..{tmax:.3f} K")
 
     # -- 8. one coupled cycle with host syncs forbidden -----------------
+    lap("7 coupled")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -5958,6 +6174,7 @@ def main():
         "torch.cuda.set_sync_debug_mode('error')")
 
     # -- 9. the safety gate ---------------------------------------------
+    lap("8 no syncs")
     big = [pk._replace(res=dataclasses.replace(
         pk.res, wout=(pk.res.wout.float() * 1e7).to(torch.bfloat16)))
         for pk in packs]
@@ -5986,39 +6203,52 @@ def main():
     del hyb_bad, big
 
     # -- 10. training at full width --------------------------------------
+    lap("9 gate")
     keep = {}
     results["K14_gram_update"]["launches"] = phase_training(
         torch, gcm, hyb.layout, date0, card, record, atmo_ckpt, keep)
+    lap("10 training")
 
     # -- 11. the paths from files ------------------------------------------
     phase_files(torch, np, gcm, hyb.layout, date0, card)
+    lap("11 files")
 
     # -- 12. the persistent surface and the slab coupler --------------------
     results["K21_slab_couple"]["launches"] = phase_surface(
         torch, np, gcm, hyb, date0, card, record, kernels)
+    lap("12 surface")
 
     # -- 13. the slab ocean ---------------------------------------------------
     results["K22_slab_ocean"]["launches"] = phase_ocean(
         torch, np, gcm, hyb.layout, date0, card, record, kernels, atmo_ckpt)
+    lap("13 slab ocean")
 
     # -- 14. the forecast's options ---------------------------------------------
     (results["K23_sst_by_date"]["launches"],
      results["K2_readout_components"]["launches"]) = phase_options(
         torch, np, hyb, date0, card, record, kernels, work, out_dir)
+    lap("14 options")
 
     # -- 15. vertical localization ------------------------------------------------
     phase_vertical(torch, np, gcm, hyb.layout, hyb, date0, card, kernels,
                    keep.pop("data"))
+    lap("15 vertical")
 
     # -- 16. the optional physics ------------------------------------------------
     for nm, n in phase_physics(torch, np, gcm, date0, card, record,
                                kernels).items():
         results[nm]["launches"] = n
+    lap("16 physics")
 
     # -- 17. the batched prediction loop ------------------------------------------
     for nm, n in phase_dispatch(torch, np, gcm, hyb, date0, card, record,
                                 kernels, work).items():
         results[nm]["launches"] = n
+    lap("17 dispatch")
+
+    # -- 20. the hub-free sharded cycle ----------------------------------------
+    phase_mesh(torch, np, gcm, hyb, date0, card, kernels)
+    lap("20 mesh")
 
     # -- 18. the config-driven entry point, the earlier phases' hybrids
     #       freed: its subprocess trains at full width
@@ -6029,12 +6259,14 @@ def main():
         f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
         f"reserved in this process")
     phase_cli(torch, np, card, kernels, work)
+    lap("18 CLI")
 
     # -- 19. the experiment programs
     phase_experiments(torch, np, card, kernels, work)
+    lap("19 experiments")
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
-        f"card check [{card}]")
+        f"card check [{card}]; seconds a phase: {json.dumps(phase_s)}")
     order = (list(kernels) + ["K14_gram_update", "K2_readout_components"]
              + list(DISPATCH_FORMS))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -30,7 +30,7 @@ from speedy_ml_tpu_torch.kernels.inject_spectral import inject_blob
 from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
 from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
 
-MESH_SLICE = "the multi-GPU slice of the port (A16)"
+MESH_SLICE = "the distributed-GCM slice of the port (A16b)"
 
 
 def complex_dtype(dtype: torch.dtype) -> torch.dtype:

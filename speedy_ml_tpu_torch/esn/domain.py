@@ -222,18 +222,24 @@ class RegionLayout:
     # index tables (numpy, built once per class)
     # ------------------------------------------------------------------
 
-    def window_index(self, cls: RegionClass, core_only: bool = False
-                     ) -> np.ndarray:
-        """(Rc, yi, xi) int32 flat (lat * nlon + lon) index of every
-        window element; core_only gives the (Rc, yc, xc) core."""
+    def window_index(self, cls: RegionClass, core_only: bool = False,
+                     ncols: int | None = None) -> np.ndarray:
+        """(Rc, yi, xi) int32 flat (lat * ncols + lon) index of every
+        window element; core_only gives the (Rc, yc, xc) core.  ncols: the
+        longitudes of the grid the index addresses (default nlon; a lon
+        sector's, hybrid/sharded.py, whose class tables are local)."""
         iy = cls.iy_core if core_only else cls.iy_in
         ix = cls.ix_core if core_only else cls.ix_in
-        nlon = self.geom.nlon
+        nlon = self.geom.nlon if ncols is None else ncols
+        if ix.size and not 0 <= ix.min() <= ix.max() < nlon:
+            raise ValueError(f"window_index: class {cls.name} leaves the "
+                             f"grid's {nlon} longitudes")
         return (iy[:, :, None] * nlon + ix[:, None, :]).astype(np.int32)
 
     def pack_table(self, cls: RegionClass, nvar: int, nz: int, *,
                    logp: bool, precip: bool, sst: bool, tisr: bool,
-                   core_only: bool = False, levels=None) -> np.ndarray:
+                   core_only: bool = False, levels=None,
+                   ncols: int | None = None) -> np.ndarray:
         """(Rc, total) int32 source index of every packed-vector element.
 
         Indices point into the flat buffer [atmo (nvar, nz, lat, lon),
@@ -241,13 +247,16 @@ class RegionLayout:
         whether or not a block is packed.  The order is pack_vector's
         (reference order, domain.py:252-269 of the JAX package) applied
         to the atmo levels [lo, hi) = levels (default all nz): a vertical
-        group's band (band())."""
-        nlat, nlon = self.geom.nlat, self.geom.nlon
+        group's band (band()).  ncols: as in window_index, the fields then
+        (lat, ncols) each."""
+        nlat = self.geom.nlat
+        nlon = self.geom.nlon if ncols is None else ncols
         G = nlat * nlon
         lo, hi = (0, nz) if levels is None else levels
         if not 0 <= lo < hi <= nz:
             raise ValueError(f"pack_table: levels {levels} outside [0, {nz})")
-        w = self.window_index(cls, core_only).astype(np.int64)  # (Rc, y, x)
+        w = self.window_index(cls, core_only,
+                              nlon).astype(np.int64)   # (Rc, y, x)
         Rc, ny, nx = w.shape
         # atmo: C-flatten (Rc, z, y, x, v) of (v * nz + z) * G + w
         v = np.arange(nvar)[None, None, None, None, :]
@@ -264,15 +273,17 @@ class RegionLayout:
         return out.astype(np.int32)
 
     def core_table(self, cls: RegionClass, nvar: int, nz: int,
-                   zspec=None) -> np.ndarray:
+                   zspec=None, ncols: int | None = None) -> np.ndarray:
         """(Rc, O) int32: the flat-output element [atmo (nvar, nz, lat,
         lon), logp, precip] of each output of a pack of class cls and
         vertical group zspec: its core band's atmo, and logp and precip if
-        it is a bottom group (None: the full column)."""
+        it is a bottom group (None: the full column).  ncols: as in
+        window_index."""
         b = is_bottom(zspec)
         return self.pack_table(cls, nvar, nz, logp=b, precip=b, sst=False,
                                tisr=False, core_only=True,
-                               levels=band(zspec, nz, core=True))
+                               levels=band(zspec, nz, core=True),
+                               ncols=ncols)
 
     def core_source_table(self, classes, nvar: int, nz: int,
                           zspecs=None) -> np.ndarray:

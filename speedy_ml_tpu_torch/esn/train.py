@@ -33,8 +33,6 @@ from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step)
 from speedy_ml_tpu_torch.kernels.gram_update import gram_update
 
-MULTI_GPU_SLICE = "the multi-GPU slice of the port (A16)"
-
 Noise = Optional[Callable[[int], torch.Tensor]]
 
 
@@ -222,9 +220,25 @@ def solve_wout(eq: NormalEq, hyper: ESNHyper, n_speedy: int,
 
 
 def solve_wout_sharded(eq: NormalEq, hyper: ESNHyper, n_speedy: int,
-                       mesh, axis: str = "regions"):
-    raise NotImplementedError(f"the sharded solve comes with "
-                              f"{MULTI_GPU_SLICE}")
+                       mesh, axis: str = "regions", solve_dtype=None):
+    """solve_wout with the region axis sharded over `mesh`
+    (parallel/mesh.py): each device solves its own regions' normal
+    equations, region by region as solve_wout does, with no exchange
+    between devices.  eq: ss and st Sharded by rows (each device's
+    regions, where the sharded accumulation left them), or whole tensors,
+    which are split first.  Returns Wout as a Sharded (Rloc, O, A) a
+    device."""
+    from speedy_ml_tpu_torch.parallel.mesh import Sharded, shard_rows
+    if axis != mesh.axis:
+        raise ValueError(f"solve_wout_sharded: the mesh's axis is "
+                         f"{mesh.axis!r}, not {axis!r}")
+    ss, st = (t if isinstance(t, tuple) else shard_rows(t, mesh)
+              for t in (eq.ss, eq.st))
+    if len(ss) != mesh.size or len(st) != mesh.size:
+        raise ValueError(f"solve_wout_sharded: {len(ss)} and {len(st)} "
+                         f"shards for a mesh of {mesh.size}")
+    return Sharded(solve_wout(NormalEq(a, b), hyper, n_speedy, solve_dtype)
+                   for a, b in zip(ss, st))
 
 
 def train_subseries(res: BatchedReservoir, hyper: ESNHyper,

@@ -157,8 +157,9 @@ class GCM:
         self.phis = self.sht.trunct(self.sht.grid_to_spec(self.bd.orog))
 
     def set_mesh(self, mesh, axis: str = "regions"):
-        raise NotImplementedError("the multi-GPU GCM comes with the "
-                                  "multi-GPU slice of the port (A16)")
+        raise NotImplementedError("the lat-sharded GCM physics comes with "
+                                  "the distributed-GCM slice of the port "
+                                  "(A16b)")
 
     def sstan_months(self, date):
         """The observed anomalies of the (previous, this, next) month of

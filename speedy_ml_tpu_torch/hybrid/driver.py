@@ -139,6 +139,12 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
     state is the one at the end of that dispatch."""
     if int(cycles_per_dispatch) < 1:
         raise ValueError(f"cycles_per_dispatch {cycles_per_dispatch} < 1")
+    if (cycles_per_dispatch > 1 and truth_provider is None
+            and getattr(hyb, "mesh", None) is not None):
+        raise NotImplementedError(
+            "cycles_per_dispatch > 1 on a meshed hybrid (the captured loop "
+            "on a mesh) comes with the distributed-GCM slice of the port "
+            "(A16b)")
     writer = PredictionWriter(output_path) if output_path else None
     tmean = None
     if time_mean_path:

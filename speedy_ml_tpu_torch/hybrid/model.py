@@ -84,7 +84,8 @@ from speedy_ml_tpu_torch.kernels.surface_forcing import (INDICES, SCALARS,
 from speedy_ml_tpu_torch.kernels.window_gather import TisrRow, window_gather
 from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
-OPTIONS_SLICE = "the multi-GPU slice of the port (A16: the sharded cycle)"
+# what a meshed hybrid does not run yet
+LATER_SLICE = "the distributed-GCM slice of the port (A16b)"
 
 # The cycle's row of per-cycle scalars (cycle_with_params(scalars=),
 # HybridAtmosphere.scalar_row), float64 with the integers as exact
@@ -260,6 +261,10 @@ class HybridAtmosphere:
         # carries the coupled surface across cycles
         self.emit_components = False
         self.persist_surface = False
+        # the hub-free sharded cycle (set_mesh): the regions' states and
+        # readouts over lon sectors of the mesh's devices (hybrid/sharded.py)
+        self.mesh = None
+        self._sharded_ops = self._sharded_packs = None
         self.device = self.packs[0].res.vals.device
         self.geom = gcm.geom if gcm is not None else layout.geom
         self.dtype = gcm.dtype if gcm is not None \
@@ -326,8 +331,50 @@ class HybridAtmosphere:
                 sea_mask, device=self.device, dtype=self.dtype)
 
     def set_mesh(self, mesh, shard_gcm: bool = True):
-        raise NotImplementedError(f"the sharded cycle comes with "
-                                  f"{OPTIONS_SLICE}")
+        """Switch the cycle to the hub-free sharded path over `mesh`
+        (parallel/mesh.py; the JAX set_mesh, hybrid/model.py:164-185):
+        each device steps and reads out its regions (K1, K2), K2 stores
+        their cores into the device's lon sector, the sectors join into
+        the global grid on mesh.devices[0], where the GCM runs (the
+        injection and the window as on one device), each device gets its
+        sector of the window's fields, SST and TISR, and K3 gathers its
+        regions' feedback through a periodic lon halo, and their local
+        model.  The regions' states are sharded (init_state,
+        start_prediction, shard_state); the diagnostics stay global on
+        mesh.devices[0].  shard_gcm=True, the JAX default, would also
+        lat-shard the GCM's physics (GCM.set_mesh): that comes with
+        A16b, as do the slab ocean and the captured loop on a mesh."""
+        if shard_gcm:
+            raise NotImplementedError(
+                f"the lat-sharded GCM (shard_gcm=True) comes with "
+                f"{LATER_SLICE}; set_mesh(mesh, shard_gcm=False) runs the "
+                f"sharded cycle with the GCM on mesh.devices[0]")
+        if self.ocean_packs:
+            raise NotImplementedError(f"the slab ocean on a mesh comes with "
+                                      f"{LATER_SLICE}")
+        if not _on(self.packs[0].res.vals, mesh.devices[0]):
+            raise ValueError(f"the mesh's first device {mesh.devices[0]} is "
+                             f"not the hybrid's ({self.device})")
+        from speedy_ml_tpu_torch.hybrid.sharded import ShardedCycleOps
+        self._sharded_ops = ShardedCycleOps(self.layout, self.packs, mesh,
+                                            self.nz)
+        self._sharded_packs = self._sharded_ops.shard_params(self.packs)
+        self.mesh = mesh
+
+    def shard_state(self, hstate: HybridState) -> HybridState:
+        """hstate with its regions' states (x, feedback, local_model)
+        split over the mesh's devices (Sharded), as the sharded cycle
+        takes them; a state already sharded is returned as it is."""
+        ops = self._sharded_ops
+        if ops is None:
+            raise ValueError("shard_state: the hybrid has no mesh")
+        if all(isinstance(cs.x, tuple) for cs in hstate.classes):
+            return hstate
+        from speedy_ml_tpu_torch.parallel.mesh import shard_rows
+        return dataclasses.replace(hstate, classes=tuple(
+            ClassState(*(shard_rows(t, ops.mesh) for t in
+                         (cs.x, cs.feedback, cs.local_model)))
+            for cs in hstate.classes))
 
     def _table(self, table, name: str) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(table) if not torch.is_tensor(table)
@@ -364,10 +411,11 @@ class HybridAtmosphere:
                 local_model=torch.zeros((Rc, p.res.n_speedy), **kw)))
         safe = True if self.ml_only else torch.ones(
             (), dtype=torch.bool, device=self.device)
-        return HybridState(classes=tuple(cls_states),
-                           sst_grid=torch.as_tensor(sst_grid, **kw),
-                           safe=safe, step=0,
-                           ocean=self._init_ocean_states())
+        state = HybridState(classes=tuple(cls_states),
+                            sst_grid=torch.as_tensor(sst_grid, **kw),
+                            safe=safe, step=0,
+                            ocean=self._init_ocean_states())
+        return state if self.mesh is None else self.shard_state(state)
 
     def _init_ocean_states(self) -> tuple:
         if not self.ocean_packs:
@@ -450,9 +498,10 @@ class HybridAtmosphere:
                     buffer=buf, lm=lm))
         safe = True if self.ml_only else torch.ones(
             (), dtype=torch.bool, device=self.device)
-        return HybridState(classes=tuple(cls_states),
-                           sst_grid=torch.as_tensor(sst0, **kw),
-                           safe=safe, step=0, ocean=tuple(ocean_states))
+        state = HybridState(classes=tuple(cls_states),
+                            sst_grid=torch.as_tensor(sst0, **kw),
+                            safe=safe, step=0, ocean=tuple(ocean_states))
+        return state if self.mesh is None else self.shard_state(state)
 
     def _bottom_index(self) -> list:
         """Index into packs of each layout class's bottom pack (the one
@@ -487,6 +536,8 @@ class HybridAtmosphere:
         self.packs = [p._replace(res=dataclasses.replace(
             p.res, wout=p.res.wout.to(torch.bfloat16)))
             for p in self.packs]
+        if self._sharded_ops is not None:
+            self._sharded_packs = self._sharded_ops.shard_params(self.packs)
         return self
 
     def _with_params(self, params):
@@ -692,9 +743,17 @@ class HybridAtmosphere:
         row, in their device-scalar forms, so that a captured CUDA graph of
         the cycle (hybrid/graph.py) replays at each cycle's date; the host
         numbers then choose only what the host chooses (the tables, the
-        coupler's day, the slab step) and feed the CPU route.  Returns
-        (new_state, diagnostics dict)."""
+        coupler's day, the slab step) and feed the CPU route.  On a mesh
+        (set_mesh) the regions' part of the cycle runs sharded (JAX
+        :577-583, 604-608, 662-669, 738-745; hybrid/sharded.py), the state's
+        regions Sharded; the row of scalars is then refused (the captured
+        loop on a mesh comes with A16b).  Returns (new_state, diagnostics
+        dict)."""
         rf = torch.profiler.record_function
+        ops = self._sharded_ops
+        if ops is not None and scalars is not None:
+            raise NotImplementedError(f"the captured cycle on a mesh comes "
+                                      f"with {LATER_SLICE}")
         packs, opacks = self._with_params(params)
         sf = None if scalars is None else scalars[:ROW_SF]
         # the SST that the ESN inputs and SPEEDY see this cycle: without an
@@ -717,8 +776,26 @@ class HybridAtmosphere:
                     self.tisr_table, scalars[ROW_TISR:ROW_TISR + 1])
         components = bool(self.emit_components)
         with rf("predict_all"):
-            out = self.predict_all(packs, hstate, components=components)
-        new_x, grid = out[0], out[1]
+            if ops is None:
+                out = self.predict_all(packs, hstate, components=components)
+                new_x, grid = out[0], out[1]
+                parts = out[2] if components else None
+            else:
+                # each device's regions stored into its sector, the
+                # sectors joined on this device
+                if any(r is not p.res or st is not p.std
+                       for (r, st), p in zip(params[0], self.packs)):
+                    raise ValueError("on a mesh the cycle runs the "
+                                     "hybrid's own parameters (set_mesh "
+                                     "shards them)")
+                sp = self._sharded_packs
+                hstate = self.shard_state(hstate)
+                new_x = ops.step(sp, [cs.x for cs in hstate.classes],
+                                 [cs.feedback for cs in hstate.classes])
+                sectors = ops.assemble(
+                    sp, new_x, None if self.ml_only else
+                    [cs.local_model for cs in hstate.classes], components)
+                grid, *parts = ops.gather(sectors, self.device)
         atmo, logp, precip = self.assemble_global(packs, grid)
         safe = hstate.safe
         fc_atmo = fc_logp = tisr = None
@@ -766,14 +843,25 @@ class HybridAtmosphere:
             if tisr_row is not None:
                 tisr = tisr_row
             elif tisr is None:
-                tisr = self.tisr_date(tyear, sf)
-            feedbacks = self.build_feedback(packs, atmo, logp, precip,
-                                            hstate.sst_grid, tisr)
+                # the ML-only cycle on a mesh hands its devices the plane
+                # (K17b), the unsharded one K3 the date (the same bits)
+                tisr = (self.tisr_date(tyear, sf) if ops is None
+                        else self.tisr_field(tyear))
+            if ops is None:
+                feedbacks = self.build_feedback(packs, atmo, logp, precip,
+                                                hstate.sst_grid, tisr)
+            else:
+                st = ops.lon_sectors(hstate.sst_grid, tisr)
+                feedbacks = ops.feedback(sp, *ops.sector_fields(sectors),
+                                         [f[0] for f in st],
+                                         [f[1] for f in st])
         if self.ml_only:
             locals_ = [cs.local_model for cs in hstate.classes]
         else:
             with rf("build_local_model"):
-                locals_ = self.build_local_model(packs, fc_atmo, fc_logp)
+                locals_ = (self.build_local_model(packs, fc_atmo, fc_logp)
+                           if ops is None else ops.local_model(
+                               sp, ops.lon_sectors(fc_atmo, fc_logp)))
         sst_grid, ocean = hstate.sst_grid, hstate.ocean
         if opacks and ocean:
             with rf("slab_ocean"):
@@ -793,7 +881,7 @@ class HybridAtmosphere:
             # the standardized v_p/v_ml parts as global grids (the
             # reference's v_p/v_ml NetCDF streams): views of the grids
             # K2's components form stored without the clamps
-            for name, flat in zip(("vp", "vml"), out[2]):
+            for name, flat in zip(("vp", "vml"), parts):
                 a, l, p = self.assemble_global(packs, flat)
                 diag.update({f"{name}_atmo": a, f"{name}_logp": l,
                              f"{name}_precip": p})

@@ -19,6 +19,7 @@ bf16 Wout 1e-4 (XLA's and PyTorch's f32 tanh differ in the last bits).
 The written .npz (float32 on disk) is held at rtol 1e-5.
 """
 
+import copy
 import dataclasses
 import types
 
@@ -325,8 +326,10 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
 
 
 def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
-    """The options of later slices raise (set_mesh); ml_only=False now
-    runs, so do SPPT, RDF and cgrate, the climatology tables,
+    """The options of later slices raise (set_mesh with the lat-sharded
+    GCM, the captured loop on a mesh: A16b); the sharded cycle
+    (shard_gcm=False) and ml_only=False now run, so do SPPT, RDF and
+    cgrate, the climatology tables,
     emit_components, truth_provider and time_mean_path
     (tests/test_torch_cycle_options.py), and so does cycles_per_dispatch
     > 1 (tests/test_torch_dispatch.py)."""
@@ -355,13 +358,23 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     with pytest.raises(ValueError, match="base_sst must be a tensor on cpu"):
         HybridAtmosphere(thyb.gcm, thyb.layout, thyb.packs, ml_only=True,
                          base_sst=np.zeros(3), device="cpu")
+    from speedy_ml_tpu_torch.parallel.mesh import Mesh
     for h in (thyb, chyb):
-        with pytest.raises(NotImplementedError):
-            h.set_mesh(None)
+        # the sharded cycle has come (tests/test_torch_sharded.py); the
+        # lat-sharded GCM (shard_gcm=True, the JAX default) and the
+        # captured loop on a mesh come with A16b
+        with pytest.raises(NotImplementedError, match="A16b"):
+            h.set_mesh(Mesh(["cpu"] * 2))
+        assert h.mesh is None
         s = h.init_state(_sst(h.geom))
         final, dates = run_prediction(h, s, ModelDate(1990, 1, 1), 1,
                                       cycles_per_dispatch=2)
         assert len(dates) == 1 and final.step == 1
+        meshed = copy.copy(h)
+        meshed.set_mesh(Mesh(["cpu"] * 2), shard_gcm=False)
+        with pytest.raises(NotImplementedError, match="A16b"):
+            run_prediction(meshed, meshed.init_state(_sst(h.geom)),
+                           ModelDate(1990, 1, 1), 1, cycles_per_dispatch=2)
     g, bd = chyb.gcm.geom, chyb.gcm.bd
     # without bd the GCM reads the boundary files, from $SPEEDY_ML_BC_PATH
     # when no bc_path is given (tests/test_torch_boundaries.py)
@@ -377,5 +390,5 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     with pytest.raises(ValueError, match="randfh"):
         type(chyb.gcm.phys)(g, chyb.gcm.const, randfh=np.zeros(1),
                             device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A16b"):
         chyb.gcm.sht.set_mesh(None)

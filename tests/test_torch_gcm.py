@@ -111,7 +111,7 @@ def test_boundary_conversion_and_unported_options(pair, monkeypatch):
     on = GCM(g, bd=tgcm.bd, sppt_on=True, cgrate_on=True, device="cpu",
              dtype=torch.float64)
     assert on.sppt is not None and on.dyn.cgrate_on
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A16b"):
         tgcm.set_mesh(None)
 
 

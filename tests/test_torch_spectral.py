@@ -141,5 +141,5 @@ def test_unported_transform_options_raise():
     g = Geometry(**GEOMS["T10"])
     with pytest.raises(ValueError, match="dft"):
         SpectralTransform(g, zonal="fft", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A16b"):
         SpectralTransform(g, device="cpu").set_mesh(None)

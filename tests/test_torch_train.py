@@ -257,6 +257,22 @@ def test_pinv_svd_matches():
 
 
 def test_sharded_solve_is_a_later_slice():
-    eq = ttrain.NormalEq(torch.zeros((1, 2, 2)), torch.zeros((1, 1, 2)))
-    with pytest.raises(NotImplementedError, match="A16"):
-        ttrain.solve_wout_sharded(eq, ESNHyper(), 0, None)
+    """The sharded solve has come (A16a): each shard's regions solved
+    alone are solve_wout's rows bit for bit, in the solve dtype asked
+    for (JAX parity: tests/test_torch_sharded.py)."""
+    from speedy_ml_tpu_torch.parallel.mesh import Mesh, gather_rows
+    rng = np.random.default_rng(9)
+    aug = rng.normal(size=(4, 20, 6))
+    eq = ttrain.NormalEq(_t(np.einsum("rta,rtb->rab", aug, aug)),
+                         _t(np.einsum("rto,rta->roa",
+                                      rng.normal(size=(4, 20, 3)), aug)))
+    hyper = ESNHyper(beta_res=0.1, beta_model=1.0, prior_val=0.5)
+    for solve_dtype in (None, torch.float64):
+        got = ttrain.solve_wout_sharded(eq, hyper, 2, Mesh(["cpu"] * 2),
+                                        solve_dtype=solve_dtype)
+        assert len(got) == 2
+        assert torch.equal(gather_rows(got, "cpu"),
+                           ttrain.solve_wout(eq, hyper, 2, solve_dtype))
+    with pytest.raises(ValueError, match="axis"):
+        ttrain.solve_wout_sharded(eq, hyper, 2, Mesh(["cpu"] * 2),
+                                  axis="lat")
