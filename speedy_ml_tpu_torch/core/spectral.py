@@ -17,9 +17,20 @@ Layouts as in the JAX package:
 Precision: the tables and operators run in the model dtype (float32 on
 the card, float64 in the tests) with no TF32 anywhere: reduced-precision
 passes blow the T30 integration up after about 20 days.
+
+On a mesh (set_mesh; the JAX package's m-sharding) shard d holds a view
+of the transform (shard_view): the analysis tables and the spectral
+operators of its zonal wavenumbers ranges[d], and the synthesis tables
+of its latitude band bands[d] (parallel/mesh.py GridShards).  K5 of a
+shard turns the whole grid into its m range; K6 of a shard turns the
+whole spectrum, its m ranges joined on the shard, into its band.  No sum
+crosses shards: each output is the unsharded kernel's, bit for bit (the
+ranges are joined before the sum over m, not summed as partial grids).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -29,9 +40,6 @@ from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.kernels.inject_spectral import inject_blob
 from speedy_ml_tpu_torch.kernels.sht_analysis import sht_analysis
 from speedy_ml_tpu_torch.kernels.sht_synthesis import sht_synthesis
-
-MESH_SLICE = "the distributed-GCM slice of the port (A16b)"
-
 
 def complex_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype == torch.float64 else torch.complex64
@@ -168,6 +176,8 @@ class SpectralTransform:
         self.zrow_mask = f(zrow)
         self.cosgr = f(1.0 / geom.cos_lat)
         self.cosgr2 = f(1.0 / geom.cos_lat ** 2)
+        # the synthesis' 1/cos rows (a shard's: its band's)
+        self.cosgr_g = self.cosgr
 
         # zonal DFT matrices, only the mx kept wavenumbers (nlon x mx)
         j = np.arange(geom.nlon)
@@ -183,9 +193,79 @@ class SpectralTransform:
         # the tables of the injection's spectral glue (K18, phase 0 of
         # K6_inject), built once
         self.inject_blob = inject_blob(self)
+        self.mesh = self.grid = self.shards = None
+        self.m0 = 0   # a shard's first zonal wavenumber
+
+    # ------------------------------------------------------------------
+    # the mesh (m ranges and latitude bands)
+    # ------------------------------------------------------------------
+
+    M_TABLES = ("el2", "elm2", "gradym", "gradyp", "uvdx", "uvdym",
+                "uvdyp", "vddym", "vddyp", "trfilt")
+
+    def shard_view(self, mrange, band, device) -> "SpectralTransform":
+        """A copy of this transform for one shard on `device`: K5's tables
+        (dft_fwd's columns, the Legendre analysis rows) and the (m, n)
+        operator tables of the wavenumbers mrange = (m0, m1); K6's tables
+        (the Legendre synthesis rows, 1/cos) of the latitude band = (p0,
+        p1) (parallel/mesh.py lat_bands); the (lat,) analysis factors
+        whole.  Its analysis turns a whole grid into the range, its
+        synthesis a whole spectrum into the band; its operators work on
+        the range (they are elementwise in m)."""
+        from speedy_ml_tpu_torch.parallel.mesh import band_rows
+        v = copy.copy(self)
+        v.mesh = v.grid = v.shards = None
+        dev = torch.device(device)
+        m0, m1 = mrange
+        p0, p1 = band
+        v.device, v.m0 = dev, m0
+        to = lambda t: t.to(dev).contiguous()
+        m = lambda t, dim: to(t.narrow(dim, m0, m1 - m0))
+        v.dft_fwd = m(self.dft_fwd, 1)
+        for nm in ("cpol_even_s", "cpol_odd_s", "cpol_s"):
+            setattr(v, nm, m(getattr(self, nm), 1))
+        for nm in self.M_TABLES:
+            setattr(v, nm, m(getattr(self, nm), 0))
+        v.gradx = m(self.gradx, 0)
+        v.igradx = m(self.igradx, 0)
+        for nm in ("cpol_even_g", "cpol_odd_g", "cpol_g"):
+            setattr(v, nm, to(getattr(self, nm)[p0:p1]))
+        v.cosgr_g = to(band_rows(self.cosgr, band, self.geom.nlat, dim=0))
+        for nm in ("wt", "cosgr", "cosgr2", "zrow_mask", "dft_inv"):
+            setattr(v, nm, to(getattr(self, nm)))
+        v.inject_blob = None
+        return v
 
     def set_mesh(self, mesh, axis: str = "regions"):
-        raise NotImplementedError(f"m-sharding comes with {MESH_SLICE}")
+        """Shard the transforms over `mesh` (the JAX package's set_mesh,
+        core/spectral.py:212-245): shard d gets shard_view of its m range
+        and latitude band (parallel/mesh.py GridShards).  Afterwards
+        grid_to_spec, spec_to_grid and uv_grid run on the shards: K5 a
+        shard into its range, the ranges joined; the operators on the
+        ranges; K6 a shard into its band from the joined spectrum, the
+        bands joined; each takes and returns whole tensors on
+        mesh.devices[0].  analysis and synthesis stay this device's whole
+        transforms.  The DFT matrix product is the port's only zonal
+        backend, so the JAX package's zonal='dft' condition always
+        holds."""
+        from speedy_ml_tpu_torch.parallel.mesh import GridShards
+        d0, own = mesh.devices[0], self.cosgr.device
+        if d0.type != own.type or (d0.index is not None
+                                   and d0.index != own.index):
+            raise ValueError(f"the mesh's first device {mesh.devices[0]} is "
+                             f"not the transform's ({self.device})")
+        g = self.geom
+        self.grid = GridShards(mesh, g.nlat, g.mx)
+        self.shards = [self.shard_view(r, b, dev) for r, b, dev in
+                       zip(self.grid.ranges, self.grid.bands, mesh.devices)]
+        self.mesh = mesh
+        self.axis = axis
+
+    def _to_bands(self, specs) -> torch.Tensor:
+        """Whole spectra (B, mx, nx) on every shard -> each shard's band
+        (K6 a shard) -> the bands joined on mesh.devices[0]."""
+        return self.grid.join_bands([sh.synthesis(s[0], s[1]) for sh, s in
+                                     zip(self.shards, specs)])
 
     # ------------------------------------------------------------------
     # transforms (K5 / K6)
@@ -211,13 +291,19 @@ class SpectralTransform:
         B = spec.shape[0]
         return sht_synthesis(spec.contiguous(), self.dft_inv,
                              self.cpol_even_g, self.cpol_odd_g, self.cpol_g,
-                             self.cosgr, B if ncos is None else ncos)
+                             self.cosgr_g, B if ncos is None else ncos)
 
     def grid_to_spec(self, field: torch.Tensor) -> torch.Tensor:
         """Forward transform (spec = specy . specx) of (..., nlat, nlon)."""
         g = self.geom
         lead = field.shape[:-2]
-        out = self.analysis(field.to(self.dtype).reshape(-1, g.nlat, g.nlon))
+        flat = field.to(self.dtype).reshape(-1, g.nlat, g.nlon)
+        if self.mesh is None:
+            out = self.analysis(flat)
+        else:
+            grid = self.grid
+            out = grid.join_ranges([sh.analysis(f) for sh, f in
+                                    zip(self.shards, grid.broadcast(flat))])
         return out.reshape(lead + (g.mx, g.nx))
 
     def spec_to_grid(self, v: torch.Tensor, kcos: int = 1) -> torch.Tensor:
@@ -225,7 +311,12 @@ class SpectralTransform:
         g = self.geom
         lead = v.shape[:-2]
         flat = v.reshape(-1, g.mx, g.nx)
-        out = self.synthesis(flat, 0 if kcos != 1 else None)
+        ncos = 0 if kcos != 1 else None
+        if self.mesh is None:
+            out = self.synthesis(flat, ncos)
+        else:
+            out = self._to_bands([(s, ncos) for s in
+                                  self.grid.broadcast(flat)])
         return out.reshape(lead + (g.nlat, g.nlon))
 
     # ------------------------------------------------------------------
@@ -262,13 +353,24 @@ class SpectralTransform:
         return ucosm, vcosm
 
     def uv_grid(self, vorm, divm):
-        """Spectral vor/div (B, mx, nx) -> grid u, v (1/cos applied)."""
-        ucosm, vcosm = self.uvspec(vorm, divm)
+        """Spectral vor/div (B, mx, nx) -> grid u, v (1/cos applied).  On
+        a mesh uvspec runs on each shard's m range, and K6 on each band of
+        the joined (u cos, v cos)."""
         flat = lambda a: a.reshape(-1, *a.shape[-2:])
-        B = flat(ucosm).shape[0]
-        g = self.synthesis(torch.cat([flat(ucosm), flat(vcosm)]), 0)
-        return (g[:B].reshape(ucosm.shape[:-2] + g.shape[-2:]),
-                g[B:].reshape(vcosm.shape[:-2] + g.shape[-2:]))
+        lead = torch.broadcast_shapes(vorm.shape, divm.shape)[:-2]
+        if self.mesh is None:
+            ucosm, vcosm = self.uvspec(vorm, divm)
+            g = self.synthesis(torch.cat([flat(ucosm), flat(vcosm)]), 0)
+        else:
+            grid = self.grid
+            uv = [torch.cat([flat(a) for a in sh.uvspec(vo, dv)])
+                  for sh, vo, dv in zip(self.shards,
+                                        grid.split_ranges(flat(vorm)),
+                                        grid.split_ranges(flat(divm)))]
+            g = self._to_bands([(s, 0) for s in grid.all_ranges(uv)])
+        B = g.shape[0] // 2
+        return (g[:B].reshape(lead + g.shape[-2:]),
+                g[B:].reshape(lead + g.shape[-2:]))
 
     def grad(self, psi):
         """Spectral gradient (spe_spectral.f90:271-305): (d/dx, d/dy)."""

@@ -26,6 +26,7 @@ implicit_correction, ...), the counterparts of the JAX functions.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -91,6 +92,8 @@ def _hordif(field, fdt, dmp, dmp1):
 
 class DycoreModel:
     """Static tables on one device and the step functions."""
+
+    m0 = 0   # the first zonal wavenumber of a shard's view (shard_view)
 
     def __init__(self, geom: Geometry = Geometry(),
                  constants: PhysicalConstants = PhysicalConstants(),
@@ -239,6 +242,59 @@ class DycoreModel:
     def column_tables(self, imp: ImplicitCoeffs) -> ColumnTables:
         return imp.col
 
+    def _zero_mean(self, psdt):
+        """psdt's (m, n) = (0, 0) coefficient set to zero, in place (none
+        on a shard whose m range does not start at 0)."""
+        if self.m0 == 0:
+            psdt[0, 0] = 0.0
+
+    # ------------------------------------------------------------------
+    # a shard of the mesh (GCM.set_mesh)
+    # ------------------------------------------------------------------
+
+    M_TABLES = ("dmp", "dmpd", "dmps")
+    IMP_M_TABLES = ("elz", "dmp1", "dmp1d", "dmp1s", "xj_g")
+
+    def shard_view(self, sht, band) -> "DycoreModel":
+        """A copy of the dycore for one shard: sht the shard's view of the
+        transform (SpectralTransform.shard_view: its m range from sht.m0,
+        its latitude band), the (m, n) tables of the range, the Coriolis
+        rows of the band (K7), the three step lengths' coefficients sliced
+        likewise, and the kernels' blobs built from the slices (K15's,
+        K8's with xj up to the range's largest total wavenumber, K7's).
+        The step methods of the copy run its range and band."""
+        from speedy_ml_tpu_torch.parallel.mesh import band_rows
+        v = copy.copy(self)
+        dev = sht.device
+        m0, mr = sht.m0, sht.gradx.shape[0]
+        to = lambda t: t.to(dev).contiguous()
+        rng = lambda t: to(t.narrow(0, m0, mr))
+        v.sht, v.device, v.m0 = sht, dev, m0
+        for nm in ("dhs", "dhsr", "fsgr", "xgeop1", "xgeop2", "geop_corf",
+                   "tcorv", "qcorv"):
+            setattr(v, nm, to(getattr(self, nm)))
+        for nm in self.M_TABLES:
+            setattr(v, nm, rng(getattr(self, nm)))
+        v.coriol = to(band_rows(self.coriol, band, self.geom.nlat, dim=0))
+        v.stack_blob = (stack_blob(v) if self.dtype == torch.float32
+                        else None)
+        lmax = m0 + mr + self.geom.nx - 2
+        for nm in ("imp_half", "imp_full", "imp_double"):
+            imp = getattr(self, nm)
+            new = {k: to(getattr(imp, k)) for k in ImplicitCoeffs._fields
+                   if torch.is_tensor(getattr(imp, k))}
+            new.update({k: rng(getattr(imp, k)) for k in self.IMP_M_TABLES})
+            new.update(xj=to(imp.xj[:lmax]), blob=None)
+            imp = imp._replace(**new)
+            col = imp.col._replace(
+                coriol=v.coriol, dhs=v.dhs, dhsr=v.dhsr, fsgr=v.fsgr,
+                tref=imp.tref, tref3=imp.tref3, blob=None)
+            if self.dtype == torch.float32:
+                imp = imp._replace(blob=tail_blob(v, imp))
+                col = col._replace(blob=column_blob(col))
+            setattr(v, nm, imp._replace(col=col))
+        return v
+
     # ------------------------------------------------------------------
     # diagnostic pieces
     # ------------------------------------------------------------------
@@ -253,7 +309,10 @@ class DycoreModel:
             layers.append(layers[-1] + float(x2[k + 1]) * t_spec[k + 1]
                           + float(x1[k]) * t_spec[k])
         phi = torch.stack(layers[::-1], dim=0)
-        # zonal-mean lapse-rate correction (m=0 coefficients only)
+        # zonal-mean lapse-rate correction (m=0 coefficients only; a
+        # shard whose range does not start at m = 0 holds none)
+        if self.m0 != 0:
+            return phi
         tm0 = t_spec[:, 0, :]
         corr = self.geop_corf[1:kx - 1, None] * (tm0[2:kx] - tm0[0:kx - 2])
         phi = phi.clone()
@@ -282,7 +341,7 @@ class DycoreModel:
         utend, vtend, ttend, trtend, psfield, gf = column_tendencies(
             gall, self.column_tables(imp), g.nlev, g.ntracers)
         psdt = self.sht.grid_to_spec(psfield).clone()
-        psdt[0, 0] = 0.0
+        self._zero_mean(psdt)
         return (utend, vtend, ttend, trtend, psdt), gf
 
     def analysis_stack(self, stack):
@@ -299,14 +358,15 @@ class DycoreModel:
         K, R = g.nlev, g.ntracers
         S = (2 + R) * K
         psdt = A[0].clone()
-        psdt[0, 0] = 0.0
+        self._zero_mean(psdt)
         s_all, u_all, v_all = A[1:1 + S], A[1 + S:1 + 2 * S], \
             A[1 + 2 * S:1 + 3 * S]
         vor_all, div_all = self.sht.vds(u_all, v_all)
         vordt = vor_all[:K]
         divdt = div_all[:K] - self.sht.lap(s_all[:K])
         tdt = div_all[K:2 * K] + s_all[K:2 * K]
-        trdt = (div_all[2 * K:] + s_all[2 * K:]).reshape(R, K, g.mx, g.nx)
+        trdt = (div_all[2 * K:] + s_all[2 * K:]).reshape(R, K,
+                                                          *A.shape[-2:])
         return psdt, vordt, divdt, tdt, trdt
 
     def to_spectral_tendencies(self, utend, vtend, ttend, trtend,
@@ -328,7 +388,7 @@ class DycoreModel:
         dhs = self.dhs[:, None, None]
         dmeanc = (div_s * dhs).sum(dim=0)
         psdt = (psdt - dmeanc).clone()
-        psdt[0, 0] = 0.0
+        self._zero_mean(psdt)
         # sigma-dot on half levels; the bottom half level stays exactly 0
         incr = -dhs[:-1] * (div_s[:-1] - dmeanc)
         z1 = torch.zeros_like(div_s[:1])
@@ -369,8 +429,9 @@ class DycoreModel:
                              if tcorh is not None else 0.0)
         tdt = _hordif(ctmp, tdt, self.dmp[None], imp.dmp1[None])
         vordt, divdt, tdt = vordt.clone(), divdt.clone(), tdt.clone()
-        vordt[0, 0, :] = vordt[0, 0, :] - self.sdrag * vor0[0, 0, :]
-        divdt[0, 0, :] = divdt[0, 0, :] - self.sdrag * div0[0, 0, :]
+        if self.m0 == 0:
+            vordt[0, 0, :] = vordt[0, 0, :] - self.sdrag * vor0[0, 0, :]
+            divdt[0, 0, :] = divdt[0, 0, :] - self.sdrag * div0[0, 0, :]
         vordt[0] = _hordif(vor0[0], vordt[0], self.dmps, imp.dmp1s)
         divdt[0] = _hordif(div0[0], divdt[0], self.dmps, imp.dmp1s)
         tdt[0] = _hordif(ctmp[0], tdt[0], self.dmps, imp.dmp1s)

@@ -22,11 +22,22 @@ physics, whose K24 launch multiplies the tendencies; RDF is the physics'
 K26).
 Without a BoundaryData the GCM reads the reference's fort.20-26 files
 from bc_path or $SPEEDY_ML_BC_PATH.
+
+On a mesh (set_mesh, the JAX package's GCM.set_mesh) a window runs
+sharded: the spectral state as m ranges and the grid as latitude bands
+of the shards (dycore/sharded.py), the column physics, the radiation
+carry and the window's flux sums on the bands.  The step functions take
+whole or sharded states and return sharded ones (gather_state joins
+them); the window's entry (K17 and K5, the daily forcing) runs whole on
+mesh.devices[0] and its planes are cut into the bands; grid_state, the
+window's exit, joins the m ranges on mesh.devices[0].
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -41,6 +52,7 @@ from speedy_ml_tpu_torch.kernels.slab_couple import FLUX_FIELDS, slab_couple
 from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
                                                         spectral_stack)
 from speedy_ml_tpu_torch.kernels.window_select import window_select
+from speedy_ml_tpu_torch.parallel.mesh import Sharded
 from speedy_ml_tpu_torch.physics.boundaries import (BoundaryData,
                                                     boundary_path,
                                                     load_boundary_data)
@@ -155,11 +167,90 @@ class GCM:
         self.nsteps_day = nsteps_day
         # spectral orography (a static table)
         self.phis = self.sht.trunct(self.sht.grid_to_spec(self.bd.orog))
+        self.mesh = self.grid = self.sdyn = None
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
 
     def set_mesh(self, mesh, axis: str = "regions"):
-        raise NotImplementedError("the lat-sharded GCM physics comes with "
-                                  "the distributed-GCM slice of the port "
-                                  "(A16b)")
+        """Distribute the GCM over `mesh` (parallel/mesh.py Mesh; the JAX
+        package's GCM.set_mesh, gcm.py:169-188): the spectral dynamics
+        over ranges of the zonal wavenumber m (SpectralTransform.set_mesh
+        on a copy of the transform; dycore/sharded.py), the column physics
+        over latitude bands (PhysicsModel.band_view, the boundary data
+        cut into the bands once), the spectral orography as m ranges.
+        mesh.devices[0] must be the GCM's device.  The cgrate limiter and
+        RDF, whose sums cross the shards, raise on a mesh."""
+        from speedy_ml_tpu_torch.dycore.sharded import ShardedDycore
+        sht = copy.copy(self.sht)
+        sht.set_mesh(mesh, axis)
+        sdyn = ShardedDycore(self.dyn, sht)
+        grid = sht.grid
+        self.phys_bands = [self.phys.band_view(b, dev)
+                           for b, dev in zip(grid.bands, mesh.devices)]
+        self.bd_bands = grid.split_fields(self.bd)
+        self.phis_ranges = grid.split_ranges(self.phis)
+        self._band_fns = [functools.partial(self._physics_fn, phys=p, bd=b)
+                          for p, b in zip(self.phys_bands, self.bd_bands)]
+        # copies and copy_bytes count the moves of the runs from here
+        grid.copies = grid.copy_bytes = 0
+        self.sht, self.sdyn, self.grid, self.mesh = sht, sdyn, grid, mesh
+
+    def whole(self, value):
+        """A sharded value (Sharded m ranges of a SpectralState, or bands
+        of a dataclass of grid fields) joined on mesh.devices[0]; any
+        other value as it is."""
+        if not isinstance(value, Sharded):
+            return value
+        if isinstance(value[0], SpectralState):
+            return self.sdyn.join_state(value)
+        return self.grid.join_fields(value)
+
+    def shard_state(self, gstate: GCMState) -> GCMState:
+        """gstate with its spectral state as the shards' m ranges and its
+        surface, radiation carry and flux sums as their latitude bands
+        (each field left as it is where it is sharded already)."""
+        rep = {}
+        if not isinstance(gstate.spectral, Sharded):
+            rep["spectral"] = self.sdyn.split_state(gstate.spectral)
+        for nm in ("sfc", "radiation", "fluxes"):
+            v = getattr(gstate, nm)
+            if v is not None and not isinstance(v, Sharded):
+                rep[nm] = self.grid.split_fields(v)
+        return dataclasses.replace(gstate, **rep) if rep else gstate
+
+    def gather_state(self, gstate: GCMState) -> GCMState:
+        """A sharded GCMState joined on mesh.devices[0] (the unsharded
+        GCM's state)."""
+        return dataclasses.replace(gstate, **{
+            nm: self.whole(getattr(gstate, nm))
+            for nm in ("spectral", "sfc", "radiation", "fluxes")})
+
+    def shard_forcing(self, forcing) -> Sharded:
+        """A DailyForcing as each shard's: its planes the band's rows,
+        tcorh and qcorh the m range's (a Sharded forcing as it is)."""
+        if isinstance(forcing, Sharded):
+            return forcing
+        g = self.grid
+        per = {f.name: (g.split_ranges(getattr(forcing, f.name))
+                        if f.name in ("tcorh", "qcorh") else
+                        g.split_bands(getattr(forcing, f.name)))
+               for f in dataclasses.fields(forcing)}
+        return Sharded(DailyForcing(**{k: v[d] for k, v in per.items()})
+                       for d in range(g.D))
+
+    def window_carries(self):
+        """A window's zero RadiationCarry and FluxAccumulator
+        (zero_carries): one fill, or on a mesh one fill a band, each
+        band's on its shard's device (Sharded)."""
+        g = self.geom
+        if self.mesh is None:
+            return zero_carries(g.nlev, g.nlat, g.nlon, self.dtype,
+                                self.device)
+        c = [zero_carries(g.nlev, 2 * (p1 - p0), g.nlon, self.dtype, dev)
+             for (p0, p1), dev in zip(self.grid.bands, self.mesh.devices)]
+        return Sharded(a for a, _ in c), Sharded(b for _, b in c)
 
     def sstan_months(self, date):
         """The observed anomalies of the (previous, this, next) month of
@@ -193,6 +284,7 @@ class GCM:
         where ok (a 0-d bool tensor) is true; sstan: as slab_couple's;
         scalars: K21's device-scalar form's row (slab_couple's), or None."""
         fields = lambda f: [getattr(f, k) for k in FLUX_FIELDS]
+        sfc, fluxes, window = (self.whole(v) for v in (sfc, fluxes, window))
         win = None if window is None else fields(window)
         planes, fx = slab_couple(self.bd, self.slab, sfc, fields(fluxes),
                                  (imon, fmon), self.cpl, window=win, ok=ok,
@@ -203,8 +295,10 @@ class GCM:
                 None if fx is None else FluxAccumulator(*fx))
 
     def forcing_for(self, sfc: SurfaceState, tyear) -> DailyForcing:
-        """Date-dependent forcing (fordate) of the surface sfc."""
-        return self.phys.daily_forcing(self.bd, sfc, tyear, self.sht)
+        """Date-dependent forcing (fordate) of the surface sfc (whole on
+        mesh.devices[0] on a mesh)."""
+        return self.phys.daily_forcing(self.bd, self.whole(sfc), tyear,
+                                       self.dyn.sht)
 
     def window_entry(self, imon, fmon, tyear, sst_hybrid=None,
                      sst_bias: float = 0.0, sfc_carry=None, scalars=None):
@@ -216,8 +310,9 @@ class GCM:
         scalars: K17's device-scalar form's row (surface_forcing's), or
         None."""
         return self.phys.surface_and_forcing(self.bd, imon, fmon, tyear,
-                                             self.sht, sst_hybrid, sst_bias,
-                                             self.cpl, sfc_carry, scalars)
+                                             self.dyn.sht, sst_hybrid,
+                                             sst_bias, self.cpl,
+                                             self.whole(sfc_carry), scalars)
 
     def init_state(self, date, spectral: Optional[SpectralState] = None,
                    sst_hybrid=None, sst_bias: float = 0.0,
@@ -250,12 +345,14 @@ class GCM:
                           stack=None):
         """The grid [t, q, phi (K each), logp | u, v (K each)] at level j:
         one synthesis launch over K15's physics stack [t, q, phi, ps |
-        u cos, v cos] (`stack`, when the step made it; else K15 alone)."""
+        u cos, v cos] (`stack`, when the step made it; else K15 alone).
+        dyn: the DycoreModel (a shard's view: the band of the whole
+        stack)."""
         K = self.geom.nlev
+        dyn = dyn or self.dyn
         if stack is None:
-            stack = spectral_stack(dyn or self.dyn, state, self.phis, None,
-                                   j)[1]
-        return self.sht.synthesis(stack, physics_ncos(K))
+            stack = spectral_stack(dyn, state, self.phis, None, j)[1]
+        return dyn.sht.synthesis(stack, physics_ncos(K))
 
     def physics_grid(self, state: SpectralState, j: int, dyn=None,
                      stack=None):
@@ -271,24 +368,27 @@ class GCM:
         lat, lon) = [t, u, v, q], logp, ok): K15's physics stack, K6 and
         K20.  select: None (ok is None) or (prev, safe, atmo_in, logp_in),
         which keeps the given fields where prev & safe is false
-        (kernels/window_select.py)."""
+        (kernels/window_select.py).  A sharded state (a mesh) is joined
+        on mesh.devices[0] first."""
+        state = self.whole(state)
         return window_select(self.physics_synthesis(state, 0),
                              self.geom.nlev, select)
 
     def _physics_fn(self, state: SpectralState, j: int, dyn: DycoreModel,
                     sfc, forcing, carry, lradsw, sums=None, sppt=None,
-                    stack=None):
+                    stack=None, phys=None, bd=None):
         """Spectral state (or the step's physics stack) -> grid fields ->
         PhysicsModel.compute_with_sums.  sums: None, or (fluxes, rsteps,
         delt2), the window's flux sums, which the physics step then forms
         too (a leapfrog step).  sppt: None, or the step's SPPT pattern
         (an SpptGrid, or the JAX package's tapered pattern).  The aux is
         (carry', FluxDiag, the new FluxAccumulator or, without sums,
-        None)."""
+        None).  phys, bd: a band's PhysicsModel and boundary data (a
+        mesh's shard), else the GCM's."""
         grid = self.physics_grid(state, j, dyn, stack)
         with torch.profiler.record_function("physics"):
-            ut, vt, tt, qt, *aux = self.phys.compute_with_sums(
-                *grid, bd=self.bd, sfc=sfc, forcing=forcing, carry=carry,
+            ut, vt, tt, qt, *aux = (phys or self.phys).compute_with_sums(
+                *grid, bd=self.bd if bd is None else bd, sfc=sfc, forcing=forcing, carry=carry,
                 lradsw=lradsw, sums=sums, sppt_pattern=sppt)
         return GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]), tuple(aux)
 
@@ -300,6 +400,8 @@ class GCM:
         (a window built without it, as the hybrid's cold start, runs
         without SPPT, as in the JAX package): the draw is eta (K, mx, nx)
         complex when given, else drawn from the state's generator."""
+        if self.mesh is not None:
+            return self._leapfrog_mesh(gstate, forcing, eta)
         lradsw = gstate.istep % NSTRAD == 0   # mod(istep, 3) == 1, 1-based
         sums = (gstate.fluxes, 1.0 / self.nsteps_day, self.dyn.delt2)
         sppt_spec, pattern = gstate.sppt_spec, None
@@ -318,8 +420,45 @@ class GCM:
                         fluxes=fluxes, istep=gstate.istep + 1,
                         sppt_spec=sppt_spec, sppt_gen=gstate.sppt_gen)
 
+    def _leapfrog_mesh(self, gstate, forcing, eta=None) -> GCMState:
+        """leapfrog on the shards (dycore/sharded.py): each band's physics
+        with its surface, forcing, carry and flux sums; SPPT's pattern
+        stepped whole on mesh.devices[0] and synthesized into each band."""
+        gs, fc = self.shard_state(gstate), self.shard_forcing(forcing)
+        D = self.grid.D
+        lradsw = gs.istep % NSTRAD == 0
+        rsteps, delt2 = 1.0 / self.nsteps_day, self.dyn.delt2
+        sppt_spec, patterns = gs.sppt_spec, [None] * D
+        if self.sppt is not None and gs.sppt_spec is not None:
+            if eta is None:
+                eta = self.sppt.noise(gs.sppt_gen)
+            sppt_spec = self.sppt.step(gs.sppt_spec, eta)           # K24
+            patterns = [SpptGrid(sh.synthesis(s), self.sppt.mu.to(s.device))
+                        for sh, s in zip(self.sht.shards,
+                                         self.grid.broadcast(sppt_spec))]
+        args = [(gs.sfc[d], fc[d], gs.radiation[d], lradsw,
+                 (gs.fluxes[d], rsteps, delt2), patterns[d])
+                for d in range(D)]
+        spec, aux = self.sdyn.leapfrog_step(
+            gs.spectral, self.phis_ranges, self._band_fns, args,
+            [(f.tcorh, f.qcorh) for f in fc])
+        return GCMState(spectral=spec, sfc=gs.sfc,
+                        radiation=Sharded(a[0] for a in aux),
+                        fluxes=Sharded(a[2] for a in aux),
+                        istep=gs.istep + 1, sppt_spec=sppt_spec,
+                        sppt_gen=gs.sppt_gen)
+
     def stepone(self, gstate: GCMState, forcing: DailyForcing) -> GCMState:
         """Cold-start double half-step with physics (ini_stepone.f90)."""
+        if self.mesh is not None:
+            gs, fc = self.shard_state(gstate), self.shard_forcing(forcing)
+            spec, aux = self.sdyn.stepone(
+                gs.spectral, self.phis_ranges, self._band_fns,
+                [(gs.sfc[d], fc[d], gs.radiation[d], True)
+                 for d in range(self.grid.D)],
+                [(f.tcorh, f.qcorh) for f in fc])
+            return dataclasses.replace(gs, spectral=spec, radiation=Sharded(
+                a[0] for a in aux))
         spec, (carry, _, _) = self.dyn.stepone(
             gstate.spectral, self.phis, physics_fn=self._physics_fn,
             physics_args=(gstate.sfc, forcing, gstate.radiation, True),
@@ -329,6 +468,9 @@ class GCM:
     def run_window(self, gstate: GCMState, forcing: DailyForcing,
                    nsteps: int) -> GCMState:
         """`nsteps` leapfrog steps (a 6-h window = 24 steps)."""
+        if self.mesh is not None:
+            gstate = self.shard_state(gstate)
+            forcing = self.shard_forcing(forcing)
         for _ in range(nsteps):
             gstate = self.leapfrog(gstate, forcing)
         return gstate
@@ -343,6 +485,8 @@ class GCM:
         g = self.geom
         for _ in range(ndays):
             forcing = self.forcing_for(gstate.sfc, date.tyear)
+            if self.mesh is not None:
+                forcing = self.shard_forcing(forcing)
             gstate = dataclasses.replace(gstate, fluxes=FluxAccumulator.zeros(
                 g.nlat, g.nlon, self.dtype, self.device))
             if stepone_first:

@@ -56,6 +56,7 @@ cycle from the same parameters.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -68,7 +69,7 @@ from speedy_ml_tpu_torch.esn.domain import RegionClass, RegionLayout, band
 from speedy_ml_tpu_torch.esn.reservoir import (BatchedReservoir, ESNHyper,
                                                esn_step, synchronize)
 from speedy_ml_tpu_torch.esn.standardize import Standardizer
-from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState, zero_carries
+from speedy_ml_tpu_torch.gcm import FluxAccumulator, GCMState
 from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
                                                       grid_blocks,
                                                       split_grid)
@@ -335,20 +336,19 @@ class HybridAtmosphere:
         (parallel/mesh.py; the JAX set_mesh, hybrid/model.py:164-185):
         each device steps and reads out its regions (K1, K2), K2 stores
         their cores into the device's lon sector, the sectors join into
-        the global grid on mesh.devices[0], where the GCM runs (the
-        injection and the window as on one device), each device gets its
-        sector of the window's fields, SST and TISR, and K3 gathers its
-        regions' feedback through a periodic lon halo, and their local
-        model.  The regions' states are sharded (init_state,
+        the global grid on mesh.devices[0], where the injection runs, each
+        device gets its sector of the window's fields, SST and TISR, and
+        K3 gathers its regions' feedback through a periodic lon halo, and
+        their local model.  The regions' states are sharded (init_state,
         start_prediction, shard_state); the diagnostics stay global on
-        mesh.devices[0].  shard_gcm=True, the JAX default, would also
-        lat-shard the GCM's physics (GCM.set_mesh): that comes with
-        A16b, as do the slab ocean and the captured loop on a mesh."""
-        if shard_gcm:
-            raise NotImplementedError(
-                f"the lat-sharded GCM (shard_gcm=True) comes with "
-                f"{LATER_SLICE}; set_mesh(mesh, shard_gcm=False) runs the "
-                f"sharded cycle with the GCM on mesh.devices[0]")
+        mesh.devices[0].  shard_gcm=True (the JAX default) also
+        distributes the GCM's window (GCM.set_mesh, on a copy of the
+        GCM): its spectral state over m ranges and its grid and physics
+        over latitude bands of the same devices; the injection, the gate
+        (K19) and the window's exit (K20) run whole on mesh.devices[0]
+        (the ML-only cycle runs no GCM).  shard_gcm=False keeps the whole
+        window there.  The slab ocean and the captured loop on a mesh are
+        not there yet."""
         if self.ocean_packs:
             raise NotImplementedError(f"the slab ocean on a mesh comes with "
                                       f"{LATER_SLICE}")
@@ -359,6 +359,9 @@ class HybridAtmosphere:
         self._sharded_ops = ShardedCycleOps(self.layout, self.packs, mesh,
                                             self.nz)
         self._sharded_packs = self._sharded_ops.shard_params(self.packs)
+        if shard_gcm and not self.ml_only:
+            self.gcm = copy.copy(self.gcm)
+            self.gcm.set_mesh(mesh)
         self.mesh = mesh
 
     def shard_state(self, hstate: HybridState) -> HybridState:
@@ -634,15 +637,16 @@ class HybridAtmosphere:
         K17's device-scalar form's row (the first ROW_SF of the cycle's),
         or None."""
         gcm = self.gcm
-        g = gcm.geom
         sfc, forcing = gcm.window_entry(imon, fmon, tyear, sst_hybrid,
                                         sfc_carry=sfc_carry, scalars=scalars)
-        radiation, fluxes = zero_carries(g.nlev, g.nlat, g.nlon, gcm.dtype,
-                                         self.device)
+        radiation, fluxes = gcm.window_carries()
         gstate = GCMState(spectral=spec, sfc=sfc, radiation=radiation,
                           fluxes=fluxes, istep=0)
-        gstate = gcm.stepone(gstate, forcing)
-        return gcm.run_window(gstate, forcing, self.gcm_steps), forcing.fsol
+        # on a meshed GCM the forcing's planes are cut into the bands once
+        # a window
+        win = forcing if gcm.mesh is None else gcm.shard_forcing(forcing)
+        gstate = gcm.stepone(gstate, win)
+        return gcm.run_window(gstate, win, self.gcm_steps), forcing.fsol
 
     def speedy_window(self, spec: SpectralState, sst_hybrid, imon, fmon,
                       tyear, sfc_carry=None):
@@ -654,7 +658,7 @@ class HybridAtmosphere:
         gstate, _ = self._run_window(spec, sst_hybrid, imon, fmon, tyear,
                                      sfc_carry)
         atmo, logp, _ = self.gcm.grid_state(gstate.spectral)
-        return atmo, logp, gstate.fluxes
+        return atmo, logp, self.gcm.whole(gstate.fluxes)
 
     def build_local_model(self, packs, fc_atmo, fc_logp):
         """Per-class standardized SPEEDY forecast vectors (core atmo +

@@ -71,7 +71,7 @@ SIGNATURES = {
                              _i, _i, _vp, _vp],
     "spectral_tail_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
-                             _f, _f, _vp, _vp, _vp, _vp, _vp, _i, _vp],
+                             _f, _f, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "column_moist_launch": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp,
                             _vp, _i, ctypes.POINTER(_vp), _i, _vp, _vp, _vp],
     "down_surface_launch": [_i, _i, _i, ctypes.POINTER(_vp), _i, _vp, _vp,
@@ -84,7 +84,7 @@ SIGNATURES = {
                            _vp, _vp, _i, _vp],
     "gram_panel_size": [_i, _i, _i, _i, _i, _i, _i],
     "spectral_stack_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp,
-                              _vp, _i, _i, _vp, _vp, _vp],
+                              _vp, _i, _i, _vp, _vp, _i, _vp],
     "surface_forcing_launch": [_i, _i, _i, _i, ctypes.POINTER(_vp), _vp, _vp,
                                _dp, ctypes.POINTER(_i), _vp, _vp],
     "tisr_launch": [_i, _i, _i, _i, _vp, _vp, _vp, _dp, _vp],

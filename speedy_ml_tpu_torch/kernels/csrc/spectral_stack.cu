@@ -62,18 +62,20 @@ __global__ void __launch_bounds__(32 * kStackWarps)
 // mx, nx), ps (2, mx, nx), tr (2, 1, K, mx, nx), phis (mx, nx) complex64;
 // blob: 5 mx nx + mx + nx + 3K floats (stack_blob); dyn (6K + 2, mx, nx)
 // at level jd and phy (5K + 1, mx, nx) at level jp, either null (then
-// its level is not read); phis may be null without phy.
+// its level is not read); phis may be null without phy.  m0: the
+// wavenumber of row 0 (0, or a shard's first; the blob is its range's).
 SPEEDY_API int spectral_stack_launch(int device, int K, int mx, int nx,
                                      const void* vor, const void* div,
                                      const void* tem, const void* ps,
                                      const void* tr, const void* phis,
                                      const void* blob, int jd, int jp,
-                                     void* dyn, void* phy, void* stream) {
+                                     void* dyn, void* phy, int m0,
+                                     void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
   if (mx <= 0 || nx <= 0 || nx > STACK_MAX_N || (!dyn && !phy) ||
       (dyn && jd != 0 && jd != 1) || (phy && (jp != 0 && jp != 1)) ||
-      (phy && !phis))
+      (phy && !phis) || m0 < 0)
     return (int)cudaErrorInvalidValue;
   StackIO<float> io;
   io.vor = (const stack_c<float>*)vor;
@@ -88,6 +90,7 @@ SPEEDY_API int spectral_stack_launch(int device, int K, int mx, int nx,
   io.jp = jp;
   io.mx = mx;
   io.nx = nx;
+  io.m0 = m0;
   cudaStream_t s = (cudaStream_t)stream;
   const float* b = (const float*)blob;
   const dim3 block(32, kStackWarps);

@@ -111,6 +111,10 @@ struct StackIO {
   const stack_c<T> *vor, *div, *t, *ps, *tr, *phis;
   stack_c<T> *dyn, *phy;
   int jd, jp, mx, nx;
+  // the first zonal wavenumber of the operands' rows: row m is the
+  // wavenumber m0 + m (a shard's m range, GCM.set_mesh); the tables are
+  // the range's
+  int m0 = 0;
 };
 
 // ---- the pieces, in the order of the plain version
@@ -216,7 +220,7 @@ COL_HD void stack_lane_load(StackLane<T, K>& L, const StackIO<T>& io,
     L.qp = io.tr[j0 + (size_t)k * MN];
     if (k == 0) L.psp = io.ps[(size_t)io.jp * MN + c];
     L.phis = io.phis[c];
-    const int lo = (m == 0 && k > 0) ? k - 1 : k;
+    const int lo = (io.m0 + m == 0 && k > 0) ? k - 1 : k;
 #pragma unroll
     for (int l = 0; l < K; ++l)
       if (l >= lo) {
@@ -305,7 +309,7 @@ COL_HD void stack_lane_out(const StackLane<T, K>& L, const StackNb<T>& nb,
     o[(size_t)(3 * K + 1 + k) * MN] = u;
     o[(size_t)(4 * K + 1 + k) * MN] = v;
     stack_c<T> phi = stack_lane_phi(L);
-    if (L.m == 0 && k > 0 && k < K - 1)
+    if (io.m0 + L.m == 0 && k > 0 && k < K - 1)
       phi = stack_phi_corr(L.corf, phi, stack_pick(L.tp, k + 1),
                            stack_pick(L.tp, k - 1));
     o[(size_t)(2 * K + k) * MN] = phi;

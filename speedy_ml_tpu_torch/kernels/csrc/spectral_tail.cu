@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(kTailBlock)
   // a group's 8 lanes leave together; the exchanges name only them
   if (idx >= io.mx * io.nx) return;
   const unsigned mask = 0xffu << (threadIdx.x & 24);
-  const TailTab<float, K> tb(blob, io.mx, io.nx);
+  const TailTab<float, K> tb(blob, io.mx, io.nx, io.m0);
   TailLane<float, K> L;
   tail_load(L, io, tb, idx, lane);
   tail_c<float> g[K], h[K];
@@ -76,23 +76,25 @@ __global__ void __launch_bounds__(kTailBlock)
 // (mx, nx), all complex64 (tcorh/qcorh may be null); blob: the f32 tables
 // (tail_blob, 16-byte aligned); outputs shaped as the state.  cg: the
 // tendency form (cgrate_on): vor's and div's diffused tendencies go to
-// level 0 of o_vor and o_div, whose leapfrog K26 runs.
+// level 0 of o_vor and o_div, whose leapfrog K26 runs.  m0: the
+// wavenumber of row 0 (0, or a shard's first; the blob is its range's).
 SPEEDY_API int spectral_tail_launch(
     int device, int K, int mx, int nx, const void* A, const void* vor,
     const void* div, const void* tem, const void* ps, const void* tr,
     const void* phis, const void* tcorh, const void* qcorh, const void* blob,
     int j1, int j4, int implicit, int trunc, float dt, float ew1, float ew2,
     float sdrag, float rgas, void* o_vor, void* o_div, void* o_t, void* o_ps,
-    void* o_tr, int cg, void* stream) {
+    void* o_tr, int cg, int m0, void* stream) {
   cudaError_t err = speedy_set_device(device);
   if (err != cudaSuccess) return (int)err;
   if (mx <= 0 || nx <= 0 || (j1 != 1 && j1 != 2) || (j4 != 0 && j4 != 1) ||
-      ((size_t)blob & 15) != 0)
+      ((size_t)blob & 15) != 0 || m0 < 0)
     return (int)cudaErrorInvalidValue;
-  const TailIO<float> io =
+  TailIO<float> io =
       tail_io<float>(mx, nx, A, vor, div, tem, ps, tr, phis, tcorh, qcorh, j1,
                      j4, implicit, trunc, dt, ew1, ew2, sdrag, rgas, o_vor,
                      o_div, o_t, o_ps, o_tr);
+  io.m0 = m0;
   const long long threads = (long long)mx * nx * TAIL_GROUP;
   const unsigned grid = (unsigned)((threads + kTailBlock - 1) / kTailBlock);
   cudaStream_t s = (cudaStream_t)stream;

@@ -103,7 +103,9 @@ struct TailTab {
       *dmp1d, *dmp1s;
   const T* xj;
   int lmax;
-  TAIL_HD TailTab(const T* blob, int mx, int nx) {
+  // m0: the wavenumber of row 0 (a shard's m range, GCM.set_mesh); its
+  // blob holds xj up to l = m0 + mx + nx - 2
+  TAIL_HD TailTab(const T* blob, int mx, int nx, int m0 = 0) {
     dhs = blob;
     dhsr = dhs + K;
     xgeop1 = dhsr + K;
@@ -133,7 +135,7 @@ struct TailTab {
     dmp1d = dmp1 + MN;
     dmp1s = dmp1d + MN;
     xj = blob + tail_xj_offset(K, mx, nx);
-    lmax = mx + nx - 2;
+    lmax = m0 + mx + nx - 2;
   }
 };
 
@@ -175,6 +177,9 @@ struct TailIO {
   tail_c<T>*o_vor, *o_div, *o_t, *o_ps, *o_tr;
   int mx, nx, j1, j4, implicit, trunc;
   T dt, ew1, ew2, sdrag, rgas;
+  // the first zonal wavenumber of the operands' rows: row m is the
+  // wavenumber m0 + m (a shard's m range); the tables are the range's
+  int m0 = 0;
 };
 
 // The operands from the launch's untyped pointers (host code).
@@ -223,7 +228,7 @@ inline TailIO<T> tail_io(int mx, int nx, const void* A, const void* vor,
 // are read in the phase that uses them.
 template <typename T, int K>
 struct TailLane {
-  int idx, m, n, k;  // coefficient, its (m, n), the lane's level
+  int idx, m, n, k;  // coefficient, its (m0 + m, n), the lane's level
   bool store;        // false on a spare lane
   tail_c<T> vordt, divdt, tdt, qdt, psdt, pss, dv, ts, yf;
   // the state at level k (vor, div, t, tr; ps), leapfrog levels 0 and
@@ -239,7 +244,7 @@ TAIL_HD void tail_load(TailLane<T, K>& L, const TailIO<T>& io,
   const int m = idx / nx, n = idx - m * nx;
   const int k = lane < K ? lane : K - 1;
   L.idx = idx;
-  L.m = m;
+  L.m = io.m0 + m;
   L.n = n;
   L.k = k;
   L.store = lane < K;
@@ -264,7 +269,7 @@ TAIL_HD void tail_load(TailLane<T, K>& L, const TailIO<T>& io,
             ym * at(o_v + 2 * K + k, n - 1)) +
            tail_itimes(gz, at(o_u + 2 * K + k, n))) +
           at(o_s + 2 * K + k, n);
-  L.psdt = idx == 0 ? zero : at(0, n);
+  L.psdt = L.m == 0 && n == 0 ? zero : at(0, n);
   L.dv = io.div[((size_t)io.j4 * K + k) * MN + idx];
   L.ts = io.tem[((size_t)io.j4 * K + k) * MN + idx];
   L.pss = io.ps[(size_t)io.j4 * MN + idx];
@@ -280,7 +285,7 @@ TAIL_HD void tail_load(TailLane<T, K>& L, const TailIO<T>& io,
   L.phis = io.phis[idx];
   L.tc = io.tcorh ? io.tcorh[idx] : zero;
   L.qc = io.qcorh ? io.qcorh[idx] : zero;
-  tail_xj_row(tb, m, n, k, L.xj);
+  tail_xj_row(tb, L.m, n, k, L.xj);
 }
 
 // sptend: dv, ts are the group's div and t at level j4.
@@ -294,7 +299,7 @@ TAIL_HD void tail_vertical(TailLane<T, K>& L, const TailIO<T>& io,
   tail_c<T> dmeanc = tb.dhs[0] * dv[0];
 #pragma unroll
   for (int l = 1; l < K; ++l) dmeanc = dmeanc + tb.dhs[l] * dv[l];
-  L.psdt = L.idx == 0 ? zero : L.psdt - dmeanc;
+  L.psdt = L.m == 0 && L.n == 0 ? zero : L.psdt - dmeanc;
   // sigma-dot on half levels k and k+1 (0 at the top and the bottom)
   tail_c<T> s = zero, sk = zero, sk1 = zero;
 #pragma unroll

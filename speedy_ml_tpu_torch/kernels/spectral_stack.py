@@ -19,6 +19,12 @@ alone.
 On a CPU tensor `spectral_stack` runs the plain versions (built from
 SpectralTransform.uvspec and grad and DycoreModel.geopotential); on a
 CUDA tensor it launches the kernel or raises.
+
+The m-range form (a shard of GCM.set_mesh): the state holds the
+wavenumbers m0 .. m0 + mx - 1 of the whole (dyn.m0, the shard's
+DycoreModel view, whose tables are the range's); the kernel is the same
+launch with m0, which only the m = 0 correction of the geopotential
+reads.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ def dynamics_stack_plain(dyn, state, j: int) -> torch.Tensor:
     vor_s, div_s, t_s, ps_s, tr_s = state.at_level(j)
     ucosm, vcosm = dyn.sht.uvspec(vor_s, div_s)
     pxs, pys = dyn.sht.grad(ps_s)
-    return torch.cat([vor_s, div_s, t_s, tr_s.reshape(R * K, g.mx, g.nx),
+    return torch.cat([vor_s, div_s, t_s, tr_s.reshape(R * K, *t_s.shape[-2:]),
                       ucosm, vcosm, pxs[None], pys[None]], dim=0)
 
 
@@ -86,7 +92,8 @@ def spectral_stack(dyn, state, phis, jd, jp):
     if dev.type != "cuda":
         raise ValueError(f"spectral_stack: no kernel for device {dev}")
     g = dyn.geom
-    K, R, mx, nx = g.nlev, g.ntracers, g.mx, g.nx
+    K, R, nx = g.nlev, g.ntracers, g.nx
+    mx, m0 = state.vor.shape[-2], dyn.m0
     if K not in KERNEL_LEVELS or R != 1 or nx > MAX_N:
         raise ValueError(f"spectral_stack: the kernel takes K in "
                          f"{KERNEL_LEVELS}, one tracer and nx <= {MAX_N}, "
@@ -116,7 +123,7 @@ def spectral_stack(dyn, state, phis, jd, jp):
         kb.device_index(state.vor), K, mx, nx, state.vor.data_ptr(),
         state.div.data_ptr(), state.t.data_ptr(), state.ps.data_ptr(),
         state.tr.data_ptr(), None if jp is None else phis.data_ptr(),
-        blob.data_ptr(), jd or 0, jp or 0, ptr(out_d), ptr(out_p),
+        blob.data_ptr(), jd or 0, jp or 0, ptr(out_d), ptr(out_p), m0,
         kb.stream_of(state.vor))
     kb.check(code, "spectral_stack")
     spectral_stack.launches += 1

@@ -17,6 +17,12 @@ the new state (vor, div, t, ps, tr), both levels.
 On a CPU tensor `spectral_tail` runs the plain version
 (DycoreModel.spectral_tail_plain, built from the dycore's methods); on a
 CUDA tensor it launches the kernel or raises.
+
+The m-range form (a shard of GCM.set_mesh): every operand holds the
+wavenumbers m0 .. m0 + mx - 1 of the whole (dyn.m0; the shard's
+DycoreModel view, whose tables and blob are the range's, the blob's xj
+up to l = m0 + mx + nx - 2); the kernel is the same launch with m0,
+which the total wavenumber l = m + n and the m = 0 terms read.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ KERNEL_LEVELS = (5, 7, 8)   # K values compiled in csrc/spectral_tail.cu
 XJ_ROW = 8                  # elements a row of the per-l xj table
 
 
-def blob_size(K: int, mx: int, nx: int) -> int:
-    """Elements of tail_blob (csrc/spectral_tail.cuh tail_blob_size)."""
+def blob_size(K: int, mx: int, nx: int, m0: int = 0) -> int:
+    """Elements of tail_blob (csrc/spectral_tail.cuh tail_blob_size; an
+    m range from m0 holds xj up to l = m0 + mx + nx - 2)."""
     head = 12 * K + 2 * K * K + mx + nx + 11 * mx * nx
-    return -(-head // 4) * 4 + (mx + nx - 2) * K * XJ_ROW
+    return -(-head // 4) * 4 + (m0 + mx + nx - 2) * K * XJ_ROW
 
 
 def tail_blob(dyn, imp, dtype=torch.float32) -> torch.Tensor:
@@ -70,7 +77,8 @@ def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
     if A.device.type != "cuda":
         raise ValueError(f"spectral_tail: no kernel for device {A.device}")
     g = dyn.geom
-    K, R, mx, nx = g.nlev, g.ntracers, g.mx, g.nx
+    K, R, nx = g.nlev, g.ntracers, g.nx
+    mx, m0 = A.shape[-2], dyn.m0
     if K not in KERNEL_LEVELS or R != 1:
         raise ValueError(f"spectral_tail: the kernel takes K in "
                          f"{KERNEL_LEVELS} and one tracer, not K={K}, R={R}")
@@ -79,8 +87,8 @@ def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
                          "table blob (a float32 DycoreModel)")
     dev = A.device
     c64 = torch.complex64
-    kb.require(imp.blob, "imp.blob", torch.float32, (blob_size(K, mx, nx),),
-               dev)
+    kb.require(imp.blob, "imp.blob", torch.float32,
+               (blob_size(K, mx, nx, m0),), dev)
     if imp.blob.data_ptr() % 16:
         raise ValueError("spectral_tail: imp.blob must be 16-byte aligned")
     kb.require(A, "A", c64, (1 + 3 * (2 + R) * K, mx, nx), dev)
@@ -105,7 +113,7 @@ def spectral_tail(dyn, A, state, phis, corrections, imp, j1: int,
         float((1.0 - dyn.wil) * eps), float(dyn.sdrag),
         float(dyn.const.rgas), out["vor"].data_ptr(), out["div"].data_ptr(),
         out["t"].data_ptr(), out["ps"].data_ptr(), out["tr"].data_ptr(),
-        int(cg), kb.stream_of(A))
+        int(cg), m0, kb.stream_of(A))
     kb.check(code, "spectral_tail")
     spectral_tail.launches += 1
     return type(state)(**out)

@@ -11,7 +11,9 @@ sharded tensor is a Sharded tuple of D tensors, shard d on device d.
   weights and states, and their normal equations in training;
 - a replicated tensor is the same tensor on every device (replicate);
 - the global (lat, lon) grid lives on the first device, where the GCM
-  runs (hybrid/sharded.py).
+  runs (hybrid/sharded.py), unless the GCM is sharded too (GridShards):
+  its spectral arrays split into ranges of the zonal wavenumber m
+  (m_ranges) and its grid fields into latitude bands (lat_bands).
 
 Nothing here starts a process group: shard d runs on device d from this
 process, and tensors move between devices with .to(device).  The same
@@ -127,3 +129,137 @@ def shard_reservoir(res, mesh: Mesh) -> Sharded:
 def pad_regions(n: int, n_devices: int) -> int:
     """Regions per class must divide the mesh for even sharding; pad count."""
     return ((n + n_devices - 1) // n_devices) * n_devices
+
+
+# -- the GCM's two splits (GCM.set_mesh) ----------------------------------
+
+def even_blocks(n: int, D: int) -> list:
+    """[(start, stop)] of D contiguous blocks of range(n) whose sizes
+    differ by at most one (the first n % D one longer).  Raises when a
+    block would be empty."""
+    if not 0 < D <= n:
+        raise ValueError(f"{n} rows cannot be split into {D} non-empty "
+                         f"blocks")
+    q, r = divmod(n, D)
+    starts = [d * q + min(d, r) for d in range(D + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def m_ranges(mx: int, D: int) -> list:
+    """[(m0, m1)]: shard d's zonal wavenumbers, contiguous, sizes within
+    one of each other (mx = 31 over 8 shards: 4, 4, 4, 4, 4, 4, 4, 3)."""
+    return even_blocks(mx, D)
+
+
+def lat_bands(nlat: int, D: int) -> list:
+    """[(p0, p1)]: shard d's latitude band, a contiguous block of the
+    nlat/2 latitude PAIRS (j, nlat-1-j), sizes within one of each other.
+    Band d holds the rows [p0, p1) of the south and their mirrors [nlat -
+    p1, nlat - p0) of the north, in that order (band_rows): the spectral
+    transforms fold the hemispheres, so the synthesis (K6) of a band is
+    K6 with the band's Legendre rows, and each of its outputs is the whole
+    grid's bit for bit; the column physics does not care which columns a
+    band holds."""
+    if nlat % 2:
+        raise ValueError(f"lat_bands: {nlat} latitudes, not pairs")
+    return even_blocks(nlat // 2, D)
+
+
+def band_rows(t: torch.Tensor, band, nlat: int, dim: int = -2
+              ) -> torch.Tensor:
+    """The rows of band (p0, p1) of t along dim (nlat long), contiguous:
+    [south rows p0 .. p1-1 | north rows nlat-p1 .. nlat-p0-1]."""
+    p0, p1 = band
+    return torch.cat([t.narrow(dim, p0, p1 - p0),
+                      t.narrow(dim, nlat - p1, p1 - p0)], dim)
+
+
+def join_band_rows(parts, bands, dim: int = -2) -> torch.Tensor:
+    """The inverse of band_rows over all the bands (parts in band order,
+    on one device): the south halves in order, then the north halves in
+    reverse order."""
+    south = [p.narrow(dim, 0, b1 - b0) for p, (b0, b1) in zip(parts, bands)]
+    north = [p.narrow(dim, b1 - b0, b1 - b0)
+             for p, (b0, b1) in zip(parts, bands)]
+    return torch.cat(south + north[::-1], dim)
+
+
+class GridShards:
+    """The GCM over a mesh: shard d holds the zonal wavenumbers
+    ranges[d] of every spectral array (m the second-to-last axis) and the
+    latitude band bands[d] of every grid field (lat the second-to-last
+    axis, band_rows' layout).  The methods move values between the shards
+    and count each move onto another shard (copies, copy_bytes), as
+    ShardedCycleOps does; a move within one shard is not counted."""
+
+    def __init__(self, mesh: Mesh, nlat: int, mx: int):
+        self.mesh = mesh
+        self.D = mesh.size
+        self.nlat, self.mx = nlat, mx
+        self.bands = lat_bands(nlat, self.D)
+        self.ranges = m_ranges(mx, self.D)
+        self.copies = self.copy_bytes = 0
+
+    def _move(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        if src != dst:
+            self.copies += 1
+            self.copy_bytes += t.numel() * t.element_size()
+        return t.to(self.mesh.devices[dst], non_blocking=True)
+
+    # -- one tensor -------------------------------------------------------
+    def split_bands(self, t: torch.Tensor, src: int = 0, dim: int = -2
+                    ) -> Sharded:
+        """t (whole along dim, on shard src) as each shard's band."""
+        return Sharded(self._move(band_rows(t, b, self.nlat, dim), src, d)
+                       for d, b in enumerate(self.bands))
+
+    def join_bands(self, parts, dst: int = 0, dim: int = -2
+                   ) -> torch.Tensor:
+        """The bands (shard d's parts[d]) joined on shard dst."""
+        return join_band_rows([self._move(p, d, dst)
+                               for d, p in enumerate(parts)],
+                              self.bands, dim)
+
+    def all_bands(self, parts, dim: int = -2) -> Sharded:
+        """The bands joined on every shard (an all-gather)."""
+        return Sharded(self.join_bands(parts, d, dim) for d in range(self.D))
+
+    def split_ranges(self, t: torch.Tensor, src: int = 0, dim: int = -2
+                     ) -> Sharded:
+        """t (all mx wavenumbers along dim, on shard src) as each shard's
+        m range, contiguous."""
+        return Sharded(self._move(t.narrow(dim, m0, m1 - m0).contiguous(),
+                                  src, d)
+                       for d, (m0, m1) in enumerate(self.ranges))
+
+    def join_ranges(self, parts, dst: int = 0, dim: int = -2
+                    ) -> torch.Tensor:
+        """The m ranges joined on shard dst."""
+        return torch.cat([self._move(p, d, dst) for d, p in enumerate(parts)],
+                         dim)
+
+    def all_ranges(self, parts, dim: int = -2) -> Sharded:
+        """The m ranges joined on every shard (an all-gather)."""
+        return Sharded(self.join_ranges(parts, d, dim)
+                       for d in range(self.D))
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> Sharded:
+        """t, whole, on every shard."""
+        return Sharded(self._move(t, src, d) for d in range(self.D))
+
+    # -- a dataclass of grid fields --------------------------------------
+    def split_fields(self, obj, src: int = 0) -> Sharded:
+        """A dataclass of grid fields (..., lat, lon), or (2, lat, K) as
+        the radiation carry's randfv, as each shard's band of it (the same
+        dataclass)."""
+        names = [f.name for f in dataclasses.fields(obj)]
+        per = {nm: self.split_bands(getattr(obj, nm), src) for nm in names}
+        return Sharded(dataclasses.replace(obj, **{nm: per[nm][d]
+                                                   for nm in names})
+                       for d in range(self.D))
+
+    def join_fields(self, parts, dst: int = 0):
+        """The inverse of split_fields: the bands joined on shard dst."""
+        return dataclasses.replace(parts[dst], **{
+            f.name: self.join_bands([getattr(p, f.name) for p in parts], dst)
+            for f in dataclasses.fields(parts[dst])})

@@ -28,6 +28,7 @@ multiplies the four tendencies by (1 + r).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import NamedTuple
@@ -69,6 +70,20 @@ def zero_views(shapes, dtype, device=None) -> list:
         starts.append(starts[-1] + -(-n // VIEW_ALIGN) * VIEW_ALIGN)
     buf = torch.zeros(starts[-1], dtype=dtype, device=device)
     return [buf[o:o + n].view(s) for o, n, s in zip(starts, sizes, shapes)]
+
+
+def _on_device(val, dev):
+    """val with its tensors (and those of a NamedTuple or dataclass of
+    them) on dev; the same object where nothing moves."""
+    if torch.is_tensor(val):
+        return val.to(dev)
+    if isinstance(val, tuple) and hasattr(val, "_fields"):
+        return val._make(_on_device(x, dev) for x in val)
+    if dataclasses.is_dataclass(val) and not isinstance(val, type):
+        return dataclasses.replace(val, **{
+            f.name: _on_device(getattr(val, f.name), dev)
+            for f in dataclasses.fields(val) if f.init})
+    return val
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +225,31 @@ class PhysicsModel:
         self._randfh = value
 
     # ------------------------------------------------------------------
+
+    def band_view(self, band, device) -> "PhysicsModel":
+        """A copy of the model for one latitude band of a mesh (GCM.set_mesh;
+        band = (p0, p1), parallel/mesh.py lat_bands) on `device`: the
+        per-latitude tables (sin and cos of latitude) as the band's rows,
+        the other tables on the device.  Its compute runs the band's
+        columns: K9, K9_moist_shortwave, K10a_down_surface, K10b and K12
+        take (K, rows, lon) fields and index their (lat,) tables by the
+        field's own rows, so a band needs no offset.  RDF (randfh) smooths
+        in latitude across the bands and does not run on a mesh."""
+        from speedy_ml_tpu_torch.parallel.mesh import band_rows
+        if self.randfh is not None:
+            raise NotImplementedError(
+                "RDF smooths its vertical modulation in latitude, across "
+                "the bands: the physics on a mesh runs without it (randfh "
+                "None)")
+        v = copy.copy(self)
+        dev = torch.device(device)
+        for nm, val in vars(self).items():
+            setattr(v, nm, _on_device(val, dev))
+        v.device = dev
+        nlat = self.geom.nlat
+        v.slat_t = band_rows(self.slat_t, band, nlat, dim=0).to(dev)
+        v.clat_t = band_rows(self.clat_t, band, nlat, dim=0).to(dev)
+        return v
 
     def day_args(self, tyear) -> DayArgs:
         """What K17 needs for the forcing of day tyear (a host number; a

@@ -326,9 +326,9 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
 
 
 def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
-    """The options of later slices raise (set_mesh with the lat-sharded
-    GCM, the captured loop on a mesh: A16b); the sharded cycle
-    (shard_gcm=False) and ml_only=False now run, so do SPPT, RDF and
+    """The options of later slices raise (the captured loop on a mesh:
+    A16b); the sharded cycle (shard_gcm=False and, with the GCM sharded,
+    the default) and ml_only=False now run, so do SPPT, RDF and
     cgrate, the climatology tables,
     emit_components, truth_provider and time_mean_path
     (tests/test_torch_cycle_options.py), and so does cycles_per_dispatch
@@ -360,12 +360,15 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
                          base_sst=np.zeros(3), device="cpu")
     from speedy_ml_tpu_torch.parallel.mesh import Mesh
     for h in (thyb, chyb):
-        # the sharded cycle has come (tests/test_torch_sharded.py); the
-        # lat-sharded GCM (shard_gcm=True, the JAX default) and the
-        # captured loop on a mesh come with A16b
-        with pytest.raises(NotImplementedError, match="A16b"):
-            h.set_mesh(Mesh(["cpu"] * 2))
-        assert h.mesh is None
+        # the sharded cycle has come (tests/test_torch_sharded.py), with
+        # the GCM sharded too by default (tests/test_torch_sharded_gcm.py),
+        # on a copy of the hybrid and of its GCM; the captured loop on a
+        # mesh comes with A16b
+        sharded = copy.copy(h)
+        sharded.set_mesh(Mesh(["cpu"] * 2))
+        assert h.mesh is None and sharded.mesh is not None
+        if not h.ml_only:
+            assert h.gcm.mesh is None and sharded.gcm.mesh is not None
         s = h.init_state(_sst(h.geom))
         final, dates = run_prediction(h, s, ModelDate(1990, 1, 1), 1,
                                       cycles_per_dispatch=2)
@@ -390,5 +393,7 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
     with pytest.raises(ValueError, match="randfh"):
         type(chyb.gcm.phys)(g, chyb.gcm.const, randfh=np.zeros(1),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A16b"):
-        chyb.gcm.sht.set_mesh(None)
+    # m-sharding is ported (tests/test_torch_sharded_gcm.py); a mesh must
+    # start on the transform's device
+    with pytest.raises(ValueError, match="first device"):
+        copy.copy(chyb.gcm.sht).set_mesh(Mesh(["meta", "cpu"]))

@@ -21,8 +21,8 @@ run.  Tolerances:
   and with the ML-only cycle, the persistent surface, the climatology
   tables and the readout's components;
 - solve_wout_sharded: Wout 1e-8 of its scale at a ridge of 1e-2;
-- the error paths raise the JAX package's messages; the A16b options
-  raise NotImplementedError.
+- the error paths raise the JAX package's messages; what a mesh does not
+  run yet (the captured loop, the slab ocean) raises NotImplementedError.
 """
 
 import copy
@@ -559,16 +559,13 @@ def test_the_mesh_cycle_runs_the_hybrids_own_parameters(port):
 
 
 def test_the_distributed_gcm_options_raise(port):
-    """shard_gcm=True (the JAX default), GCM.set_mesh,
-    SpectralTransform.set_mesh, the captured loop and the slab ocean on a
-    mesh come with A16b: each raises, none falls back."""
+    """What a mesh does not run yet (A16b's later parts) raises, none
+    falls back: the captured loop (run_prediction with
+    cycles_per_dispatch > 1, a cycle handed the row of scalars) and the
+    slab ocean on a mesh.  set_mesh(mesh) (shard_gcm=True, the JAX
+    default), GCM.set_mesh and SpectralTransform.set_mesh run
+    (tests/test_torch_sharded_gcm.py)."""
     m = _mesh(2)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        copy.copy(port).set_mesh(m)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        port.gcm.set_mesh(m)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        port.gcm.sht.set_mesh(m)
     sh = _sharded_copy(port, 2)
     s = sh.init_state(port.gcm.bd.sst12[0])
     with pytest.raises(NotImplementedError, match="A16b"):
@@ -581,6 +578,8 @@ def test_the_distributed_gcm_options_raise(port):
     ocean.ocean_packs = [object()]
     with pytest.raises(NotImplementedError, match="A16b"):
         ocean.set_mesh(m, shard_gcm=False)
+    with pytest.raises(NotImplementedError, match="A16b"):
+        ocean.set_mesh(m)
     # the eager loop runs on a mesh
     final, dates = run_prediction(sh, s, ModelDate(1990, 1, 1), 1)
     assert len(dates) == 1 and len(final.classes[0].x) == 2

@@ -141,5 +141,10 @@ def test_unported_transform_options_raise():
     g = Geometry(**GEOMS["T10"])
     with pytest.raises(ValueError, match="dft"):
         SpectralTransform(g, zonal="fft", device="cpu")
-    with pytest.raises(NotImplementedError, match="A16b"):
-        SpectralTransform(g, device="cpu").set_mesh(None)
+    # m-sharding is ported (tests/test_torch_sharded_gcm.py); a mesh must
+    # start on the transform's device
+    from speedy_ml_tpu_torch.parallel.mesh import Mesh
+    sht = SpectralTransform(g, device="cpu")
+    with pytest.raises(ValueError, match="first device"):
+        sht.set_mesh(Mesh(["meta", "cpu"]))
+    assert sht.mesh is None
