@@ -256,12 +256,35 @@ Phases, each fatal on failure (exit code 1, no result line):
      versions, shard 1's timed; the dry run's training step at
      m = 6000 (accumulate_batches on 8 interior regions a shard, T = 9,
      solve_wout_sharded in float64: Wout bit for bit solve_wout's) and
-     its lat halo exchange of the SST.
+     its lat halo exchange of the SST; then the rest of the distributed
+     code: (f) run_prediction with cycles_per_dispatch = MESH_LOOP on both
+     meshed hybrids (the captured loop: one graph a form where the shards
+     share a card), its final state bit for bit the eager meshed loop's
+     and the unsharded loop's and its launches the eager meshed loop's
+     kernel by kernel, ms a cycle, busy, the idle share, device launches
+     and host CUDA calls a cycle; (g) the slab ocean on the mesh (phase
+     17's seeded ocean packs on the continents, SLAB_STRIDE
+     MESH_SLAB_STRIDE) with the GCM whole and sharded, each cycle through
+     the slab step bit for bit the unsharded one (the new SST grid and
+     the ocean's states included), its captured loop bit for bit the
+     eager one, busy and launches of the slab-step cycle, unsharded and
+     meshed; (h) a meshed window with cgrate on and RDF bit for bit the
+     unsharded one, and K25's sums and band forms and K26's rows and
+     range forms on every shard bit for bit the whole kernels' bands and
+     ranges and their plain versions, shard 1's timed (the kernels
+     line's K25_rdf_sums, K25_rdf_band, K26_cgrate_rows,
+     K26_cgrate_range); (i) the training dry run at m = 6000
+     (parallel/train_dryrun.py dryrun_m6000: 8 interior regions a shard,
+     each shard's Gram block on its own device, Wout finite and
+     sharded).
 --surface runs phase 12 alone after phase 3 (no result line); --ocean
 trains phase 10's atmosphere and runs phase 13 alone (no result line);
 --options runs phase 14 alone, --vertical phase 15 (with its own nature
 run), --physics phase 16, --dispatch phase 17, --cli phase 18,
---experiments phase 19 and --mesh phase 20 (no result line).
+--experiments phase 19 and --mesh phase 20 (no result line);
+--train-full runs the full training pass on phase 20's mesh after the
+build (train_dryrun.train_full, every region at m = 6000; no result
+line).
 --k14-lists stops after phase 3 and times K14's two tile lists at several
 chunk lengths (k14_lists).  The second-to-last line is the kernels
 JSON, the last line
@@ -438,7 +461,9 @@ MESH_CYCLES = 8
 # (per cycle: the window's exit's K15 and K6; the forcing's and the
 # injection's K5)
 MESH_FORMS = ("K15_spectral_stack_mrange", "K6_sht_synthesis_band",
-              "K5_sht_analysis_mrange", "K8_spectral_tail_mrange")
+              "K5_sht_analysis_mrange", "K8_spectral_tail_mrange",
+              "K25_rdf_sums", "K25_rdf_band", "K26_cgrate_rows",
+              "K26_cgrate_range")
 MESH_BANDED = ("K7_grid_dynamics", "K8_spectral_tail", "K9_column_moist",
                "K9_moist_shortwave", "K10a_down_surface", "K10b_radlw_up",
                "K12_column_pbl", "K12_pbl_flux")
@@ -446,6 +471,14 @@ MESH_WHOLE = {"K15_spectral_stack": 1, "K6_sht_synthesis": 1,
               "K5_sht_analysis": 2}
 MESH_PROFILE_CYCLES = 4
 MESH_PAD = 128
+# the captured loop on a mesh: cycles in one dispatch (and in the eager
+# loops it is held against), and the timed runs; the slab ocean on a mesh
+# at this SLAB_STRIDE (a slab step in its first cycles); the leapfrog steps
+# of the meshed window with cgrate and RDF after stepone
+MESH_LOOP = 28
+MESH_TIMED = 5
+MESH_SLAB_STRIDE = 4
+MESH_CG_STEPS = 6
 # phase 18 (the CLI): RunConfig's own defaults (T30L8, 1,152 regions,
 # m = 6000, the slab ocean at m = 4000, the persistent surface, float32)
 # cut in time only: 224 nature-run samples (the ocean's 8 slab strides of
@@ -3945,16 +3978,14 @@ def phase_mesh(torch, np, gcm, hyb, date0, card, kernels, record):
     from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
     from speedy_ml_tpu_torch.parallel.dryrun import (check_lat_halo,
                                                      check_training_step)
-    from speedy_ml_tpu_torch.parallel.mesh import Mesh, gather_rows, make_mesh
+    from speedy_ml_tpu_torch.parallel.mesh import gather_rows
     t_phase = time.perf_counter()
     g = gcm.geom
     D = MESH_SHARDS
     imon, fmon, tyear = date0.month - 1, date0.tmonth, date0.tyear
     visible = torch.cuda.device_count()
-    if visible >= D:
-        mesh = make_mesh(D)
-    else:
-        mesh = Mesh([torch.device("cuda", 0)] * D)
+    mesh = mesh_of(torch, D)
+    if visible < D:
         log(f"phase 20: {visible} card(s) visible: the {D} shards "
             f"all on cuda:0 (every line of the sharded cycle but the "
             f"transport between cards)")
@@ -4160,6 +4191,29 @@ def phase_mesh(torch, np, gcm, hyb, date0, card, kernels, record):
         f"for bit solve_wout's, in {time.perf_counter() - t0:.1f} s; the "
         f"lat halo exchange of the SST over {D} bands exact")
     part("(d) training step, halos")
+
+    # -- (f) the captured loop on both meshed hybrids -----------------------
+    mesh_captured(torch, hyb, (("sharded", sh), ("sharded GCM", shg)), s0,
+                  date0, card, kernels)
+    part("(f) captured loop")
+    del sh, shg
+    # -- (g) the slab ocean on a mesh ----------------------------------------
+    mesh_ocean(torch, np, gcm, hyb, mesh, date0, card)
+    part("(g) slab ocean")
+    # -- (h) cgrate and RDF on a meshed GCM ---------------------------------
+    form_launches.update(mesh_cgrate_rdf(torch, np, gcm, mesh, date0, card,
+                                         record, spec_))
+    part("(h) cgrate, RDF")
+    # -- (i) the training dry run at m = 6000 -------------------------------
+    from speedy_ml_tpu_torch.parallel.train_dryrun import dryrun_m6000
+    r = dryrun_m6000(mesh, log=log)
+    log(f"phase 20 training dry run: {r['regions']} interior regions at "
+        f"m = {r['m']}, A = {r['A']}, each shard's Gram block "
+        f"({r['regions'] // D}, {r['A']}, {r['A']}) on its device "
+        f"({r['gram_shard_bytes'] / 1e9:.3f} GB), Wout finite and sharded; "
+        f"accumulate {r['accumulate_s']:.2f} s, solve {r['solve_s']:.2f} s "
+        f"({r['solve_flops'] / r['solve_s'] / 1e12:.2f} TFLOP/s) [{card}]")
+    part("(i) training dry run")
     log(f"phase 20 passed in {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items())
         + f") [{card}]")
@@ -4342,6 +4396,394 @@ def mesh_forms(torch, hyb, shg, spec, sst, imon, fmon, tyear, card,
     if not ok:
         fail("phase 20: a form is outside its tolerance against its plain "
              "version")
+
+
+def same_hybrid_states(torch, a, b) -> list:
+    """The fields in which two hybrid states (either one sharded) differ:
+    every class's x, feedback and local model, the SST grid, the slab
+    ocean's x, ring and lm (each gathered on a's device), the gate."""
+    from speedy_ml_tpu_torch.parallel.mesh import Sharded, gather_rows
+    dev = a.sst_grid.device
+    whole = lambda t, dim=0: (gather_rows(t, dev, dim)
+                              if isinstance(t, Sharded) else t)
+    bad = [] if same_bits(torch, a.sst_grid, b.sst_grid) else ["sst_grid"]
+    for i, (ca, cb) in enumerate(zip(a.classes, b.classes)):
+        bad += [f"class {i} {nm}" for nm in ("x", "feedback", "local_model")
+                if not same_bits(torch, whole(getattr(ca, nm)),
+                                 whole(getattr(cb, nm)))]
+    for i, (oa, ob) in enumerate(zip(a.ocean, b.ocean)):
+        bad += [f"ocean {i} {nm}" for nm, dim in (("x", 0), ("buffer", 1),
+                                                  ("lm", 0))
+                if (getattr(oa, nm) is None) != (getattr(ob, nm) is None)
+                or (getattr(oa, nm) is not None and not same_bits(
+                    torch, whole(getattr(oa, nm), dim),
+                    whole(getattr(ob, nm), dim)))]
+    if bool(a.safe) != bool(b.safe) or a.step != b.step:
+        bad.append("safe or step")
+    return bad
+
+
+def mesh_captured(torch, hyb, hybrids, s0, date0, card, kernels) -> dict:
+    """Phase 20's captured loop: run_prediction with cycles_per_dispatch =
+    MESH_LOOP on each meshed hybrid of `hybrids` ((label, hybrid) pairs),
+    MESH_LOOP cycles from s0 in one dispatch, against the eager meshed
+    loop and the unsharded loop: the final states bit for bit, and the
+    replays' launches kernel by kernel those of the eager meshed loop
+    (every counter set to 0 before each run, read after).  Then ms a
+    cycle (median of MESH_TIMED runs), device busy, the idle share, device
+    launches and host CUDA calls a cycle (one profiled run).  Returns
+    {label: (ms, busy, device launches, host calls)} a cycle."""
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    n = MESH_LOOP
+    ref, _ = run_prediction(hyb, s0, date0, n)
+    out = {}
+    for label, h in hybrids:
+        st = h.shard_state(s0)
+        counts, finals = {}, {}
+        for K in (1, n):
+            torch.cuda.synchronize()
+            for w in kernels.values():
+                w.launches = 0
+            fin, dates = run_prediction(h, st, date0, n,
+                                        cycles_per_dispatch=K)
+            torch.cuda.synchronize()
+            if len(dates) != n:
+                fail(f"phase 20: the {label} loop (K = {K}) stopped after "
+                     f"{len(dates)} cycles")
+            counts[K] = {nm: w.launches for nm, w in kernels.items()}
+            finals[K] = fin
+        for K, what in ((1, "eager meshed"), (n, "captured meshed")):
+            bad = same_hybrid_states(torch, ref, finals[K])
+            if bad:
+                fail(f"phase 20: the {label} {what} loop's final state "
+                     f"differs from the unsharded loop's: {', '.join(bad)}")
+        if counts[n] != counts[1]:
+            fail(f"phase 20: the {label} replays' launches differ from the "
+                 f"eager meshed loop's: " + ", ".join(
+                     f"{nm} {counts[n][nm]}/{counts[1][nm]}"
+                     for nm in kernels if counts[n][nm] != counts[1][nm]))
+        run = lambda h=h, st=st: run_prediction(h, st, date0, n,
+                                                cycles_per_dispatch=n)
+        walls = []
+        for _ in range(MESH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n * 1e3)
+        walls.sort()
+        busy, kk, prof = profile_device(torch, run, reps=1, ranges=True)
+        host = sum(e.count for e in prof.key_averages()
+                   if e.key in HOST_LAUNCH_API) / n
+        n_dev = sum(e.count for e in kk) / n
+        ms = walls[len(walls) // 2]
+        out[label] = (ms, busy / n, n_dev, host)
+        log(f"phase 20 captured loop, {label}: {n} cycles in one dispatch "
+            f"bit for bit the eager meshed loop and the unsharded loop "
+            f"(final states), the replays' launches the eager loop's kernel "
+            f"by kernel; {ms:.4f} ms a cycle median (min {walls[0]:.4f}, "
+            f"max {walls[-1]:.4f}) over {MESH_TIMED} runs, device busy "
+            f"{busy / n:.4f} ms a cycle, idle share {1 - busy / n / ms:.1%}, "
+            f"{n_dev:g} device launches and {host:g} host CUDA calls a "
+            f"cycle [{card}]")
+    return out
+
+
+def mesh_ocean(torch, np, gcm, hyb, mesh, date0, card):
+    """Phase 20's slab ocean on a mesh: phase 17's coupled hybrid with
+    seeded slab-ocean packs (OCEAN_HYPER's size) on the continents, at
+    SLAB_STRIDE MESH_SLAB_STRIDE, on the mesh with the GCM whole and
+    sharded: MESH_SLAB_STRIDE + 1 cycles (a slab step at step
+    MESH_SLAB_STRIDE - 1) each bit for bit the unsharded cycle (the
+    fields, the new SST grid, the ocean's states), the captured meshed
+    loop bit for bit the eager one; busy and launches of a slab-step
+    cycle and of the cycle before, unsharded and meshed."""
+    import copy
+    from speedy_ml_tpu_torch.hybrid.driver import run_prediction
+    from speedy_ml_tpu_torch.hybrid.model import (HybridAtmosphere,
+                                                  ocean_snapshot)
+    from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.kernels.surface_forcing import tisr_plane
+    dev, f32 = hyb.device, torch.float32
+    g = gcm.geom
+    sst0 = sst_month0(g)
+    gcm_l = GCM(g, dtype=f32, bd=continents_bd(torch, np, gcm.bd, g),
+                      device=dev)
+    land = (gcm_l.bd.fmask_l >= 1.0 / 3.0).to(f32)
+    h = HybridAtmosphere(
+        gcm_l, hyb.layout, hyb.packs, ml_only=False,
+        ocean_packs=seeded_ocean_packs(torch, hyb, SEED + 23),
+        base_sst=torch.as_tensor(sst0, dtype=f32, device=dev),
+        sea_mask=land, device=dev)
+    h.SLAB_STRIDE = MESH_SLAB_STRIDE
+    meshed = []
+    for sg in (False, True):
+        hm = copy.copy(h)
+        hm.set_mesh(mesh, shard_gcm=sg)
+        meshed.append(("sharded GCM" if sg else "sharded", hm))
+    n = MESH_SLAB_STRIDE + 1
+    slab = MESH_SLAB_STRIDE - 1          # the slab step's cycle
+    s0 = h.init_state(sst0)
+    dates = [date0.advance_hours(6 * i) for i in range(n)]
+    arg = lambda d: (d.month - 1, d.tmonth, d.tyear)
+    a, diags, before = ocean_snapshot(s0), [], {}
+    for i, d in enumerate(dates):
+        if i in (slab - 1, slab):
+            before[i] = ocean_snapshot(a)
+        a, da = h.cycle(a, *arg(d))
+        diags.append(da)
+    if same_bits(torch, a.sst_grid, s0.sst_grid):
+        fail("phase 20: the slab step left the SST grid as it was")
+    for label, hm in meshed:
+        b = hm.shard_state(ocean_snapshot(s0))
+        for i, d in enumerate(dates):
+            b, db = hm.cycle(b, *arg(d))
+            for k in ("atmo", "logp", "precip", "speedy_atmo",
+                      "speedy_logp"):
+                if not same_bits(torch, diags[i][k], db[k]):
+                    fail(f"phase 20: the slab ocean's {label} cycle {i}: "
+                         f"{k} differs from the unsharded")
+        bad = same_hybrid_states(torch, a, b)
+        if bad:
+            fail(f"phase 20: the slab ocean's {label} state after the slab "
+                 f"step differs from the unsharded: {', '.join(bad)}")
+        st = hm.shard_state(ocean_snapshot(s0))
+        fin_e, _ = run_prediction(hm, ocean_snapshot(st), date0, n)
+        fin_c, _ = run_prediction(hm, ocean_snapshot(st), date0, n,
+                                  cycles_per_dispatch=n)
+        torch.cuda.synchronize()
+        bad = same_hybrid_states(torch, fin_e, fin_c)
+        if bad:
+            fail(f"phase 20: the slab ocean's {label} captured loop differs "
+                 f"from the eager one: {', '.join(bad)}")
+    log(f"phase 20 slab ocean: {n} cycles at SLAB_STRIDE {MESH_SLAB_STRIDE} "
+        f"(the slab step at step {slab}) with the GCM whole and sharded, "
+        f"each cycle bit for bit the unsharded (the fields, the new SST "
+        f"grid, every class's and the ocean's states, the rings sharded by "
+        f"regions); the captured meshed loop of {n} bit for bit the eager")
+    pad = lambda: [tisr_plane(dates[0].tyear, hyb._slat, hyb._clat, g.nlon)
+                   for _ in range(MESH_PAD)]
+    for label, hh in (("unsharded", h),) + tuple(meshed):
+        per = {}
+        for i in (slab - 1, slab):
+            st = before[i] if hh is h else hh.shard_state(before[i])
+            fn = lambda hh=hh, st=st, d=dates[i]: (pad(), hh.cycle(
+                ocean_snapshot(st), *arg(d)))
+            fn()
+            _, kk, _ = profile_device(torch, fn, reps=2)
+            kk = [e for e in kk if kernel_name(e.key) != "tisr_kernel"]
+            per[i] = (sum(_self_device_us(e) for e in kk) / 2e3,
+                      sum(e.count for e in kk) / 2)
+        (b0, l0), (b1, l1) = per[slab - 1], per[slab]
+        log(f"phase 20 slab ocean profile, {label}: the slab-step cycle "
+            f"busy {b1:.4f} ms, {l1:g} device launches; the cycle before "
+            f"{b0:.4f} ms, {l0:g} (the ring's snapshot copies included) "
+            f"[{card}]")
+
+
+def mesh_cgrate_rdf(torch, np, gcm, mesh, date0, card, record,
+                    spec) -> dict:
+    """Phase 20's cgrate and RDF on a mesh: a T30 float32 GCM with cgrate
+    on and RDF (init_randfh(RDF_SEED)), whole and on the mesh, from the
+    spectral state `spec` (the main path's injection: it has eddies, so
+    that cgrate has something to damp): stepone and
+    MESH_CG_STEPS leapfrog steps bit for bit (the spectral state, the flux
+    sums, the radiation carry with randfv), with K26's rows and range
+    forms and K25's sums and band forms launched D times a physics step
+    (the sums on a shortwave step) and the whole K25 and K26 never; then
+    each form on every shard against the whole kernel's range or band
+    (bit for bit) and its plain version on the same inputs (K26 on a
+    tendency grown until it damps), shard 1's timed and recorded.
+    Returns each form's launches in the window, by MESH_FORMS name."""
+    import copy
+    from speedy_ml_tpu_torch.dycore.state import SpectralState
+    from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.kernels import cgrate as k26
+    from speedy_ml_tpu_torch.kernels import rdf as k25
+    from speedy_ml_tpu_torch.parallel.mesh import band_rows
+    from speedy_ml_tpu_torch.physics.randfor import init_randfh
+    dev, f32 = gcm.device, torch.float32
+    g = gcm.geom
+    K, nlat, nlon, mx, nx = g.nlev, g.nlat, g.nlon, g.mx, g.nx
+    D = mesh.size
+    gw = GCM(g, dtype=f32, bd=gcm.bd, nsteps_day=gcm.nsteps_day,
+                   cgrate_on=True, device=dev)
+    gw.phys.randfh = init_randfh(RDF_SEED, g, gw.sht)
+    gm = copy.copy(gw)
+    gm.set_mesh(mesh)
+    grid = gm.grid
+    s0, f = gw.init_state(date0, spectral=spec)
+    a = gw.run_window(gw.stepone(s0, f), f, MESH_CG_STEPS)
+    forms = {"K25_rdf_sums": k25.rdf_sums, "K25_rdf_band": k25.rdf_band,
+             "K26_cgrate_rows": k26.cgrate_rows,
+             "K26_cgrate_range": k26.cgrate_range}
+    torch.cuda.synchronize()
+    for w in list(forms.values()) + [k25.rdf, k26.cgrate]:
+        w.launches = 0
+    b = gm.gather_state(gm.run_window(gm.stepone(s0, f), f, MESH_CG_STEPS))
+    torch.cuda.synchronize()
+    launches = {nm: w.launches for nm, w in forms.items()}
+    for k in SpectralState.FIELDS:
+        if not same_bits(torch, getattr(a.spectral, k),
+                         getattr(b.spectral, k)):
+            fail(f"phase 20: the meshed window with cgrate and RDF: {k} "
+                 f"differs from the unsharded")
+    for obj in ("fluxes", "radiation"):
+        for fl in dataclasses.fields(getattr(a, obj)):
+            if not same_bits(torch, getattr(getattr(a, obj), fl.name),
+                             getattr(getattr(b, obj), fl.name)):
+                fail(f"phase 20: the meshed window with cgrate and RDF: "
+                     f"{obj}.{fl.name} differs from the unsharded")
+    steps = 2 + MESH_CG_STEPS
+    sw = 2 + len(range(0, MESH_CG_STEPS, 3))
+    want = {"K25_rdf_sums": D * sw, "K25_rdf_band": D * steps,
+            "K26_cgrate_rows": D * steps, "K26_cgrate_range": D * steps}
+    if launches != want or k25.rdf.launches or k26.cgrate.launches:
+        fail(f"phase 20: the meshed window launched {launches} (whole K25 "
+             f"{k25.rdf.launches}, K26 {k26.cgrate.launches}), {want} and "
+             f"no whole K25 or K26 expected")
+    if not float(b.radiation.randfv.abs().max()) > 0:
+        fail("phase 20: RDF left randfv zero in the meshed window")
+    log(f"phase 20 cgrate and RDF: stepone and {MESH_CG_STEPS} leapfrog steps "
+        f"on {D} shards bit for bit the unsharded window (the spectral "
+        f"state, the flux sums, the radiation carry, randfv max "
+        f"{float(b.radiation.randfv.abs().max()):.3e}); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    # the forms on every shard, from the window's state
+    st = gw.stepone(s0, f).spectral
+    dyn = gw.dyn
+    grown = lambda t, c: torch.stack([c * t[0], torch.zeros_like(t[0])])
+    out = dataclasses.replace(st, vor=grown(st.vor, 1e-3),
+                              div=grown(st.div, 1e-4))
+    clone = lambda o: dataclasses.replace(o, vor=o.vor.clone(),
+                                          div=o.div.clone())
+    whole26 = k26.cgrate(dyn, st, clone(out), 2, dyn.delt2, dyn.rob)
+    _, cd = k26.damp_plain(st.vor[0], out.vor[0], dyn.sht.elm2)
+    if not float(cd) > 0:
+        fail("phase 20: cgrate's trigger did not fire on the grown tendency")
+    rng = lambda s, m0, m1: dataclasses.replace(s, **{
+        k: getattr(s, k)[..., m0:m1, :].contiguous()
+        for k in SpectralState.FIELDS})
+    worst = dict.fromkeys(launches, 0.0)
+    parts = [(rng(st, *r), rng(out, *r)) for r in grid.ranges]
+    rows = [k26.cgrate_rows(dv, s_, o_)
+            for dv, (s_, o_) in zip(gm.sdyn.dyns, parts)]
+    rows_all = grid.all_ranges(rows, dim=-1)
+    cplx = lambda t: torch.view_as_real(t)
+    for d, (dv, (s_, o_), r) in enumerate(zip(gm.sdyn.dyns, parts, rows)):
+        worst["K26_cgrate_rows"] = max(worst["K26_cgrate_rows"], max_abs_diff(
+            torch, r, k26.cgrate_rows_plain(dv, s_, o_)))
+        pl = k26.cgrate_range_plain(dv, s_, clone(o_), rows_all[d], 2,
+                                    dyn.delt2, dyn.rob)
+        kr = k26.cgrate_range(dv, s_, clone(o_), rows_all[d], 2, dyn.delt2,
+                              dyn.rob)
+        m0, m1 = grid.ranges[d]
+        for nm in ("vor", "div"):
+            if not same_bits(torch, getattr(kr, nm),
+                             getattr(whole26, nm)[..., m0:m1, :]):
+                fail(f"phase 20: K26's forms on shard {d} differ from the "
+                     f"whole kernel's range ({nm})")
+            worst["K26_cgrate_range"] = max(
+                worst["K26_cgrate_range"],
+                max_abs_diff(torch, cplx(getattr(kr, nm)),
+                             cplx(getattr(pl, nm))))
+    # K25 on seeded heating at full width
+    gen = torch.Generator(device=dev).manual_seed(RDF_SEED)
+    rn = lambda *sh, sc=1.0: sc * torch.randn(sh, generator=gen, device=dev)
+    heat = k25.RdfHeating(
+        rn(K, nlat, nlon, sc=1e-5), rn(K, nlat, nlon, sc=1e-5),
+        rn(K, nlat, nlon), 1.0 / (0.6 + 0.4 * torch.rand(
+            (nlat, nlon), generator=gen, device=dev)),
+        gw.phys.pbl_tabs.grdscp, gw.phys.rdf_w)
+    tt, v_in = rn(K, nlat, nlon, sc=1e-5), rn(2, nlat, K, sc=1e-5)
+    h = gw.phys.randfh
+    kt, kv = k25.rdf(tt.clone(), h, v_in, heat)
+    kt_o, _ = k25.rdf(tt.clone(), h, v_in)
+    bx = [k25.RdfHeating(*(band_rows(t, bd, nlat).contiguous()
+                           if t.dim() >= 2 and t.shape[-2] == nlat else t
+                           for t in heat)) for bd in grid.bands]
+    sums = [k25.rdf_sums(x) for x in bx]
+    worst["K25_rdf_sums"] = max(max_abs_diff(torch, s_, k25.rdf_sums_plain(x))
+                                for s_, x in zip(sums, bx))
+    sums_all = grid.all_bands(sums, dim=-1)
+    tb, tb_o = [], []
+    for d, bd in enumerate(grid.bands):
+        t_d = band_rows(tt, bd, nlat).contiguous()
+        h_d = band_rows(h, bd, nlat).contiguous()
+        pt, pv = k25.rdf_band_plain(t_d.clone(), h_d, v_in, bd, sums_all[d])
+        ktd, kvd = k25.rdf_band(t_d.clone(), h_d, v_in, bd, sums_all[d])
+        kto, _ = k25.rdf_band(t_d.clone(), h_d, v_in, bd)
+        if not (same_bits(torch, kvd, kv)):
+            fail(f"phase 20: K25's band form on shard {d}: randfv differs "
+                 f"from the whole kernel's")
+        worst["K25_rdf_band"] = max(worst["K25_rdf_band"],
+                                    max_abs_diff(torch, ktd, pt),
+                                    max_abs_diff(torch, kvd, pv))
+        tb.append(ktd)
+        tb_o.append(kto)
+    if not (same_bits(torch, grid.join_bands(tb), kt)
+            and same_bits(torch, grid.join_bands(tb_o), kt_o)):
+        fail("phase 20: K25's band forms joined differ from the whole "
+             "kernel's tendency")
+    log("phase 20 forms of K25 and K26: on every shard the sums, band, rows "
+        "and range forms bit for bit the whole kernels' bands and ranges "
+        "(K26 where it damps, cd "
+        f"{float(cd):.3e}); against the plain versions: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    # shard 1's forms timed, with the bounds of their own work
+    dv, (s1, o1) = gm.sdyn.dyns[1], parts[1]
+    mr = grid.ranges[1][1] - grid.ranges[1][0]
+    Rb = 2 * (grid.bands[1][1] - grid.bands[1][0])
+    bd1 = grid.bands[1]
+    t1 = band_rows(tt, bd1, nlat).contiguous()
+    h1 = band_rows(h, bd1, nlat).contiguous()
+    rg = (dv, s1, clone(o1), rows_all[1], 2, dyn.delt2, dyn.rob)
+    src25 = "speedy_ml_tpu_torch/kernels/csrc/rdf.cu"
+    src26 = "speedy_ml_tpu_torch/kernels/csrc/cgrate.cu"
+    rep25, rep26 = ("speedy_ml_tpu/physics/randfor.py:83",
+                    "speedy_ml_tpu/dycore/model.py:565")
+    ok = True
+    ok &= record("K25_rdf_sums", src25, rep25, worst["K25_rdf_sums"], 0.0,
+                 measure_median(torch, lambda: k25.rdf_sums(bx[1]))[0],
+                 measure(torch, lambda: k25.rdf_sums_plain(bx[1])),
+                 bound_ms(4 * (3 * K * Rb * nlon + Rb * nlon + 3 * K
+                               + 2 * K * Rb), 6 * K * Rb * nlon, PEAK_F32_S))
+    ok &= record("K25_rdf_band", src25, rep25, worst["K25_rdf_band"], 0.0,
+                 measure_median(torch, lambda: k25.rdf_band(
+                     t1, h1, v_in, bd1, sums_all[1]))[0],
+                 measure(torch, lambda: k25.rdf_band_plain(
+                     t1, h1, v_in, bd1, sums_all[1])),
+                 bound_ms(4 * (2 * K * nlat + 2 * K * Rb * nlon
+                               + 2 * Rb * nlon + 2 * nlat * K),
+                          4 * K * Rb * nlon + 32 * nlat * K, PEAK_F32_S))
+    ok &= record("K26_cgrate_rows", src26, rep26, worst["K26_cgrate_rows"],
+                 0.0, measure_median(torch, lambda: k26.cgrate_rows(
+                     dv, s1, o1))[0],
+                 measure(torch, lambda: k26.cgrate_rows_plain(dv, s1, o1)),
+                 bound_ms(4 * (2 * 2 * 2 * K * mr * nx + mr * nx
+                               + 4 * K * mr), 2 * 12 * K * mr * nx,
+                          PEAK_F32_S))
+    ok &= record("K26_cgrate_range", src26, rep26,
+                 worst["K26_cgrate_range"], 0.0,
+                 measure_median(torch, lambda: k26.cgrate_range(*rg))[0],
+                 measure(torch, lambda: k26.cgrate_range_plain(
+                     dv, s1, clone(o1), rows_all[1], 2, dyn.delt2,
+                     dyn.rob)),
+                 bound_ms(4 * (4 * K * mx + 2 * 2 * 3 * K * mr * nx + mr * nx
+                               + 2 * 2 * 2 * K * mr * nx),
+                          2 * 2 * 14 * K * mr * nx, PEAK_F32_S))
+    if not ok:
+        fail("phase 20: a form of K25 or K26 is outside its tolerance "
+             "against its plain version")
+    return launches
+
+
+def mesh_of(torch, D: int):
+    """D shards: on D cards where they are visible, else all on cuda:0."""
+    from speedy_ml_tpu_torch.parallel.mesh import Mesh, make_mesh
+    if torch.cuda.device_count() >= D:
+        return make_mesh(D)
+    return Mesh([torch.device("cuda", 0)] * D)
 
 
 def port_kernels() -> dict:
@@ -4837,6 +5279,12 @@ def main():
                          "sharded cycle on 4 shards against the unsharded "
                          "one, bit for bit; the sharded training step) "
                          "alone; prints no result line")
+    ap.add_argument("--train-full", action="store_true",
+                    help="after the build, run the full training pass "
+                         "(parallel/train_dryrun.py train_full: every "
+                         "region at m = 6000 and a slab-ocean chunk at m = "
+                         "4000) on phase 20's mesh alone and print its "
+                         "result as JSON; prints no result line")
     ap.add_argument("--k14-lists", action="store_true",
                     help="time K14's two tile lists at several chunk "
                          "lengths and its two launches apart, then stop; "
@@ -4947,6 +5395,16 @@ def main():
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, work, True)
 
+    if args.train_full:
+        from speedy_ml_tpu_torch.parallel.train_dryrun import train_full
+        mesh = mesh_of(torch, MESH_SHARDS)
+        log(f"train_full on {mesh}")
+        r = train_full(mesh, log=log)
+        log(json.dumps(dict(train_full=r, card=card)))
+        log(f"chip_smoke --train-full: passed, "
+            f"{time.perf_counter() - t_start:.1f} s after the card check; "
+            f"no result line [{card}]")
+        return
     if args.cli:
         phase_cli(torch, np, card, kernels, work)
         log(f"chip_smoke --cli: phase 18 passed, "

@@ -26,7 +26,9 @@ from bc_path or $SPEEDY_ML_BC_PATH.
 On a mesh (set_mesh, the JAX package's GCM.set_mesh) a window runs
 sharded: the spectral state as m ranges and the grid as latitude bands
 of the shards (dycore/sharded.py), the column physics, the radiation
-carry and the window's flux sums on the bands.  The step functions take
+carry and the window's flux sums on the bands (the carry's randfv whole
+on every shard), cgrate (K26's rows and range forms) on the m ranges and
+RDF (K25's sums and band forms) on the bands.  The step functions take
 whole or sharded states and return sharded ones (gather_state joins
 them); the window's entry (K17 and K5, the daily forcing) runs whole on
 mesh.devices[0] and its planes are cut into the bands; grid_state, the
@@ -48,6 +50,7 @@ from speedy_ml_tpu_torch.core.constants import PhysicalConstants
 from speedy_ml_tpu_torch.core.geometry import Geometry
 from speedy_ml_tpu_torch.dycore.model import DycoreModel, GridTendencies
 from speedy_ml_tpu_torch.dycore.state import SpectralState
+from speedy_ml_tpu_torch.kernels.rdf import rdf_sums
 from speedy_ml_tpu_torch.kernels.slab_couple import FLUX_FIELDS, slab_couple
 from speedy_ml_tpu_torch.kernels.spectral_stack import (physics_ncos,
                                                         spectral_stack)
@@ -83,10 +86,11 @@ class FluxAccumulator:
                                            device))
 
 
-def zero_carries(K, nlat, nlon, dtype, device=None):
+def zero_carries(K, nlat, nlon, dtype, device=None, rdf_nlat=None):
     """A window's zero RadiationCarry and FluxAccumulator, all eleven
-    fields views of one zeroed buffer: one fill on the card."""
-    shapes = RadiationCarry.shapes(K, nlat, nlon)
+    fields views of one zeroed buffer: one fill on the card.  rdf_nlat:
+    randfv's latitudes (a mesh's band keeps them all), default nlat."""
+    shapes = RadiationCarry.shapes(K, nlat, nlon, rdf_nlat)
     v = zero_views(shapes + [(nlat, nlon)] * 4, dtype, device)
     return RadiationCarry(*v[:len(shapes)]), FluxAccumulator(*v[len(shapes):])
 
@@ -180,8 +184,11 @@ class GCM:
         on a copy of the transform; dycore/sharded.py), the column physics
         over latitude bands (PhysicsModel.band_view, the boundary data
         cut into the bands once), the spectral orography as m ranges.
-        mesh.devices[0] must be the GCM's device.  The cgrate limiter and
-        RDF, whose sums cross the shards, raise on a mesh."""
+        mesh.devices[0] must be the GCM's device.  The cgrate limiter runs
+        on the m ranges and RDF on the bands, each sum that crosses the
+        shards gathered in shard order and summed in the whole kernel's
+        order (dycore/sharded.py, _rdf_join); RDF's patterns (phys.randfh)
+        are cut into the bands here, so they are set before."""
         from speedy_ml_tpu_torch.dycore.sharded import ShardedDycore
         sht = copy.copy(self.sht)
         sht.set_mesh(mesh, axis)
@@ -248,7 +255,8 @@ class GCM:
         if self.mesh is None:
             return zero_carries(g.nlev, g.nlat, g.nlon, self.dtype,
                                 self.device)
-        c = [zero_carries(g.nlev, 2 * (p1 - p0), g.nlon, self.dtype, dev)
+        c = [zero_carries(g.nlev, 2 * (p1 - p0), g.nlon, self.dtype, dev,
+                          rdf_nlat=g.nlat)
              for (p0, p1), dev in zip(self.grid.bands, self.mesh.devices)]
         return Sharded(a for a, _ in c), Sharded(b for _, b in c)
 
@@ -420,6 +428,33 @@ class GCM:
                         fluxes=fluxes, istep=gstate.istep + 1,
                         sppt_spec=sppt_spec, sppt_gen=gstate.sppt_gen)
 
+    def _rdf_join(self, ptends, auxs):
+        """The bands' physics finished after their column kernels
+        (PhysicsModel.finish): on a shortwave step RDF's sums of every band
+        (K25's sums form) gathered on every shard in latitude order, then
+        each band's RDF (K25's band form) and SPPT.  The aux loses its
+        BandTail."""
+        tails = [a[3] for a in auxs]
+        sums = [None] * self.grid.D
+        if tails[0].xs is not None:
+            sums = self.grid.all_bands([rdf_sums(t.xs) for t in tails],
+                                       dim=-1)
+        out_t, out_a = [], []
+        for phys, pt, aux, tail, sm in zip(self.phys_bands, ptends, auxs,
+                                           tails, sums):
+            ut, vt, tt, qt, carry = phys.finish(
+                pt.u, pt.v, pt.t, pt.tr[0], aux[0], tail.xs,
+                tail.sppt_pattern, sm)
+            out_t.append(GridTendencies(u=ut, v=vt, t=tt, tr=qt[None]))
+            out_a.append((carry,) + tuple(aux[1:3]))
+        return out_t, out_a
+
+    def _join(self):
+        """The sharded dycore's physics_join: _rdf_join with RDF, else
+        None."""
+        return (self._rdf_join if self.phys_bands[0].randfh is not None
+                else None)
+
     def _leapfrog_mesh(self, gstate, forcing, eta=None) -> GCMState:
         """leapfrog on the shards (dycore/sharded.py): each band's physics
         with its surface, forcing, carry and flux sums; SPPT's pattern
@@ -441,7 +476,7 @@ class GCM:
                 for d in range(D)]
         spec, aux = self.sdyn.leapfrog_step(
             gs.spectral, self.phis_ranges, self._band_fns, args,
-            [(f.tcorh, f.qcorh) for f in fc])
+            [(f.tcorh, f.qcorh) for f in fc], self._join())
         return GCMState(spectral=spec, sfc=gs.sfc,
                         radiation=Sharded(a[0] for a in aux),
                         fluxes=Sharded(a[2] for a in aux),
@@ -456,7 +491,7 @@ class GCM:
                 gs.spectral, self.phis_ranges, self._band_fns,
                 [(gs.sfc[d], fc[d], gs.radiation[d], True)
                  for d in range(self.grid.D)],
-                [(f.tcorh, f.qcorh) for f in fc])
+                [(f.tcorh, f.qcorh) for f in fc], self._join())
             return dataclasses.replace(gs, spectral=spec, radiation=Sharded(
                 a[0] for a in aux))
         spec, (carry, _, _) = self.dyn.stepone(

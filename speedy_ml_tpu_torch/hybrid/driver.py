@@ -136,15 +136,13 @@ def run_prediction(hyb, hstate, start_date: ModelDate, n_cycles: int,
     previous dispatch's records go to the writer and the time means while
     the next one runs.  The gate is read once a dispatch: the dates after
     the first unsafe cycle are dropped (its record is kept), and the final
-    state is the one at the end of that dispatch."""
+    state is the one at the end of that dispatch.  On a meshed hybrid
+    (set_mesh) the dispatches run the meshed cycle (graph.CycleDispatch:
+    captured where the shards share one card, eager on several cards);
+    the records and the writer's fields stay global on mesh.devices[0],
+    and the final state is Sharded, as the per-cycle loop returns it."""
     if int(cycles_per_dispatch) < 1:
         raise ValueError(f"cycles_per_dispatch {cycles_per_dispatch} < 1")
-    if (cycles_per_dispatch > 1 and truth_provider is None
-            and getattr(hyb, "mesh", None) is not None):
-        raise NotImplementedError(
-            "cycles_per_dispatch > 1 on a meshed hybrid (the captured loop "
-            "on a mesh) comes with the distributed-GCM slice of the port "
-            "(A16b)")
     writer = PredictionWriter(output_path) if output_path else None
     tmean = None
     if time_mean_path:

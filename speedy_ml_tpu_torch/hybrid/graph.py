@@ -26,6 +26,20 @@ by its record.
     A capture that fails raises: the cycles never run eagerly on the card
     instead.
 
+On a mesh (HybridAtmosphere.set_mesh) the body is the meshed cycle, and
+the state's regions and slab-ocean states are Sharded, each shard's
+static buffer on its shard's device.  Which way it runs depends only on
+the mesh:
+  - every shard on one card (Mesh([cuda:0] * D)): captured and replayed
+    as above, each form one graph;
+  - shards on several cards: a capture on one card's stream does not
+    record the work queued on the others, so each dispatch runs its
+    cycles eagerly on the cards (the route chosen here over capturing
+    across the cards with events), reading the dispatch's block of rows
+    on the card and writing each record into the device buffer: one
+    upload and one host copy a dispatch, as captured.
+  Neither route is taken because the other failed.
+
 The forms are keyed on the host step: the persistent surface's coupling
 cycles (step % 4 == 3) and the slab ocean's slab steps (step %
 SLAB_STRIDE == SLAB_STRIDE - 1) are forms of their own.  The first
@@ -163,6 +177,16 @@ class CycleDispatch:
         params = hyb.params
         rows = [hyb.scalar_row(*d, step=state.step + j)
                 for j, d in enumerate(dates)]
+        mesh = getattr(hyb, "mesh", None)
+        if hyb.device.type == "cuda" and mesh is not None and len(
+                set(mesh.devices)) > 1:
+            # shards on several cards: the cycles run eagerly on them
+            block = torch.tensor(rows, dtype=torch.float64).pin_memory().to(
+                hyb.device, non_blocking=True)
+            for j, d in enumerate(dates):
+                state, rec = self._body(params, state, d, block[j])
+                records[j].copy_(rec)
+            return state
         if hyb.device.type != "cuda":
             for j, d in enumerate(dates):
                 row = torch.tensor(rows[j], dtype=torch.float64)
@@ -270,7 +294,8 @@ class CycleDispatch:
 
     @staticmethod
     def _signature(state) -> tuple:
-        return (tuple((tuple(t.shape), t.dtype) for t in tree_tensors(state)),
+        return (tuple((tuple(t.shape), t.dtype, t.device)
+                      for t in tree_tensors(state)),
                 state.sfc is None, state.fluxes is None,
                 tuple(o.lm is None for o in state.ocean),
                 torch.is_tensor(state.safe))
@@ -296,7 +321,12 @@ class CycleDispatch:
         """Drop the forms when what they bake in changed."""
         hyb = self.hyb
         ptr = lambda t: None if t is None else t.data_ptr()
-        ctx = (tuple(t.data_ptr() for t in tree_tensors(params)),
+        # on a mesh also the shards' parameters and the meshed GCM (its
+        # tables are made by its set_mesh)
+        sharded = (getattr(hyb, "_sharded_packs", None),
+                   getattr(hyb, "_sharded_opacks", None))
+        ctx = (tuple(t.data_ptr() for t in tree_tensors((params, sharded))),
+               id(hyb.gcm), id(getattr(hyb, "mesh", None)),
                id(self.static), ptr(hyb.sst_table), ptr(hyb.tisr_table),
                hyb.tisr_hours_per_entry, hyb.emit_components,
                hyb.persist_surface, hyb.SLAB_STRIDE)
@@ -362,8 +392,9 @@ class CycleDispatch:
 
 
 def dispatcher(hyb) -> CycleDispatch:
-    """The hybrid's CycleDispatch (made at the first call, then kept)."""
+    """The hybrid's CycleDispatch (made at the first call, then kept; a
+    copy of a hybrid, as set_mesh is run on, gets its own)."""
     d = getattr(hyb, "_cycle_dispatch", None)
-    if d is None:
+    if d is None or d.hyb is not hyb:
         d = hyb._cycle_dispatch = CycleDispatch(hyb)
     return d

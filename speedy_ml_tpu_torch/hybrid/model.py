@@ -85,9 +85,6 @@ from speedy_ml_tpu_torch.kernels.surface_forcing import (INDICES, SCALARS,
 from speedy_ml_tpu_torch.kernels.window_gather import TisrRow, window_gather
 from speedy_ml_tpu_torch.physics.land_sea import init_surface_state
 
-# what a meshed hybrid does not run yet
-LATER_SLICE = "the distributed-GCM slice of the port (A16b)"
-
 # The cycle's row of per-cycle scalars (cycle_with_params(scalars=),
 # HybridAtmosphere.scalar_row), float64 with the integers as exact
 # doubles: K17's date as surface_forcing.scalar_values lists it (K21 and
@@ -186,10 +183,14 @@ class OceanPack(NamedTuple):
 
 
 def ocean_snapshot(hstate: HybridState) -> HybridState:
-    """The state with copies of its ocean rings, which the next cycle then
-    does not write (the cycle writes a ring in place)."""
+    """The state with copies of its ocean rings (a meshed state's: each
+    shard's), which the next cycle then does not write (the cycle writes a
+    ring in place)."""
+    from speedy_ml_tpu_torch.parallel.mesh import Sharded
+    copy_ = lambda b: (Sharded(t.clone() for t in b)
+                       if isinstance(b, Sharded) else b.clone())
     return dataclasses.replace(hstate, ocean=tuple(
-        dataclasses.replace(o, buffer=o.buffer.clone())
+        dataclasses.replace(o, buffer=copy_(o.buffer))
         for o in hstate.ocean))
 
 
@@ -266,6 +267,7 @@ class HybridAtmosphere:
         # readouts over lon sectors of the mesh's devices (hybrid/sharded.py)
         self.mesh = None
         self._sharded_ops = self._sharded_packs = None
+        self._sharded_opacks = self._mesh_index = self._mesh_lat = None
         self.device = self.packs[0].res.vals.device
         self.geom = gcm.geom if gcm is not None else layout.geom
         self.dtype = gcm.dtype if gcm is not None \
@@ -347,37 +349,51 @@ class HybridAtmosphere:
         over latitude bands of the same devices; the injection, the gate
         (K19) and the window's exit (K20) run whole on mesh.devices[0]
         (the ML-only cycle runs no GCM).  shard_gcm=False keeps the whole
-        window there.  The slab ocean and the captured loop on a mesh are
-        not there yet."""
-        if self.ocean_packs:
-            raise NotImplementedError(f"the slab ocean on a mesh comes with "
-                                      f"{LATER_SLICE}")
+        window there.  With ocean packs the slab ocean's regions are
+        sharded as the atmosphere's (each device's rings, K22's pushes, K1
+        and K2 on its regions; slab_step), and K22's SST form runs whole
+        on mesh.devices[0].  The captured loop (run_prediction with
+        cycles_per_dispatch > 1, hybrid/graph.py) runs on a mesh too."""
         if not _on(self.packs[0].res.vals, mesh.devices[0]):
             raise ValueError(f"the mesh's first device {mesh.devices[0]} is "
                              f"not the hybrid's ({self.device})")
         from speedy_ml_tpu_torch.hybrid.sharded import ShardedCycleOps
-        self._sharded_ops = ShardedCycleOps(self.layout, self.packs, mesh,
-                                            self.nz)
-        self._sharded_packs = self._sharded_ops.shard_params(self.packs)
+        from speedy_ml_tpu_torch.parallel.mesh import replicate
+        ops = ShardedCycleOps(self.layout, self.packs, mesh, self.nz)
+        self._sharded_ops = ops
+        self._sharded_packs = ops.shard_params(self.packs)
+        self._mesh_lat = (replicate(self._slat, mesh),
+                          replicate(self._clat, mesh))
+        if self.ocean_packs:
+            self._sharded_opacks = ops.shard_ocean_packs(self.ocean_packs)
+            self._mesh_index = [replicate(i, mesh) for i in self.ocean_index]
         if shard_gcm and not self.ml_only:
             self.gcm = copy.copy(self.gcm)
             self.gcm.set_mesh(mesh)
         self.mesh = mesh
 
     def shard_state(self, hstate: HybridState) -> HybridState:
-        """hstate with its regions' states (x, feedback, local_model)
+        """hstate with its regions' states (x, feedback, local_model) and
+        its slab ocean's (x and lm by rows, the ring along its region axis)
         split over the mesh's devices (Sharded), as the sharded cycle
         takes them; a state already sharded is returned as it is."""
         ops = self._sharded_ops
         if ops is None:
             raise ValueError("shard_state: the hybrid has no mesh")
-        if all(isinstance(cs.x, tuple) for cs in hstate.classes):
-            return hstate
-        from speedy_ml_tpu_torch.parallel.mesh import shard_rows
-        return dataclasses.replace(hstate, classes=tuple(
-            ClassState(*(shard_rows(t, ops.mesh) for t in
-                         (cs.x, cs.feedback, cs.local_model)))
-            for cs in hstate.classes))
+        from speedy_ml_tpu_torch.parallel.mesh import Sharded, shard_rows
+        rep = {}
+        if not all(isinstance(cs.x, Sharded) for cs in hstate.classes):
+            rep["classes"] = tuple(
+                ClassState(*(shard_rows(t, ops.mesh) for t in
+                             (cs.x, cs.feedback, cs.local_model)))
+                for cs in hstate.classes)
+        if hstate.ocean and not isinstance(hstate.ocean[0].x, Sharded):
+            rep["ocean"] = tuple(OceanClassState(
+                x=shard_rows(o.x, ops.mesh),
+                buffer=shard_rows(o.buffer, ops.mesh, dim=1),
+                lm=None if o.lm is None else shard_rows(o.lm, ops.mesh))
+                for o in hstate.ocean)
+        return dataclasses.replace(hstate, **rep) if rep else hstate
 
     def _table(self, table, name: str) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(table) if not torch.is_tensor(table)
@@ -750,14 +766,14 @@ class HybridAtmosphere:
         coupler's day, the slab step) and feed the CPU route.  On a mesh
         (set_mesh) the regions' part of the cycle runs sharded (JAX
         :577-583, 604-608, 662-669, 738-745; hybrid/sharded.py), the state's
-        regions Sharded; the row of scalars is then refused (the captured
-        loop on a mesh comes with A16b).  Returns (new_state, diagnostics
+        regions Sharded, and so does the slab ocean's (JAX :604-608,
+        662-726; slab_step); the row of scalars lives on mesh.devices[0],
+        where K17, K21 and K23 read it, and the slices that a shard's K3
+        (the TISR date or a table's row) and K22 read are copied to the
+        shard's device on the device.  Returns (new_state, diagnostics
         dict)."""
         rf = torch.profiler.record_function
         ops = self._sharded_ops
-        if ops is not None and scalars is not None:
-            raise NotImplementedError(f"the captured cycle on a mesh comes "
-                                      f"with {LATER_SLICE}")
         packs, opacks = self._with_params(params)
         sf = None if scalars is None else scalars[:ROW_SF]
         # the SST that the ESN inputs and SPEEDY see this cycle: without an
@@ -788,7 +804,9 @@ class HybridAtmosphere:
                 # each device's regions stored into its sector, the
                 # sectors joined on this device
                 if any(r is not p.res or st is not p.std
-                       for (r, st), p in zip(params[0], self.packs)):
+                       for (r, st), p in zip(params[0], self.packs)) or any(
+                        r is not op.res for (r, _, _), op in zip(
+                            params[1], self.ocean_packs or ())):
                     raise ValueError("on a mesh the cycle runs the "
                                      "hybrid's own parameters (set_mesh "
                                      "shards them)")
@@ -847,18 +865,23 @@ class HybridAtmosphere:
             if tisr_row is not None:
                 tisr = tisr_row
             elif tisr is None:
-                # the ML-only cycle on a mesh hands its devices the plane
-                # (K17b), the unsharded one K3 the date (the same bits)
+                # the ML-only cycle: K3 takes the date (on a mesh each
+                # shard's K3)
                 tisr = (self.tisr_date(tyear, sf) if ops is None
-                        else self.tisr_field(tyear))
+                        else ops.tisr_dates(tyear, *self._mesh_lat, sf))
             if ops is None:
                 feedbacks = self.build_feedback(packs, atmo, logp, precip,
                                                 hstate.sst_grid, tisr)
             else:
-                st = ops.lon_sectors(hstate.sst_grid, tisr)
+                if isinstance(tisr, TisrRow):
+                    tisr = ops.tisr_rows(tisr.table, tisr.row)
+                planes = torch.is_tensor(tisr)
+                st = (ops.lon_sectors(hstate.sst_grid, tisr) if planes
+                      else ops.lon_sectors(hstate.sst_grid))
                 feedbacks = ops.feedback(sp, *ops.sector_fields(sectors),
                                          [f[0] for f in st],
-                                         [f[1] for f in st])
+                                         [f[1] for f in st] if planes
+                                         else tisr)
         if self.ml_only:
             locals_ = [cs.local_model for cs in hstate.classes]
         else:
@@ -901,33 +924,65 @@ class HybridAtmosphere:
         the previous output is the local model, and the new one replaces
         it) per class, and the new SST grid (K22).  Returns (the SST grid,
         the ocean states): on other cycles hstate's grid, x and lm.  slot:
-        None, or the ring's slot on the card (K22's device-scalar form)."""
+        None, or the ring's slot on the card (K22's device-scalar form).
+        On a mesh each shard pushes into its rings from its feedback and
+        steps and reads out its regions (K22's push forms, K1 and K2 a
+        shard), the readouts are joined in region order on
+        mesh.devices[0] and K22's SST form runs whole there: nothing is
+        summed across shards, so the result is the unsharded one's."""
         fbs = [feedbacks[i] for i in self._bottom_index()]
-        bufs = [o.buffer for o in hstate.ocean]
-        kw = dict(bufs=bufs, step=hstate.step, fbs=fbs,
-                  idx_maps=self.ocean_index, slot=slot)
-        if hstate.step % self.SLAB_STRIDE != self.SLAB_STRIDE - 1:
-            slab_ocean("push", **kw)
-            return hstate.sst_grid, hstate.ocean
-        means = slab_ocean("push_mean", **kw)
-        outs, states = [], []
-        for op, ocs, u in zip(opacks, hstate.ocean, means):
-            x = esn_step(op.res, ocs.x, u, op.hyper.leakage)
-            lm = None
-            if op.hybrid_readout:
-                lm = ocs.lm if ocs.lm is not None else torch.zeros(
-                    (op.cls.count, op.res.n_outputs), dtype=self.dtype,
-                    device=self.device)
-            out = readout(op.res.wout, x, lm)
-            outs.append(out)
-            states.append(OceanClassState(
-                x=x, buffer=ocs.buffer,
-                lm=out if op.hybrid_readout else None))
-        sst = slab_ocean("sst", outs=outs,
+        ops = self._sharded_ops
+        slab = hstate.step % self.SLAB_STRIDE == self.SLAB_STRIDE - 1
+        oc = hstate.ocean
+        if ops is None:
+            shards = [(opacks, oc, fbs, self.ocean_index, slot)]
+        else:
+            from speedy_ml_tpu_torch.parallel.mesh import Sharded
+            slots = [None] * ops.D if slot is None else ops.broadcast(slot)
+            part = lambda v, d: None if v is None else v[d]
+            shards = [([sp[d] for sp in self._sharded_opacks],
+                       [OceanClassState(o.x[d], o.buffer[d], part(o.lm, d))
+                        for o in oc], [f[d] for f in fbs],
+                       [i[d] for i in self._mesh_index], slots[d])
+                      for d in range(ops.D)]
+        # per shard, per class: (x', the standardized readout)
+        steps = []
+        for packs, states, fb, idx, sl in shards:
+            means = slab_ocean("push_mean" if slab else "push",
+                               bufs=[o.buffer for o in states],
+                               step=hstate.step, fbs=fb, idx_maps=idx,
+                               slot=sl)
+            if slab:
+                steps.append([self._slab_readout(op, o.x, o.lm, u)
+                              for op, o, u in zip(packs, states, means)])
+        if not slab:
+            return hstate.sst_grid, oc
+        if ops is None:
+            xs, outs = zip(*steps[0])
+            whole = list(outs)
+        else:
+            xs = [Sharded(st[c][0] for st in steps) for c in range(len(oc))]
+            outs = [Sharded(st[c][1] for st in steps)
+                    for c in range(len(oc))]
+            whole = [ops.gather_pieces(o) for o in outs]
+        states = tuple(OceanClassState(
+            x=x, buffer=o.buffer, lm=out if op.hybrid_readout else None)
+            for op, o, x, out in zip(opacks, oc, xs, outs))
+        sst = slab_ocean("sst", outs=whole,
                          mean_sst=[op.mean_sst for op in opacks],
                          std_sst=[op.std_sst for op in opacks],
                          table=self.ocean_table)
-        return sst, tuple(states)
+        return sst, states
+
+    def _slab_readout(self, op, x, lm, u):
+        """One class's slab ESN step (K1) and readout (K2, with the
+        previous output as the local model with hybrid_readout): (x', the
+        standardized readout)."""
+        x = esn_step(op.res, x, u, op.hyper.leakage)
+        if op.hybrid_readout and lm is None:
+            lm = torch.zeros((x.shape[0], op.res.n_outputs),
+                             dtype=self.dtype, device=x.device)
+        return x, readout(op.res.wout, x, lm if op.hybrid_readout else None)
 
     def cycle(self, hstate: HybridState, imon, fmon, tyear,
               hour_of_year=None, sst_bias=0.0) -> tuple:

@@ -46,8 +46,11 @@ from speedy_ml_tpu_torch.kernels.core_scatter import (CoreScatter,
                                                       split_grid)
 from speedy_ml_tpu_torch.kernels.readout import readout
 from speedy_ml_tpu_torch.kernels.window_gather import window_gather
-from speedy_ml_tpu_torch.parallel.mesh import (Mesh, Sharded, replicate,
-                                               shard_reservoir, shard_rows)
+from speedy_ml_tpu_torch.kernels.surface_forcing import TisrDate
+from speedy_ml_tpu_torch.kernels.window_gather import TisrRow
+from speedy_ml_tpu_torch.parallel.mesh import (Mesh, Sharded, ShardMoves,
+                                               replicate, shard_reservoir,
+                                               shard_rows)
 
 NVAR = 4
 
@@ -157,19 +160,19 @@ class ShardedPack(NamedTuple):
     lm_std: Sharded
 
 
-class ShardedCycleOps:
+class ShardedCycleOps(ShardMoves):
     """The sharded twins of HybridAtmosphere's predict_all/assemble_global,
     build_feedback and build_local_model over the region = lon-sector
     axis of `mesh`.  Every sharded value is a Sharded in mesh order.
 
     copies and copy_bytes count the tensors moved between shards (onto
     another shard's device; across cards on a mesh of D cards) since
-    construction."""
+    construction (ShardMoves)."""
 
     def __init__(self, layout: RegionLayout, packs, mesh: Mesh, nz: int):
+        super().__init__(mesh)
         self.layout = layout
-        self.mesh = mesh
-        self.D = D = mesh.size
+        D = self.D
         if layout.nx_blocks % D:
             raise ValueError(
                 f"{layout.nx_blocks} lon blocks not divisible by {D} "
@@ -206,16 +209,11 @@ class ShardedCycleOps:
         dev = lambda ts: [replicate(torch.as_tensor(t), mesh) for t in ts]
         self.store, self.feedback_index, self.local_index = (
             dev(store), dev(fb), dev(lm))
+        # a TISR table's haloed sectors, by the table (tisr_rows)
+        self._tisr_tables = None
         self.copies = self.copy_bytes = 0
 
     # -- moves between shards -------------------------------------------
-    def _move(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
-        """t, shard src's, on shard dst's device (counted when src != dst)."""
-        if src != dst:
-            self.copies += 1
-            self.copy_bytes += t.numel() * t.element_size()
-        return t.to(self.mesh.devices[dst], non_blocking=True)
-
     def _halo(self, sectors) -> Sharded:
         """halo_lon, its moves counted."""
         if self.D > 1:
@@ -303,24 +301,69 @@ class ShardedCycleOps:
     # -- feedback + local model -------------------------------------------
     def feedback(self, spacks, atmo, logp, precip, sst, tisr) -> list:
         """build_feedback over the haloed lon sectors (K3 on every
-        device): the five fields (Sharded sectors each: atmo (4, K, lat,
-        W), the others (lat, W)) stacked into one source a device, its
+        device): the fields (Sharded sectors each: atmo (4, K, lat, W),
+        the others (lat, W)) stacked into one source a device, its
         `overlap` edge columns moved around the ring, and each pack's
         windows gathered and standardized with the device's rows of its
-        input statistics.  Returns a Sharded (Rloc, I) per pack."""
+        input statistics.  tisr: the TISR plane's sectors, or a
+        TisrDate or TisrRow a shard (tisr_dates, tisr_rows), which K3
+        reads in place of a plane (the TISR is zonally uniform, so the
+        haloed sector's is the sector's).  Returns a Sharded (Rloc, I) per
+        pack."""
         K4 = NVAR * self.nz
+        planes = not isinstance(tisr[0], (TisrDate, TisrRow))
         src = [torch.cat([a.reshape(K4, self.nlat, self.W), lp[None],
-                          pr[None], s[None], t[None]])
+                          pr[None], s[None]] + ([t[None]] if planes else []))
                for a, lp, pr, s, t in zip(atmo, logp, precip, sst, tisr)]
         outs = []
         for d, h in enumerate(self._halo(src)):
             fields = (h[:K4].view(NVAR, self.nz, *h.shape[1:]), h[K4],
-                      h[K4 + 1], h[K4 + 2], h[K4 + 3])
+                      h[K4 + 1], h[K4 + 2], h[K4 + 3] if planes else tisr[d])
             outs.append(window_gather(
                 fields, [t[d] for t in self.feedback_index],
                 [sp.in_mean[d] for sp in spacks],
                 [sp.in_std[d] for sp in spacks]))
         return [Sharded(o[i] for o in outs) for i in range(len(spacks))]
+
+    def tisr_dates(self, tyear, slat: Sharded, clat: Sharded,
+                   dev=None) -> list:
+        """The TISR date as each shard's K3 takes it (TisrDate: the
+        latitudes' sines and cosines on its device; dev, the date's slice
+        of the cycle's row of scalars, copied there on the device, never
+        read on the host)."""
+        devs = [None] * self.D if dev is None else self.broadcast(dev)
+        return [TisrDate(tyear, s, c, r) for s, c, r in zip(slat, clat, devs)]
+
+    def tisr_rows(self, table: torch.Tensor, row: torch.Tensor) -> list:
+        """A TISR table's row as each shard's K3 reads it (TisrRow): the
+        table's haloed lon sectors (n, lat, W + 2 overlap) on the shard's
+        device, made once a table, and the row's index copied there."""
+        key = (table.data_ptr(), tuple(table.shape), table.dtype)
+        if self._tisr_tables is None or self._tisr_tables[0] != key:
+            o, W, nlon = self.layout.overlap, self.W, table.shape[-1]
+            tabs = []
+            for d, dev in enumerate(self.mesh.devices):
+                cols = torch.arange(d * W - o, (d + 1) * W + o) % nlon
+                tabs.append(table[..., cols.to(table.device)]
+                            .to(dev).contiguous())
+            self._tisr_tables = (key, tabs)
+        return [TisrRow(t, r) for t, r in zip(self._tisr_tables[1],
+                                               self.broadcast(row))]
+
+    # -- the slab ocean ---------------------------------------------------
+    def shard_ocean_packs(self, opacks) -> list:
+        """Each ocean pack's parameters on the mesh (a Sharded of
+        OceanPacks, one a shard): the reservoirs (shard_reservoir),
+        mean_sst and std_sst (Rc, 1) by rows.  An ocean class is its
+        atmosphere class, so shard d holds the same regions in both."""
+        out = []
+        for op in opacks:
+            res = shard_reservoir(op.res, self.mesh)
+            ms, ss = (shard_rows(t, self.mesh)
+                      for t in (op.mean_sst, op.std_sst))
+            out.append(Sharded(op._replace(res=r, mean_sst=m, std_sst=v)
+                               for r, m, v in zip(res, ms, ss)))
+        return out
 
     def local_model(self, spacks, fc) -> list:
         """build_local_model on every device (K3 with the core-only

@@ -115,6 +115,15 @@ SIGNATURES = {
     "cgrate_launch": [_i, _i, _i, _i, _i, ctypes.POINTER(_vp),
                       ctypes.POINTER(_vp), _vp, _vp, ctypes.POINTER(_vp), _i,
                       _d, _d, _d, _d, _vp],
+    "rdf_band_launch": [_i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp,
+                        _vp, _vp],
+    "rdf_sums_launch": [_i, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                        _vp],
+    "cgrate_rows_launch": [_i, _i, _i, _i, _i, _i, ctypes.POINTER(_vp),
+                           ctypes.POINTER(_vp), _vp, _vp, _vp],
+    "cgrate_range_launch": [_i, _i, _i, _i, _i, _i, _i, ctypes.POINTER(_vp),
+                            ctypes.POINTER(_vp), _vp, _vp,
+                            ctypes.POINTER(_vp), _i, _d, _d, _d, _d, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

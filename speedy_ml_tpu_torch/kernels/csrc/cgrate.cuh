@@ -21,6 +21,12 @@
 //   fdt' = fdt - (cd f) mask, then trunct (times trfilt), fnew = f + dt
 //   fdt', new1 = oldj + ew1 ((f - 2 oldj) + fnew), new2 = fnew - ew2
 //   ((new1 - 2 oldj) + fnew): the field's two new leapfrog levels.
+//
+// On a mesh (dycore/sharded.py) a shard holds the wavenumbers m0 .. m0 +
+// mr - 1: its rows are cgrate_row's with m0 (the mask reads the global m),
+// the rows of every shard are gathered in m order, and each shard runs
+// cgrate_level over all mx of them and cgrate_step_at on its range, so
+// that the sums keep the order above and the result is the whole one's.
 #pragma once
 
 #include "column_common.cuh"
@@ -41,15 +47,17 @@ COL_HD double cg_div(double a, double b) {
 }
 
 // The masked products of coefficient (m, n) of level k: f and fdt
-// interleaved complex (K, mx, nx); elm2 (mx, nx).
+// interleaved complex (K, mx, nx); elm2 (mx, nx); m0 the first
+// wavenumber of the m range the arrays hold (0 for the whole).
 template <typename T>
 COL_HD void cgrate_products(const T* f, const T* fdt, const T* elm2, int mx,
-                            int nx, int k, int m, int n, T* pg, T* pr) {
+                            int nx, int m0, int k, int m, int n, T* pg,
+                            T* pr) {
   const long long c = ((long long)k * mx + m) * nx + n;
   const T e = elm2[m * nx + n];
   const T fr = f[2 * c], fi = f[2 * c + 1];
   const T tr = gd_mul(-fr, e), ti = gd_mul(-fi, e);
-  const T mask = m > 0 ? T(1) : T(0);
+  const T mask = m0 + m > 0 ? T(1) : T(0);
   *pg = gd_mul(gd_add(gd_mul(fdt[2 * c], tr), gd_mul(fdt[2 * c + 1], ti)),
                mask);
   *pr = gd_mul(gd_add(gd_mul(fr, tr), gd_mul(fi, ti)), mask);
@@ -58,12 +66,12 @@ COL_HD void cgrate_products(const T* f, const T* fdt, const T* elm2, int mx,
 // Row (k, m): the sums over n, n = 0 first.
 template <typename T>
 COL_HD void cgrate_row(const T* f, const T* fdt, const T* elm2, int mx,
-                       int nx, int k, int m, T* sg, T* sr) {
+                       int nx, int m0, int k, int m, T* sg, T* sr) {
   T g, r;
-  cgrate_products(f, fdt, elm2, mx, nx, k, m, 0, &g, &r);
+  cgrate_products(f, fdt, elm2, mx, nx, m0, k, m, 0, &g, &r);
   for (int n = 1; n < nx; ++n) {
     T pg, pr;
-    cgrate_products(f, fdt, elm2, mx, nx, k, m, n, &pg, &pr);
+    cgrate_products(f, fdt, elm2, mx, nx, m0, k, m, n, &pg, &pr);
     g = gd_add(g, pg);
     r = gd_add(r, pr);
   }
@@ -98,15 +106,17 @@ COL_HD T cgrate_cd(const T* cand, int K) {
 
 // Real element e (of 2 K mx nx) of the field: the damped tendency and
 // the leapfrog.  f: level 0 of the state (old1), fj: level j1 - 1 (oldj);
-// writes o1[e] (new1) and o2[e] (new2).
+// trfilt (mx, nx); m0 the first wavenumber of the arrays' m range; writes
+// o1[e] (new1) and o2[e] (new2).
 template <typename T>
 COL_HD void cgrate_step_at(const T* f, const T* fj, const T* fdt,
-                           const T* trfilt, int mx, int nx, T cd, int trunc,
-                           T dt, T ew1, T ew2, T* o1, T* o2, long long e) {
+                           const T* trfilt, int mx, int nx, int m0, T cd,
+                           int trunc, T dt, T ew1, T ew2, T* o1, T* o2,
+                           long long e) {
   const long long c = e >> 1;
   const int mn = (int)(c % ((long long)mx * nx));
   const int m = mn / nx;
-  const T mask = m > 0 ? T(1) : T(0);
+  const T mask = m0 + m > 0 ? T(1) : T(0);
   const T old1 = f[e], oldj = fj[e];
   T d = gd_sub(fdt[e], gd_mul(gd_mul(cd, old1), mask));
   if (trunc) d = gd_mul(d, trfilt[mn]);

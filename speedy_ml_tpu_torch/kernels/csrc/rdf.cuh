@@ -16,6 +16,14 @@
 //   dn) over latitude with mirrored ends: randfv[mode][j][k];
 // - every step, tt[k][j][i] += h0[j][i] * v0[j] + h1[j][i] * v1[j], v
 //   the new randfv on a shortwave step, the carried one on the others.
+//
+// On a mesh (GCM.set_mesh) a shard holds a latitude band: the rows p0 ..
+// p1 - 1 and their mirrors nlat - p1 .. nlat - p0 - 1 (parallel/mesh.py
+// band_rows).  Its zonal sums are rdf_zonal's on the band's rows; the
+// sums of every band, gathered into latitude order, are smoothed as the
+// whole ones are, and each band adds the forcing at its rows, row r
+// reading the profiles at latitude rdf_band_lat(r).  So the result is the
+// whole one's bit for bit.
 #pragma once
 
 #include "column_common.cuh"
@@ -49,12 +57,19 @@ COL_HD T rdf_smooth_at(const T* v, int nlat, int j) {
   return gd_add(gd_mul(T(0.5), v[j]), gd_mul(T(0.25), gd_add(up, dn)));
 }
 
-// The forcing of point (j, i) of level k added to tt in place: v0, v1
-// the latitude profiles of level k.
+// The latitude of row r of the band of latitude pairs p0 .. p0 + nb - 1
+// of nlat (the whole grid: p0 = 0, nb = nlat / 2, and the row itself).
+COL_HD int rdf_band_lat(int r, int p0, int nb, int nlat) {
+  return r < nb ? p0 + r : nlat - p0 - 2 * nb + r;
+}
+
+// The forcing of point (j, i) of level k added to tt in place: tt and h
+// hold `rows` latitude rows, v0, v1 the latitude profiles of level k, read
+// at latitude jv (row j's).
 template <typename T>
 COL_HD void rdf_add_at(const T* h, const T* v0, const T* v1, T* tt, int k,
-                       int nlat, int nlon, int j, int i) {
-  const long long G = (long long)nlat * nlon, p = (long long)j * nlon + i;
-  const T f = gd_add(gd_mul(h[p], v0[j]), gd_mul(h[G + p], v1[j]));
+                       int rows, int nlon, int j, int i, int jv) {
+  const long long G = (long long)rows * nlon, p = (long long)j * nlon + i;
+  const T f = gd_add(gd_mul(h[p], v0[jv]), gd_mul(h[G + p], v1[jv]));
   tt[(long long)k * G + p] = gd_add(tt[(long long)k * G + p], f);
 }

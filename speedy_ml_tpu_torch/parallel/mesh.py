@@ -184,20 +184,15 @@ def join_band_rows(parts, bands, dim: int = -2) -> torch.Tensor:
     return torch.cat(south + north[::-1], dim)
 
 
-class GridShards:
-    """The GCM over a mesh: shard d holds the zonal wavenumbers
-    ranges[d] of every spectral array (m the second-to-last axis) and the
-    latitude band bands[d] of every grid field (lat the second-to-last
-    axis, band_rows' layout).  The methods move values between the shards
-    and count each move onto another shard (copies, copy_bytes), as
-    ShardedCycleOps does; a move within one shard is not counted."""
+class ShardMoves:
+    """Moves of values between the shards of `mesh`, each move onto
+    another shard counted (copies, copy_bytes; a move within one shard is
+    not counted): the base of GridShards and of hybrid/sharded.py's
+    ShardedCycleOps."""
 
-    def __init__(self, mesh: Mesh, nlat: int, mx: int):
+    def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.D = mesh.size
-        self.nlat, self.mx = nlat, mx
-        self.bands = lat_bands(nlat, self.D)
-        self.ranges = m_ranges(mx, self.D)
         self.copies = self.copy_bytes = 0
 
     def _move(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
@@ -205,6 +200,49 @@ class GridShards:
             self.copies += 1
             self.copy_bytes += t.numel() * t.element_size()
         return t.to(self.mesh.devices[dst], non_blocking=True)
+
+    def split_rows(self, t: torch.Tensor, src: int = 0, dim: int = 0
+                   ) -> Sharded:
+        """t (whole on shard src) as mesh.size equal blocks along dim, the
+        region axis wherever it stands (the slab ocean's ring (W, Rc, n)
+        has it on dim 1), block d contiguous on shard d (shard_rows'
+        layout)."""
+        if t.shape[dim] % self.D:
+            raise ValueError(f"split_rows: {t.shape[dim]} rows along dim "
+                             f"{dim} not divisible by {self.D} shards")
+        return Sharded(self._move(b.contiguous(), src, d)
+                       for d, b in enumerate(torch.chunk(t, self.D, dim)))
+
+    def gather_pieces(self, parts, dst: int = 0, dim: int = 0
+                      ) -> torch.Tensor:
+        """The shards' parts (shard d's parts[d]) joined along dim on
+        shard dst, in shard order: split_rows' inverse, or small per-shard
+        pieces (partial sums) gathered onto one device."""
+        return torch.cat([self._move(p, d, dst) for d, p in enumerate(parts)],
+                         dim)
+
+    def all_gather_pieces(self, parts, dim: int = 0) -> Sharded:
+        """gather_pieces onto every shard (an all-gather)."""
+        return Sharded(self.gather_pieces(parts, d, dim)
+                       for d in range(self.D))
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> Sharded:
+        """t, whole, on every shard."""
+        return Sharded(self._move(t, src, d) for d in range(self.D))
+
+
+class GridShards(ShardMoves):
+    """The GCM over a mesh: shard d holds the zonal wavenumbers
+    ranges[d] of every spectral array (m the second-to-last axis) and the
+    latitude band bands[d] of every grid field (lat the second-to-last
+    axis, band_rows' layout).  The methods move values between the shards
+    and count each move onto another shard (ShardMoves)."""
+
+    def __init__(self, mesh: Mesh, nlat: int, mx: int):
+        super().__init__(mesh)
+        self.nlat, self.mx = nlat, mx
+        self.bands = lat_bands(nlat, self.D)
+        self.ranges = m_ranges(mx, self.D)
 
     # -- one tensor -------------------------------------------------------
     def split_bands(self, t: torch.Tensor, src: int = 0, dim: int = -2
@@ -235,31 +273,35 @@ class GridShards:
     def join_ranges(self, parts, dst: int = 0, dim: int = -2
                     ) -> torch.Tensor:
         """The m ranges joined on shard dst."""
-        return torch.cat([self._move(p, d, dst) for d, p in enumerate(parts)],
-                         dim)
+        return self.gather_pieces(parts, dst, dim)
 
     def all_ranges(self, parts, dim: int = -2) -> Sharded:
         """The m ranges joined on every shard (an all-gather)."""
-        return Sharded(self.join_ranges(parts, d, dim)
-                       for d in range(self.D))
-
-    def broadcast(self, t: torch.Tensor, src: int = 0) -> Sharded:
-        """t, whole, on every shard."""
-        return Sharded(self._move(t, src, d) for d in range(self.D))
+        return self.all_gather_pieces(parts, dim)
 
     # -- a dataclass of grid fields --------------------------------------
+    # the fields that every shard keeps whole: the radiation carry's
+    # randfv (2, nlat, K), RDF's latitude profiles, which its smoothing
+    # forms across the bands and its forcing reads at each band's rows
+    WHOLE_FIELDS = ("randfv",)
+
     def split_fields(self, obj, src: int = 0) -> Sharded:
-        """A dataclass of grid fields (..., lat, lon), or (2, lat, K) as
-        the radiation carry's randfv, as each shard's band of it (the same
-        dataclass)."""
+        """A dataclass of grid fields (..., lat, lon) as each shard's band
+        of it (the same dataclass); a WHOLE_FIELDS field whole on every
+        shard."""
         names = [f.name for f in dataclasses.fields(obj)]
-        per = {nm: self.split_bands(getattr(obj, nm), src) for nm in names}
+        per = {nm: (self.broadcast(getattr(obj, nm), src)
+                    if nm in self.WHOLE_FIELDS
+                    else self.split_bands(getattr(obj, nm), src))
+               for nm in names}
         return Sharded(dataclasses.replace(obj, **{nm: per[nm][d]
                                                    for nm in names})
                        for d in range(self.D))
 
     def join_fields(self, parts, dst: int = 0):
-        """The inverse of split_fields: the bands joined on shard dst."""
+        """The inverse of split_fields: the bands joined on shard dst (a
+        WHOLE_FIELDS field shard dst's)."""
         return dataclasses.replace(parts[dst], **{
             f.name: self.join_bands([getattr(p, f.name) for p in parts], dst)
-            for f in dataclasses.fields(parts[dst])})
+            for f in dataclasses.fields(parts[dst])
+            if f.name not in self.WHOLE_FIELDS})

@@ -51,7 +51,7 @@ from speedy_ml_tpu_torch.kernels.surface_forcing import (FORCING, DayArgs,
                                                          surface_forcing)
 from speedy_ml_tpu_torch.physics import radiation as rad
 from speedy_ml_tpu_torch.physics.boundaries import BoundaryData
-from speedy_ml_tpu_torch.kernels.rdf import RdfHeating, rdf
+from speedy_ml_tpu_torch.kernels.rdf import RdfHeating, rdf, rdf_band
 from speedy_ml_tpu_torch.kernels.sppt import sppt_perturb
 from speedy_ml_tpu_torch.physics.land_sea import (CplFlags, SurfaceState,
                                                   surface_state)
@@ -98,10 +98,12 @@ class RadiationCarry:
     randfv: torch.Tensor    # (2, lat, K) RDF vertical modulation
 
     @staticmethod
-    def shapes(K, nlat, nlon) -> list:
-        """The fields' shapes, in the field order."""
+    def shapes(K, nlat, nlon, rdf_nlat=None) -> list:
+        """The fields' shapes, in the field order (randfv's latitudes
+        rdf_nlat, default nlat)."""
         G = (nlat, nlon)
-        return [(K, 4) + G, (2,) + G, (K,) + G, G, G, G, (2, nlat, K)]
+        return [(K, 4) + G, (2,) + G, (K,) + G, G, G, G,
+                (2, rdf_nlat or nlat, K)]
 
     @staticmethod
     def zeros(K, nlat, nlon, dtype, device=None):
@@ -144,6 +146,14 @@ class SpptGrid(NamedTuple):
     (K,); K24 forms clip(grid, -1, 1) * mu."""
     grid: torch.Tensor
     mu: torch.Tensor
+
+
+class BandTail(NamedTuple):
+    """What a band's physics step leaves to run after every band's column
+    kernels on a mesh with RDF (PhysicsModel.finish): the step's heating
+    on a shortwave step (else None) and its SPPT pattern (or None)."""
+    xs: object
+    sppt_pattern: object
 
 
 class PhysicsModel:
@@ -203,6 +213,8 @@ class PhysicsModel:
         # xs_rdf's two vertical weights
         self.rdf_w = rdf_weights(sig, geom.nlon, dtype, self.device)
         self.randfh = randfh
+        # the latitude band (p0, p1) of a mesh's band_view, None whole
+        self.band = None
 
     @property
     def randfh(self):
@@ -229,18 +241,16 @@ class PhysicsModel:
     def band_view(self, band, device) -> "PhysicsModel":
         """A copy of the model for one latitude band of a mesh (GCM.set_mesh;
         band = (p0, p1), parallel/mesh.py lat_bands) on `device`: the
-        per-latitude tables (sin and cos of latitude) as the band's rows,
+        per-latitude tables (sin and cos of latitude) and RDF's patterns
+        (randfh, as it is set when the view is made) as the band's rows,
         the other tables on the device.  Its compute runs the band's
         columns: K9, K9_moist_shortwave, K10a_down_surface, K10b and K12
         take (K, rows, lon) fields and index their (lat,) tables by the
-        field's own rows, so a band needs no offset.  RDF (randfh) smooths
-        in latitude across the bands and does not run on a mesh."""
+        field's own rows, so a band needs no offset.  With RDF its
+        compute_with_sums stops after the column kernels (RDF's smoothing
+        crosses the bands): GCM runs `finish` on every band once each
+        band's sums are gathered."""
         from speedy_ml_tpu_torch.parallel.mesh import band_rows
-        if self.randfh is not None:
-            raise NotImplementedError(
-                "RDF smooths its vertical modulation in latitude, across "
-                "the bands: the physics on a mesh runs without it (randfh "
-                "None)")
         v = copy.copy(self)
         dev = torch.device(device)
         for nm, val in vars(self).items():
@@ -249,6 +259,9 @@ class PhysicsModel:
         nlat = self.geom.nlat
         v.slat_t = band_rows(self.slat_t, band, nlat, dim=0).to(dev)
         v.clat_t = band_rows(self.clat_t, band, nlat, dim=0).to(dev)
+        if self.randfh is not None:
+            v._randfh = band_rows(self.randfh, band, nlat).to(dev)
+        v.band = tuple(band)
         return v
 
     def day_args(self, tyear) -> DayArgs:
@@ -340,7 +353,9 @@ class PhysicsModel:
         package's tapered pattern (K, lat, lon), for which each tendency
         is multiplied by (1 + pattern), or an SpptGrid (the synthesized
         pattern and mu: K24 clips and tapers it); one K24 launch
-        multiplies the four tendencies, after RDF."""
+        multiplies the four tendencies, after RDF (finish).  On a band of
+        a mesh with RDF the eighth value is the step's BandTail, and RDF
+        and SPPT have not run."""
         # --- humidity, convection, large-scale condensation, and every
         # nstrad steps clouds and shortwave radiation (K9, or
         # K9_moist_shortwave)
@@ -357,13 +372,32 @@ class PhysicsModel:
         # K12_pbl_flux)
         ut, vt, ttend, qtend, diag, fluxes = self.tendency_sums(
             m, phig, carry, sfc, fx, dfabs_lw, olr, sums)
+        xs = (RdfHeating(ttm=m.ttend, tt_rsw=carry.tt_rsw, dfabs=dfabs_lw,
+                         rps=m.rps, grdscp=self.pbl_tabs.grdscp,
+                         w=self.rdf_w)
+              if self.randfh is not None and lradsw else None)
+        if self.band is not None and self.randfh is not None:
+            # a band of a mesh: RDF and SPPT wait for every band's sums
+            return (ut, vt, ttend, qtend, carry, diag, fluxes,
+                    BandTail(xs, sppt_pattern))
+        ut, vt, ttend, qtend, carry = self.finish(ut, vt, ttend, qtend,
+                                                  carry, xs, sppt_pattern)
+        return ut, vt, ttend, qtend, carry, diag, fluxes
+
+    def finish(self, ut, vt, ttend, qtend, carry, xs=None, sppt_pattern=None,
+               sums=None):
+        """The step's optional physics after its column kernels: RDF (K25;
+        xs the shortwave step's heating or None) and then SPPT (K24).  On a
+        band of a mesh RDF is K25's band form, whose sums are every band's
+        gathered (2, K, nlat) on a shortwave step (else None).  Returns
+        (utend, vtend, ttend, qtend, carry')."""
         # --- random diabatic forcing (phy_phypar.f90:202-215; K25)
         if self.randfh is not None:
-            xs = (RdfHeating(ttm=m.ttend, tt_rsw=carry.tt_rsw,
-                             dfabs=dfabs_lw, rps=m.rps,
-                             grdscp=self.pbl_tabs.grdscp, w=self.rdf_w)
-                  if lradsw else None)
-            ttend, randfv = rdf(ttend, self.randfh, carry.randfv, xs)
+            if self.band is None:
+                ttend, randfv = rdf(ttend, self.randfh, carry.randfv, xs)
+            else:
+                ttend, randfv = rdf_band(ttend, self.randfh, carry.randfv,
+                                         self.band, sums)
             carry = dataclasses.replace(carry, randfv=randfv)
         # --- SPPT on the physics tendencies (phy_phypar.f90:218-228; K24)
         if sppt_pattern is not None:
@@ -371,7 +405,7 @@ class PhysicsModel:
                         else (sppt_pattern, None))
             ut, vt, ttend, qtend = sppt_perturb((ut, vt, ttend, qtend),
                                                 grid, mu)
-        return ut, vt, ttend, qtend, carry, diag, fluxes
+        return ut, vt, ttend, qtend, carry
 
     def moist(self, tg, qg, phig, pslg, bd, forcing, carry, lradsw):
         """Humidity, convection and large-scale condensation (K9), and

@@ -326,13 +326,14 @@ def test_untrained_coupled_build_matches_the_layout(coupled_pair):
 
 
 def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
-    """The options of later slices raise (the captured loop on a mesh:
-    A16b); the sharded cycle (shard_gcm=False and, with the GCM sharded,
-    the default) and ml_only=False now run, so do SPPT, RDF and
-    cgrate, the climatology tables,
+    """No option of the JAX package's cycle raises any more: the sharded
+    cycle (shard_gcm=False and, with the GCM sharded, the default) and
+    ml_only=False run, so do SPPT, RDF and cgrate, the climatology tables,
     emit_components, truth_provider and time_mean_path
-    (tests/test_torch_cycle_options.py), and so does cycles_per_dispatch
-    > 1 (tests/test_torch_dispatch.py)."""
+    (tests/test_torch_cycle_options.py), cycles_per_dispatch > 1
+    (tests/test_torch_dispatch.py) and the captured loop on a mesh
+    (tests/test_torch_mesh_loop.py); what stays is the checks of the
+    hybrid's arguments."""
     _, thyb = pair_f64
     _, chyb = coupled_pair
     with pytest.raises(ValueError, match="needs a GCM"):
@@ -360,10 +361,10 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
                          base_sst=np.zeros(3), device="cpu")
     from speedy_ml_tpu_torch.parallel.mesh import Mesh
     for h in (thyb, chyb):
-        # the sharded cycle has come (tests/test_torch_sharded.py), with
-        # the GCM sharded too by default (tests/test_torch_sharded_gcm.py),
-        # on a copy of the hybrid and of its GCM; the captured loop on a
-        # mesh comes with A16b
+        # the sharded cycle (tests/test_torch_sharded.py), with the GCM
+        # sharded too by default (tests/test_torch_sharded_gcm.py), on a
+        # copy of the hybrid and of its GCM; the captured loop runs on a
+        # mesh too (tests/test_torch_mesh_loop.py)
         sharded = copy.copy(h)
         sharded.set_mesh(Mesh(["cpu"] * 2))
         assert h.mesh is None and sharded.mesh is not None
@@ -375,9 +376,10 @@ def test_unported_options_raise(pair_f64, coupled_pair, monkeypatch):
         assert len(dates) == 1 and final.step == 1
         meshed = copy.copy(h)
         meshed.set_mesh(Mesh(["cpu"] * 2), shard_gcm=False)
-        with pytest.raises(NotImplementedError, match="A16b"):
-            run_prediction(meshed, meshed.init_state(_sst(h.geom)),
-                           ModelDate(1990, 1, 1), 1, cycles_per_dispatch=2)
+        final, dates = run_prediction(
+            meshed, meshed.init_state(_sst(h.geom)), ModelDate(1990, 1, 1),
+            1, cycles_per_dispatch=2)
+        assert len(dates) == 1 and len(final.classes[0].x) == 2
     g, bd = chyb.gcm.geom, chyb.gcm.bd
     # without bd the GCM reads the boundary files, from $SPEEDY_ML_BC_PATH
     # when no bc_path is given (tests/test_torch_boundaries.py)

@@ -111,12 +111,12 @@ def test_boundary_conversion_and_unported_options(pair, monkeypatch):
     on = GCM(g, bd=tgcm.bd, sppt_on=True, cgrate_on=True, device="cpu",
              dtype=torch.float64)
     assert on.sppt is not None and on.dyn.cgrate_on
-    # GCM.set_mesh is ported (tests/test_torch_sharded_gcm.py); the cgrate
-    # limiter, a sum over every wavenumber, does not run on a mesh
+    # GCM.set_mesh is ported (tests/test_torch_sharded_gcm.py), with the
+    # cgrate limiter on the m ranges (tests/test_torch_mesh_loop.py)
     from speedy_ml_tpu_torch.parallel.mesh import Mesh
-    with pytest.raises(NotImplementedError, match="cgrate"):
-        on.set_mesh(Mesh(["cpu"] * 2))
     assert on.mesh is None
+    on.set_mesh(Mesh(["cpu"] * 2))
+    assert on.mesh is not None and on.sdyn.dyn.cgrate_on
 
 
 def test_run_days_runs_the_day_and_the_coupler(pair):

@@ -21,8 +21,8 @@ run.  Tolerances:
   and with the ML-only cycle, the persistent surface, the climatology
   tables and the readout's components;
 - solve_wout_sharded: Wout 1e-8 of its scale at a ridge of 1e-2;
-- the error paths raise the JAX package's messages; what a mesh does not
-  run yet (the captured loop, the slab ocean) raises NotImplementedError.
+- the error paths raise the JAX package's messages; the captured loop
+  and the slab ocean run on a mesh.
 """
 
 import copy
@@ -559,31 +559,33 @@ def test_the_mesh_cycle_runs_the_hybrids_own_parameters(port):
 
 
 def test_the_distributed_gcm_options_raise(port):
-    """What a mesh does not run yet (A16b's later parts) raises, none
-    falls back: the captured loop (run_prediction with
-    cycles_per_dispatch > 1, a cycle handed the row of scalars) and the
-    slab ocean on a mesh.  set_mesh(mesh) (shard_gcm=True, the JAX
-    default), GCM.set_mesh and SpectralTransform.set_mesh run
-    (tests/test_torch_sharded_gcm.py)."""
-    m = _mesh(2)
+    """What a mesh refused before now runs on a
+    mesh, none refused and none falling back: the captured loop
+    (run_prediction with cycles_per_dispatch > 1, here the CPU's eager
+    dispatch, and a cycle handed the row of scalars), each bit for bit
+    the eager meshed cycles, and the slab ocean (set_mesh with ocean
+    packs, the GCM whole or sharded), whose rings are then sharded.
+    tests/test_torch_mesh_loop.py holds them against the unsharded port
+    and the JAX package."""
+    from test_torch_mesh_loop import with_ocean
     sh = _sharded_copy(port, 2)
     s = sh.init_state(port.gcm.bd.sst12[0])
-    with pytest.raises(NotImplementedError, match="A16b"):
-        run_prediction(sh, s, ModelDate(1990, 1, 1), 2,
-                       cycles_per_dispatch=2)
-    row = torch.zeros(len(sh.scalar_row(0, 0.5, 0.05)), dtype=F64)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        sh.cycle_with_params(sh.params, s, 0, 0.5, 0.05, scalars=row)
-    ocean = copy.copy(port)
-    ocean.ocean_packs = [object()]
-    with pytest.raises(NotImplementedError, match="A16b"):
-        ocean.set_mesh(m, shard_gcm=False)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        ocean.set_mesh(m)
-    # the eager loop runs on a mesh
-    final, dates = run_prediction(sh, s, ModelDate(1990, 1, 1), 1)
-    assert len(dates) == 1 and len(final.classes[0].x) == 2
-
+    batched, dates = run_prediction(sh, s, ModelDate(1990, 1, 1), 3,
+                                    cycles_per_dispatch=2)
+    eager, _ = run_prediction(sh, s, ModelDate(1990, 1, 1), 3)
+    assert len(dates) == 3 and len(batched.classes[0].x) == 2
+    for a, b in zip(batched.classes, eager.classes):
+        assert torch.equal(gather_rows(a.x, "cpu"), gather_rows(b.x, "cpu"))
+    row = torch.tensor(sh.scalar_row(0, 0.5, 0.05), dtype=F64)
+    _, d_row = sh.cycle_with_params(sh.params, s, 0, 0.5, 0.05, scalars=row)
+    _, d_host = sh.cycle(s, 0, 0.5, 0.05)
+    assert torch.equal(d_row["atmo"], d_host["atmo"])
+    ocean = with_ocean(port)
+    for shard_gcm in (False, True):
+        h = copy.copy(ocean)
+        h.set_mesh(_mesh(2), shard_gcm=shard_gcm)
+        st, _ = h.cycle(h.init_state(port.gcm.bd.sst12[0]), 0, 0.5, 0.05)
+        assert all(len(o.buffer) == 2 for o in st.ocean)
 
 
 @pytest.mark.parametrize("overlap", [1, 2])

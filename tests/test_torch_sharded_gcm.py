@@ -506,19 +506,19 @@ def test_sppt_leapfrog_on_a_mesh_matches_unsharded():
 
 
 def test_what_a_mesh_does_not_run_raises(port):
-    """cgrate (a sum over every wavenumber) and RDF (a smoothing across
-    latitudes) raise on a mesh; the mesh's first device must be the
-    GCM's."""
+    """The mesh's first device must be the GCM's; cgrate (K26's rows and
+    range forms) and RDF (K25's sums and band forms) run on a mesh, as
+    tests/test_torch_mesh_loop.py holds them against the unsharded port
+    and the JAX package."""
     g = Geometry(**GEOM)
     cg = GCM(g, dtype=F64, nsteps_day=NSD, device="cpu", cgrate_on=True,
              bd=synthetic_boundary_data(g, dtype=F64, device="cpu"))
-    with pytest.raises(NotImplementedError, match="cgrate"):
-        cg.set_mesh(_mesh(2))
-    rdf = copy.copy(port.gcm)
-    rdf.phys = copy.copy(rdf.phys)
-    rdf.phys.randfh = np.zeros((2, 16, 32))
-    with pytest.raises(NotImplementedError, match="RDF"):
-        rdf.set_mesh(_mesh(2))
+    cg.phys.randfh = np.full((2, 16, 32), 1e-3)
+    s0, f = cg.init_state(ModelDate(*DATE))
+    m = _meshed(cg, 2)
+    s = m.leapfrog(m.stepone(s0, f), f)
+    assert isinstance(s.spectral, Sharded) and s.istep == 1
+    assert all(r.randfv.shape == (2, 16, 8) for r in s.radiation)
     sht = SpectralTransform(g, dtype=F64, device="cpu")
     with pytest.raises(ValueError, match="first device"):
         sht.set_mesh(Mesh(["meta", "cpu"]))
