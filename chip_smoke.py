@@ -197,7 +197,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      cgrate on: K24 (both forms), K25 (both forms), K26 (and a trigger
      case) against their plain versions on a step's inputs, float32 and
      float64, 0 difference, K8's tendency form beside its main form, each
-     timed; a day from a spun-up state, every step finite, T in [150,
+     timed (K25's two forms and K26 with measure_one_launch, beside the
+     empty kernel of each launch's grid, block and cluster shape); a day
+     from a spun-up state, every step finite, T in [150,
      350] K, the first 24 steps held against the plain step on the CPU
      (phase 5's rule); launches per leapfrog step with all three on (15
      kernel launches, 1 plain: the draw).
@@ -273,7 +275,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      range forms on every shard bit for bit the whole kernels' bands and
      ranges and their plain versions, shard 1's timed (the kernels
      line's K25_rdf_sums, K25_rdf_band, K26_cgrate_rows,
-     K26_cgrate_range); (i) the training dry run at m = 6000
+     K26_cgrate_range, with measure_one_launch); (i) the training dry
+     run at m = 6000
      (parallel/train_dryrun.py dryrun_m6000: 8 interior regions a shard,
      each shard's Gram block on its own device, Wout finite and
      sharded).
@@ -648,23 +651,56 @@ def measure_median(torch, fn, sessions: int = SHT_SESSIONS, reps: int = 50):
 
 def measure_one_launch(torch, fn, sessions: int = SHT_SESSIONS,
                        reps: int = 50):
-    """measure_median for a fn that is one kernel launch a call, counting
-    only the sessions in which the profiler saw every launch: late in a
-    run a session can lose half of them, which halves its per-call time
-    (phase 16's K25 and K26 read bimodal so).  Up to 3 x sessions
-    tries."""
+    """measure_median for a fn that is one kernel launch a call: each
+    session's device time over the launches the profiler saw in it, not
+    over reps.  Late in a run a session can lose launches, and their time
+    with them, so that the time over reps reads low (K25's and K26's forms
+    read half their time so).  A session that saw no launch is taken
+    again, up to 3 x sessions; fails where fn launched more than one
+    kernel."""
     runs = []
     for _ in range(3 * sessions):
         call = time_ms(torch, fn, reps)
-        dev, kk, _ = profile_device(torch, fn, reps)
-        if sum(e.count for e in kk) == reps:
-            runs.append((dev, call))
+        _, kk, _ = profile_device(torch, fn, reps)
+        names = {kernel_name(e.key) for e in kk}
+        if len(names) > 1:
+            fail(f"measure_one_launch: one call launched {sorted(names)}")
+        seen = sum(e.count for e in kk)
+        if seen < reps:
+            log(f"  the profiler saw {seen} of {reps} launches in a session")
+        if seen:
+            runs.append((sum(_self_device_us(e) for e in kk) / 1e3 / seen,
+                         call))
         if len(runs) == sessions:
             break
     if not runs:
-        fail("the profiler lost launches in every session")
+        fail("measure_one_launch: the profiler saw no launch in any session")
     return ((statistics.median(r[0] for r in runs),
              statistics.median(r[1] for r in runs)), [r[0] for r in runs])
+
+
+def timed_launch(torch, label, fn, card):
+    """fn (one launch) timed with measure_one_launch and logged with its
+    sessions; returns (device_ms, call_ms)."""
+    t, runs = measure_one_launch(torch, fn)
+    log(f"{label}: {t[0]:.4f} ms (sessions "
+        + ", ".join(f"{r:.4f}" for r in runs) + f") [{card}]")
+    return t
+
+
+def launch_floor(torch, label, launch, card):
+    """The device ms of an empty kernel of a kernel's launch shape (grid,
+    block, cluster, shared memory), timed as measure_one_launch times the
+    kernel: the floor its time is read against."""
+    def fn():
+        code = launch()
+        if code != 0:
+            fail(f"{label}: the empty kernel's launch returned {code}")
+    t, runs = measure_one_launch(torch, fn)
+    log(f"{label}: an empty kernel of the same grid, block, cluster and "
+        f"shared memory {t[0]:.4f} ms (sessions "
+        + ", ".join(f"{r:.4f}" for r in runs) + f") [{card}]")
+    return t[0]
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -2865,12 +2901,14 @@ def phase_physics(torch, np, gcm, date0, card, record, kernels):
     trigger case (vor's tendency grown to 1e-3 of the field, as
     tests/test_cgrate.py grows it) that must damp, bit for bit the plain
     version's; each kernel timed as the median of SHT_SESSIONS sessions
-    beside its plain version and bound.  (b) A day (nsteps_day leapfrog
-    steps after stepone) from date0: every step finite, T in [150, 350]
-    K, from a state the plain GCM spun up PHYS_SPINUP days from rest;
-    the first PHYS_HELD steps each from the card's state against the
-    plain step on the CPU from the same state and the same draw
-    (window_steps with phase 5's flip rule), the rest on the card alone;
+    beside its plain version and bound (K25's two forms and K26 with
+    measure_one_launch, beside the empty kernel of each launch's shape).
+    (b) A day (nsteps_day leapfrog steps after stepone) from date0: every
+    step finite, T in [150, 350] K, from a state the plain GCM spun up
+    PHYS_SPINUP days from rest; the first PHYS_HELD steps each from the
+    card's state against the plain step on the CPU from the same state
+    and the same draw (window_steps with phase 5's flip rule), the rest
+    on the card alone;
     K24-K26's launches over the day (their counters set to 0 before it).
     (c) A profiled leapfrog step with all three on: its kernel and plain
     launches (the main path's ten, K24 twice, K6 once more, K25, K26; the
@@ -2878,6 +2916,7 @@ def phase_physics(torch, np, gcm, date0, card, record, kernels):
     from speedy_ml_tpu_torch.dycore import model as dymod
     from speedy_ml_tpu_torch.dycore.model import DycoreModel
     from speedy_ml_tpu_torch.gcm import GCM
+    from speedy_ml_tpu_torch.kernels import build as kb
     from speedy_ml_tpu_torch.kernels import cgrate as k26
     from speedy_ml_tpu_torch.kernels import rdf as k25
     from speedy_ml_tpu_torch.kernels import sppt as k24
@@ -3061,8 +3100,18 @@ def phase_physics(torch, np, gcm, date0, card, record, kernels):
     log(f"K24 both forms of a step, median of {SHT_SESSIONS} sessions: "
         f"{t24[0]:.4f} ms (the AR(1) form alone {ta1[0]:.4f}; sessions "
         + ", ".join(f"{r:.4f}" for r in r24) + f") [{card}]")
-    t25, r25 = measure_median(torch, lambda: k25.rdf(tt_sw, h, v_sw, xs))
-    t25o, _ = measure_median(torch, lambda: k25.rdf(tt_o, h, v_o))
+    # K25's two forms and K26, each beside the empty kernel of its launch
+    # shape
+    lib = kb.library()
+    dix, stream = kb.device_index(tt_sw), kb.stream_of(tt_sw)
+    t25 = timed_launch(torch, "K25 shortwave form",
+                       lambda: k25.rdf(tt_sw, h, v_sw, xs), card)
+    t25o = timed_launch(torch, "K25 the other form",
+                        lambda: k25.rdf(tt_o, h, v_o), card)
+    fl25, fl25o = (launch_floor(
+        torch, f"K25 {nm}", lambda xs_on=xs_on: lib.rdf_floor_launch(
+            dix, 0, K, nlat, nlon, xs_on, stream), card)
+        for nm, xs_on in (("shortwave form", 1), ("the other form", 0)))
     b25 = bound_ms(4 * (5 * K * G + G + 2 * G + 3 * K + 2 * 2 * nlat * K),
                    K * G * 8, PEAK_F32_S)
     record("K25_rdf", "speedy_ml_tpu_torch/kernels/csrc/rdf.cu",
@@ -3070,14 +3119,14 @@ def phase_physics(torch, np, gcm, date0, card, record, kernels):
            max(v for k, v in worst.items() if k.startswith("K25")), 0.0,
            t25, measure(torch, lambda: k25.rdf_plain(tt_sw, h, v_sw, xs)),
            b25)
-    log(f"K25 shortwave form, median of {SHT_SESSIONS} sessions: "
-        f"{t25[0]:.4f} ms (sessions " + ", ".join(f"{r:.4f}" for r in r25)
-        + f"); the other form {t25o[0]:.4f} ms [{card}]")
     cg_out = lambda: dataclasses.replace(out, vor=out.vor.clone(),
                                          div=out.div.clone())
     o1, o2 = cg_out(), cg_out()
-    t26, r26 = measure_median(torch, lambda: k26.cgrate(
-        gcm_o.dyn, st, o1, j1, dt_, eps))
+    t26 = timed_launch(torch, "K26",
+                       lambda: k26.cgrate(gcm_o.dyn, st, o1, j1, dt_, eps),
+                       card)
+    fl26 = launch_floor(torch, "K26", lambda: lib.cgrate_floor_launch(
+        dix, 0, K, mx, nx, stream), card)
     b26 = bound_ms(8 * 10 * K * MN + 2 * 4 * MN, 2 * 2 * 24 * K * MN,
                    PEAK_F32_S)
     record("K26_cgrate", "speedy_ml_tpu_torch/kernels/csrc/cgrate.cu",
@@ -3085,8 +3134,12 @@ def phase_physics(torch, np, gcm, date0, card, record, kernels):
            max(v for k, v in worst.items() if k.startswith("K26")), 0.0,
            t26, measure(torch, lambda: k26.cgrate_plain(
                gcm_o.dyn, st, o2, j1, dt_, eps)), b26)
-    log(f"K26, median of {SHT_SESSIONS} sessions: {t26[0]:.4f} ms "
-        f"(sessions " + ", ".join(f"{r:.4f}" for r in r26) + f") [{card}]")
+    log(f"phase 16, device ms a launch (measure_one_launch, median of "
+        f"{SHT_SESSIONS} sessions; the empty kernel of the launch's shape): "
+        f"K25 shortwave form {t25[0]:.4f} (floor {fl25:.4f}, bound "
+        f"{b25[0]:.5f}); K25 the other form {t25o[0]:.4f} (floor "
+        f"{fl25o:.4f}); K26 {t26[0]:.4f} (floor {fl26:.4f}, bound "
+        f"{b26[0]:.5f}) [{card}]")
 
     # -- (b) a day with all three on ---------------------------------------
     names = ("K24_sppt", "K25_rdf", "K26_cgrate")
@@ -4742,30 +4795,34 @@ def mesh_cgrate_rdf(torch, np, gcm, mesh, date0, card, record,
     src26 = "speedy_ml_tpu_torch/kernels/csrc/cgrate.cu"
     rep25, rep26 = ("speedy_ml_tpu/physics/randfor.py:83",
                     "speedy_ml_tpu/dycore/model.py:565")
+    t_sums = timed_launch(torch, "phase 20 K25_rdf_sums",
+                          lambda: k25.rdf_sums(bx[1]), card)
+    t_band = timed_launch(
+        torch, "phase 20 K25_rdf_band",
+        lambda: k25.rdf_band(t1, h1, v_in, bd1, sums_all[1]), card)
+    t_rows = timed_launch(torch, "phase 20 K26_cgrate_rows",
+                          lambda: k26.cgrate_rows(dv, s1, o1), card)
+    t_range = timed_launch(torch, "phase 20 K26_cgrate_range",
+                           lambda: k26.cgrate_range(*rg), card)
     ok = True
     ok &= record("K25_rdf_sums", src25, rep25, worst["K25_rdf_sums"], 0.0,
-                 measure_median(torch, lambda: k25.rdf_sums(bx[1]))[0],
-                 measure(torch, lambda: k25.rdf_sums_plain(bx[1])),
+                 t_sums, measure(torch, lambda: k25.rdf_sums_plain(bx[1])),
                  bound_ms(4 * (3 * K * Rb * nlon + Rb * nlon + 3 * K
                                + 2 * K * Rb), 6 * K * Rb * nlon, PEAK_F32_S))
     ok &= record("K25_rdf_band", src25, rep25, worst["K25_rdf_band"], 0.0,
-                 measure_median(torch, lambda: k25.rdf_band(
-                     t1, h1, v_in, bd1, sums_all[1]))[0],
-                 measure(torch, lambda: k25.rdf_band_plain(
+                 t_band, measure(torch, lambda: k25.rdf_band_plain(
                      t1, h1, v_in, bd1, sums_all[1])),
                  bound_ms(4 * (2 * K * nlat + 2 * K * Rb * nlon
                                + 2 * Rb * nlon + 2 * nlat * K),
                           4 * K * Rb * nlon + 32 * nlat * K, PEAK_F32_S))
     ok &= record("K26_cgrate_rows", src26, rep26, worst["K26_cgrate_rows"],
-                 0.0, measure_median(torch, lambda: k26.cgrate_rows(
-                     dv, s1, o1))[0],
+                 0.0, t_rows,
                  measure(torch, lambda: k26.cgrate_rows_plain(dv, s1, o1)),
                  bound_ms(4 * (2 * 2 * 2 * K * mr * nx + mr * nx
                                + 4 * K * mr), 2 * 12 * K * mr * nx,
                           PEAK_F32_S))
     ok &= record("K26_cgrate_range", src26, rep26,
-                 worst["K26_cgrate_range"], 0.0,
-                 measure_median(torch, lambda: k26.cgrate_range(*rg))[0],
+                 worst["K26_cgrate_range"], 0.0, t_range,
                  measure(torch, lambda: k26.cgrate_range_plain(
                      dv, s1, clone(o1), rows_all[1], 2, dyn.delt2,
                      dyn.rob)),

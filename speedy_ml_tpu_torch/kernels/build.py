@@ -124,6 +124,9 @@ SIGNATURES = {
     "cgrate_range_launch": [_i, _i, _i, _i, _i, _i, _i, ctypes.POINTER(_vp),
                             ctypes.POINTER(_vp), _vp, _vp,
                             ctypes.POINTER(_vp), _i, _d, _d, _d, _d, _vp],
+    # empty kernels of K25's and K26's launch shapes (chip_smoke.py's floor)
+    "cgrate_floor_launch": [_i, _i, _i, _i, _i, _vp],
+    "rdf_floor_launch": [_i, _i, _i, _i, _i, _i, _vp],
 }
 # restype of the entry points that return something else than an int
 RESTYPES = {"gram_panel_size": _ll}

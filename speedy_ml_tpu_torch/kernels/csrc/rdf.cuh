@@ -10,42 +10,63 @@
 // (kernels/rdf.py rdf_plain), every operation rounded apart:
 // - on a shortwave step, for each latitude j the zonal sums, longitude 0
 //   first and one longitude at a time, of tt_m (K9's tt_cnv + tt_lsc,
-//   mode 0) and of tt_rsw + (dfabs * rps) * grdscp[k] (the shortwave and
-//   longwave heating, mode 1), each times its weight w[mode][k] (which
-//   holds 1/nlon); then, per mode, two passes of v = 0.5 v + 0.25 (up +
-//   dn) over latitude with mirrored ends: randfv[mode][j][k];
+//   mode 0) and of the heating tt_rsw + (dfabs * rps) * grdscp[k]
+//   (rdf_heat: the shortwave and longwave heating, mode 1), each times its
+//   weight w[mode][k] (which holds 1/nlon); then, per mode, two passes of
+//   v = 0.5 v + 0.25 (up + dn) over latitude with mirrored ends:
+//   randfv[mode][j][k];
 // - every step, tt[k][j][i] += h0[j][i] * v0[j] + h1[j][i] * v1[j], v
 //   the new randfv on a shortwave step, the carried one on the others.
 //
+// The kernels cut a level's latitude rows into rdf_chunks(rows) chunks of
+// rdf_chunk_rows(rows) rows (the last one shorter where they do not
+// divide): at T30 eight chunks of 6 rows.  A chunk's rows of tt_m and of
+// the heating sit in shared memory rows rdf_stride(nlon) apart.
+//
 // On a mesh (GCM.set_mesh) a shard holds a latitude band: the rows p0 ..
 // p1 - 1 and their mirrors nlat - p1 .. nlat - p0 - 1 (parallel/mesh.py
-// band_rows).  Its zonal sums are rdf_zonal's on the band's rows; the
-// sums of every band, gathered into latitude order, are smoothed as the
-// whole ones are, and each band adds the forcing at its rows, row r
-// reading the profiles at latitude rdf_band_lat(r).  So the result is the
-// whole one's bit for bit.
+// band_rows).  Its zonal sums are those of the band's rows; the sums of
+// every band, gathered into latitude order, are smoothed as the whole
+// ones are, and each band adds the forcing at its rows, row r reading the
+// profiles at latitude rdf_band_lat(r).  So the result is the whole one's
+// bit for bit.
 #pragma once
 
 #include "column_common.cuh"
 
-// The weighted zonal sums of latitude j of level k (a shortwave step).
+constexpr int kRdfCluster = 8;   // the chunks of a level: a cluster's blocks
+
+// The rows of a chunk of `rows` latitude rows, and the number of chunks.
+COL_HD int rdf_chunk_rows(int rows) {
+  return (rows + kRdfCluster - 1) / kRdfCluster;
+}
+COL_HD int rdf_chunks(int rows) {
+  const int c = rdf_chunk_rows(rows);
+  return (rows + c - 1) / c;
+}
+// Rows [r0, r0 + n) of chunk c (n may be 0 past the last row).
+COL_HD void rdf_chunk(int rows, int c, int* r0, int* n) {
+  const int rc = rdf_chunk_rows(rows);
+  *r0 = c * rc;
+  const int end = *r0 + rc < rows ? *r0 + rc : rows;
+  *n = end > *r0 ? end - *r0 : 0;
+}
+// The shared row stride of a staged row (nlon reals), one more, so that
+// the threads of a warp, a row each, read 32 banks.
+COL_HD int rdf_stride(int nlon) { return nlon + 1; }
+
+// The heating of mode 1 at one point: tt_rsw + (dfabs * rps) * gs.
 template <typename T>
-COL_HD void rdf_zonal(const T* ttm, const T* tt_rsw, const T* dfabs,
-                      const T* rps, const T* grdscp, const T* w, int K, int k,
-                      int nlat, int nlon, int j, T* v0, T* v1) {
-  const long long row = ((long long)k * nlat + j) * nlon;
-  const T gs = grdscp[k];
-  T s0 = ttm[row];
-  T s1 = gd_add(tt_rsw[row], gd_mul(gd_mul(dfabs[row], rps[(long long)j * nlon]),
-                                    gs));
-  for (int i = 1; i < nlon; ++i) {
-    s0 = gd_add(s0, ttm[row + i]);
-    const T rlw = gd_mul(gd_mul(dfabs[row + i], rps[(long long)j * nlon + i]),
-                         gs);
-    s1 = gd_add(s1, gd_add(tt_rsw[row + i], rlw));
-  }
-  v0[j] = gd_mul(s0, w[k]);
-  v1[j] = gd_mul(s1, w[K + k]);
+COL_HD T rdf_heat(T tt_rsw, T dfabs, T rps, T gs) {
+  return gd_add(tt_rsw, gd_mul(gd_mul(dfabs, rps), gs));
+}
+
+// The weighted zonal sum of one staged row x (nlon), longitude 0 first.
+template <typename T>
+COL_HD T rdf_row_sum(const T* x, int nlon, T w) {
+  T s = x[0];
+  for (int i = 1; i < nlon; ++i) s = gd_add(s, x[i]);
+  return gd_mul(s, w);
 }
 
 // One smoothing pass of latitude j: 0.5 v[j] + 0.25 (up + dn), up = v[j-1]

@@ -21,9 +21,11 @@ before the module's first case, while the port's cases run.
 
 Tolerances:
 - K25's and K26's mesh forms on the host build (optional_host.cpp, the
-  kernels' headers) against their plain versions, and the plain forms of
-  every shard against the whole plain version's rows, ranges and bands:
-  bit for bit;
+  kernels' headers; its blocks in both orders, also at T30's widths with
+  levels, m ranges and band rows that do not divide into the kernels'
+  8 blocks or chunks) against their plain versions, and the plain forms
+  of every shard against the whole plain version's rows, ranges and
+  bands: bit for bit;
 - the slab ocean on a mesh with the GCM whole (shard_gcm=False), the
   meshed cycle with the row of scalars against it without, and the
   batched meshed loop against the eager meshed loop: bit for bit (none
@@ -55,6 +57,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -78,7 +81,8 @@ from speedy_ml_tpu_torch.kernels import rdf as k25
 from speedy_ml_tpu_torch.parallel import train_dryrun
 from speedy_ml_tpu_torch.parallel.mesh import (GridShards, Mesh, Sharded,
                                                ShardMoves, band_rows,
-                                               gather_rows)
+                                               gather_rows, join_band_rows,
+                                               lat_bands, m_ranges)
 from speedy_ml_tpu_torch.physics import randfor
 from speedy_ml_tpu_torch.physics.boundaries import synthetic_boundary_data
 from torch_lane import one_thread_per_pool  # noqa: F401
@@ -398,11 +402,11 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     pv = ctypes.POINTER(vp)
-    lib.rdf_sums_host.argtypes = [i, i, i, i] + [vp] * 7
-    lib.rdf_band_host.argtypes = [i] * 7 + [vp] * 5
-    lib.cgrate_rows_host.argtypes = [i] * 5 + [pv, pv, vp, vp]
+    lib.rdf_sums_host.argtypes = [i, i, i, i] + [vp] * 7 + [i]
+    lib.rdf_band_host.argtypes = [i] * 7 + [vp] * 5 + [i]
+    lib.cgrate_rows_host.argtypes = [i] * 5 + [pv, pv, vp, vp, i]
     lib.cgrate_range_host.argtypes = [i] * 6 + [pv, pv, vp, vp, pv, i, d, d,
-                                               d, d]
+                                               d, d, i]
     return lib
 
 
@@ -412,6 +416,50 @@ def _ptrs(ts):
 
 DTYPES = {"f64": (torch.float64, torch.complex128),
           "f32": (torch.float32, torch.complex64)}
+# the host build's block orders: first to last, last to first
+ORDERS = (0, 1)
+
+
+def _rdf_sums_host(lib, x, order):
+    K, rows, nlon = x.ttm.shape
+    got = torch.full((2, K, rows), float("nan"), dtype=x.ttm.dtype)
+    lib.rdf_sums_host(int(x.ttm.dtype == F64), K, rows, nlon,
+                      *[a.data_ptr() for a in x], got.data_ptr(), order)
+    return got
+
+
+def _rdf_band_host(lib, tt_b, h_b, v_in, band, sums, order):
+    K, _, nlon = tt_b.shape
+    nlat = v_in.shape[1]
+    got_tt = tt_b.clone()
+    got_v = torch.full_like(v_in, float("nan"))
+    lib.rdf_band_host(int(tt_b.dtype == F64), K, nlat, nlon, band[0],
+                      band[1] - band[0], int(sums is not None),
+                      got_tt.data_ptr(), h_b.data_ptr(), v_in.data_ptr(),
+                      0 if sums is None else sums.data_ptr(),
+                      got_v.data_ptr() if sums is not None else 0, order)
+    return got_tt, got_v
+
+
+def _cgrate_rows_host(lib, dv, s, o, order):
+    K, mr, nx = s.vor.shape[1:]
+    got = torch.full((2, 2, K, mr), float("nan"), dtype=dv.sht.elm2.dtype)
+    lib.cgrate_rows_host(int(got.dtype == F64), K, mr, nx, dv.m0,
+                         _ptrs([s.vor[0], s.div[0]]), _ptrs([o.vor, o.div]),
+                         dv.sht.elm2.data_ptr(), got.data_ptr(), order)
+    return got
+
+
+def _cgrate_range_host(lib, dv, s, o, rows, j1, dt, eps, order):
+    K, mr, nx = s.vor.shape[1:]
+    got = [o.vor.clone(), o.div.clone()]
+    lib.cgrate_range_host(
+        int(rows.dtype == F64), K, rows.shape[-1], mr, nx, dv.m0,
+        _ptrs([s.vor[0], s.div[0]]), _ptrs([s.vor[j1 - 1], s.div[j1 - 1]]),
+        rows.data_ptr(), dv.sht.trfilt.data_ptr(), _ptrs(got),
+        int(dv.geom.nlon == 4 * dv.geom.nlat_half), dt, dv.wil * eps,
+        (1.0 - dv.wil) * eps, k26.GRMAX, order)
+    return got
 
 
 def _heating(g, rt, seed):
@@ -456,26 +504,20 @@ def test_k25_forms_bit_for_bit(lib, port, randfh, dt, D):
         if shortwave:
             parts = [k25.rdf_sums_plain(x) for x in band_xs]
             for x, p in zip(band_xs, parts):
-                got = torch.full_like(p, float("nan"))
-                lib.rdf_sums_host(int(rt == F64), K, x.ttm.shape[1], nlon,
-                                  *[a.data_ptr() for a in x], got.data_ptr())
-                assert torch.equal(got, p)
+                for order in ORDERS:
+                    assert torch.equal(_rdf_sums_host(lib, x, order), p)
             sums = grid.all_bands(parts, dim=-1)
         outs = []
         for d, b in enumerate(grid.bands):
             tt_b, h_b = band_rows(tt, b, nlat), band_rows(h, b, nlat)
             sm = None if sums is None else sums[d]
             pt, pv = k25.rdf_band_plain(tt_b.clone(), h_b, v_in, b, sm)
-            got_tt = tt_b.clone()
-            got_v = torch.full_like(v_in, float("nan"))
-            lib.rdf_band_host(int(rt == F64), K, nlat, nlon, b[0], b[1] - b[0],
-                              int(shortwave), got_tt.data_ptr(),
-                              h_b.data_ptr(), v_in.data_ptr(),
-                              0 if sm is None else sm.data_ptr(),
-                              got_v.data_ptr() if shortwave else 0)
-            assert torch.equal(got_tt, pt)
-            if shortwave:
-                assert torch.equal(got_v, pv)
+            for order in ORDERS:
+                got_tt, got_v = _rdf_band_host(lib, tt_b, h_b, v_in, b, sm,
+                                               order)
+                assert torch.equal(got_tt, pt)
+                if shortwave:
+                    assert torch.equal(got_v, pv)
             assert torch.equal(pv, ref_v)
             outs.append(pt)
         assert torch.equal(grid.join_bands(outs), ref_tt)
@@ -518,12 +560,8 @@ def test_k26_forms_bit_for_bit(lib, port, dt, D):
     rows = [k26.cgrate_rows_plain(dv, s, o) for dv, s, o in
             zip(dyns, parts, outs)]
     for dv, s, o, r in zip(dyns, parts, outs, rows):
-        got = torch.full_like(r, float("nan"))
-        lib.cgrate_rows_host(int(rt == F64), g.nlev, r.shape[-1], g.nx,
-                             dv.m0, _ptrs([s.vor[0], s.div[0]]),
-                             _ptrs([o.vor, o.div]), dv.sht.elm2.data_ptr(),
-                             got.data_ptr())
-        assert torch.equal(got, r)
+        for order in ORDERS:
+            assert torch.equal(_cgrate_rows_host(lib, dv, s, o, order), r)
     whole = grid.all_ranges(rows, dim=-1)
     assert torch.equal(whole[0], k26.cgrate_rows_plain(gcm.dyn, state, out))
     for d, (dv, s, o) in enumerate(zip(dyns, parts, outs)):
@@ -533,15 +571,120 @@ def test_k26_forms_bit_for_bit(lib, port, dt, D):
         for nm in ("vor", "div"):
             assert torch.equal(getattr(new, nm),
                                getattr(ref, nm)[..., m0:m1, :])
-        got = copy.deepcopy(o)
-        lib.cgrate_range_host(
-            int(rt == F64), g.nlev, g.mx, m1 - m0, g.nx, dv.m0,
-            _ptrs([s.vor[0], s.div[0]]), _ptrs([s.vor[1], s.div[1]]),
-            whole[d].data_ptr(), dv.sht.trfilt.data_ptr(),
-            _ptrs([got.vor, got.div]), int(g.nlon == 4 * g.nlat_half), 900.0,
-            dv.wil * 0.05, (1.0 - dv.wil) * 0.05, k26.GRMAX)
-        for nm in ("vor", "div"):
-            assert torch.equal(getattr(got, nm), getattr(new, nm))
+        for order in ORDERS:
+            got = _cgrate_range_host(lib, dv, s, o, whole[d], 2, 900.0, 0.05,
+                                     order)
+            assert torch.equal(got[0], new.vor)
+            assert torch.equal(got[1], new.div)
+
+
+def _t30_dycore(rt, K, m0=0, m1=31):
+    """A stand-in for a T30 DycoreModel with K levels, or its view of the
+    m range [m0, m1): what K26's plain forms and the host build read."""
+    rng = np.random.default_rng(50 + K)
+    elm2 = torch.as_tensor(rng.uniform(0.1, 1.0, (31, 32))).to(rt)
+    trfilt = torch.as_tensor(rng.uniform(0.0, 1.0, (31, 32))).to(rt)
+    sht = SimpleNamespace(elm2=elm2[m0:m1].contiguous(),
+                          trfilt=trfilt[m0:m1].contiguous())
+    geom = SimpleNamespace(nlon=96, nlat_half=24, nlev=K, mx=31, nx=32)
+    return SimpleNamespace(sht=sht, geom=geom, wil=0.53, m0=m0)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("K,D", [(3, 3), (11, 8)])
+def test_k26_forms_uneven(lib, dt, K, D):
+    """K26's rows and range forms at T30's widths on the m ranges of D
+    shards (uneven: 11, 10, 10 or 4 and 3), with K levels that underfill
+    or overfill the range form's cluster: host build in both block orders
+    against the plain forms, and the plain ranges against the whole plain
+    version, bit for bit; vor's damping triggers."""
+    rt, ct = DTYPES[dt]
+    whole = _t30_dycore(rt, K)
+    ranges = m_ranges(31, D)
+    dyns = [_t30_dycore(rt, K, *r) for r in ranges]
+    rng = np.random.default_rng(80 + K)
+    shp = (2, K, 31, 32)
+    c = lambda a: torch.as_tensor(a).to(ct).contiguous()
+    f = rng.normal(0, 1e-5, shp) + 1j * rng.normal(0, 1e-5, shp)
+    sp = lambda v, d: SimpleNamespace(vor=v, div=d)
+    state = sp(c(f), c(f[::-1].copy()))
+    out = sp(c(np.stack([1e-3 * f[0], 0 * f[0]])),
+             c(np.stack([1e-9 * f[1], 0 * f[1]])))
+    mk = lambda o: SpectralState(vor=o.vor, div=o.div, t=o.vor, ps=o.vor[0],
+                                 tr=o.vor[None])
+    ref = k26.cgrate_plain(whole, state, mk(copy.deepcopy(out)), 2, 900.0,
+                           0.05)
+    _, cd = k26.damp_plain(state.vor[0], out.vor[0], whole.sht.elm2)
+    assert float(cd) > 0
+    cut = lambda x, m0, m1: sp(x.vor[..., m0:m1, :].contiguous(),
+                               x.div[..., m0:m1, :].contiguous())
+    parts = [(cut(state, *r), cut(out, *r)) for r in ranges]
+    rows = [k26.cgrate_rows_plain(dv, s_, o_)
+            for dv, (s_, o_) in zip(dyns, parts)]
+    gathered = torch.cat(rows, dim=-1).contiguous()
+    assert torch.equal(gathered, k26.cgrate_rows_plain(whole, state, out))
+    for dv, (s_, o_), r, (m0, m1) in zip(dyns, parts, rows, ranges):
+        new = k26.cgrate_range_plain(dv, s_, mk(copy.deepcopy(o_)), gathered,
+                                     2, 900.0, 0.05)
+        assert torch.equal(new.vor, ref.vor[..., m0:m1, :])
+        assert torch.equal(new.div, ref.div[..., m0:m1, :])
+        for order in ORDERS:
+            assert torch.equal(_cgrate_rows_host(lib, dv, s_, o_, order), r)
+            got = _cgrate_range_host(lib, dv, s_, o_, gathered, 2, 900.0,
+                                     0.05, order)
+            assert torch.equal(got[0], new.vor)
+            assert torch.equal(got[1], new.div)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nlat,D", [(46, 2), (20, 3)])
+def test_k25_forms_uneven(lib, dt, nlat, D):
+    """K25's sums and band forms on the bands of D shards whose rows do not
+    divide into the kernels' 8 chunks (46 latitudes on 2 bands: 24 and 22
+    rows, chunks of 3 and a last one of 1; 20 on 3: 8, 6 and 6 rows,
+    chunks of 1): host build in both block orders against the plain forms,
+    and the plain forms against the whole plain version, bit for bit
+    (K = 5, nlon = 96)."""
+    rt, _ = DTYPES[dt]
+    K, nlon = 5, 96
+    rng = np.random.default_rng(90 + nlat)
+    t = lambda a: torch.as_tensor(a).to(rt).contiguous()
+    sh = (K, nlat, nlon)
+    xs = k25.RdfHeating(t(rng.normal(0, 1e-5, sh)), t(rng.normal(0, 1e-5, sh)),
+                        t(rng.normal(0, 1.0, sh)),
+                        t(1.0 / rng.uniform(0.6, 1.0, sh[1:])),
+                        t(np.linspace(1e-3, 2e-3, K)),
+                        t(rng.uniform(0.5, 1.5, (2, K)) / nlon))
+    h = t(rng.normal(0, 1.0, (2, nlat, nlon)))
+    v_in = t(rng.normal(0, 1e-5, (2, nlat, K)))
+    tt = t(rng.normal(0, 1e-5, sh))
+    bands = lat_bands(nlat, D)
+    cut = lambda a, b: band_rows(a, b, nlat).contiguous()
+    band_xs = [k25.RdfHeating(*(cut(a, b) if a.dim() >= 2
+                                and a.shape[-2] == nlat else a for a in xs))
+               for b in bands]
+    parts = [k25.rdf_sums_plain(x) for x in band_xs]
+    for x, p in zip(band_xs, parts):
+        for order in ORDERS:
+            assert torch.equal(_rdf_sums_host(lib, x, order), p)
+    sums = join_band_rows(parts, bands, dim=-1).contiguous()
+    assert torch.equal(sums, k25.rdf_sums_plain(xs))
+    for shortwave in (True, False):
+        ref_tt, ref_v = k25.rdf_plain(tt.clone(), h, v_in,
+                                      xs if shortwave else None)
+        outs = []
+        for b in bands:
+            sm = sums if shortwave else None
+            pt, pv = k25.rdf_band_plain(cut(tt, b), cut(h, b), v_in, b, sm)
+            assert torch.equal(pv, ref_v)
+            for order in ORDERS:
+                got_tt, got_v = _rdf_band_host(lib, cut(tt, b), cut(h, b),
+                                               v_in, b, sm, order)
+                assert torch.equal(got_tt, pt)
+                if shortwave:
+                    assert torch.equal(got_v, pv)
+            outs.append(pt)
+        assert torch.equal(join_band_rows(outs, bands), ref_tt)
 
 
 # ------------------------------------------------- cgrate and RDF on a mesh

@@ -16,7 +16,10 @@ on the CPU, and the arithmetic of their kernels K24-K26 without a card.
 - kernels/csrc/optional_host.cpp, the very headers of K24-K26 compiled
   with g++ -ffp-contract=off, bit for bit against the plain versions in
   float32 and float64 (the kernels follow the plain versions' order of
-  operations and sums); an order of sums reversed must differ.
+  operations and sums), K25's and K26's clusters with their blocks run
+  first to last and last to first, at T10 and at T30's widths with
+  levels and latitude rows that do not divide into the clusters' 8
+  blocks; an order of sums reversed must differ.
 The launch code runs only on a card (chip_smoke.py phase 16).
 """
 
@@ -25,6 +28,7 @@ import dataclasses
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -364,9 +368,9 @@ def lib(tmp_path_factory):
     pv = ctypes.POINTER(vp)
     lib.sppt_ar1_host.argtypes = [i, i, ll, vp, vp, vp, d, d, vp]
     lib.sppt_perturb_host.argtypes = [i, i, ll, vp, vp, pv]
-    lib.rdf_host.argtypes = [i, i, i, i, i] + [vp] * 10
+    lib.rdf_host.argtypes = [i, i, i, i, i] + [vp] * 10 + [i]
     lib.cgrate_host.argtypes = [i, i, i, i, pv, pv, vp, vp, pv, i, d, d, d,
-                                d]
+                                d, i]
     return lib
 
 
@@ -376,6 +380,34 @@ def _ptrs(ts):
 
 DTYPES = {"f64": (torch.float64, torch.complex128),
           "f32": (torch.float32, torch.complex64)}
+# the host build's block orders: first to last, last to first
+ORDERS = (0, 1)
+
+
+def _rdf_host(lib, tt, h, v_in, heat, order):
+    """K25's whole forms on the host build: (tt', randfv' or None)."""
+    K, nlat, nlon = tt.shape
+    got_tt = tt.clone()
+    got_v = torch.full_like(v_in, float("nan"))
+    ptrs = [x.data_ptr() for x in heat] if heat is not None else [0] * 6
+    lib.rdf_host(int(tt.dtype == F64), K, nlat, nlon, int(heat is not None),
+                 got_tt.data_ptr(), h.data_ptr(), v_in.data_ptr(), *ptrs,
+                 got_v.data_ptr() if heat is not None else 0, order)
+    return got_tt, (got_v if heat is not None else None)
+
+
+def _cgrate_host(lib, dyn, state, out, j1, dt, eps, order):
+    """K26's whole form on the host build: [vor', div']."""
+    g = dyn.geom
+    K, mx, nx = state.vor.shape[1:]
+    got = [out.vor.clone(), out.div.clone()]
+    lib.cgrate_host(int(out.vor.dtype == torch.complex128), K, mx, nx,
+                    _ptrs([state.vor[0], state.div[0]]),
+                    _ptrs([state.vor[j1 - 1], state.div[j1 - 1]]),
+                    dyn.sht.elm2.data_ptr(), dyn.sht.trfilt.data_ptr(),
+                    _ptrs(got), int(g.nlon == 4 * g.nlat_half), dt,
+                    dyn.wil * eps, (1.0 - dyn.wil) * eps, k26.GRMAX, order)
+    return got
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
@@ -424,15 +456,13 @@ def test_host_rdf_matches_plain(lib, shts, dt, xs):
     v_in = t(np.random.default_rng(32).normal(0, 1e-5, (2, g.nlat, K)))
     tt = t(np.random.default_rng(33).normal(0, 1e-5, (K, g.nlat, g.nlon)))
     ref_tt, ref_v = k25.rdf_plain(tt, h, v_in, heat if xs else None)
-    got_tt = tt.clone()
-    got_v = torch.full_like(v_in, float("nan"))
-    ptrs = [x.data_ptr() for x in heat] if xs else [0] * 6
-    lib.rdf_host(int(rt == F64), K, g.nlat, g.nlon, int(xs),
-                 got_tt.data_ptr(), h.data_ptr(), v_in.data_ptr(), *ptrs,
-                 got_v.data_ptr() if xs else 0)
-    assert torch.equal(got_tt, ref_tt)
+    for order in ORDERS:
+        got_tt, got_v = _rdf_host(lib, tt, h, v_in, heat if xs else None,
+                                  order)
+        assert torch.equal(got_tt, ref_tt)
+        if xs:
+            assert torch.equal(got_v, ref_v)
     if xs:
-        assert torch.equal(got_v, ref_v)
         # the zonal sums from the other end differ: the order is held
         rev = k25.RdfHeating(ttm.flip(-1).contiguous(),
                              tt_rsw.flip(-1).contiguous(),
@@ -463,16 +493,94 @@ def test_host_cgrate_matches_plain(lib, dycores, dt, j1, eps):
         tend(f, 1e-3), tend(f[::-1], 1e-9))
     ref = k26.cgrate_plain(tm, state, dataclasses.replace(out), j1, 900.0,
                            eps)
-    got = [out.vor.clone(), out.div.clone()]
-    lib.cgrate_host(int(rt == F64), g.nlev, g.mx, g.nx,
-                    _ptrs([state.vor[0], state.div[0]]),
-                    _ptrs([state.vor[j1 - 1], state.div[j1 - 1]]),
-                    tm.sht.elm2.data_ptr(), tm.sht.trfilt.data_ptr(),
-                    _ptrs(got), int(g.nlon == 4 * g.nlat_half), 900.0,
-                    tm.wil * eps, (1.0 - tm.wil) * eps, k26.GRMAX)
-    assert torch.equal(got[0], ref.vor)
-    assert torch.equal(got[1], ref.div)
+    for order in ORDERS:
+        got = _cgrate_host(lib, tm, state, out, j1, 900.0, eps, order)
+        assert torch.equal(got[0], ref.vor)
+        assert torch.equal(got[1], ref.div)
     _, cd = k26.damp_plain(state.vor[0], out.vor[0], tm.sht.elm2)
     assert float(cd) > 0.0
     _, cd = k26.damp_plain(state.div[0], out.div[0], tm.sht.elm2)
     assert float(cd) == 0.0
+
+
+# ------------------------------------------- K25 and K26 at uneven sizes
+# Built directly at T30's widths (no GCM): K26 with K levels that do not
+# fill the cluster's 8 blocks (3: five blocks hold none) or overfill it
+# (11: three blocks hold two), K25 with latitude rows that do not divide
+# into its 8 chunks (46: a last chunk of 4 rows; 20: chunks of 3 rows, the
+# cluster's last block with none).
+
+
+def _t30_dycore(rt, K):
+    """A stand-in for a T30 DycoreModel with K levels: what K26's plain
+    version and the host build read."""
+    mx, nx = 31, 32
+    rng = np.random.default_rng(50 + K)
+    sht = SimpleNamespace(
+        elm2=torch.as_tensor(rng.uniform(0.1, 1.0, (mx, nx))).to(rt),
+        trfilt=torch.as_tensor(rng.uniform(0.0, 1.0, (mx, nx))).to(rt))
+    geom = SimpleNamespace(nlon=96, nlat_half=24, nlev=K, mx=mx, nx=nx)
+    return SimpleNamespace(sht=sht, geom=geom, wil=0.53, m0=0)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("K", [3, 8, 11])
+@pytest.mark.parametrize("fires", [True, False], ids=["fires", "free"])
+def test_host_cgrate_uneven_levels(lib, dt, K, fires):
+    """K26's whole form on the host build, both block orders, bit for bit
+    the plain version at K levels, where the trigger fires (vor's
+    tendency 1e-3 of the field: every level k >= 1 triggers) and where it
+    does not (1e-9, below grmax)."""
+    rt, ct = DTYPES[dt]
+    dyn = _t30_dycore(rt, K)
+    g = dyn.geom
+    rng = np.random.default_rng(60 + K)
+    shp = (2, K, g.mx, g.nx)
+    c = lambda a: torch.as_tensor(a).to(ct).contiguous()
+    f = rng.normal(0, 1e-5, shp) + 1j * rng.normal(0, 1e-5, shp)
+    state = type("S", (), {})()
+    state.vor, state.div = c(f), c(f[::-1].copy())
+    r = 1e-3 if fires else 1e-9
+    tend = lambda a, s: c(np.stack([a[0] * s, rng.normal(0, 1e-9, a[0].shape)
+                                    + 0j]))
+    out = dataclasses.make_dataclass("O", ["vor", "div"])(
+        tend(f, r), tend(f[::-1], 1e-9))
+    ref = k26.cgrate_plain(dyn, state, dataclasses.replace(out), 2, 900.0,
+                           0.05)
+    for order in ORDERS:
+        got = _cgrate_host(lib, dyn, state, out, 2, 900.0, 0.05, order)
+        assert torch.equal(got[0], ref.vor)
+        assert torch.equal(got[1], ref.div)
+    _, cd = k26.damp_plain(state.vor[0], out.vor[0], dyn.sht.elm2)
+    assert (float(cd) > 0.0) == fires
+    _, cd = k26.damp_plain(state.div[0], out.div[0], dyn.sht.elm2)
+    assert float(cd) == 0.0
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("nlat", [20, 46, 48])
+@pytest.mark.parametrize("xs", [True, False], ids=["shortwave", "other"])
+def test_host_rdf_uneven_rows(lib, dt, nlat, xs):
+    """K25's whole forms on the host build, both block orders, bit for bit
+    the plain version on nlat latitude rows (K = 5, nlon = 96)."""
+    rt, _ = DTYPES[dt]
+    K, nlon = 5, 96
+    rng = np.random.default_rng(70 + nlat)
+    t = lambda a: torch.as_tensor(a).to(rt).contiguous()
+    sh = (K, nlat, nlon)
+    heat = k25.RdfHeating(t(rng.normal(0, 1e-5, sh)),
+                          t(rng.normal(0, 1e-5, sh)),
+                          t(rng.normal(0, 1.0, sh)),
+                          t(1.0 / rng.uniform(0.6, 1.0, sh[1:])),
+                          t(np.linspace(1e-3, 2e-3, K)),
+                          t(rng.uniform(0.5, 1.5, (2, K)) / nlon))
+    h = t(rng.normal(0, 1.0, (2, nlat, nlon)))
+    v_in = t(rng.normal(0, 1e-5, (2, nlat, K)))
+    tt = t(rng.normal(0, 1e-5, sh))
+    ref_tt, ref_v = k25.rdf_plain(tt, h, v_in, heat if xs else None)
+    for order in ORDERS:
+        got_tt, got_v = _rdf_host(lib, tt, h, v_in, heat if xs else None,
+                                  order)
+        assert torch.equal(got_tt, ref_tt)
+        if xs:
+            assert torch.equal(got_v, ref_v)
